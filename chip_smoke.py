@@ -5,20 +5,36 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``jepsen_tpu_torch/csrc`` with ``nvcc``,
-holds every kernel bit for bit against its plain PyTorch version on the
-card, decides the north-star workload (a 10,000-op cas-register history)
-through ``check_history(..., backend="device")`` with every kernel's
-launch count checked, repeats that search through the plain versions on
-the card (same verdict, levels, rungs and per-level rows), refutes a
-perturbed history in agreement with the port's host oracle, and runs a
-small search that takes every driver path (truncating optimistic beam,
-exhaustive fallback, escalation, de-escalation, top-rung beam). The last
-two also check every launch count and agree with the plain path. Each phase
-prints one JSON line; the last three lines are the card's
-``nvidia-smi`` name and power limit, the per-kernel JSON line, and
-``{"ok": true, "device": {...}}``. Any failed phase raises: the script
-then exits non-zero and prints no result. Without CUDA it exits 2.
+It builds the CUDA kernels from ``jepsen_tpu_torch/csrc`` with ``nvcc``
+and then runs these phases, each printing JSON lines:
+
+- ``kernels``: every stage of one level, kernel against its plain PyTorch
+  version bit for bit, at several capacities of the north-star history
+  (a 10,000-op cas-register history), plus the radix sort on random keys;
+- ``steady_state``: device busy time and idle share per level;
+- ``main_path``: the north-star history decided through
+  ``check_history(..., backend="device")`` with every kernel's launch
+  count checked, then the same search through the plain versions on the
+  card (same verdict, levels, rungs and per-level rows);
+- ``refutation`` and ``driver_paths``: a perturbed history refuted in
+  agreement with the host oracle, and a small search that takes every
+  driver path, each against the plain path;
+- ``kernels_batch``: every stage on the member axis and the regroup,
+  kernel against plain, at nb = 8, F = 8192 and nb = 3, F = 64;
+- ``batch_replay_100``: 100 histories decided by ``check_batch``, by the
+  keyed ``independent.checker(linearizable(...))``, by the plain path and
+  by the host oracle, in agreement; every keyed result comes from the
+  batch, with the same launch counts as ``check_batch``'s and fewer
+  levels enqueued than the members' summed levels;
+- ``batch_8x10k``: eight north-star-shaped histories through the batch's
+  escalation ladder (256 -> 2048 -> 8192): never False, definite
+  verdicts agreeing with each member's own single search, and each
+  member's result the same with the batch in reverse order.
+
+The last three lines are the card's ``nvidia-smi`` name and power limit,
+the per-kernel JSON line, and ``{"ok": true, "device": {...}}``. Any failed
+phase raises: the script then exits non-zero and prints no result.
+Without CUDA it exits 2.
 """
 
 import json
@@ -49,6 +65,14 @@ HOLD_CYCLES = 20_000_000  # first length of the sleep that holds the stream
 # room to), and ends in the top-rung beam, which reports unknown.
 PATHS = dict(seed=0, n_ops=2500, n_procs=8, crash_p=0.02, fail_p=0.02)
 PATHS_SEARCH = dict(f_schedule=(16, 64, 256), optimistic=True, levels_per_call=64)
+# BASELINE config 5 as bench.py builds it: 100 histories of 100 ops, every
+# 8th perturbed, at a shared capacity of 64.
+REPLAY = dict(seed=3, n=100, n_ops=100, n_procs=4, crash_p=0.01, perturb_every=8, f=64)
+REPLAY_PLAIN_MEMBERS = 16  # the plain path runs on this prefix of the members
+# Eight north-star-shaped members through the batch ladder, as bench.py's
+# smoke leg runs them.
+BIG = dict(seed=17, n=8, f=256, f_schedule=(256, 2048, 8192))
+BIG_KERNELS_F = 8192  # the ladder's top rung, where the batch spends its levels
 SOURCE = "jepsen_tpu_torch/csrc/wgl_level.cu"
 REPLACES = {
     "wgl_chunk_init": "jepsen_tpu/ops/wgl.py:830",
@@ -58,7 +82,14 @@ REPLACES = {
     "radix_sort_pairs": "jepsen_tpu/ops/wgl.py:647",
     "wgl_prune": "jepsen_tpu/ops/wgl.py:659",
     "wgl_gather_finalize": "jepsen_tpu/ops/wgl.py:741",
+    "wgl_regroup": "jepsen_tpu/ops/wgl.py:1074",  # _pad_program: one member
 }
+# The batched forms: every level kernel replaces the reference's vmap of
+# the level program, the regroup its re-batch program.
+BATCH_REPLACES = {"level": "jepsen_tpu/ops/wgl.py:949",
+                  "wgl_regroup": "jepsen_tpu/parallel/batch.py:95"}
+LEVEL_KERNELS = ("wgl_chunk_init", "wgl_expand", "wgl_stage1_hash", "wgl_take_col",
+                 "radix_sort_pairs", "wgl_prune", "wgl_gather_finalize")
 
 
 def emit(obj) -> None:
@@ -129,19 +160,23 @@ def batch_ms(fn, inputs, hold=True) -> tuple:
 
 
 def warm_frontier(plan, F, lv, wgl):
-    """A frontier at capacity F after up to WARM_LEVELS beam levels of the
-    kernel path: (frontier, workspace, level reached)."""
+    """Stacked frontiers at capacity F after up to WARM_LEVELS beam levels
+    of the kernel path (at most half of each member's levels): (frontier,
+    workspace, each member's level)."""
     g = wgl.level_geometry(plan, F)
-    fr = wgl.initial_frontier(F, g.W, g.KO, g.S, plan.init_state, plan.device)[:5]
-    ws = lv.Workspace(g, plan.device)
-    flags = lv.run_chunk(lv.KERNELS, g, plan.tabs, fr, ws, 0, WARM_LEVELS, True)
-    return fr, ws, flags[3]
+    fr = wgl.initial_frontier_batch(F, g.W, g.KO, plan.init_state)
+    ws = lv.BatchWorkspace(g, plan.nb, plan.device)
+    budgets = [min(WARM_LEVELS, t // 2) for t in plan.totals.tolist()]
+    flags = lv.run_chunk_batch(lv.KERNELS, g, plan.tabs, fr, ws, [0] * plan.nb, budgets,
+                               [1] * plan.nb, plan.nD.tolist(), plan.nO.tolist())
+    return fr, ws, [f[3] for f in flags]
 
 
-def launch_counts(lv, where):
-    """The launch counts since the last reset; every kernel must have run."""
+def launch_counts(lv, where, required=None):
+    """The launch counts since the last reset; every kernel of the path
+    (``required``, default all) must have run."""
     counts = dict(lv.LAUNCHES)
-    idle = [k for k, v in counts.items() if v == 0]
+    idle = [k for k in (required or counts) if counts[k] == 0]
     if idle:
         raise AssertionError(f"kernels never launched in {where}: {idle}")
     return counts
@@ -158,18 +193,42 @@ def same_search(k, p) -> bool:
             and k.get("stuck_configs") == p.get("stuck_configs"))
 
 
+def same_member(a, b) -> bool:
+    """Two batch results of one member agree: verdict, levels, frontier
+    peak, rungs (by F, members, calls) and witness. A keyed history's ops
+    keep their global indexes, so the witness is compared by row, state
+    and reason, not by the op's printed index."""
+    rungs = lambda r: [(x["F"], x["members"], x["calls"]) for x in r.get("rungs") or []]
+    witness = lambda r: [(c["linearized"], c["state"],
+                          [(q["row"], q["why"]) for q in c["pending"]])
+                         for c in r.get("stuck_configs") or []]
+    return (all(a.get(k) == b.get(k) for k in ("valid", "levels", "frontier_max"))
+            and rungs(a) == rungs(b) and witness(a) == witness(b))
+
+
+def same_ladder(a, b) -> bool:
+    """One member's results from two runs of the same batch agree, rungs
+    (by F, members, calls) included."""
+    keys = ("valid", "levels", "frontier_max", "decided_at_F", "beam", "escalated",
+            "max_linearized", "stuck_configs")
+    rungs = lambda r: [(x["F"], x["members"], x["calls"]) for x in r.get("rungs") or []]
+    return all(a.get(k) == b.get(k) for k in keys) and rungs(a) == rungs(b)
+
+
 def steady_state(plan, F, lv, wgl):
-    """PROFILE_LEVELS beam levels of the kernel path from a warmed frontier:
-    host wall time, then the same window under torch.profiler for device
-    time by CUDA kernel. The device's idle share is 1 - busy / wall, with
-    the busy time from the profiled run and the wall from the run without
-    the profiler (which slows the host, not the kernels)."""
+    """PROFILE_LEVELS beam levels of the kernel path from a warmed frontier
+    (one member): host wall time, then the same window under
+    torch.profiler for device time by CUDA kernel. The device's idle share
+    is 1 - busy / wall, with the busy time from the profiled run and the
+    wall from the run without the profiler (which slows the host, not the
+    kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     g = wgl.level_geometry(plan, F)
-    fr, ws, lvl0 = warm_frontier(plan, F, lv, wgl)
+    fr, ws, (lvl0,) = warm_frontier(plan, F, lv, wgl)
     saved = tuple(t.clone() for t in fr)
+    nDO = (plan.nD.tolist(), plan.nO.tolist())
 
     def window():
         for t, s in zip(fr, saved):
@@ -177,8 +236,8 @@ def steady_state(plan, F, lv, wgl):
         torch.cuda.synchronize()
         before = dict(lv.LAUNCHES)
         t0 = time.perf_counter()
-        flags = lv.run_chunk(lv.KERNELS, g, plan.tabs, fr, ws, lvl0,
-                             lvl0 + PROFILE_LEVELS, True)
+        (flags,) = lv.run_chunk_batch(lv.KERNELS, g, plan.tabs, fr, ws, [lvl0],
+                                      [lvl0 + PROFILE_LEVELS], [1], *nDO)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         return flags[3] - lvl0, wall, {k: lv.LAUNCHES[k] - before[k] for k in before}
@@ -207,24 +266,34 @@ def steady_state(plan, F, lv, wgl):
             "device_ms_by_cuda_kernel": by_kernel or None}
 
 
+def _rows_err(a, b, counts) -> int:
+    """max_abs_err over each member's first ``counts[m]`` rows."""
+    return max((max_abs_err(a[m, :n], b[m, :n]) for m, n in enumerate(counts)), default=0)
+
+
 class StageCheck:
-    """Every stage of one level at capacity F: kernel against plain version
-    on identical inputs (each stage's inputs come from the plain chain)."""
+    """Every stage of one level at capacity F over the plan's members, and
+    the regroup: kernel against plain version on identical inputs (each
+    stage's inputs come from the plain chain)."""
 
     def __init__(self, plan, F, lv, wgl):
         import torch
 
         self.lv, self.F = lv, F
         self.g = g = wgl.level_geometry(plan, F)
+        self.nb = nb = plan.nb
         self.tabs = plan.tabs
         dev = plan.device
-        fr, self.ws, lvl = warm_frontier(plan, F, lv, wgl)
+        fr, self.ws, lvls = warm_frontier(plan, F, lv, wgl)
         self.fr = fr
-        self.valid_configs = int(fr[4].sum())
-        ctl = torch.zeros(lv.CTL_SIZE, dtype=torch.int32, device=dev)
-        ctl[lv.CTL_LVL], ctl[lv.CTL_MAXLVL] = lvl, lvl + 1
-        ctl[lv.CTL_FMAX], ctl[lv.CTL_LOSSY] = 1, 1
-        lv.chunk_init_reference(ctl, fr[4])
+        self.valid_configs = [int(x) for x in fr[4].sum(dim=1)]
+        ctl = torch.zeros((nb, lv.CTL_SIZE), dtype=torch.int32)
+        ctl[:, lv.CTL_LVL] = torch.tensor(lvls)
+        ctl[:, lv.CTL_MAXLVL] = torch.tensor(lvls) + 1
+        ctl[:, lv.CTL_FMAX], ctl[:, lv.CTL_LOSSY] = 1, 1
+        ctl[:, lv.CTL_ND], ctl[:, lv.CTL_NO] = plan.nD, plan.nO
+        ctl = ctl.to(dev)
+        lv.chunk_init_plain(ctl, fr[4])
         self.ctl0 = ctl
         self.results = {}  # name -> dict(err, ms, plain_ms, call_ms, bytes, library_ms)
 
@@ -241,7 +310,7 @@ class StageCheck:
     def run(self):
         import torch
 
-        lv, g, tabs, ws = self.lv, self.g, self.tabs, self.ws
+        lv, g, tabs, ws, nb = self.lv, self.g, self.tabs, self.ws, self.nb
         clone = lambda ts: tuple(t.clone() for t in ts)
 
         def measure(kernel, plain, inputs):
@@ -256,32 +325,32 @@ class StageCheck:
             return ki, pi, (ms, plain_ms, call_ms)
 
         e4 = lambda *a: 4 * int(sum(a))
+        dev = self.ctl0.device
+        z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)
         # chunk_init
         ins = (self.ctl0, self.fr[4])
-        k, p, t = measure(lambda t: lv.chunk_init(*t),
-                          lambda t: lv.chunk_init_reference(*t), ins)
-        self.record("wgl_chunk_init", max_abs_err(k[0], p[0]), t, g.F)
+        k, p, t = measure(lambda t: lv.chunk_init(*t), lambda t: lv.chunk_init_plain(*t), ins)
+        self.record("wgl_chunk_init", max_abs_err(k[0], p[0]), t, nb * g.F)
         ctl = p[0]
         # expand
-        rows = torch.zeros((g.M, g.NC), dtype=torch.int32, device=ctl.device)
-        nval = torch.zeros((g.M,), dtype=torch.uint8, device=ctl.device)
+        rows = z(nb, g.M, g.NC)
+        nval = torch.zeros((nb, g.M), dtype=torch.uint8, device=dev)
         ins = (ctl, rows, nval) + tuple(self.fr)
         k, p, t = measure(
             lambda t: lv.expand(g, tabs, t[3:], t[0], t[1], t[2]),
-            lambda t: lv.expand_reference(g, tabs, t[3:], t[0], t[1], t[2]), ins)
+            lambda t: lv.expand_plain(g, tabs, t[3:], t[0], t[1], t[2]), ins)
         vm = p[2].bool()
         err = max(max_abs_err(k[0], p[0]), max_abs_err(k[2], p[2]),
                   max_abs_err(k[1][vm], p[1][vm]))
-        n_exp = int(vm.sum())
-        fb = g.F * (4 * g.NC + 1)
+        n_exp = [int(x) for x in vm.sum(dim=1)]
+        fb = nb * g.F * (4 * g.NC + 1)
         self.record("wgl_expand", err, t,
-                    fb + min(4 * g.ND * 8, e4(self.valid_configs * g.W * 5))
-                    + e4(n_exp * g.NC) + g.M)
+                    fb + min(4 * nb * g.ND * 8, e4(sum(self.valid_configs) * g.W * 5))
+                    + e4(sum(n_exp) * g.NC) + nb * g.M)
         ctl, rows, nval = p[0], p[1], p[2]
         # stage-1 compaction + hash
-        drows = torch.zeros((g.L, g.NC), dtype=torch.int32, device=ctl.device) \
-            if g.two_stage else rows
-        fkey = torch.zeros((g.L,), dtype=torch.int32, device=ctl.device)
+        drows = z(nb, g.L, g.NC) if g.two_stage else rows
+        fkey = z(nb, g.L)
         if g.two_stage:
             ins = (rows, nval, ctl, drows, fkey)
         else:
@@ -289,75 +358,141 @@ class StageCheck:
         pick = (lambda t: (t[0], t[1], t[2], t[3], t[4])) if g.two_stage else \
             (lambda t: (t[0], t[1], t[2], t[0], t[3]))
         k, p, t = measure(lambda t: lv.stage1_hash(g, *pick(t), ws.blk),
-                          lambda t: lv.stage1_hash_reference(g, *pick(t)), ins)
+                          lambda t: lv.stage1_hash_plain(g, *pick(t), None), ins)
         kd, kf = pick(k)[3], pick(k)[4]
         pd, pf = pick(p)[3], pick(p)[4]
-        nv = min(n_exp, g.P) if g.two_stage else g.L
-        err = max(max_abs_err(kf[:nv], pf[:nv]), max_abs_err(kd[:nv], pd[:nv]),
-                  max_abs_err(kf < 0, pf < 0))
-        nb = (g.M + e4(n_exp * g.NC, nv * g.NC, g.L)) if g.two_stage else \
-            (g.M + e4(g.M * g.NID, g.M))
-        self.record("wgl_stage1_hash", err, t, nb)
+        nv = [min(n, g.P) for n in n_exp] if g.two_stage else [g.L] * nb
+        err = max(_rows_err(kf, pf, nv), _rows_err(kd, pd, nv), max_abs_err(kf < 0, pf < 0))
+        nbytes = (nb * g.M + e4(sum(n_exp) * g.NC, sum(nv) * g.NC, nb * g.L)) \
+            if g.two_stage else (nb * g.M + e4(nb * g.M * g.NID, nb * g.M))
+        self.record("wgl_stage1_hash", err, t, nbytes)
         drows, fkey = pd, pf
         # dedup order: take_col + radix sort per key (last open word first)
-        perm = torch.arange(g.L, dtype=torch.int32, device=ctl.device)
-        keys = torch.zeros((g.L,), dtype=torch.int32, device=ctl.device)
+        perm = torch.arange(g.L, dtype=torch.int32, device=dev).repeat(nb, 1)
+        keys = z(nb, g.L)
         cols = ([(drows, g.NID + w) for w in reversed(range(g.KO1))] if g.KO else []) \
             + [(fkey, 0)]
         for src, col in cols:
             ins = (perm, keys)
             k, p, t = measure(
                 lambda t, s=src, c=col: lv.take_col(s, c, t[0], t[1], ctl),
-                lambda t, s=src, c=col: lv.take_col_reference(s, c, t[0], t[1], ctl), ins)
-            column = src if src.dim() == 1 else src[:, col]
-            lib, _ = batch_ms(lambda t, c=column: torch.index_select(c, 0, t[0]), (perm,))
-            self.record("wgl_take_col", max_abs_err(k[1], p[1]), t, e4(3 * g.L), lib)
+                lambda t, s=src, c=col: lv.take_col_plain(s, c, t[0], t[1], ctl), ins)
+            self.record("wgl_take_col", max_abs_err(k[1], p[1]), t, e4(3 * nb * g.L),
+                        self._library_take(src, col, perm))
             keys = p[1]
             ins = (keys, perm)
             k, p, t = measure(lambda t: lv.radix_sort_pairs(t[0], t[1], ws.sort, ctl),
-                              lambda t: lv.radix_sort_pairs_reference(t[0], t[1], None, ctl),
+                              lambda t: lv.radix_sort_pairs_plain(t[0], t[1], None, ctl),
                               ins)
             self.record("radix_sort_pairs",
                         max(max_abs_err(k[0], p[0]), max_abs_err(k[1], p[1])), t,
-                        e4(4 * g.L), self._library_sort(keys))
+                        e4(4 * nb * g.L), self._library_sort(keys))
             keys, perm = p[0], p[1]
         # prune
-        fprio = torch.zeros((g.L,), dtype=torch.int32, device=ctl.device)
+        fprio = z(nb, g.L)
         ins = (ctl, fprio)
         k, p, t = measure(
             lambda t: lv.prune(g, drows, keys, perm, t[0], t[1], ws.flags, ws.blk),
-            lambda t: lv.prune_reference(g, drows, keys, perm, t[0], t[1]), ins)
+            lambda t: lv.prune_plain(g, drows, keys, perm, t[0], t[1], None, None), ins)
         self.record("wgl_prune", max(max_abs_err(k[0], p[0]), max_abs_err(k[1], p[1])),
-                    t, e4(3 * g.L, g.L * g.NC))
+                    t, e4(3 * nb * g.L, nb * g.L * g.NC))
         ctl, fprio = p[0], p[1]
         # compaction order
-        order = torch.arange(g.L, dtype=torch.int32, device=ctl.device)
+        order = torch.arange(g.L, dtype=torch.int32, device=dev).repeat(nb, 1)
         ins = (fprio, order)
         k, p, t = measure(lambda t: lv.radix_sort_pairs(t[0], t[1], ws.sort, ctl),
-                          lambda t: lv.radix_sort_pairs_reference(t[0], t[1], None, ctl),
+                          lambda t: lv.radix_sort_pairs_plain(t[0], t[1], None, ctl),
                           ins)
         self.record("radix_sort_pairs", max(max_abs_err(k[0], p[0]), max_abs_err(k[1], p[1])),
-                    t, e4(4 * g.L), self._library_sort(fprio))
+                    t, e4(4 * nb * g.L), self._library_sort(fprio))
         order = p[1]
         # gather + finalize
-        stats = torch.zeros((lv.LEVEL_STAT_ROWS, 4), dtype=torch.int32, device=ctl.device)
+        stats = torch.zeros((nb, lv.LEVEL_STAT_ROWS, 4), dtype=torch.int32, device=dev)
         ins = (ctl, stats) + tuple(self.fr)
         k, p, t = measure(
             lambda t: lv.gather_finalize(g, drows, perm, order, t[0], t[1], t[2:]),
-            lambda t: lv.gather_finalize_reference(g, drows, perm, order, t[0], t[1], t[2:]),
+            lambda t: lv.gather_finalize_plain(g, drows, perm, order, t[0], t[1], t[2:]),
             ins)
-        kept = min(int(ctl[lv.CTL_COUNT]), g.F)
+        kept = int(ctl[:, lv.CTL_COUNT].clamp(max=g.F).sum())
         self.record("wgl_gather_finalize", max(max_abs_err(a, b) for a, b in zip(k, p)),
-                    t, e4(2 * g.F, kept * g.NC) + fb)
+                    t, e4(2 * nb * g.F, kept * g.NC) + fb)
+        # regroup: every member, a repeated one, into twice the capacity
+        idx = [nb - 1] + list(range(nb)) if nb > 1 else [0]
+        F_new = 2 * g.F
+        ins = tuple(self.fr)
+        k = lv.regroup(ins, idx, F_new)
+        p = lv.regroup_reference(ins, idx, F_new)
+        torch.cuda.synchronize()
+        ms, call_ms = batch_ms(lambda t: lv.regroup(t, idx, F_new), ins)
+        plain_ms, _ = batch_ms(lambda t: lv.regroup_reference(t, idx, F_new), ins, hold=False)
+        row_bytes = 4 * (1 + g.KD + g.KO1 + g.S) + 1
+        self.record("wgl_regroup", max(max_abs_err(a, b) for a, b in zip(k, p)),
+                    (ms, plain_ms, call_ms), len(idx) * (g.F + F_new) * row_bytes)
+
+    def _library_take(self, src, col, perm) -> float:
+        """One PyTorch call of the sort-key gather (a yardstick only):
+        ``index_select`` of the key column for one member, ``gather`` along
+        each member's row for a batch."""
+        import torch
+
+        column = src if src.dim() == 2 else src[:, :, col]
+        if self.nb == 1:
+            return batch_ms(lambda t: torch.index_select(column[0], 0, t[0][0]), (perm,))[0]
+        return batch_ms(lambda t: torch.gather(column, 1, t[0]), (perm.long(),))[0]
 
     @staticmethod
     def _library_sort(keys) -> float:
-        """``torch.sort(stable=True)`` of the same u32 keys (sign bit
-        flipped so int32 order is u32 order): a yardstick only."""
+        """``torch.sort(dim=1, stable=True)`` of the same u32 keys (sign bit
+        flipped so int32 order is u32 order), each member's row on its own:
+        a yardstick only."""
         import torch
 
         flipped = keys ^ torch.tensor(-2**31, dtype=torch.int32, device=keys.device)
-        return batch_ms(lambda t: torch.sort(t[0], stable=True), (flipped,))[0]
+        return batch_ms(lambda t: torch.sort(t[0], dim=1, stable=True), (flipped,))[0]
+
+
+def stage_summary(chk, lv):
+    """{kernel: summary} of a StageCheck, failing on any disagreement."""
+    out = {}
+    for k, v in chk.results.items():
+        if v["err"] != 0:
+            raise AssertionError(f"{k} disagrees with its plain version at nb={chk.nb}, "
+                                 f"F={chk.F}: max_abs_err {v['err']}")
+        nbytes = sum(v["bytes"]) / len(v["bytes"])
+        out[k] = {"max_abs_err": v["err"], "ms": statistics.mean(v["ms"]),
+                  "plain_ms": statistics.mean(v["plain_ms"]),
+                  "call_ms": statistics.mean(v["call_ms"]),
+                  "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+                  "library_ms": statistics.mean(v["library_ms"]) if v["library_ms"] else None}
+    return out
+
+
+def batch_plan(encs, wgl):
+    """The encoded histories planned to common dims and stacked on the card."""
+    import numpy as np
+
+    plans = [wgl.plan_device(e, device="cpu") for e in encs]
+    if not all(p.ok for p in plans):
+        raise RuntimeError("a batch member's plan was rejected")
+    dims = np.array([p.dims for p in plans])
+    pad = tuple(int(dims[:, k].max()) for k in (0, 1, 3, 4))
+    return wgl.stack_plans([wgl.plan_device(e, pad_to=pad, device="cpu") for e in encs],
+                           "cuda")
+
+
+def replay_histories(random_register_history, perturb_history):
+    rng = random.Random(REPLAY["seed"])
+    hists = [random_register_history(rng, n_ops=REPLAY["n_ops"], n_procs=REPLAY["n_procs"],
+                                     cas=True, crash_p=REPLAY["crash_p"])
+             for _ in range(REPLAY["n"])]
+    for i in range(0, REPLAY["n"], REPLAY["perturb_every"]):
+        hists[i] = perturb_history(rng, hists[i])
+    return hists
+
+
+def big_histories(random_register_history):
+    return [random_register_history(random.Random(BIG["seed"] + i), **NORTH_STAR)
+            for i in range(BIG["n"])]
 
 
 def main() -> int:
@@ -367,12 +502,17 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 2
     from jepsen_tpu_torch import _build
+    from jepsen_tpu_torch import checker as jchecker
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.history import History
     from jepsen_tpu_torch.models import CasRegister
     from jepsen_tpu_torch.ops import wgl, wgl_host
     from jepsen_tpu_torch.ops import wgl_level as lv
     from jepsen_tpu_torch.ops.encode import encode_history
+    from jepsen_tpu_torch.parallel import check_batch
     from jepsen_tpu_torch.testing import perturb_history, random_register_history
 
+    t_start = time.perf_counter()
     smi = card_line()
     name = torch.cuda.get_device_name(0)
     emit({"phase": "card", "nvidia_smi": smi, "device_name": name,
@@ -385,13 +525,12 @@ def main() -> int:
     ptxas = [ln.strip() for ln in built["log"].splitlines() if "registers" in ln]
     emit({"phase": "build", "built": built["built"], "seconds": time.perf_counter() - t0,
           "ptxas": ptxas})
+    model = CasRegister(init=0)
 
     # -- kernels against their plain versions on the card -------------------
     hist = random_register_history(random.Random(NORTH_STAR_SEED), **NORTH_STAR)
-    enc = encode_history(CasRegister(init=0), hist)
-    plan = wgl.plan_device(enc, device="cuda")
-    if not plan.ok:
-        raise RuntimeError(f"north-star plan rejected: {plan.reason}")
+    enc = encode_history(model, hist)
+    plan = wgl.stack_plans([wgl.plan_device(enc, device="cpu")], "cuda")
     W, KO, S, ND, NO = plan.dims
     timed = None
     errs = {}  # kernel -> max_abs_err over every F
@@ -399,29 +538,24 @@ def main() -> int:
         chk = StageCheck(plan, F, lv, wgl)
         chk.run()
         g = chk.g
+        stages = stage_summary(chk, lv)
         emit({"phase": "kernels", "F": F, "W": W, "KO": KO, "B": g.B, "M": g.M, "L": g.L,
-              "two_stage": g.two_stage, "valid_configs": chk.valid_configs,
-              "level_byte_floor": wgl.level_byte_floor(plan, F),
-              "stages": {k: {"max_abs_err": v["err"], "ms": v["ms"],
-                             "plain_ms": v["plain_ms"], "call_ms": v["call_ms"],
-                             "library_ms": v["library_ms"] or None}
-                         for k, v in chk.results.items()}})
-        for k, v in chk.results.items():
-            errs[k] = max(errs.get(k, 0), v["err"])
-            if v["err"] != 0:
-                raise AssertionError(f"{k} disagrees with its plain version at F={F}: "
-                                     f"max_abs_err {v['err']}")
+              "two_stage": g.two_stage, "valid_configs": chk.valid_configs[0],
+              "level_byte_floor": wgl.level_byte_floor(wgl.plan_device(enc, device="cpu"), F),
+              "stages": stages})
+        for k, v in stages.items():
+            errs[k] = max(errs.get(k, 0), v["max_abs_err"])
         if F == TIMED_F:
-            timed = chk
+            timed = stages
     # random keys for the radix sort at the largest L
     gen = torch.Generator(device="cuda").manual_seed(11)
     n = wgl.level_geometry(plan, KERNEL_FS[-1]).L
-    keys = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen, device="cuda",
+    keys = torch.randint(-2**31, 2**31 - 1, (1, n), generator=gen, device="cuda",
                          dtype=torch.int64).to(torch.int32)
-    vals = torch.arange(n, dtype=torch.int32, device="cuda")
+    vals = torch.arange(n, dtype=torch.int32, device="cuda")[None]
     k1, v1, k2, v2 = keys.clone(), vals.clone(), keys.clone(), vals.clone()
     lv.radix_sort_pairs(k1, v1, lv.sort_scratch(n, "cuda"))
-    lv.radix_sort_pairs_reference(k2, v2)
+    lv.radix_sort_pairs_plain(k2, v2)
     rerr = max(max_abs_err(k1, k2), max_abs_err(v1, v2))
     emit({"phase": "kernels", "random_sort_n": n, "max_abs_err": rerr})
     if rerr:
@@ -433,8 +567,7 @@ def main() -> int:
     lv.reset_launches()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    res = wgl.check_history(CasRegister(init=0), hist, backend="device",
-                            collect_stats=True)
+    res = wgl.check_history(model, hist, backend="device", collect_stats=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = launch_counts(lv, "the main path")
@@ -443,12 +576,12 @@ def main() -> int:
           "phase_name": res.get("phase"), "frontier_max": res["frontier_max"],
           "window": res["window"], "attempts": res["attempts"],
           "optimistic_attempts": res.get("optimistic_attempts"),
-          "launches": launches})
+          "launches": launches,
+          "launches_per_level": {k: v / launches["wgl_expand"] for k, v in launches.items()}})
     if res["valid"] is not True:
         raise AssertionError(f"north-star history not accepted: {res.get('valid')}")
     t = time.perf_counter()
-    plain = wgl.check_history(CasRegister(init=0), hist, backend="device",
-                              collect_stats=True, plain=True)
+    plain = wgl.check_history(model, hist, backend="device", collect_stats=True, plain=True)
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t
     same = same_search(res, plain)
@@ -463,13 +596,12 @@ def main() -> int:
     bad = perturb_history(rng, random_register_history(
         rng, **{k: v for k, v in REFUTE.items() if k != "seed"}))
     lv.reset_launches()
-    dev_res = wgl.check_history(CasRegister(init=0), bad, backend="device",
-                                collect_stats=True)
+    dev_res = wgl.check_history(model, bad, backend="device", collect_stats=True)
     torch.cuda.synchronize()
     ref_launches = launch_counts(lv, "the refutation")
-    plain_res = wgl.check_history(CasRegister(init=0), bad, backend="device",
-                                  collect_stats=True, plain=True)
-    host_res = wgl_host.check_history_host(CasRegister(init=0), bad)
+    plain_res = wgl.check_history(model, bad, backend="device", collect_stats=True,
+                                  plain=True)
+    host_res = wgl_host.check_history_host(model, bad)
     same = same_search(dev_res, plain_res)
     emit({"phase": "refutation", "valid": dev_res["valid"], "levels": dev_res["levels"],
           "host_valid": host_res["valid"], "stuck_configs": len(dev_res.get("stuck_configs", [])),
@@ -483,12 +615,12 @@ def main() -> int:
     path_hist = random_register_history(random.Random(PATHS["seed"]),
                                         **{k: v for k, v in PATHS.items() if k != "seed"})
     lv.reset_launches()
-    dev_res = wgl.check_history(CasRegister(init=0), path_hist, backend="device",
-                                collect_stats=True, **PATHS_SEARCH)
+    dev_res = wgl.check_history(model, path_hist, backend="device", collect_stats=True,
+                                **PATHS_SEARCH)
     torch.cuda.synchronize()
     path_launches = launch_counts(lv, "the driver-paths search")
-    plain_res = wgl.check_history(CasRegister(init=0), path_hist, backend="device",
-                                  collect_stats=True, plain=True, **PATHS_SEARCH)
+    plain_res = wgl.check_history(model, path_hist, backend="device", collect_stats=True,
+                                  plain=True, **PATHS_SEARCH)
     Fs = [a["F"] for a in dev_res["attempts"]]
     took = {"optimistic_beam": bool(dev_res.get("optimistic_attempts")),
             "escalation": any(b > a for a, b in zip(Fs, Fs[1:])),
@@ -505,18 +637,159 @@ def main() -> int:
     if dev_res["valid"] is False or not same or not all(took.values()):
         raise AssertionError("driver-paths phase failed")
 
+    # -- the member axis: every batched stage and the regroup ---------------
+    replay = replay_histories(random_register_history, perturb_history)
+    big = big_histories(random_register_history)
+    big_encs = [encode_history(model, h) for h in big]
+    batch_stages = None
+    for label, encs, F in (("8x10k", big_encs, BIG_KERNELS_F),
+                           ("replay3", [encode_history(model, h) for h in replay[:3]],
+                            REPLAY["f"])):
+        bplan = batch_plan(encs, wgl)
+        chk = StageCheck(bplan, F, lv, wgl)
+        chk.run()
+        g = chk.g
+        stages = stage_summary(chk, lv)
+        emit({"phase": "kernels_batch", "members": label, "nb": bplan.nb, "F": F,
+              "W": g.W, "KO": g.KO, "B": g.B, "M": g.M, "L": g.L,
+              "two_stage": g.two_stage, "valid_configs": chk.valid_configs,
+              "library_note": "null where no single PyTorch call computes the stage",
+              "stages": stages})
+        for k, v in stages.items():
+            errs[k] = max(errs.get(k, 0), v["max_abs_err"])
+        if batch_stages is None:
+            batch_stages = dict(stages, _nb=bplan.nb, _F=F)
+
+    # -- batch replay: 100 histories, four ways -------------------------------
+    check_batch(model, replay, f=REPLAY["f"])  # workspaces and first-call costs
+    lv.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rk = check_batch(model, replay, f=REPLAY["f"])
+    torch.cuda.synchronize()
+    replay_wall = time.perf_counter() - t
+    replay_launches = launch_counts(lv, "batch_replay_100", LEVEL_KERNELS)
+    keyed_ops = []
+    for k, h in enumerate(replay):
+        for o in h:
+            keyed_ops.append(o.with_(value=independent.KV(k, o.value), index=len(keyed_ops)))
+    # The keyed checker runs the batch at its default shared capacity, as
+    # the reference's does; its launches and rungs are compared against
+    # check_batch's there. Its per-key fallback must not have run.
+    lv.reset_launches()
+    rk_default = check_batch(model, replay)
+    torch.cuda.synchronize()
+    default_launches = launch_counts(lv, "check_batch at the default f", LEVEL_KERNELS)
+    lv.reset_launches()
+    t = time.perf_counter()
+    keyed = independent.checker(jchecker.linearizable(model=model)).check(
+        {}, History(keyed_ops, reindex=False), {})
+    torch.cuda.synchronize()
+    keyed_wall = time.perf_counter() - t
+    keyed_launches = launch_counts(lv, "the keyed checker", LEVEL_KERNELS)
+    keyed_results = [keyed["results"][i] for i in range(len(replay))]
+    # A launch per member would enqueue at least the members' summed levels.
+    member_levels = sum(r.get("levels", 0) for r in rk_default)
+    prefix = replay[:REPLAY_PLAIN_MEMBERS]
+    rk_prefix = check_batch(model, prefix, f=REPLAY["f"])
+    t = time.perf_counter()
+    rp = check_batch(model, prefix, f=REPLAY["f"], plain=True)
+    plain_wall = time.perf_counter() - t
+    host = [wgl_host.check_history_host(model, h)["valid"] for h in replay]
+    agree = {
+        "keyed": all(same_member(a, b) for a, b in zip(rk_default, keyed_results)),
+        "keyed_batched": all(r.get("batched") is True for r in keyed_results),
+        "keyed_launches": keyed_launches == default_launches,
+        "one_launch_per_level": keyed_launches["wgl_expand"] < member_levels,
+        "keyed_vs_f64": all(same_member(dict(a, rungs=None), dict(keyed["results"][i],
+                                                                  rungs=None))
+                            for i, a in enumerate(rk)),
+        "plain_prefix": all(same_member(a, b) for a, b in zip(rk_prefix, rp)),
+        "prefix_vs_full": [r["valid"] for r in rk_prefix] == [r["valid"] for r in rk[:len(prefix)]],
+        "host": [r["valid"] for r in rk] == host,
+    }
+    verdicts = [r["valid"] for r in rk]
+    emit({"phase": "batch_replay_100", "valid": verdicts.count(True),
+          "invalid": verdicts.count(False), "unknown": verdicts.count("unknown"),
+          "wall_s": replay_wall, "keyed_checker_wall_s": keyed_wall,
+          "keyed_valid": keyed["valid"], "keyed_failures": len(keyed["failures"]),
+          "plain_members": len(prefix), "plain_wall_s": plain_wall,
+          "levels_max": max(r.get("levels", 0) for r in rk),
+          "rungs": next((r["rungs"] for r in rk if r.get("rungs")), None),
+          "escalated": sum(1 for r in rk if r.get("escalated")),
+          "escalated_at_default_f": sum(1 for r in rk_default if r.get("escalated")),
+          "agree": agree, "launches": replay_launches, "keyed_launches": keyed_launches,
+          "keyed_levels_enqueued": keyed_launches["wgl_expand"],
+          "keyed_member_levels_sum": member_levels})
+    if not all(agree.values()):
+        raise AssertionError(f"batch_replay_100 disagrees: {agree}")
+
+    # -- eight 10k-op members through the escalation ladder -------------------
+    lv.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rb = check_batch(model, big, f=BIG["f"], f_schedule=BIG["f_schedule"], escalate=True)
+    torch.cuda.synchronize()
+    big_wall = time.perf_counter() - t
+    big_launches = launch_counts(lv, "batch_8x10k")
+    singles, single_wall = [], 0.0
+    for h in big:
+        t = time.perf_counter()
+        singles.append(wgl.check_history(model, h, backend="device"))
+        torch.cuda.synchronize()
+        single_wall += time.perf_counter() - t
+    # The same batch with its members in reverse order (same padded dims,
+    # same shared B): the member axis must not let one member's search
+    # depend on its neighbours or its row. (A member alone is padded to its
+    # own dims, which can change a lossy beam's ties, in the reference too.)
+    t = time.perf_counter()
+    rev = check_batch(model, big[::-1], f=BIG["f"], f_schedule=BIG["f_schedule"],
+                      escalate=True)[::-1]
+    rev_wall = time.perf_counter() - t
+    isolated = all(same_ladder(a, b) for a, b in zip(rb, rev))
+    verdicts = [r["valid"] for r in rb] + [r["valid"] for r in singles]
+    consistent = all(a["valid"] == b["valid"] for a, b in zip(rb, singles)
+                     if "unknown" not in (a["valid"], b["valid"]))
+    enqueued = big_launches["wgl_expand"]
+    rungs = max((r.get("rungs") or [] for r in rb), key=len)
+    emit({"phase": "batch_8x10k", "wall_s": big_wall, "serial_single_wall_s": single_wall,
+          "valid": [r["valid"] for r in rb], "single_valid": [r["valid"] for r in singles],
+          "decided": sum(r["valid"] is True for r in rb),
+          "single_decided": sum(r["valid"] is True for r in singles),
+          "same_in_reverse_order": isolated, "reverse_wall_s": rev_wall,
+          "levels": [r.get("levels") for r in rb],
+          "single_levels": [r.get("levels") for r in singles],
+          "decided_at_F": [r.get("decided_at_F") for r in rb],
+          "beam": [bool(r.get("beam")) for r in rb],
+          "escalated": [r.get("escalated") for r in rb],
+          "rungs": [(x["F"], x["members"], x["calls"], x["wall_s"]) for x in rungs],
+          "levels_enqueued": enqueued,
+          "member_levels_sum": sum(r.get("levels", 0) for r in rb),
+          "ms_per_enqueued_level": 1e3 * big_wall / max(enqueued, 1),
+          "launches": big_launches,
+          "launches_per_level": {k: v / max(enqueued, 1) for k, v in big_launches.items()}})
+    # The histories are valid by construction: a beam that truncated may
+    # say unknown, never False, and definite verdicts must agree.
+    if not (False not in verdicts and consistent and isolated
+            and any(r["valid"] is True for r in rb) and big_launches["wgl_regroup"] > 1):
+        raise AssertionError("batch_8x10k failed")
+
     kernels = []
     for kname in lv.LAUNCHES:
-        r = timed.results[kname]
-        nb = sum(r["bytes"]) / len(r["bytes"])
+        r, b = timed[kname], batch_stages[kname]
         kernels.append({
-            "name": kname, "route": "cuda", "source": SOURCE, "replaces": REPLACES[kname],
-            "launches": launches[kname],
+            "name": kname, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[kname], "launches": launches[kname],
             "max_abs_err": max(errs[kname], rerr if kname == "radix_sort_pairs" else 0),
-            "ms": statistics.mean(r["ms"]), "plain_ms": statistics.mean(r["plain_ms"]),
-            "bound_ms": 1e3 * nb / HBM_BYTES_PER_S, "bound_by": "bytes",
-            "library_ms": statistics.mean(r["library_ms"]) if r["library_ms"] else None,
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "bytes", "library_ms": r["library_ms"],
+            "batch": {"replaces": BATCH_REPLACES.get(kname, BATCH_REPLACES["level"]),
+                      "nb": batch_stages["_nb"], "F": batch_stages["_F"],
+                      "launches": big_launches[kname], "max_abs_err": b["max_abs_err"],
+                      "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+                      "bound_by": "bytes", "library_ms": b["library_ms"]},
         })
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -5,9 +5,9 @@
 use, and loads it with ``ctypes``. (There is one source; once there are
 several, compile each in its own ``nvcc``, all started together, then
 link.) The library has a plain C interface: pointers and the stream are
-``void*``, sizes are ``int``, and every entry point returns
-``cudaGetLastError()``. A build is reused while its sources are unchanged
-(a content hash is stored beside it).
+``void*``, sizes are ``int`` (``long`` for a member stride), and every
+entry point returns ``cudaGetLastError()``. A build is reused while its
+sources are unchanged (a content hash is stored beside it).
 """
 
 from __future__ import annotations
@@ -32,16 +32,17 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # Elements per warp tile of the radix sort (RS_TILE in csrc/wgl_level.cu).
 RS_TILE = 1024
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 # entry point -> argument types, in order (the C signatures).
 SIGNATURES = {
-    "wgl_chunk_init": [_P, _P, _I, _P],
-    "wgl_expand": [_P] * 14 + [_I] * 8 + [_P],
-    "wgl_stage1_hash": [_P] * 6 + [_I] * 4 + [_P],
-    "wgl_take_col": [_P, _I, _I, _P, _P, _I, _P, _P],
-    "radix_sort_pairs": [_P] * 5 + [_I, _P, _P],
-    "wgl_prune": [_P] * 7 + [_I] * 5 + [_P],
-    "wgl_gather_finalize": [_P] * 10 + [_I] * 7 + [_P],
+    "wgl_chunk_init": [_P, _P, _I, _I, _P],
+    "wgl_expand": [_P] * 14 + [_I] * 7 + [_P],
+    "wgl_stage1_hash": [_P] * 6 + [_I] * 5 + [_P],
+    "wgl_take_col": [_P, _L, _I, _I, _P, _P, _I, _I, _P, _P],
+    "radix_sort_pairs": [_P] * 5 + [_I, _I, _P, _P],
+    "wgl_prune": [_P] * 7 + [_I] * 6 + [_P],
+    "wgl_gather_finalize": [_P] * 10 + [_I] * 9 + [_P],
+    "wgl_regroup": [_P] * 11 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

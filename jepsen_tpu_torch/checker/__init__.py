@@ -1,1 +1,188 @@
-"""Checker-layer helpers of the port (verdict provenance)."""
+"""Checker protocol layer of the port, and the ``linearizable`` checker.
+
+The port of the reference's ``jepsen_tpu/checker/__init__.py``: the
+``Checker.check(test, history, opts)`` seam, the valid-merge lattice
+``True < "unknown" < False``, ``check_safe``, and ``linearizable``, which
+dispatches on the ``backend`` option (overridden by the test map's
+``checker_backend``) onto the GPU search (``ops.wgl``) or the port's host
+oracle, and decides many keyed subhistories at once through
+``batch_check`` (``parallel.check_batch``).
+
+Result maps use the key ``"valid"`` with values True / False / "unknown".
+"""
+
+from __future__ import annotations
+
+import logging
+import traceback
+from typing import Any, Callable, Optional
+
+from ..devices import resolve_device
+from ..history import History
+
+LOG = logging.getLogger("jepsen")
+
+# Priority lattice: larger dominates when composing.
+_VALID_PRIORITY = {True: 0, "unknown": 0.5, False: 1}
+
+# Backend names the device search answers to; "tpu" is the reference's.
+DEVICE_BACKENDS = ("device", "tpu", "gpu", "cuda")
+# The reference's other engines, and the slice of the port that brings each.
+_LATER_BACKENDS = {
+    "auto": "the native engine",
+    "native": "the native engine",
+    "competition": "the native engine",
+    "sharded": "the multi-device search",
+    "segmented": "the offline segmented checker",
+}
+
+
+class Checker:
+    """Base checker. Subclasses (or :func:`checker_fn` wrappers) implement
+    :meth:`check`."""
+
+    def check(self, test: dict, history: History, opts: Optional[dict] = None) -> dict:
+        raise NotImplementedError
+
+    def __call__(self, test, history, opts=None):
+        return self.check(test, history, opts)
+
+
+class _FnChecker(Checker):
+    __slots__ = ("fn", "_name")
+
+    def __init__(self, fn: Callable, name: str = "checker"):
+        self.fn = fn
+        self._name = name
+
+    def check(self, test, history, opts=None):
+        return self.fn(test, history, opts or {})
+
+    def __repr__(self):
+        return f"<checker {self._name}>"
+
+
+def checker_fn(fn: Callable, name: Optional[str] = None) -> Checker:
+    """Lift ``fn(test, history, opts) -> result-map`` into a Checker."""
+    return _FnChecker(fn, name or getattr(fn, "__name__", "checker"))
+
+
+def merge_valid(valids) -> Any:
+    """Merge valid values; the highest priority (worst) wins."""
+    out = True
+    for v in valids:
+        if v not in _VALID_PRIORITY:
+            raise ValueError(f"{v!r} is not a known valid value")
+        if _VALID_PRIORITY[v] > _VALID_PRIORITY[out]:
+            out = v
+    return out
+
+
+def check_safe(checker: Checker, test: dict, history: History,
+               opts: Optional[dict] = None) -> dict:
+    """Like check, but exceptions become ``{"valid": "unknown", "error":
+    ...}``."""
+    try:
+        return checker.check(test, history, opts or {})
+    except Exception:
+        LOG.warning("Error while checking history:", exc_info=True)
+        return {"valid": "unknown", "error": traceback.format_exc()}
+
+
+def resolve_backend(name: str) -> str:
+    """``"device"`` or ``"host"`` for a backend name; the reference's other
+    engines raise ``ValueError`` naming the slice that brings them."""
+    if name in DEVICE_BACKENDS:
+        return "device"
+    if name == "host":
+        return "host"
+    if name in _LATER_BACKENDS:
+        raise ValueError(f"backend {name!r} comes with a later slice of the port "
+                         f"({_LATER_BACKENDS[name]}); use 'device' or 'host'")
+    raise ValueError(f"unknown backend {name!r}")
+
+
+def _asks_for_store(test) -> bool:
+    test = test or {}
+    return bool(test.get("name") and test.get("start-time") and not test.get("no-store?"))
+
+
+def linearizable(options: Optional[dict] = None, **kw) -> Checker:
+    """Validate linearizability on the GPU search.
+
+    ``options`` / kwargs:
+
+    - ``model``: a ``jepsen_tpu_torch.models.Model`` (required).
+    - ``backend``: ``"device"`` (default; ``"tpu"``, ``"gpu"`` and
+      ``"cuda"`` are aliases) or ``"host"`` (the port's oracle),
+      overridden by the test map's ``checker_backend``.
+    - ``device``: the torch device of the device backend (default the GPU;
+      ``"cpu"`` runs the plain PyTorch version, as the tests do).
+
+    The returned checker's ``batch_check(test, keyed_histories, opts)``
+    decides many subhistories as one batched search and re-checks each
+    key it leaves ``unknown`` on its own. The witness files of a stored
+    test (``linear.txt``/``linear.svg``) come with a later slice: a test
+    map that asks for stored output raises ``ValueError``."""
+    o = dict(options or {})
+    o.update(kw)
+    model = o.get("model")
+    if model is None:
+        raise ValueError(f"the linearizable checker requires a model; received {model!r}")
+    default_backend = resolve_backend(o.get("backend", "device"))
+    device = o.get("device")
+    if default_backend == "device":
+        device = resolve_device(device)
+
+    def _resolve(test):
+        return resolve_backend((test or {}).get("checker_backend", default_backend))
+
+    def _check_one(ops, backend):
+        """The single-history dispatch, shared by ``chk`` and the keyed
+        batch's recheck of unknown keys."""
+        from ..ops import wgl
+
+        if backend == "host":
+            return wgl.check_history(model, ops, backend="host")
+        return wgl.check_history(model, ops, backend="device",
+                                 device=resolve_device(device))
+
+    def chk(test, history, opts):
+        backend = _resolve(test)
+        if _asks_for_store(test):
+            raise ValueError("the test map asks for stored output; the linear.txt/"
+                             "linear.svg witness files come with a later slice of the "
+                             "port (the checker's store writes)")
+        res = _check_one(history.client_ops(), backend)
+        # Keep the search diagnostics bounded, as the reference does.
+        if isinstance(res.get("attempts"), list):
+            res["attempts"] = res["attempts"][:10]
+        return res
+
+    out = checker_fn(chk, "linearizable")
+
+    def batch_check(test, keyed_histories: dict, opts=None) -> dict:
+        """Decide many subhistories as one batched device search. Returns
+        ``{key: result-map}``. Raises when the device backend is not in
+        use, so the caller can check key by key."""
+        backend = _resolve(test)
+        if backend == "host" or not model.device_capable:
+            raise RuntimeError("batch check requires the device backend")
+        from ..parallel import check_batch
+
+        ks = list(keyed_histories)
+        results = check_batch(model, [keyed_histories[k].client_ops() for k in ks],
+                              device=resolve_device(device))
+        out_map = dict(zip(ks, results))
+        # Keys the shared batch could not decide get the single-history path.
+        for k, r in out_map.items():
+            if r.get("valid") == "unknown":
+                out_map[k] = _check_one(keyed_histories[k].client_ops(), backend)
+        return out_map
+
+    out.batch_check = batch_check
+    return out
+
+
+__all__ = ["Checker", "check_safe", "checker_fn", "linearizable", "merge_valid",
+           "resolve_backend"]

@@ -3,7 +3,7 @@
 Every site that degrades a verdict to ``unknown`` attaches
 ``cause(code, **params)`` — a dict with ``code`` from the closed
 :data:`TAXONOMY`, the owning ``layer`` and optional ``params``. This copy
-carries the codes the single-history device search emits; the codes and
+carries the codes the device searches (single and batched) emit; the codes and
 their layers are the reference package's, so results from either package
 fold the same way.
 """
@@ -14,6 +14,10 @@ from typing import Any, Optional
 
 # code -> (layer, description).
 TAXONOMY: dict[str, tuple[str, str]] = {
+    "overflow_top_rung": (
+        "kernel",
+        "frontier overflowed the capacity schedule's top rung (or "
+        "escalation was disabled at the shared batch capacity)"),
     "beam_loss": (
         "kernel",
         "lossy beam exhausted after truncation — configs were dropped, "

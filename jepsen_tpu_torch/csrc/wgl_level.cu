@@ -1,21 +1,33 @@
 // One BFS level of the WGL linearizability search, written by hand for
-// Hopper (sm_90a). Replaces the reference's XLA level program,
-// jepsen_tpu/ops/wgl.py `_build_kernel` -> `level` (lines 301-934), and
-// the cas-register step it inlines (jepsen_tpu/models/register.py:64).
+// Hopper (sm_90a), over a batch of nb independent searches (members).
+// Replaces the reference's XLA level program, jepsen_tpu/ops/wgl.py
+// `_build_kernel` -> `level` (lines 301-934), its vmapped batch form
+// `_build_batch_kernel` (line 949), and the cas-register step it inlines
+// (jepsen_tpu/models/register.py:64), and the re-batch of stacked
+// frontiers between rungs (`wgl_regroup`, below). The single-history
+// search launches the same entry points with nb = 1.
 //
-// A level is a fixed sequence of launches on one stream; the plain PyTorch
-// version of every entry point is in jepsen_tpu_torch/ops/wgl_level.py and
-// the two are compared bit for bit. Every kernel first reads the control
-// block `ctl` and returns at once when ctl[CTL_GO] == 0, so the host can
-// enqueue levels ahead of the stop test (reference lines 830-873).
+// A level is a fixed sequence of launches on one stream, one launch per
+// stage for the whole batch; the plain PyTorch version of every entry
+// point is in jepsen_tpu_torch/ops/wgl_level.py and the two are compared
+// bit for bit. The member is a grid coordinate (blockIdx.y, or blockIdx.x
+// for the one-block-per-member kernels), never part of a sort key: every
+// buffer is member-major ([nb, ...], contiguous) and each kernel offsets
+// its pointers by its member's stride. Every kernel first reads its
+// member's control block `ctl[b]` and returns at once when
+// ctl[b][CTL_GO] == 0, so the host can enqueue levels ahead of the stop
+// test (reference lines 830-873) and a stopped member costs one read.
+// A member's true op counts nD and nO (the tables are padded to the
+// batch's common ND, NO) live in its control block.
 //
 // What bounds it: every stage moves a few bytes per candidate row and does
 // a handful of integer operations on them, so the level is memory- and
 // latency-bound (the byte floor is `level_byte_floor` in ops/wgl.py).
-// At the main path's shapes (F <= 4096, L <= 16384 rows) most launches
-// are small and the level is bound by launch latency; the design keeps
-// each stage one pass over its rows with no host round trip inside a
-// level, and the frontier is updated in place.
+// At the main path's shapes most launches are small and the level is
+// bound by launch latency; the design keeps each stage one pass over its
+// rows with no host round trip inside a level, the frontier is updated in
+// place, and a batch adds members to each launch's grid instead of
+// launches.
 //
 // Every extern "C" entry point returns cudaGetLastError().
 
@@ -35,6 +47,9 @@
 #define CTL_ACCNOW 10
 #define CTL_ROWOVF 11
 #define CTL_COUNT 12
+#define CTL_ND 13
+#define CTL_NO 14
+#define CTL_SIZE 16
 
 #define I32MAX 0x7FFFFFFF
 #define UNKNOWN_VAL ((int)0x80000000)
@@ -48,6 +63,11 @@ typedef unsigned int u32;
 
 __device__ __forceinline__ bool stopped(const int* ctl) {
   return ctl != nullptr && ctl[CTL_GO] == 0;
+}
+
+// Member b's control block (null stays null: a stage run outside a search).
+__device__ __forceinline__ const int* member_ctl(const int* ctl, int b) {
+  return ctl ? ctl + (size_t)b * CTL_SIZE : nullptr;
 }
 
 __device__ __forceinline__ u32 lane_lt_mask(int lane) {
@@ -108,10 +128,12 @@ __device__ int block_incl_max(int v, int* total) {
   return res;
 }
 
-// Exclusive prefix sum of a[0..n) in place, one block of 1024 threads,
-// each thread owning a contiguous segment.
+// Exclusive prefix sum of each member's row a[b][0..n) in place: one block
+// of 1024 threads per member, each thread owning a contiguous segment.
 __global__ void k_scan_excl_sum(int* a, int n, const int* ctl) {
-  if (stopped(ctl)) return;
+  const int b = blockIdx.x;
+  if (stopped(member_ctl(ctl, b))) return;
+  a += (size_t)b * n;
   int per = (n + 1023) / 1024;
   int s0 = threadIdx.x * per;
   int s1 = min(s0 + per, n);
@@ -125,9 +147,12 @@ __global__ void k_scan_excl_sum(int* a, int n, const int* ctl) {
   }
 }
 
-// Exclusive prefix max of a[0..n) in place (-1 before the first), one block.
+// Exclusive prefix max of each member's row a[b][0..n) in place (-1 before
+// the first), one block per member.
 __global__ void k_scan_excl_max(int* a, int n, const int* ctl) {
-  if (stopped(ctl)) return;
+  const int b = blockIdx.x;
+  if (stopped(member_ctl(ctl, b))) return;
+  a += (size_t)b * n;
   __shared__ int pre[1024];
   int per = (n + 1023) / 1024;
   int s0 = threadIdx.x * per;
@@ -145,9 +170,13 @@ __global__ void k_scan_excl_max(int* a, int n, const int* ctl) {
 }
 
 // ---------------------------------------------------------------------------
-// Chunk start: frontier count and the stop test (reference lines 830-843).
+// Chunk start: frontier count and the stop test (reference lines 830-843),
+// one block per member.
 
 __global__ void k_chunk_init(int* ctl, const unsigned char* valid, int F) {
+  const int b = blockIdx.x;
+  ctl += (size_t)b * CTL_SIZE;
+  valid += (size_t)b * F;
   int c = 0;
   for (int i = threadIdx.x; i < F; i += blockDim.x) c += valid[i] ? 1 : 0;
   int total;
@@ -161,7 +190,8 @@ __global__ void k_chunk_init(int* ctl, const unsigned char* valid, int F) {
 }
 
 // ---------------------------------------------------------------------------
-// K1 expand (reference lines 363-490): one warp per configuration.
+// K1 expand (reference lines 363-490): one warp per configuration, the
+// member in blockIdx.y.
 
 // cas-register transition (models/register.py:64): a read matches or is
 // UNKNOWN, a write sets, a cas hits on equal; any other opcode fails.
@@ -188,7 +218,9 @@ __global__ void k_expand(const int* __restrict__ tabD, const int* __restrict__ s
                          const u32* __restrict__ mO, const int* __restrict__ st,
                          const unsigned char* __restrict__ valid, int* ctl,
                          u32* __restrict__ rows, unsigned char* __restrict__ nvalid,
-                         int F, int W, int KO, int nD, int nO, int ND, int NO, int B) {
+                         int F, int W, int KO, int ND, int NO, int B) {
+  const int b = blockIdx.y;
+  ctl += (size_t)b * CTL_SIZE;
   if (stopped(ctl)) return;
   const int lane = threadIdx.x & 31;
   const int f = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
@@ -199,6 +231,22 @@ __global__ void k_expand(const int* __restrict__ tabD, const int* __restrict__ s
   const int NC = 1 + KD + S + KO1;
   const int C = W + 32 * KO;
   const bool SEL = B > 0;
+  const size_t M = (size_t)F * (SEL ? B : C);
+  // This member's tables, frontier and candidate rows.
+  tabD += (size_t)b * ND * 8;
+  sufret += (size_t)b * (ND + 1);
+  invO += (size_t)b * NO;
+  opO += (size_t)b * NO;
+  a1O += (size_t)b * NO;
+  a2O += (size_t)b * NO;
+  p += (size_t)b * F;
+  mD += (size_t)b * F * KD;
+  mO += (size_t)b * F * KO1;
+  st += (size_t)b * F * S;
+  valid += (size_t)b * F;
+  rows += (size_t)b * M * NC;
+  nvalid += (size_t)b * M;
+  const int nD = ctl[CTL_ND], nO = ctl[CTL_NO];
   const int pf = p[f];
   const bool vf = valid[f] != 0;
   const u32* mDf = mD + (size_t)f * KD;
@@ -328,22 +376,29 @@ __global__ void k_expand(const int* __restrict__ tabD, const int* __restrict__ s
 
 // ---------------------------------------------------------------------------
 // K2 stage-1 compaction (reference lines 523-549) and group hash + fused
-// key (lines 628-645).
+// key (lines 628-645). The per-block counts `blk` are [nb, gridDim.x], so
+// the block prefix never crosses a member boundary.
 
 __global__ void k_block_count(const unsigned char* nvalid, int M, int* blk, const int* ctl) {
-  if (stopped(ctl)) return;
+  const int b = blockIdx.y;
+  if (stopped(member_ctl(ctl, b))) return;
+  nvalid += (size_t)b * M;
   int i = blockIdx.x * 1024 + threadIdx.x;
   int c = __syncthreads_count(i < M && nvalid[i]);
-  if (threadIdx.x == 0) blk[blockIdx.x] = c;
+  if (threadIdx.x == 0) blk[(size_t)b * gridDim.x + blockIdx.x] = c;
 }
 
 __global__ void k_compact(const u32* __restrict__ rows, const unsigned char* __restrict__ nvalid,
                           const int* __restrict__ blk_off, u32* __restrict__ crows,
                           int M, int NC, int P, const int* ctl) {
-  if (stopped(ctl)) return;
+  const int b = blockIdx.y;
+  if (stopped(member_ctl(ctl, b))) return;
+  rows += (size_t)b * M * NC;
+  nvalid += (size_t)b * M;
+  crows += (size_t)b * P * NC;
   int i = blockIdx.x * 1024 + threadIdx.x;
   int v = (i < M && nvalid[i]) ? 1 : 0;
-  int rank = blk_off[blockIdx.x] + block_excl_sum(v, nullptr);
+  int rank = blk_off[(size_t)b * gridDim.x + blockIdx.x] + block_excl_sum(v, nullptr);
   if (v && rank < P) {
     const u32* src = rows + (size_t)i * NC;
     u32* dst = crows + (size_t)rank * NC;
@@ -354,40 +409,53 @@ __global__ void k_compact(const u32* __restrict__ rows, const unsigned char* __r
 // valid row i: nvalid[i] when nvalid != null, else i < min(ctl[NEXP], P).
 __global__ void k_hash(const u32* __restrict__ drows, const unsigned char* __restrict__ nvalid,
                        u32* __restrict__ fkey, int L, int NC, int NID, int P, const int* ctl) {
-  if (stopped(ctl)) return;
+  const int b = blockIdx.y;
+  const int* c = member_ctl(ctl, b);
+  if (stopped(c)) return;
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= L) return;
-  bool valid = nvalid ? (nvalid[i] != 0) : (i < min(ctl[CTL_NEXP], P));
+  drows += (size_t)b * L * NC;
+  fkey += (size_t)b * L;
+  bool valid = nvalid ? (nvalid[(size_t)b * L + i] != 0) : (i < min(c[CTL_NEXP], P));
   const u32* r = drows + (size_t)i * NC;
   u32 gh = 2166136261u;
-  for (int c = 0; c < NID; ++c) gh = (gh ^ r[c]) * 16777619u;
+  for (int k = 0; k < NID; ++k) gh = (gh ^ r[k]) * 16777619u;
   fkey[i] = (gh >> 1) | (valid ? 0u : 0x80000000u);
 }
 
 // ---------------------------------------------------------------------------
-// Sort-key gather: out[i] = src[idx[i] * stride + col].
+// Sort-key gather: out[b][i] = src[b][idx[b][i] * stride + col].
 
-__global__ void k_take_col(const u32* __restrict__ src, int stride, int col,
+__global__ void k_take_col(const u32* __restrict__ src, long src_member, int stride, int col,
                            const int* __restrict__ idx, u32* __restrict__ out, int n,
                            const int* ctl) {
-  if (stopped(ctl)) return;
+  const int b = blockIdx.y;
+  if (stopped(member_ctl(ctl, b))) return;
   int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = src[(size_t)idx[i] * stride + col];
+  if (i < n)
+    out[(size_t)b * n + i] =
+        src[(size_t)b * src_member + (size_t)idx[(size_t)b * n + i] * stride + col];
 }
 
 // ---------------------------------------------------------------------------
-// K3 stable LSD radix sort of (u32 key, u32 value) pairs, 8-bit digits.
-// Used for the dedup sort (reference lines 644-657, one pass per key from
-// the last open-mask word to the fused key; stability makes it
+// K3 stable LSD radix sort of (u32 key, u32 value) pairs, 8-bit digits,
+// segmented: each member's row of n pairs is sorted on its own (the
+// member is the grid's y coordinate, not a key prefix, so no pass is
+// added). Used for the dedup sort (reference lines 644-657, one pass per
+// key from the last open-mask word to the fused key; stability makes it
 // lexicographic) and the compaction sort (lines 725-740, stability is the
-// iota tiebreak). Per pass: a per-warp-tile digit histogram, one
-// exclusive scan over the digit-major histogram, and a stable scatter in
+// iota tiebreak). Per pass: a per-warp-tile digit histogram
+// ([nb, 256, tiles], digit-major per member), one exclusive scan of each
+// member's histogram, and a stable scatter inside the member's segment in
 // which each warp walks its tile in order and ranks equal digits with
 // __match_any_sync.
 
 __global__ void k_rs_hist(const u32* __restrict__ keys, int n, int shift, int* __restrict__ hist,
                           int NT, const int* ctl) {
-  if (stopped(ctl)) return;
+  const int b = blockIdx.y;
+  if (stopped(member_ctl(ctl, b))) return;
+  keys += (size_t)b * n;
+  hist += (size_t)b * 256 * NT;
   __shared__ int h[RS_WARPS][256];
   int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   int tile = blockIdx.x * RS_WARPS + w;
@@ -408,7 +476,13 @@ __global__ void k_rs_hist(const u32* __restrict__ keys, int n, int shift, int* _
 __global__ void k_rs_scatter(const u32* __restrict__ kin, const u32* __restrict__ vin,
                              u32* __restrict__ kout, u32* __restrict__ vout, int n, int shift,
                              const int* __restrict__ hist, int NT, const int* ctl) {
-  if (stopped(ctl)) return;
+  const int b = blockIdx.y;
+  if (stopped(member_ctl(ctl, b))) return;
+  kin += (size_t)b * n;
+  vin += (size_t)b * n;
+  kout += (size_t)b * n;
+  vout += (size_t)b * n;
+  hist += (size_t)b * 256 * NT;
   __shared__ int base[RS_WARPS][256];
   int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   int tile = blockIdx.x * RS_WARPS + w;
@@ -438,8 +512,9 @@ __global__ void k_rs_scatter(const u32* __restrict__ kin, const u32* __restrict_
 // ---------------------------------------------------------------------------
 // K4 prune (reference lines 657-736): over the dedup-sorted order, the
 // same-group test on the real identity columns, the adjacent-subset rule,
-// the group-head rule (each row's segment start found by a prefix max),
-// the keep count and the fused compaction priority.
+// the group-head rule (each row's segment start found by a prefix max over
+// the member's own block maxima), the keep count and the fused compaction
+// priority.
 
 #define PF_VALID 1
 #define PF_SAME 2
@@ -448,7 +523,12 @@ __global__ void k_rs_scatter(const u32* __restrict__ kin, const u32* __restrict_
 __global__ void k_prune_a(const u32* __restrict__ drows, const u32* __restrict__ skey,
                           const int* __restrict__ perm, unsigned char* __restrict__ pflags,
                           int* __restrict__ blk, int L, int NC, int NID, int KO1, const int* ctl) {
-  if (stopped(ctl)) return;
+  const int b = blockIdx.y;
+  if (stopped(member_ctl(ctl, b))) return;
+  drows += (size_t)b * L * NC;
+  skey += (size_t)b * L;
+  perm += (size_t)b * L;
+  pflags += (size_t)b * L;
   int i = blockIdx.x * 1024 + threadIdx.x;
   int st = -1;
   if (i < L) {
@@ -469,20 +549,26 @@ __global__ void k_prune_a(const u32* __restrict__ drows, const u32* __restrict__
   }
   int m;
   block_incl_max(st, &m);
-  if (threadIdx.x == 0) blk[blockIdx.x] = m;
+  if (threadIdx.x == 0) blk[(size_t)b * gridDim.x + blockIdx.x] = m;
 }
 
 __global__ void k_prune_b(const u32* __restrict__ drows, const int* __restrict__ perm,
                           const unsigned char* __restrict__ pflags, const int* __restrict__ blk_pre,
                           int* ctl, u32* __restrict__ fprio, int L, int NC, int NID, int KO1,
                           int PB) {
+  const int b = blockIdx.y;
+  ctl += (size_t)b * CTL_SIZE;
   if (stopped(ctl)) return;
+  drows += (size_t)b * L * NC;
+  perm += (size_t)b * L;
+  pflags += (size_t)b * L;
+  fprio += (size_t)b * L;
   int i = blockIdx.x * 1024 + threadIdx.x;
   unsigned char fl = (i < L) ? pflags[i] : 0;
   bool sv = fl & PF_VALID, same = fl & PF_SAME, psub = fl & PF_PSUB;
   bool is_start = sv && !same;
   int seg = block_incl_max(is_start ? i : -1, nullptr);
-  seg = max(seg, blk_pre[blockIdx.x]);
+  seg = max(seg, blk_pre[(size_t)b * gridDim.x + blockIdx.x]);
   bool keep = false;
   if (i < L) {
     const u32* r = drows + (size_t)perm[i] * NC;
@@ -505,7 +591,8 @@ __global__ void k_prune_b(const u32* __restrict__ drows, const int* __restrict__
 
 // ---------------------------------------------------------------------------
 // K5 top-F gather into the frontier (reference lines 741-811) and the loop
-// carry update (lines 791-843).
+// carry update (lines 791-843), each member into its own frontier, control
+// block and stats ring.
 
 __device__ __forceinline__ void level_outcome(const int* ctl, int F, int P2, bool* ovf_now,
                                               bool* dead, bool* stuck_now, int* kept) {
@@ -521,8 +608,10 @@ __device__ __forceinline__ void level_outcome(const int* ctl, int F, int P2, boo
 __global__ void k_gather(const u32* __restrict__ drows, const int* __restrict__ perm,
                          const int* __restrict__ order, const int* ctl, int* __restrict__ p,
                          u32* __restrict__ mD, u32* __restrict__ mO, int* __restrict__ st,
-                         unsigned char* __restrict__ valid, int F, int NC, int KD, int S, int KO1,
-                         int P2) {
+                         unsigned char* __restrict__ valid, int F, int L, int NC, int KD, int S,
+                         int KO1, int P2) {
+  const int b = blockIdx.y;
+  ctl += (size_t)b * CTL_SIZE;
   if (stopped(ctl)) return;
   bool ovf_now, dead, stuck_now;
   int kept;
@@ -530,6 +619,14 @@ __global__ void k_gather(const u32* __restrict__ drows, const int* __restrict__ 
   if (dead) return;  // lossless restore / dead end: keep the old frontier
   int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= F) return;
+  drows += (size_t)b * L * NC;
+  perm += (size_t)b * L;
+  order += (size_t)b * L;
+  p += (size_t)b * F;
+  mD += (size_t)b * F * KD;
+  mO += (size_t)b * F * KO1;
+  st += (size_t)b * F * S;
+  valid += (size_t)b * F;
   bool kv = k < kept;
   const u32* r = kv ? drows + (size_t)perm[order[k]] * NC : nullptr;
   p[k] = kv ? (int)r[0] : 0;
@@ -540,7 +637,10 @@ __global__ void k_gather(const u32* __restrict__ drows, const int* __restrict__ 
 }
 
 __global__ void k_finalize(int* ctl, int* stats, int F, int P2, int n_stat_rows) {
+  const int b = blockIdx.x;
+  ctl += (size_t)b * CTL_SIZE;
   if (stopped(ctl)) return;
+  stats += (size_t)b * n_stat_rows * 4;
   bool ovf_now, dead, stuck_now;
   int kept;
   level_outcome(ctl, F, P2, &ovf_now, &dead, &stuck_now, &kept);
@@ -570,7 +670,43 @@ __global__ void k_finalize(int* ctl, int* stats, int F, int P2, int n_stat_rows)
 }
 
 // ---------------------------------------------------------------------------
-// C entry points (ctypes). Pointers and the stream arrive as void*.
+// Re-batch of stacked frontiers. Replaces the reference's
+// jepsen_tpu/parallel/batch.py `_regroup_program` (line 95) and, with one
+// member and idx = [0], the single-history frontier grow
+// jepsen_tpu/ops/wgl.py `_pad_program` (line 1074):
+// dst[j, f, c] = src[idx[j], f, c] for f < F_old, else 0, for each of the
+// five frontier arrays. One pass per array, a thread per output element;
+// an index may repeat (one member regrouped twice). Bound by bytes: each
+// selected row is read once and each output element written once.
+
+template <typename T>
+__global__ void k_regroup(const T* __restrict__ src, T* __restrict__ dst,
+                          const int* __restrict__ idx, long n_out, int F_old, int F_new,
+                          int R) {
+  long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_out) return;
+  long row = (long)F_new * R;
+  int j = (int)(i / row);
+  long rem = i - (long)j * row;
+  int f = (int)(rem / R);
+  int c = (int)(rem - (long)f * R);
+  dst[i] = f < F_old ? src[((long)idx[j] * F_old + f) * R + c] : (T)0;
+}
+
+template <typename T>
+static void regroup_launch(const void* src, void* dst, const int* idx, int n_new, int F_old,
+                           int F_new, int R, cudaStream_t s) {
+  long n_out = (long)n_new * F_new * R;
+  if (n_out == 0) return;
+  const int threads = 256;
+  long blocks = (n_out + threads - 1) / threads;
+  k_regroup<T><<<(unsigned)blocks, threads, 0, s>>>((const T*)src, (T*)dst, idx, n_out, F_old,
+                                                    F_new, R);
+}
+
+// ---------------------------------------------------------------------------
+// C entry points (ctypes). Pointers and the stream arrive as void*; `nb` is
+// the number of members, each buffer [nb, ...] contiguous.
 
 static inline int nblk(long n, int per) { return (int)((n + per - 1) / per); }
 
@@ -578,70 +714,73 @@ extern "C" {
 
 const char* wgl_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-int wgl_chunk_init(void* ctl, void* valid, int F, void* stream) {
-  k_chunk_init<<<1, 1024, 0, (cudaStream_t)stream>>>((int*)ctl, (const unsigned char*)valid, F);
+int wgl_chunk_init(void* ctl, void* valid, int F, int nb, void* stream) {
+  k_chunk_init<<<nb, 1024, 0, (cudaStream_t)stream>>>((int*)ctl, (const unsigned char*)valid, F);
   return (int)cudaGetLastError();
 }
 
 int wgl_expand(void* tabD, void* sufret, void* invO, void* opO, void* a1O, void* a2O,
                void* p, void* mD, void* mO, void* st, void* valid, void* ctl, void* rows,
-               void* nvalid, int F, int W, int KO, int nD, int nO, int ND, int NO, int B,
+               void* nvalid, int F, int W, int KO, int ND, int NO, int B, int nb,
                void* stream) {
   const int threads = 128;  // 4 configurations per block
-  k_expand<<<nblk((long)F * 32, threads), threads, 0, (cudaStream_t)stream>>>(
+  dim3 grid(nblk((long)F * 32, threads), nb);
+  k_expand<<<grid, threads, 0, (cudaStream_t)stream>>>(
       (const int*)tabD, (const int*)sufret, (const int*)invO, (const int*)opO,
       (const int*)a1O, (const int*)a2O, (const int*)p, (const u32*)mD, (const u32*)mO,
       (const int*)st, (const unsigned char*)valid, (int*)ctl, (u32*)rows,
-      (unsigned char*)nvalid, F, W, KO, nD, nO, ND, NO, B);
+      (unsigned char*)nvalid, F, W, KO, ND, NO, B);
   return (int)cudaGetLastError();
 }
 
 // P > 0: two-stage (compact the valid rows of `rows` into `drows`, then
 // hash P rows); P == 0: hash the M rows of `rows` (== drows) in place.
-// `blk` is scratch of ceil(M / 1024) ints.
+// `blk` is scratch of nb * ceil(M / 1024) ints.
 int wgl_stage1_hash(void* rows, void* nvalid, void* ctl, void* drows, void* fkey, void* blk_,
-                    int M, int NC, int NID, int P, void* stream) {
+                    int M, int NC, int NID, int P, int nb, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   int* c = (int*)ctl;
   if (P > 0) {
-    int nb = nblk(M, 1024);
+    int nbk = nblk(M, 1024);
     int* blk = (int*)blk_;
-    k_block_count<<<nb, 1024, 0, s>>>((const unsigned char*)nvalid, M, blk, c);
-    k_scan_excl_sum<<<1, 1024, 0, s>>>(blk, nb, c);
-    k_compact<<<nb, 1024, 0, s>>>((const u32*)rows, (const unsigned char*)nvalid, blk,
-                                  (u32*)drows, M, NC, P, c);
-    k_hash<<<nblk(P, 256), 256, 0, s>>>((const u32*)drows, nullptr, (u32*)fkey, P, NC, NID,
-                                        P, c);
+    k_block_count<<<dim3(nbk, nb), 1024, 0, s>>>((const unsigned char*)nvalid, M, blk, c);
+    k_scan_excl_sum<<<nb, 1024, 0, s>>>(blk, nbk, c);
+    k_compact<<<dim3(nbk, nb), 1024, 0, s>>>((const u32*)rows, (const unsigned char*)nvalid,
+                                            blk, (u32*)drows, M, NC, P, c);
+    k_hash<<<dim3(nblk(P, 256), nb), 256, 0, s>>>((const u32*)drows, nullptr, (u32*)fkey, P,
+                                                  NC, NID, P, c);
   } else {
-    k_hash<<<nblk(M, 256), 256, 0, s>>>((const u32*)rows, (const unsigned char*)nvalid,
-                                        (u32*)fkey, M, NC, NID, 0, c);
+    k_hash<<<dim3(nblk(M, 256), nb), 256, 0, s>>>((const u32*)rows,
+                                                  (const unsigned char*)nvalid, (u32*)fkey, M,
+                                                  NC, NID, 0, c);
   }
   return (int)cudaGetLastError();
 }
 
-int wgl_take_col(void* src, int stride, int col, void* idx, void* out, int n, void* ctl,
-                 void* stream) {
-  k_take_col<<<nblk(n, 256), 256, 0, (cudaStream_t)stream>>>(
-      (const u32*)src, stride, col, (const int*)idx, (u32*)out, n, (const int*)ctl);
+int wgl_take_col(void* src, long src_member, int stride, int col, void* idx, void* out, int n,
+                 int nb, void* ctl, void* stream) {
+  k_take_col<<<dim3(nblk(n, 256), nb), 256, 0, (cudaStream_t)stream>>>(
+      (const u32*)src, src_member, stride, col, (const int*)idx, (u32*)out, n, (const int*)ctl);
   return (int)cudaGetLastError();
 }
 
-int radix_sort_pairs(void* keys, void* vals, void* tmp_k, void* tmp_v, void* hist, int n,
+// keys/vals [nb, n]; tmp_k/tmp_v [nb, n] each; hist [nb, 256 * ceil(n / RS_TILE)].
+int radix_sort_pairs(void* keys, void* vals, void* tmp_k, void* tmp_v, void* hist, int n, int nb,
                      void* ctl, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int* c = (const int*)ctl;
   int NT = nblk(n, RS_TILE);
-  int nb = nblk(NT, RS_WARPS);
+  dim3 grid(nblk(NT, RS_WARPS), nb);
   u32* ka = (u32*)keys;
   u32* va = (u32*)vals;
   u32* kb = (u32*)tmp_k;
   u32* vb = (u32*)tmp_v;
   for (int pass = 0; pass < 4; ++pass) {
     int shift = 8 * pass;
-    k_rs_hist<<<nb, 32 * RS_WARPS, 0, s>>>(ka, n, shift, (int*)hist, NT, c);
-    k_scan_excl_sum<<<1, 1024, 0, s>>>((int*)hist, 256 * NT, c);
-    k_rs_scatter<<<nb, 32 * RS_WARPS, 0, s>>>(ka, va, kb, vb, n, shift, (const int*)hist, NT,
-                                             c);
+    k_rs_hist<<<grid, 32 * RS_WARPS, 0, s>>>(ka, n, shift, (int*)hist, NT, c);
+    k_scan_excl_sum<<<nb, 1024, 0, s>>>((int*)hist, 256 * NT, c);
+    k_rs_scatter<<<grid, 32 * RS_WARPS, 0, s>>>(ka, va, kb, vb, n, shift, (const int*)hist, NT,
+                                               c);
     u32* t = ka; ka = kb; kb = t;
     t = va; va = vb; vb = t;
   }
@@ -649,27 +788,42 @@ int radix_sort_pairs(void* keys, void* vals, void* tmp_k, void* tmp_v, void* his
 }
 
 int wgl_prune(void* drows, void* skey, void* perm, void* ctl, void* fprio, void* pflags,
-              void* blk, int L, int NC, int NID, int KO1, int PB, void* stream) {
+              void* blk, int L, int NC, int NID, int KO1, int PB, int nb, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  int nb = nblk(L, 1024);
-  k_prune_a<<<nb, 1024, 0, s>>>((const u32*)drows, (const u32*)skey, (const int*)perm,
-                                (unsigned char*)pflags, (int*)blk, L, NC, NID, KO1,
-                                (const int*)ctl);
-  k_scan_excl_max<<<1, 1024, 0, s>>>((int*)blk, nb, (const int*)ctl);
-  k_prune_b<<<nb, 1024, 0, s>>>((const u32*)drows, (const int*)perm,
-                                (const unsigned char*)pflags, (const int*)blk, (int*)ctl,
-                                (u32*)fprio, L, NC, NID, KO1, PB);
+  int nbk = nblk(L, 1024);
+  k_prune_a<<<dim3(nbk, nb), 1024, 0, s>>>((const u32*)drows, (const u32*)skey,
+                                          (const int*)perm, (unsigned char*)pflags, (int*)blk,
+                                          L, NC, NID, KO1, (const int*)ctl);
+  k_scan_excl_max<<<nb, 1024, 0, s>>>((int*)blk, nbk, (const int*)ctl);
+  k_prune_b<<<dim3(nbk, nb), 1024, 0, s>>>((const u32*)drows, (const int*)perm,
+                                          (const unsigned char*)pflags, (const int*)blk,
+                                          (int*)ctl, (u32*)fprio, L, NC, NID, KO1, PB);
   return (int)cudaGetLastError();
 }
 
 int wgl_gather_finalize(void* drows, void* perm, void* order, void* ctl, void* stats, void* p,
-                        void* mD, void* mO, void* st, void* valid, int F, int NC, int KD, int S,
-                        int KO1, int P2, int n_stat_rows, void* stream) {
+                        void* mD, void* mO, void* st, void* valid, int F, int L, int NC, int KD,
+                        int S, int KO1, int P2, int n_stat_rows, int nb, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  k_gather<<<nblk(F, 256), 256, 0, s>>>((const u32*)drows, (const int*)perm, (const int*)order,
-                                        (const int*)ctl, (int*)p, (u32*)mD, (u32*)mO, (int*)st,
-                                        (unsigned char*)valid, F, NC, KD, S, KO1, P2);
-  k_finalize<<<1, 1, 0, s>>>((int*)ctl, (int*)stats, F, P2, n_stat_rows);
+  k_gather<<<dim3(nblk(F, 256), nb), 256, 0, s>>>(
+      (const u32*)drows, (const int*)perm, (const int*)order, (const int*)ctl, (int*)p,
+      (u32*)mD, (u32*)mO, (int*)st, (unsigned char*)valid, F, L, NC, KD, S, KO1, P2);
+  k_finalize<<<nb, 1, 0, s>>>((int*)ctl, (int*)stats, F, P2, n_stat_rows);
+  return (int)cudaGetLastError();
+}
+
+// Five arrays: p [nb, F] i32, mD [nb, F, KD] u32, mO [nb, F, KO1] u32,
+// st [nb, F, S] i32, valid [nb, F] u8; idx [n_new] i32 on the device.
+int wgl_regroup(void* p, void* mD, void* mO, void* st, void* valid, void* p2, void* mD2,
+                void* mO2, void* st2, void* valid2, void* idx, int n_new, int F_old, int F_new,
+                int KD, int KO1, int S, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int* ix = (const int*)idx;
+  regroup_launch<uint32_t>(p, p2, ix, n_new, F_old, F_new, 1, s);
+  regroup_launch<uint32_t>(mD, mD2, ix, n_new, F_old, F_new, KD, s);
+  regroup_launch<uint32_t>(mO, mO2, ix, n_new, F_old, F_new, KO1, s);
+  regroup_launch<uint32_t>(st, st2, ix, n_new, F_old, F_new, S, s);
+  regroup_launch<uint8_t>(valid, valid2, ix, n_new, F_old, F_new, 1, s);
   return (int)cudaGetLastError();
 }
 

@@ -9,7 +9,7 @@ with completions by process. Process ids: clients are ints; anything else
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Any, Iterable, Iterator, Optional
+from typing import Any, Callable, Iterable, Iterator, Optional
 
 from .edn import Keyword
 
@@ -17,6 +17,8 @@ INVOKE = "invoke"
 OK = "ok"
 FAIL = "fail"
 INFO = "info"
+
+NEMESIS = "nemesis"
 
 
 @dataclass(frozen=True)
@@ -47,8 +49,20 @@ class Op:
         return self.type == OK
 
     @property
+    def is_fail(self) -> bool:
+        return self.type == FAIL
+
+    @property
+    def is_info(self) -> bool:
+        return self.type == INFO
+
+    @property
     def is_client(self) -> bool:
         return isinstance(self.process, int)
+
+    @property
+    def is_nemesis(self) -> bool:
+        return self.process == NEMESIS
 
     def with_(self, **kw: Any) -> "Op":
         return replace(self, **kw)
@@ -130,6 +144,12 @@ class History:
 
     def __repr__(self) -> str:
         return f"<History n={len(self.ops)}>"
+
+    def filter(self, pred: Callable[[Op], bool]) -> "History":
+        return History([op for op in self.ops if pred(op)], reindex=False)
+
+    def client_ops(self) -> "History":
+        return self.filter(lambda op: op.is_client)
 
     def pairs(self) -> list[Interval]:
         """Pair each client invocation with its completion, preserving

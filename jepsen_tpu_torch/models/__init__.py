@@ -97,6 +97,15 @@ class Model:
     def encode_state(self, decoded: tuple, table: ValueTable) -> tuple[int, ...]:
         return tuple(int(x) for x in decoded)
 
+    # The identity of a model's behaviour: histories of one batch must
+    # share it, since the batch runs one step function for every member.
+    def cache_key(self) -> tuple:
+        return (self.name, self.state_width, self.n_opcodes)
+
+    def cache_args(self) -> tuple:
+        """Hashable constructor args that affect the step's behaviour."""
+        return ()
+
     def describe_op(self, opcode: int, a1: int, a2: int, table: ValueTable) -> str:
         return f"op{opcode}({a1}, {a2})"
 

@@ -192,6 +192,82 @@ def plan_device(enc: EncodedHistory, max_open: int = 128, window_cap: int = 1024
                             B if B < C else None, device)
 
 
+class BatchPlan:
+    """The tables of ``nb`` members planned to common static dims ``(W, KO,
+    S, ND, NO)`` and one shared candidate cap ``B``, stacked member-major
+    on the device (``tabs``: ``tabD [nb, ND, 8]``, ``sufret [nb, ND+1]``,
+    ``invO/opO/a1O/a2O [nb, NO]``). ``nD``, ``nO`` and ``totals`` (levels
+    a member may run: ``nD + nO + 1``) are int32 ``[nb]`` tensors on the
+    host, where the driver reads them; ``init_state`` is ``[nb, S]`` on
+    the device."""
+
+    __slots__ = ("dims", "tabs", "nD", "nO", "totals", "init_state", "B", "device")
+
+    def __init__(self, dims, tabs, nD, nO, totals, init_state, B, device):
+        self.dims = tuple(int(x) for x in dims)
+        self.tabs = tabs
+        self.nD = nD
+        self.nO = nO
+        self.totals = totals
+        self.init_state = init_state
+        self.B = B
+        self.device = device
+
+    @property
+    def nb(self) -> int:
+        return int(self.nD.shape[0])
+
+    def select(self, rows) -> "BatchPlan":
+        """The plan of members ``rows`` (a row-select on the device: the
+        stack is made once, and each rung of the batch ladder selects its
+        members from it)."""
+        rows = [int(r) for r in rows]
+        ix = torch.tensor(rows, dtype=torch.long, device=self.device)
+        hx = torch.tensor(rows, dtype=torch.long)
+        return BatchPlan(self.dims, {k: v.index_select(0, ix) for k, v in self.tabs.items()},
+                         self.nD[hx], self.nO[hx], self.totals[hx],
+                         self.init_state.index_select(0, ix), self.B, self.device)
+
+
+def stack_from_arrays(args_stack, dims, init_state, B, device=None) -> BatchPlan:
+    """A batch plan from the reference's stacked ``DevicePlan.args``
+    columns as numpy arrays: ``(nD [nb], nO [nb], total_levels [nb], tabD
+    [nb, ND, 8] (int16 or int32), sufret [nb, ND+1], invO, opO, a1O, a2O
+    [nb, NO])``; ``init_state`` is ``[nb, S]`` and ``B`` the shared
+    candidate cap (None: no row-wise selection)."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.int32), device=dev).contiguous()
+
+    def host(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.int32).reshape(-1))
+
+    names = ("tabD", "sufret", "invO", "opO", "a1O", "a2O")
+    tabs = {k: t(a) for k, a in zip(names, args_stack[3:9])}
+    return BatchPlan(dims, tabs, host(args_stack[0]), host(args_stack[1]),
+                     host(args_stack[2]), t(np.asarray(init_state).reshape(len(tabs["tabD"]), -1)),
+                     None if B is None else int(B), dev)
+
+
+def stack_plans(plans: list, device=None) -> BatchPlan:
+    """Stack plans made with one ``pad_to`` (so their dims agree) into a
+    batch plan on ``device``. The shared candidate cap dominates every
+    member's: the largest, or None when any member has none (reference
+    ``parallel/batch.py:232-236``)."""
+    dims = {p.dims for p in plans}
+    if len(dims) != 1:
+        raise ValueError(f"stack_plans: members planned to different dims {sorted(dims)}")
+    names = ("tabD", "sufret", "invO", "opO", "a1O", "a2O")
+    cols = [np.array([p.nD for p in plans]), np.array([p.nO for p in plans]),
+            np.array([p.total_levels for p in plans])]
+    cols += [np.stack([p.tabs[k].cpu().numpy() for p in plans]) for k in names]
+    Bs = [p.B for p in plans]
+    B = None if any(b is None for b in Bs) else max(Bs)
+    return stack_from_arrays(cols, dims.pop(), np.stack([p.init_state for p in plans]),
+                             B, device)
+
+
 def level_geometry(plan: DevicePlan, F: int) -> _lv.Geometry:
     """Static shape of one level at capacity ``F`` (reads
     ``BIG_M_THRESHOLD`` now, so a patched threshold takes effect)."""
@@ -203,9 +279,8 @@ def level_geometry(plan: DevicePlan, F: int) -> _lv.Geometry:
     PB = max(int(ND).bit_length(), 1)
     if PB + 7 > 32:
         raise ValueError("ND too large for the fused compaction key")
-    return _lv.Geometry(F=F, W=W, KO=KO, S=S, ND=ND, NO=NO, nD=plan.nD,
-                        nO=plan.nO, B=M // F, SEL=SEL, two_stage=two_stage,
-                        P=P if two_stage else M)
+    return _lv.Geometry(F=F, W=W, KO=KO, S=S, ND=ND, NO=NO, B=M // F, SEL=SEL,
+                        two_stage=two_stage, P=P if two_stage else M)
 
 
 def _stage1_shape(plan: DevicePlan, F: int) -> tuple:
@@ -274,6 +349,24 @@ def initial_frontier(F: int, W: int, KO: int, S: int, init_state, device) -> tup
     )
 
 
+def initial_frontier_batch(F: int, W: int, KO: int, init_state: torch.Tensor) -> tuple:
+    """Stacked fresh frontiers ``(p, maskD, maskO, state, valid)``, each
+    ``[nb, F, ...]``, on ``init_state``'s device: one valid config per
+    member, its own initial state."""
+    nb, S = init_state.shape
+    dev = init_state.device
+    KD = W // 32
+    valid = torch.zeros((nb, F), dtype=torch.bool, device=dev)
+    valid[:, 0] = True
+    return (
+        torch.zeros((nb, F), dtype=torch.int32, device=dev),
+        torch.zeros((nb, F, KD), dtype=torch.int32, device=dev),
+        torch.zeros((nb, F, max(KO, 1)), dtype=torch.int32, device=dev),
+        init_state.to(torch.int32)[:, None, :].repeat(1, F, 1).contiguous(),
+        valid,
+    )
+
+
 def frontier_from_arrays(p, mD, mO, st, valid, lvl, device=None) -> tuple:
     """The port's frontier from the reference's 6-tuple as numpy arrays
     (u32 masks become int32 bit patterns)."""
@@ -298,15 +391,24 @@ def frontier_to_arrays(fr: tuple) -> tuple:
             valid.cpu().numpy(), int(lvl))
 
 
-def _pad_frontier(fr: tuple, F_new: int, device) -> tuple:
-    """Grow a frontier to a larger capacity (escalation resume): new
-    zeroed buffers with the old rows copied in."""
-    out = []
-    for a in fr[:-1]:
-        b = torch.zeros((F_new,) + tuple(a.shape[1:]), dtype=a.dtype, device=device)
-        b[: a.shape[0]] = a.to(device)
-        out.append(b)
-    return tuple(out) + (fr[-1],)
+def frontier_stack_from_arrays(p, mD, mO, st, valid, device=None) -> tuple:
+    """The port's stacked frontier ``[nb, F, ...]`` from the reference's
+    stacked frontier arrays (numpy; u32 masks become int32 bit
+    patterns)."""
+    return frontier_from_arrays(p, mD, mO, st, valid, 0, device)[:5]
+
+
+def frontier_stack_to_arrays(fr: tuple) -> tuple:
+    """Host numpy copy of a stacked frontier's five arrays, masks as
+    uint32 (the reference's layout)."""
+    return frontier_to_arrays(tuple(fr[:5]) + (0,))[:5]
+
+
+def _pad_frontier(fr: tuple, F_new: int, device, ops) -> tuple:
+    """Grow a frontier to a larger capacity (escalation resume): the
+    regroup of one member, ``idx = [0]`` (reference ``_pad_program``)."""
+    grown = ops.regroup(tuple(a.to(device)[None] for a in fr[:-1]), [0], F_new)
+    return tuple(a[0] for a in grown) + (fr[-1],)
 
 
 def _snapshot_frontier(fr: tuple) -> tuple:
@@ -331,10 +433,11 @@ class _Search:
         key = (F, g)
         ws = self._ws.get(key)
         if ws is None:
-            ws = self._ws[key] = _lv.Workspace(g, self.plan.device)
-        flags = _lv.run_chunk(self.ops, g, self.plan.tabs, fr[:5], ws, lvl0,
-                              max_levels, lossy, self.step)
-        return flags, ws.stats
+            ws = self._ws[key] = _lv.BatchWorkspace(g, 1, self.plan.device)
+        plan = self.plan
+        flags = _lv.run_chunk(self.ops, g, plan.tabs, fr[:5], ws, lvl0, max_levels,
+                              lossy, plan.nD, plan.nO, self.step)
+        return flags, ws.stats[0]
 
 
 def _chunk_level_rows(stats: np.ndarray, lvl0: int, lvl: int) -> list:
@@ -463,7 +566,7 @@ def _device_search(enc: EncodedHistory, search: _Search, schedule: list,
     if resume_from:
         ck_fr = resume_from["fr"]
         F = next((f for f in schedule if f >= ck_fr[0].shape[0]), schedule[-1])
-        fr = _pad_frontier(ck_fr, F, dev)
+        fr = _pad_frontier(ck_fr, F, dev, search.ops)
     else:
         F = schedule[0]
         fr = initial_frontier(F, W, KO, S, plan.init_state, dev)
@@ -472,7 +575,7 @@ def _device_search(enc: EncodedHistory, search: _Search, schedule: list,
     deesc_from = None  # capacity last de-escalated FROM (known adequate)
     while True:
         if fr[0].shape[0] < F:
-            fr = _pad_frontier(fr, F, dev)
+            fr = _pad_frontier(fr, F, dev, search.ops)
         attempt = {"F": F, "levels": 0, "calls": 0, "wall_s": 0.0}
         if attempts and attempts[-1]["F"] == F:
             attempt = attempts[-1]
@@ -609,6 +712,17 @@ def _frontier_stuck_configs(enc: EncodedHistory, fr: tuple, limit: int = 5) -> l
         out.append(decode_stuck_config(enc, det_rows, open_rows, int(p_[i]),
                                        win, open_words, st))
     return out
+
+
+def member_stuck_configs(enc: EncodedHistory, fr_host: tuple, b: int) -> list:
+    """Refutation witness of member ``b`` decoded from its row of a host
+    copy of a stacked frontier (:func:`frontier_stack_to_arrays`)."""
+    return _frontier_stuck_configs(enc, tuple(a[b] for a in fr_host[:5]))
+
+
+def _model_cache_key(model: Model) -> tuple:
+    """The identity of a model's step: members of one batch share it."""
+    return (type(model), model.cache_key(), model.cache_args())
 
 
 def check_history_device(model: Model, history: History, **kw) -> dict:

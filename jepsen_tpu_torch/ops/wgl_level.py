@@ -1,11 +1,12 @@
-"""One BFS level of the WGL frontier search: CUDA kernels and their plain
-PyTorch versions.
+"""One BFS level of the WGL frontier search over a batch of members: CUDA
+kernels and their plain PyTorch versions.
 
 This is the port of the reference's level program (``jepsen_tpu/ops/
-wgl.py`` ``_build_kernel`` → ``level``, lines 301-934). A level is a
-fixed sequence of stages, each a hand-written kernel in
-``csrc/wgl_level.cu`` with a plain PyTorch function of the same signature
-here:
+wgl.py`` ``_build_kernel`` → ``level``, lines 301-934) and of its vmapped
+batch form (``_build_batch_kernel``, line 949). A level is a fixed
+sequence of stages, each a hand-written kernel in ``csrc/wgl_level.cu``
+launched once for the whole batch, with a plain PyTorch function here
+that computes one member's stage:
 
 ======================  ====================================================
 stage                   what it computes
@@ -22,21 +23,28 @@ stage                   what it computes
 ``gather_finalize``     top-F gather into the frontier (in place), the
                         lossless restore, flags, stats row, stop test
 ``chunk_init``          frontier count and stop test at a chunk's start
+``regroup``             row-gather of members' frontiers, zero-padded to a
+                        larger capacity
 ======================  ====================================================
 
-Every wrapper takes the plain version only for tensors on the CPU; on a
-CUDA tensor it launches its kernel (or raises). Each wrapper counts its
-launches in :data:`LAUNCHES`.
+Every buffer is member-major: ``[nb, ...]``, one row per member, and the
+single-history search is the batch of one. The wrappers take the batched
+buffers; for tensors on the CPU they run the plain version once per
+member on member views (what ``vmap`` means), and on a CUDA tensor they
+launch the kernel once for all members (or raise). Each wrapper counts
+its launches in :data:`LAUNCHES`.
 
 u32 words (masks, hashes, keys) are stored as int32 bit patterns; the
 plain versions widen them to int64 and mask with ``0xFFFFFFFF`` because
 CPU torch has no uint32 ``>>``/``+``/``min``.
 
-Control block ``ctl`` (int32 [CTL_SIZE], on the frontier's device) holds
-the loop carry of the reference's ``while_loop`` plus this level's
-counters; every stage returns at once when ``ctl[CTL_GO] == 0``, so a
-host may enqueue more levels than will run and a chunk still stops
-exactly where the reference's loop does.
+Control blocks ``ctl`` (int32 [nb, CTL_SIZE], on the frontier's device)
+hold each member's loop carry of the reference's ``while_loop``, its true
+op counts ``nD``/``nO`` (the tables are padded to the batch's common
+``ND``/``NO``) and this level's counters; every stage returns at once for
+a member whose ``ctl[CTL_GO] == 0``, so a host may enqueue more levels
+than will run and each member still stops exactly where the reference's
+loop does.
 """
 
 from __future__ import annotations
@@ -54,14 +62,17 @@ M32 = 0xFFFFFFFF
 LEVEL_STAT_ROWS = 512
 
 (CTL_LVL, CTL_ACC, CTL_OVF, CTL_FMAX, CTL_STUCK, CTL_MAXLVL, CTL_LOSSY,
- CTL_GO, CTL_FCOUNT, CTL_NEXP, CTL_ACCNOW, CTL_ROWOVF, CTL_COUNT) = range(13)
+ CTL_GO, CTL_FCOUNT, CTL_NEXP, CTL_ACCNOW, CTL_ROWOVF, CTL_COUNT, CTL_ND,
+ CTL_NO) = range(15)
 CTL_SIZE = 16
+# A member is a grid coordinate (blockIdx.y) of the batched launches.
+MAX_MEMBERS = 65535
 
 # Launch counts per wrapper (kernel launches only; the CPU path counts
 # nothing). ``reset_launches`` zeroes them.
 LAUNCHES = {name: 0 for name in (
     "wgl_chunk_init", "wgl_expand", "wgl_stage1_hash", "wgl_take_col",
-    "radix_sort_pairs", "wgl_prune", "wgl_gather_finalize")}
+    "radix_sort_pairs", "wgl_prune", "wgl_gather_finalize", "wgl_regroup")}
 
 
 def reset_launches() -> None:
@@ -71,7 +82,9 @@ def reset_launches() -> None:
 
 @dataclass(frozen=True)
 class Geometry:
-    """Static shape of one level at capacity ``F`` (see ``wgl.level_geometry``)."""
+    """Static shape of one level at capacity ``F``, shared by every member
+    of a batch (see ``wgl.level_geometry``). A member's true op counts are
+    in its control block."""
 
     F: int
     W: int
@@ -79,8 +92,6 @@ class Geometry:
     S: int
     ND: int
     NO: int
-    nD: int
-    nO: int
     B: int  # expansion width per config (== C when selection is off)
     SEL: bool
     two_stage: bool
@@ -125,36 +136,39 @@ def _nblk(n: int, per: int) -> int:
     return max(1, -(-n // per))
 
 
-def sort_scratch(n: int, device) -> tuple:
-    """Scratch of :func:`radix_sort_pairs` for ``n`` pairs: the ping-pong
-    key/value buffers ``[2, n]`` and the per-tile digit histogram."""
-    return (torch.empty((2, n), dtype=torch.int32, device=device),
-            torch.empty((256 * _nblk(n, _build.RS_TILE),), dtype=torch.int32,
+def sort_scratch(n: int, device, nb: int = 1) -> tuple:
+    """Scratch of :func:`radix_sort_pairs` for ``nb`` rows of ``n`` pairs:
+    the ping-pong key and value buffers ``[2, nb, n]`` and each member's
+    per-tile digit histogram ``[nb, 256 * tiles]``."""
+    return (torch.empty((2, nb, n), dtype=torch.int32, device=device),
+            torch.empty((nb, 256 * _nblk(n, _build.RS_TILE)), dtype=torch.int32,
                         device=device))
 
 
-class Workspace:
-    """Per-capacity buffers of the level pipeline, scratch included, made
-    once so a level allocates nothing."""
+class BatchWorkspace:
+    """Per-capacity buffers of the level pipeline for ``nb`` members,
+    scratch included, made once (per rung) so a level allocates nothing."""
 
-    def __init__(self, g: Geometry, device: torch.device):
+    def __init__(self, g: Geometry, nb: int, device):
         i32, u8 = torch.int32, torch.uint8
         L = g.L
-        self.rows = torch.zeros((g.M, g.NC), dtype=i32, device=device)
-        self.nvalid = torch.zeros((g.M,), dtype=u8, device=device)
-        self.drows = (torch.zeros((g.P, g.NC), dtype=i32, device=device)
+        self.nb = nb
+        self.rows = torch.zeros((nb, g.M, g.NC), dtype=i32, device=device)
+        self.nvalid = torch.zeros((nb, g.M), dtype=u8, device=device)
+        self.drows = (torch.zeros((nb, g.P, g.NC), dtype=i32, device=device)
                       if g.two_stage else self.rows)
-        self.fkey = torch.zeros((L,), dtype=i32, device=device)
-        self.keys = torch.zeros((L,), dtype=i32, device=device)
-        self.perm = torch.zeros((L,), dtype=i32, device=device)
-        self.fprio = torch.zeros((L,), dtype=i32, device=device)
-        self.order = torch.zeros((L,), dtype=i32, device=device)
-        self.iota = torch.arange(L, dtype=i32, device=device)
-        self.ctl = torch.zeros((CTL_SIZE,), dtype=i32, device=device)
-        self.stats = torch.zeros((LEVEL_STAT_ROWS, 4), dtype=i32, device=device)
-        self.sort = sort_scratch(L, device)
-        self.flags = torch.empty((L,), dtype=u8, device=device)  # prune
-        self.blk = torch.empty((_nblk(g.M, 1024),), dtype=i32, device=device)  # block sums
+        self.fkey = torch.zeros((nb, L), dtype=i32, device=device)
+        self.keys = torch.zeros((nb, L), dtype=i32, device=device)
+        self.perm = torch.zeros((nb, L), dtype=i32, device=device)
+        self.fprio = torch.zeros((nb, L), dtype=i32, device=device)
+        self.order = torch.zeros((nb, L), dtype=i32, device=device)
+        self.iota = torch.arange(L, dtype=i32, device=device).repeat(nb, 1)
+        self.ctl = torch.zeros((nb, CTL_SIZE), dtype=i32, device=device)
+        self.stats = torch.zeros((nb, LEVEL_STAT_ROWS, 4), dtype=i32, device=device)
+        self.sort = sort_scratch(L, device, nb)
+        self.flags = torch.empty((nb, L), dtype=u8, device=device)  # prune
+        # block sums of the compaction and the prune, [nb, blocks]
+        self.blk = torch.empty((nb, _nblk(g.M, 1024)), dtype=i32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +203,7 @@ def _go(ctl: torch.Tensor) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Plain versions
+# Plain versions, one member each (a member's views of the batched buffers)
 
 
 def chunk_init_reference(ctl: torch.Tensor, valid: torch.Tensor) -> None:
@@ -205,8 +219,9 @@ def chunk_init_reference(ctl: torch.Tensor, valid: torch.Tensor) -> None:
 def expand_reference(g: Geometry, tabs: dict, fr: tuple, ctl: torch.Tensor,
                      rows: torch.Tensor, nvalid: torch.Tensor,
                      step=None) -> None:
-    """Plain version of ``k_expand`` (reference ``ops/wgl.py:363-490``).
-    ``step`` is the model's ``step_torch``; None means cas-register."""
+    """Plain version of ``k_expand`` (reference ``ops/wgl.py:363-490``) for
+    one member. ``step`` is the model's ``step_torch``; None means
+    cas-register."""
     if not _go(ctl):
         return
     if step is None:
@@ -215,13 +230,14 @@ def expand_reference(g: Geometry, tabs: dict, fr: tuple, ctl: torch.Tensor,
     p, mD, mO, st, valid = fr
     dev = p.device
     F, W, KD, KO, C = g.F, g.W, g.KD, g.KO, g.C
+    nD, nO = int(ctl[CTL_ND]), int(ctl[CTL_NO])
     OB = 32 * KO
     i64 = torch.int64
     tabD, sufret = tabs["tabD"], tabs["sufret"]
     slots = torch.arange(W, device=dev, dtype=i64)
     p64 = p.to(i64)
     rws = p64[:, None] + slots[None, :]
-    in_rng = rws < g.nD
+    in_rng = rws < nD
     win = tabD[rws.clamp(max=g.ND - 1)].to(i64)  # [F, W, 8]
     big = torch.full_like(rws, INT32_MAX)
     invw = torch.where(in_rng, win[..., 0], big)
@@ -235,7 +251,7 @@ def expand_reference(g: Geometry, tabs: dict, fr: tuple, ctl: torch.Tensor,
                      torch.full_like(rws, W)).min(dim=1).values
     is_am = slots[None, :] == am[:, None]
     m2 = torch.where(is_am, big, vals).min(dim=1).values
-    tail = sufret.to(i64)[(p64 + W).clamp(max=g.nD)]
+    tail = sufret.to(i64)[(p64 + W).clamp(max=nD)]
     minret_all = torch.minimum(m1, tail)
     minret_excl = torch.minimum(torch.where(is_am, m2[:, None], m1[:, None]),
                                 tail[:, None])
@@ -246,7 +262,7 @@ def expand_reference(g: Geometry, tabs: dict, fr: tuple, ctl: torch.Tensor,
     if KO:
         oslots = torch.arange(OB, device=dev, dtype=i64)
         oc = oslots.clamp(max=g.NO - 1)
-        o_in = (oslots < g.nO)[None, :]
+        o_in = (oslots < nO)[None, :]
         invo = torch.where(o_in, tabs["invO"].to(i64)[oc][None, :],
                            torch.full((1, OB), INT32_MAX, dtype=i64, device=dev))
         obits = (_u32(mO)[:, oslots // 32] >> (oslots % 32)) & 1
@@ -312,7 +328,7 @@ def expand_reference(g: Geometry, tabs: dict, fr: tuple, ctl: torch.Tensor,
     rows.copy_(_i32(torch.stack(cols, dim=1)))
     nvalid.copy_(cand.to(torch.uint8))
     n_exp = int(cand.sum())
-    acc_now = bool((cand & (np_ >= g.nD)).any())
+    acc_now = bool((cand & (np_ >= nD)).any())
     ctl[CTL_NEXP] += n_exp
     ctl[CTL_ACCNOW] |= int(acc_now)
     ctl[CTL_ROWOVF] |= int(row_ovf)
@@ -450,8 +466,81 @@ def gather_finalize_reference(g: Geometry, drows: torch.Tensor,
     ctl.copy_(torch.tensor(c, dtype=torch.int32))
 
 
+def regroup_reference(fr: tuple, idx, F_new: int) -> tuple:
+    """Plain version of ``wgl_regroup`` (reference ``parallel/batch.py:95``
+    ``_regroup_program``): the members ``idx`` of the stacked frontier
+    ``fr`` (five ``[nb, F_old, ...]`` arrays), zero-padded on the capacity
+    axis to ``F_new``. An index may repeat."""
+    ix = torch.as_tensor(list(idx), dtype=torch.long, device=fr[0].device)
+    out = []
+    for a in fr:
+        o = torch.zeros((len(ix), F_new) + tuple(a.shape[2:]), dtype=a.dtype,
+                        device=a.device)
+        o[:, : a.shape[1]] = a[ix]
+        out.append(o)
+    return tuple(out)
+
+
 # ---------------------------------------------------------------------------
-# Kernel wrappers
+# Plain batched stages: one member's plain stage, run once per member
+
+
+def _member(a, b: int):
+    if isinstance(a, torch.Tensor):
+        return a[b]
+    if isinstance(a, dict):
+        return {k: v[b] for k, v in a.items()}
+    if isinstance(a, tuple):
+        return tuple(_member(x, b) for x in a)
+    return a
+
+
+def _members(args) -> int:
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            return a.shape[0]
+        if isinstance(a, (dict, tuple)):
+            vals = a.values() if isinstance(a, dict) else a
+            n = _members(vals)
+            if n is not None:
+                return n
+    return None
+
+
+def vmap_members(ref):
+    """The batched plain version of a one-member plain stage: ``ref`` run
+    once per member on member views of every batched argument (tensors,
+    and dicts or tuples of them; anything else is passed as it is). This
+    is what the reference's ``vmap`` means; the CPU path and ``plain=True``
+    use it."""
+
+    def run(*args):
+        for b in range(_members(args)):
+            ref(*(_member(a, b) for a in args))
+
+    run.__name__ = ref.__name__.replace("_reference", "_plain")
+    run.__doc__ = f"Per-member loop of :func:`{ref.__name__}`."
+    return run
+
+
+chunk_init_plain = vmap_members(chunk_init_reference)
+expand_plain = vmap_members(expand_reference)
+stage1_hash_plain = vmap_members(stage1_hash_reference)
+take_col_plain = vmap_members(take_col_reference)
+prune_plain = vmap_members(prune_reference)
+gather_finalize_plain = vmap_members(gather_finalize_reference)
+
+
+def radix_sort_pairs_plain(keys: torch.Tensor, vals: torch.Tensor,
+                           scratch: Optional[tuple] = None,
+                           ctl: Optional[torch.Tensor] = None) -> None:
+    """Per-member loop of :func:`radix_sort_pairs_reference` (the kernel's
+    scratch is not member-major and is not used)."""
+    vmap_members(radix_sort_pairs_reference)(keys, vals, None, ctl)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers: one launch per stage for the whole batch
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -479,6 +568,19 @@ def _check_cuda(*ts: Optional[torch.Tensor]) -> None:
             raise ValueError("kernel arguments on different devices")
 
 
+def _check_shapes(name: str, *pairs) -> None:
+    """Each ``(tensor, shape)`` pair must match exactly."""
+    for t, shape in pairs:
+        if t.shape != shape:
+            raise ValueError(f"{name}: buffer of shape {tuple(t.shape)}, expected "
+                             f"{tuple(shape)}")
+
+
+def _check_members(nb: int) -> None:
+    if not 1 <= nb <= MAX_MEMBERS:
+        raise ValueError(f"batch of {nb} members; the kernels take 1..{MAX_MEMBERS}")
+
+
 def _launch(name: str, *args) -> None:
     fn = getattr(_build.load(), name)
     rc = fn(*args)
@@ -488,11 +590,19 @@ def _launch(name: str, *args) -> None:
 
 
 def chunk_init(ctl: torch.Tensor, valid: torch.Tensor) -> None:
+    """Each member's frontier count and stop test (``ctl [nb, CTL_SIZE]``,
+    ``valid [nb, F]``)."""
     if ctl.device.type == "cpu":
-        return chunk_init_reference(ctl, valid)
+        return chunk_init_plain(ctl, valid)
+    _launch("wgl_chunk_init", *_chunk_init_args(ctl, valid))
+
+
+def _chunk_init_args(ctl, valid) -> tuple:
     _check_cuda(ctl, valid)
-    _launch("wgl_chunk_init", _ptr(ctl), _ptr(valid), ctypes.c_int(valid.shape[0]),
-            _stream())
+    nb, F = valid.shape
+    _check_members(nb)
+    _check_shapes("chunk_init", (ctl, (nb, CTL_SIZE)))
+    return _ptr(ctl), _ptr(valid), ctypes.c_int(F), ctypes.c_int(nb), _stream()
 
 
 def _is_cas_register_step(step) -> bool:
@@ -506,114 +616,194 @@ def expand(g: Geometry, tabs: dict, fr: tuple, ctl: torch.Tensor,
     """Stage K1 (see module docstring). The kernel inlines the
     cas-register step, which ``register`` shares."""
     if ctl.device.type == "cpu":
-        return expand_reference(g, tabs, fr, ctl, rows, nvalid, step)
+        return expand_plain(g, tabs, fr, ctl, rows, nvalid, step)
+    _launch("wgl_expand", *_expand_args(g, tabs, fr, ctl, rows, nvalid, step))
+
+
+def _expand_args(g, tabs, fr, ctl, rows, nvalid, step) -> tuple:
     if not _is_cas_register_step(step) or g.S != 1:
         raise ValueError("the CUDA expand kernel implements the cas-register "
                          "step only; other models come in a later slice")
     p, mD, mO, st, valid = fr
-    _check_cuda(tabs["tabD"], tabs["sufret"], tabs["invO"], tabs["opO"],
-                tabs["a1O"], tabs["a2O"], p, mD, mO, st, valid, ctl, rows, nvalid)
-    if rows.shape != (g.M, g.NC) or nvalid.shape != (g.M,) or p.shape != (g.F,):
-        raise ValueError("expand: buffer shapes do not match the geometry")
+    t = tabs
+    _check_cuda(t["tabD"], t["sufret"], t["invO"], t["opO"], t["a1O"], t["a2O"],
+                p, mD, mO, st, valid, ctl, rows, nvalid)
+    nb = ctl.shape[0]
+    _check_members(nb)
+    F = g.F
+    _check_shapes("expand", (ctl, (nb, CTL_SIZE)), (t["tabD"], (nb, g.ND, 8)),
+                  (t["sufret"], (nb, g.ND + 1)), (t["invO"], (nb, g.NO)),
+                  (t["opO"], (nb, g.NO)), (t["a1O"], (nb, g.NO)), (t["a2O"], (nb, g.NO)),
+                  (p, (nb, F)), (mD, (nb, F, g.KD)), (mO, (nb, F, g.KO1)),
+                  (st, (nb, F, g.S)), (valid, (nb, F)), (rows, (nb, g.M, g.NC)),
+                  (nvalid, (nb, g.M)))
     ci = ctypes.c_int
-    _launch("wgl_expand",
-            _ptr(tabs["tabD"]), _ptr(tabs["sufret"]), _ptr(tabs["invO"]),
-            _ptr(tabs["opO"]), _ptr(tabs["a1O"]), _ptr(tabs["a2O"]),
+    return (_ptr(t["tabD"]), _ptr(t["sufret"]), _ptr(t["invO"]),
+            _ptr(t["opO"]), _ptr(t["a1O"]), _ptr(t["a2O"]),
             _ptr(p), _ptr(mD), _ptr(mO), _ptr(st), _ptr(valid),
             _ptr(ctl), _ptr(rows), _ptr(nvalid),
-            ci(g.F), ci(g.W), ci(g.KO), ci(g.nD), ci(g.nO), ci(g.ND), ci(g.NO),
-            ci(g.B if g.SEL else 0), _stream())
+            ci(F), ci(g.W), ci(g.KO), ci(g.ND), ci(g.NO), ci(g.B if g.SEL else 0),
+            ci(nb), _stream())
 
 
 def stage1_hash(g: Geometry, rows: torch.Tensor, nvalid: torch.Tensor,
                 ctl: torch.Tensor, drows: torch.Tensor, fkey: torch.Tensor,
                 blk: torch.Tensor) -> None:
-    """Stage K2 (see module docstring). ``blk``: ``Workspace.blk``, the
-    per-block counts of the two-stage compaction."""
+    """Stage K2 (see module docstring). ``blk``: ``BatchWorkspace.blk``,
+    the per-block counts of the two-stage compaction."""
     if ctl.device.type == "cpu":
-        return stage1_hash_reference(g, rows, nvalid, ctl, drows, fkey)
+        return stage1_hash_plain(g, rows, nvalid, ctl, drows, fkey, blk)
+    _launch("wgl_stage1_hash", *_stage1_hash_args(g, rows, nvalid, ctl, drows, fkey, blk))
+
+
+def _stage1_hash_args(g, rows, nvalid, ctl, drows, fkey, blk) -> tuple:
     _check_cuda(rows, nvalid, ctl, drows, fkey, blk)
-    if fkey.shape != (g.L,) or drows.shape != (g.L, g.NC) \
-            or blk.numel() < _nblk(g.M, 1024):
-        raise ValueError("stage1_hash: buffer shapes do not match the geometry")
+    nb = ctl.shape[0]
+    _check_members(nb)
+    _check_shapes("stage1_hash", (ctl, (nb, CTL_SIZE)), (rows, (nb, g.M, g.NC)),
+                  (nvalid, (nb, g.M)), (drows, (nb, g.L, g.NC)), (fkey, (nb, g.L)))
+    if blk.numel() < nb * _nblk(g.M, 1024):
+        raise ValueError("stage1_hash: block-count scratch too small")
     ci = ctypes.c_int
-    _launch("wgl_stage1_hash", _ptr(rows), _ptr(nvalid), _ptr(ctl), _ptr(drows),
-            _ptr(fkey), _ptr(blk), ci(g.M), ci(g.NC), ci(g.NID),
-            ci(g.P if g.two_stage else 0), _stream())
+    return (_ptr(rows), _ptr(nvalid), _ptr(ctl), _ptr(drows), _ptr(fkey), _ptr(blk),
+            ci(g.M), ci(g.NC), ci(g.NID), ci(g.P if g.two_stage else 0), ci(nb), _stream())
 
 
 def take_col(src: torch.Tensor, col: int, idx: torch.Tensor, out: torch.Tensor,
              ctl: Optional[torch.Tensor] = None) -> None:
-    """``out[i] = src[idx[i], col]`` (``src`` 2-D, or 1-D with ``col=0``)."""
+    """``out[b, i] = src[b, idx[b, i], col]`` (``src [nb, L, NC]``, or
+    ``[nb, L]`` with ``col=0``)."""
     if src.device.type == "cpu":
-        return take_col_reference(src, col, idx, out, ctl)
+        return take_col_plain(src, col, idx, out, ctl)
+    _launch("wgl_take_col", *_take_col_args(src, col, idx, out, ctl))
+
+
+def _take_col_args(src, col, idx, out, ctl) -> tuple:
     _check_cuda(src, idx, out, ctl)
-    stride = src.shape[1] if src.dim() == 2 else 1
-    if not 0 <= col < stride or idx.shape != out.shape:
+    nb, n = out.shape
+    _check_members(nb)
+    stride = src.shape[2] if src.dim() == 3 else 1
+    if src.dim() not in (2, 3) or src.shape[0] != nb or not 0 <= col < stride \
+            or idx.shape != out.shape:
         raise ValueError("take_col: bad column or shapes")
+    if ctl is not None:
+        _check_shapes("take_col", (ctl, (nb, CTL_SIZE)))
     ci = ctypes.c_int
-    _launch("wgl_take_col", _ptr(src), ci(stride), ci(col), _ptr(idx), _ptr(out),
-            ci(out.shape[0]), _ptr(ctl), _stream())
+    return (_ptr(src), ctypes.c_long(src.stride(0)), ci(stride), ci(col), _ptr(idx),
+            _ptr(out), ci(n), ci(nb), _ptr(ctl), _stream())
 
 
 def radix_sort_pairs(keys: torch.Tensor, vals: torch.Tensor, scratch: tuple,
                      ctl: Optional[torch.Tensor] = None) -> None:
-    """Stage K3: stable ascending sort of (u32 key, u32 value) pairs, in
-    place. ``scratch`` is ``(tmp, hist)`` from :func:`sort_scratch` (a
-    :class:`Workspace` holds one)."""
+    """Stage K3: stable ascending sort of each member's row of (u32 key,
+    u32 value) pairs (``[nb, n]``), in place. ``scratch`` is ``(tmp,
+    hist)`` from :func:`sort_scratch` (a :class:`BatchWorkspace` holds
+    one)."""
     if keys.device.type == "cpu":
-        return radix_sort_pairs_reference(keys, vals, scratch, ctl)
+        return radix_sort_pairs_plain(keys, vals, scratch, ctl)
+    _launch("radix_sort_pairs", *_radix_sort_pairs_args(keys, vals, scratch, ctl))
+
+
+def _radix_sort_pairs_args(keys, vals, scratch, ctl) -> tuple:
     tmp, hist = scratch
     _check_cuda(keys, vals, tmp, hist, ctl)
-    n = keys.shape[0]
-    if vals.shape != (n,):
-        raise ValueError("radix_sort_pairs: keys and values differ in length")
-    if tmp.dim() != 2 or tmp.shape[0] != 2 or tmp.shape[1] < n \
-            or hist.numel() < 256 * _nblk(n, _build.RS_TILE):
-        raise ValueError("radix_sort_pairs: scratch too small (see sort_scratch)")
-    _launch("radix_sort_pairs", _ptr(keys), _ptr(vals), _ptr(tmp[0]), _ptr(tmp[1]),
-            _ptr(hist), ctypes.c_int(n), _ptr(ctl), _stream())
+    if keys.dim() != 2:
+        raise ValueError("radix_sort_pairs: keys must be [nb, n]")
+    nb, n = keys.shape
+    _check_members(nb)
+    if vals.shape != keys.shape:
+        raise ValueError("radix_sort_pairs: keys and values differ in shape")
+    if tmp.shape != (2, nb, n) or hist.numel() < nb * 256 * _nblk(n, _build.RS_TILE):
+        raise ValueError("radix_sort_pairs: scratch does not fit (see sort_scratch)")
+    if ctl is not None:
+        _check_shapes("radix_sort_pairs", (ctl, (nb, CTL_SIZE)))
+    return (_ptr(keys), _ptr(vals), _ptr(tmp[0]), _ptr(tmp[1]), _ptr(hist),
+            ctypes.c_int(n), ctypes.c_int(nb), _ptr(ctl), _stream())
 
 
 def prune(g: Geometry, drows: torch.Tensor, skey: torch.Tensor,
           perm: torch.Tensor, ctl: torch.Tensor, fprio: torch.Tensor,
           flags: torch.Tensor, blk: torch.Tensor) -> None:
     """Stage K4 (see module docstring). ``flags`` and ``blk``:
-    ``Workspace.flags`` and ``Workspace.blk`` (per-row flags, per-block
+    ``BatchWorkspace.flags`` and ``.blk`` (per-row flags, per-block
     segment starts)."""
     if ctl.device.type == "cpu":
-        return prune_reference(g, drows, skey, perm, ctl, fprio)
+        return prune_plain(g, drows, skey, perm, ctl, fprio, flags, blk)
+    _launch("wgl_prune", *_prune_args(g, drows, skey, perm, ctl, fprio, flags, blk))
+
+
+def _prune_args(g, drows, skey, perm, ctl, fprio, flags, blk) -> tuple:
     _check_cuda(drows, skey, perm, ctl, fprio, flags, blk)
-    L = skey.shape[0]
-    if perm.shape != (L,) or fprio.shape != (L,) or drows.shape[1] != g.NC \
-            or flags.numel() < L or blk.numel() < _nblk(L, 1024):
-        raise ValueError("prune: buffer shapes do not match the geometry")
+    nb, L = skey.shape
+    _check_members(nb)
+    _check_shapes("prune", (ctl, (nb, CTL_SIZE)), (perm, (nb, L)), (fprio, (nb, L)),
+                  (drows, (nb, L, g.NC)))
+    if flags.numel() < nb * L or blk.numel() < nb * _nblk(L, 1024):
+        raise ValueError("prune: scratch too small")
     ci = ctypes.c_int
-    _launch("wgl_prune", _ptr(drows), _ptr(skey), _ptr(perm), _ptr(ctl),
-            _ptr(fprio), _ptr(flags), _ptr(blk), ci(L), ci(g.NC), ci(g.NID),
-            ci(g.KO1), ci(g.PB), _stream())
+    return (_ptr(drows), _ptr(skey), _ptr(perm), _ptr(ctl), _ptr(fprio), _ptr(flags),
+            _ptr(blk), ci(L), ci(g.NC), ci(g.NID), ci(g.KO1), ci(g.PB), ci(nb), _stream())
 
 
 def gather_finalize(g: Geometry, drows: torch.Tensor, perm: torch.Tensor,
                     order: torch.Tensor, ctl: torch.Tensor, stats: torch.Tensor,
                     fr: tuple) -> None:
-    """Stage K5 (see module docstring). Writes the frontier in place."""
+    """Stage K5 (see module docstring). Writes each member's frontier in
+    place."""
     if ctl.device.type == "cpu":
-        return gather_finalize_reference(g, drows, perm, order, ctl, stats, fr)
+        return gather_finalize_plain(g, drows, perm, order, ctl, stats, fr)
+    _launch("wgl_gather_finalize", *_gather_finalize_args(g, drows, perm, order, ctl, stats, fr))
+
+
+def _gather_finalize_args(g, drows, perm, order, ctl, stats, fr) -> tuple:
     p, mD, mO, st, valid = fr
     _check_cuda(drows, perm, order, ctl, stats, p, mD, mO, st, valid)
-    if p.shape != (g.F,) or mD.shape != (g.F, g.KD) or mO.shape != (g.F, g.KO1) \
-            or st.shape != (g.F, g.S) or stats.shape != (LEVEL_STAT_ROWS, 4):
-        raise ValueError("gather_finalize: frontier shapes do not match the geometry")
+    nb = ctl.shape[0]
+    _check_members(nb)
+    F, L = g.F, g.L
+    _check_shapes("gather_finalize", (ctl, (nb, CTL_SIZE)), (drows, (nb, L, g.NC)),
+                  (perm, (nb, L)), (order, (nb, L)), (p, (nb, F)), (mD, (nb, F, g.KD)),
+                  (mO, (nb, F, g.KO1)), (st, (nb, F, g.S)), (valid, (nb, F)),
+                  (stats, (nb, LEVEL_STAT_ROWS, 4)))
     ci = ctypes.c_int
-    _launch("wgl_gather_finalize", _ptr(drows), _ptr(perm), _ptr(order), _ptr(ctl),
-            _ptr(stats), _ptr(p), _ptr(mD), _ptr(mO), _ptr(st), _ptr(valid),
-            ci(g.F), ci(g.NC), ci(g.KD), ci(g.S), ci(g.KO1),
-            ci(g.P if g.two_stage else 0), ci(LEVEL_STAT_ROWS), _stream())
+    return (_ptr(drows), _ptr(perm), _ptr(order), _ptr(ctl), _ptr(stats), _ptr(p), _ptr(mD),
+            _ptr(mO), _ptr(st), _ptr(valid), ci(F), ci(L), ci(g.NC), ci(g.KD), ci(g.S),
+            ci(g.KO1), ci(g.P if g.two_stage else 0), ci(LEVEL_STAT_ROWS), ci(nb), _stream())
+
+
+def regroup(fr: tuple, idx, F_new: int) -> tuple:
+    """The members ``idx`` (host integers; an index may repeat) of the
+    stacked frontier ``fr`` (``p [nb, F]``, ``mD [nb, F, KD]``, ``mO [nb,
+    F, KO1]``, ``st [nb, F, S]``, ``valid [nb, F]``), zero-padded on the
+    capacity axis to ``F_new``: new buffers ``[len(idx), F_new, ...]``."""
+    idx = [int(i) for i in idx]
+    p, mD, mO, st, valid = fr
+    nb, F_old = p.shape
+    if F_new < F_old:
+        raise ValueError(f"regroup: F_new {F_new} below the current capacity {F_old}")
+    if any(not 0 <= i < nb for i in idx):
+        raise ValueError(f"regroup: member index out of range 0..{nb - 1}")
+    if p.device.type == "cpu":
+        return regroup_reference(fr, idx, F_new)
+    _check_cuda(p, mD, mO, st, valid)
+    n_new = len(idx)
+    _check_shapes("regroup", (mD, (nb, F_old, mD.shape[2])), (mO, (nb, F_old, mO.shape[2])),
+                  (st, (nb, F_old, st.shape[2])), (valid, (nb, F_old)))
+    out = tuple(torch.empty((n_new, F_new) + tuple(a.shape[2:]), dtype=a.dtype,
+                            device=a.device) for a in fr)
+    if n_new == 0:
+        return out
+    # A copy from pinned memory does not wait for the stream's queued work.
+    ix = torch.tensor(idx, dtype=torch.int32).pin_memory().to(p.device, non_blocking=True)
+    ci = ctypes.c_int
+    _launch("wgl_regroup", *(_ptr(a) for a in fr), *(_ptr(a) for a in out), _ptr(ix),
+            ci(n_new), ci(F_old), ci(F_new), ci(mD.shape[2]), ci(mO.shape[2]),
+            ci(st.shape[2]), _stream())
+    return out
 
 
 class _Stages:
-    """One implementation of every stage, for :func:`run_level`."""
+    """One implementation of every stage, for :func:`run_level_batch`."""
 
     def __init__(self, **fns):
         self.__dict__.update(fns)
@@ -621,66 +811,142 @@ class _Stages:
 
 KERNELS = _Stages(chunk_init=chunk_init, expand=expand, stage1_hash=stage1_hash,
                   take_col=take_col, radix_sort_pairs=radix_sort_pairs,
-                  prune=prune, gather_finalize=gather_finalize)
-PLAIN = _Stages(chunk_init=chunk_init_reference, expand=expand_reference,
-                stage1_hash=stage1_hash_reference, take_col=take_col_reference,
-                radix_sort_pairs=radix_sort_pairs_reference,
-                prune=prune_reference, gather_finalize=gather_finalize_reference)
+                  prune=prune, gather_finalize=gather_finalize, regroup=regroup)
+PLAIN = _Stages(chunk_init=chunk_init_plain, expand=expand_plain,
+                stage1_hash=stage1_hash_plain, take_col=take_col_plain,
+                radix_sort_pairs=radix_sort_pairs_plain, prune=prune_plain,
+                gather_finalize=gather_finalize_plain, regroup=regroup_reference)
 
 
-def run_level(ops: _Stages, g: Geometry, tabs: dict, fr: tuple, ws: Workspace,
-              step=None) -> None:
-    """Enqueue one BFS level (every stage returns at once once the
-    control block says stop)."""
+def _level_stages(g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace,
+                  step=None) -> list:
+    """One BFS level for every member, in order, as ``(stage, arguments)``
+    pairs: one call per stage for the whole batch (each stage returns at
+    once for a member whose control block says stop). ``"reset"`` copies
+    ``ws.iota`` into an index buffer."""
     ctl = ws.ctl
-    ops.expand(g, tabs, fr, ctl, ws.rows, ws.nvalid, step)
-    ops.stage1_hash(g, ws.rows, ws.nvalid, ctl, ws.drows, ws.fkey, ws.blk)
+    out = [("expand", (g, tabs, fr, ctl, ws.rows, ws.nvalid, step)),
+           ("stage1_hash", (g, ws.rows, ws.nvalid, ctl, ws.drows, ws.fkey, ws.blk)),
+           ("reset", (ws.perm, ws.iota))]
     # Dedup order: lexicographic over (fkey, open-mask words), built as
     # stable sorts from the last key to the first. With no open ops the
     # single open column is all zeros and sorts as the identity.
-    ws.perm.copy_(ws.iota)
-    if g.KO:
-        for w in reversed(range(g.KO1)):
-            ops.take_col(ws.drows, g.NID + w, ws.perm, ws.keys, ctl)
-            ops.radix_sort_pairs(ws.keys, ws.perm, ws.sort, ctl)
-    ops.take_col(ws.fkey, 0, ws.perm, ws.keys, ctl)
-    ops.radix_sort_pairs(ws.keys, ws.perm, ws.sort, ctl)
-    ops.prune(g, ws.drows, ws.keys, ws.perm, ctl, ws.fprio, ws.flags, ws.blk)
-    # Compaction order: (priority, position) — stability is the tiebreak.
-    ws.order.copy_(ws.iota)
-    ops.radix_sort_pairs(ws.fprio, ws.order, ws.sort, ctl)
-    ops.gather_finalize(g, ws.drows, ws.perm, ws.order, ctl, ws.stats, fr)
+    cols = [(ws.drows, g.NID + w) for w in reversed(range(g.KO1))] if g.KO else []
+    for src, col in cols + [(ws.fkey, 0)]:
+        out += [("take_col", (src, col, ws.perm, ws.keys, ctl)),
+                ("radix_sort_pairs", (ws.keys, ws.perm, ws.sort, ctl))]
+    out += [("prune", (g, ws.drows, ws.keys, ws.perm, ctl, ws.fprio, ws.flags, ws.blk)),
+            # Compaction order: (priority, position) — stability is the tiebreak.
+            ("reset", (ws.order, ws.iota)),
+            ("radix_sort_pairs", (ws.fprio, ws.order, ws.sort, ctl)),
+            ("gather_finalize", (g, ws.drows, ws.perm, ws.order, ctl, ws.stats, fr))]
+    return out
 
 
-def run_chunk(ops: _Stages, g: Geometry, tabs: dict, fr: tuple, ws: Workspace,
-              lvl0: int, max_levels: int, lossy: bool, step=None) -> list:
-    """Run levels from ``lvl0`` until a stop condition or ``max_levels``
-    (the reference's ``while_loop``). Returns the packed flags
-    ``[acc, ovf, nonempty, lvl, fmax, count]``; the frontier ``fr`` is
-    updated in place and ``ws.stats`` holds the per-level ring.
+def run_level_batch(ops: _Stages, g: Geometry, tabs: dict, fr: tuple,
+                    ws: BatchWorkspace, step=None) -> None:
+    """Enqueue one BFS level for every member through ``ops``."""
+    for stage, args in _level_stages(g, tabs, fr, ws, step):
+        if stage == "reset":
+            args[0].copy_(args[1])
+        else:
+            getattr(ops, stage)(*args)
 
-    On the GPU the host enqueues levels in growing batches and reads the
-    control block once per batch; levels enqueued past a stop return at
-    once."""
+
+# stage -> (kernel entry point, its argument check and packing)
+_PACKERS = {"expand": ("wgl_expand", _expand_args),
+            "stage1_hash": ("wgl_stage1_hash", _stage1_hash_args),
+            "take_col": ("wgl_take_col", _take_col_args),
+            "radix_sort_pairs": ("radix_sort_pairs", _radix_sort_pairs_args),
+            "prune": ("wgl_prune", _prune_args),
+            "gather_finalize": ("wgl_gather_finalize", _gather_finalize_args)}
+
+
+class _LevelProgram:
+    """:func:`run_level_batch` on the kernels with every launch's arguments
+    checked and packed once (per chunk: the buffers do not change between
+    its levels), so enqueueing a level costs only its ctypes calls and two
+    copies."""
+
+    def __init__(self, g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace, step=None):
+        lib = _build.load()
+        self.steps = []
+        for stage, args in _level_stages(g, tabs, fr, ws, step):
+            if stage == "reset":
+                self.steps.append((None, args[0].copy_, (args[1],)))
+            else:
+                name, pack = _PACKERS[stage]
+                self.steps.append((name, getattr(lib, name), pack(*args)))
+
+    def __call__(self) -> None:
+        for name, fn, args in self.steps:
+            rc = fn(*args)
+            if name is None:
+                continue
+            if rc != 0:
+                raise RuntimeError(f"{name}: CUDA error {rc} ({_build.error_string(rc)})")
+            LAUNCHES[name] += 1
+
+
+def run_chunk_batch(ops: _Stages, g: Geometry, tabs: dict, fr: tuple,
+                    ws: BatchWorkspace, lvl0, max_levels, lossy, nD, nO,
+                    step=None) -> list:
+    """Run every member's levels from its ``lvl0`` until its stop
+    condition or its ``max_levels`` (the reference's vmapped
+    ``while_loop``). ``lvl0``, ``max_levels``, ``lossy``, ``nD`` and
+    ``nO`` hold one integer per member. Returns each member's packed flags
+    ``[acc, ovf, nonempty, lvl, fmax, count]`` (the reference's ``[nb,
+    6]``); the frontier ``fr`` is updated in place and ``ws.stats`` holds
+    each member's per-level ring.
+
+    On the GPU the host enqueues levels for the whole batch in growing
+    runs and reads the ``[nb, CTL_SIZE]`` control blocks once per run,
+    going on while any member may go on; levels enqueued past a member's
+    stop return at once. The buffers are checked once per chunk
+    (:class:`_LevelProgram`), not once per level."""
     ctl = ws.ctl
-    init = [0] * CTL_SIZE
-    init[CTL_LVL], init[CTL_FMAX] = lvl0, 1
-    init[CTL_MAXLVL], init[CTL_LOSSY] = max_levels, int(lossy)
-    ctl.copy_(torch.tensor(init, dtype=torch.int32))
+    nb = ws.nb
+    init = torch.zeros((nb, CTL_SIZE), dtype=torch.int32)
+    init[:, CTL_LVL] = torch.as_tensor(list(lvl0), dtype=torch.int32)
+    init[:, CTL_FMAX] = 1
+    init[:, CTL_MAXLVL] = torch.as_tensor(list(max_levels), dtype=torch.int32)
+    init[:, CTL_LOSSY] = torch.as_tensor([int(x) for x in lossy], dtype=torch.int32)
+    init[:, CTL_ND] = torch.as_tensor(list(nD), dtype=torch.int32)
+    init[:, CTL_NO] = torch.as_tensor(list(nO), dtype=torch.int32)
+    ctl.copy_(init)
     ws.stats.zero_()
     ops.chunk_init(ctl, fr[4])
-    remaining = max(0, max_levels - lvl0)
+    remaining = max(0, int((init[:, CTL_MAXLVL] - init[:, CTL_LVL]).max()))
     pipelined = ops is KERNELS and ctl.device.type == "cuda"
     batch = 4 if pipelined else 1
-    c = ctl.tolist()
-    while remaining > 0 and c[CTL_GO]:
+    if pipelined:
+        level = _LevelProgram(g, tabs, fr, ws, step)
+    else:
+        def level():
+            run_level_batch(ops, g, tabs, fr, ws, step)
+    c = ctl.cpu()
+    while remaining > 0 and bool(c[:, CTL_GO].any()):
         n = min(batch, remaining)
         for _ in range(n):
-            run_level(ops, g, tabs, fr, ws, step)
+            level()
         remaining -= n
         if pipelined:
             batch = min(2 * batch, 256)
-        c = ctl.tolist()
-    nonempty = int(c[CTL_FCOUNT] > 0 and not c[CTL_STUCK])
-    return [c[CTL_ACC], c[CTL_OVF], nonempty, c[CTL_LVL], c[CTL_FMAX],
-            c[CTL_FCOUNT]]
+        c = ctl.cpu()
+    out = []
+    for r in c.tolist():
+        nonempty = int(r[CTL_FCOUNT] > 0 and not r[CTL_STUCK])
+        out.append([r[CTL_ACC], r[CTL_OVF], nonempty, r[CTL_LVL], r[CTL_FMAX],
+                    r[CTL_FCOUNT]])
+    return out
+
+
+def run_chunk(ops: _Stages, g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace,
+              lvl0: int, max_levels: int, lossy: bool, nD: int, nO: int,
+              step=None) -> list:
+    """:func:`run_chunk_batch` for one search: ``tabs`` and ``fr`` are one
+    member's (``fr[0]`` is ``[F]``), ``ws`` a workspace of one member.
+    Returns the packed flags."""
+    return run_chunk_batch(ops, g, {k: t[None] for k, t in tabs.items()},
+                           tuple(a[None] for a in fr), ws, [lvl0], [max_levels],
+                           [lossy], [nD], [nO], step)[0]

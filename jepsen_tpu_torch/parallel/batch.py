@@ -1,0 +1,287 @@
+"""Batched linearizability checking: many histories, one device search.
+
+The port of the reference's ``jepsen_tpu/parallel/batch.py``: the device
+counterpart of ``jepsen.independent``'s per-key ``bounded-pmap`` and of
+the BASELINE "batch replay of 100 archived histories" config. Every
+history is planned and padded to common static dims, and the level
+kernels run all members at once on a member axis (one launch per stage
+per level for the whole batch, ``ops.wgl_level.run_chunk_batch``).
+
+**The escalation ladder.** The batch starts at a shared capacity ``f``.
+Members that overflow it are regrouped on the device (``wgl_regroup``)
+into a smaller batch at the next rung of the schedule, each resuming from
+its own kept frontier at its own level (the level program restores the
+pre-overflow frontier, so escalation is lossless). The top rung runs as a
+lossy beam per member, the single driver's rule at its schedule's top, so
+accepts that are sound under truncation land in the batch too. The serial
+single-history search is the last resort, for members the whole ladder
+leaves undecided.
+
+Each rung runs in chunks with per-member level budgets. The stacked
+tables are made once, on the device, and each rung row-selects its
+members from them (the reference instead stacks the next rung's tables
+on the host while the device runs the current chunk).
+"""
+
+from __future__ import annotations
+
+import time as _time
+from typing import Optional, Sequence
+
+import numpy as np
+
+from ..checker import provenance as _prov
+from ..devices import resolve_device
+from ..history import History
+from ..models import Model
+from ..ops import wgl
+from ..ops import wgl_level as _lv
+from ..ops.encode import EncodedHistory, encode_history
+
+_MESH_SLICE = "mesh= (a batch sharded over several GPUs) comes with a later slice " \
+    "of the port (the multi-device search)"
+_TELEMETRY_SLICE = "comes with a later slice of the port (the WGL driver's telemetry)"
+_RESILIENCE_SLICE = "retries= (the batch's retry and circuit breaker) comes with a " \
+    "later slice of the port (the checking pipeline's resilience)"
+
+
+def check_encoded_batch(
+    encs: Sequence[EncodedHistory],
+    f: int = 256,
+    mesh=None,
+    max_open: int = 128,
+    window_cap: int = 1024,
+    escalate=True,
+    f_schedule: Optional[tuple] = None,
+    levels_per_call: Optional[int] = None,
+    metrics=None,
+    chunk_callback=None,
+    retries: int = 0,
+    device=None,
+    plain: bool = False,
+) -> list[dict]:
+    """Check a batch of encoded histories (one model family) together on
+    ``device`` (the GPU unless ``device="cpu"``).
+
+    Returns one result map per history, in order, in the shape of
+    ``ops.wgl.check_encoded_device``'s: ``valid``, ``op_count``,
+    ``device``, ``levels``, ``frontier_max``, ``batched`` and, where they
+    apply, ``escalated``, ``decided_at_F``, ``rungs``, ``beam``,
+    ``max_linearized``, ``stuck_configs``, ``info`` and ``causes``.
+
+    ``escalate``: ``True`` (default) regroups members that overflow the
+    shared capacity ``f`` up ``f_schedule`` (default ``wgl.F_SCHEDULE``);
+    the serial driver sees only members the top rung leaves undecided.
+    ``"serial"`` sends every overflowing member straight to the serial
+    driver. ``False`` reports them unknown.
+
+    ``plain``: run the plain PyTorch version of every stage (a loop over
+    members) even on the GPU. ``mesh``, ``metrics``, ``chunk_callback``
+    and ``retries`` come with later slices and raise ``ValueError``."""
+    if mesh is not None:
+        raise ValueError(_MESH_SLICE)
+    if metrics is not None:
+        raise ValueError(f"metrics= {_TELEMETRY_SLICE}")
+    if chunk_callback is not None:
+        raise ValueError(f"chunk_callback= {_TELEMETRY_SLICE}")
+    if retries:
+        raise ValueError(_RESILIENCE_SLICE)
+    if not encs:
+        return []
+    return _check_encoded_batch_once(
+        encs, f=f, max_open=max_open, window_cap=window_cap, escalate=escalate,
+        f_schedule=f_schedule, levels_per_call=levels_per_call,
+        device=resolve_device(device), plain=plain)
+
+
+def _check_encoded_batch_once(encs, f, max_open, window_cap, escalate, f_schedule,
+                              levels_per_call, device, plain) -> list[dict]:
+    mk = wgl._model_cache_key(encs[0].model)
+    if any(wgl._model_cache_key(e.model) != mk for e in encs):
+        raise ValueError(
+            "check_encoded_batch requires one model family per batch; got "
+            f"{sorted({e.model.name for e in encs})}")
+    results: list[Optional[dict]] = [None] * len(encs)
+    ops = _lv.PLAIN if plain else _lv.KERNELS
+    step = encs[0].model.step_torch
+
+    # Plan each history on the host; find the common static dims.
+    plans = [wgl.plan_device(e, max_open=max_open, window_cap=window_cap, device="cpu")
+             for e in encs]
+    idx = []
+    for i, (e, p) in enumerate(zip(encs, plans)):
+        if p.nD == 0:
+            results[i] = {"valid": True, "op_count": e.n, "device": True, "levels": 0}
+        elif not p.ok:
+            results[i] = _prov.attach({
+                "valid": "unknown", "op_count": e.n, "device": True, "info": p.reason,
+            }, "encoding_unsupported", reason=p.reason)
+        else:
+            idx.append(i)
+    if not idx:
+        return results  # type: ignore[return-value]
+
+    dims = np.array([plans[i].dims for i in idx])  # (W, KO, S, ND, NO)
+    W, KO, ND, NO = (int(dims[:, k].max()) for k in (0, 1, 3, 4))
+    padded = [wgl.plan_device(encs[i], max_open=max_open, window_cap=window_cap,
+                              pad_to=(W, KO, ND, NO), device="cpu") for i in idx]
+    stack = wgl.stack_plans(padded, device)  # row r <-> encs[idx[r]]
+    CC = stack.B or (W + KO * 32)
+
+    sched = sorted(set(f_schedule if f_schedule is not None else wgl.F_SCHEDULE))
+    batched_esc = escalate is True or escalate == "batch"
+    rungs = [f] + ([x for x in sched if x > f] if batched_esc else [])
+
+    n_rows = len(padded)
+    lvls = np.zeros(n_rows, np.int64)
+    fmax_all = np.ones(n_rows, np.int64)
+    totals_all = stack.totals.numpy().astype(np.int64)
+    status = ["run"] * n_rows  # run | acc | stuck | exhausted | ovf
+    rung_stats: list[dict] = []
+    live = list(range(n_rows))
+    prev_live: list = []
+    fr5 = None  # stacked frontier of `live`, at the current capacity
+
+    for ri, F in enumerate(rungs):
+        Bk = len(live)
+        # The top rung runs as a per-member beam, as the single driver does
+        # at its schedule's top capacity: on overflow it keeps the best F
+        # configs and goes on. A single-rung ladder stays lossless (its
+        # overflow verdicts belong to the fallback policy).
+        lossy_rung = batched_esc and len(rungs) > 1 and F == rungs[-1]
+        for r in live:
+            status[r] = "run"
+        plan = stack if ri == 0 else stack.select(live)
+        if ri == 0:
+            fr5 = wgl.initial_frontier_batch(F, W, KO, plan.init_state)
+        else:
+            # Re-batch: the overflowed members' kept frontiers, regrouped on
+            # the device at the new capacity.
+            rowsel = [prev_live.index(r) for r in live]
+            fr5 = ops.regroup(fr5, rowsel, F)
+        g = wgl.level_geometry(plan, F)
+        ws = _lv.BatchWorkspace(g, Bk, device)
+        nD, nO = plan.nD.tolist(), plan.nO.tolist()
+        lpc = levels_per_call or wgl._levels_per_call(F * CC * max(1, Bk))
+        totals = totals_all[live]
+        lsub = lvls[live].copy()
+        fsub = fmax_all[live].copy()
+        active = np.ones(Bk, bool)
+        acc_s = np.zeros(Bk, bool)
+        ovf_s = np.zeros(Bk, bool)  # lossy rung: "truncated at least once"
+        stuck_s = np.zeros(Bk, bool)
+        calls = 0
+        t_rung = _time.perf_counter()
+        prev_live = live
+        next_F = rungs[ri + 1] if ri + 1 < len(rungs) else None
+        while active.any():
+            budgets = np.where(active, np.minimum(totals, lsub + lpc), lsub)
+            flags = np.asarray(_lv.run_chunk_batch(
+                ops, g, plan.tabs, fr5, ws, lsub.tolist(), budgets.tolist(),
+                [lossy_rung] * Bk, nD, nO, step), dtype=np.int64)
+            calls += 1
+            acc = flags[:, 0].astype(bool)
+            ovf = flags[:, 1].astype(bool)
+            nonempty = flags[:, 2].astype(bool)
+            lsub = np.where(active, flags[:, 3], lsub)
+            fsub = np.maximum(fsub, np.where(active, flags[:, 4], 1))
+            acc_s |= active & acc
+            # A lossy-rung member can truncate and accept in one chunk; the
+            # beam marker must record it (no ~acc guard).
+            ovf_s |= active & ovf
+            stuck_s |= active & ~acc & ~nonempty & (lossy_rung | ~ovf)
+            if lossy_rung:
+                # The beam goes on past overflow: ovf only records truncation.
+                active = active & ~acc & nonempty & (lsub < totals)
+            else:
+                active = active & ~acc & ~ovf & nonempty & (lsub < totals)
+        lvls[live] = lsub
+        fmax_all[live] = fsub
+        rung_stats.append({"F": F, "members": Bk, "calls": calls,
+                           "wall_s": round(_time.perf_counter() - t_rung, 3)})
+        # Classify this rung's members; decided members get results now.
+        overflowed = []
+        fr_host = None
+        for b, r in enumerate(live):
+            i = idx[r]
+            truncated = lossy_rung and bool(ovf_s[b])
+            if acc_s[b]:
+                status[r] = "acc"
+            elif stuck_s[b]:
+                status[r] = "stuck"
+            elif ovf_s[b] and not lossy_rung:
+                status[r] = "ovf"
+                overflowed.append(r)
+                continue
+            else:
+                status[r] = "exhausted"
+            base = {"op_count": encs[i].n, "device": True, "levels": int(lvls[r]),
+                    "frontier_max": int(fmax_all[r]), "batched": True}
+            if ri > 0:
+                base.update(escalated=True, decided_at_F=F, rungs=list(rung_stats))
+            if truncated:
+                base["beam"] = True
+            if status[r] == "acc":
+                # Sound even after a truncation: dropping configs only
+                # removes accepting paths, never invents one.
+                results[i] = {"valid": True, **base}
+            elif status[r] == "stuck" and truncated:
+                # Beam exhaustion is not a refutation (configs were
+                # dropped); the serial last resort may still decide.
+                status[r] = "ovf"
+                overflowed.append(r)
+                continue
+            elif status[r] == "stuck":
+                results[i] = {"valid": False, "max_linearized": int(lvls[r]), **base}
+                # The level program keeps the last non-empty frontier on a
+                # dead end: this member's row of the stack is its witness.
+                # Diagnostics never mask the verdict.
+                try:
+                    if fr_host is None:
+                        fr_host = wgl.frontier_stack_to_arrays(fr5)
+                    results[i]["stuck_configs"] = wgl.member_stuck_configs(
+                        encs[i], fr_host, b)
+                except (ValueError, IndexError, KeyError, TypeError):
+                    pass
+            else:
+                results[i] = _prov.attach(
+                    {"valid": "unknown", "info": "level budget exhausted", **base},
+                    "level_budget", levels=int(lvls[r]), F=int(F))
+        if not overflowed:
+            live = []
+            break
+        live = overflowed
+        if next_F is None:
+            break
+
+    # Members still undecided past the top rung: the serial single-history
+    # driver is the last resort (optimistic beam, exhaustive phase).
+    for r in live:
+        if status[r] != "ovf":
+            continue
+        i = idx[r]
+        if escalate is False:
+            results[i] = _prov.attach({
+                "valid": "unknown", "op_count": encs[i].n, "device": True,
+                "info": f"frontier overflow at shared capacity {f}",
+            }, "overflow_top_rung", F=int(f), escalate=False)
+            continue
+        if escalate == "serial":
+            serial_sched = tuple(x for x in sched if x > f) or (f,)
+        else:
+            serial_sched = tuple(rungs)
+        results[i] = wgl.check_encoded_device(
+            encs[i], f_schedule=serial_sched, max_open=max_open, window_cap=window_cap,
+            device=device, plain=plain)
+        results[i]["escalated"] = "serial"
+        if len(rungs) > 1:
+            results[i]["rungs"] = rung_stats
+    return results  # type: ignore[return-value]
+
+
+def check_batch(model: Model, histories: Sequence[History], **kw) -> list[dict]:
+    """:func:`check_encoded_batch` of ``histories`` encoded for ``model``."""
+    return check_encoded_batch([encode_history(model, h) for h in histories], **kw)
+
+
+check_histories = check_batch

@@ -94,7 +94,8 @@ def perturb_history(rng: random.Random, history: History,
                     within: float = 1.0) -> History:
     """Mutate one completed read's value — usually breaking
     linearizability. ``within`` restricts the mutated read to the first
-    fraction of the history."""
+    fraction of the history. A ``[k v]``-tupled (independent) value
+    mutates its inner value and keeps its key."""
     ops = list(history)
     bound = max(1, int(len(ops) * within))
     ok_reads = [i for i, op in enumerate(ops[:bound])
@@ -103,6 +104,12 @@ def perturb_history(rng: random.Random, history: History,
         return history
     i = rng.choice(ok_reads)
     op = ops[i]
+
+    def mut(v):
+        return (v if v is None else v + 17) or 23
+
+    from .independent import KV
+
     v = op.value
-    ops[i] = op.with_(value=(v if v is None else v + 17) or 23)
+    ops[i] = op.with_(value=KV(v.key, mut(v.value)) if isinstance(v, KV) else mut(v))
     return History(ops, reindex=False)

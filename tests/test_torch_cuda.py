@@ -77,25 +77,100 @@ def test_radix_sort_matches_stable_sort(cuda):
     for n in (1, 31, 1000, 4097, 70000):
         keys = torch.randint(-2**31, 2**31 - 1, (n,), generator=g, dtype=torch.int64)
         keys[: n // 3] = keys[n // 2] if n > 2 else keys[: n // 3]
-        k32 = keys.to(torch.int32)
-        vals = torch.arange(n, dtype=torch.int32)
+        k32 = keys.to(torch.int32)[None]
+        vals = torch.arange(n, dtype=torch.int32)[None]
         kd, vd = k32.to(cuda), vals.to(cuda)
         lv.radix_sort_pairs(kd, vd, lv.sort_scratch(n, cuda))
         kr, vr = k32.clone(), vals.clone()
-        lv.radix_sort_pairs_reference(kr, vr)
+        lv.radix_sort_pairs_plain(kr, vr)
         assert torch.equal(kd.cpu(), kr) and torch.equal(vd.cpu(), vr)
 
 
 def test_radix_sort_refuses_short_scratch(cuda):
-    keys = torch.zeros(5000, dtype=torch.int32, device=cuda)
-    vals = torch.zeros(5000, dtype=torch.int32, device=cuda)
+    keys = torch.zeros((1, 5000), dtype=torch.int32, device=cuda)
+    vals = torch.zeros((1, 5000), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         lv.radix_sort_pairs(keys, vals, lv.sort_scratch(4096, cuda))
 
 
 def test_wrappers_refuse_cpu_cuda_mix(cuda):
-    keys = torch.zeros(4, dtype=torch.int32, device=cuda)
+    keys = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
-        lv.radix_sort_pairs(keys, torch.zeros(4, dtype=torch.int32),
+        lv.radix_sort_pairs(keys, torch.zeros((1, 4), dtype=torch.int32),
                             lv.sort_scratch(4, cuda))
     assert np.all(keys.cpu().numpy() == 0)
+
+
+# -- the member axis ---------------------------------------------------------
+
+
+def _batch_plan(seeds, cuda, n_ops=40):
+    encs = []
+    for s in seeds:
+        rng = random.Random(s)
+        h = random_register_history(rng, n_ops=n_ops + 7 * (s % 4), n_procs=5,
+                                    crash_p=0.05 * (s % 5))
+        if s % 3 == 0:
+            h = perturb_history(rng, h)
+        encs.append(encode_history(CasRegister(init=0), h))
+    plans = [wgl.plan_device(e, device="cpu") for e in encs]
+    dims = np.array([p.dims for p in plans])
+    pad = tuple(int(dims[:, k].max()) for k in (0, 1, 3, 4))
+    padded = [wgl.plan_device(e, pad_to=pad, device="cpu") for e in encs]
+    return encs, wgl.stack_plans(padded, cuda)
+
+
+@pytest.mark.parametrize("F,threshold", [(64, None), (64, 512)])
+def test_batched_chunks_match_plain(cuda, F, threshold, monkeypatch):
+    """Every batched stage at nb = 3 through whole chunks: the kernels and
+    the per-member plain loop give the same flags, frontiers and stats."""
+    if threshold:
+        monkeypatch.setattr(wgl, "BIG_M_THRESHOLD", threshold)
+    _, plan = _batch_plan((11, 12, 13), cuda)
+    g = wgl.level_geometry(plan, F)
+    assert g.two_stage == bool(threshold)
+    nb = plan.nb
+    runs = []
+    for ops in (lv.KERNELS, lv.PLAIN):
+        fr = wgl.initial_frontier_batch(F, g.W, g.KO, plan.init_state)
+        ws = lv.BatchWorkspace(g, nb, cuda)
+        out = []
+        for lossy, levels in ((1, 9), (0, 40)):
+            lvl0 = [0] * nb if not out else [f[3] for f in out[-1][0]]
+            flags = lv.run_chunk_batch(ops, g, plan.tabs, fr, ws, lvl0,
+                                       [lvl + levels for lvl in lvl0], [lossy] * nb,
+                                       plan.nD.tolist(), plan.nO.tolist())
+            torch.cuda.synchronize()
+            out.append((flags, [a.cpu().clone() for a in fr], ws.stats.cpu().clone()))
+        runs.append(out)
+    for (kf, kfr, ks), (pf, pfr, ps) in zip(*runs):
+        assert kf == pf
+        assert all(torch.equal(a, b) for a, b in zip(kfr, pfr))
+        assert torch.equal(ks, ps)
+
+
+def test_regroup_matches_plain_with_repeated_index(cuda):
+    _, plan = _batch_plan((21, 22, 23), cuda)
+    fr = wgl.initial_frontier_batch(16, plan.dims[0], plan.dims[1], plan.init_state)
+    g = wgl.level_geometry(plan, 16)
+    lv.run_chunk_batch(lv.KERNELS, g, plan.tabs, fr, lv.BatchWorkspace(g, 3, cuda),
+                       [0] * 3, [6] * 3, [1] * 3, plan.nD.tolist(), plan.nO.tolist())
+    before = lv.LAUNCHES["wgl_regroup"]
+    k = lv.regroup(fr, [2, 0, 2], 64)
+    p = lv.regroup_reference(fr, [2, 0, 2], 64)
+    torch.cuda.synchronize()
+    assert lv.LAUNCHES["wgl_regroup"] == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+
+
+def test_batch_verdicts_match_single_searches(cuda):
+    from jepsen_tpu_torch.parallel import check_encoded_batch
+
+    encs, _ = _batch_plan(range(30, 36), cuda)
+    got = check_encoded_batch(encs, f=16, f_schedule=(16, 128))
+    plain = check_encoded_batch(encs, f=16, f_schedule=(16, 128), plain=True)
+    for g, p, e in zip(got, plain, encs):
+        single = wgl.check_encoded_device(e, f_schedule=(16, 128))
+        assert g["valid"] == p["valid"] == single["valid"]
+        assert g["levels"] == p["levels"]
+        assert g.get("stuck_configs") == p.get("stuck_configs")

@@ -95,15 +95,16 @@ def _run(crash_p, pad_to, F, sel, two_stage, lossy, want_ovf):
     ref_flags, ref_stats, ref_front = ref_run(fr, lvl0 + 1, int(lossy))
 
     port_fr = wgl.frontier_from_arrays(*fr, device="cpu")
-    ws = lv.Workspace(g, port_plan.device)
+    ws = lv.BatchWorkspace(g, 1, port_plan.device)
+    nDO = (port_plan.nD, port_plan.nO)
     flags = lv.run_chunk(lv.KERNELS, g, port_plan.tabs, port_fr[:5], ws, lvl0,
-                         lvl0 + 1, lossy)
+                         lvl0 + 1, lossy, *nDO)
     assert flags == ref_flags
     slot = (lvl0 + 1) % lv.LEVEL_STAT_ROWS
-    assert ws.stats[slot].tolist() == ref_stats[slot].tolist()
+    assert ws.stats[0, slot].tolist() == ref_stats[slot].tolist()
     assert _rows(*[a.numpy() for a in port_fr[:5]]) == _rows(*ref_front)
     # The plain stages called directly give the same level.
     port_fr2 = wgl.frontier_from_arrays(*fr, device="cpu")
-    ws2 = lv.Workspace(g, port_plan.device)
+    ws2 = lv.BatchWorkspace(g, 1, port_plan.device)
     assert lv.run_chunk(lv.PLAIN, g, port_plan.tabs, port_fr2[:5], ws2, lvl0,
-                        lvl0 + 1, lossy) == ref_flags
+                        lvl0 + 1, lossy, *nDO) == ref_flags
