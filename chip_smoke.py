@@ -29,7 +29,21 @@ and then runs these phases, each printing JSON lines:
 - ``batch_8x10k``: eight north-star-shaped histories through the batch's
   escalation ladder (256 -> 2048 -> 8192): never False, definite
   verdicts agreeing with each member's own single search, and each
-  member's result the same with the batch in reverse order.
+  member's result the same with the batch in reverse order;
+- ``elle_append_8k``: an 8000-txn list-append history (reads lag up to
+  16 txns) through ``elle.append.check`` with the process graph: one
+  chunk of 6 masks at bucket 8192 on the closure kernels, the result map
+  and the packed closures equal to the plain path's on the card;
+- ``elle_kernels``: the three closure kernels against their plain
+  versions bit for bit (nb = 3 at pad 128, 1024, 8192 and random graphs
+  at pad 256, and the 8k history's six masks), with device times;
+- ``elle_append_20k``: 20000 txns, above the bucket ceiling: the
+  ``elle_bucket_ceiling`` cause, the host taxonomy, and ``SccReach``
+  closing the lag window's component on the kernels;
+- ``elle_lag_2k``, ``big_scc_4096``, ``elle_scc_batched`` and
+  ``elle_wr_4k``: the device engine against the host path (or the plain
+  path) on a lagged history, a 4096-ring, 32 co-batched graphs and a
+  rw-register history.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the per-kernel JSON line, and ``{"ok": true, "device": {...}}``. Any failed
@@ -90,6 +104,20 @@ BATCH_REPLACES = {"level": "jepsen_tpu/ops/wgl.py:949",
                   "wgl_regroup": "jepsen_tpu/parallel/batch.py:95"}
 LEVEL_KERNELS = ("wgl_chunk_init", "wgl_expand", "wgl_stage1_hash", "wgl_take_col",
                  "radix_sort_pairs", "wgl_prune", "wgl_gather_finalize")
+# Elle: lagged list-append / rw-register histories (8 keys, at most 5
+# micro-ops a txn, 10 processes: the shape of bench.py's cockroachdb txn
+# config), reads inside the lag window seeing up to `depth` txns back.
+ELLE_SOURCE = "jepsen_tpu_torch/csrc/elle_closure.cu"
+ELLE_REPLACES = {"elle_adjacency": "jepsen_tpu/elle/ops.py:237",
+                 "elle_square": "jepsen_tpu/elle/ops.py:240",
+                 "elle_labels_pack": "jepsen_tpu/elle/ops.py:187"}
+APPEND_8K = dict(seed=11, n_txns=8000, lag=(0, 8000), depth=16)
+APPEND_20K = dict(seed=11, n_txns=20000, lag=(8000, 11000), depth=16)
+LAG_2K = dict(seed=5, n_txns=2000, lag=(600, 1100), depth=8)
+WR_4K = dict(seed=7, n_txns=4000, lag=(1000, 2500), depth=16)
+ELLE_KERNEL_PADS = (128, 1024, 8192)  # nb = 3 lagged-history masks at each
+ELLE_RANDOM_PAD = 256
+BF16_TFLOPS = 989e12  # H100 SXM dense bf16 tensor rate (NVIDIA data sheet)
 
 
 def emit(obj) -> None:
@@ -115,7 +143,7 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def batch_ms(fn, inputs, hold=True) -> tuple:
+def batch_ms(fn, inputs, hold=True, clone=True, batch=BATCH, batches=BATCHES) -> tuple:
     """(device ms, host ms) of one call of ``fn``.
 
     A batch is BATCH back-to-back calls, each on its own copy of
@@ -128,13 +156,15 @@ def batch_ms(fn, inputs, hold=True) -> tuple:
     sleep. The host ms is the host's time to issue one call (the
     wrapper's own cost: checks, ctypes call, launches). Functions that
     read results back on the host (the plain versions) run without
-    ``hold``: their time includes those waits."""
+    ``hold``: their time includes those waits. ``clone=False`` passes
+    the same inputs to every call (for functions that do not write them)."""
     import torch
 
     dev_times, host_times = [], []
     cycles = HOLD_CYCLES
-    while len(dev_times) < BATCHES:
-        copies = [tuple(t.clone() for t in inputs) for _ in range(BATCH)]
+    while len(dev_times) < batches:
+        copies = [tuple(t.clone() for t in inputs) if clone else inputs
+                  for _ in range(batch)]
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         torch.cuda.synchronize()
         t_issue = time.perf_counter()
@@ -154,8 +184,8 @@ def batch_ms(fn, inputs, hold=True) -> tuple:
                                    "within the holding sleep")
             cycles *= 2
             continue
-        dev_times.append(ev[1].elapsed_time(ev[2]) / BATCH)
-        host_times.append(1e3 * (t1 - t0) / BATCH)
+        dev_times.append(ev[1].elapsed_time(ev[2]) / batch)
+        host_times.append(1e3 * (t1 - t0) / batch)
     return statistics.median(dev_times), statistics.median(host_times)
 
 
@@ -495,6 +525,341 @@ def big_histories(random_register_history):
             for i in range(BIG["n"])]
 
 
+class ClosureRecorder:
+    """Records every ``elle.ops.batched_closure`` call of the engine (its
+    inputs and outputs, on the card) and every ``closure_rows_packed``
+    component size, while in a ``with`` block. ``plain=True`` also runs
+    every such closure through the plain versions on the card, so the
+    unchanged entry points drive the plain path."""
+
+    def __init__(self, eo, plain=False):
+        self.eo = eo
+        self.plain = plain
+        self.calls, self.components = [], []
+
+    def __enter__(self):
+        eo = self.eo
+        self._bc, self._crp = eo.batched_closure, eo.closure_rows_packed
+
+        def batched_closure(S, D, pad, torch_device=None):
+            out = self._bc(S, D, pad, torch_device, plain=self.plain)
+            self.calls.append({"S": S, "D": D, "pad": pad, "out": out})
+            return out
+
+        def closure_rows_packed(srcs, dsts, n, torch_device=None):
+            self.components.append(n)
+            return self._crp(srcs, dsts, n, torch_device)
+
+        eo.batched_closure, eo.closure_rows_packed = batched_closure, closure_rows_packed
+        return self
+
+    def __exit__(self, *exc):
+        self.eo.batched_closure, self.eo.closure_rows_packed = self._bc, self._crp
+
+
+def elle_launches(eo, where):
+    """The closure kernels' launch counts since the last reset; all three
+    must have run."""
+    counts = dict(eo.LAUNCHES)
+    idle = [k for k, v in counts.items() if v == 0]
+    if idle:
+        raise AssertionError(f"closure kernels never launched in {where}: {idle}")
+    return counts
+
+
+def elle_history_masks(ea, eo, h, n_members, extra=()):
+    """The (S, D, pad) of the first ``n_members`` masks the engine builds
+    for history ``h``, through the plain path on the card."""
+    with ClosureRecorder(eo, plain=True) as rec:
+        ea.check(h, device=True, additional_graphs=extra)
+    call = rec.calls[0]
+    return call["S"][:n_members], call["D"][:n_members], call["pad"]
+
+
+def random_masks(eo, pad, nb, seed):
+    """nb random graphs at bucket pad (3 edges a node)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    members = []
+    for _ in range(nb):
+        n = int(rng.integers(pad // 2 + 1, pad + 1))
+        members.append((rng.integers(0, n, 3 * n), rng.integers(0, n, 3 * n)))
+    epad = eo.edge_pad(max(len(a) for a, _ in members))
+    padded = [eo.pad_edges(a, b, pad, epad) for a, b in members]
+    return np.stack([x[0] for x in padded]), np.stack([x[1] for x in padded]), pad
+
+
+def elle_kernel_check(eo, S, D, pad, label):
+    """Each closure kernel against its plain version on the same inputs
+    (each stage's input from the plain chain), bit for bit, with device
+    times: {kernel: {max_abs_err, ms, plain_ms, call_ms, bound_ms,
+    bound_by, library_ms}}."""
+    import torch
+
+    nb, epad = S.shape
+    src = torch.as_tensor(S).cuda().contiguous()
+    dst = torch.as_tensor(D).cuda().contiguous()
+    big = pad * pad * nb >= 8192 * 8192
+    # The plain versions at 8192 take tens of ms a call: time fewer.
+    plain_reps = dict(batch=2, batches=3) if big else dict(batch=5, batches=3)
+    out = {}
+
+    def record(name, err, ms, plain_ms, call_ms, nbytes, ops=0, library_ms=None):
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        t_ops = 1e3 * ops / BF16_TFLOPS
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "call_ms": call_ms,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                     "library_ms": library_ms}
+
+    # adjacency
+    a = eo.adjacency(src, dst, pad)
+    ap = eo.adjacency_plain(src, dst, pad)
+    torch.cuda.synchronize()
+    err = int((a.float() - ap).abs().max())
+    ms, call_ms = batch_ms(lambda t: eo.adjacency(*t, pad), (src, dst), clone=False)
+    plain_ms, _ = batch_ms(lambda t: eo.adjacency_plain(*t, pad), (src, dst), hold=False,
+                           clone=False, **plain_reps)
+    record("elle_adjacency", err, ms, plain_ms, call_ms, nb * pad * pad * 2 + 2 * nb * epad * 4)
+    # one squaring step, from the adjacency and from a half-closed matrix
+    spare = torch.empty_like(a)
+    err = 0
+    x = ap.to(torch.bfloat16)
+    for step in range(eo.closure_steps(pad)):
+        y = eo.square(x, spare)
+        yp = eo.square_plain(x)
+        torch.cuda.synchronize()
+        if step in (0, 3):
+            err = max(err, int((y.float() - yp).abs().max()))
+        x, spare = yp.to(torch.bfloat16), y
+    half = ap.to(torch.bfloat16)
+    for _ in range(3):
+        half = eo.square_plain(half).to(torch.bfloat16)
+    ms, call_ms = batch_ms(lambda t: eo.square(t[0], spare), (half,), clone=False)
+    hf = half.float()
+    plain_ms, _ = batch_ms(lambda t: eo.square_plain(t[0]), (hf,), hold=False, clone=False,
+                           **plain_reps)
+    del hf
+    library_ms, _ = batch_ms(lambda t: torch.matmul(t[0], t[0]), (half,), clone=False)
+    record("elle_square", err, ms, plain_ms, call_ms, 2 * nb * pad * pad * 2,
+           ops=2 * pad ** 3 * nb, library_ms=library_ms)
+    # labels and pack of the closed matrices
+    pk, lb = eo.labels_pack(x)
+    ppk, plb = eo.labels_pack_plain(x.float())
+    torch.cuda.synchronize()
+    err = max(max_abs_err(pk, ppk), max_abs_err(lb, plb))
+    ms, call_ms = batch_ms(lambda t: eo.labels_pack(t[0]), (x,), clone=False)
+    xf = x.float()
+    plain_ms, _ = batch_ms(lambda t: eo.labels_pack_plain(t[0]), (xf,), hold=False,
+                           clone=False, **plain_reps)
+    del xf
+    record("elle_labels_pack", err, ms, plain_ms, call_ms,
+           nb * pad * pad * 2 + nb * pad * (pad // 32) * 4 + nb * pad * 4)
+    # the whole wrapper against the whole plain chain
+    got = eo.batched_closure(S, D, pad)
+    want = eo.batched_closure(S, D, pad, plain=True)
+    whole = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+    mutual = int((want[1] != torch.arange(pad, device="cuda")).sum())
+    emit({"phase": "elle_kernels", "shape": label, "nb": nb, "pad": pad, "epad": epad,
+          "steps": eo.closure_steps(pad), "reach_bits": int(x.float().sum()),
+          "nodes_labelled_below_self": mutual, "closure_max_abs_err": whole,
+          "kernels": out})
+    for k, v in out.items():
+        if v["max_abs_err"] != 0 or whole != 0:
+            raise AssertionError(f"{k} disagrees with its plain version at {label}")
+    return out
+
+
+def bench_graphs(P):
+    """bench.py's elle graphs: the 4096-ring of WW with 16 RW chords
+    (bench.py:1372-1380) and 32 random typed graphs of 48-220 nodes
+    (bench.py:1418-1432)."""
+    big = P.DepGraph(4096)
+    for i in range(4095):
+        big.add(i, i + 1, P.WW)
+    big.add(4095, 0, P.WW)
+    for i in range(0, 4096, 256):
+        big.add((i + 7) % 4096, i, P.RW)
+    rng = random.Random(19)
+    sizes = [rng.choice((48, 72, 96, 120)) for _ in range(30)] + [160, 220]
+    graphs = []
+    for gn in sizes:
+        g = P.DepGraph(gn)
+        for _ in range(3 * gn):
+            a, b = rng.randrange(gn), rng.randrange(gn)
+            g.add(a, b, rng.choice((P.WW, P.WW, P.WR, P.RW)))
+        graphs.append(g)
+    return big, graphs
+
+
+def elle_phases():
+    """The Elle slice on the card; returns (the kernels' summary at the
+    8k history's shape, their launches on that path, max_abs_err over
+    every shape)."""
+    import os
+
+    import torch
+
+    import jepsen_tpu_torch.elle as P
+    from jepsen_tpu_torch.elle import append as ea
+    from jepsen_tpu_torch.elle import ops as eo
+    from jepsen_tpu_torch.elle import wr as ew
+    from jepsen_tpu_torch.testing import lagged_append_history, lagged_wr_history
+
+    if os.environ.get("JEPSEN_ELLE_DEVICE", "").strip():
+        raise AssertionError("JEPSEN_ELLE_DEVICE is set; the Elle phases need the "
+                             "engine's own choice")
+    strip = lambda r: {k: v for k, v in r.items() if k != "engine"}
+
+    # -- elle_append_8k: the main path of the slice ---------------------------
+    h8 = lagged_append_history(**APPEND_8K)
+    ea.check(lagged_append_history(**LAG_2K), device=True)  # first-call costs
+    eo.reset_launches()
+    torch.cuda.synchronize()
+    with ClosureRecorder(eo) as rec:
+        t = time.perf_counter()
+        rep = {}
+        res = ea.check(h8, device=None, additional_graphs=("process",), report=rep)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    launches = elle_launches(eo, "elle_append_8k")
+    call = rec.calls[0]
+    with ClosureRecorder(eo, plain=True) as prec:
+        t = time.perf_counter()
+        prep = {}
+        pres = ea.check(h8, device=None, additional_graphs=("process",), report=prep)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t
+    pcall = prec.calls[0]
+    same_closures = all(max_abs_err(a, b) == 0 for a, b in zip(call["out"], pcall["out"]))
+    emit({"phase": "elle_append_8k", "txns": res["txn_count"], "valid": res["valid"],
+          "anomaly_types": res["anomaly_types"], "engine": rep, "wall_s": wall,
+          "plain_wall_s": plain_wall, "dispatches": len(rec.calls), "pad": call["pad"],
+          "members": int(call["S"].shape[0]), "epad": int(call["S"].shape[1]),
+          "launches": launches, "same_result_as_plain": res == pres,
+          "same_closures_as_plain": same_closures})
+    if not (rep == {"engine": "device", "chunks": 1} and len(rec.calls) == 1
+            and call["pad"] == 8192 and call["S"].shape[0] == 6 and res == pres
+            and same_closures and res["valid"] is False and prep == rep):
+        raise AssertionError("elle_append_8k failed")
+
+    # -- elle_kernels: each kernel against its plain version ------------------
+    shapes = {}
+    for pad in ELLE_KERNEL_PADS:
+        if pad == 8192:
+            S, D = call["S"][:3], call["D"][:3]
+        else:
+            S, D, got_pad = elle_history_masks(ea, eo, lagged_append_history(
+                13, pad - pad // 16, (0, pad), 16), 3)
+            assert got_pad == pad
+        shapes[f"history_nb3_pad{pad}"] = elle_kernel_check(eo, S, D, pad,
+                                                            f"history_nb3_pad{pad}")
+    S, D, pad = random_masks(eo, ELLE_RANDOM_PAD, 3, seed=21)
+    shapes["random_nb3_pad256"] = elle_kernel_check(eo, S, D, pad, "random_nb3_pad256")
+    main = elle_kernel_check(eo, call["S"], call["D"], call["pad"], "elle_append_8k_nb6_pad8192")
+    errs = {k: max(v[k]["max_abs_err"] for v in list(shapes.values()) + [main])
+            for k in main}
+    del rec, prec, call, pcall
+    torch.cuda.empty_cache()
+
+    # -- elle_append_20k: the bucket ceiling, SccReach on the kernels ---------
+    h20 = lagged_append_history(**APPEND_20K)
+    eo.reset_launches()
+    with ClosureRecorder(eo) as rec:
+        t = time.perf_counter()
+        rep = {}
+        res = ea.check(h20, report=rep)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    counts = dict(eo.LAUNCHES)
+    codes = sorted({c["code"] for c in rep.get("causes", [])})
+    emit({"phase": "elle_append_20k", "txns": res["txn_count"], "valid": res["valid"],
+          "anomaly_types": res["anomaly_types"], "engine": rep.get("engine"),
+          "cause_codes": codes, "causes": len(rep.get("causes", [])),
+          "scc_reach_components": rec.components, "wall_s": wall, "launches": counts})
+    if not (rep.get("engine") == "host" and codes == ["elle_bucket_ceiling"]
+            and any(512 <= n <= 8192 for n in rec.components)
+            and all(v > 0 for v in counts.values()) and res["valid"] is False):
+        raise AssertionError("elle_append_20k failed")
+
+    # -- elle_lag_2k: the device engine against the host path -----------------
+    h2 = lagged_append_history(**LAG_2K)
+    with ClosureRecorder(eo) as rec:
+        t = time.perf_counter()
+        rep = {}
+        res = ea.check(h2, device=True, report=rep)
+        wall = time.perf_counter() - t
+    t = time.perf_counter()
+    host = ea.check(h2, device=False)
+    host_wall = time.perf_counter() - t
+    emit({"phase": "elle_lag_2k", "valid": res["valid"], "anomaly_types": res["anomaly_types"],
+          "engine": rep, "pad": rec.calls[0]["pad"] if rec.calls else None, "wall_s": wall,
+          "host_wall_s": host_wall, "same_as_host": strip(res) == host})
+    if not (rep == {"engine": "device", "chunks": 1} and rec.calls[0]["pad"] == 2048
+            and strip(res) == host):
+        raise AssertionError("elle_lag_2k failed")
+
+    # -- big_scc_4096 and elle_scc_batched: bench.py's graphs -----------------
+    big, graphs = bench_graphs(P)
+    with ClosureRecorder(eo) as rec:
+        t = time.perf_counter()
+        rep = {}
+        got = P.cycle_anomalies(big, device=True, report=rep)
+        wall = time.perf_counter() - t
+    t = time.perf_counter()
+    host = P.cycle_anomalies(big, device=False)
+    host_wall = time.perf_counter() - t
+    emit({"phase": "big_scc_4096", "anomalies": sorted(got), "engine": rep,
+          "members": [int(c["S"].shape[0]) for c in rec.calls], "wall_s": wall,
+          "host_wall_s": host_wall, "same_as_host": got == host})
+    if not (rep == {"engine": "device", "chunks": 1}
+            and [int(c["S"].shape[0]) for c in rec.calls] == [3] and got == host):
+        raise AssertionError("big_scc_4096 failed")
+    P.cycle_anomalies_batch(graphs, device=True)  # first-call costs at these buckets
+    with ClosureRecorder(eo) as rec:
+        t = time.perf_counter()
+        rep = {}
+        got = P.cycle_anomalies_batch(graphs, device=True, report=rep)
+        wall = time.perf_counter() - t
+    t = time.perf_counter()
+    serial = [P.cycle_anomalies(g, device=True) for g in graphs]
+    serial_wall = time.perf_counter() - t
+    t = time.perf_counter()
+    host = [P.cycle_anomalies(g, device=False) for g in graphs]
+    host_wall = time.perf_counter() - t
+    buckets = sorted({eo.bucket_for(g.n) for g in graphs})
+    emit({"phase": "elle_scc_batched", "graphs": len(graphs), "txns": sum(g.n for g in graphs),
+          "buckets": buckets, "chunks": rep.get("chunks"), "causes": rep.get("causes"),
+          "members": [int(c["S"].shape[0]) for c in rec.calls], "wall_s": wall,
+          "serial_device_wall_s": serial_wall, "serial_host_wall_s": host_wall,
+          "invalid_graphs": sum(1 for a in got if a), "same_as_host": got == host,
+          "same_as_serial": got == serial})
+    if not (not rep.get("causes") and rep.get("chunks", 99) <= len(buckets)
+            and got == host == serial):
+        raise AssertionError("elle_scc_batched failed")
+
+    # -- elle_wr_4k: a rw-register history at bucket 4096 ---------------------
+    hw = lagged_wr_history(**WR_4K)
+    with ClosureRecorder(eo) as rec:
+        t = time.perf_counter()
+        rep = {}
+        res = ew.check(hw, wfr_keys=True, report=rep)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    with ClosureRecorder(eo, plain=True):
+        pres = ew.check(hw, wfr_keys=True, report={})
+    emit({"phase": "elle_wr_4k", "txns": res["txn_count"], "valid": res["valid"],
+          "anomaly_types": res["anomaly_types"], "engine": rep,
+          "pad": rec.calls[0]["pad"] if rec.calls else None,
+          "members": int(rec.calls[0]["S"].shape[0]) if rec.calls else 0, "wall_s": wall,
+          "same_as_plain": res == pres})
+    if not (rep.get("engine") == "device" and rec.calls and rec.calls[0]["pad"] == 4096
+            and res == pres):
+        raise AssertionError("elle_wr_4k failed")
+    return main, launches, errs
+
+
 def main() -> int:
     import torch
 
@@ -524,7 +889,7 @@ def main() -> int:
     _build.load()
     ptxas = [ln.strip() for ln in built["log"].splitlines() if "registers" in ln]
     emit({"phase": "build", "built": built["built"], "seconds": time.perf_counter() - t0,
-          "ptxas": ptxas})
+          "compile_seconds": built["compile_seconds"], "ptxas": ptxas})
     model = CasRegister(init=0)
 
     # -- kernels against their plain versions on the card -------------------
@@ -774,6 +1139,8 @@ def main() -> int:
             and any(r["valid"] is True for r in rb) and big_launches["wgl_regroup"] > 1):
         raise AssertionError("batch_8x10k failed")
 
+    elle_main, elle_launch, elle_errs = elle_phases()
+
     kernels = []
     for kname in lv.LAUNCHES:
         r, b = timed[kname], batch_stages[kname]
@@ -789,6 +1156,13 @@ def main() -> int:
                       "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
                       "bound_by": "bytes", "library_ms": b["library_ms"]},
         })
+    for kname, r in elle_main.items():
+        kernels.append({
+            "name": kname, "route": "cuda", "source": ELLE_SOURCE,
+            "replaces": ELLE_REPLACES[kname], "launches": elle_launch[kname],
+            "max_abs_err": elle_errs[kname], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": "elle_append_8k: nb 6, pad 8192"})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -9,8 +9,14 @@ checker.linearizable(...))`` on top of it). The BFS level program runs as
 hand-written CUDA kernels for Hopper on a member axis
 (``csrc/wgl_level.cu``, the single search being the batch of one), with a
 plain PyTorch version of every stage beside them (``ops.wgl_level``).
+It also holds Elle's transactional cycle checker (``elle.append.check``,
+``elle.wr.check``, the ``workloads.append``/``wr`` checkers), whose
+closures run as the kernels of ``csrc/elle_closure.cu`` (plain versions
+in ``elle.ops``).
 
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(``torch_device="cpu"`` for the Elle entry points, whose ``device`` is the
+engine flag).
 """
 
 __version__ = "0.1.0"

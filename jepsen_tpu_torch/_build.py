@@ -1,13 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-``load()`` compiles ``csrc/*.cu`` with one ``nvcc -shared`` call for
-``sm_90a`` into ``jepsen_tpu_torch/_build/libjepsen_kernels.so`` at first
-use, and loads it with ``ctypes``. (There is one source; once there are
-several, compile each in its own ``nvcc``, all started together, then
-link.) The library has a plain C interface: pointers and the stream are
-``void*``, sizes are ``int`` (``long`` for a member stride), and every
-entry point returns ``cudaGetLastError()``. A build is reused while its
-sources are unchanged (a content hash is stored beside it).
+``load()`` compiles each ``csrc/*.cu`` for ``sm_90a`` in its own ``nvcc``,
+all started together (the build time is the slowest source's, not the
+sum), links the objects with one ``nvcc -shared`` into
+``jepsen_tpu_torch/_build/libjepsen_kernels.so`` at first use, and loads
+it with ``ctypes``. The library has a plain C interface: pointers and the
+stream are ``void*``, sizes are ``int`` (``long`` for a member stride), and
+every entry point returns ``cudaGetLastError()``. A build is reused while
+its sources are unchanged (a content hash is stored beside it).
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
@@ -43,6 +44,9 @@ SIGNATURES = {
     "wgl_prune": [_P] * 7 + [_I] * 6 + [_P],
     "wgl_gather_finalize": [_P] * 10 + [_I] * 9 + [_P],
     "wgl_regroup": [_P] * 11 + [_I] * 6 + [_P],
+    "elle_adjacency": [_P, _P, _P, _I, _I, _I, _P],
+    "elle_square": [_P, _P, _I, _I, _P],
+    "elle_labels_pack": [_P, _P, _P, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -73,28 +77,44 @@ def _digest(srcs: list[Path]) -> str:
     return h.hexdigest()
 
 
+def _compile(exe: str, src: Path, obj: Path):
+    t0 = time.perf_counter()
+    out = subprocess.run([exe, *ARCH, *FLAGS, "-c", str(src), "-o", str(obj)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return out, time.perf_counter() - t0
+
+
 def build() -> dict:
     """Compile the sources if the library is missing or stale. Returns
-    ``{"built": bool, "seconds": float, "log": str}``."""
+    ``{"built": bool, "seconds": float, "compile_seconds": {source:
+    float}, "log": str}``."""
     srcs = _sources()
     digest = _digest(srcs)
     stamp = BUILD / "libjepsen_kernels.sha256"
     if LIB.exists() and stamp.exists() and stamp.read_text() == digest:
-        return {"built": False, "seconds": 0.0, "log": ""}
+        return {"built": False, "seconds": 0.0, "compile_seconds": {}, "log": ""}
     BUILD.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     exe = nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
-        tmp_lib = Path(tmp) / LIB.name
-        out = subprocess.run([exe, *ARCH, *FLAGS, "-shared", *map(str, srcs),
-                              "-o", str(tmp_lib)], capture_output=True, text=True)
-        log = out.stdout + out.stderr
-        if out.returncode != 0:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in srcs]
+        with ThreadPoolExecutor(len(srcs)) as pool:
+            done = list(pool.map(lambda so: _compile(exe, *so), zip(srcs, objs)))
+        log = "".join(f"== {src.name}\n{out.stdout}" for src, (out, _s) in zip(srcs, done))
+        if any(out.returncode != 0 for out, _s in done):
             raise RuntimeError(f"nvcc failed:\n{log}")
+        tmp_lib = Path(tmp) / LIB.name
+        out = subprocess.run([exe, *ARCH, "-shared", *map(str, objs), "-o", str(tmp_lib)],
+                             capture_output=True, text=True)
+        log += out.stdout + out.stderr
+        if out.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{log}")
         os.replace(tmp_lib, LIB)
     stamp.write_text(digest)
     (BUILD / "build.log").write_text(log)
-    return {"built": True, "seconds": time.perf_counter() - t0, "log": log}
+    return {"built": True, "seconds": time.perf_counter() - t0,
+            "compile_seconds": {src.name: s for src, (_out, s) in zip(srcs, done)},
+            "log": log}
 
 
 def load() -> ctypes.CDLL:

@@ -3,9 +3,9 @@
 Every site that degrades a verdict to ``unknown`` attaches
 ``cause(code, **params)`` — a dict with ``code`` from the closed
 :data:`TAXONOMY`, the owning ``layer`` and optional ``params``. This copy
-carries the codes the device searches (single and batched) emit; the codes and
-their layers are the reference package's, so results from either package
-fold the same way.
+carries the codes the device searches (single and batched) and the Elle
+cycle engine emit; the codes and their layers are the reference package's,
+so results from either package fold the same way.
 """
 
 from __future__ import annotations
@@ -32,6 +32,17 @@ TAXONOMY: dict[str, tuple[str, str]] = {
         "encode",
         "history/model does not fit the device encoding (plan "
         "rejected, unreadable archive, or model mismatch)"),
+    "elle_bucket_ceiling": (
+        "elle",
+        "a dependency graph outgrew the batched cycle engine's largest "
+        "size bucket with no mesh available for the sharded closure; "
+        "the verdict folded to the host Tarjan/BFS path"),
+    "elle_device_oom": (
+        "elle",
+        "a batched closure dispatch on CPU tensors kept running out of "
+        "memory (torch.OutOfMemoryError) past the chunk-halving "
+        "escalation budget; the verdict folded to the host Tarjan/BFS "
+        "path (on a GPU the engine raises instead)"),
     "unattributed": (
         "unknown",
         "an unknown reached the fold with no structured cause"),

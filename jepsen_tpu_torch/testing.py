@@ -1,8 +1,11 @@
 """Seeded history generators for tests and the chip smoke run.
 
-Both functions draw from a ``random.Random`` in the same order as the
-reference package's generators, so one seed gives op-for-op the same
-history in either package.
+``random_register_history`` and ``perturb_history`` draw from a
+``random.Random`` in the same order as the reference package's
+generators, so one seed gives op-for-op the same history in either
+package. ``lagged_append_history`` and ``lagged_wr_history`` simulate
+transactional stores for the Elle checkers (the reference has no such
+generator; tests hand the same history to both packages).
 """
 
 from __future__ import annotations
@@ -113,3 +116,81 @@ def perturb_history(rng: random.Random, history: History,
     v = op.value
     ops[i] = op.with_(value=KV(v.key, mut(v.value)) if isinstance(v, KV) else mut(v))
     return History(ops, reindex=False)
+
+
+def _lagged_txns(seed: int, n_txns: int, lag: Optional[tuple], depth: int,
+                 key_count: int, max_txn_length: int, n_procs: int, mop):
+    """The store loop both simulators share. Txn ``i`` runs on a random
+    process over distinct random keys; each key's micro-ops come from
+    ``mop(rng, key, seen_len, ops_out)``, where ``seen_len`` is the number
+    of committed versions of the key the txn may see: all of them, or,
+    inside the lag window ``[lo, hi)`` of txn indices, those committed up
+    to a random 1..``depth`` txns earlier (a replica behind a partition).
+    Txns run one after another: an invoke, then its ok."""
+    rng = random.Random(seed)
+    lens = [0] * key_count  # committed versions per key
+    past: list[list[int]] = [list(lens)]  # past[t]: lens after t txns
+    ops: list[Op] = []
+    for i in range(n_txns):
+        p = rng.randrange(n_procs)
+        keys = rng.sample(range(key_count), rng.randint(1, min(max_txn_length, key_count)))
+        lagged = lag is not None and lag[0] <= i < lag[1]
+        snap = past[max(0, i - rng.randint(1, depth))] if lagged else lens
+        invoke, done = [], []
+        for k in keys:
+            lens[k] += mop(rng, k, snap[k], invoke, done)
+        past.append(list(lens))
+        ops.append(Op("invoke", p, "txn", invoke, time=2 * i))
+        ops.append(Op("ok", p, "txn", done, time=2 * i + 1))
+    return History(ops)
+
+
+def lagged_append_history(seed: int, n_txns: int, lag: Optional[tuple] = None,
+                          depth: int = 16, key_count: int = 8, max_txn_length: int = 5,
+                          n_procs: int = 10) -> History:
+    """A list-append history (``["append", k, v]`` / ``["r", k, list]``,
+    values unique per key) from a serial store whose reads inside the lag
+    window see stale prefixes (see :func:`_lagged_txns`). Serializable
+    outside the window; a stale read closes rw cycles inside it."""
+    lists: dict[int, list] = {}
+
+    def mop(rng, k, seen, invoke, done) -> int:
+        versions = lists.setdefault(k, [])
+        if rng.random() < 0.5:
+            v = len(versions) + 1
+            versions.append(v)
+            invoke.append(["append", k, v])
+            done.append(["append", k, v])
+            return 1
+        invoke.append(["r", k, None])
+        done.append(["r", k, versions[:seen]])
+        return 0
+
+    return _lagged_txns(seed, n_txns, lag, depth, key_count, max_txn_length, n_procs, mop)
+
+
+def lagged_wr_history(seed: int, n_txns: int, lag: Optional[tuple] = None,
+                      depth: int = 16, key_count: int = 8, max_txn_length: int = 5,
+                      n_procs: int = 10) -> History:
+    """A rw-register history (``["w", k, v]`` with globally unique ``v`` /
+    ``["r", k, v]``) from the same store loop: per key a read, a write, or
+    a read then a write (which fixes the version order under
+    ``wfr_keys``)."""
+    regs: dict[int, list] = {}
+    counter = [0]
+
+    def mop(rng, k, seen, invoke, done) -> int:
+        versions = regs.setdefault(k, [])
+        kind = rng.randrange(3)
+        if kind != 1:  # read (alone, or before a write)
+            invoke.append(["r", k, None])
+            done.append(["r", k, versions[seen - 1] if seen else None])
+        if kind == 0:
+            return 0
+        counter[0] += 1
+        versions.append(counter[0])
+        invoke.append(["w", k, counter[0]])
+        done.append(["w", k, counter[0]])
+        return 1
+
+    return _lagged_txns(seed, n_txns, lag, depth, key_count, max_txn_length, n_procs, mop)

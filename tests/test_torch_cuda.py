@@ -174,3 +174,63 @@ def test_batch_verdicts_match_single_searches(cuda):
         assert g["valid"] == p["valid"] == single["valid"]
         assert g["levels"] == p["levels"]
         assert g.get("stuck_configs") == p.get("stuck_configs")
+
+
+# -- Elle's closure kernels ----------------------------------------------------
+
+
+def _elle_edges(pad, nb, seed):
+    from jepsen_tpu_torch.elle import ops as eo
+
+    rng = np.random.default_rng(seed)
+    members = []
+    for b in range(nb):
+        n = int(rng.integers(pad // 2, pad + 1))
+        ne = int(rng.integers(0, 3 * n))
+        members.append((rng.integers(0, n, ne), rng.integers(0, n, ne)))
+    epad = eo.edge_pad(max(len(s) for s, _ in members))
+    padded = [eo.pad_edges(s, d, pad, epad) for s, d in members]
+    return (torch.from_numpy(np.stack([p[0] for p in padded])),
+            torch.from_numpy(np.stack([p[1] for p in padded])))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_elle_kernels_match_plain(cuda, seed):
+    """elle_adjacency, elle_square and elle_labels_pack at pad 256, nb = 3,
+    each against its plain version on the same inputs, bit for bit."""
+    from jepsen_tpu_torch.elle import ops as eo
+
+    pad = 256
+    S, D = (t.to(cuda) for t in _elle_edges(pad, 3, seed))
+    before = dict(eo.LAUNCHES)
+    a = eo.adjacency(S, D, pad)
+    ap = eo.adjacency_plain(S, D, pad)
+    assert a.dtype == torch.bfloat16 and torch.equal(a.float(), ap)
+    for _ in range(eo.closure_steps(pad)):
+        nxt = eo.square(a)
+        assert torch.equal(nxt.float(), eo.square_plain(a.float()))
+        a = nxt
+    pk, lb = eo.labels_pack(a)
+    ppk, plb = eo.labels_pack_plain(a.float())
+    torch.cuda.synchronize()
+    assert torch.equal(pk, ppk) and torch.equal(lb, plb)
+    assert {k: eo.LAUNCHES[k] - before[k] for k in before} == {
+        "elle_adjacency": 1, "elle_square": eo.closure_steps(pad), "elle_labels_pack": 1}
+    got = eo.batched_closure(S, D, pad)
+    want = eo.batched_closure(S.cpu(), D.cpu(), pad, torch_device="cpu")
+    assert all(torch.equal(x.cpu(), y) for x, y in zip(got, want))
+
+
+def test_elle_append_check_on_the_card_matches_the_cpu(cuda):
+    from jepsen_tpu_torch.elle import append as ea
+    from jepsen_tpu_torch.elle import ops as eo
+    from jepsen_tpu_torch.testing import lagged_append_history
+
+    h = lagged_append_history(3, 600, (100, 400), depth=8)
+    before = eo.LAUNCHES["elle_square"]
+    rep = {}
+    got = ea.check(h, device=True, additional_graphs=("process",), report=rep)
+    assert eo.LAUNCHES["elle_square"] > before and rep["engine"] == "device"
+    want = ea.check(h, device=True, additional_graphs=("process",), report={},
+                    torch_device="cpu")
+    assert got == want and got["valid"] is False

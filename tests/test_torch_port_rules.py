@@ -69,7 +69,26 @@ def test_every_port_module_is_walkable():
     mods = {m.name for m in pkgutil.walk_packages(jepsen_tpu_torch.__path__,
                                                   "jepsen_tpu_torch.")}
     assert {"jepsen_tpu_torch.ops.wgl", "jepsen_tpu_torch.ops.wgl_level",
-            "jepsen_tpu_torch._build", "jepsen_tpu_torch.devices"} <= mods
+            "jepsen_tpu_torch._build", "jepsen_tpu_torch.devices",
+            "jepsen_tpu_torch.elle", "jepsen_tpu_torch.elle.ops",
+            "jepsen_tpu_torch.elle.graph", "jepsen_tpu_torch.elle.graphs",
+            "jepsen_tpu_torch.elle.engine", "jepsen_tpu_torch.elle.append",
+            "jepsen_tpu_torch.elle.wr", "jepsen_tpu_torch.txn",
+            "jepsen_tpu_torch.workloads.append", "jepsen_tpu_torch.workloads.wr"} <= mods
+
+
+def test_every_kernel_entry_point_has_a_signature_and_a_source():
+    """Each C entry point the wrappers launch is declared for ctypes and
+    defined in a source that the build compiles."""
+    from jepsen_tpu_torch import _build
+    from jepsen_tpu_torch.elle import ops as elle_ops
+    from jepsen_tpu_torch.ops import wgl_level
+
+    sources = "".join(p.read_text() for p in _build._sources())
+    for name in list(wgl_level.LAUNCHES) + list(elle_ops.LAUNCHES):
+        assert name in _build.SIGNATURES, name
+        assert re.search(rf"\bint {name}\(", sources), name
+    assert {p.name for p in _build._sources()} >= {"wgl_level.cu", "elle_closure.cu"}
 
 
 def _history():
