@@ -30,6 +30,24 @@ and then runs these phases, each printing JSON lines:
   escalation ladder (256 -> 2048 -> 8192): never False, definite
   verdicts agreeing with each member's own single search, and each
   member's result the same with the batch in reverse order;
+- ``model_kernels``: every other device model family's step in
+  ``wgl_expand`` against the plain expand (the model's ``step_torch``) bit
+  for bit, at the selected and unselected layouts, from a frontier warmed
+  for 200 levels on a 2000-op history of the family; at state widths 2, 3,
+  4 and 8 every downstream stage too;
+- ``mutex_5k``: BASELINE config 3, a 5000-op owner-aware-mutex history
+  through the lock workload's checker (``workloads.lock.checker``), in
+  agreement with the plain path, with wall, ms/level and idle share;
+- ``models_2k``: a valid and a perturbed 2000-op history of each family
+  through ``check_history(..., backend="device")``: valid ones ``True`` (or
+  ``unknown`` through the top-rung beam, never ``False``, and then held
+  against the plain path's whole search: rungs, levels, per-level rows),
+  perturbed ones refuted in agreement with the plain path and the host
+  oracle;
+- ``keyed_multi_register``: 100 keys of multi-register ops through the
+  keyed checker (the batch at ``S = 3``), agreeing with ``check_batch``,
+  the plain path and the host oracle, and the ``compose`` wiring checked
+  key by key with the same results;
 - ``elle_append_8k``: an 8000-txn list-append history (reads lag up to
   16 txns) through ``elle.append.check`` with the process graph: one
   chunk of 6 masks at bucket 8192 on the closure kernels, the result map
@@ -118,6 +136,34 @@ WR_4K = dict(seed=7, n_txns=4000, lag=(1000, 2500), depth=16)
 ELLE_KERNEL_PADS = (128, 1024, 8192)  # nb = 3 lagged-history masks at each
 ELLE_RANDOM_PAD = 256
 BF16_TFLOPS = 989e12  # H100 SXM dense bf16 tensor rate (NVIDIA data sheet)
+# Every other device model: a valid and a perturbed 2000-op history of
+# each (testing.random_model_history: 8 processes; the perturbed one
+# without crashes and broken in its first tenth, so that the host oracle
+# decides it), each family's expand kernel at a frontier warmed for 200
+# levels, BASELINE config 3 (the hazelcast lock checker on a 5000-op
+# owner-aware-mutex history, as bench.py:1557-1560 builds it), and 100
+# keys of multi-register ops (yugabyte's registers 0, 1, 2) through the
+# keyed checker.
+MODELS_2K = dict(n_ops=2000, n_procs=8, crash_p=0.02, seed=2000)
+MODELS_2K_BAD = dict(n_ops=2000, n_procs=8, crash_p=0.0, seed=2001, within=0.1)
+MODEL_KERNELS_F = 4096  # the optimistic beam's capacity, as at TIMED_F
+MODEL_WARM_LEVELS = 200
+MODEL_PLAIN_REPS = dict(batch=3, batches=3)
+MUTEX_5K = dict(seed=5, n_ops=5000, n_procs=8)
+KEYED = dict(seed=3000, keys=100, n_ops=200, n_procs=4, crash_p=0.01, perturb_every=8,
+             plain_keys=16, compose_keys=10)
+STEP_REPLACES = {  # each family's step_jax, which k_expand inlines
+    "multi-register": "jepsen_tpu/models/register.py:162",
+    "counter": "jepsen_tpu/models/counter.py:70",
+    "set": "jepsen_tpu/models/sets.py:95",
+    "bank": "jepsen_tpu/models/bank.py:110",
+    "mutex": "jepsen_tpu/models/mutex.py:55",
+    "owner-aware-mutex": "jepsen_tpu/models/mutex.py:92",
+    "reentrant-mutex": "jepsen_tpu/models/mutex.py:148",
+    "fenced-mutex": "jepsen_tpu/models/mutex.py:196",
+    "reentrant-fenced-mutex": "jepsen_tpu/models/mutex.py:280",
+    "semaphore": "jepsen_tpu/models/mutex.py:370",
+}
 
 
 def emit(obj) -> None:
@@ -189,16 +235,16 @@ def batch_ms(fn, inputs, hold=True, clone=True, batch=BATCH, batches=BATCHES) ->
     return statistics.median(dev_times), statistics.median(host_times)
 
 
-def warm_frontier(plan, F, lv, wgl):
-    """Stacked frontiers at capacity F after up to WARM_LEVELS beam levels
+def warm_frontier(plan, F, lv, wgl, model, levels=WARM_LEVELS):
+    """Stacked frontiers at capacity F after up to ``levels`` beam levels
     of the kernel path (at most half of each member's levels): (frontier,
     workspace, each member's level)."""
     g = wgl.level_geometry(plan, F)
     fr = wgl.initial_frontier_batch(F, g.W, g.KO, plan.init_state)
     ws = lv.BatchWorkspace(g, plan.nb, plan.device)
-    budgets = [min(WARM_LEVELS, t // 2) for t in plan.totals.tolist()]
+    budgets = [min(levels, t // 2) for t in plan.totals.tolist()]
     flags = lv.run_chunk_batch(lv.KERNELS, g, plan.tabs, fr, ws, [0] * plan.nb, budgets,
-                               [1] * plan.nb, plan.nD.tolist(), plan.nO.tolist())
+                               [1] * plan.nb, plan.nD.tolist(), plan.nO.tolist(), model)
     return fr, ws, [f[3] for f in flags]
 
 
@@ -245,7 +291,7 @@ def same_ladder(a, b) -> bool:
     return all(a.get(k) == b.get(k) for k in keys) and rungs(a) == rungs(b)
 
 
-def steady_state(plan, F, lv, wgl):
+def steady_state(plan, F, lv, wgl, model):
     """PROFILE_LEVELS beam levels of the kernel path from a warmed frontier
     (one member): host wall time, then the same window under
     torch.profiler for device time by CUDA kernel. The device's idle share
@@ -256,7 +302,7 @@ def steady_state(plan, F, lv, wgl):
     from torch.profiler import ProfilerActivity, profile
 
     g = wgl.level_geometry(plan, F)
-    fr, ws, (lvl0,) = warm_frontier(plan, F, lv, wgl)
+    fr, ws, (lvl0,) = warm_frontier(plan, F, lv, wgl, model)
     saved = tuple(t.clone() for t in fr)
     nDO = (plan.nD.tolist(), plan.nO.tolist())
 
@@ -267,7 +313,7 @@ def steady_state(plan, F, lv, wgl):
         before = dict(lv.LAUNCHES)
         t0 = time.perf_counter()
         (flags,) = lv.run_chunk_batch(lv.KERNELS, g, plan.tabs, fr, ws, [lvl0],
-                                      [lvl0 + PROFILE_LEVELS], [1], *nDO)
+                                      [lvl0 + PROFILE_LEVELS], [1], *nDO, model)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         return flags[3] - lvl0, wall, {k: lv.LAUNCHES[k] - before[k] for k in before}
@@ -304,17 +350,22 @@ def _rows_err(a, b, counts) -> int:
 class StageCheck:
     """Every stage of one level at capacity F over the plan's members, and
     the regroup: kernel against plain version on identical inputs (each
-    stage's inputs come from the plain chain)."""
+    stage's inputs come from the plain chain). ``expand_only`` stops after
+    the expand stage; ``plain_reps`` sets how the plain versions are timed
+    (``batch_ms``'s ``batch`` and ``batches``)."""
 
-    def __init__(self, plan, F, lv, wgl):
+    def __init__(self, plan, F, lv, wgl, model, warm=WARM_LEVELS, expand_only=False,
+                 plain_reps=None):
         import torch
 
-        self.lv, self.F = lv, F
+        self.lv, self.F, self.model = lv, F, model
+        self.expand_only = expand_only
+        self.plain_reps = plain_reps or {}
         self.g = g = wgl.level_geometry(plan, F)
         self.nb = nb = plan.nb
         self.tabs = plan.tabs
         dev = plan.device
-        fr, self.ws, lvls = warm_frontier(plan, F, lv, wgl)
+        fr, self.ws, lvls = warm_frontier(plan, F, lv, wgl, model, warm)
         self.fr = fr
         self.valid_configs = [int(x) for x in fr[4].sum(dim=1)]
         ctl = torch.zeros((nb, lv.CTL_SIZE), dtype=torch.int32)
@@ -351,7 +402,7 @@ class StageCheck:
             plain(pi)
             torch.cuda.synchronize()
             ms, call_ms = batch_ms(kernel, inputs)
-            plain_ms, _ = batch_ms(plain, inputs, hold=False)
+            plain_ms, _ = batch_ms(plain, inputs, hold=False, **self.plain_reps)
             return ki, pi, (ms, plain_ms, call_ms)
 
         e4 = lambda *a: 4 * int(sum(a))
@@ -366,9 +417,10 @@ class StageCheck:
         rows = z(nb, g.M, g.NC)
         nval = torch.zeros((nb, g.M), dtype=torch.uint8, device=dev)
         ins = (ctl, rows, nval) + tuple(self.fr)
+        model = self.model
         k, p, t = measure(
-            lambda t: lv.expand(g, tabs, t[3:], t[0], t[1], t[2]),
-            lambda t: lv.expand_plain(g, tabs, t[3:], t[0], t[1], t[2]), ins)
+            lambda t: lv.expand(g, tabs, t[3:], t[0], t[1], t[2], model),
+            lambda t: lv.expand_plain(g, tabs, t[3:], t[0], t[1], t[2], model), ins)
         vm = p[2].bool()
         err = max(max_abs_err(k[0], p[0]), max_abs_err(k[2], p[2]),
                   max_abs_err(k[1][vm], p[1][vm]))
@@ -377,6 +429,9 @@ class StageCheck:
         self.record("wgl_expand", err, t,
                     fb + min(4 * nb * g.ND * 8, e4(sum(self.valid_configs) * g.W * 5))
                     + e4(sum(n_exp) * g.NC) + nb * g.M)
+        self.n_exp = n_exp
+        if self.expand_only:
+            return
         ctl, rows, nval = p[0], p[1], p[2]
         # stage-1 compaction + hash
         drows = z(nb, g.L, g.NC) if g.two_stage else rows
@@ -454,7 +509,8 @@ class StageCheck:
         p = lv.regroup_reference(ins, idx, F_new)
         torch.cuda.synchronize()
         ms, call_ms = batch_ms(lambda t: lv.regroup(t, idx, F_new), ins)
-        plain_ms, _ = batch_ms(lambda t: lv.regroup_reference(t, idx, F_new), ins, hold=False)
+        plain_ms, _ = batch_ms(lambda t: lv.regroup_reference(t, idx, F_new), ins, hold=False,
+                               **self.plain_reps)
         row_bytes = 4 * (1 + g.KD + g.KO1 + g.S) + 1
         self.record("wgl_regroup", max(max_abs_err(a, b) for a, b in zip(k, p)),
                     (ms, plain_ms, call_ms), len(idx) * (g.F + F_new) * row_bytes)
@@ -497,8 +553,8 @@ def stage_summary(chk, lv):
     return out
 
 
-def batch_plan(encs, wgl):
-    """The encoded histories planned to common dims and stacked on the card."""
+def batch_plan(encs, wgl, dev="cuda"):
+    """The encoded histories planned to common dims and stacked on ``dev``."""
     import numpy as np
 
     plans = [wgl.plan_device(e, device="cpu") for e in encs]
@@ -506,8 +562,7 @@ def batch_plan(encs, wgl):
         raise RuntimeError("a batch member's plan was rejected")
     dims = np.array([p.dims for p in plans])
     pad = tuple(int(dims[:, k].max()) for k in (0, 1, 3, 4))
-    return wgl.stack_plans([wgl.plan_device(e, pad_to=pad, device="cpu") for e in encs],
-                           "cuda")
+    return wgl.stack_plans([wgl.plan_device(e, pad_to=pad, device="cpu") for e in encs], dev)
 
 
 def replay_histories(random_register_history, perturb_history):
@@ -691,6 +746,250 @@ def bench_graphs(P):
             g.add(a, b, rng.choice((P.WW, P.WW, P.WR, P.RW)))
         graphs.append(g)
     return big, graphs
+
+
+def unselected(plan, wgl):
+    """The batch plan without row-wise selection: every slot stepped."""
+    return wgl.BatchPlan(plan.dims, plan.tabs, plan.nD, plan.nO, plan.totals,
+                         plan.init_state, None, plan.device)
+
+
+def model_histories():
+    """{model: (valid, perturbed)} 2000-op histories of every device model
+    besides the registers."""
+    from jepsen_tpu_torch.testing import HISTORY_MODELS, random_model_history
+
+    out = {}
+    for name in HISTORY_MODELS:
+        v = {k: x for k, x in MODELS_2K.items() if k != "seed"}
+        b = {k: x for k, x in MODELS_2K_BAD.items() if k != "seed"}
+        out[name] = (random_model_history(random.Random(MODELS_2K["seed"]), name, **v),
+                     random_model_history(random.Random(MODELS_2K_BAD["seed"]), name,
+                                          perturb=True, **b))
+    return out
+
+
+def model_kernel_phase(lv, wgl, hists):
+    """model_kernels: each family's wgl_expand against the plain expand
+    (its step_torch) bit for bit, at the selected and the unselected
+    layout, from a frontier warmed for MODEL_WARM_LEVELS beam levels on
+    the family's valid history; at state widths above one, every
+    downstream stage too. Returns ({family: expand summary at the selected
+    layout}, {S: {stage: summary}}, max_abs_err by stage)."""
+    from jepsen_tpu_torch.ops.encode import encode_history
+    from jepsen_tpu_torch.testing import history_model
+
+    families, widths, errs = {}, {}, {}
+    for name, (h, _bad) in hists.items():
+        model = history_model(name)
+        plan = batch_plan([encode_history(model, h)], wgl)
+        if plan.B is None:
+            raise AssertionError(f"{name}: the history's plan has no row-wise selection")
+        row = {"phase": "model_kernels", "model": name, "S": model.state_width,
+               "W": plan.dims[0], "KO": plan.dims[1], "F": MODEL_KERNELS_F, "layouts": {}}
+        for layout, p in (("selected", plan), ("unselected", unselected(plan, wgl))):
+            full = model.state_width > 1 and layout == "selected"
+            chk = StageCheck(p, MODEL_KERNELS_F, lv, wgl, model, warm=MODEL_WARM_LEVELS,
+                             expand_only=not full, plain_reps=MODEL_PLAIN_REPS)
+            chk.run()
+            stages = stage_summary(chk, lv)
+            row["layouts"][layout] = {"B": chk.g.B, "M": chk.g.M, "two_stage": chk.g.two_stage,
+                                      "valid_configs": chk.valid_configs[0],
+                                      "expanded": chk.n_exp[0], "stages": stages}
+            for k, v in stages.items():
+                errs[k] = max(errs.get(k, 0), v["max_abs_err"])
+            if layout == "selected":
+                families[name] = dict(stages["wgl_expand"], S=model.state_width,
+                                      valid_configs=chk.valid_configs[0])
+            if full:
+                widths[model.state_width] = dict(stages, _model=name)
+        emit(row)
+    if sorted(widths) != [2, 3, 4, 8]:
+        raise AssertionError(f"model_kernels ran the stages at widths {sorted(widths)}")
+    return families, widths, errs
+
+
+def mutex_5k_phase(lv, wgl):
+    """BASELINE config 3 through the lock workload's checker on the card:
+    True, with the stats entry; the same search on the plain path (verdict,
+    levels, rungs, per-level rows); every level kernel launched; wall,
+    ms/level and the device's idle share; and wgl_expand against the plain
+    expand at this history's own capacity (16) after MODEL_WARM_LEVELS
+    levels. Returns (the launch counts, that expand summary)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from jepsen_tpu_torch.ops.encode import encode_history
+    from jepsen_tpu_torch.testing import history_model, random_lock_history
+    from jepsen_tpu_torch.workloads import lock
+
+    h = random_lock_history(random.Random(MUTEX_5K["seed"]), n_ops=MUTEX_5K["n_ops"],
+                            n_procs=MUTEX_5K["n_procs"])
+    chk = lock.checker({"model": "owner-aware-mutex"})
+    chk.check({}, h, {})  # workspaces and first-call costs
+    lv.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = chk.check({}, h, {})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = launch_counts(lv, "mutex_5k", LEVEL_KERNELS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        chk.check({}, h, {})
+        torch.cuda.synchronize()
+    busy = sum((getattr(e, "self_device_time_total", 0) or 0) / 1e3
+               for e in prof.key_averages()
+               if getattr(e, "device_type", None) is not None
+               and "cuda" in str(e.device_type).lower())
+    model = history_model("owner-aware-mutex")
+    k = wgl.check_history(model, h, backend="device", collect_stats=True)
+    p = wgl.check_history(model, h, backend="device", collect_stats=True, plain=True)
+    lin = res["linear"]
+    same = same_search(k, p) and all(lin.get(x) == k.get(x)
+                                     for x in ("valid", "levels", "frontier_max"))
+    levels = max(lin["levels"], 1)
+    F = lin["attempts"][-1]["F"]
+    chk_k = StageCheck(batch_plan([encode_history(model, h)], wgl), F, lv, wgl, model,
+                       warm=MODEL_WARM_LEVELS, expand_only=True, plain_reps=MODEL_PLAIN_REPS)
+    chk_k.run()
+    expand = dict(stage_summary(chk_k, lv)["wgl_expand"], F=F,
+                  valid_configs=chk_k.valid_configs[0])
+    emit({"phase": "mutex_5k", "ops": len(h), "valid": res["valid"],
+          "linear_valid": lin["valid"], "stats": {x: res["stats"].get(x) for x in
+                                                  ("valid", "count", "ok_count", "fail_count")},
+          "levels": lin["levels"], "wall_s": wall, "ms_per_level": 1e3 * wall / levels,
+          "device_busy_ms_per_level": busy / levels if busy else None,
+          "device_idle_share": 1 - busy / (1e3 * wall) if busy else None,
+          "attempts": [(a["F"], a["levels"]) for a in lin["attempts"]],
+          "launches": launches, "same_as_plain": same, "wgl_expand_at_frontier": expand})
+    if not (res["valid"] is True and lin["valid"] is True and "stats" in res and same):
+        raise AssertionError("mutex_5k failed")
+    return launches, expand
+
+
+def models_2k_phase(lv, wgl, wgl_host, hists):
+    """Each model's valid history (True, or unknown through the top-rung
+    beam only, never False, and then the same search as the plain path on
+    the card, rung for rung and level for level) and perturbed history (agreeing with the plain
+    path on the card, witness included, and with the host oracle) through
+    check_history(..., backend="device"). Returns each family's launch
+    counts."""
+    import torch
+
+    from jepsen_tpu_torch.testing import history_model
+
+    launches = {}
+    for name, (good, bad) in hists.items():
+        model = history_model(name)
+        lv.reset_launches()
+        t = time.perf_counter()
+        rg = wgl.check_history(model, good, backend="device")
+        torch.cuda.synchronize()
+        good_wall = time.perf_counter() - t
+        t = time.perf_counter()
+        rb = wgl.check_history(model, bad, backend="device", collect_stats=True)
+        torch.cuda.synchronize()
+        bad_wall = time.perf_counter() - t
+        launches[name] = launch_counts(lv, f"models_2k {name}", LEVEL_KERNELS)
+        # A valid history left unknown by the top-rung beam ran the widest
+        # frontiers of the phase: its whole search, every rung and level,
+        # is held against the plain path on the card.
+        good_plain = None
+        if rg["valid"] == "unknown":
+            kg = wgl.check_history(model, good, backend="device", collect_stats=True)
+            t = time.perf_counter()
+            pg = wgl.check_history(model, good, backend="device", collect_stats=True,
+                                   plain=True)
+            torch.cuda.synchronize()
+            good_plain = {"same_as_plain": same_search(kg, pg) and kg["valid"] == rg["valid"],
+                          "plain_wall_s": time.perf_counter() - t}
+        pb = wgl.check_history(model, bad, backend="device", collect_stats=True, plain=True)
+        host = wgl_host.check_history_host(model, bad)
+        ok = (rg["valid"] is True or (rg["valid"] == "unknown" and rg.get("beam")
+                                      and good_plain["same_as_plain"])) and \
+            rb["valid"] == host["valid"] is False and same_search(rb, pb) and \
+            bool(rb.get("stuck_configs")) and rb["max_linearized"] == host["max_linearized"]
+        emit({"phase": "models_2k", "model": name, "S": model.state_width,
+              "valid": rg["valid"], "levels": rg.get("levels"), "wall_s": good_wall,
+              "phase_name": rg.get("phase"), "beam": bool(rg.get("beam")),
+              "attempts": [(a["F"], a["levels"]) for a in rg.get("attempts") or []],
+              "perturbed_valid": rb["valid"], "perturbed_levels": rb.get("levels"),
+              "perturbed_wall_s": bad_wall, "host_valid": host["valid"],
+              "host_max_linearized": host.get("max_linearized"),
+              "max_linearized": rb.get("max_linearized"), "same_as_plain": same_search(rb, pb),
+              "valid_vs_plain": good_plain, "launches": launches[name]})
+        if not ok:
+            raise AssertionError(f"models_2k {name} failed")
+    return launches
+
+
+def keyed_multi_register_phase(lv, wgl_host, jchecker, independent, History):
+    """100 keys of single-register ops over registers (0, 1, 2) through the
+    keyed checker: every key batched (S = 3), the same launches as
+    check_batch, agreeing with the plain path (a prefix of keys) and the
+    host oracle; and the compose wiring on a few keys, key by key, with
+    the batch's results. Returns the keyed checker's launch counts."""
+    import torch
+
+    from jepsen_tpu_torch.models import MultiRegister
+    from jepsen_tpu_torch.parallel import check_batch
+    from jepsen_tpu_torch.testing import random_model_history
+
+    model = MultiRegister({0: None, 1: None, 2: None})
+    hists = [random_model_history(random.Random(KEYED["seed"] + k), "multi-register",
+                                  n_ops=KEYED["n_ops"], n_procs=KEYED["n_procs"],
+                                  crash_p=KEYED["crash_p"],
+                                  perturb=k % KEYED["perturb_every"] == 0)
+             for k in range(KEYED["keys"])]
+    keyed_ops = []
+    for k, h in enumerate(hists):
+        for o in h:
+            keyed_ops.append(o.with_(value=independent.KV(k, o.value), index=len(keyed_ops)))
+    keyed_h = History(keyed_ops, reindex=False)
+    check_batch(model, hists)  # workspaces and first-call costs
+    lv.reset_launches()
+    rb = check_batch(model, hists)
+    torch.cuda.synchronize()
+    batch_launches = launch_counts(lv, "check_batch of the keyed members", LEVEL_KERNELS)
+    lv.reset_launches()
+    t = time.perf_counter()
+    keyed = independent.checker(jchecker.linearizable(model=model)).check({}, keyed_h, {})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = launch_counts(lv, "keyed_multi_register", LEVEL_KERNELS)
+    results = [keyed["results"][k] for k in range(len(hists))]
+    n_plain = KEYED["plain_keys"]
+    rp = check_batch(model, hists[:n_plain], plain=True)
+    rk = check_batch(model, hists[:n_plain])
+    host = [wgl_host.check_history_host(model, h)["valid"] for h in hists]
+    n_comp = KEYED["compose_keys"]
+    comp_ops = [o for o in keyed_ops if o.value.key < n_comp]
+    comp = independent.checker(jchecker.compose({
+        "linear": jchecker.linearizable(model=model), "stats": jchecker.stats()})).check(
+        {}, History(comp_ops, reindex=False), {})
+    agree = {
+        "batched": all(r.get("batched") is True for r in results),
+        "same_as_check_batch": all(same_member(a, b) for a, b in zip(rb, results)),
+        "launches_as_check_batch": launches == batch_launches,
+        "plain_prefix": all(same_member(a, b) for a, b in zip(rk, rp)),
+        "host": [r["valid"] for r in results] == host,
+        "compose_key_by_key": all("batched" not in comp["results"][k]["linear"]
+                                  for k in range(n_comp)),
+        "compose_as_batch": [(comp["results"][k]["linear"]["valid"],
+                              comp["results"][k]["linear"].get("levels"))
+                             for k in range(n_comp)]
+        == [(r["valid"], r.get("levels")) for r in results[:n_comp]],
+    }
+    verdicts = [r["valid"] for r in results]
+    emit({"phase": "keyed_multi_register", "keys": len(hists), "valid": verdicts.count(True),
+          "invalid": verdicts.count(False), "unknown": verdicts.count("unknown"),
+          "keyed_valid": keyed["valid"], "wall_s": wall, "launches": launches,
+          "levels_enqueued": launches["wgl_expand"],
+          "member_levels_sum": sum(r.get("levels", 0) for r in results),
+          "plain_keys": n_plain, "compose_keys": n_comp, "agree": agree})
+    if not all(agree.values()):
+        raise AssertionError(f"keyed_multi_register disagrees: {agree}")
+    return launches
 
 
 def elle_phases():
@@ -900,7 +1199,7 @@ def main() -> int:
     timed = None
     errs = {}  # kernel -> max_abs_err over every F
     for F in KERNEL_FS:
-        chk = StageCheck(plan, F, lv, wgl)
+        chk = StageCheck(plan, F, lv, wgl, model)
         chk.run()
         g = chk.g
         stages = stage_summary(chk, lv)
@@ -926,7 +1225,7 @@ def main() -> int:
     if rerr:
         raise AssertionError("radix_sort_pairs disagrees with the stable sort on random keys")
 
-    emit(steady_state(plan, TIMED_F, lv, wgl))
+    emit(steady_state(plan, TIMED_F, lv, wgl, model))
 
     # -- the main path -------------------------------------------------------
     lv.reset_launches()
@@ -1011,7 +1310,7 @@ def main() -> int:
                            ("replay3", [encode_history(model, h) for h in replay[:3]],
                             REPLAY["f"])):
         bplan = batch_plan(encs, wgl)
-        chk = StageCheck(bplan, F, lv, wgl)
+        chk = StageCheck(bplan, F, lv, wgl, model)
         chk.run()
         g = chk.g
         stages = stage_summary(chk, lv)
@@ -1139,23 +1438,56 @@ def main() -> int:
             and any(r["valid"] is True for r in rb) and big_launches["wgl_regroup"] > 1):
         raise AssertionError("batch_8x10k failed")
 
+    # -- every other device model -------------------------------------------
+    hists = model_histories()
+    families, widths, model_errs = model_kernel_phase(lv, wgl, hists)
+    for k, v in model_errs.items():
+        errs[k] = max(errs.get(k, 0), v)
+    mutex_launches, mutex_expand = mutex_5k_phase(lv, wgl)
+    errs["wgl_expand"] = max(errs["wgl_expand"], mutex_expand["max_abs_err"])
+    family_launches = models_2k_phase(lv, wgl, wgl_host, hists)
+    keyed_mr_launches = keyed_multi_register_phase(lv, wgl_host, jchecker, independent, History)
+
     elle_main, elle_launch, elle_errs = elle_phases()
 
     kernels = []
+    paths = {"main_path": launches, "batch_8x10k": big_launches, "mutex_5k": mutex_launches,
+             "keyed_multi_register": keyed_mr_launches}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    summary = lambda r: {k: r[k] for k in keys}  # noqa: E731
     for kname in lv.LAUNCHES:
         r, b = timed[kname], batch_stages[kname]
-        kernels.append({
+        entry = {
             "name": kname, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[kname], "launches": launches[kname],
             "max_abs_err": max(errs[kname], rerr if kname == "radix_sort_pairs" else 0),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": r["library_ms"],
+            "launches_by_path": {k: v[kname] for k, v in paths.items()},
             "batch": {"replaces": BATCH_REPLACES.get(kname, BATCH_REPLACES["level"]),
                       "nb": batch_stages["_nb"], "F": batch_stages["_F"],
                       "launches": big_launches[kname], "max_abs_err": b["max_abs_err"],
                       "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
                       "bound_by": "bytes", "library_ms": b["library_ms"]},
-        })
+        }
+        # The downstream stages at state widths above one (model_kernels).
+        at_widths = {f"S{S}": dict(summary(w[kname]), model=w["_model"])
+                     for S, w in sorted(widths.items()) if kname in w}
+        if at_widths:
+            entry["state_widths"] = at_widths
+        if kname == "wgl_expand":
+            # Each family's step (model_kernels, selected layout, F 4096);
+            # launches on its models_2k searches, mutex_5k and the keyed path.
+            entry["families"] = [dict(
+                summary(f), model=name, S=f["S"], replaces=STEP_REPLACES[name],
+                valid_configs=f["valid_configs"],
+                launches=family_launches[name]["wgl_expand"],
+                launches_mutex_5k=mutex_launches[kname] if name == "owner-aware-mutex" else 0,
+                **({"at_mutex_5k_frontier": summary(mutex_expand)}
+                   if name == "owner-aware-mutex" else {}),
+                launches_keyed=keyed_mr_launches[kname] if name == "multi-register" else 0)
+                for name, f in families.items()]
+        kernels.append(entry)
     for kname, r in elle_main.items():
         kernels.append({
             "name": kname, "route": "cuda", "source": ELLE_SOURCE,

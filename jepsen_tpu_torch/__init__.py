@@ -2,13 +2,16 @@
 
 This package sits beside ``jepsen_tpu`` (the JAX reference) and imports
 nothing from it: the host layers it needs are its own copies. It holds
-the WGL linearizability search for the ``cas-register`` / ``register``
-models, for one history (``ops.wgl.check_history``) or a batch
-(``parallel.check_batch``, and the keyed ``independent.checker(
-checker.linearizable(...))`` on top of it). The BFS level program runs as
-hand-written CUDA kernels for Hopper on a member axis
-(``csrc/wgl_level.cu``, the single search being the batch of one), with a
-plain PyTorch version of every stage beside them (``ops.wgl_level``).
+the reference's fourteen models (``models``) and the WGL linearizability
+search for each device model among them, for one history
+(``ops.wgl.check_history``) or a batch (``parallel.check_batch``, and the
+keyed ``independent.checker(checker.linearizable(...))`` on top of it),
+with the lock and semaphore workloads' checkers (``workloads.lock``). The
+BFS level program runs as hand-written CUDA kernels for Hopper on a member
+axis (``csrc/wgl_level.cu``, the single search being the batch of one;
+the expand kernel inlines every device model's step), with a plain
+PyTorch version of every stage beside them (``ops.wgl_level``). The
+host-only queue models run on the host oracle.
 It also holds Elle's transactional cycle checker (``elle.append.check``,
 ``elle.wr.check``, the ``workloads.append``/``wr`` checkers), whose
 closures run as the kernels of ``csrc/elle_closure.cu`` (plain versions

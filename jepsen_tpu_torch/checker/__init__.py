@@ -2,7 +2,8 @@
 
 The port of the reference's ``jepsen_tpu/checker/__init__.py``: the
 ``Checker.check(test, history, opts)`` seam, the valid-merge lattice
-``True < "unknown" < False``, ``check_safe``, and ``linearizable``, which
+``True < "unknown" < False``, ``check_safe``, ``compose``, ``stats``, and
+``linearizable``, which
 dispatches on the ``backend`` option (overridden by the test map's
 ``checker_backend``) onto the GPU search (``ops.wgl``) or the port's host
 oracle, and decides many keyed subhistories at once through
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import logging
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Optional
 
 from ..devices import resolve_device
@@ -87,6 +89,65 @@ def check_safe(checker: Checker, test: dict, history: History,
     except Exception:
         LOG.warning("Error while checking history:", exc_info=True)
         return {"valid": "unknown", "error": traceback.format_exc()}
+
+
+class _Compose(Checker):
+    def __init__(self, checker_map: dict):
+        self.checker_map = dict(checker_map)
+
+    def check(self, test, history, opts=None):
+        items = list(self.checker_map.items())
+        if not items:
+            return {"valid": True}
+        with ThreadPoolExecutor(len(items)) as pool:
+            results = list(pool.map(
+                lambda kv: (kv[0], check_safe(kv[1], test, history, opts)), items))
+        out = dict(results)
+        out["valid"] = merge_valid(r.get("valid") for _, r in results if r is not None)
+        return out
+
+
+def compose(checker_map: dict) -> Checker:
+    """Map of names -> checkers; runs each (in threads) and merges their
+    valid values. A composed checker has no ``batch_check``, so a keyed
+    ``independent.checker`` over it checks key by key, as the reference's
+    does."""
+    return _Compose(checker_map)
+
+
+def _stats_counts(ops) -> dict:
+    ok = sum(1 for op in ops if op.is_ok)
+    fail = sum(1 for op in ops if op.is_fail)
+    info = sum(1 for op in ops if op.is_info)
+    return {
+        # A group where nothing succeeded is indeterminate, not broken:
+        # fail and info are legitimate outcomes, and correctness is the
+        # model checkers' call.
+        "valid": True if ok > 0 else "unknown",
+        "count": ok + fail + info,
+        "ok_count": ok,
+        "fail_count": fail,
+        "info_count": info,
+    }
+
+
+def stats() -> Checker:
+    """Success/failure rates, overall and by ``f``; valid iff every ``f``
+    has some ok ops, else "unknown" — never False."""
+
+    def chk(test, history, opts):
+        ops = [op for op in history if not op.is_invoke and op.is_client]
+        by_f: dict[Any, list] = {}
+        for op in ops:
+            by_f.setdefault(op.f, []).append(op)
+        groups = {f: _stats_counts(sub)
+                  for f, sub in sorted(by_f.items(), key=lambda kv: str(kv[0]))}
+        out = _stats_counts(ops)
+        out["by_f"] = groups
+        out["valid"] = merge_valid(g["valid"] for g in groups.values())
+        return out
+
+    return checker_fn(chk, "stats")
 
 
 def resolve_backend(name: str) -> str:
@@ -184,5 +245,5 @@ def linearizable(options: Optional[dict] = None, **kw) -> Checker:
     return out
 
 
-__all__ = ["Checker", "check_safe", "checker_fn", "linearizable", "merge_valid",
-           "resolve_backend"]
+__all__ = ["Checker", "check_safe", "checker_fn", "compose", "linearizable",
+           "merge_valid", "resolve_backend", "stats"]

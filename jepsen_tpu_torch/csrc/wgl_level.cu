@@ -2,10 +2,10 @@
 // Hopper (sm_90a), over a batch of nb independent searches (members).
 // Replaces the reference's XLA level program, jepsen_tpu/ops/wgl.py
 // `_build_kernel` -> `level` (lines 301-934), its vmapped batch form
-// `_build_batch_kernel` (line 949), and the cas-register step it inlines
-// (jepsen_tpu/models/register.py:64), and the re-batch of stacked
-// frontiers between rungs (`wgl_regroup`, below). The single-history
-// search launches the same entry points with nb = 1.
+// `_build_batch_kernel` (line 949), every device model's `step_jax` it
+// inlines (jepsen_tpu/models/*.py; see "Model steps" below), and the
+// re-batch of stacked frontiers between rungs (`wgl_regroup`, below). The
+// single-history search launches the same entry points with nb = 1.
 //
 // A level is a fixed sequence of launches on one stream, one launch per
 // stage for the whole batch; the plain PyTorch version of every entry
@@ -193,15 +193,222 @@ __global__ void k_chunk_init(int* ctl, const unsigned char* valid, int F) {
 // K1 expand (reference lines 363-490): one warp per configuration, the
 // member in blockIdx.y.
 
-// cas-register transition (models/register.py:64): a read matches or is
+// Model steps. Each is a transcription of the reference model's `step_jax`
+// (not of its `step_scalar`: the two differ on opcodes outside the model's
+// range and on the state a refused op leaves, and the reference's device
+// program runs `step_jax`); its plain version is the model's `step_torch`
+// in jepsen_tpu_torch/models/. A step reads the parent's S state lanes
+// `s` and returns ok; when `o` is not null it also writes the child's S
+// lanes there (k_expand calls it once without `o` to decide the row and
+// once with it for a row it keeps).
+//
+// Dispatch: one `switch` on a step id that is a kernel argument, so it is
+// uniform across the grid and costs one predictable branch per candidate;
+// every member of a batch shares one model (the batch refuses mixed
+// families). A template per model would compile eleven copies of k_expand
+// for no measurable gain: the level is bound by its sorts, not by the
+// step. `prm` carries the one behaviour parameter a model has
+// (ReentrantMutex.max_depth, Semaphore.capacity,
+// ReentrantFencedMutex.LOCK_LIMIT); no model has two.
+//
+// The state width S is a runtime argument with no cap: MultiRegister and
+// Bank have one lane per register or account. Their steps copy the
+// parent's lanes and overwrite the one or two that change; the fixed-width
+// steps (S = 1, 2, 4) work in registers. The reference's arithmetic is
+// int32 and wraps, so sums and differences are taken in u32 (signed
+// overflow is undefined in C++) and compared as int. Lane indices from a
+// padded or clamped table row (the unselected layout steps every slot)
+// are kept inside the state; such rows are discarded by `nvalid`, and a
+// valid encoding gives every candidate a lane in range, so the guard
+// cannot change a result.
+
+#define STEP_CAS_REGISTER 0
+#define STEP_MULTI_REGISTER 1
+#define STEP_COUNTER 2
+#define STEP_SET 3
+#define STEP_BANK 4
+#define STEP_MUTEX 5
+#define STEP_OWNER_AWARE_MUTEX 6
+#define STEP_REENTRANT_MUTEX 7
+#define STEP_FENCED_MUTEX 8
+#define STEP_REENTRANT_FENCED_MUTEX 9
+#define STEP_SEMAPHORE 10
+
+__device__ __forceinline__ int wrap_add(int x, int y) { return (int)((u32)x + (u32)y); }
+__device__ __forceinline__ int wrap_sub(int x, int y) { return (int)((u32)x - (u32)y); }
+__device__ __forceinline__ int clamp_lane(int i, int S) { return min(max(i, 0), S - 1); }
+
+__device__ __forceinline__ void copy_lanes(const int* s, int S, u32* o) {
+  for (int i = 0; i < S; ++i) o[i] = (u32)s[i];
+}
+
+// cas-register and register (models/register.py:64): a read matches or is
 // UNKNOWN, a write sets, a cas hits on equal; any other opcode fails.
-__device__ __forceinline__ bool cas_register_step(int v, int op, int a1, int a2, int* v2) {
-  bool hit = (v == a1);
-  if (op == 0) { *v2 = v; return a1 == UNKNOWN_VAL || hit; }
-  if (op == 1) { *v2 = a1; return true; }
-  if (op == 2) { *v2 = hit ? a2 : v; return hit; }
-  *v2 = v;
-  return false;
+__device__ __forceinline__ bool cas_register_step(const int* s, int op, int a1, int a2, u32* o) {
+  const int v = s[0];
+  const bool hit = (v == a1);
+  bool ok = false;
+  int v2 = v;
+  if (op == 0) ok = a1 == UNKNOWN_VAL || hit;
+  if (op == 1) { ok = true; v2 = a1; }
+  if (op == 2) { ok = hit; v2 = hit ? a2 : v; }
+  if (o) o[0] = (u32)v2;
+  return ok;
+}
+
+// multi-register (models/register.py:162): a1 is the register's lane; a
+// read matches a2 or a2 is UNKNOWN; any other opcode writes a2.
+__device__ __forceinline__ bool multi_register_step(const int* s, int S, int op, int a1, int a2,
+                                                    u32* o) {
+  const bool is_read = op == 0;
+  const int cur = s[clamp_lane(a1, S)];
+  if (o) {
+    copy_lanes(s, S, o);
+    if (!is_read && a1 >= 0 && a1 < S) o[a1] = (u32)a2;
+  }
+  return !is_read || a2 == UNKNOWN_VAL || cur == a2;
+}
+
+// counter (models/counter.py:70): a read matches a1 or is UNKNOWN; any
+// other opcode adds a1.
+__device__ __forceinline__ bool counter_step(const int* s, int op, int a1, u32* o) {
+  const int v = s[0];
+  const bool is_read = op == 0;
+  if (o) o[0] = (u32)(is_read ? v : wrap_add(v, a1));
+  return !is_read || a1 == UNKNOWN_VAL || v == a1;
+}
+
+// set (models/sets.py:95): add ORs a1's bits in, remove needs one of them
+// present and clears them, read compares the whole mask; other opcodes fail.
+__device__ __forceinline__ bool set_step(const int* s, int op, int a1, u32* o) {
+  const int m = s[0];
+  const bool ok = op == 0 || (op == 1 && (m & a1) != 0) ||
+                  (op == 2 && (a1 == UNKNOWN_VAL || m == a1));
+  if (o) o[0] = (u32)(op == 0 ? (m | a1) : op == 1 ? (m & ~a1) : m);
+  return ok;
+}
+
+// bank (models/bank.py:110): lanes are accounts. A read (opcode 0) matches
+// the balance of lane a1 % S; any other opcode transfers a2 from
+// src = a1 / S to dst = a1 % S (Python's floor division and modulus) when
+// the source covers it.
+__device__ __forceinline__ bool bank_step(const int* s, int S, int op, int a1, int a2, u32* o) {
+  const bool is_read = op == 0;
+  int dst = a1 % S;
+  int src = a1 / S;
+  if (dst < 0) { dst += S; src -= 1; }
+  if (is_read) {
+    const int cur = s[dst];
+    if (o) copy_lanes(s, S, o);
+    return a2 == UNKNOWN_VAL || cur == a2;
+  }
+  const bool ok = s[clamp_lane(src, S)] >= a2;
+  if (o) {
+    copy_lanes(s, S, o);
+    if (ok) {
+      if (src >= 0 && src < S) o[src] = (u32)wrap_sub((int)o[src], a2);
+      o[dst] = (u32)wrap_add((int)o[dst], a2);
+    }
+  }
+  return ok;
+}
+
+// mutex (models/mutex.py:55): opcode 0 acquires a free lock; any other
+// opcode releases a held one.
+__device__ __forceinline__ bool mutex_step(const int* s, int op, u32* o) {
+  const int locked = s[0];
+  const bool is_acq = op == 0;
+  if (o) o[0] = is_acq ? 1u : 0u;
+  return is_acq ? locked == 0 : locked == 1;
+}
+
+// owner-aware mutex (models/mutex.py:92): lane = owner + 1, 0 when free;
+// a release must come from the owner a1.
+__device__ __forceinline__ bool owner_aware_mutex_step(const int* s, int op, int a1, u32* o) {
+  const int owner = s[0];
+  const int client = wrap_add(a1, 1);
+  const bool is_acq = op == 0;
+  if (o) o[0] = (u32)(is_acq ? client : 0);
+  return is_acq ? owner == 0 : owner == client;
+}
+
+// reentrant mutex (models/mutex.py:148): depth below max_depth acquires,
+// a held lock releases one level.
+__device__ __forceinline__ bool reentrant_mutex_step(const int* s, int op, int max_depth,
+                                                     u32* o) {
+  const int depth = s[0];
+  const bool is_acq = op == 0;
+  if (o) o[0] = (u32)(is_acq ? wrap_add(depth, 1) : max(wrap_sub(depth, 1), 0));
+  return is_acq ? depth < max_depth : depth > 0;
+}
+
+// fenced mutex (models/mutex.py:196): lanes [owner + 1, last fence]; an
+// acquire's observed fence a2 must exceed the last one unless UNKNOWN.
+__device__ __forceinline__ bool fenced_mutex_step(const int* s, int op, int a1, int a2, u32* o) {
+  const int owner = s[0], last = s[1];
+  const int client = wrap_add(a1, 1);
+  const bool is_acq = op == 0;
+  const bool fence_ok = a2 == UNKNOWN_VAL || a2 > last;
+  if (o) {
+    o[0] = (u32)(is_acq ? client : 0);
+    o[1] = (u32)((is_acq && a2 != UNKNOWN_VAL) ? a2 : last);
+  }
+  return is_acq ? (owner == 0 && fence_ok) : owner == client;
+}
+
+// reentrant fenced mutex (models/mutex.py:280): lanes [owner + 1, count,
+// current fence, highest observed fence], the `jnp.where` chains of
+// step_jax written out as the same conditions.
+__device__ __forceinline__ bool reentrant_fenced_mutex_step(const int* s, int op, int a1, int a2,
+                                                            int lock_limit, u32* o) {
+  const int owner = s[0], count = s[1], cur = s[2], hof = s[3];
+  const int client = wrap_add(a1, 1);
+  const int f = a2;
+  const bool is_acq = op == 0;
+  const bool f_known = f != UNKNOWN_VAL;
+  const bool fresh_ok = !f_known || f > hof;
+  const bool room = owner == client && count < lock_limit;
+  const bool c1 = is_acq && owner == 0;
+  const bool c2 = is_acq && room && cur == UNKNOWN_VAL;
+  const bool c3 = is_acq && room && cur != UNKNOWN_VAL && (!f_known || f == cur);
+  const bool rel_ok = !is_acq && owner == client && owner != 0;
+  if (o) {
+    const bool last_hold = count == 1;
+    o[0] = (u32)(is_acq ? client : (last_hold ? 0 : owner));
+    o[1] = (u32)(c1 ? 1 : (c2 || c3) ? wrap_add(count, 1) : max(wrap_sub(count, 1), 0));
+    o[2] = (u32)((c1 || c2) ? f : c3 ? cur : (last_hold ? UNKNOWN_VAL : cur));
+    o[3] = (u32)(((c1 || c2) && f_known) ? max(f, hof) : hof);
+  }
+  return ((c1 || c2) && fresh_ok) || c3 || rel_ok;
+}
+
+// semaphore (models/mutex.py:370): lane = permits held; an acquire of a1
+// permits fits under capacity, a release needs a1 held.
+__device__ __forceinline__ bool semaphore_step(const int* s, int op, int a1, int capacity,
+                                               u32* o) {
+  const int acquired = s[0];
+  const int total = wrap_add(acquired, a1);
+  const bool is_acq = op == 0;
+  if (o) o[0] = (u32)(is_acq ? total : max(wrap_sub(acquired, a1), 0));
+  return is_acq ? total <= capacity : acquired >= a1;
+}
+
+__device__ __forceinline__ bool model_step(int step, const int* s, int S, int op, int a1, int a2,
+                                           int prm, u32* o) {
+  switch (step) {
+    case STEP_CAS_REGISTER: return cas_register_step(s, op, a1, a2, o);
+    case STEP_MULTI_REGISTER: return multi_register_step(s, S, op, a1, a2, o);
+    case STEP_COUNTER: return counter_step(s, op, a1, o);
+    case STEP_SET: return set_step(s, op, a1, o);
+    case STEP_BANK: return bank_step(s, S, op, a1, a2, o);
+    case STEP_MUTEX: return mutex_step(s, op, o);
+    case STEP_OWNER_AWARE_MUTEX: return owner_aware_mutex_step(s, op, a1, o);
+    case STEP_REENTRANT_MUTEX: return reentrant_mutex_step(s, op, prm, o);
+    case STEP_FENCED_MUTEX: return fenced_mutex_step(s, op, a1, a2, o);
+    case STEP_REENTRANT_FENCED_MUTEX: return reentrant_fenced_mutex_step(s, op, a1, a2, prm, o);
+    case STEP_SEMAPHORE: return semaphore_step(s, op, a1, prm, o);
+    default: return false;  // the wrapper admits only the ids above
+  }
 }
 
 __device__ __forceinline__ u32 new_word(const u32* mDf, int KD, int k, int t, int W) {
@@ -218,7 +425,8 @@ __global__ void k_expand(const int* __restrict__ tabD, const int* __restrict__ s
                          const u32* __restrict__ mO, const int* __restrict__ st,
                          const unsigned char* __restrict__ valid, int* ctl,
                          u32* __restrict__ rows, unsigned char* __restrict__ nvalid,
-                         int F, int W, int KO, int ND, int NO, int B) {
+                         int F, int W, int KO, int ND, int NO, int B, int S, int step,
+                         int prm) {
   const int b = blockIdx.y;
   ctl += (size_t)b * CTL_SIZE;
   if (stopped(ctl)) return;
@@ -227,7 +435,6 @@ __global__ void k_expand(const int* __restrict__ tabD, const int* __restrict__ s
   if (f >= F) return;
   const int KD = W >> 5;
   const int KO1 = KO > 0 ? KO : 1;
-  const int S = 1;
   const int NC = 1 + KD + S + KO1;
   const int C = W + 32 * KO;
   const bool SEL = B > 0;
@@ -251,7 +458,7 @@ __global__ void k_expand(const int* __restrict__ tabD, const int* __restrict__ s
   const bool vf = valid[f] != 0;
   const u32* mDf = mD + (size_t)f * KD;
   const u32* mOf = mO + (size_t)f * KO1;
-  const int v = st[f];
+  const int* stf = st + (size_t)f * S;
 
   // Two-min over unlinearized window rets: m1, its first slot am, and the
   // min over the other slots m2.
@@ -327,9 +534,7 @@ __global__ void k_expand(const int* __restrict__ tabD, const int* __restrict__ s
       outrow = (size_t)f * C + t;
     }
     if (!write) continue;
-    int v2;
-    bool ok = cas_register_step(v, op, a1, a2, &v2);
-    bool nv = cand && ok;
+    bool nv = cand && model_step(step, stf, S, op, a1, a2, prm, nullptr);
     nvalid[outrow] = nv ? 1 : 0;
     if (!nv) continue;
     // bit set, trailing ones across the words, multi-word right shift
@@ -349,7 +554,7 @@ __global__ void k_expand(const int* __restrict__ tabD, const int* __restrict__ s
       u32 hi = new_word(mDf, KD, k + sw + 1, t, W);
       out[1 + k] = (lo >> sb) | (sb ? (hi << (32 - sb)) : 0u);
     }
-    out[1 + KD] = (u32)v2;
+    model_step(step, stf, S, op, a1, a2, prm, out + 1 + KD);
     for (int k = 0; k < KO1; ++k) {
       u32 ow = 0u;
       if (KO > 0) {
@@ -721,15 +926,15 @@ int wgl_chunk_init(void* ctl, void* valid, int F, int nb, void* stream) {
 
 int wgl_expand(void* tabD, void* sufret, void* invO, void* opO, void* a1O, void* a2O,
                void* p, void* mD, void* mO, void* st, void* valid, void* ctl, void* rows,
-               void* nvalid, int F, int W, int KO, int ND, int NO, int B, int nb,
-               void* stream) {
+               void* nvalid, int F, int W, int KO, int ND, int NO, int B, int S, int step,
+               int prm, int nb, void* stream) {
   const int threads = 128;  // 4 configurations per block
   dim3 grid(nblk((long)F * 32, threads), nb);
   k_expand<<<grid, threads, 0, (cudaStream_t)stream>>>(
       (const int*)tabD, (const int*)sufret, (const int*)invO, (const int*)opO,
       (const int*)a1O, (const int*)a2O, (const int*)p, (const u32*)mD, (const u32*)mO,
       (const int*)st, (const unsigned char*)valid, (int*)ctl, (u32*)rows,
-      (unsigned char*)nvalid, F, W, KO, ND, NO, B);
+      (unsigned char*)nvalid, F, W, KO, ND, NO, B, S, step, prm);
   return (int)cudaGetLastError();
 }
 

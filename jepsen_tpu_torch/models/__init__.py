@@ -11,6 +11,10 @@ Each model carries two step implementations over one integer encoding:
 States are fixed-width int32 lane tuples. Op values are interned to dense
 int ids by :class:`ValueTable` at encode time; models only ever see ints.
 ``UNKNOWN`` marks an unobserved value that matches anything.
+
+Device steps wrap like int32 arithmetic (two's complement), as the
+reference's do; ``step_torch`` keeps int32 tensors so that it wraps the
+same way.
 """
 
 from __future__ import annotations
@@ -70,7 +74,7 @@ class Model:
     name: str = "model"
     state_width: int = 1
     n_opcodes: int = 1
-    device_capable: bool = True
+    device_capable: bool = True  # False: no device step (the host oracle runs it)
 
     def init_state(self, table: ValueTable) -> tuple[int, ...]:
         raise NotImplementedError
@@ -106,6 +110,13 @@ class Model:
         """Hashable constructor args that affect the step's behaviour."""
         return ()
 
+    @classmethod
+    def _from_cache_key(cls, args: tuple) -> "Model":
+        """An instance with the behaviour ``cache_args()`` names (plain
+        Python values: this is how a model crosses from one package to
+        the other)."""
+        return cls(*args)
+
     def describe_op(self, opcode: int, a1: int, a2: int, table: ValueTable) -> str:
         return f"op{opcode}({a1}, {a2})"
 
@@ -122,12 +133,33 @@ def register_model(cls):
     return cls
 
 
-def model_by_name(name: str, *args: Any, **kw: Any) -> Model:
+def model_class(name: str) -> Callable[..., Model]:
+    """The registered class named ``name``."""
     try:
-        cls = _REGISTRY[name]
+        return _REGISTRY[name]
     except KeyError:
         raise KeyError(f"unknown model {name!r}; known: {sorted(_REGISTRY)}") from None
-    return cls(*args, **kw)
 
 
-from .register import CasRegister, Register  # noqa: E402,F401
+def model_by_name(name: str, *args: Any, **kw: Any) -> Model:
+    return model_class(name)(*args, **kw)
+
+
+def known_models() -> Sequence[str]:
+    return sorted(_REGISTRY)
+
+
+# Import concrete models for their registration side effects.
+from .register import CasRegister, MultiRegister, Register  # noqa: E402,F401
+from .counter import Counter  # noqa: E402,F401
+from .sets import LwSet  # noqa: E402,F401
+from .bank import Bank  # noqa: E402,F401
+from .mutex import (  # noqa: E402,F401
+    FencedMutex,
+    Mutex,
+    OwnerAwareMutex,
+    ReentrantFencedMutex,
+    ReentrantMutex,
+    Semaphore,
+)
+from .queue import FIFOQueue, UnorderedQueue  # noqa: E402,F401

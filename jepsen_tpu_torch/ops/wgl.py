@@ -423,7 +423,7 @@ class _Search:
 
     def __init__(self, plan: DevicePlan, model: Model, plain: bool):
         self.plan = plan
-        self.step = model.step_torch
+        self.model = model
         self.ops = _lv.PLAIN if plain else _lv.KERNELS
         self._ws: dict = {}
 
@@ -436,7 +436,7 @@ class _Search:
             ws = self._ws[key] = _lv.BatchWorkspace(g, 1, self.plan.device)
         plan = self.plan
         flags = _lv.run_chunk(self.ops, g, plan.tabs, fr[:5], ws, lvl0, max_levels,
-                              lossy, plan.nD, plan.nO, self.step)
+                              lossy, plan.nD, plan.nO, self.model)
         return flags, ws.stats[0]
 
 
@@ -734,8 +734,10 @@ def check_history(model: Model, history: History, backend: str = "device",
                   **kw) -> dict:
     """Unified entry. ``backend="device"`` (the default) runs the frontier
     search on the GPU (or ``device="cpu"``); ``backend="host"`` runs the
-    pure-Python oracle. The reference's other engines come with later
-    slices of the port and raise here."""
+    pure-Python oracle, as does a model with no device step
+    (``device_capable = False``: the queues), whose result's ``info`` then
+    says so. The reference's other engines come with later slices of the
+    port and raise here."""
     if parallel is not None:
         raise ValueError("parallel= (the offline segmented checker) comes "
                          "with a later slice of the port")
@@ -747,8 +749,13 @@ def check_history(model: Model, history: History, backend: str = "device",
     from . import wgl_host
 
     enc = encode_history(model, history)
-    if backend == "host":
+    if backend == "host" or not model.device_capable:
         res = wgl_host.check_encoded(enc, max_configs=host_max_configs)
+        if backend == "device":
+            # A device request this model cannot honour: say so, keeping
+            # the oracle's own diagnostics.
+            note = f"model {model.name} is not device-capable; ran on host oracle"
+            res["info"] = f"{res['info']}; {note}" if res.get("info") else note
         res["backend"] = "host"
         return res
     return check_encoded_device(enc, **kw)

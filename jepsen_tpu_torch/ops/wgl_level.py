@@ -12,8 +12,9 @@ that computes one member's stage:
 stage                   what it computes
 ======================  ====================================================
 ``expand``              window read, two-min real-time candidacy, row-wise
-                        ≤B selection, model step, bit set + renormalise;
-                        packed candidate rows ``[M, NC]``
+                        ≤B selection, model step (any device model, see
+                        :func:`step_spec`), bit set + renormalise; packed
+                        candidate rows ``[M, NC]``
 ``stage1_hash``         stable compaction of valid rows into P rows (when
                         ``M > BIG_M_THRESHOLD``), FNV group hash, fused key
 ``take_col``            ``out[i] = src[idx[i], col]`` (sort-key gather)
@@ -56,6 +57,9 @@ from typing import Optional
 import torch
 
 from .. import _build
+from ..models import (Bank, CasRegister, Counter, FencedMutex, LwSet, Model, MultiRegister,
+                      Mutex, OwnerAwareMutex, ReentrantFencedMutex, ReentrantMutex, Register,
+                      Semaphore)
 
 INT32_MAX = 2**31 - 1
 M32 = 0xFFFFFFFF
@@ -217,16 +221,11 @@ def chunk_init_reference(ctl: torch.Tensor, valid: torch.Tensor) -> None:
 
 
 def expand_reference(g: Geometry, tabs: dict, fr: tuple, ctl: torch.Tensor,
-                     rows: torch.Tensor, nvalid: torch.Tensor,
-                     step=None) -> None:
+                     rows: torch.Tensor, nvalid: torch.Tensor, model: Model) -> None:
     """Plain version of ``k_expand`` (reference ``ops/wgl.py:363-490``) for
-    one member. ``step`` is the model's ``step_torch``; None means
-    cas-register."""
+    one member; the model step is ``model.step_torch``."""
     if not _go(ctl):
         return
-    if step is None:
-        from ..models.register import CasRegister
-        step = CasRegister().step_torch
     p, mD, mO, st, valid = fr
     dev = p.device
     F, W, KD, KO, C = g.F, g.W, g.KD, g.KO, g.C
@@ -299,8 +298,8 @@ def expand_reference(g: Geometry, tabs: dict, fr: tuple, ctl: torch.Tensor,
             (oslot >= 0) & (oslot // 32 == w), 1 << (oslot % 32), 0)
             for w in range(KO)]
     st_rep = st[:, None, :].expand(F, CC, g.S).reshape(M, g.S)
-    ok, st2 = step(st_rep, opc.reshape(M).to(torch.int32),
-                   a1c.reshape(M).to(torch.int32), a2c.reshape(M).to(torch.int32))
+    ok, st2 = model.step_torch(st_rep, opc.reshape(M).to(torch.int32),
+                               a1c.reshape(M).to(torch.int32), a2c.reshape(M).to(torch.int32))
     cand = cand.reshape(M) & ok
     words = [w_.reshape(M) for w_ in words]
     owords = [w_.reshape(M) for w_ in owords]
@@ -605,25 +604,48 @@ def _chunk_init_args(ctl, valid) -> tuple:
     return _ptr(ctl), _ptr(valid), ctypes.c_int(F), ctypes.c_int(nb), _stream()
 
 
-def _is_cas_register_step(step) -> bool:
-    from ..models.register import CasRegister
+# The model steps ``k_expand`` inlines, by class: (step id, the attribute
+# holding the step's one behaviour parameter). A class that is not here —
+# a subclass included, since it may change the step — has no kernel step.
+_KERNEL_STEPS = {
+    CasRegister: (0, None), Register: (0, None), MultiRegister: (1, None),
+    Counter: (2, None), LwSet: (3, None), Bank: (4, None), Mutex: (5, None),
+    OwnerAwareMutex: (6, None), ReentrantMutex: (7, "max_depth"),
+    FencedMutex: (8, None), ReentrantFencedMutex: (9, "LOCK_LIMIT"),
+    Semaphore: (10, "capacity"),
+}
 
-    return step is None or getattr(step, "__func__", None) is CasRegister.step_torch
+
+def step_spec(model: Model) -> tuple:
+    """``(step id, parameter)`` of ``model``'s step in ``k_expand``: the
+    ``STEP_*`` id of ``csrc/wgl_level.cu`` and the one int parameter the
+    step reads (0 where it reads none). Raises ``ValueError`` for a model
+    the kernel does not implement."""
+    spec = _KERNEL_STEPS.get(type(model))
+    if spec is None:
+        raise ValueError(f"the CUDA expand kernel has no step for model "
+                         f"{type(model).__name__} ({getattr(model, 'name', '?')!r})")
+    sid, attr = spec
+    prm = 0 if attr is None else int(getattr(model, attr))
+    if not -2**31 <= prm < 2**31:
+        raise ValueError(f"{type(model).__name__}.{attr} = {prm} does not fit in int32")
+    return sid, prm
 
 
 def expand(g: Geometry, tabs: dict, fr: tuple, ctl: torch.Tensor,
-           rows: torch.Tensor, nvalid: torch.Tensor, step=None) -> None:
-    """Stage K1 (see module docstring). The kernel inlines the
-    cas-register step, which ``register`` shares."""
+           rows: torch.Tensor, nvalid: torch.Tensor, model: Model) -> None:
+    """Stage K1 (see module docstring). The kernel inlines ``model``'s
+    step (:func:`step_spec`)."""
     if ctl.device.type == "cpu":
-        return expand_plain(g, tabs, fr, ctl, rows, nvalid, step)
-    _launch("wgl_expand", *_expand_args(g, tabs, fr, ctl, rows, nvalid, step))
+        return expand_plain(g, tabs, fr, ctl, rows, nvalid, model)
+    _launch("wgl_expand", *_expand_args(g, tabs, fr, ctl, rows, nvalid, model))
 
 
-def _expand_args(g, tabs, fr, ctl, rows, nvalid, step) -> tuple:
-    if not _is_cas_register_step(step) or g.S != 1:
-        raise ValueError("the CUDA expand kernel implements the cas-register "
-                         "step only; other models come in a later slice")
+def _expand_args(g, tabs, fr, ctl, rows, nvalid, model) -> tuple:
+    sid, prm = step_spec(model)
+    if g.S != model.state_width:
+        raise ValueError(f"expand: state width {g.S}, but model {model.name!r} has "
+                         f"{model.state_width} lanes")
     p, mD, mO, st, valid = fr
     t = tabs
     _check_cuda(t["tabD"], t["sufret"], t["invO"], t["opO"], t["a1O"], t["a2O"],
@@ -643,7 +665,7 @@ def _expand_args(g, tabs, fr, ctl, rows, nvalid, step) -> tuple:
             _ptr(p), _ptr(mD), _ptr(mO), _ptr(st), _ptr(valid),
             _ptr(ctl), _ptr(rows), _ptr(nvalid),
             ci(F), ci(g.W), ci(g.KO), ci(g.ND), ci(g.NO), ci(g.B if g.SEL else 0),
-            ci(nb), _stream())
+            ci(g.S), ci(sid), ci(prm), ci(nb), _stream())
 
 
 def stage1_hash(g: Geometry, rows: torch.Tensor, nvalid: torch.Tensor,
@@ -819,13 +841,13 @@ PLAIN = _Stages(chunk_init=chunk_init_plain, expand=expand_plain,
 
 
 def _level_stages(g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace,
-                  step=None) -> list:
+                  model: Model) -> list:
     """One BFS level for every member, in order, as ``(stage, arguments)``
     pairs: one call per stage for the whole batch (each stage returns at
     once for a member whose control block says stop). ``"reset"`` copies
     ``ws.iota`` into an index buffer."""
     ctl = ws.ctl
-    out = [("expand", (g, tabs, fr, ctl, ws.rows, ws.nvalid, step)),
+    out = [("expand", (g, tabs, fr, ctl, ws.rows, ws.nvalid, model)),
            ("stage1_hash", (g, ws.rows, ws.nvalid, ctl, ws.drows, ws.fkey, ws.blk)),
            ("reset", (ws.perm, ws.iota))]
     # Dedup order: lexicographic over (fkey, open-mask words), built as
@@ -844,9 +866,9 @@ def _level_stages(g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace,
 
 
 def run_level_batch(ops: _Stages, g: Geometry, tabs: dict, fr: tuple,
-                    ws: BatchWorkspace, step=None) -> None:
+                    ws: BatchWorkspace, model: Model) -> None:
     """Enqueue one BFS level for every member through ``ops``."""
-    for stage, args in _level_stages(g, tabs, fr, ws, step):
+    for stage, args in _level_stages(g, tabs, fr, ws, model):
         if stage == "reset":
             args[0].copy_(args[1])
         else:
@@ -868,10 +890,10 @@ class _LevelProgram:
     its levels), so enqueueing a level costs only its ctypes calls and two
     copies."""
 
-    def __init__(self, g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace, step=None):
+    def __init__(self, g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace, model: Model):
         lib = _build.load()
         self.steps = []
-        for stage, args in _level_stages(g, tabs, fr, ws, step):
+        for stage, args in _level_stages(g, tabs, fr, ws, model):
             if stage == "reset":
                 self.steps.append((None, args[0].copy_, (args[1],)))
             else:
@@ -890,14 +912,14 @@ class _LevelProgram:
 
 def run_chunk_batch(ops: _Stages, g: Geometry, tabs: dict, fr: tuple,
                     ws: BatchWorkspace, lvl0, max_levels, lossy, nD, nO,
-                    step=None) -> list:
+                    model: Model) -> list:
     """Run every member's levels from its ``lvl0`` until its stop
     condition or its ``max_levels`` (the reference's vmapped
     ``while_loop``). ``lvl0``, ``max_levels``, ``lossy``, ``nD`` and
-    ``nO`` hold one integer per member. Returns each member's packed flags
-    ``[acc, ovf, nonempty, lvl, fmax, count]`` (the reference's ``[nb,
-    6]``); the frontier ``fr`` is updated in place and ``ws.stats`` holds
-    each member's per-level ring.
+    ``nO`` hold one integer per member; every member steps ``model``.
+    Returns each member's packed flags ``[acc, ovf, nonempty, lvl, fmax,
+    count]`` (the reference's ``[nb, 6]``); the frontier ``fr`` is updated
+    in place and ``ws.stats`` holds each member's per-level ring.
 
     On the GPU the host enqueues levels for the whole batch in growing
     runs and reads the ``[nb, CTL_SIZE]`` control blocks once per run,
@@ -920,10 +942,10 @@ def run_chunk_batch(ops: _Stages, g: Geometry, tabs: dict, fr: tuple,
     pipelined = ops is KERNELS and ctl.device.type == "cuda"
     batch = 4 if pipelined else 1
     if pipelined:
-        level = _LevelProgram(g, tabs, fr, ws, step)
+        level = _LevelProgram(g, tabs, fr, ws, model)
     else:
         def level():
-            run_level_batch(ops, g, tabs, fr, ws, step)
+            run_level_batch(ops, g, tabs, fr, ws, model)
     c = ctl.cpu()
     while remaining > 0 and bool(c[:, CTL_GO].any()):
         n = min(batch, remaining)
@@ -943,10 +965,10 @@ def run_chunk_batch(ops: _Stages, g: Geometry, tabs: dict, fr: tuple,
 
 def run_chunk(ops: _Stages, g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace,
               lvl0: int, max_levels: int, lossy: bool, nD: int, nO: int,
-              step=None) -> list:
+              model: Model) -> list:
     """:func:`run_chunk_batch` for one search: ``tabs`` and ``fr`` are one
     member's (``fr[0]`` is ``[F]``), ``ws`` a workspace of one member.
     Returns the packed flags."""
     return run_chunk_batch(ops, g, {k: t[None] for k, t in tabs.items()},
                            tuple(a[None] for a in fr), ws, [lvl0], [max_levels],
-                           [lossy], [nD], [nO], step)[0]
+                           [lossy], [nD], [nO], model)[0]

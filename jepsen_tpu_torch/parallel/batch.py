@@ -103,7 +103,7 @@ def _check_encoded_batch_once(encs, f, max_open, window_cap, escalate, f_schedul
             f"{sorted({e.model.name for e in encs})}")
     results: list[Optional[dict]] = [None] * len(encs)
     ops = _lv.PLAIN if plain else _lv.KERNELS
-    step = encs[0].model.step_torch
+    model = encs[0].model
 
     # Plan each history on the host; find the common static dims.
     plans = [wgl.plan_device(e, max_open=max_open, window_cap=window_cap, device="cpu")
@@ -178,7 +178,7 @@ def _check_encoded_batch_once(encs, f, max_open, window_cap, escalate, f_schedul
             budgets = np.where(active, np.minimum(totals, lsub + lpc), lsub)
             flags = np.asarray(_lv.run_chunk_batch(
                 ops, g, plan.tabs, fr5, ws, lsub.tolist(), budgets.tolist(),
-                [lossy_rung] * Bk, nD, nO, step), dtype=np.int64)
+                [lossy_rung] * Bk, nD, nO, model), dtype=np.int64)
             calls += 1
             acc = flags[:, 0].astype(bool)
             ovf = flags[:, 1].astype(bool)

@@ -1,19 +1,22 @@
 """Seeded history generators for tests and the chip smoke run.
 
-``random_register_history`` and ``perturb_history`` draw from a
-``random.Random`` in the same order as the reference package's
-generators, so one seed gives op-for-op the same history in either
-package. ``lagged_append_history`` and ``lagged_wr_history`` simulate
-transactional stores for the Elle checkers (the reference has no such
-generator; tests hand the same history to both packages).
+``random_register_history``, ``perturb_history`` and
+``random_lock_history`` draw from a ``random.Random`` in the same order as
+the reference package's generators, so one seed gives op-for-op the same
+history in either package. ``random_model_history`` simulates an atomic
+service of any device model, and ``lagged_append_history`` and
+``lagged_wr_history`` simulate transactional stores for the Elle checkers
+(the reference has no such generators; tests hand the same op rows to
+both packages).
 """
 
 from __future__ import annotations
 
 import random
-from typing import Optional
+from typing import Any, NamedTuple, Optional
 
 from .history import History, Op
+from .models import Model, ValueTable, model_by_name
 
 
 def random_register_history(
@@ -115,6 +118,259 @@ def perturb_history(rng: random.Random, history: History,
 
     v = op.value
     ops[i] = op.with_(value=KV(v.key, mut(v.value)) if isinstance(v, KV) else mut(v))
+    return History(ops, reindex=False)
+
+
+def random_lock_history(
+    rng: random.Random,
+    n_ops: int = 200,
+    n_procs: int = 4,
+) -> History:
+    """Simulate concurrent processes against an atomic lock service
+    (owner-aware mutex semantics: acquire fails when held, release fails
+    unless you hold it). Linearizable by construction: each op takes
+    effect atomically inside its interval."""
+    owner: Optional[int] = None
+    ops: list[Op] = []
+    t = 0
+    pending: dict[int, Optional[tuple]] = {p: None for p in range(n_procs)}
+
+    def now() -> int:
+        nonlocal t
+        t += rng.randint(1, 5)
+        return t
+
+    emitted = 0
+    while emitted < n_ops or any(v is not None for v in pending.values()):
+        p = rng.randrange(n_procs)
+        slot = pending[p]
+        if slot is None:
+            if emitted >= n_ops:
+                continue
+            f = rng.choice(["acquire", "release"])
+            ops.append(Op("invoke", p, f, None, time=now()))
+            pending[p] = (f,)
+            emitted += 1
+        else:
+            (f,) = slot
+            pending[p] = None
+            if f == "acquire":
+                if owner is None:
+                    owner = p
+                    ops.append(Op("ok", p, f, None, time=now()))
+                else:
+                    ops.append(Op("fail", p, f, None, time=now()))
+            else:
+                if owner == p:
+                    owner = None
+                    ops.append(Op("ok", p, f, None, time=now()))
+                else:
+                    ops.append(Op("fail", p, f, None, time=now()))
+    return History(ops, reindex=True)
+
+
+# The model each name's histories are drawn for: 3 registers (yugabyte's
+# multi-key register set), 8 accounts holding 100 in all (the bank
+# workload's defaults), a semaphore of 2 permits (the lock workload's).
+_HISTORY_MODELS = {
+    "multi-register": lambda: model_by_name("multi-register", {0: None, 1: None, 2: None}),
+    "counter": lambda: model_by_name("counter", 0),
+    "set": lambda: model_by_name("set"),
+    "bank": lambda: model_by_name("bank", {a: 12 + (4 if a == 0 else 0) for a in range(8)}),
+    "mutex": lambda: model_by_name("mutex"),
+    "owner-aware-mutex": lambda: model_by_name("owner-aware-mutex"),
+    "reentrant-mutex": lambda: model_by_name("reentrant-mutex", 2),
+    "fenced-mutex": lambda: model_by_name("fenced-mutex"),
+    "reentrant-fenced-mutex": lambda: model_by_name("reentrant-fenced-mutex"),
+    "semaphore": lambda: model_by_name("semaphore", 2),
+}
+HISTORY_MODELS = tuple(_HISTORY_MODELS)
+SET_ELEMENTS = 8
+MAX_TRANSFER = 5
+FAIL_P = 0.02
+
+
+def history_model(name: str) -> Model:
+    """The model :func:`random_model_history` draws ``name``'s histories
+    for."""
+    return _HISTORY_MODELS[name]()
+
+
+class _Effect(NamedTuple):
+    """The fields of a paired op that ``Model.encode_op`` reads."""
+
+    f: str
+    type: str
+    value_in: Any
+    value_out: Any
+    process: int
+
+
+def _draw_op(name: str, model: Model, rng: random.Random) -> tuple:
+    """(f, invoke value) of a random op of model ``name``'s op shapes."""
+    if name == "multi-register":
+        reg = rng.choice(model.regs)
+        if rng.random() < 0.5:
+            return "read", {reg: None}
+        return "write", {reg: rng.randrange(5)}
+    if name == "counter":
+        return ("read", None) if rng.random() < 0.4 else ("add", rng.randint(-3, 5))
+    if name == "set":
+        f = rng.choice(["add", "add", "remove", "read"])
+        return f, None if f == "read" else rng.randrange(SET_ELEMENTS)
+    if name == "bank":
+        if rng.random() < 0.4:
+            return "read", {rng.choice(model.accounts): None}
+        src, dst = rng.sample(model.accounts, 2)
+        return "transfer", {"from": src, "to": dst, "amount": rng.randint(1, MAX_TRANSFER)}
+    f = rng.choice(["acquire", "release"])
+    if name == "semaphore":
+        return f, rng.choice([1, 1, 2])
+    return f, None
+
+
+def _observed(name: str, model: Model, state: tuple, table: ValueTable, f: str,
+              value_in, p: int, fences: dict):
+    """The value an ok completion of (f, value_in) by process ``p``
+    observes in ``state``: a read's value, a fence token, else the invoke
+    value."""
+    if name == "multi-register" and f == "read":
+        (reg,) = value_in
+        return {reg: model.decode_state(state, table)[model.reg_ids[reg]]}
+    if name == "counter" and f == "read":
+        return state[0]
+    if name == "set" and f == "read":
+        return sorted(model.decode_state(state, table)[0])
+    if name == "bank" and f == "read":
+        (acct,) = value_in
+        return {acct: state[model.acct_ids[acct]]}
+    if name in ("fenced-mutex", "reentrant-fenced-mutex") and f == "acquire":
+        # A reacquire by the holder gets the hold's token, a fresh one the
+        # next token of the service's strictly increasing counter.
+        if fences["holder"] == p:
+            return fences["token"]
+        return fences["next"]
+    return value_in
+
+
+def random_model_history(
+    rng: random.Random,
+    model_name: str,
+    n_ops: int = 40,
+    n_procs: int = 4,
+    crash_p: float = 0.05,
+    perturb: bool = False,
+    within: float = 1.0,
+) -> History:
+    """Simulate concurrent processes against an atomic service of the
+    device model ``model_name`` (one of :data:`HISTORY_MODELS`; the model
+    is :func:`history_model`'s).
+
+    Each op takes effect at its completion, an instant inside its
+    interval, by the model's own ``step_scalar``: an op the step refuses
+    completes as ``fail`` (an acquire of a held lock, an overdraft, a
+    remove of an absent element), so the history is linearizable by
+    construction. ``crash_p`` turns completions into ``info``
+    (indeterminate; the effect applied or not with 50/50 odds, and nothing
+    observed); a share :data:`FAIL_P` of completions are ``fail`` ops
+    whose effect did not apply. Op values follow each model's op shapes:
+    one register or one account per read, at most :data:`SET_ELEMENTS`
+    set elements, transfers of 1 to :data:`MAX_TRANSFER`, permit counts
+    of 1 or 2, fence tokens from a strictly increasing counter.
+
+    ``perturb`` breaks one observed outcome of the finished history: a
+    read's value, a fence token, or (for the models that observe none) an
+    acknowledged acquire reported as failed, which leaves a later release
+    nothing to release; ``within`` restricts it to the first fraction of
+    the history."""
+    model = history_model(model_name)
+    table = ValueTable()
+    state = tuple(model.init_state(table))
+    fences = {"next": 1, "holder": None, "token": None}
+    ops: list[Op] = []
+    t = 0
+    pending: dict[int, Optional[tuple]] = {p: None for p in range(n_procs)}
+
+    def now() -> int:
+        nonlocal t
+        t += rng.randint(1, 5)
+        return t
+
+    emitted = 0
+    while emitted < n_ops or any(v is not None for v in pending.values()):
+        p = rng.randrange(n_procs)
+        slot = pending[p]
+        if slot is None:
+            if emitted >= n_ops:
+                continue
+            f, value = _draw_op(model_name, model, rng)
+            ops.append(Op("invoke", p, f, value, time=now()))
+            pending[p] = (f, value)
+            emitted += 1
+            continue
+        f, value = slot
+        pending[p] = None
+        if rng.random() < FAIL_P:
+            ops.append(Op("fail", p, f, value, time=now()))
+            continue
+        crashed = rng.random() < crash_p
+        applies = not crashed or rng.random() < 0.5
+        out = _observed(model_name, model, state, table, f, value, p, fences)
+        enc = model.encode_op(_Effect(f, "info" if crashed else "ok", value, out, p), table)
+        ok = False
+        if applies and enc is not None:
+            ok, state2 = model.step_scalar(state, *enc)
+            if ok:
+                state = state2
+                if out is not None and f == "acquire" and out == fences["next"]:
+                    fences.update(next=out + rng.randint(1, 3), holder=p, token=out)
+        if model_name in ("fenced-mutex", "reentrant-fenced-mutex") and ok and \
+                f == "release" and state[0] == 0:
+            fences.update(holder=None, token=None)
+        if crashed:
+            ops.append(Op("info", p, f, value, time=now()))
+        elif ok:
+            ops.append(Op("ok", p, f, out, time=now()))
+        else:
+            ops.append(Op("fail", p, f, value, time=now()))
+    h = History(ops)
+    return _perturb_observed(rng, model_name, h, within) if perturb else h
+
+
+def _perturb_observed(rng: random.Random, model_name: str, history: History,
+                      within: float) -> History:
+    """One observed outcome among the first ``within`` of ``history``
+    changed (see :func:`random_model_history`); the history as it is when
+    there is none."""
+    ops = list(history)
+    bound = max(1, int(len(ops) * within))
+    if model_name in ("multi-register", "counter", "set", "bank"):
+        cands = [i for i, op in enumerate(ops[:bound]) if op.is_ok and op.f == "read"]
+    elif model_name in ("fenced-mutex", "reentrant-fenced-mutex"):
+        cands = [i for i, op in enumerate(ops[:bound])
+                 if op.is_ok and op.f == "acquire" and op.value is not None]
+    else:
+        cands = [i for i, op in enumerate(ops[:bound]) if op.is_ok and op.f == "acquire"]
+    if not cands:
+        return history
+    i = rng.choice(cands)
+    op = ops[i]
+    v = op.value
+    if model_name in ("mutex", "owner-aware-mutex", "reentrant-mutex", "semaphore"):
+        ops[i] = op.with_(type="fail")
+    elif model_name == "set":
+        e = rng.randrange(SET_ELEMENTS)
+        ops[i] = op.with_(value=sorted(set(v) ^ {e}))
+    elif isinstance(v, dict):
+        ((k, x),) = v.items()
+        ops[i] = op.with_(value={k: (x if x is None else x + 17) or 23})
+    elif model_name == "counter":
+        ops[i] = op.with_(value=v + 17)
+    else:
+        # A fence token repeated: the first ok acquire's (or one below it).
+        first = next(o.value for o in ops if o.is_ok and o.f == "acquire"
+                     and o.value is not None)
+        ops[i] = op.with_(value=first if first != v else max(v - 1, 0))
     return History(ops, reindex=False)
 
 

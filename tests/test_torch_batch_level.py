@@ -21,6 +21,7 @@ from jepsen_tpu.ops.encode import encode_history as ref_encode
 from jepsen_tpu.parallel import batch as ref_batch
 from jepsen_tpu.testing import perturb_history as ref_perturb
 from jepsen_tpu.testing import random_register_history as ref_random
+from jepsen_tpu_torch.models import CasRegister
 from jepsen_tpu_torch.ops import wgl
 from jepsen_tpu_torch.ops import wgl_level as lv
 
@@ -103,7 +104,7 @@ def test_batched_chunk_matches_reference(case, two_stage_threshold):
         ws = lv.BatchWorkspace(g, nb, "cpu")
         flags = lv.run_chunk_batch(lv.KERNELS, g, port_plan.tabs, port_fr, ws, lvl0,
                                    budgets, [lossy] * nb, port_plan.nD.tolist(),
-                                   port_plan.nO.tolist())
+                                   port_plan.nO.tolist(), CasRegister(init=0))
         assert flags == ref_flags.tolist(), f"lossy={lossy}"
         for name, a, b in zip(("p", "mD", "mO", "st", "valid"),
                               wgl.frontier_stack_to_arrays(port_fr), ref_fr):
@@ -130,7 +131,7 @@ def test_batched_cases_reach_overflow_and_dead_ends(two_stage_threshold):
         ws = lv.BatchWorkspace(g, len(encs), "cpu")
         flags = lv.run_chunk_batch(lv.KERNELS, g, plan.tabs, fr, ws, [0] * len(encs),
                                    plan.totals.tolist(), [0] * len(encs),
-                                   plan.nD.tolist(), plan.nO.tolist())
+                                   plan.nD.tolist(), plan.nO.tolist(), CasRegister(init=0))
         for acc, ovf, nonempty, *_ in flags:
             seen.add("acc" if acc else "ovf" if ovf else "stuck" if not nonempty else "go")
     assert {"acc", "ovf", "stuck"} <= seen
@@ -195,7 +196,7 @@ def test_level_program_packs_each_launch_once(KO, monkeypatch):
                for k in ("invO", "opO", "a1O", "a2O")}}
     fr = wgl.initial_frontier_batch(F, W, KO, torch.zeros((nb, 1), dtype=torch.int32))
     ws = lv.BatchWorkspace(g, nb, "cpu")
-    prog = lv._LevelProgram(g, tabs, fr, ws)
+    prog = lv._LevelProgram(g, tabs, fr, ws, CasRegister(init=0))
     ws.perm.zero_()
     ws.order.zero_()
     lv.reset_launches()
@@ -203,7 +204,8 @@ def test_level_program_packs_each_launch_once(KO, monkeypatch):
     prog()
     sorts = [("wgl_take_col", lv._take_col_args(ws.drows, g.NID + w, ws.perm, ws.keys, ws.ctl))
              for w in reversed(range(g.KO1))] if KO else []
-    want = [("wgl_expand", lv._expand_args(g, tabs, fr, ws.ctl, ws.rows, ws.nvalid, None)),
+    want = [("wgl_expand", lv._expand_args(g, tabs, fr, ws.ctl, ws.rows, ws.nvalid,
+                                           CasRegister(init=0))),
             ("wgl_stage1_hash", lv._stage1_hash_args(g, ws.rows, ws.nvalid, ws.ctl, ws.drows,
                                                      ws.fkey, ws.blk))]
     for name, args in sorts + [("wgl_take_col", lv._take_col_args(ws.fkey, 0, ws.perm,

@@ -139,7 +139,8 @@ def test_batched_chunks_match_plain(cuda, F, threshold, monkeypatch):
             lvl0 = [0] * nb if not out else [f[3] for f in out[-1][0]]
             flags = lv.run_chunk_batch(ops, g, plan.tabs, fr, ws, lvl0,
                                        [lvl + levels for lvl in lvl0], [lossy] * nb,
-                                       plan.nD.tolist(), plan.nO.tolist())
+                                       plan.nD.tolist(), plan.nO.tolist(),
+                                       CasRegister(init=0))
             torch.cuda.synchronize()
             out.append((flags, [a.cpu().clone() for a in fr], ws.stats.cpu().clone()))
         runs.append(out)
@@ -154,7 +155,8 @@ def test_regroup_matches_plain_with_repeated_index(cuda):
     fr = wgl.initial_frontier_batch(16, plan.dims[0], plan.dims[1], plan.init_state)
     g = wgl.level_geometry(plan, 16)
     lv.run_chunk_batch(lv.KERNELS, g, plan.tabs, fr, lv.BatchWorkspace(g, 3, cuda),
-                       [0] * 3, [6] * 3, [1] * 3, plan.nD.tolist(), plan.nO.tolist())
+                       [0] * 3, [6] * 3, [1] * 3, plan.nD.tolist(), plan.nO.tolist(),
+                       CasRegister(init=0))
     before = lv.LAUNCHES["wgl_regroup"]
     k = lv.regroup(fr, [2, 0, 2], 64)
     p = lv.regroup_reference(fr, [2, 0, 2], 64)
@@ -174,6 +176,76 @@ def test_batch_verdicts_match_single_searches(cuda):
         assert g["valid"] == p["valid"] == single["valid"]
         assert g["levels"] == p["levels"]
         assert g.get("stuck_configs") == p.get("stuck_configs")
+
+
+# -- every device model's step in the expand kernel ---------------------------
+
+
+def _expand_both(g, tabs, fr, ctl, model):
+    """wgl_expand and its plain version on copies of the same inputs:
+    (control blocks, nvalid, valid rows) of each."""
+    out = []
+    for fn in (lv.expand, lv.expand_plain):
+        c = ctl.clone()
+        rows = torch.zeros((1, g.M, g.NC), dtype=torch.int32, device=ctl.device)
+        nval = torch.zeros((1, g.M), dtype=torch.uint8, device=ctl.device)
+        fn(g, tabs, tuple(a.clone() for a in fr), c, rows, nval, model)
+        torch.cuda.synchronize()
+        out.append((c.cpu(), nval.cpu(), rows[nval.bool()].cpu()))
+    return out
+
+
+@pytest.mark.parametrize("name", ["multi-register", "counter", "set", "bank", "mutex",
+                                  "owner-aware-mutex", "reentrant-mutex", "fenced-mutex",
+                                  "reentrant-fenced-mutex", "semaphore"])
+def test_model_step_kernels_match_plain(cuda, name, monkeypatch):
+    """Each model family through wgl_expand against the plain expand (its
+    step_torch) from a warmed frontier, at the selected and the unselected
+    layout, then whole searches (kernels against plain) of a valid and a
+    perturbed history."""
+    from jepsen_tpu_torch.testing import history_model, random_model_history
+
+    model = history_model(name)
+    for perturb in (True, False):
+        h = random_model_history(random.Random(5), name, n_ops=60, n_procs=6, crash_p=0.1,
+                                 perturb=perturb)
+        enc = encode_history(model, h)
+        _same(*_both(enc, f_schedule=(16, 128)))
+    for sel in (False, True):  # from the valid history's frontier
+        plan = wgl.plan_device(enc, device="cuda")
+        # The unselected layout steps every slot; the selected one at most B.
+        plan.B = (plan.B or 8) if sel else None
+        F = 64
+        g = wgl.level_geometry(plan, F)
+        assert g.S == model.state_width and g.SEL == sel
+        fr = wgl.initial_frontier(F, g.W, g.KO, g.S, plan.init_state, "cuda")[:5]
+        ws = lv.BatchWorkspace(g, 1, cuda)
+        flags = lv.run_chunk(lv.KERNELS, g, plan.tabs, fr, ws, 0, min(8, plan.nD // 2), True,
+                             plan.nD, plan.nO, model)
+        lvl = flags[3]
+        ctl = torch.zeros((1, lv.CTL_SIZE), dtype=torch.int32)
+        ctl[0, lv.CTL_LVL], ctl[0, lv.CTL_MAXLVL] = lvl, lvl + 1
+        ctl[0, lv.CTL_LOSSY], ctl[0, lv.CTL_ND], ctl[0, lv.CTL_NO] = 1, plan.nD, plan.nO
+        ctl = ctl.to(cuda)
+        fr1 = tuple(a[None] for a in fr)
+        lv.chunk_init(ctl, fr1[4])
+        tabs = {k: t[None] for k, t in plan.tabs.items()}
+        before = lv.LAUNCHES["wgl_expand"]
+        (kc, kn, kr), (pc, pn, pr) = _expand_both(g, tabs, fr1, ctl, model)
+        assert lv.LAUNCHES["wgl_expand"] == before + 1
+        assert torch.equal(kc, pc) and torch.equal(kn, pn) and torch.equal(kr, pr)
+        assert int(kn.sum()) > 0
+
+
+def test_expand_refuses_a_model_it_has_no_step_for(cuda):
+    from jepsen_tpu_torch.models import CasRegister as Cas
+
+    class Sub(Cas):
+        pass
+
+    h = random_register_history(random.Random(1), n_ops=20, n_procs=3)
+    with pytest.raises(ValueError, match="no step"):
+        wgl.check_encoded_device(encode_history(Sub(init=0), h), device="cuda")
 
 
 # -- Elle's closure kernels ----------------------------------------------------

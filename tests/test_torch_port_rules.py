@@ -74,7 +74,10 @@ def test_every_port_module_is_walkable():
             "jepsen_tpu_torch.elle.graph", "jepsen_tpu_torch.elle.graphs",
             "jepsen_tpu_torch.elle.engine", "jepsen_tpu_torch.elle.append",
             "jepsen_tpu_torch.elle.wr", "jepsen_tpu_torch.txn",
-            "jepsen_tpu_torch.workloads.append", "jepsen_tpu_torch.workloads.wr"} <= mods
+            "jepsen_tpu_torch.workloads.append", "jepsen_tpu_torch.workloads.wr",
+            "jepsen_tpu_torch.workloads.lock", "jepsen_tpu_torch.models.mutex",
+            "jepsen_tpu_torch.models.bank", "jepsen_tpu_torch.models.counter",
+            "jepsen_tpu_torch.models.sets", "jepsen_tpu_torch.models.queue"} <= mods
 
 
 def test_every_kernel_entry_point_has_a_signature_and_a_source():

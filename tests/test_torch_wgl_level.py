@@ -15,6 +15,7 @@ from jepsen_tpu.models import CasRegister as RefCas
 from jepsen_tpu.ops import wgl as ref_wgl
 from jepsen_tpu.ops.encode import encode_history as ref_encode
 from jepsen_tpu.testing import random_register_history as ref_random
+from jepsen_tpu_torch.models import CasRegister
 from jepsen_tpu_torch.ops import wgl
 from jepsen_tpu_torch.ops import wgl_level as lv
 
@@ -98,7 +99,7 @@ def _run(crash_p, pad_to, F, sel, two_stage, lossy, want_ovf):
     ws = lv.BatchWorkspace(g, 1, port_plan.device)
     nDO = (port_plan.nD, port_plan.nO)
     flags = lv.run_chunk(lv.KERNELS, g, port_plan.tabs, port_fr[:5], ws, lvl0,
-                         lvl0 + 1, lossy, *nDO)
+                         lvl0 + 1, lossy, *nDO, CasRegister(init=0))
     assert flags == ref_flags
     slot = (lvl0 + 1) % lv.LEVEL_STAT_ROWS
     assert ws.stats[0, slot].tolist() == ref_stats[slot].tolist()
@@ -107,4 +108,4 @@ def _run(crash_p, pad_to, F, sel, two_stage, lossy, want_ovf):
     port_fr2 = wgl.frontier_from_arrays(*fr, device="cpu")
     ws2 = lv.BatchWorkspace(g, 1, port_plan.device)
     assert lv.run_chunk(lv.PLAIN, g, port_plan.tabs, port_fr2[:5], ws2, lvl0,
-                        lvl0 + 1, lossy, *nDO) == ref_flags
+                        lvl0 + 1, lossy, *nDO, CasRegister(init=0)) == ref_flags
