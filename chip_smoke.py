@@ -61,7 +61,24 @@ and then runs these phases, each printing JSON lines:
 - ``elle_lag_2k``, ``big_scc_4096``, ``elle_scc_batched`` and
   ``elle_wr_4k``: the device engine against the host path (or the plain
   path) on a lagged history, a 4096-ring, 32 co-batched graphs and a
-  rw-register history.
+  rw-register history;
+- ``sharded_kernels``: the north-star frontier (800 beam levels at 4096)
+  laid on 8 shards of 512 rows; one sharded level in each exchange mode,
+  every stage (the new ``wgl_route``, ``wgl_exchange``,
+  ``wgl_shard_reduce`` and sharded finalize, and every existing stage at
+  the exchanged row count) against its plain version bit for bit, the
+  new ones timed;
+- ``sharded_10k``: the reference bench leg's 10,000-op history
+  (``bench.py:1847-1849``) through ``parallel.frontier.check_encoded_sharded``
+  on 8 shards at a global capacity of 4096 in both modes (same verdict;
+  same level when both decide), again with a third x4 escalation, on 1
+  and 2 shards (same verdict and level), each mode's first 100-level
+  chunk against the plain path, wall,
+  ms/level, the device's idle share and the launches of each kernel;
+- ``sharded_refutation``: a perturbed copy refuted on the shards with the
+  single search's ``max_linearized`` and the plain sharded path's witness;
+- ``checker_sharded``: ``checker.linearizable`` with the sharded backend
+  through the test map's mesh.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the per-kernel JSON line, and ``{"ok": true, "device": {...}}``. Any failed
@@ -152,6 +169,25 @@ MODEL_PLAIN_REPS = dict(batch=3, batches=3)
 MUTEX_5K = dict(seed=5, n_ops=5000, n_procs=8)
 KEYED = dict(seed=3000, keys=100, n_ops=200, n_procs=4, crash_p=0.01, perturb_every=8,
              plain_keys=16, compose_keys=10)
+# The frontier-sharded search: D = 8 shards of one card at a global
+# capacity of 4096 (512 rows a shard), on the reference bench leg's
+# history (bench.py:1847-1849), a perturbed copy refuted early, and the
+# checker's sharded backend.
+SHARD_D = 8
+SHARD_F_TOTAL = 4096
+SHARD_10K = dict(seed=2032, n_ops=10000, n_procs=10, cas=True, crash_p=20 / 10000,
+                 fail_p=0.02)
+SHARD_CHUNK_LEVELS = 100  # the first chunk held against the plain path
+# The ladder runs twice on 8 shards: with the reference's default of two
+# x4 escalations (to 65536), and with SHARD_WIDE_ESCALATIONS (to 262144).
+SHARD_WIDE_ESCALATIONS = 3
+SHARD_REFUTE_SEED = 2033
+SHARD_REFUTE_WITHIN = 0.02  # the broken read lies in the first 2% of the history
+SHARD_PROGRAM = "jepsen_tpu/parallel/frontier.py:72"
+SHARD_REPLACES = {"wgl_route": "jepsen_tpu/ops/wgl.py:551",
+                  "wgl_exchange": "jepsen_tpu/ops/wgl.py:592",
+                  "wgl_shard_reduce": "jepsen_tpu/ops/wgl.py:490",
+                  "wgl_gather_finalize_sharded": "jepsen_tpu/ops/wgl.py:743"}
 STEP_REPLACES = {  # each family's step_jax, which k_expand inlines
     "multi-register": "jepsen_tpu/models/register.py:162",
     "counter": "jepsen_tpu/models/counter.py:70",
@@ -250,9 +286,10 @@ def warm_frontier(plan, F, lv, wgl, model, levels=WARM_LEVELS):
 
 def launch_counts(lv, where, required=None):
     """The launch counts since the last reset; every kernel of the path
-    (``required``, default all) must have run."""
+    (``required``, default every kernel of the single search) must have
+    run."""
     counts = dict(lv.LAUNCHES)
-    idle = [k for k in (required or counts) if counts[k] == 0]
+    idle = [k for k in (required or REPLACES) if counts[k] == 0]
     if idle:
         raise AssertionError(f"kernels never launched in {where}: {idle}")
     return counts
@@ -992,6 +1029,385 @@ def keyed_multi_register_phase(lv, wgl_host, jchecker, independent, History):
     return launches
 
 
+# -- the frontier-sharded search ------------------------------------------
+
+
+def sharded_setup(lv, wgl, enc, F_total, D, mode, model):
+    """(plan, sharded geometry, tables repeated for each shard) of ``enc``
+    on D shards of ``F_total // D`` rows."""
+    plan = wgl.plan_device(enc, device="cuda")
+    g = wgl.sharded_geometry(plan, F_total // D, D, mode)
+    tabs = {k: v[None].expand((D,) + tuple(v.shape)).contiguous()
+            for k, v in plan.tabs.items()}
+    return plan, g, tabs
+
+
+def shard_frontier(fr, D):
+    """A one-member frontier ``[1, F, ...]`` laid on D shards ``[D, F/D,
+    ...]`` in the global (shard-major) order, as the reference reshards."""
+    return tuple(a.reshape((D, a.shape[1] // D) + tuple(a.shape[2:])).clone() for a in fr)
+
+
+def sharded_ctl(lv, g, plan, fr, lvl, lossy):
+    """Control blocks at a chunk's start on ``fr`` (plain chunk init and
+    stage-0 reduce), for a one-level comparison."""
+    import torch
+
+    ctl = torch.zeros((g.D, lv.CTL_SIZE), dtype=torch.int32)
+    ctl[:, lv.CTL_LVL], ctl[:, lv.CTL_MAXLVL] = lvl, lvl + 1
+    ctl[:, lv.CTL_FMAX], ctl[:, lv.CTL_LOSSY] = 1, int(lossy)
+    ctl[:, lv.CTL_ND], ctl[:, lv.CTL_NO] = plan.nD, plan.nO
+    ctl = ctl.to("cuda")
+    lv.chunk_init_plain(ctl, fr[4])
+    lv.shard_reduce_plain(g, ctl, 0)
+    return ctl
+
+
+def _stage_err(lv, name, ak, ap, wk, wp, fk, fp) -> int:
+    """max_abs_err of what sharded stage ``name`` wrote, kernel against
+    plain (rows nobody reads are left out: an unexpanded slot, a stage-1
+    row past the survivors)."""
+    if name == "expand":
+        vm = wp.nvalid.bool()
+        return max(max_abs_err(wk.ctl, wp.ctl), max_abs_err(wk.nvalid, wp.nvalid),
+                   max_abs_err(wk.rows[vm], wp.rows[vm]))
+    if name == "stage1_hash":
+        n = wp.ctl[:, lv.CTL_NEXP].clamp(max=wp.crows.shape[1]).tolist()
+        return _rows_err(wk.crows, wp.crows, n)
+    if name == "route":
+        return max(max_abs_err(wk.send, wp.send), max_abs_err(wk.svalid, wp.svalid),
+                   max_abs_err(wk.ctl, wp.ctl))
+    if name == "exchange":
+        return max(max_abs_err(wk.drows, wp.drows), max_abs_err(wk.rvalid, wp.rvalid))
+    if name == "hash_rows":
+        return max_abs_err(wk.fkey, wp.fkey)
+    if name == "take_col":
+        return max_abs_err(ak[3], ap[3])
+    if name == "radix_sort_pairs":
+        return max(max_abs_err(ak[0], ap[0]), max_abs_err(ak[1], ap[1]))
+    if name == "prune":
+        return max(max_abs_err(wk.fprio, wp.fprio), max_abs_err(wk.ctl, wp.ctl))
+    if name == "shard_reduce":
+        return max_abs_err(wk.ctl, wp.ctl)
+    if name == "gather_finalize":
+        return max([max_abs_err(a, b) for a, b in zip(fk, fp)] + [max_abs_err(wk.ctl, wp.ctl)])
+    raise KeyError(name)
+
+
+def stage_kernel(lv, name) -> str:
+    """The kernel (LAUNCHES) name of a sharded stage; the sharded finalize
+    is listed on its own."""
+    if name == "gather_finalize":
+        return "wgl_gather_finalize_sharded"
+    return lv._PACKERS[name][0]
+
+
+def sharded_lockstep(lv, g, tabs, model, fr, ctl, on_stage=None):
+    """One sharded level, stage by stage, through the kernels and through
+    the plain versions on identical inputs (two workspaces, two frontiers
+    from ``fr`` and control blocks from ``ctl``), each stage's output
+    compared: {kernel: max_abs_err}. ``on_stage(name, kernel_args,
+    plain_args)`` runs before each stage (timing)."""
+    import torch
+
+    wk, wp = lv.BatchWorkspace(g, g.D, "cuda"), lv.BatchWorkspace(g, g.D, "cuda")
+    wk.ctl.copy_(ctl)
+    wp.ctl.copy_(ctl)
+    fk, fp = tuple(t.clone() for t in fr), tuple(t.clone() for t in fr)
+    errs = {}
+    for (name, ak), (_n, ap) in zip(lv._sharded_level_stages(g, tabs, fk, wk, model),
+                                    lv._sharded_level_stages(g, tabs, fp, wp, model)):
+        if name == "reset":
+            ak[0].copy_(ak[1])
+            ap[0].copy_(ap[1])
+            continue
+        if on_stage is not None:
+            on_stage(name, ak, ap)
+        getattr(lv.KERNELS, name)(*ak)
+        getattr(lv.PLAIN, name)(*ap)
+        torch.cuda.synchronize()
+        k = stage_kernel(lv, name)
+        errs[k] = max(errs.get(k, 0), _stage_err(lv, name, ak, ap, wk, wp, fk, fp))
+    return errs, wp
+
+
+def _sharded_call(lv, name, a, plain):
+    """(fn, written inputs) of one sharded stage call for ``batch_ms``."""
+    f = getattr(lv.PLAIN if plain else lv.KERNELS, name)
+    if name == "route":
+        return (lambda t: f(a[0], a[1], t[0], t[1], t[2])), (a[2], a[3], a[4])
+    if name == "exchange":
+        return (lambda t: f(a[0], a[1], a[2], a[3], t[0], t[1])), (a[4], a[5])
+    if name == "shard_reduce":
+        return (lambda t: f(a[0], t[0], a[2])), (a[1],)
+    return (lambda t: f(a[0], a[1], a[2], a[3], t[0], t[1], t[2:])), (a[4], a[5]) + tuple(a[6])
+
+
+def sharded_bytes(lv, name, g, ctl_after) -> int:
+    """Bytes a sharded stage must move (inputs read once, outputs written
+    once) at this level's counts."""
+    D, NC, L = g.D, g.NC, g.L
+    row = 4 * NC
+    ctl_b = 4 * D * lv.CTL_SIZE
+    if name == "route":
+        n = int(ctl_after[:, lv.CTL_NEXP].clamp(max=g.P).sum())
+        return n * row + ctl_b + D * D * g.PBK * (row + 1)
+    if name == "exchange":
+        if g.exchange == "alltoall":
+            return D * D * g.PBK * (row + 1) + D * L * (row + 1)
+        n = int(ctl_after[:, lv.CTL_NEXP].clamp(max=g.P).sum())
+        return n * row + ctl_b + D * L * (row + 1)
+    if name == "shard_reduce":
+        return 2 * ctl_b
+    kept = int(ctl_after[0, lv.CTL_NSUM])
+    fr_row = 4 * (1 + g.KD + g.KO1 + g.S) + 1
+    return kept * (row + 8) + 2 * ctl_b + D * g.F * fr_row
+
+
+def _library_exchange(g, send):
+    """One PyTorch call moving the same rows as the exchange (a yardstick
+    only): the tiled all_to_all as a transpose of the shards' bucket axis,
+    the all_gather as a broadcast copy."""
+    D, NC = g.D, g.NC
+    if g.exchange == "alltoall":
+        return batch_ms(lambda t: t[0].view(D, D, g.PBK, NC).transpose(0, 1).contiguous(),
+                        (send,), clone=False)[0]
+    return batch_ms(lambda t: t[0][None].expand((D,) + tuple(t[0].shape)).contiguous(),
+                    (send,), clone=False)[0]
+
+
+def sharded_kernels_phase(lv, wgl, enc, model):
+    """The north-star frontier warmed for WARM_LEVELS beam levels at
+    SHARD_F_TOTAL, laid on SHARD_D shards; one sharded level in each mode,
+    every stage kernel against plain bit for bit, and the new kernels
+    timed. The level runs as a beam (lossy) so that the gather runs.
+    Returns {mode: {kernel: summary}} and {kernel: max_abs_err}."""
+    import torch
+
+    single = wgl.stack_plans([wgl.plan_device(enc, device="cpu")], "cuda")
+    fr1, _ws, (lvl,) = warm_frontier(single, SHARD_F_TOTAL, lv, wgl, model)
+    fr = shard_frontier(fr1, SHARD_D)
+    out, errs = {}, {}
+    for mode in lv.EXCHANGES:
+        plan, g, tabs = sharded_setup(lv, wgl, enc, SHARD_F_TOTAL, SHARD_D, mode, model)
+        ctl = sharded_ctl(lv, g, plan, fr, lvl, lossy=True)
+        timed = {}
+
+        def on_stage(name, ak, ap):
+            if name not in ("route", "exchange", "shard_reduce", "gather_finalize"):
+                return
+            fk, ik = _sharded_call(lv, name, ak, plain=False)
+            fp, ip = _sharded_call(lv, name, ap, plain=True)
+            ms, call_ms = batch_ms(fk, ik)
+            plain_ms, _ = batch_ms(fp, ip, hold=False, batch=3, batches=3)
+            lib = _library_exchange(g, ak[1]) if name == "exchange" else None
+            ctl_arg = {"route": 2, "exchange": 3, "shard_reduce": 1, "gather_finalize": 4}
+            timed[stage_kernel(lv, name)] = {"ms": ms, "call_ms": call_ms,
+                                             "plain_ms": plain_ms, "library_ms": lib,
+                                             "name": name, "ctl": ap[ctl_arg[name]].cpu()}
+
+        stage_errs, wp = sharded_lockstep(lv, g, tabs, model, fr, ctl, on_stage)
+        for k, v in stage_errs.items():
+            errs[k] = max(errs.get(k, 0), v)
+        summary = {}
+        for k, t in timed.items():
+            nbytes = sharded_bytes(lv, t["name"], g, t["ctl"])
+            summary[k] = {"max_abs_err": stage_errs[k], "ms": t["ms"], "call_ms": t["call_ms"],
+                          "plain_ms": t["plain_ms"], "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+                          "bound_by": "bytes", "library_ms": t["library_ms"]}
+        out[mode] = summary
+        emit({"phase": "sharded_kernels", "exchange": mode, "D": SHARD_D, "F": g.F,
+              "from_level": lvl, "valid_configs": int(fr[4].sum()), "P": g.P, "L": g.L,
+              "PBK": g.PBK, "NC": g.NC,
+              "kept": int(wp.ctl[0, lv.CTL_NSUM]), "stage_max_abs_err": stage_errs,
+              "new_kernels": summary,
+              "exchange_bytes_per_level": wgl.exchange_bytes_per_level(plan, g.F, SHARD_D, mode)})
+        bad = {k: v for k, v in stage_errs.items() if v}
+        if bad:
+            raise AssertionError(f"sharded stages disagree with their plain versions ({mode}): "
+                                 f"{bad}")
+    return out, errs
+
+
+def sharded_steady_state(lv, wgl, enc, model, mode):
+    """PROFILE_LEVELS sharded beam levels from the warmed north-star
+    frontier on SHARD_D shards: wall per level, then device busy per level
+    under torch.profiler; the idle share is 1 - busy / wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    single = wgl.stack_plans([wgl.plan_device(enc, device="cpu")], "cuda")
+    fr1, _ws, (lvl0,) = warm_frontier(single, SHARD_F_TOTAL, lv, wgl, model)
+    saved = shard_frontier(fr1, SHARD_D)
+    plan, g, tabs = sharded_setup(lv, wgl, enc, SHARD_F_TOTAL, SHARD_D, mode, model)
+    ws = lv.BatchWorkspace(g, SHARD_D, "cuda")
+    fr = tuple(t.clone() for t in saved)
+
+    def window():
+        for t, s_ in zip(fr, saved):
+            t.copy_(s_)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flags = lv.run_chunk_sharded(lv.KERNELS, g, tabs, fr, ws, lvl0, lvl0 + PROFILE_LEVELS,
+                                     True, plan.nD, plan.nO, model)
+        torch.cuda.synchronize()
+        return flags[3] - lvl0, time.perf_counter() - t0
+
+    window()
+    levels, wall = window()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        p_levels, _p_wall = window()
+    busy = sum((getattr(e, "self_device_time_total", 0) or 0) / 1e3
+               for e in prof.key_averages()
+               if getattr(e, "device_type", None) is not None
+               and "cuda" in str(e.device_type).lower())
+    ms_level = 1e3 * wall / max(levels, 1)
+    busy_level = busy / max(p_levels, 1) if busy else None
+    return {"steady_from_level": lvl0, "steady_levels": levels,
+            "steady_ms_per_level": ms_level, "steady_device_busy_ms_per_level": busy_level,
+            "steady_device_idle_share": 1 - busy_level / ms_level if busy else None}
+
+
+def sharded_10k_phase(lv, wgl, model, frontier, make_mesh, encode_history,
+                      random_register_history):
+    """The reference bench leg's history through ``check_encoded_sharded``
+    on SHARD_D shards in both modes (same verdict; same level when both
+    decide), on 1 and 2 shards (same verdict and level), the first chunk
+    of each mode held against the plain path, and the steady state.
+    Returns the launch counts of the alltoall search and of the
+    allgather's."""
+    import torch
+
+    h = random_register_history(random.Random(SHARD_10K["seed"]),
+                                **{k: v for k, v in SHARD_10K.items() if k != "seed"})
+    enc = encode_history(model, h)
+    runs, launches = {}, {}
+    legs = [(SHARD_D, m, 2) for m in lv.EXCHANGES] + [(1, "alltoall", 2), (2, "alltoall", 2)] \
+        + [(SHARD_D, m, SHARD_WIDE_ESCALATIONS) for m in lv.EXCHANGES]
+    for D, mode, esc in legs:
+        lv.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = frontier.check_encoded_sharded(enc, mesh=make_mesh(D), f_total=SHARD_F_TOTAL,
+                                             exchange=mode, max_escalations=esc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        need = LEVEL_KERNELS + ("wgl_exchange", "wgl_shard_reduce") + \
+            (("wgl_route",) if mode == "alltoall" else ())
+        counts = launch_counts(lv, f"sharded_10k D={D} {mode}", need)
+        enqueued = counts["wgl_expand"]
+        run = {"D": D, "exchange": mode, "max_escalations": esc, "valid": res["valid"],
+               "levels": res.get("levels"),
+               "attempts": [(a["F"], a["levels"], a["calls"]) for a in res["attempts"]],
+               "frontier_max": res.get("frontier_max"), "causes": res.get("causes"),
+               "wall_s": wall, "levels_enqueued": enqueued,
+               "ms_per_enqueued_level": 1e3 * wall / max(enqueued, 1),
+               "launches": counts,
+               "launches_per_level": {k: v / max(enqueued, 1) for k, v in counts.items()}}
+        if D == SHARD_D and esc == 2:
+            run.update(sharded_steady_state(lv, wgl, enc, model, mode))
+            launches[mode] = counts
+        runs[(D, mode, esc)] = run
+        emit(dict(phase="sharded_10k", ops=enc.n, **run))
+
+    def agree(x, y):
+        """Same verdict, and the same level when both decide."""
+        return x["valid"] == y["valid"] and (
+            x["levels"] == y["levels"] or "unknown" in (x["valid"], y["valid"]))
+
+    a, b = runs[(SHARD_D, "alltoall", 2)], runs[(SHARD_D, "allgather", 2)]
+    wa, wb = (runs[(SHARD_D, m, SHARD_WIDE_ESCALATIONS)] for m in lv.EXCHANGES)
+    modes_agree = agree(a, b) and agree(wa, wb)
+    shards_agree = all((r["valid"], r["levels"]) == (a["valid"], a["levels"])
+                       for (D, _m, _e), r in runs.items() if D != SHARD_D)
+    # The first chunk of each mode against the plain path.
+    chunk_same = {}
+    for mode in lv.EXCHANGES:
+        plan, g, tabs = sharded_setup(lv, wgl, enc, SHARD_F_TOTAL, SHARD_D, mode, model)
+        fr0 = wgl.initial_frontier(SHARD_F_TOTAL, *plan.dims[:3], plan.init_state, "cuda")
+        flags, frs = [], []
+        for ops in (lv.KERNELS, lv.PLAIN):
+            fr = tuple(x.reshape((SHARD_D, g.F) + tuple(x.shape[1:])).clone() for x in fr0[:5])
+            ws = lv.BatchWorkspace(g, SHARD_D, "cuda")
+            flags.append(lv.run_chunk_sharded(ops, g, tabs, fr, ws, 0, SHARD_CHUNK_LEVELS,
+                                              False, plan.nD, plan.nO, model))
+            frs.append(fr)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(x, y) for x, y in zip(*frs))
+        chunk_same[mode] = {"flags": flags[0], "same_flags": flags[0] == flags[1],
+                            "frontier_max_abs_err": err}
+    emit({"phase": "sharded_10k", "modes_agree": modes_agree, "shards_agree": shards_agree,
+          "decided": a["valid"] != "unknown", "decided_wide": wa["valid"] != "unknown",
+          "first_chunk_vs_plain": chunk_same})
+    if False in (a["valid"], wa["valid"]) or not (modes_agree and shards_agree) or not all(
+            c["same_flags"] and c["frontier_max_abs_err"] == 0 for c in chunk_same.values()):
+        raise AssertionError("sharded_10k failed")
+    return launches
+
+
+def sharded_refutation_phase(lv, wgl, model, frontier, make_mesh, encode_history,
+                             random_register_history, perturb_history):
+    """A perturbed history of the sharded_10k shape (the read broken in its
+    first SHARD_REFUTE_WITHIN): refuted on the shards with the single
+    search's max_linearized, and the witness of the plain sharded path."""
+    import torch
+
+    h = random_register_history(random.Random(SHARD_10K["seed"]),
+                                **{k: v for k, v in SHARD_10K.items() if k != "seed"})
+    bad = perturb_history(random.Random(SHARD_REFUTE_SEED), h, within=SHARD_REFUTE_WITHIN)
+    enc = encode_history(model, bad)
+    single = wgl.check_encoded_device(enc)
+    out = {}
+    lv.reset_launches()
+    for mode in lv.EXCHANGES:
+        k = frontier.check_encoded_sharded(enc, mesh=make_mesh(SHARD_D), f_total=SHARD_F_TOTAL,
+                                           exchange=mode)
+        p = frontier.check_encoded_sharded(enc, mesh=make_mesh(SHARD_D), f_total=SHARD_F_TOTAL,
+                                           exchange=mode, plain=True)
+        out[mode] = {"valid": k["valid"], "levels": k.get("levels"),
+                     "max_linearized": k.get("max_linearized"),
+                     "same_as_plain": all(k.get(x) == p.get(x) for x in
+                                          ("valid", "levels", "max_linearized",
+                                           "stuck_configs", "frontier_max")),
+                     "stuck_configs": len(k.get("stuck_configs") or [])}
+    torch.cuda.synchronize()
+    counts = dict(lv.LAUNCHES)
+    emit({"phase": "sharded_refutation", "single_valid": single["valid"],
+          "single_max_linearized": single.get("max_linearized"), "runs": out,
+          "launches": counts})
+    if not (single["valid"] is False and all(
+            r["valid"] is False and r["max_linearized"] == single["max_linearized"]
+            and r["same_as_plain"] and r["stuck_configs"] for r in out.values())):
+        raise AssertionError("sharded_refutation failed")
+    return counts
+
+
+def checker_sharded_phase(lv, model, jchecker, make_mesh, random_register_history,
+                          perturb_history):
+    """``checker.linearizable`` with the sharded backend through the test
+    map's mesh, on the refutation phase's 300-op history and its valid
+    original, in agreement with the device backend."""
+    rng = random.Random(REFUTE["seed"])
+    good = random_register_history(rng, **{k: v for k, v in REFUTE.items() if k != "seed"})
+    bad = perturb_history(rng, good)
+    lin = jchecker.linearizable(model=model)
+    device = [lin.check({}, h, {}) for h in (good, bad)]
+    lv.reset_launches()
+    rows = []
+    for h, d in zip((good, bad), device):
+        r = lin.check({"checker_backend": "sharded", "mesh": make_mesh(SHARD_D)}, h, {})
+        rows.append({"valid": r["valid"], "device_valid": d["valid"], "sharded": r.get("sharded"),
+                     "n_shards": r.get("n_shards"), "exchange": r.get("exchange"),
+                     "levels": r.get("levels"), "device_levels": d.get("levels")})
+    counts = launch_counts(lv, "checker_sharded", ("wgl_route", "wgl_exchange",
+                                                   "wgl_shard_reduce"))
+    emit({"phase": "checker_sharded", "runs": rows, "launches": counts})
+    if not all(r["sharded"] is True and r["n_shards"] == SHARD_D and r["valid"] == r["device_valid"]
+               for r in rows) or rows[0]["valid"] is not True or rows[1]["valid"] is not False:
+        raise AssertionError("checker_sharded failed")
+    return counts
+
+
 def elle_phases():
     """The Elle slice on the card; returns (the kernels' summary at the
     8k history's shape, their launches on that path, max_abs_err over
@@ -1173,7 +1589,7 @@ def main() -> int:
     from jepsen_tpu_torch.ops import wgl, wgl_host
     from jepsen_tpu_torch.ops import wgl_level as lv
     from jepsen_tpu_torch.ops.encode import encode_history
-    from jepsen_tpu_torch.parallel import check_batch
+    from jepsen_tpu_torch.parallel import check_batch, frontier, make_mesh
     from jepsen_tpu_torch.testing import perturb_history, random_register_history
 
     t_start = time.perf_counter()
@@ -1448,14 +1864,26 @@ def main() -> int:
     family_launches = models_2k_phase(lv, wgl, wgl_host, hists)
     keyed_mr_launches = keyed_multi_register_phase(lv, wgl_host, jchecker, independent, History)
 
+    # -- the frontier-sharded search on SHARD_D shards of the card ------------
+    shard_stats, shard_errs = sharded_kernels_phase(lv, wgl, enc, model)
+    shard_launches = sharded_10k_phase(lv, wgl, model, frontier, make_mesh, encode_history,
+                                       random_register_history)
+    shard_refute_launches = sharded_refutation_phase(
+        lv, wgl, model, frontier, make_mesh, encode_history, random_register_history,
+        perturb_history)
+    checker_shard_launches = checker_sharded_phase(lv, model, jchecker, make_mesh,
+                                                   random_register_history, perturb_history)
+
     elle_main, elle_launch, elle_errs = elle_phases()
 
     kernels = []
     paths = {"main_path": launches, "batch_8x10k": big_launches, "mutex_5k": mutex_launches,
-             "keyed_multi_register": keyed_mr_launches}
+             "keyed_multi_register": keyed_mr_launches,
+             "sharded_10k_alltoall": shard_launches["alltoall"],
+             "sharded_10k_allgather": shard_launches["allgather"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     summary = lambda r: {k: r[k] for k in keys}  # noqa: E731
-    for kname in lv.LAUNCHES:
+    for kname in REPLACES:
         r, b = timed[kname], batch_stages[kname]
         entry = {
             "name": kname, "route": "cuda", "source": SOURCE,
@@ -1487,6 +1915,25 @@ def main() -> int:
                    if name == "owner-aware-mutex" else {}),
                 launches_keyed=keyed_mr_launches[kname] if name == "multi-register" else 0)
                 for name, f in families.items()]
+        if kname in shard_errs:  # every stage at the sharded L (sharded_kernels)
+            entry["sharded_L_max_abs_err"] = shard_errs[kname]
+            entry["max_abs_err"] = max(entry["max_abs_err"], shard_errs[kname])
+        kernels.append(entry)
+    shard_paths = {"sharded_10k_alltoall": shard_launches["alltoall"],
+                   "sharded_10k_allgather": shard_launches["allgather"],
+                   "sharded_refutation": shard_refute_launches,
+                   "checker_sharded": checker_shard_launches}
+    for kname, replaces in SHARD_REPLACES.items():
+        r = shard_stats["alltoall"][kname]
+        count = "wgl_gather_finalize" if kname.endswith("_sharded") else kname
+        entry = {"name": kname, "route": "cuda", "source": SOURCE, "replaces": replaces,
+                 "program": SHARD_PROGRAM, "launches": shard_launches["alltoall"][count],
+                 **summary(r), "max_abs_err": shard_errs[kname],
+                 "shape": f"sharded_kernels: D {SHARD_D}, F {SHARD_F_TOTAL // SHARD_D} a shard, "
+                          "alltoall",
+                 "launches_by_path": {k: v[count] for k, v in shard_paths.items()}}
+        if kname in shard_stats["allgather"]:
+            entry["allgather"] = summary(shard_stats["allgather"][kname])
         kernels.append(entry)
     for kname, r in elle_main.items():
         kernels.append({

@@ -5,9 +5,10 @@ The port of the reference's ``jepsen_tpu/checker/__init__.py``: the
 ``True < "unknown" < False``, ``check_safe``, ``compose``, ``stats``, and
 ``linearizable``, which
 dispatches on the ``backend`` option (overridden by the test map's
-``checker_backend``) onto the GPU search (``ops.wgl``) or the port's host
-oracle, and decides many keyed subhistories at once through
-``batch_check`` (``parallel.check_batch``).
+``checker_backend``) onto the GPU search (``ops.wgl``), the
+frontier-sharded search (``parallel.frontier``) or the port's host oracle,
+and decides many keyed subhistories at once through ``batch_check``
+(``parallel.check_batch``).
 
 Result maps use the key ``"valid"`` with values True / False / "unknown".
 """
@@ -34,7 +35,6 @@ _LATER_BACKENDS = {
     "auto": "the native engine",
     "native": "the native engine",
     "competition": "the native engine",
-    "sharded": "the multi-device search",
     "segmented": "the offline segmented checker",
 }
 
@@ -151,12 +151,13 @@ def stats() -> Checker:
 
 
 def resolve_backend(name: str) -> str:
-    """``"device"`` or ``"host"`` for a backend name; the reference's other
-    engines raise ``ValueError`` naming the slice that brings them."""
+    """``"device"``, ``"sharded"`` or ``"host"`` for a backend name; the
+    reference's other engines raise ``ValueError`` naming the slice that
+    brings them."""
     if name in DEVICE_BACKENDS:
         return "device"
-    if name == "host":
-        return "host"
+    if name in ("host", "sharded"):
+        return name
     if name in _LATER_BACKENDS:
         raise ValueError(f"backend {name!r} comes with a later slice of the port "
                          f"({_LATER_BACKENDS[name]}); use 'device' or 'host'")
@@ -175,9 +176,11 @@ def linearizable(options: Optional[dict] = None, **kw) -> Checker:
 
     - ``model``: a ``jepsen_tpu_torch.models.Model`` (required).
     - ``backend``: ``"device"`` (default; ``"tpu"``, ``"gpu"`` and
-      ``"cuda"`` are aliases) or ``"host"`` (the port's oracle),
-      overridden by the test map's ``checker_backend``.
-    - ``device``: the torch device of the device backend (default the GPU;
+      ``"cuda"`` are aliases), ``"sharded"`` (the frontier-sharded search
+      over the test map's ``"mesh"``, else a mesh of one shard on
+      ``device``) or ``"host"`` (the port's oracle), overridden by the test
+      map's ``checker_backend``.
+    - ``device``: the torch device of the device backends (default the GPU;
       ``"cpu"`` runs the plain PyTorch version, as the tests do).
 
     The returned checker's ``batch_check(test, keyed_histories, opts)``
@@ -192,19 +195,24 @@ def linearizable(options: Optional[dict] = None, **kw) -> Checker:
         raise ValueError(f"the linearizable checker requires a model; received {model!r}")
     default_backend = resolve_backend(o.get("backend", "device"))
     device = o.get("device")
-    if default_backend == "device":
+    if default_backend != "host":
         device = resolve_device(device)
 
     def _resolve(test):
         return resolve_backend((test or {}).get("checker_backend", default_backend))
 
-    def _check_one(ops, backend):
+    def _check_one(test, ops, backend):
         """The single-history dispatch, shared by ``chk`` and the keyed
         batch's recheck of unknown keys."""
         from ..ops import wgl
 
         if backend == "host":
             return wgl.check_history(model, ops, backend="host")
+        if backend == "sharded":
+            from ..parallel.frontier import check_history_sharded
+
+            return check_history_sharded(model, ops, mesh=(test or {}).get("mesh"),
+                                         device=resolve_device(device))
         return wgl.check_history(model, ops, backend="device",
                                  device=resolve_device(device))
 
@@ -214,7 +222,7 @@ def linearizable(options: Optional[dict] = None, **kw) -> Checker:
             raise ValueError("the test map asks for stored output; the linear.txt/"
                              "linear.svg witness files come with a later slice of the "
                              "port (the checker's store writes)")
-        res = _check_one(history.client_ops(), backend)
+        res = _check_one(test, history.client_ops(), backend)
         # Keep the search diagnostics bounded, as the reference does.
         if isinstance(res.get("attempts"), list):
             res["attempts"] = res["attempts"][:10]
@@ -238,7 +246,7 @@ def linearizable(options: Optional[dict] = None, **kw) -> Checker:
         # Keys the shared batch could not decide get the single-history path.
         for k, r in out_map.items():
             if r.get("valid") == "unknown":
-                out_map[k] = _check_one(keyed_histories[k].client_ops(), backend)
+                out_map[k] = _check_one(test, keyed_histories[k].client_ops(), backend)
         return out_map
 
     out.batch_check = batch_check

@@ -18,6 +18,10 @@ TAXONOMY: dict[str, tuple[str, str]] = {
         "kernel",
         "frontier overflowed the capacity schedule's top rung (or "
         "escalation was disabled at the shared batch capacity)"),
+    "escalation_budget": (
+        "kernel",
+        "lossless capacity escalations exhausted (sharded "
+        "max_escalations spent without a verdict)"),
     "beam_loss": (
         "kernel",
         "lossy beam exhausted after truncation — configs were dropped, "

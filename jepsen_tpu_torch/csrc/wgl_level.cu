@@ -49,7 +49,23 @@
 #define CTL_COUNT 12
 #define CTL_ND 13
 #define CTL_NO 14
-#define CTL_SIZE 16
+// Frontier-sharded levels only (wgl_shard_reduce writes them, replicated
+// to every shard's block): this level's global keep count and overflow,
+// and the sum, max and min over shards of the frontier counts the level
+// leaves (or the chunk starts with).
+#define CTL_GCOUNT 15
+#define CTL_GOVF 16
+#define CTL_NSUM 17
+#define CTL_NMAX 18
+#define CTL_NMIN 19
+#define CTL_SIZE 20
+
+// Exchange modes of a frontier-sharded level (0: not sharded).
+#define EX_ALLTOALL 1
+#define EX_ALLGATHER 2
+// Shards of one mesh: k_route keeps a per-warp count per destination in
+// shared memory.
+#define MAX_SHARDS 256
 
 #define I32MAX 0x7FFFFFFF
 #define UNKNOWN_VAL ((int)0x80000000)
@@ -797,7 +813,13 @@ __global__ void k_prune_b(const u32* __restrict__ drows, const int* __restrict__
 // ---------------------------------------------------------------------------
 // K5 top-F gather into the frontier (reference lines 741-811) and the loop
 // carry update (lines 791-843), each member into its own frontier, control
-// block and stats ring.
+// block and stats ring. In a frontier-sharded level (`mode` EX_ALLTOALL or
+// EX_ALLGATHER) the members are the shards of one search, and the outcome
+// comes from the replicated fields wgl_shard_reduce wrote (reference lines
+// 697-711 and 743-757): alltoall keeps the first min(count_local, F) rows
+// of the shard's own order, allgather the shard's slice [s*F, s*F + F) of
+// the global order, valid below min(count, F*D); no stats row is written
+// (the reference collects none when sharded).
 
 __device__ __forceinline__ void level_outcome(const int* ctl, int F, int P2, bool* ovf_now,
                                               bool* dead, bool* stuck_now, int* kept) {
@@ -810,17 +832,40 @@ __device__ __forceinline__ void level_outcome(const int* ctl, int F, int P2, boo
   *kept = min(count, F);
 }
 
+// Rows shard s of D keeps: alltoall, its own owned rows; allgather, its
+// slice of the global order of `count` kept rows.
+__device__ __forceinline__ int shard_kept(int mode, int count_local, int count, int s, int F,
+                                          int D) {
+  if (mode == EX_ALLTOALL) return min(count_local, F);
+  return max(0, min(min(count, F * D) - s * F, F));
+}
+
+__device__ __forceinline__ void sharded_outcome(const int* ctl, int s, int F, int D, int mode,
+                                                bool* ovf_now, bool* dead, bool* stuck_now,
+                                                int* kept, int* off) {
+  int count = ctl[CTL_GCOUNT];
+  *ovf_now = ctl[CTL_GOVF] != 0;
+  bool lossy = ctl[CTL_LOSSY] != 0;
+  *stuck_now = (count == 0) && !(*ovf_now && !lossy);
+  *dead = (*ovf_now && !lossy) || count == 0;
+  *kept = shard_kept(mode, ctl[CTL_COUNT], count, s, F, D);
+  *off = (mode == EX_ALLGATHER) ? s * F : 0;
+}
+
 __global__ void k_gather(const u32* __restrict__ drows, const int* __restrict__ perm,
                          const int* __restrict__ order, const int* ctl, int* __restrict__ p,
                          u32* __restrict__ mD, u32* __restrict__ mO, int* __restrict__ st,
                          unsigned char* __restrict__ valid, int F, int L, int NC, int KD, int S,
-                         int KO1, int P2) {
+                         int KO1, int P2, int mode) {
   const int b = blockIdx.y;
   ctl += (size_t)b * CTL_SIZE;
   if (stopped(ctl)) return;
   bool ovf_now, dead, stuck_now;
-  int kept;
-  level_outcome(ctl, F, P2, &ovf_now, &dead, &stuck_now, &kept);
+  int kept, off = 0;
+  if (mode)
+    sharded_outcome(ctl, b, F, gridDim.y, mode, &ovf_now, &dead, &stuck_now, &kept, &off);
+  else
+    level_outcome(ctl, F, P2, &ovf_now, &dead, &stuck_now, &kept);
   if (dead) return;  // lossless restore / dead end: keep the old frontier
   int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= F) return;
@@ -833,7 +878,7 @@ __global__ void k_gather(const u32* __restrict__ drows, const int* __restrict__ 
   st += (size_t)b * F * S;
   valid += (size_t)b * F;
   bool kv = k < kept;
-  const u32* r = kv ? drows + (size_t)perm[order[k]] * NC : nullptr;
+  const u32* r = kv ? drows + (size_t)perm[order[off + k]] * NC : nullptr;
   p[k] = kv ? (int)r[0] : 0;
   for (int w = 0; w < KD; ++w) mD[(size_t)k * KD + w] = kv ? r[1 + w] : 0u;
   for (int i = 0; i < S; ++i) st[(size_t)k * S + i] = kv ? (int)r[1 + KD + i] : 0;
@@ -841,30 +886,38 @@ __global__ void k_gather(const u32* __restrict__ drows, const int* __restrict__ 
   valid[k] = kv ? 1 : 0;
 }
 
-__global__ void k_finalize(int* ctl, int* stats, int F, int P2, int n_stat_rows) {
+__global__ void k_finalize(int* ctl, int* stats, int F, int P2, int n_stat_rows, int mode) {
   const int b = blockIdx.x;
   ctl += (size_t)b * CTL_SIZE;
   if (stopped(ctl)) return;
-  stats += (size_t)b * n_stat_rows * 4;
   bool ovf_now, dead, stuck_now;
-  int kept;
-  level_outcome(ctl, F, P2, &ovf_now, &dead, &stuck_now, &kept);
+  int kept, off, fm, nonempty;
   int lvl = ctl[CTL_LVL];
-  int* row = stats + ((lvl + 1) % n_stat_rows) * 4;
-  row[0] = lvl + 1;
-  row[1] = kept;
-  row[2] = ctl[CTL_NEXP];
-  row[3] = ovf_now ? 1 : 0;
+  if (mode) {
+    sharded_outcome(ctl, b, F, gridDim.x, mode, &ovf_now, &dead, &stuck_now, &kept, &off);
+    fm = min(ctl[CTL_GCOUNT], F * (int)gridDim.x);
+    nonempty = ctl[CTL_NSUM] > 0;  // every shard's, as the reduce saw them
+  } else {
+    level_outcome(ctl, F, P2, &ovf_now, &dead, &stuck_now, &kept);
+    fm = kept;
+    nonempty = (dead ? ctl[CTL_FCOUNT] : kept) > 0;
+    stats += (size_t)b * n_stat_rows * 4;
+    int* row = stats + ((lvl + 1) % n_stat_rows) * 4;
+    row[0] = lvl + 1;
+    row[1] = kept;
+    row[2] = ctl[CTL_NEXP];
+    row[3] = ovf_now ? 1 : 0;
+  }
   int acc = ctl[CTL_ACC] | ctl[CTL_ACCNOW];
   int ovf = ctl[CTL_OVF] | (ovf_now ? 1 : 0);
   int stuck = ctl[CTL_STUCK] | (stuck_now ? 1 : 0);
   int fcount = dead ? ctl[CTL_FCOUNT] : kept;
   int lvl2 = dead ? lvl : lvl + 1;
-  bool go = !acc && (ctl[CTL_LOSSY] || !ovf) && !stuck && fcount > 0 && lvl2 < ctl[CTL_MAXLVL];
+  bool go = !acc && (ctl[CTL_LOSSY] || !ovf) && !stuck && nonempty && lvl2 < ctl[CTL_MAXLVL];
   ctl[CTL_LVL] = lvl2;
   ctl[CTL_ACC] = acc;
   ctl[CTL_OVF] = ovf;
-  ctl[CTL_FMAX] = max(ctl[CTL_FMAX], kept);
+  ctl[CTL_FMAX] = max(ctl[CTL_FMAX], fm);
   ctl[CTL_STUCK] = stuck;
   ctl[CTL_FCOUNT] = fcount;
   ctl[CTL_GO] = go ? 1 : 0;
@@ -872,6 +925,176 @@ __global__ void k_finalize(int* ctl, int* stats, int F, int P2, int n_stat_rows)
   ctl[CTL_ACCNOW] = 0;
   ctl[CTL_ROWOVF] = 0;
   ctl[CTL_COUNT] = 0;
+}
+
+// ---------------------------------------------------------------------------
+// Frontier-sharded level: owner routing, exchange and cross-shard reduce.
+// Replaces the reference's sharded program, jepsen_tpu/parallel/frontier.py
+// `_sharded_kernel` (line 72), i.e. the `axis_name` arms of ops/wgl.py
+// `_build_kernel` (lines 490-493, 525-630, 697-757, 830-836, 877-890). The
+// D shards of a mesh are the members of one batch on one device, so each
+// collective becomes a kernel: `all_to_all`/`all_gather` a row copy between
+// the shards' buffers (k_exchange), `pmax`/`psum`/`pmin` a pass over the D
+// control blocks (k_shard_reduce). Shards run in one launch as blocks that
+// cannot wait for each other, so a reduction sits at a launch boundary
+// after the stage that wrote its inputs: one reduce a level, after the
+// prune, computes everything the rest of the level needs (acc_now,
+// pre_ovf, the global and per-shard counts, the next frontier sizes and
+// hence the global nonempty of the stop test). What bounds these kernels:
+// bytes (k_route and k_exchange copy each candidate row once) and, at
+// the main path's sizes, launch latency; each is one pass and one launch.
+
+// Owner routing (reference lines 551-598), one block per shard over its P
+// stage-1 survivors in position order: owner = FNV(p, window mask, state)
+// mod D (unsigned), a stable partition by owner into fixed buckets of PBK
+// rows (send[d * PBK + j], j the row's rank among its owner's rows), the
+// bucket-overflow flag when an owner gets more than PBK rows, and empty
+// slots zeroed. Ranks: per chunk of 1024 rows, __match_any_sync inside a
+// warp and per-warp counts in shared memory across warps, added to the
+// rows routed by earlier chunks.
+__global__ void k_route(const u32* __restrict__ crows, int* ctl, u32* __restrict__ send,
+                        unsigned char* __restrict__ svalid, int P, int NC, int NID, int D,
+                        int PBK) {
+  const int b = blockIdx.x;
+  ctl += (size_t)b * CTL_SIZE;
+  if (stopped(ctl)) return;
+  crows += (size_t)b * P * NC;
+  send += (size_t)b * D * PBK * NC;
+  svalid += (size_t)b * D * PBK;
+  __shared__ int base[MAX_SHARDS];
+  __shared__ int wc[32 * MAX_SHARDS];
+  int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) base[d] = 0;
+  const int n = min(ctl[CTL_NEXP], P);
+  for (int c0 = 0; c0 < P; c0 += blockDim.x) {  // uniform across the block
+    for (int k = threadIdx.x; k < 32 * D; k += blockDim.x) wc[(k / D) * MAX_SHARDS + k % D] = 0;
+    __syncthreads();
+    int i = c0 + threadIdx.x;
+    int o = D;  // not routed
+    if (i < n) {
+      const u32* r = crows + (size_t)i * NC;
+      u32 gh = 2166136261u;
+      for (int k = 0; k < NID; ++k) gh = (gh ^ r[k]) * 16777619u;
+      o = (int)(gh % (u32)D);
+    }
+    u32 peers = __match_any_sync(FULL, (u32)o);
+    int rank = __popc(peers & lane_lt_mask(lane));
+    if (o < D && rank == 0) wc[w * MAX_SHARDS + o] = __popc(peers);
+    __syncthreads();
+    if (o < D) {
+      int j = base[o] + rank;
+      for (int v = 0; v < w; ++v) j += wc[v * MAX_SHARDS + o];
+      if (j < PBK) {
+        const u32* r = crows + (size_t)i * NC;
+        u32* dst = send + ((size_t)o * PBK + j) * NC;
+        for (int k = 0; k < NC; ++k) dst[k] = r[k];
+        svalid[(size_t)o * PBK + j] = 1;
+      }
+    }
+    __syncthreads();
+    for (int d = threadIdx.x; d < D; d += blockDim.x) {
+      int t = 0;
+      for (int v = 0; v < 32; ++v) t += wc[v * MAX_SHARDS + d];
+      base[d] += t;
+    }
+    __syncthreads();
+  }
+  for (int slot = threadIdx.x; slot < D * PBK; slot += blockDim.x) {
+    if (slot % PBK >= base[slot / PBK]) {
+      svalid[slot] = 0;
+      for (int k = 0; k < NC; ++k) send[(size_t)slot * NC + k] = 0u;
+    }
+  }
+  if (threadIdx.x == 0) {
+    bool over = false;
+    for (int d = 0; d < D; ++d) over = over || base[d] > PBK;
+    if (over) ctl[CTL_ROWOVF] = 1;
+  }
+}
+
+// The exchange (reference lines 592-611), a thread per received row of
+// each destination shard d: recv[d][s * Bk + j] = send[s][d * dst_stride
+// + j] for source shard s, with dst_stride = PBK = Bk (tiled all_to_all)
+// or 0 and Bk = P (tiled all_gather). Received rows are in source order,
+// as the tiled collectives give them. Validity: svalid, or (all_gather
+// of the stage-1 rows) j < min(n_cand of s, P); invalid rows are written
+// as zeros, so the received buffers are the same on every run.
+__global__ void k_exchange(const u32* __restrict__ send, const unsigned char* __restrict__ svalid,
+                           const int* ctl, u32* __restrict__ recv,
+                           unsigned char* __restrict__ rvalid, int SR, int Bk, int dst_stride,
+                           int NC, int P) {
+  const int d = blockIdx.y;
+  if (stopped(member_ctl(ctl, d))) return;
+  const int L = gridDim.y * Bk;
+  int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= L) return;
+  int s = r / Bk, j = r - s * Bk;
+  size_t src = (size_t)s * SR + (size_t)d * dst_stride + j;
+  bool v = svalid ? svalid[src] != 0 : j < min(ctl[(size_t)s * CTL_SIZE + CTL_NEXP], P);
+  const u32* a = send + src * NC;
+  u32* o = recv + ((size_t)d * L + r) * NC;
+  for (int k = 0; k < NC; ++k) o[k] = v ? a[k] : 0u;
+  rvalid[(size_t)d * L + r] = v ? 1 : 0;
+}
+
+// The cross-shard reductions over the D control blocks, one thread (D is
+// a mesh's shard count). stage 0, at a chunk's start (reference lines
+// 830-836): the global nonempty and the stop test. stage 1, after the
+// prune: acc_now (pmax, line 490), pre_ovf (pmax, line 612), the keep
+// count (psum under alltoall, line 697; already replicated under
+// allgather) and its overflow, and the frontier count each shard will
+// hold after the level (the finalize's stop test reads their sum, the
+// chunk's flags their sum, max and min: lines 877-890). The results go
+// to every shard's block.
+__global__ void k_shard_reduce(int* ctl, int D, int F, int P, int mode, int stage) {
+  if (threadIdx.x != 0) return;
+  int sum = 0, mx = 0, mn = I32MAX;
+  if (stage == 0) {
+    for (int s = 0; s < D; ++s) {
+      int f = ctl[(size_t)s * CTL_SIZE + CTL_FCOUNT];
+      sum += f;
+      mx = max(mx, f);
+      mn = min(mn, f);
+    }
+    bool go = !ctl[CTL_ACC] && (ctl[CTL_LOSSY] || !ctl[CTL_OVF]) && !ctl[CTL_STUCK] && sum > 0 &&
+              ctl[CTL_LVL] < ctl[CTL_MAXLVL];
+    for (int s = 0; s < D; ++s) {
+      int* c = ctl + (size_t)s * CTL_SIZE;
+      c[CTL_NSUM] = sum;
+      c[CTL_NMAX] = mx;
+      c[CTL_NMIN] = mn;
+      c[CTL_GO] = go ? 1 : 0;
+    }
+    return;
+  }
+  if (stopped(ctl)) return;  // every shard's go is the same
+  int acc = 0, pre = 0, csum = 0, cbig = 0;
+  for (int s = 0; s < D; ++s) {
+    const int* c = ctl + (size_t)s * CTL_SIZE;
+    acc |= c[CTL_ACCNOW] != 0;
+    pre |= c[CTL_ROWOVF] != 0 || c[CTL_NEXP] > P;
+    csum += c[CTL_COUNT];
+    cbig |= c[CTL_COUNT] > F;
+  }
+  int count = (mode == EX_ALLTOALL) ? csum : ctl[CTL_COUNT];
+  bool ovf_now = pre || ((mode == EX_ALLTOALL) ? cbig != 0 : count > F * D);
+  bool dead = (ovf_now && !ctl[CTL_LOSSY]) || count == 0;
+  for (int s = 0; s < D; ++s) {
+    const int* c = ctl + (size_t)s * CTL_SIZE;
+    int f = dead ? c[CTL_FCOUNT] : shard_kept(mode, c[CTL_COUNT], count, s, F, D);
+    sum += f;
+    mx = max(mx, f);
+    mn = min(mn, f);
+  }
+  for (int s = 0; s < D; ++s) {
+    int* c = ctl + (size_t)s * CTL_SIZE;
+    c[CTL_ACCNOW] = acc;
+    c[CTL_GCOUNT] = count;
+    c[CTL_GOVF] = ovf_now ? 1 : 0;
+    c[CTL_NSUM] = sum;
+    c[CTL_NMAX] = mx;
+    c[CTL_NMIN] = mn;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -939,7 +1162,8 @@ int wgl_expand(void* tabD, void* sufret, void* invO, void* opO, void* a1O, void*
 }
 
 // P > 0: two-stage (compact the valid rows of `rows` into `drows`, then
-// hash P rows); P == 0: hash the M rows of `rows` (== drows) in place.
+// hash P rows, unless `fkey` is null); P == 0: hash the M rows of `rows`
+// (== drows) in place, validity from `nvalid`.
 // `blk` is scratch of nb * ceil(M / 1024) ints.
 int wgl_stage1_hash(void* rows, void* nvalid, void* ctl, void* drows, void* fkey, void* blk_,
                     int M, int NC, int NID, int P, int nb, void* stream) {
@@ -952,8 +1176,9 @@ int wgl_stage1_hash(void* rows, void* nvalid, void* ctl, void* drows, void* fkey
     k_scan_excl_sum<<<nb, 1024, 0, s>>>(blk, nbk, c);
     k_compact<<<dim3(nbk, nb), 1024, 0, s>>>((const u32*)rows, (const unsigned char*)nvalid,
                                             blk, (u32*)drows, M, NC, P, c);
-    k_hash<<<dim3(nblk(P, 256), nb), 256, 0, s>>>((const u32*)drows, nullptr, (u32*)fkey, P,
-                                                  NC, NID, P, c);
+    if (fkey)  // a sharded level hashes the exchanged rows instead
+      k_hash<<<dim3(nblk(P, 256), nb), 256, 0, s>>>((const u32*)drows, nullptr, (u32*)fkey, P,
+                                                    NC, NID, P, c);
   } else {
     k_hash<<<dim3(nblk(M, 256), nb), 256, 0, s>>>((const u32*)rows,
                                                   (const unsigned char*)nvalid, (u32*)fkey, M,
@@ -1006,14 +1231,42 @@ int wgl_prune(void* drows, void* skey, void* perm, void* ctl, void* fprio, void*
   return (int)cudaGetLastError();
 }
 
+// mode: 0, or EX_ALLTOALL / EX_ALLGATHER for the nb shards of one sharded
+// search (stats may then be null).
 int wgl_gather_finalize(void* drows, void* perm, void* order, void* ctl, void* stats, void* p,
                         void* mD, void* mO, void* st, void* valid, int F, int L, int NC, int KD,
-                        int S, int KO1, int P2, int n_stat_rows, int nb, void* stream) {
+                        int S, int KO1, int P2, int n_stat_rows, int mode, int nb,
+                        void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   k_gather<<<dim3(nblk(F, 256), nb), 256, 0, s>>>(
       (const u32*)drows, (const int*)perm, (const int*)order, (const int*)ctl, (int*)p,
-      (u32*)mD, (u32*)mO, (int*)st, (unsigned char*)valid, F, L, NC, KD, S, KO1, P2);
-  k_finalize<<<nb, 1, 0, s>>>((int*)ctl, (int*)stats, F, P2, n_stat_rows);
+      (u32*)mD, (u32*)mO, (int*)st, (unsigned char*)valid, F, L, NC, KD, S, KO1, P2, mode);
+  k_finalize<<<nb, 1, 0, s>>>((int*)ctl, (int*)stats, F, P2, n_stat_rows, mode);
+  return (int)cudaGetLastError();
+}
+
+// crows [D, P, NC] stage-1 rows; send [D, D * PBK, NC]; svalid [D, D * PBK].
+int wgl_route(void* crows, void* ctl, void* send, void* svalid, int P, int NC, int NID, int D,
+              int PBK, void* stream) {
+  if (D < 1 || D > MAX_SHARDS) return (int)cudaErrorInvalidValue;
+  k_route<<<D, 1024, 0, (cudaStream_t)stream>>>((const u32*)crows, (int*)ctl, (u32*)send,
+                                                (unsigned char*)svalid, P, NC, NID, D, PBK);
+  return (int)cudaGetLastError();
+}
+
+// send [D, SR, NC] (svalid [D, SR] or null: validity from each source's
+// n_cand and P); recv [D, D * Bk, NC], rvalid [D, D * Bk].
+int wgl_exchange(void* send, void* svalid, void* ctl, void* recv, void* rvalid, int SR, int Bk,
+                 int dst_stride, int NC, int P, int D, void* stream) {
+  long L = (long)D * Bk;
+  k_exchange<<<dim3(nblk(L, 256), D), 256, 0, (cudaStream_t)stream>>>(
+      (const u32*)send, (const unsigned char*)svalid, (const int*)ctl, (u32*)recv,
+      (unsigned char*)rvalid, SR, Bk, dst_stride, NC, P);
+  return (int)cudaGetLastError();
+}
+
+int wgl_shard_reduce(void* ctl, int D, int F, int P, int mode, int stage, void* stream) {
+  k_shard_reduce<<<1, 32, 0, (cudaStream_t)stream>>>((int*)ctl, D, F, P, mode, stage);
   return (int)cudaGetLastError();
 }
 

@@ -20,6 +20,7 @@ the refutation witness.
 
 from __future__ import annotations
 
+import dataclasses
 import time as _time
 from typing import Optional
 
@@ -283,6 +284,22 @@ def level_geometry(plan: DevicePlan, F: int) -> _lv.Geometry:
                         two_stage=two_stage, P=P if two_stage else M)
 
 
+def sharded_geometry(plan: DevicePlan, F: int, D: int, exchange: str) -> _lv.Geometry:
+    """Static shape of one frontier-sharded level: ``F`` rows per shard, D
+    shards, the two-stage compaction at every M (reference
+    ``ops/wgl.py:525``: its trigger is ``axis_name is not None or M >
+    BIG_M_THRESHOLD``), and ``L`` the exchanged rows: ``D * ceil(P / D)``
+    (alltoall) or ``D * P`` (allgather)."""
+    if exchange not in _lv.EXCHANGES:
+        raise ValueError(f"unknown WGL exchange mode {exchange!r} "
+                         "(expected 'alltoall' or 'allgather')")
+    if not 1 <= D <= _lv.MAX_SHARDS:
+        raise ValueError(f"{D} shards; the sharded kernels take 1..{_lv.MAX_SHARDS}")
+    _M, P, _NC = _stage1_shape(plan, F)
+    return dataclasses.replace(level_geometry(plan, F), two_stage=True, P=P, D=D,
+                               exchange=exchange)
+
+
 def _stage1_shape(plan: DevicePlan, F: int) -> tuple:
     """(M, P, NC) of one level at capacity ``F``."""
     W, KO, S, _ND, _NO = plan.dims
@@ -295,11 +312,15 @@ def _stage1_shape(plan: DevicePlan, F: int) -> tuple:
     return M, P, NC
 
 
-def level_byte_floor(plan: DevicePlan, F: int) -> int:
+def level_byte_floor(plan: DevicePlan, F: int, sharded: bool = False,
+                     exchange: str = "allgather") -> int:
     """Single-pass device-memory byte floor of one BFS level at capacity
     ``F``: every major tensor stream counted once in and once out,
-    enumerated from the static shapes (the reference's single-device
-    byte model). A lower bound on real traffic."""
+    enumerated from the static shapes (the reference's byte model). A
+    lower bound on real traffic. ``sharded``: the per-shard floor of a
+    frontier-sharded level (two-stage at every M; the exchange itself is
+    :func:`exchange_bytes_per_level`); with ``exchange="alltoall"`` it adds
+    the owner routing and the bucket assembly."""
     W, KO, S, ND, NO = plan.dims
     KD = W // 32
     KO1 = max(KO, 1)
@@ -307,7 +328,7 @@ def level_byte_floor(plan: DevicePlan, F: int) -> int:
     SEL = plan.B is not None and plan.B < C
     M, P1, NC = _stage1_shape(plan, F)
     esz = 2 if plan.tab16 else 4
-    two_stage = M > BIG_M_THRESHOLD
+    two_stage = sharded or M > BIG_M_THRESHOLD
     P = P1 if two_stage else M
     total = 0
     total += 2 * F * W * 8 * esz            # window-table row gather
@@ -322,7 +343,22 @@ def level_byte_floor(plan: DevicePlan, F: int) -> int:
     total += 2 * (1 + NC) * P * 4           # fused-key dedup sort
     total += 2 * 2 * P * 4                  # fused-key compaction sort
     total += 2 * F * NC * 4                 # top-F row gather
+    if sharded and exchange == "alltoall":
+        total += 2 * 2 * P * 4              # owner routing
+        total += 2 * P * NC * 4             # bucket assembly
     return total
+
+
+def exchange_bytes_per_level(plan: DevicePlan, F: int, n_shards: int,
+                             exchange: str = "alltoall") -> int:
+    """Bytes one shard sends in one sharded level's exchange, ``F`` per
+    shard (reference ``ops/wgl.py:1345``): the packed ``[*, NC+1]`` rows,
+    ``n_shards * P`` of them under allgather, ``n_shards`` buckets of
+    ``ceil(P / n_shards)`` under alltoall."""
+    _M, P, NC = _stage1_shape(plan, F)
+    if exchange == "allgather":
+        return n_shards * P * (NC + 1) * 4
+    return n_shards * (-(-P // n_shards)) * (NC + 1) * 4
 
 
 def _levels_per_call(M: int, target_s: float = 8.0) -> int:
@@ -367,28 +403,36 @@ def initial_frontier_batch(F: int, W: int, KO: int, init_state: torch.Tensor) ->
     )
 
 
-def frontier_from_arrays(p, mD, mO, st, valid, lvl, device=None) -> tuple:
+def frontier_from_arrays(p, mD, mO, st, valid, lvl, device=None,
+                         n_shards: Optional[int] = None) -> tuple:
     """The port's frontier from the reference's 6-tuple as numpy arrays
-    (u32 masks become int32 bit patterns)."""
+    (u32 masks become int32 bit patterns). ``n_shards``: the reference's
+    global sharded frontier (``[D*F, ...]``, shard-major) becomes the
+    port's ``[D, F, ...]``."""
     dev = resolve_device(device)
 
     def t(a, dt):
         a = np.ascontiguousarray(np.asarray(a))
         if a.dtype == np.uint32:
             a = a.view(np.int32)
-        return torch.as_tensor(a.astype(dt), device=dev).contiguous()
+        a = a.astype(dt)
+        if n_shards:
+            a = a.reshape((n_shards, -1) + a.shape[1:])
+        return torch.as_tensor(a, device=dev).contiguous()
 
     return (t(p, np.int32), t(mD, np.int32), t(mO, np.int32), t(st, np.int32),
-            torch.tensor(np.asarray(valid, bool), device=dev), int(lvl))
+            t(valid, bool), int(lvl))
 
 
-def frontier_to_arrays(fr: tuple) -> tuple:
+def frontier_to_arrays(fr: tuple, sharded: bool = False) -> tuple:
     """Host numpy copy of a frontier, masks as uint32 (the reference's
-    layout)."""
+    layout). ``sharded``: a ``[D, F, ...]`` frontier as the reference's
+    global ``[D*F, ...]`` arrays."""
     p, mD, mO, st, valid, lvl = fr
-    return (p.cpu().numpy(), mD.cpu().numpy().view(np.uint32),
-            mO.cpu().numpy().view(np.uint32), st.cpu().numpy(),
-            valid.cpu().numpy(), int(lvl))
+    flat = (lambda a: a.reshape((-1,) + a.shape[2:])) if sharded else (lambda a: a)
+    return (flat(p.cpu().numpy()), flat(mD.cpu().numpy().view(np.uint32)),
+            flat(mO.cpu().numpy().view(np.uint32)), flat(st.cpu().numpy()),
+            flat(valid.cpu().numpy()), int(lvl))
 
 
 def frontier_stack_from_arrays(p, mD, mO, st, valid, device=None) -> tuple:
@@ -409,6 +453,18 @@ def _pad_frontier(fr: tuple, F_new: int, device, ops) -> tuple:
     regroup of one member, ``idx = [0]`` (reference ``_pad_program``)."""
     grown = ops.regroup(tuple(a.to(device)[None] for a in fr[:-1]), [0], F_new)
     return tuple(a[0] for a in grown) + (fr[-1],)
+
+
+def pad_sharded_frontier(fr: tuple, F_new: int, ops) -> tuple:
+    """Grow a sharded frontier ``[D, F, ...]`` to ``F_new`` rows a shard as
+    the reference does (``parallel/frontier.py`` escalation): the global
+    ``[D*F]`` frontier padded at its end and resharded, so the rows of old
+    shards 0..3 land on new shard 0 after a x4 step. The pad is the
+    regroup of one member over the flattened arrays."""
+    D = fr[0].shape[0]
+    flat = tuple(a.reshape((1, -1) + tuple(a.shape[2:])) for a in fr[:-1])
+    grown = ops.regroup(flat, [0], D * F_new)
+    return tuple(a.reshape((D, F_new) + tuple(a.shape[2:])) for a in grown) + (fr[-1],)
 
 
 def _snapshot_frontier(fr: tuple) -> tuple:

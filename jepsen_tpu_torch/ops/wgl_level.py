@@ -26,7 +26,21 @@ stage                   what it computes
 ``chunk_init``          frontier count and stop test at a chunk's start
 ``regroup``             row-gather of members' frontiers, zero-padded to a
                         larger capacity
+``route``               sharded level: owner hash, stable partition of a
+                        shard's stage-1 rows into per-destination buckets
+``exchange``            sharded level: the all_to_all / all_gather of the
+                        candidate rows between the shards' buffers
+``hash_rows``           sharded level: FNV group hash and fused key of the
+                        exchanged rows
+``shard_reduce``        sharded level: the cross-shard pmax / psum / pmin
+                        over the shards' control blocks
 ======================  ====================================================
+
+A frontier-sharded search (the reference's ``parallel/frontier.py``) is a
+batch whose members are the D shards of one search on one device: the
+buffers are shard-major, every stage above runs unchanged at the
+exchanged row count ``L``, and the four sharded stages stand where the
+reference's collectives were (see :func:`_sharded_level_stages`).
 
 Every buffer is member-major: ``[nb, ...]``, one row per member, and the
 single-history search is the batch of one. The wrappers take the batched
@@ -68,15 +82,24 @@ LEVEL_STAT_ROWS = 512
 (CTL_LVL, CTL_ACC, CTL_OVF, CTL_FMAX, CTL_STUCK, CTL_MAXLVL, CTL_LOSSY,
  CTL_GO, CTL_FCOUNT, CTL_NEXP, CTL_ACCNOW, CTL_ROWOVF, CTL_COUNT, CTL_ND,
  CTL_NO) = range(15)
-CTL_SIZE = 16
+# Sharded levels only, written to every shard by ``shard_reduce``: the
+# level's global keep count and overflow, and the sum, max and min over
+# shards of the frontier counts after the level (or at a chunk's start).
+CTL_GCOUNT, CTL_GOVF, CTL_NSUM, CTL_NMAX, CTL_NMIN = range(15, 20)
+CTL_SIZE = 20
 # A member is a grid coordinate (blockIdx.y) of the batched launches.
 MAX_MEMBERS = 65535
+# Shards of one mesh (``k_route`` counts per destination in shared memory).
+MAX_SHARDS = 256
+EXCHANGES = ("alltoall", "allgather")
+_EX_MODE = {None: 0, "alltoall": 1, "allgather": 2}  # EX_* in the kernels
 
 # Launch counts per wrapper (kernel launches only; the CPU path counts
 # nothing). ``reset_launches`` zeroes them.
 LAUNCHES = {name: 0 for name in (
     "wgl_chunk_init", "wgl_expand", "wgl_stage1_hash", "wgl_take_col",
-    "radix_sort_pairs", "wgl_prune", "wgl_gather_finalize", "wgl_regroup")}
+    "radix_sort_pairs", "wgl_prune", "wgl_gather_finalize", "wgl_regroup", "wgl_route",
+    "wgl_exchange", "wgl_shard_reduce")}
 
 
 def reset_launches() -> None:
@@ -100,6 +123,8 @@ class Geometry:
     SEL: bool
     two_stage: bool
     P: int  # stage-1 survivor rows (== M when single-stage)
+    D: int = 1  # shards of a frontier-sharded search (its members)
+    exchange: Optional[str] = None  # "alltoall" | "allgather" when sharded
 
     @property
     def KD(self) -> int:
@@ -118,7 +143,17 @@ class Geometry:
         return self.F * self.B
 
     @property
+    def PBK(self) -> int:
+        """Rows of one destination's bucket (alltoall)."""
+        return -(-self.P // self.D)
+
+    @property
     def L(self) -> int:
+        """Rows the dedup sees: the exchanged rows of a sharded level."""
+        if self.exchange == "alltoall":
+            return self.D * self.PBK
+        if self.exchange == "allgather":
+            return self.D * self.P
         return self.P if self.two_stage else self.M
 
     @property
@@ -159,8 +194,19 @@ class BatchWorkspace:
         self.nb = nb
         self.rows = torch.zeros((nb, g.M, g.NC), dtype=i32, device=device)
         self.nvalid = torch.zeros((nb, g.M), dtype=u8, device=device)
-        self.drows = (torch.zeros((nb, g.P, g.NC), dtype=i32, device=device)
-                      if g.two_stage else self.rows)
+        if g.exchange:
+            # stage-1 rows, the send buckets, the exchanged rows (drows)
+            self.crows = torch.zeros((nb, g.P, g.NC), dtype=i32, device=device)
+            sr = g.D * g.PBK
+            self.send = (torch.zeros((nb, sr, g.NC), dtype=i32, device=device)
+                         if g.exchange == "alltoall" else None)
+            self.svalid = (torch.zeros((nb, sr), dtype=u8, device=device)
+                           if g.exchange == "alltoall" else None)
+            self.drows = torch.zeros((nb, L, g.NC), dtype=i32, device=device)
+            self.rvalid = torch.zeros((nb, L), dtype=u8, device=device)
+        else:
+            self.drows = (torch.zeros((nb, g.P, g.NC), dtype=i32, device=device)
+                          if g.two_stage else self.rows)
         self.fkey = torch.zeros((nb, L), dtype=i32, device=device)
         self.keys = torch.zeros((nb, L), dtype=i32, device=device)
         self.perm = torch.zeros((nb, L), dtype=i32, device=device)
@@ -172,7 +218,7 @@ class BatchWorkspace:
         self.sort = sort_scratch(L, device, nb)
         self.flags = torch.empty((nb, L), dtype=u8, device=device)  # prune
         # block sums of the compaction and the prune, [nb, blocks]
-        self.blk = torch.empty((nb, _nblk(g.M, 1024)), dtype=i32, device=device)
+        self.blk = torch.empty((nb, _nblk(max(g.M, L), 1024)), dtype=i32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -333,11 +379,18 @@ def expand_reference(g: Geometry, tabs: dict, fr: tuple, ctl: torch.Tensor,
     ctl[CTL_ROWOVF] |= int(row_ovf)
 
 
-def _fnv_fkey(idcols: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def _fnv(idcols: torch.Tensor) -> torch.Tensor:
+    """FNV-1a-style group hash of each row's identity columns (u32 in
+    int64)."""
     gh = torch.full((idcols.shape[0],), 2166136261, dtype=torch.int64,
                     device=idcols.device)
     for c in range(idcols.shape[1]):
         gh = ((gh ^ _u32(idcols[:, c])) * 16777619) & M32
+    return gh
+
+
+def _fnv_fkey(idcols: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    gh = _fnv(idcols)
     return _i32(torch.where(valid, gh >> 1, (gh >> 1) | 0x80000000))
 
 
@@ -345,7 +398,8 @@ def stage1_hash_reference(g: Geometry, rows: torch.Tensor, nvalid: torch.Tensor,
                           ctl: torch.Tensor, drows: torch.Tensor,
                           fkey: torch.Tensor, blk: Optional[torch.Tensor] = None) -> None:
     """Plain version of ``wgl_stage1_hash`` (reference ``ops/wgl.py:523-549``
-    and ``:628-645``). ``blk`` is the kernel's scratch, unused here."""
+    and ``:628-645``). ``blk`` is the kernel's scratch, unused here. With
+    ``fkey`` None (a sharded level) only the compaction runs."""
     if not _go(ctl):
         return
     nv = nvalid.bool()
@@ -356,7 +410,110 @@ def stage1_hash_reference(g: Geometry, rows: torch.Tensor, nvalid: torch.Tensor,
         valid = torch.arange(g.P, device=rows.device) < min(n_cand, g.P)
     else:
         valid = nv
-    fkey.copy_(_fnv_fkey(drows[:, :g.NID], valid))
+    if fkey is not None:
+        fkey.copy_(_fnv_fkey(drows[:, :g.NID], valid))
+
+
+def hash_rows_reference(g: Geometry, drows: torch.Tensor, rvalid: torch.Tensor,
+                        ctl: torch.Tensor, fkey: torch.Tensor) -> None:
+    """Group hash and fused key of a sharded level's exchanged rows, validity
+    from ``rvalid`` (reference ``ops/wgl.py:612-645``)."""
+    if not _go(ctl):
+        return
+    fkey.copy_(_fnv_fkey(drows[:, :g.NID], rvalid.bool()))
+
+
+def route_reference(g: Geometry, crows: torch.Tensor, ctl: torch.Tensor,
+                    send: torch.Tensor, svalid: torch.Tensor) -> None:
+    """Plain version of ``wgl_route`` for one shard, a restatement of the
+    reference's owner routing (``ops/wgl.py:551-590``): owner = FNV of the
+    identity columns mod D, a stable (owner, position) order, fixed buckets
+    of ``PBK`` rows, the bucket overflow into the row-overflow flag. Empty
+    slots are zeros."""
+    if not _go(ctl):
+        return
+    D, P, PBK = g.D, g.P, g.PBK
+    dev = crows.device
+    n = min(int(ctl[CTL_NEXP]), P)
+    nv = torch.arange(P, device=dev) < n
+    owner = _fnv(crows[:, :g.NID]) % D
+    okey = torch.where(nv, owner, torch.full_like(owner, D))
+    sidx = torch.argsort(okey, stable=True)
+    cnt = torch.bincount(owner[nv], minlength=D)
+    off = torch.cumsum(cnt, 0) - cnt
+    if bool((cnt > PBK).any()):
+        ctl[CTL_ROWOVF] = 1
+    slot = torch.arange(D * PBK, device=dev)
+    d_of, j_of = slot // PBK, slot % PBK
+    bvalid = j_of < cnt[d_of]
+    bsrc = sidx[(off[d_of] + j_of).clamp(max=P - 1)]
+    send.copy_(crows[bsrc] * bvalid[:, None].to(torch.int32))
+    svalid.copy_(bvalid)
+
+
+def exchange_plain(g: Geometry, send: torch.Tensor, svalid: Optional[torch.Tensor],
+                   ctl: torch.Tensor, recv: torch.Tensor, rvalid: torch.Tensor) -> None:
+    """Plain version of ``wgl_exchange`` over all D shards (reference
+    ``ops/wgl.py:592-611``): alltoall ``recv[d][s*PBK + j] = send[s][d*PBK +
+    j]``, allgather ``recv[d][s*P + j] = send[s][j]`` (the stage-1 rows,
+    valid below each source's ``min(n_cand, P)``). Invalid rows are zeros."""
+    D = g.D
+    a2a = g.exchange == "alltoall"
+    Bk = g.PBK if a2a else g.P
+    for d in range(D):
+        if not _go(ctl[d]):
+            continue
+        lo = d * Bk if a2a else 0
+        for s_ in range(D):
+            if svalid is not None:
+                v = svalid[s_, lo:lo + Bk].bool()
+            else:
+                n = min(int(ctl[s_, CTL_NEXP]), g.P)
+                v = torch.arange(Bk, device=send.device) < n
+            recv[d, s_ * Bk:(s_ + 1) * Bk] = send[s_, lo:lo + Bk] * v[:, None].to(torch.int32)
+            rvalid[d, s_ * Bk:(s_ + 1) * Bk] = v
+
+
+def _shard_kept(g: Geometry, count_local: int, count: int, s: int) -> int:
+    if g.exchange == "alltoall":
+        return min(count_local, g.F)
+    return max(0, min(min(count, g.F * g.D) - s * g.F, g.F))
+
+
+def shard_reduce_plain(g: Geometry, ctl: torch.Tensor, stage: int) -> None:
+    """Plain version of ``wgl_shard_reduce`` over the D control blocks.
+    ``stage`` 0 (a chunk's start, reference ``ops/wgl.py:830-836``): the
+    global nonempty and the stop test. ``stage`` 1 (after the prune): the
+    pmax of acc_now (``:490``) and pre_ovf (``:612``), the keep count (psum
+    under alltoall, ``:697``) and its overflow, and the frontier count each
+    shard holds after the level (``:877-890``)."""
+    c = ctl.tolist()
+    D, F = g.D, g.F
+    c0 = c[0]
+    if stage == 0:
+        fc = [r[CTL_FCOUNT] for r in c]
+        go = (not c0[CTL_ACC] and (c0[CTL_LOSSY] or not c0[CTL_OVF]) and not c0[CTL_STUCK]
+              and sum(fc) > 0 and c0[CTL_LVL] < c0[CTL_MAXLVL])
+        for r in c:
+            r[CTL_NSUM], r[CTL_NMAX], r[CTL_NMIN], r[CTL_GO] = sum(fc), max(fc), min(fc), int(go)
+    else:
+        if not c0[CTL_GO]:
+            return
+        acc = int(any(r[CTL_ACCNOW] for r in c))
+        pre = any(r[CTL_ROWOVF] or r[CTL_NEXP] > g.P for r in c)
+        if g.exchange == "alltoall":
+            count = sum(r[CTL_COUNT] for r in c)
+            ovf_now = pre or any(r[CTL_COUNT] > F for r in c)
+        else:
+            count = c0[CTL_COUNT]
+            ovf_now = pre or count > F * D
+        dead = (ovf_now and not c0[CTL_LOSSY]) or count == 0
+        fc = [r[CTL_FCOUNT] if dead else _shard_kept(g, r[CTL_COUNT], count, s_)
+              for s_, r in enumerate(c)]
+        for r in c:
+            r[CTL_ACCNOW], r[CTL_GCOUNT], r[CTL_GOVF] = acc, count, int(ovf_now)
+            r[CTL_NSUM], r[CTL_NMAX], r[CTL_NMIN] = sum(fc), max(fc), min(fc)
+    ctl.copy_(torch.tensor(c, dtype=torch.int32))
 
 
 def take_col_reference(src: torch.Tensor, col: int, idx: torch.Tensor,
@@ -426,21 +583,39 @@ def _level_outcome(g: Geometry, c: list) -> tuple:
     return ovf_now, dead, stuck_now, min(count, g.F)
 
 
+def _sharded_outcome(g: Geometry, c: list, s: int) -> tuple:
+    """(ovf_now, dead, stuck_now, kept, offset) of shard ``s`` from the
+    replicated fields ``shard_reduce`` wrote (reference ``ops/wgl.py:697-711``,
+    ``:743-757``, ``:791-797``)."""
+    count, ovf_now = c[CTL_GCOUNT], bool(c[CTL_GOVF])
+    lossy = c[CTL_LOSSY] != 0
+    stuck_now = count == 0 and not (ovf_now and not lossy)
+    dead = (ovf_now and not lossy) or count == 0
+    off = s * g.F if g.exchange == "allgather" else 0
+    return ovf_now, dead, stuck_now, _shard_kept(g, c[CTL_COUNT], count, s), off
+
+
 def gather_finalize_reference(g: Geometry, drows: torch.Tensor,
                               perm: torch.Tensor, order: torch.Tensor,
                               ctl: torch.Tensor, stats: torch.Tensor,
-                              fr: tuple) -> None:
+                              fr: tuple, shard: int = 0) -> None:
     """Plain version of ``wgl_gather_finalize`` (reference
-    ``ops/wgl.py:741-843``): top-F gather into the frontier unless the
-    level is dead, then the loop carry, stats row and stop test."""
+    ``ops/wgl.py:741-843``) for one member: top-F gather into the frontier
+    unless the level is dead, then the loop carry, stats row and stop test.
+    In a sharded level ``shard`` is the member's index, the outcome is the
+    replicated one and no stats row is written."""
     if not _go(ctl):
         return
     c = ctl.tolist()
-    ovf_now, dead, stuck_now, kept = _level_outcome(g, c)
+    if g.exchange:
+        ovf_now, dead, stuck_now, kept, off = _sharded_outcome(g, c, shard)
+    else:
+        ovf_now, dead, stuck_now, kept = _level_outcome(g, c)
+        off = 0
     if not dead:
         p, mD, mO, st, valid = fr
         kvalid = torch.arange(g.F, device=drows.device) < kept
-        src = perm.long()[order.long()[:g.F]]
+        src = perm.long()[order.long()[off:off + g.F]]
         rows = drows[src] * kvalid[:, None].to(torch.int32)
         KD, S = g.KD, g.S
         p.copy_(rows[:, 0])
@@ -449,17 +624,21 @@ def gather_finalize_reference(g: Geometry, drows: torch.Tensor,
         mO.copy_(rows[:, 1 + KD + S:])
         valid.copy_(kvalid)
     lvl = c[CTL_LVL]
-    stats[(lvl + 1) % LEVEL_STAT_ROWS] = torch.tensor(
-        [lvl + 1, kept, c[CTL_NEXP], int(ovf_now)], dtype=torch.int32)
+    fcount = c[CTL_FCOUNT] if dead else kept
+    if g.exchange:
+        fm, nonempty = min(c[CTL_GCOUNT], g.F * g.D), c[CTL_NSUM] > 0
+    else:
+        fm, nonempty = kept, fcount > 0
+        stats[(lvl + 1) % LEVEL_STAT_ROWS] = torch.tensor(
+            [lvl + 1, kept, c[CTL_NEXP], int(ovf_now)], dtype=torch.int32)
     acc = c[CTL_ACC] | c[CTL_ACCNOW]
     ovf = c[CTL_OVF] | int(ovf_now)
     stuck = c[CTL_STUCK] | int(stuck_now)
-    fcount = c[CTL_FCOUNT] if dead else kept
     lvl2 = lvl if dead else lvl + 1
-    go = (not acc and (c[CTL_LOSSY] or not ovf) and not stuck and fcount > 0
+    go = (not acc and (c[CTL_LOSSY] or not ovf) and not stuck and nonempty
           and lvl2 < c[CTL_MAXLVL])
     c[CTL_LVL], c[CTL_ACC], c[CTL_OVF] = lvl2, acc, ovf
-    c[CTL_FMAX] = max(c[CTL_FMAX], kept)
+    c[CTL_FMAX] = max(c[CTL_FMAX], fm)
     c[CTL_STUCK], c[CTL_FCOUNT], c[CTL_GO] = stuck, fcount, int(go)
     c[CTL_NEXP] = c[CTL_ACCNOW] = c[CTL_ROWOVF] = c[CTL_COUNT] = 0
     ctl.copy_(torch.tensor(c, dtype=torch.int32))
@@ -527,7 +706,16 @@ expand_plain = vmap_members(expand_reference)
 stage1_hash_plain = vmap_members(stage1_hash_reference)
 take_col_plain = vmap_members(take_col_reference)
 prune_plain = vmap_members(prune_reference)
-gather_finalize_plain = vmap_members(gather_finalize_reference)
+route_plain = vmap_members(route_reference)
+hash_rows_plain = vmap_members(hash_rows_reference)
+
+
+def gather_finalize_plain(g: Geometry, drows, perm, order, ctl, stats, fr) -> None:
+    """Per-member loop of :func:`gather_finalize_reference` (each shard's
+    index passed along in a sharded level)."""
+    for b in range(ctl.shape[0]):
+        gather_finalize_reference(g, *(_member(a, b) for a in (drows, perm, order, ctl,
+                                                               stats, fr)), shard=b)
 
 
 def radix_sort_pairs_plain(keys: torch.Tensor, vals: torch.Tensor,
@@ -672,7 +860,8 @@ def stage1_hash(g: Geometry, rows: torch.Tensor, nvalid: torch.Tensor,
                 ctl: torch.Tensor, drows: torch.Tensor, fkey: torch.Tensor,
                 blk: torch.Tensor) -> None:
     """Stage K2 (see module docstring). ``blk``: ``BatchWorkspace.blk``,
-    the per-block counts of the two-stage compaction."""
+    the per-block counts of the two-stage compaction. ``fkey`` None: the
+    compaction alone (a sharded level hashes the exchanged rows)."""
     if ctl.device.type == "cpu":
         return stage1_hash_plain(g, rows, nvalid, ctl, drows, fkey, blk)
     _launch("wgl_stage1_hash", *_stage1_hash_args(g, rows, nvalid, ctl, drows, fkey, blk))
@@ -683,7 +872,11 @@ def _stage1_hash_args(g, rows, nvalid, ctl, drows, fkey, blk) -> tuple:
     nb = ctl.shape[0]
     _check_members(nb)
     _check_shapes("stage1_hash", (ctl, (nb, CTL_SIZE)), (rows, (nb, g.M, g.NC)),
-                  (nvalid, (nb, g.M)), (drows, (nb, g.L, g.NC)), (fkey, (nb, g.L)))
+                  (nvalid, (nb, g.M)), (drows, (nb, g.P, g.NC)))
+    if fkey is not None:
+        _check_shapes("stage1_hash", (fkey, (nb, g.P)))
+    elif not g.two_stage:
+        raise ValueError("stage1_hash: a single-stage level must hash its rows")
     if blk.numel() < nb * _nblk(g.M, 1024):
         raise ValueError("stage1_hash: block-count scratch too small")
     ci = ctypes.c_int
@@ -788,9 +981,114 @@ def _gather_finalize_args(g, drows, perm, order, ctl, stats, fr) -> tuple:
                   (mO, (nb, F, g.KO1)), (st, (nb, F, g.S)), (valid, (nb, F)),
                   (stats, (nb, LEVEL_STAT_ROWS, 4)))
     ci = ctypes.c_int
+    _check_sharded("gather_finalize", g, nb)
     return (_ptr(drows), _ptr(perm), _ptr(order), _ptr(ctl), _ptr(stats), _ptr(p), _ptr(mD),
             _ptr(mO), _ptr(st), _ptr(valid), ci(F), ci(L), ci(g.NC), ci(g.KD), ci(g.S),
-            ci(g.KO1), ci(g.P if g.two_stage else 0), ci(LEVEL_STAT_ROWS), ci(nb), _stream())
+            ci(g.KO1), ci(g.P if g.two_stage else 0), ci(LEVEL_STAT_ROWS),
+            ci(_EX_MODE[g.exchange]), ci(nb), _stream())
+
+
+def _check_sharded(name: str, g: Geometry, nb: int) -> None:
+    """A sharded level's members are exactly its D shards."""
+    if g.exchange is not None and nb != g.D:
+        raise ValueError(f"{name}: {nb} members for a mesh of {g.D} shards")
+    if not 1 <= g.D <= MAX_SHARDS:
+        raise ValueError(f"{name}: {g.D} shards; the kernels take 1..{MAX_SHARDS}")
+
+
+def hash_rows(g: Geometry, drows: torch.Tensor, rvalid: torch.Tensor, ctl: torch.Tensor,
+              fkey: torch.Tensor) -> None:
+    """The group hash and fused key of a sharded level's ``L`` exchanged
+    rows (``drows [D, L, NC]``, validity ``rvalid [D, L]``): the stage-1
+    kernel's hash over its received rows (``wgl_stage1_hash`` with no
+    compaction)."""
+    if ctl.device.type == "cpu":
+        return hash_rows_plain(g, drows, rvalid, ctl, fkey)
+    _launch("wgl_stage1_hash", *_hash_rows_args(g, drows, rvalid, ctl, fkey))
+
+
+def _hash_rows_args(g, drows, rvalid, ctl, fkey) -> tuple:
+    _check_cuda(drows, rvalid, ctl, fkey)
+    nb = ctl.shape[0]
+    _check_sharded("hash_rows", g, nb)
+    _check_shapes("hash_rows", (ctl, (nb, CTL_SIZE)), (drows, (nb, g.L, g.NC)),
+                  (rvalid, (nb, g.L)), (fkey, (nb, g.L)))
+    ci = ctypes.c_int
+    return (_ptr(drows), _ptr(rvalid), _ptr(ctl), _ptr(drows), _ptr(fkey), _ptr(None),
+            ci(g.L), ci(g.NC), ci(g.NID), ci(0), ci(nb), _stream())
+
+
+def route(g: Geometry, crows: torch.Tensor, ctl: torch.Tensor, send: torch.Tensor,
+          svalid: torch.Tensor) -> None:
+    """Sharded stage (alltoall): each shard's stage-1 rows ``crows [D, P,
+    NC]`` routed to their owners' buckets ``send [D, D*PBK, NC]``, validity
+    ``svalid [D, D*PBK]``; a bucket overflow sets the shard's row-overflow
+    flag."""
+    if ctl.device.type == "cpu":
+        return route_plain(g, crows, ctl, send, svalid)
+    _launch("wgl_route", *_route_args(g, crows, ctl, send, svalid))
+
+
+def _route_args(g, crows, ctl, send, svalid) -> tuple:
+    _check_cuda(crows, ctl, send, svalid)
+    D = g.D
+    _check_sharded("route", g, ctl.shape[0])
+    if g.exchange != "alltoall":
+        raise ValueError("route: only the alltoall exchange routes rows")
+    _check_shapes("route", (ctl, (D, CTL_SIZE)), (crows, (D, g.P, g.NC)),
+                  (send, (D, D * g.PBK, g.NC)), (svalid, (D, D * g.PBK)))
+    ci = ctypes.c_int
+    return (_ptr(crows), _ptr(ctl), _ptr(send), _ptr(svalid), ci(g.P), ci(g.NC), ci(g.NID),
+            ci(D), ci(g.PBK), _stream())
+
+
+def exchange(g: Geometry, send: torch.Tensor, svalid: Optional[torch.Tensor],
+             ctl: torch.Tensor, recv: torch.Tensor, rvalid: torch.Tensor) -> None:
+    """Sharded stage: the collective between the D shards' buffers on one
+    device. alltoall: ``send [D, D*PBK, NC]`` buckets with ``svalid``;
+    allgather: ``send`` is the stage-1 rows ``[D, P, NC]`` and ``svalid``
+    None. Writes ``recv [D, L, NC]`` and ``rvalid [D, L]``."""
+    if ctl.device.type == "cpu":
+        return exchange_plain(g, send, svalid, ctl, recv, rvalid)
+    _launch("wgl_exchange", *_exchange_args(g, send, svalid, ctl, recv, rvalid))
+
+
+def _exchange_args(g, send, svalid, ctl, recv, rvalid) -> tuple:
+    _check_cuda(send, svalid, ctl, recv, rvalid)
+    D = g.D
+    _check_sharded("exchange", g, ctl.shape[0])
+    a2a = g.exchange == "alltoall"
+    if g.exchange not in EXCHANGES or (svalid is None) == a2a:
+        raise ValueError("exchange: bucket validity goes with alltoall only")
+    SR = D * g.PBK if a2a else g.P
+    Bk = g.PBK if a2a else g.P
+    _check_shapes("exchange", (ctl, (D, CTL_SIZE)), (send, (D, SR, g.NC)),
+                  (recv, (D, g.L, g.NC)), (rvalid, (D, g.L)))
+    if a2a:
+        _check_shapes("exchange", (svalid, (D, SR)))
+    ci = ctypes.c_int
+    return (_ptr(send), _ptr(svalid), _ptr(ctl), _ptr(recv), _ptr(rvalid), ci(SR), ci(Bk),
+            ci(Bk if a2a else 0), ci(g.NC), ci(g.P), ci(D), _stream())
+
+
+def shard_reduce(g: Geometry, ctl: torch.Tensor, stage: int) -> None:
+    """Sharded stage: the cross-shard reductions over ``ctl [D, CTL_SIZE]``
+    (``stage`` 0 at a chunk's start, 1 after the prune), written to every
+    shard's block."""
+    if ctl.device.type == "cpu":
+        return shard_reduce_plain(g, ctl, stage)
+    _launch("wgl_shard_reduce", *_shard_reduce_args(g, ctl, stage))
+
+
+def _shard_reduce_args(g, ctl, stage) -> tuple:
+    _check_cuda(ctl)
+    _check_sharded("shard_reduce", g, ctl.shape[0])
+    if g.exchange not in EXCHANGES or stage not in (0, 1):
+        raise ValueError("shard_reduce: a sharded geometry and stage 0 or 1")
+    _check_shapes("shard_reduce", (ctl, (g.D, CTL_SIZE)))
+    ci = ctypes.c_int
+    return (_ptr(ctl), ci(g.D), ci(g.F), ci(g.P), ci(_EX_MODE[g.exchange]), ci(stage),
+            _stream())
 
 
 def regroup(fr: tuple, idx, F_new: int) -> tuple:
@@ -833,11 +1131,15 @@ class _Stages:
 
 KERNELS = _Stages(chunk_init=chunk_init, expand=expand, stage1_hash=stage1_hash,
                   take_col=take_col, radix_sort_pairs=radix_sort_pairs,
-                  prune=prune, gather_finalize=gather_finalize, regroup=regroup)
+                  prune=prune, gather_finalize=gather_finalize, regroup=regroup,
+                  route=route, exchange=exchange, hash_rows=hash_rows,
+                  shard_reduce=shard_reduce)
 PLAIN = _Stages(chunk_init=chunk_init_plain, expand=expand_plain,
                 stage1_hash=stage1_hash_plain, take_col=take_col_plain,
                 radix_sort_pairs=radix_sort_pairs_plain, prune=prune_plain,
-                gather_finalize=gather_finalize_plain, regroup=regroup_reference)
+                gather_finalize=gather_finalize_plain, regroup=regroup_reference,
+                route=route_plain, exchange=exchange_plain, hash_rows=hash_rows_plain,
+                shard_reduce=shard_reduce_plain)
 
 
 def _level_stages(g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace,
@@ -846,10 +1148,21 @@ def _level_stages(g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace,
     pairs: one call per stage for the whole batch (each stage returns at
     once for a member whose control block says stop). ``"reset"`` copies
     ``ws.iota`` into an index buffer."""
+    if g.exchange:
+        return _sharded_level_stages(g, tabs, fr, ws, model)
     ctl = ws.ctl
     out = [("expand", (g, tabs, fr, ctl, ws.rows, ws.nvalid, model)),
            ("stage1_hash", (g, ws.rows, ws.nvalid, ctl, ws.drows, ws.fkey, ws.blk)),
            ("reset", (ws.perm, ws.iota))]
+    return out + _dedup_stages(g, fr, ws)
+
+
+def _dedup_stages(g: Geometry, fr: tuple, ws: BatchWorkspace, reduce: tuple = ()) -> list:
+    """The stages from the dedup sort on: over ``ws.drows``' ``L`` rows
+    keyed by ``ws.fkey``; ``reduce`` goes between the prune and the
+    compaction sort."""
+    ctl = ws.ctl
+    out = []
     # Dedup order: lexicographic over (fkey, open-mask words), built as
     # stable sorts from the last key to the first. With no open ops the
     # single open column is all zeros and sorts as the identity.
@@ -858,11 +1171,35 @@ def _level_stages(g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace,
         out += [("take_col", (src, col, ws.perm, ws.keys, ctl)),
                 ("radix_sort_pairs", (ws.keys, ws.perm, ws.sort, ctl))]
     out += [("prune", (g, ws.drows, ws.keys, ws.perm, ctl, ws.fprio, ws.flags, ws.blk)),
+            *reduce,
             # Compaction order: (priority, position) — stability is the tiebreak.
             ("reset", (ws.order, ws.iota)),
             ("radix_sort_pairs", (ws.fprio, ws.order, ws.sort, ctl)),
             ("gather_finalize", (g, ws.drows, ws.perm, ws.order, ctl, ws.stats, fr))]
     return out
+
+
+def _sharded_level_stages(g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace,
+                          model: Model) -> list:
+    """One level of a frontier-sharded search, its D shards the members
+    (the reference's ``_build_kernel(axis_name=...)``): each shard expands
+    and compacts its stage-1 rows (two-stage at every M, reference
+    ``ops/wgl.py:525``), the alltoall routes them to their owners' buckets,
+    the exchange moves them between the shards, the received rows are
+    hashed and deduplicated as in a single level at ``L`` rows, the
+    reduce replicates the cross-shard values after the prune, and the
+    finalize keeps each shard's rows (``ops/wgl.py:743-757``)."""
+    ctl = ws.ctl
+    a2a = g.exchange == "alltoall"
+    out = [("expand", (g, tabs, fr, ctl, ws.rows, ws.nvalid, model)),
+           ("stage1_hash", (g, ws.rows, ws.nvalid, ctl, ws.crows, None, ws.blk))]
+    if a2a:
+        out.append(("route", (g, ws.crows, ctl, ws.send, ws.svalid)))
+    out += [("exchange", (g, ws.send if a2a else ws.crows, ws.svalid, ctl, ws.drows,
+                          ws.rvalid)),
+            ("hash_rows", (g, ws.drows, ws.rvalid, ctl, ws.fkey)),
+            ("reset", (ws.perm, ws.iota))]
+    return out + _dedup_stages(g, fr, ws, reduce=(("shard_reduce", (g, ctl, 1)),))
 
 
 def run_level_batch(ops: _Stages, g: Geometry, tabs: dict, fr: tuple,
@@ -881,7 +1218,11 @@ _PACKERS = {"expand": ("wgl_expand", _expand_args),
             "take_col": ("wgl_take_col", _take_col_args),
             "radix_sort_pairs": ("radix_sort_pairs", _radix_sort_pairs_args),
             "prune": ("wgl_prune", _prune_args),
-            "gather_finalize": ("wgl_gather_finalize", _gather_finalize_args)}
+            "gather_finalize": ("wgl_gather_finalize", _gather_finalize_args),
+            "route": ("wgl_route", _route_args),
+            "exchange": ("wgl_exchange", _exchange_args),
+            "hash_rows": ("wgl_stage1_hash", _hash_rows_args),
+            "shard_reduce": ("wgl_shard_reduce", _shard_reduce_args)}
 
 
 class _LevelProgram:
@@ -910,16 +1251,10 @@ class _LevelProgram:
             LAUNCHES[name] += 1
 
 
-def run_chunk_batch(ops: _Stages, g: Geometry, tabs: dict, fr: tuple,
-                    ws: BatchWorkspace, lvl0, max_levels, lossy, nD, nO,
-                    model: Model) -> list:
-    """Run every member's levels from its ``lvl0`` until its stop
-    condition or its ``max_levels`` (the reference's vmapped
-    ``while_loop``). ``lvl0``, ``max_levels``, ``lossy``, ``nD`` and
-    ``nO`` hold one integer per member; every member steps ``model``.
-    Returns each member's packed flags ``[acc, ovf, nonempty, lvl, fmax,
-    count]`` (the reference's ``[nb, 6]``); the frontier ``fr`` is updated
-    in place and ``ws.stats`` holds each member's per-level ring.
+def _run_levels(ops: _Stages, g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace,
+                lvl0, max_levels, lossy, nD, nO, model: Model) -> torch.Tensor:
+    """Run every member's levels from its ``lvl0`` until its stop condition
+    or its ``max_levels``; returns the host copy of the control blocks.
 
     On the GPU the host enqueues levels for the whole batch in growing
     runs and reads the ``[nb, CTL_SIZE]`` control blocks once per run,
@@ -938,6 +1273,8 @@ def run_chunk_batch(ops: _Stages, g: Geometry, tabs: dict, fr: tuple,
     ctl.copy_(init)
     ws.stats.zero_()
     ops.chunk_init(ctl, fr[4])
+    if g.exchange:
+        ops.shard_reduce(g, ctl, 0)
     remaining = max(0, int((init[:, CTL_MAXLVL] - init[:, CTL_LVL]).max()))
     pipelined = ops is KERNELS and ctl.device.type == "cuda"
     batch = 4 if pipelined else 1
@@ -955,12 +1292,54 @@ def run_chunk_batch(ops: _Stages, g: Geometry, tabs: dict, fr: tuple,
         if pipelined:
             batch = min(2 * batch, 256)
         c = ctl.cpu()
+    return c
+
+
+def run_chunk_batch(ops: _Stages, g: Geometry, tabs: dict, fr: tuple,
+                    ws: BatchWorkspace, lvl0, max_levels, lossy, nD, nO,
+                    model: Model) -> list:
+    """Run every member's levels from its ``lvl0`` until its stop
+    condition or its ``max_levels`` (the reference's vmapped
+    ``while_loop``). ``lvl0``, ``max_levels``, ``lossy``, ``nD`` and
+    ``nO`` hold one integer per member; every member steps ``model``.
+    Returns each member's packed flags ``[acc, ovf, nonempty, lvl, fmax,
+    count]`` (the reference's ``[nb, 6]``); the frontier ``fr`` is updated
+    in place and ``ws.stats`` holds each member's per-level ring. See
+    :func:`_run_levels` for how the GPU path enqueues levels."""
+    c = _run_levels(ops, g, tabs, fr, ws, lvl0, max_levels, lossy, nD, nO, model)
     out = []
     for r in c.tolist():
         nonempty = int(r[CTL_FCOUNT] > 0 and not r[CTL_STUCK])
         out.append([r[CTL_ACC], r[CTL_OVF], nonempty, r[CTL_LVL], r[CTL_FMAX],
                     r[CTL_FCOUNT]])
     return out
+
+
+def run_chunk_sharded(ops: _Stages, g: Geometry, tabs: dict, fr: tuple,
+                      ws: BatchWorkspace, lvl0: int, max_levels: int, lossy: bool,
+                      nD: int, nO: int, model: Model) -> list:
+    """One chunk of a frontier-sharded search (the reference's
+    ``parallel/frontier.py`` ``_sharded_kernel``): ``fr`` holds the D
+    shards' frontiers ``[D, F, ...]`` (updated in place), ``tabs`` the
+    tables repeated for each shard, ``g`` a sharded geometry
+    (``wgl.sharded_geometry``). Returns the reference's 8 packed flags
+    ``[acc, ovf, nonempty, lvl, fmax, count, cnt_max, cnt_min]``: the
+    global values, and the largest and smallest shard's frontier."""
+    if not g.exchange:
+        raise ValueError("run_chunk_sharded: the geometry is not sharded")
+    D = g.D
+    c = _run_levels(ops, g, tabs, fr, ws, [lvl0] * D, [max_levels] * D, [lossy] * D,
+                    [nD] * D, [nO] * D, model)
+    rep_cols = [CTL_LVL, CTL_ACC, CTL_OVF, CTL_FMAX, CTL_STUCK, CTL_GO, CTL_NSUM, CTL_NMAX,
+                CTL_NMIN]
+    if not bool((c[:, rep_cols] == c[0, rep_cols]).all()):
+        raise RuntimeError(f"shards disagree on replicated control fields: {c.tolist()}")
+    if int(c[:, CTL_FCOUNT].sum()) != int(c[0, CTL_NSUM]):
+        raise RuntimeError("shards' frontier counts do not add up to the reduced sum")
+    r = c[0].tolist()
+    nonempty = int(r[CTL_NSUM] > 0 and not r[CTL_STUCK])
+    return [r[CTL_ACC], r[CTL_OVF], nonempty, r[CTL_LVL], r[CTL_FMAX], r[CTL_NSUM],
+            r[CTL_NMAX], r[CTL_NMIN]]
 
 
 def run_chunk(ops: _Stages, g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace,

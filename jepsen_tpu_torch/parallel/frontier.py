@@ -1,0 +1,170 @@
+"""Frontier-sharded linearizability search: one history's frontier split
+over the D shards of a mesh, the port of the reference's
+``jepsen_tpu/parallel/frontier.py``.
+
+Each shard expands its ``F`` configurations and compacts its stage-1
+survivors; one exchange a level then moves candidates between shards. In
+the default owner-partitioned mode (``exchange="alltoall"``) each
+candidate goes to the shard owning its group hash (``owner = FNV % D``) in
+fixed per-destination buckets, and each shard deduplicates only the rows
+it owns; in the replicated mode (``exchange="allgather"``, also
+``JEPSEN_WGL_EXCHANGE=allgather``, the kill-switch) every shard receives
+every candidate, runs the global dedup and keeps its slice of the global
+order. Any verdict either mode gives is the single search's at capacity
+``F * D``, at the same level; the partitioned mode may spend an
+escalation on hash imbalance.
+
+The shards of a :class:`~jepsen_tpu_torch.parallel.Mesh` sit on one
+device, as the members of one batch of the level kernels
+(``ops.wgl_level.run_chunk_sharded``); the collectives are the kernels
+``wgl_route``, ``wgl_exchange`` and ``wgl_shard_reduce``.
+"""
+
+from __future__ import annotations
+
+import os as _os
+import time as _time
+from typing import Optional
+
+from ..checker import provenance as _prov
+from ..ops import wgl
+from ..ops import wgl_level as _lv
+from ..ops.encode import EncodedHistory, encode_history
+from . import make_mesh
+
+
+def _resolve_exchange(exchange: Optional[str]) -> str:
+    """``JEPSEN_WGL_EXCHANGE`` (the operational kill-switch, which wins
+    over an explicit argument), else ``exchange``, else ``"alltoall"``."""
+    mode = _os.environ.get("JEPSEN_WGL_EXCHANGE") or exchange or "alltoall"
+    if mode not in _lv.EXCHANGES:
+        raise ValueError(f"unknown WGL exchange mode {mode!r} "
+                         "(expected 'alltoall' or 'allgather')")
+    return mode
+
+
+def _later(name: str):
+    return ValueError(f"{name}= (telemetry, checkpoints and chunk callbacks) comes with a "
+                      "later slice of the port")
+
+
+def check_encoded_sharded(enc: EncodedHistory, mesh=None, axis: str = "dp",
+                          f_total: int = 1024, max_open: int = 128, window_cap: int = 1024,
+                          levels_per_call: Optional[int] = None, max_escalations: int = 2,
+                          checkpoint_path: Optional[str] = None, chunk_callback=None,
+                          metrics=None, exchange: Optional[str] = None, device=None,
+                          plain: bool = False) -> dict:
+    """Decide linearizability of one encoded history with its frontier
+    sharded over ``mesh``'s ``axis`` (default: a mesh of one shard on
+    ``device``, the GPU unless ``device="cpu"``). The result map mirrors
+    the reference's: ``valid``, ``op_count``, ``device``, ``sharded``,
+    ``n_shards``, ``exchange``, ``levels``, ``frontier_total`` (the global
+    capacity used), ``frontier_max``, ``window``, ``attempts``, ``wall_s``
+    and, on a refutation, ``max_linearized`` and ``stuck_configs``.
+
+    ``f_total`` is the global capacity, rounded up to ``D * max(ceil(f_total
+    / D), 16)``; an overflow escalates x4 losslessly up to
+    ``max_escalations`` times, after which the verdict is ``unknown``.
+    ``plain``: the plain PyTorch version of every stage, even on the GPU.
+    ``checkpoint_path``, ``chunk_callback`` and ``metrics`` come with a
+    later slice and raise ``ValueError``."""
+    for name, val in (("checkpoint_path", checkpoint_path),
+                      ("chunk_callback", chunk_callback), ("metrics", metrics)):
+        if val is not None:
+            raise _later(name)
+    t0 = _time.perf_counter()
+    exchange = _resolve_exchange(exchange)
+    if mesh is None:
+        mesh = make_mesh(device=device)
+    D = int(mesh.shape[axis])
+    dev = mesh.device
+    ops = _lv.PLAIN if plain else _lv.KERNELS
+    plan = wgl.plan_device(enc, max_open=max_open, window_cap=window_cap, device=dev)
+    n = enc.n
+    head = {"sharded": True, "n_shards": D, "exchange": exchange}
+    if plan.nD == 0:
+        return {"valid": True, "op_count": n, "device": True, "levels": 0, **head}
+    if not plan.ok:
+        return _prov.attach(
+            {"valid": "unknown", "op_count": n, "device": True, "info": plan.reason, **head},
+            "encoding_unsupported", reason=plan.reason)
+    W, KO, S, _ND, _NO = plan.dims
+    total_levels = plan.total_levels
+    # every shard reads the same tables
+    tabs = {k: v[None].expand((D,) + tuple(v.shape)).contiguous()
+            for k, v in plan.tabs.items()}
+    fmax_all = 1
+    workspaces: dict = {}
+
+    def capacity(f_req: int) -> int:
+        return max(-(-f_req // D), 16) * D
+
+    def run_capacity(FT: int, fr: tuple, attempt: dict) -> tuple:
+        """Chunks at one global capacity: (result, frontier); a None result
+        is a lossless overflow (escalate)."""
+        nonlocal fmax_all
+        F = FT // D
+        g = wgl.sharded_geometry(plan, F, D, exchange)
+        ws = workspaces.get(F)
+        if ws is None:
+            ws = workspaces[F] = _lv.BatchWorkspace(g, D, dev)
+        lpc = levels_per_call or wgl._levels_per_call(F * (plan.B or (W + KO * 32)))
+        while True:
+            t_call = _time.perf_counter()
+            lvl0 = int(fr[-1])
+            budget = min(total_levels, lvl0 + lpc)
+            acc, ovf, nonempty, lvl, fmax, _count, _cmax, _cmin = _lv.run_chunk_sharded(
+                ops, g, tabs, fr[:5], ws, lvl0, budget, False, plan.nD, plan.nO, enc.model)
+            fmax_all = max(fmax_all, fmax)
+            fr = fr[:5] + (lvl,)
+            attempt["levels"] = int(lvl)
+            attempt["calls"] += 1
+            attempt["wall_s"] = round(attempt["wall_s"] + _time.perf_counter() - t_call, 3)
+
+            def result(valid, **extra):
+                r = {"valid": valid, "op_count": n, "device": True, **head,
+                     "levels": int(lvl), "frontier_total": FT, "frontier_max": fmax_all,
+                     "window": W, "torch_device": str(dev),
+                     "wall_s": _time.perf_counter() - t0}
+                r.update(extra)
+                return r
+
+            if acc:
+                return result(True), fr
+            if ovf:
+                return None, fr
+            if not nonempty:
+                # The last non-empty frontier, kept on the dead end, is the
+                # refutation witness (the global, shard-major order).
+                flat = tuple(a.reshape((-1,) + tuple(a.shape[2:])) for a in fr[:5])
+                return result(False, max_linearized=int(lvl),
+                              stuck_configs=wgl._returned_stuck_configs(enc, flat + (lvl,))), fr
+            if lvl >= total_levels:
+                return _prov.attach(result("unknown", info="level budget exhausted"),
+                                    "level_budget", levels=int(lvl), F=F), fr
+
+    FT = capacity(f_total)
+    fr0 = wgl.initial_frontier(FT, W, KO, S, plan.init_state, dev)
+    fr = tuple(a.reshape((D, FT // D) + tuple(a.shape[1:])) for a in fr0[:5]) + (0,)
+    attempts: list = []
+    for _esc in range(max_escalations + 1):
+        attempt = {"F": FT, "levels": 0, "calls": 0, "wall_s": 0.0}
+        attempts.append(attempt)
+        res, fr = run_capacity(FT, fr, attempt)
+        if res is not None:
+            res["attempts"] = attempts
+            return res
+        attempt["overflowed"] = True
+        FT = capacity(FT * 4)
+        fr = wgl.pad_sharded_frontier(fr, FT // D, ops)
+    return _prov.attach(
+        {"valid": "unknown", "op_count": n, "device": True, **head,
+         "info": f"frontier capacity schedule exhausted at {FT // 4}",
+         "attempts": attempts, "torch_device": str(dev),
+         "wall_s": _time.perf_counter() - t0},
+        "escalation_budget", F=FT // 4, max_escalations=max_escalations)
+
+
+def check_history_sharded(model, history, **kw) -> dict:
+    """Encode ``history`` under ``model`` and run :func:`check_encoded_sharded`."""
+    return check_encoded_sharded(encode_history(model, history), **kw)

@@ -226,7 +226,8 @@ def test_level_program_packs_each_launch_once(KO, monkeypatch):
     assert lv.LAUNCHES == {"wgl_chunk_init": 0, "wgl_expand": 2, "wgl_stage1_hash": 2,
                            "wgl_take_col": 2 * (n_sorts - 1),
                            "radix_sort_pairs": 2 * n_sorts, "wgl_prune": 2,
-                           "wgl_gather_finalize": 2, "wgl_regroup": 0}
+                           "wgl_gather_finalize": 2, "wgl_regroup": 0, "wgl_route": 0,
+                           "wgl_exchange": 0, "wgl_shard_reduce": 0}
     lib.rc = 700
     monkeypatch.setattr(lv._build, "error_string", lambda rc: "an illegal memory access")
     with pytest.raises(RuntimeError, match="wgl_expand: CUDA error 700"):

@@ -141,7 +141,7 @@ def test_device_backend_aliases(name):
     assert by_option.check({"checker_backend": "host"}, h, {})["backend"] == "host"
 
 
-@pytest.mark.parametrize("name", ["auto", "native", "competition", "sharded", "segmented"])
+@pytest.mark.parametrize("name", ["auto", "native", "competition", "segmented"])
 def test_later_slice_backends_raise(name):
     with pytest.raises(ValueError, match="later slice"):
         jc.linearizable(model=CasRegister(init=0), backend=name, device="cpu")

@@ -306,3 +306,79 @@ def test_elle_append_check_on_the_card_matches_the_cpu(cuda):
     want = ea.check(h, device=True, additional_graphs=("process",), report={},
                     torch_device="cpu")
     assert got == want and got["valid"] is False
+
+
+# -- the frontier-sharded level ------------------------------------------------
+
+
+def _sharded_history(S, seed=7):
+    from jepsen_tpu_torch.testing import history_model, random_model_history
+
+    if S == 1:
+        model = CasRegister(init=0)
+        h = random_register_history(random.Random(seed), n_ops=80, n_procs=6, crash_p=0.05)
+    else:
+        model = history_model("multi-register")
+        h = random_model_history(random.Random(seed), "multi-register", n_ops=80, n_procs=6,
+                                 crash_p=0.05)
+    assert model.state_width == S
+    return model, encode_history(model, h)
+
+
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("mode", ["alltoall", "allgather"])
+@pytest.mark.parametrize("D", [1, 2, 3, 8])
+def test_sharded_stages_match_plain(cuda, D, mode, S):
+    """One sharded level from a warmed frontier, stage by stage: each kernel
+    (wgl_route, wgl_exchange, wgl_shard_reduce, the sharded finalize and
+    every existing stage at the exchanged row count) against its plain
+    version on identical inputs, bit for bit."""
+    import chip_smoke
+
+    model, enc = _sharded_history(S)
+    F = 32
+    plan, g, tabs = chip_smoke.sharded_setup(lv, wgl, enc, F * D, D, mode, model)
+    fr0 = wgl.initial_frontier(F * D, g.W, g.KO, g.S, plan.init_state, "cuda")
+    fr = tuple(a.reshape((D, F) + tuple(a.shape[1:])).contiguous() for a in fr0[:5])
+    flags = lv.run_chunk_sharded(lv.PLAIN, g, tabs, fr, lv.BatchWorkspace(g, D, cuda), 0, 12,
+                                 True, plan.nD, plan.nO, model)
+    assert flags[2] == 1 and flags[5] > 1
+    before = dict(lv.LAUNCHES)
+    for lossy in (True, False):
+        ctl = chip_smoke.sharded_ctl(lv, g, plan, fr, flags[3], lossy)
+        errs, _wp = chip_smoke.sharded_lockstep(lv, g, tabs, model, fr, ctl)
+        assert errs and not any(errs.values()), errs
+    ran = {k for k in before if lv.LAUNCHES[k] > before[k]}
+    assert {"wgl_exchange", "wgl_shard_reduce", "wgl_gather_finalize"} <= ran
+    assert ("wgl_route" in ran) == (mode == "alltoall")
+
+
+@pytest.mark.parametrize("mode", ["alltoall", "allgather"])
+def test_sharded_search_matches_plain(cuda, mode):
+    """A whole sharded search with an escalation, kernels against plain:
+    the same result map and the same frontier arrays."""
+    from jepsen_tpu_torch.parallel import frontier, make_mesh
+
+    model, enc = _sharded_history(1, seed=11)
+    kw = dict(mesh=make_mesh(3), f_total=16, exchange=mode, max_escalations=3)
+    k = frontier.check_encoded_sharded(enc, **kw)
+    p = frontier.check_encoded_sharded(enc, plain=True, **kw)
+    assert len(k["attempts"]) > 1
+    for key in ("valid", "levels", "frontier_total", "frontier_max", "max_linearized",
+                "stuck_configs"):
+        assert k.get(key) == p.get(key), key
+    assert [(a["F"], a["levels"], a["calls"]) for a in k["attempts"]] == \
+        [(a["F"], a["levels"], a["calls"]) for a in p["attempts"]]
+    single = wgl.check_encoded_device(enc)
+    assert k["valid"] == single["valid"]
+
+
+def test_sharded_wrappers_refuse_bad_meshes(cuda):
+    model, enc = _sharded_history(1)
+    plan = wgl.plan_device(enc, device="cuda")
+    g = wgl.sharded_geometry(plan, 16, 2, "alltoall")
+    ctl = torch.zeros((3, lv.CTL_SIZE), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="members"):
+        lv.shard_reduce(g, ctl, 1)
+    with pytest.raises(ValueError):
+        wgl.sharded_geometry(plan, 16, lv.MAX_SHARDS + 1, "alltoall")
