@@ -26,6 +26,9 @@ and then runs these phases, each printing JSON lines:
   by the host oracle, in agreement; every keyed result comes from the
   batch, with the same launch counts as ``check_batch``'s and fewer
   levels enqueued than the members' summed levels;
+- ``batch_mesh``: the same 100 histories through ``check_batch`` on a
+  mesh of 8 shards and of 3 (4 and 2 padding copies), each result equal
+  to the batch's without a mesh but for the rungs' calls and members;
 - ``batch_8x10k``: eight north-star-shaped histories through the batch's
   escalation ladder (256 -> 2048 -> 8192): never False, definite
   verdicts agreeing with each member's own single search, and each
@@ -62,6 +65,16 @@ and then runs these phases, each printing JSON lines:
   ``elle_wr_4k``: the device engine against the host path (or the plain
   path) on a lagged history, a 4096-ring, 32 co-batched graphs and a
   rw-register history;
+- ``elle_sharded_8k``: the 8k history through ``elle.append.check(...,
+  mesh=make_mesh(D))`` on 1, 2 and 8 shards (packed) and on 8 (dense):
+  the bucketed result map, and every mask's closure equal to the bucketed
+  kernels' and the plain path's;
+- ``elle_sharded_20k``: the 20k history on 8 shards in both modes, every
+  closure (pad 32768) on the sharded-closure kernels: no cause, the host
+  taxonomy's result map, the two modes' closures equal;
+- ``elle_sharded_kernels``: the sharded closure's four kernels against
+  their plain versions bit for bit at pad 256, 8192 and 32768 (D = 8),
+  with device times;
 - ``sharded_kernels``: the north-star frontier (800 beam levels at 4096)
   laid on 8 shards of 512 rows; one sharded level in each exchange mode,
   every stage (the new ``wgl_route``, ``wgl_exchange``,
@@ -71,8 +84,8 @@ and then runs these phases, each printing JSON lines:
 - ``sharded_10k``: the reference bench leg's 10,000-op history
   (``bench.py:1847-1849``) through ``parallel.frontier.check_encoded_sharded``
   on 8 shards at a global capacity of 4096 in both modes (same verdict;
-  same level when both decide), again with a third x4 escalation, on 1
-  and 2 shards (same verdict and level), each mode's first 100-level
+  same level when both decide), again with a third x4 escalation in
+  alltoall mode, on 1 and 2 shards (same verdict and level), each mode's first 100-level
   chunk against the plain path, wall,
   ms/level, the device's idle share and the launches of each kernel;
 - ``sharded_refutation``: a perturbed copy refuted on the shards with the
@@ -153,6 +166,21 @@ WR_4K = dict(seed=7, n_txns=4000, lag=(1000, 2500), depth=16)
 ELLE_KERNEL_PADS = (128, 1024, 8192)  # nb = 3 lagged-history masks at each
 ELLE_RANDOM_PAD = 256
 BF16_TFLOPS = 989e12  # H100 SXM dense bf16 tensor rate (NVIDIA data sheet)
+# The mesh-sharded closure: every closure of a history on D = 8 shards of
+# the card (the 8k history also on 1 and 2), in both exchange modes.
+ELLE_SHARD_D = 8
+ELLE_SHARD_20K_PAD = 32768  # closure_pad(20000): above the bucket ceiling
+ELLE_SHARD_8K_MESHES = ((1, "packed"), (2, "packed"), (8, "packed"), (8, "dense"))
+ELLE_SHARD_RANDOM_PAD = 256
+ELLE_SHARD_PROGRAM = "jepsen_tpu/elle/ops.py:296"
+ELLE_SHARD_REPLACES = {"elle_unpack": "jepsen_tpu/elle/ops.py:199",
+                       "elle_pack_rows": "jepsen_tpu/elle/ops.py:320",
+                       "elle_gather": "jepsen_tpu/elle/ops.py:324",
+                       "elle_block_square": "jepsen_tpu/elle/ops.py:325"}
+# The kernels each exchange mode launches.
+ELLE_SHARD_KERNELS = {"packed": ("elle_unpack", "elle_pack_rows", "elle_block_square"),
+                      "dense": ("elle_unpack", "elle_gather", "elle_block_square",
+                                "elle_pack_rows")}
 # Every other device model: a valid and a perturbed 2000-op history of
 # each (testing.random_model_history: 8 processes; the perturbed one
 # without crashes and broken in its first tenth, so that the host oracle
@@ -178,8 +206,9 @@ SHARD_F_TOTAL = 4096
 SHARD_10K = dict(seed=2032, n_ops=10000, n_procs=10, cas=True, crash_p=20 / 10000,
                  fail_p=0.02)
 SHARD_CHUNK_LEVELS = 100  # the first chunk held against the plain path
-# The ladder runs twice on 8 shards: with the reference's default of two
-# x4 escalations (to 65536), and with SHARD_WIDE_ESCALATIONS (to 262144).
+# The ladder runs on 8 shards with the reference's default of two x4
+# escalations (to 65536) in both modes, and with SHARD_WIDE_ESCALATIONS (to
+# 262144) in alltoall mode only (the allgather's took 32 s).
 SHARD_WIDE_ESCALATIONS = 3
 SHARD_REFUTE_SEED = 2033
 SHARD_REFUTE_WITHIN = 0.02  # the broken read lies in the first 2% of the history
@@ -650,9 +679,9 @@ class ClosureRecorder:
 
 
 def elle_launches(eo, where):
-    """The closure kernels' launch counts since the last reset; all three
-    must have run."""
-    counts = dict(eo.LAUNCHES)
+    """The bucketed closure kernels' launch counts since the last reset;
+    all three must have run."""
+    counts = {k: eo.LAUNCHES[k] for k in ELLE_REPLACES}
     idle = [k for k, v in counts.items() if v == 0]
     if idle:
         raise AssertionError(f"closure kernels never launched in {where}: {idle}")
@@ -1283,7 +1312,7 @@ def sharded_10k_phase(lv, wgl, model, frontier, make_mesh, encode_history,
     enc = encode_history(model, h)
     runs, launches = {}, {}
     legs = [(SHARD_D, m, 2) for m in lv.EXCHANGES] + [(1, "alltoall", 2), (2, "alltoall", 2)] \
-        + [(SHARD_D, m, SHARD_WIDE_ESCALATIONS) for m in lv.EXCHANGES]
+        + [(SHARD_D, "alltoall", SHARD_WIDE_ESCALATIONS)]
     for D, mode, esc in legs:
         lv.reset_launches()
         torch.cuda.synchronize()
@@ -1316,8 +1345,8 @@ def sharded_10k_phase(lv, wgl, model, frontier, make_mesh, encode_history,
             x["levels"] == y["levels"] or "unknown" in (x["valid"], y["valid"]))
 
     a, b = runs[(SHARD_D, "alltoall", 2)], runs[(SHARD_D, "allgather", 2)]
-    wa, wb = (runs[(SHARD_D, m, SHARD_WIDE_ESCALATIONS)] for m in lv.EXCHANGES)
-    modes_agree = agree(a, b) and agree(wa, wb)
+    wa = runs[(SHARD_D, "alltoall", SHARD_WIDE_ESCALATIONS)]
+    modes_agree = agree(a, b)
     shards_agree = all((r["valid"], r["levels"]) == (a["valid"], a["levels"])
                        for (D, _m, _e), r in runs.items() if D != SHARD_D)
     # The first chunk of each mode against the plain path.
@@ -1411,9 +1440,12 @@ def checker_sharded_phase(lv, model, jchecker, make_mesh, random_register_histor
 def elle_phases():
     """The Elle slice on the card; returns (the kernels' summary at the
     8k history's shape, their launches on that path, max_abs_err over
-    every shape)."""
+    every shape, and for :func:`elle_sharded_phases` the 8k history's
+    bucketed and plain closures and result and the 20k history's host
+    result)."""
     import os
 
+    import numpy as np
     import torch
 
     import jepsen_tpu_torch.elle as P
@@ -1422,9 +1454,10 @@ def elle_phases():
     from jepsen_tpu_torch.elle import wr as ew
     from jepsen_tpu_torch.testing import lagged_append_history, lagged_wr_history
 
-    if os.environ.get("JEPSEN_ELLE_DEVICE", "").strip():
-        raise AssertionError("JEPSEN_ELLE_DEVICE is set; the Elle phases need the "
-                             "engine's own choice")
+    for var in ("JEPSEN_ELLE_DEVICE", "JEPSEN_ELLE_EXCHANGE"):
+        if os.environ.get(var, "").strip():
+            raise AssertionError(f"{var} is set; the Elle phases need the engine's own "
+                                 "choice")
     strip = lambda r: {k: v for k, v in r.items() if k != "engine"}
 
     # -- elle_append_8k: the main path of the slice ---------------------------
@@ -1458,6 +1491,8 @@ def elle_phases():
             and call["pad"] == 8192 and call["S"].shape[0] == 6 and res == pres
             and same_closures and res["valid"] is False and prep == rep):
         raise AssertionError("elle_append_8k failed")
+    packed_rows = lambda c: list(c["out"][0].cpu().numpy().view(np.uint32))  # noqa: E731
+    ctx = {"h8_bucketed": packed_rows(call), "h8_plain": packed_rows(pcall), "h8_result": res}
 
     # -- elle_kernels: each kernel against its plain version ------------------
     shapes = {}
@@ -1495,8 +1530,9 @@ def elle_phases():
           "scc_reach_components": rec.components, "wall_s": wall, "launches": counts})
     if not (rep.get("engine") == "host" and codes == ["elle_bucket_ceiling"]
             and any(512 <= n <= 8192 for n in rec.components)
-            and all(v > 0 for v in counts.values()) and res["valid"] is False):
+            and all(counts[k] > 0 for k in ELLE_REPLACES) and res["valid"] is False):
         raise AssertionError("elle_append_20k failed")
+    ctx["h20_host"] = res
 
     # -- elle_lag_2k: the device engine against the host path -----------------
     h2 = lagged_append_history(**LAG_2K)
@@ -1572,7 +1608,312 @@ def elle_phases():
     if not (rep.get("engine") == "device" and rec.calls and rec.calls[0]["pad"] == 4096
             and res == pres):
         raise AssertionError("elle_wr_4k failed")
-    return main, launches, errs
+    return main, launches, errs, ctx
+
+
+def batch_mesh_phase(lv, model, check_batch, make_mesh, replay, rk):
+    """batch_replay_100's histories through ``check_batch`` on a mesh of 8
+    shards and on one of 3 (4 and 2 padding copies), each member's result
+    equal to the no-mesh run ``rk`` except the fields the reference's mesh
+    changes: the rungs' calls (its chunk length of ceil(Bk/dp) members)
+    and members (it counts the copies that pad an escalated rung, rows of
+    a real member), and the wall times. Returns each mesh's launch
+    counts."""
+    import torch
+
+    changed = ("rungs[].calls", "rungs[].members", "rungs[].wall_s", "wall_s",
+               "attempts[].wall_s")
+
+    def fixed(r):
+        out = {k: v for k, v in r.items() if k != "wall_s"}
+        for key, drop in (("rungs", ("calls", "members", "wall_s")),
+                          ("attempts", ("wall_s",))):
+            if out.get(key):
+                out[key] = [{k: v for k, v in x.items() if k not in drop} for x in out[key]]
+        return out
+
+    launches = {}
+    for D, shape in ((8, None), (3, (3, 1))):
+        lv.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = check_batch(model, replay, f=REPLAY["f"], mesh=make_mesh(D, shape=shape))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = launch_counts(lv, f"batch_mesh D={D}", LEVEL_KERNELS)
+        launches[f"D{D}"] = counts
+        same = len(got) == len(rk) and all(fixed(a) == fixed(b) for a, b in zip(got, rk))
+        emit({"phase": "batch_mesh", "D": D, "members": len(replay),
+              "padding_copies": -len(replay) % D, "wall_s": wall,
+              "valid": sum(r["valid"] is True for r in got),
+              "invalid": sum(r["valid"] is False for r in got),
+              "unknown": sum(r["valid"] == "unknown" for r in got),
+              "rungs": next((r["rungs"] for r in got if r.get("rungs")), None),
+              "same_as_no_mesh": same, "fields_the_mesh_changes": changed,
+              "launches": counts})
+        if not same:
+            raise AssertionError(f"batch_mesh D={D} differs from the batch without a mesh")
+    return launches
+
+
+class ShardedRecorder:
+    """Records every ``elle.ops.sharded_closure`` call of the engine (its
+    edges, ``n``, mesh size, exchange, packed result and wall) while in a
+    ``with`` block."""
+
+    def __init__(self, eo):
+        self.eo = eo
+        self.calls = []
+
+    def __enter__(self):
+        self._sc = self.eo.sharded_closure
+
+        def sharded_closure(srcs, dsts, n, mesh, exchange=None):
+            t = time.perf_counter()
+            out = self._sc(srcs, dsts, n, mesh, exchange)
+            self.calls.append({"srcs": srcs, "dsts": dsts, "n": n, "exchange": exchange,
+                               "D": mesh.shape[mesh.axis_names[0]], "out": out,
+                               "wall_s": time.perf_counter() - t})
+            return out
+
+        self.eo.sharded_closure = sharded_closure
+        return self
+
+    def __exit__(self, *exc):
+        self.eo.sharded_closure = self._sc
+
+
+def sharded_launches(eo, where, mode):
+    """The sharded closure kernels' launch counts since the last reset;
+    every kernel of ``mode``'s path must have run."""
+    counts = {k: eo.LAUNCHES[k] for k in ELLE_SHARD_REPLACES}
+    idle = [k for k in ELLE_SHARD_KERNELS[mode] if counts[k] == 0]
+    if idle:
+        raise AssertionError(f"sharded closure kernels never launched in {where}: {idle}")
+    return counts
+
+
+def elle_sharded_kernel_check(eo, srcs, dsts, n, D, label):
+    """Each sharded-closure kernel against its plain version on the same
+    inputs, bit for bit, at the first step of one mask in both modes, with
+    device times; below pad 32768 also the whole closure in both modes
+    against the plain chain. Returns {kernel: {max_abs_err, ms, plain_ms,
+    call_ms, bound_ms, bound_by, library_ms}}."""
+    import numpy as np
+    import torch
+
+    pad = eo.sharded_pad(n, D)
+    words = torch.from_numpy(eo.edge_words(srcs, dsts, pad).view(np.int32)).cuda()
+    huge = pad >= 32768
+    reps = dict(batch=2, batches=3) if huge else {}
+    plain_reps = dict(batch=1, batches=1) if huge else (
+        dict(batch=2, batches=3) if pad >= 8192 else dict(batch=5, batches=3))
+    out = {}
+
+    def record(name, err, ms, plain_ms, call_ms, nbytes, ops=0, library_ms=None):
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        t_ops = 1e3 * ops / BF16_TFLOPS
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "call_ms": call_ms,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                     "library_ms": library_ms}
+
+    def err_of(k, p):
+        return int((k.float() - p.float()).abs().max())
+
+    # unpack: the entry (and each packed step's gathered words)
+    b = eo.unpack(words, pad)
+    bp = eo.unpack_plain(words, pad)
+    torch.cuda.synchronize()
+    err = err_of(b, bp)
+    del bp
+    spare = torch.empty_like(b)
+    ms, call_ms = batch_ms(lambda t: eo.unpack(t[0], pad, spare), (words,), clone=False, **reps)
+    plain_ms, _ = batch_ms(lambda t: eo.unpack_plain(t[0], pad), (words,), hold=False,
+                           clone=False, **plain_reps)
+    record("elle_unpack", err, ms, plain_ms, call_ms, words.numel() * 4 + pad * pad * 2)
+    # pack_rows: the packed gather (and the output)
+    pk = eo.pack_rows(b)
+    ppk = eo.pack_rows_plain(b.float())
+    torch.cuda.synchronize()
+    err = max_abs_err(pk, ppk)
+    del ppk
+    wbuf = torch.empty_like(words)
+    ms, call_ms = batch_ms(lambda t: eo.pack_rows(t[0], wbuf), (b,), clone=False, **reps)
+    plain_ms, _ = batch_ms(lambda t: eo.pack_rows_plain(t[0].float()), (b,), hold=False,
+                           clone=False, **plain_reps)
+    record("elle_pack_rows", err, ms, plain_ms, call_ms, pad * pad * 2 + words.numel() * 4)
+    # gather: the dense exchange; its library call is one copy of the blocks
+    g = eo.gather(b, D, spare)
+    gp = eo.gather_plain(b, D)
+    torch.cuda.synchronize()
+    err = err_of(g, gp)
+    del gp
+    ms, call_ms = batch_ms(lambda t: eo.gather(t[0], D, spare), (b,), clone=False, **reps)
+    plain_ms, _ = batch_ms(lambda t: eo.gather_plain(t[0], D), (b,), hold=False, clone=False,
+                           **plain_reps)
+    library_ms, _ = batch_ms(lambda t: t[0].clone(), (b,), clone=False, **reps)
+    record("elle_gather", err, ms, plain_ms, call_ms, 2 * pad * pad * 2, library_ms=library_ms)
+    # block_square: one step against the packed gather's full matrix
+    full = eo.unpack(pk, pad)
+    sq = eo.block_square(b, full, spare)
+    sqp = eo.block_square_plain(b.float(), full.float())
+    torch.cuda.synchronize()
+    err = err_of(sq, sqp)
+    reach_bits = int(sqp.sum())
+    del sqp
+    ms, call_ms = batch_ms(lambda t: eo.block_square(t[0], t[1], spare), (b, full),
+                           clone=False, **reps)
+    plain_ms, _ = batch_ms(lambda t: eo.block_square_plain(t[0].float(), t[1].float()),
+                           (b, full), hold=False, clone=False, **plain_reps)
+    library_ms, _ = batch_ms(lambda t: torch.matmul(t[0], t[1]), (b, full), clone=False,
+                             **reps)
+    record("elle_block_square", err, ms, plain_ms, call_ms, 3 * pad * pad * 2,
+           ops=2 * pad ** 3, library_ms=library_ms)
+    del b, full, sq, spare, wbuf, pk, g
+    torch.cuda.empty_cache()
+    whole = {}
+    if not huge:  # the whole closure in both modes against the plain chain
+        for mode in eo.EXCHANGES:
+            got = eo.sharded_closure_words(words, D, mode)
+            want = eo.sharded_closure_words(words, D, mode, plain=True)
+            whole[mode] = max_abs_err(got, want)
+    emit({"phase": "elle_sharded_kernels", "shape": label, "n": n, "pad": pad, "D": D,
+          "P": pad // D, "edges": len(srcs), "steps": eo.closure_steps(pad),
+          "first_step_reach_bits": reach_bits, "closure_max_abs_err": whole,
+          "exchange_bytes_per_step": {m: eo.shard_exchange_bytes_per_step(n, D, m)
+                                      for m in eo.EXCHANGES},
+          "library_note": "no single PyTorch call computes elle_unpack or elle_pack_rows",
+          "kernels": out})
+    for k, v in out.items():
+        if v["max_abs_err"] != 0 or any(whole.values()):
+            raise AssertionError(f"{k} disagrees with its plain version at {label}")
+    return out
+
+
+def elle_sharded_phases(ctx):
+    """The mesh-sharded closure on the card: elle_sharded_8k,
+    elle_sharded_20k (its main path, both modes) and elle_sharded_kernels.
+    ``ctx`` carries the bucketed and plain closures of the 8k history and
+    the host result of the 20k one from :func:`elle_phases`. Returns (the
+    kernels' summary at pad 32768 and at every pad, their launches per
+    path, max_abs_err over every shape)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from jepsen_tpu_torch.elle import append as ea
+    from jepsen_tpu_torch.elle import ops as eo
+    from jepsen_tpu_torch.parallel import make_mesh
+    from jepsen_tpu_torch.testing import lagged_append_history
+
+    strip = lambda r: {k: v for k, v in r.items() if k != "engine"}  # noqa: E731
+
+    def with_exchange(mode, fn):
+        """Run ``fn`` under the exchange kill-switch, as a user selects the
+        dense mode through the unchanged entry points."""
+        os.environ["JEPSEN_ELLE_EXCHANGE"] = mode
+        try:
+            return fn()
+        finally:
+            del os.environ["JEPSEN_ELLE_EXCHANGE"]
+
+    paths = {}
+    # -- elle_sharded_8k: the 8k history's six masks on 1, 2 and 8 shards ------
+    h8 = lagged_append_history(**APPEND_8K)
+    bucketed, plain = ctx["h8_bucketed"], ctx["h8_plain"]
+    first_8k = None
+    for D, mode in ELLE_SHARD_8K_MESHES:
+        eo.reset_launches()
+        torch.cuda.synchronize()
+        with ShardedRecorder(eo) as rec:
+            t = time.perf_counter()
+            rep = {}
+            res = with_exchange(mode, lambda: ea.check(
+                h8, additional_graphs=("process",), mesh=make_mesh(D), report=rep))
+            wall = time.perf_counter() - t
+        counts = sharded_launches(eo, f"elle_sharded_8k D={D} {mode}", mode)
+        paths[f"elle_sharded_8k_D{D}_{mode}"] = counts
+        pads = [c["out"].shape[0] for c in rec.calls]
+        same_bucketed = len(rec.calls) == len(bucketed) and all(
+            np.array_equal(c["out"], x) for c, x in zip(rec.calls, bucketed))
+        same_plain = len(rec.calls) == len(plain) and all(
+            np.array_equal(c["out"], x) for c, x in zip(rec.calls, plain))
+        ok = (rep == {"engine": "device", "chunks": len(bucketed)}
+              and set(pads) == {bucketed[0].shape[0]}
+              and strip(res) == strip(ctx["h8_result"]) and same_bucketed and same_plain
+              and all(c["exchange"] == mode for c in rec.calls))
+        emit({"phase": "elle_sharded_8k", "D": D, "exchange": mode, "valid": res["valid"],
+              "engine": rep, "masks": len(rec.calls), "pads": pads, "wall_s": wall,
+              "closure_wall_s": [c["wall_s"] for c in rec.calls], "launches": counts,
+              "same_result_as_bucketed": strip(res) == strip(ctx["h8_result"]),
+              "same_closures_as_bucketed": same_bucketed,
+              "same_closures_as_plain": same_plain})
+        if not ok:
+            raise AssertionError(f"elle_sharded_8k D={D} {mode} failed")
+        if first_8k is None:
+            first_8k = rec.calls[0]
+    del rec
+
+    # -- elle_sharded_20k: above the bucket ceiling, on the device ------------
+    h20 = lagged_append_history(**APPEND_20K)
+    outs, walls, launches = {}, {}, {}
+    first_20k = None
+    for mode in eo.EXCHANGES:
+        eo.reset_launches()
+        torch.cuda.synchronize()
+        with ShardedRecorder(eo) as rec:
+            t = time.perf_counter()
+            rep = {}
+            res = with_exchange(mode, lambda: ea.check(h20, mesh=make_mesh(ELLE_SHARD_D),
+                                                       report=rep))
+            wall = time.perf_counter() - t
+        launches[mode] = sharded_launches(eo, f"elle_sharded_20k {mode}", mode)
+        pads = [c["out"].shape[0] for c in rec.calls]
+        steps = sum(eo.closure_steps(p) for p in pads)
+        closure_wall = sum(c["wall_s"] for c in rec.calls)
+        outs[mode] = [c["out"] for c in rec.calls]
+        walls[mode] = wall
+        same_host = strip(res) == strip(ctx["h20_host"])
+        emit({"phase": "elle_sharded_20k", "exchange": mode, "txns": res["txn_count"],
+              "valid": res["valid"], "anomaly_types": res["anomaly_types"], "engine": rep,
+              "masks": len(rec.calls), "n": [c["n"] for c in rec.calls], "pads": pads,
+              "edges": [len(c["srcs"]) for c in rec.calls], "D": ELLE_SHARD_D,
+              "wall_s": wall, "closure_wall_s": closure_wall, "closure_steps": steps,
+              "ms_per_step": 1e3 * closure_wall / max(steps, 1),
+              "launches": launches[mode], "same_result_as_host": same_host})
+        if not (rep.get("engine") == "device" and not rep.get("causes")
+                and rep.get("chunks") == len(rec.calls) > 0 and res["valid"] is False
+                and same_host and set(pads) == {ELLE_SHARD_20K_PAD}):
+            raise AssertionError(f"elle_sharded_20k {mode} failed")
+        if first_20k is None:
+            first_20k = dict(rec.calls[0], out=None)
+        del rec
+    same_modes = len(outs["packed"]) == len(outs["dense"]) and all(
+        np.array_equal(a, b) for a, b in zip(outs["packed"], outs["dense"]))
+    emit({"phase": "elle_sharded_20k", "modes_agree": same_modes, "wall_s": walls})
+    if not same_modes:
+        raise AssertionError("elle_sharded_20k: the two exchange modes' closures differ")
+    del outs
+    paths.update({f"elle_sharded_20k_{m}": c for m, c in launches.items()})
+
+    # -- elle_sharded_kernels: each kernel against its plain version -----------
+    rng = np.random.default_rng(31)
+    n = ELLE_SHARD_RANDOM_PAD - 9
+    shapes = {
+        f"random_pad{ELLE_SHARD_RANDOM_PAD}": (rng.integers(0, n, 3 * n).tolist(),
+                                              rng.integers(0, n, 3 * n).tolist(), n),
+        "elle_append_8k_mask0_pad8192": (first_8k["srcs"], first_8k["dsts"], first_8k["n"]),
+        "elle_append_20k_mask0_pad32768": (first_20k["srcs"], first_20k["dsts"],
+                                           first_20k["n"]),
+    }
+    results = {label: elle_sharded_kernel_check(eo, s_, d_, n_, ELLE_SHARD_D, label)
+               for label, (s_, d_, n_) in shapes.items()}
+    main = results["elle_append_20k_mask0_pad32768"]
+    errs = {k: max(r[k]["max_abs_err"] for r in results.values()) for k in main}
+    torch.cuda.empty_cache()
+    return main, results, paths, errs
 
 
 def main() -> int:
@@ -1803,6 +2144,7 @@ def main() -> int:
           "keyed_member_levels_sum": member_levels})
     if not all(agree.values()):
         raise AssertionError(f"batch_replay_100 disagrees: {agree}")
+    mesh_launches = batch_mesh_phase(lv, model, check_batch, make_mesh, replay, rk)
 
     # -- eight 10k-op members through the escalation ladder -------------------
     lv.reset_launches()
@@ -1874,11 +2216,14 @@ def main() -> int:
     checker_shard_launches = checker_sharded_phase(lv, model, jchecker, make_mesh,
                                                    random_register_history, perturb_history)
 
-    elle_main, elle_launch, elle_errs = elle_phases()
+    elle_main, elle_launch, elle_errs, elle_ctx = elle_phases()
+    closure_main, closure_shapes, closure_paths, closure_errs = elle_sharded_phases(elle_ctx)
+    del elle_ctx
 
     kernels = []
     paths = {"main_path": launches, "batch_8x10k": big_launches, "mutex_5k": mutex_launches,
              "keyed_multi_register": keyed_mr_launches,
+             "batch_mesh_D8": mesh_launches["D8"], "batch_mesh_D3": mesh_launches["D3"],
              "sharded_10k_alltoall": shard_launches["alltoall"],
              "sharded_10k_allgather": shard_launches["allgather"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1942,6 +2287,16 @@ def main() -> int:
             "max_abs_err": elle_errs[kname], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": "elle_append_8k: nb 6, pad 8192"})
+    main_paths = ("elle_sharded_20k_packed", "elle_sharded_20k_dense")
+    for kname, r in closure_main.items():
+        kernels.append({
+            "name": kname, "route": "cuda", "source": ELLE_SOURCE,
+            "replaces": ELLE_SHARD_REPLACES[kname], "program": ELLE_SHARD_PROGRAM,
+            "launches": sum(closure_paths[p][kname] for p in main_paths),
+            "launches_by_path": {p: c[kname] for p, c in closure_paths.items()},
+            **summary(r), "max_abs_err": closure_errs[kname],
+            "shape": f"elle_sharded_20k: one mask, pad 32768, D {ELLE_SHARD_D}",
+            "at_shapes": {label: summary(v[kname]) for label, v in closure_shapes.items()}})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": kernels})

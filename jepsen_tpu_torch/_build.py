@@ -50,6 +50,10 @@ SIGNATURES = {
     "elle_adjacency": [_P, _P, _P, _I, _I, _I, _P],
     "elle_square": [_P, _P, _I, _I, _P],
     "elle_labels_pack": [_P, _P, _P, _I, _I, _P],
+    "elle_unpack": [_P, _P, _I, _I, _I, _P],
+    "elle_pack_rows": [_P, _P, _I, _I, _P],
+    "elle_gather": [_P, _P, _I, _I, _I, _P],
+    "elle_block_square": [_P, _P, _P, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,9 @@
-// Transitive closure and SCC labels of a batch of dependency graphs, written
-// by hand for Hopper (sm_90a). Replaces the reference's XLA closure program,
-// jepsen_tpu/elle/ops.py `batched_closure_kernel` -> `one` (lines 236-248),
-// and the bit packing it ends with, `_pack_device` (line 187).
+// Transitive closure and SCC labels of a batch of dependency graphs, and the
+// block-row sharded closure of one graph, written by hand for Hopper
+// (sm_90a). Replaces the reference's XLA closure programs in
+// jepsen_tpu/elle/ops.py: `batched_closure_kernel` -> `one` (lines 236-248)
+// with the bit packing it ends with, `_pack_device` (line 187), and
+// `_sharded_closure_kernel` (lines 296-336) with `_unpack_device` (line 199).
 //
 // A member is one (graph, edge mask) of a size bucket `pad` (a power of two,
 // 128..8192). Its adjacency is a dense bf16 [pad, pad] matrix of 0/1 values;
@@ -17,9 +19,10 @@
 //   times between two buffers. bf16 tensor-core products (mma.sync m16n8k16,
 //   fp32 accumulate) on 128x128 output tiles, a 3-stage cp.async ring of
 //   32-deep K tiles; the add and the clamp are fused into the epilogue. Every
-//   entry is a path count (at most pad <= 8192 < 2^24, exact in fp32) and the
-//   epilogue writes 1 where the old entry or the count is nonzero, so the
-//   bits equal the reference's whatever the rounding.
+//   entry is a path count of at most pad, exact in the fp32 accumulator while
+//   pad < 2^24, and the epilogue writes 1 where the old entry or the count is
+//   nonzero, re-binarising every step, so the bits equal the reference's
+//   whatever the rounding, at any pad.
 // - elle_labels_pack: reach = A > 0 packed into words (bit j of word w is
 //   column 32w+j), and label[i] = the first j with reach[i][j] and
 //   reach[j][i], or i (the reference's argmax over (reach & reach^T) | I).
@@ -27,11 +30,36 @@
 //   j < i it reads the 32 entries reach[j][i] of that word's rows as one
 //   ballot; it stops at the first mutual bit.
 //
-// What bounds it: elle_square is 2 pad^3 operations per member and step
-// against 4 pad^2 bytes, far above the card's 295 operations per byte, so it
-// is bound by the tensor cores; the other two are one pass over the matrix
-// and bound by memory. The plain PyTorch version of every entry point is in
-// jepsen_tpu_torch/elle/ops.py and the two are compared bit for bit.
+// The sharded closure (jepsen_tpu_torch/elle/ops.py `sharded_closure`) keeps
+// the D shards of a mesh on this one card: shard d's P = pad/D rows are rows
+// d*P.. of one bf16 [pad, pad] `blocks` buffer (double-buffered), exactly as
+// shard_map lays P(axis, None), and the reference's all_gather becomes a
+// kernel between buffers into ONE `full` matrix that every shard reads (D
+// copies would only multiply memory on one card). Four entry points:
+//
+// - elle_unpack (row 10b): words [r, w] -> bf16 0/1 [r, m], one 16-byte store
+//   of 8 columns a thread. The entry (the host's packed adjacency into
+//   `blocks`) and, in packed mode, each step's gathered words into `full`.
+// - elle_pack_rows: bf16 [r, c] -> words of b > 0, the pack of row 10a
+//   without the labels: one coalesced 16-byte load of 8 columns a thread,
+//   four lanes joined into a word by shuffles. In packed mode each step it
+//   writes every shard's rows into rows d*P of the one `words` buffer (the
+//   pack and the all_gather in one pass); it also packs the output.
+// - elle_gather: the dense all_gather, a 16-byte-wide copy of each shard's
+//   rows (blockIdx.y = shard) from `blocks` into `full`. A stage of its own,
+//   so a transport across cards can take its place and its bytes show.
+// - elle_block_square (row 11's step): out = min(b + b.full, 1), the D
+//   block-row [P, pad] x [pad, pad] products as one [pad, pad] product with
+//   A = `blocks` and B = `full`, on elle_square's tile machinery (the same
+//   kernel, given a B pointer apart from A). A 128-row tile may span several
+//   shards when P < 128; that is the same product.
+//
+// What bounds them: elle_square and elle_block_square are 2 pad^3 operations
+// per member and step against 4-6 pad^2 bytes, far above the card's 295
+// operations per byte, so they are bound by the tensor cores; the others are
+// one pass over their matrix and bound by memory. The plain PyTorch version
+// of every entry point is in jepsen_tpu_torch/elle/ops.py and the two are
+// compared bit for bit.
 //
 // Every extern "C" entry point returns cudaGetLastError().
 
@@ -116,10 +144,13 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// One 128x128 output tile of one member: grid (pad/128 column tiles, pad/128
-// row tiles, nb). Eight warps in a 2x4 grid, each 64x32 (4x4 mma tiles).
+// One 128x128 tile of out = min(A + A.B, 1) for one member: grid (pad/128
+// column tiles, pad/128 row tiles, nb). Eight warps in a 2x4 grid, each 64x32
+// (4x4 mma tiles). elle_square passes B = A; elle_block_square the gathered
+// matrix.
 __global__ void __launch_bounds__(SQ_THREADS)
-    k_square(const bf16_t* __restrict__ ain, bf16_t* __restrict__ aout, int pad) {
+    k_square(const bf16_t* __restrict__ ain, const bf16_t* __restrict__ bin,
+             bf16_t* __restrict__ aout, int pad) {
   extern __shared__ __align__(128) unsigned char sq_smem[];
   bf16_t* As = (bf16_t*)sq_smem;                  // [STAGES][BM][A_LD]
   bf16_t* Bs = As + SQ_STAGES * SQ_BM * SQ_A_LD;  // [STAGES][BK][B_LD]
@@ -127,11 +158,12 @@ __global__ void __launch_bounds__(SQ_THREADS)
   const int wm = warp >> 2, wn = warp & 3;
   const long base = (long)blockIdx.z * pad * pad;
   const bf16_t* A = ain + base;
+  const bf16_t* B = bin + base;
   const int row0 = blockIdx.y * SQ_BM, col0 = blockIdx.x * SQ_BN;
   const int KT = pad / SQ_BK;
 
-  // A operand: rows [row0, +128) x k [k0, +32); B operand (the same
-  // matrix): k [k0, +32) x columns [col0, +128). 16-byte copies.
+  // A operand: rows [row0, +128) x k [k0, +32); B operand: k [k0, +32) x
+  // columns [col0, +128). 16-byte copies.
   auto load = [&](int stage, int kt) {
     const int k0 = kt * SQ_BK;
     bf16_t* as = As + stage * SQ_BM * SQ_A_LD;
@@ -144,7 +176,7 @@ __global__ void __launch_bounds__(SQ_THREADS)
 #pragma unroll
     for (int c = tid; c < SQ_BK * SQ_BN / 8; c += SQ_THREADS) {
       const int r = c >> 4, q = c & 15;
-      cp_async16(bs + r * SQ_B_LD + q * 8, A + (long)(k0 + r) * pad + col0 + q * 8);
+      cp_async16(bs + r * SQ_B_LD + q * 8, B + (long)(k0 + r) * pad + col0 + q * 8);
     }
   };
 
@@ -269,6 +301,72 @@ __global__ void __launch_bounds__(LP_WARPS * 32)
 }
 
 // ---------------------------------------------------------------------------
+// The sharded closure's exchange: elle_unpack, elle_pack_rows, elle_gather
+
+#define XC_THREADS 256
+#define MAX_GRID_Y 65535
+
+// Thread g of a row writes columns [8g, 8g+8) from byte g%4 of word g/4:
+// grid (ceil(ceil(m/8) / 256), min(r, 65535)), rows strided by gridDim.y.
+__global__ void __launch_bounds__(XC_THREADS)
+    k_unpack(const uint32_t* __restrict__ words, bf16_t* __restrict__ out, int r, int w,
+             int m) {
+  const int g = blockIdx.x * XC_THREADS + threadIdx.x;
+  if (8 * g >= m) return;
+  for (long row = blockIdx.y; row < r; row += gridDim.y) {
+    const uint32_t byte = (__ldg(words + row * w + (g >> 2)) >> (8 * (g & 3))) & 0xFFu;
+    bf16_t* dst = out + row * m + 8 * g;
+    if ((m & 7) == 0) {  // rows start on 16 bytes: one store of 8 columns
+      uint32_t v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = (((byte >> (2 * e)) & 1u) ? BF16_ONE : 0u) |
+               ((((byte >> (2 * e + 1)) & 1u) ? BF16_ONE : 0u) << 16);
+      *(uint4*)dst = make_uint4(v[0], v[1], v[2], v[3]);
+    } else {
+      const int cols = min(8, m - 8 * g);
+      for (int j = 0; j < cols; ++j) dst[j] = ((byte >> j) & 1u) ? (bf16_t)BF16_ONE : (bf16_t)0;
+    }
+  }
+}
+
+// Thread g of a row reads columns [8g, 8g+8) (one 16-byte load) into a byte;
+// lanes 4k..4k+3 join theirs into word g/4 by shuffles. c % 32 == 0, so the
+// four lanes of a word are all inside the row or all past it. Grid as
+// k_unpack's over c/8 groups.
+__global__ void __launch_bounds__(XC_THREADS)
+    k_pack_rows(const bf16_t* __restrict__ a, uint32_t* __restrict__ words, int r, int c) {
+  const int g = blockIdx.x * XC_THREADS + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const bool live = 8 * g < c;
+  for (long row = blockIdx.y; row < r; row += gridDim.y) {  // block-uniform
+    uint32_t byte = 0u;
+    if (live) {
+      const uint4 v = __ldg((const uint4*)(a + row * c) + g);
+      const uint32_t parts[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        byte |= ((uint32_t)BF16_NONZERO(parts[e]) << (2 * e)) |
+                ((uint32_t)BF16_NONZERO(parts[e] >> 16) << (2 * e + 1));
+    }
+    uint32_t word = byte << (8 * (lane & 3));
+    word |= __shfl_xor_sync(FULL_MASK, word, 1);
+    word |= __shfl_xor_sync(FULL_MASK, word, 2);
+    if (live && (lane & 3) == 0) words[row * (c >> 5) + (g >> 2)] = word;
+  }
+}
+
+// Shard blockIdx.y's rows, n16 16-byte pieces of them, copied from the
+// blocks into the full matrix: grid (min(ceil(n16 / 256), 264), shards).
+__global__ void __launch_bounds__(XC_THREADS)
+    k_gather(const uint4* __restrict__ blocks, uint4* __restrict__ full, long n16) {
+  const long base = (long)blockIdx.y * n16;
+  for (long i = (long)blockIdx.x * XC_THREADS + threadIdx.x; i < n16;
+       i += (long)gridDim.x * XC_THREADS)
+    full[base + i] = __ldg(blocks + base + i);
+}
+
+// ---------------------------------------------------------------------------
 // C entry points (ctypes). Pointers and the stream arrive as void*.
 
 extern "C" {
@@ -287,10 +385,11 @@ int elle_adjacency(void* src, void* dst, void* a, int epad, int pad, int nb, voi
   return (int)cudaGetLastError();
 }
 
-// a_in, a_out: bf16 [nb, pad, pad], distinct buffers.
-int elle_square(void* a_in, void* a_out, int pad, int nb, void* stream) {
+static int launch_square(const void* a, const void* b, void* out, int pad, int nb,
+                         void* stream) {
   static bool configured = false;
-  if (pad % SQ_BM != 0 || nb < 1 || nb > 65535) return (int)cudaErrorInvalidValue;
+  if (pad % SQ_BM != 0 || pad / SQ_BM > 65535 || nb < 1 || nb > 65535)
+    return (int)cudaErrorInvalidValue;
   if (!configured) {
     cudaError_t e =
         cudaFuncSetAttribute(k_square, cudaFuncAttributeMaxDynamicSharedMemorySize, SQ_SMEM);
@@ -298,8 +397,59 @@ int elle_square(void* a_in, void* a_out, int pad, int nb, void* stream) {
     configured = true;
   }
   dim3 grid(pad / SQ_BN, pad / SQ_BM, nb);
-  k_square<<<grid, SQ_THREADS, SQ_SMEM, (cudaStream_t)stream>>>((const bf16_t*)a_in,
-                                                                (bf16_t*)a_out, pad);
+  k_square<<<grid, SQ_THREADS, SQ_SMEM, (cudaStream_t)stream>>>(
+      (const bf16_t*)a, (const bf16_t*)b, (bf16_t*)out, pad);
+  return (int)cudaGetLastError();
+}
+
+// a_in, a_out: bf16 [nb, pad, pad], distinct buffers.
+int elle_square(void* a_in, void* a_out, int pad, int nb, void* stream) {
+  return launch_square(a_in, a_in, a_out, pad, nb, stream);
+}
+
+// b, full, out: bf16 [pad, pad]; out distinct from both.
+int elle_block_square(void* b, void* full, void* out, int pad, void* stream) {
+  return launch_square(b, full, out, pad, 1, stream);
+}
+
+// The exchange kernels' grid: blocks of 256 eight-column groups across a
+// row, and rows (strided past 65535).
+static unsigned groups_grid(int cols) {
+  return (unsigned)((cols + 8 * XC_THREADS - 1) / (8 * XC_THREADS));
+}
+static unsigned rows_grid(int rows) { return (unsigned)(rows < MAX_GRID_Y ? rows : MAX_GRID_Y); }
+
+// words: u32 [r, w]; out: bf16 [r, m], m <= 32 w.
+int elle_unpack(void* words, void* out, int r, int w, int m, void* stream) {
+  if (r < 1 || m < 1 || m > 32L * w) return (int)cudaErrorInvalidValue;
+  dim3 grid(groups_grid(m), rows_grid(r));
+  k_unpack<<<grid, XC_THREADS, 0, (cudaStream_t)stream>>>((const uint32_t*)words,
+                                                          (bf16_t*)out, r, w, m);
+  return (int)cudaGetLastError();
+}
+
+// a: bf16 [r, c], c % 32 == 0; words: u32 [r, c/32].
+int elle_pack_rows(void* a, void* words, int r, int c, void* stream) {
+  if (r < 1 || c < 32 || c % 32 != 0) return (int)cudaErrorInvalidValue;
+  dim3 grid(groups_grid(c), rows_grid(r));
+  k_pack_rows<<<grid, XC_THREADS, 0, (cudaStream_t)stream>>>((const bf16_t*)a,
+                                                             (uint32_t*)words, r, c);
+  return (int)cudaGetLastError();
+}
+
+// blocks, full: bf16 [rows, cols], rows split into `shards` blocks of whole
+// 16-byte pieces.
+int elle_gather(void* blocks, void* full, int rows, int cols, int shards, void* stream) {
+  if (shards < 1 || shards > MAX_GRID_Y || rows % shards != 0)
+    return (int)cudaErrorInvalidValue;
+  const long per = (long)(rows / shards) * cols;
+  if (per % 8 != 0) return (int)cudaErrorInvalidValue;
+  const long n16 = per / 8;
+  long bx = (n16 + XC_THREADS - 1) / XC_THREADS;
+  const long cap = 132L * 16 / shards + 1;
+  if (bx > cap) bx = cap;
+  k_gather<<<dim3((unsigned)bx, shards), XC_THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint4*)blocks, (uint4*)full, n16);
   return (int)cudaGetLastError();
 }
 

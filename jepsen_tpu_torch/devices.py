@@ -26,3 +26,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def mesh_device(mesh, device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """The device a mesh's shards sit on, resolved. ``device``, when given,
+    must name that device, or this raises ``ValueError``."""
+    have = mesh.device
+    if device is not None:
+        want = torch.device(device)
+        if want.type != have.type or (want.index or 0) != (have.index or 0):
+            raise ValueError(f"device {want} is not the mesh's device {have}")
+    return resolve_device(have)

@@ -129,8 +129,10 @@ def cycle_anomalies(g: DepGraph, device: Optional[bool] = None,
 
     ``report`` observes the engine (``engine``, ``chunks``, fallback
     ``causes``); ``min_bucket`` pins a floor bucket (bucket-padding
-    equality tests). ``mesh`` (the sharded closure) and ``metrics`` (the
-    engine's telemetry) come with later slices and raise ``ValueError``.
+    equality tests). ``mesh`` (a :class:`jepsen_tpu_torch.parallel.Mesh`)
+    sends every closure to the block-row sharded closure on the mesh's
+    device, with no bucket ceiling. ``metrics`` (the engine's telemetry)
+    comes with a later slice and raises ``ValueError``.
     ``torch_device``: see the module docstring.
 
     ``extra`` composes additional precedence graphs already present as
@@ -143,7 +145,7 @@ def cycle_anomalies(g: DepGraph, device: Optional[bool] = None,
     suffixed witness genuinely uses an extra edge. ``n_txns`` marks the
     boundary between txn nodes and the realtime timeline's aux chain
     nodes; witnesses splice aux nodes back out."""
-    _engine.check_unported(metrics, mesh)
+    _engine.check_unported(metrics)
     n = g.n
     if n == 0 or not g.edges:
         return {}
@@ -154,8 +156,8 @@ def cycle_anomalies(g: DepGraph, device: Optional[bool] = None,
     views = None
     if use_device and (forced or n >= DEVICE_MIN_TXNS):
         views = _engine.graph_closures(
-            g, _pass_masks(passes), report=report, min_bucket=min_bucket,
-            torch_device=torch_device)
+            g, _pass_masks(passes), report=report, mesh=mesh,
+            min_bucket=min_bucket, torch_device=torch_device)
     if report is not None:
         report["engine"] = "device" if views is not None else "host"
     if views is not None:

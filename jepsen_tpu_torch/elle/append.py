@@ -62,10 +62,12 @@ def check(history, anomalies: Iterable[str] = DEFAULT_ANOMALIES,
     ``report`` observes the batched device cycle engine (:mod:`.engine`):
     the engine/chunks/causes summary, also attached to the result as
     ``"engine"``. ``torch_device`` is the engine's torch device (the GPU
-    by default; ``"cpu"`` runs the plain versions). ``metrics`` and
-    ``mesh`` come with later slices of the port and raise
+    by default; ``"cpu"`` runs the plain versions). ``mesh`` (a
+    :class:`jepsen_tpu_torch.parallel.Mesh`) sends every closure to the
+    block-row sharded closure on the mesh's device, with no bucket
+    ceiling. ``metrics`` comes with a later slice of the port and raises
     ``ValueError``."""
-    check_unported(metrics, mesh)
+    check_unported(metrics)
     requested = expand_anomalies(anomalies)
     extra = _check_extra(additional_graphs)
     requested = suffixed_requests(requested, extra)
@@ -205,7 +207,7 @@ def check(history, anomalies: Iterable[str] = DEFAULT_ANOMALIES,
 
     problems.update(cycle_anomalies(g, device=device, extra=extra,
                                     n_txns=n, report=report,
-                                    torch_device=torch_device))
+                                    mesh=mesh, torch_device=torch_device))
 
     def txn_of(i):
         if i < len(oks):

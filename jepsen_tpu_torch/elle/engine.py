@@ -24,10 +24,17 @@ Escalation ladder (one-sided, typed):
    its bucket and members, so the card's work never moves to the host
    unseen; only CPU tensors fold to the host, typed ``elle_device_oom``.
 
+``mesh=`` sends every closure, one request at a time, to the block-row
+sharded closure (:func:`ops.sharded_closure`) on the mesh's device, at
+``pad = max(closure_pad(n), 32 D)`` and with no bucket ceiling. Its only
+fold is the same: an out-of-memory on CPU tensors becomes
+``elle_device_oom`` with ``sharded=True``; on the GPU it raises naming
+``n``, the pad and ``D``, and any other exception (a mesh axis that is not
+a power of two included) propagates.
+
 ``report`` carries ``engine``, ``chunks`` and ``causes`` as in the
-reference. The mesh-sharded closure (``mesh=``) and the telemetry events
-(``metrics=``) come with later slices of the port and raise
-``ValueError``.
+reference. The telemetry events (``metrics=``) come with a later slice of
+the port and raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -38,14 +45,13 @@ import numpy as np
 import torch
 
 from ..checker import provenance as _prov
+from ..devices import mesh_device
 from ..devices import resolve_device as _torch_device
 from . import ops
 
 MAX_ESCALATIONS = 4
 MEMBER_BYTE_BUDGET = 1 << 31
 
-MESH_SLICE = ("mesh= (the mesh-sharded closure over several GPUs) comes with a "
-              "later slice of the port")
 METRICS_SLICE = ("metrics= (the Elle engine's telemetry events) comes with a later "
                  "slice of the port")
 
@@ -123,10 +129,8 @@ def _fallback(ji: int, code: str, failed: dict, report, **params) -> None:
         report.setdefault("causes", []).append(cause)
 
 
-def check_unported(metrics=None, mesh=None) -> None:
+def check_unported(metrics=None) -> None:
     """Refuse the options a later slice of the port brings."""
-    if mesh is not None:
-        raise ValueError(MESH_SLICE)
     if metrics is not None:
         raise ValueError(METRICS_SLICE)
 
@@ -141,9 +145,13 @@ def batch_closures(jobs: Sequence[Tuple[object, Iterable[int]]], metrics=None,
     ``jobs``: (DepGraph-like with .n/.edges, iterable of edge-kind masks)
     per graph. Returns, per job, ``{mask: ClosureView}``, or None when that
     graph degraded to the host path (its typed cause is in
-    ``report["causes"]``). ``min_bucket`` pins a floor bucket.
-    ``torch_device`` is the torch device (the GPU by default)."""
-    check_unported(metrics, mesh)
+    ``report["causes"]``). ``mesh`` sends every closure to the sharded
+    closure on the mesh's device; ``min_bucket`` pins a floor bucket.
+    ``torch_device`` is the torch device (the GPU by default; with a mesh,
+    the mesh's, and another raises ``ValueError``)."""
+    check_unported(metrics)
+    if mesh is not None:
+        torch_device = mesh_device(mesh, torch_device)
     views: list = [dict() for _ in jobs]
     failed: dict = {}
     requests = []  # (ji, mask, srcs, dsts, n)
@@ -154,7 +162,10 @@ def batch_closures(jobs: Sequence[Tuple[object, Iterable[int]]], metrics=None,
                 views[ji][mask] = EMPTY_VIEW
             else:
                 requests.append((ji, mask, srcs, dsts, g.n))
-    _bucketed_requests(requests, views, failed, report, min_bucket, torch_device)
+    if mesh is not None:
+        _sharded_requests(requests, views, failed, report, mesh, torch_device)
+    else:
+        _bucketed_requests(requests, views, failed, report, min_bucket, torch_device)
     if report is not None and failed and "engine" not in report:
         report["engine"] = "host"
     return [None if ji in failed else views[ji] for ji in range(len(jobs))]
@@ -209,6 +220,27 @@ def _bucketed_requests(requests, views, failed, report, min_bucket,
             for j, (ji, mask, *_rest) in enumerate(members[i:i + m]):
                 views[ji][mask] = ClosureView(pk[j], lb[j], members[i + j][4])
             i += m
+
+
+def _sharded_requests(requests, views, failed, report, mesh, dev) -> None:
+    exchange = ops.resolve_exchange(None)
+    n_dev = int(mesh.shape[mesh.axis_names[0]])
+    for ji, mask, srcs, dsts, n in requests:
+        if ji in failed:
+            continue
+        try:
+            packed = ops.sharded_closure(srcs, dsts, n, mesh, exchange=exchange)
+        except torch.OutOfMemoryError as e:
+            if dev.type != "cpu":
+                raise torch.OutOfMemoryError(
+                    f"elle sharded closure of n={n} at pad {ops.sharded_pad(n, n_dev)} on "
+                    f"{n_dev} shard(s) is out of memory on {dev}: {e}") from e
+            _fallback(ji, "elle_device_oom", failed, report, n=n, n_devices=n_dev,
+                      sharded=True, error=f"{type(e).__name__}: {e}")
+            continue
+        if report is not None:
+            report["chunks"] = report.get("chunks", 0) + 1
+        views[ji][mask] = ClosureView(packed, None, n)
 
 
 def graph_closures(g, masks: Iterable[int], metrics=None, report: Optional[dict] = None,

@@ -1,6 +1,6 @@
 """Device primitives of the batched Elle cycle engine: the bucket table,
-bit packing, and the closure + SCC-label program as CUDA kernels with
-their plain PyTorch versions.
+bit packing, the closure + SCC-label program and the mesh-sharded
+closure, as CUDA kernels with their plain PyTorch versions.
 
 The port of the reference's ``jepsen_tpu/elle/ops.py``. A boolean
 ``[n, n]`` matrix travels as row words (``[n, n/32]``, bit ``j`` of word
@@ -24,15 +24,36 @@ stage                   what it computes
                         ``label[i]`` = first ``j`` with mutual reach, or ``i``
 ======================  ====================================================
 
+:func:`sharded_closure` is the reference's ``_sharded_closure_kernel``
+(lines 296-357): one graph's closure, block-row sharded over the ``D``
+shards of a :class:`jepsen_tpu_torch.parallel.Mesh`, at any pad (no
+bucket ceiling). The shards sit on one device, so shard ``d``'s ``P =
+pad/D`` rows are rows ``d*P ...`` of one ``[pad, pad]`` buffer, and the
+reference's per-step ``all_gather`` is a kernel between buffers:
+
+======================  ====================================================
+stage                   what it computes
+======================  ====================================================
+``unpack``              words ``[r, w]`` -> 0/1 ``[r, m]`` (the entry, and
+                        in ``packed`` mode the gathered words each step)
+``pack_rows``           ``b > 0`` -> words: the ``packed`` gather and the
+                        output
+``gather``              the ``dense`` gather: the blocks copied into the
+                        full matrix every shard reads
+``block_square``        one step ``b <- min(b + b @ full, 1)``
+======================  ====================================================
+
 A wrapper takes the plain version only for a tensor on the CPU; on a CUDA
 tensor it launches its kernel or raises. The kernels hold the matrix in
-bf16, the plain versions in float32; both hold 0/1 entries, and every
-product is a path count of at most ``pad`` <= 8192, exact in either, so the
-two give the same bits. Each wrapper counts its launches in
-:data:`LAUNCHES`.
+bf16 and accumulate products in fp32, the plain versions work in float32;
+both hold 0/1 entries, every product entry is a path count of at most
+``pad``, exact in fp32 while ``pad < 2**24``, and each step writes 1
+where the old entry or the count is nonzero, so the two give the same
+bits at every pad. Each wrapper counts its launches in :data:`LAUNCHES`.
 
 ``JEPSEN_ELLE_DEVICE`` (read per call) overrides the engine flag: ``0``
 keeps every closure on the host, ``1`` forces the batched engine.
+``JEPSEN_ELLE_EXCHANGE`` overrides the sharded closure's exchange mode.
 """
 
 from __future__ import annotations
@@ -53,7 +74,10 @@ EDGE_PAD_MIN = 256
 WORD_BITS = 32
 
 # Kernel launches per wrapper (the CPU path counts nothing).
-LAUNCHES = {name: 0 for name in ("elle_adjacency", "elle_square", "elle_labels_pack")}
+LAUNCHES = {name: 0 for name in ("elle_adjacency", "elle_square", "elle_labels_pack",
+                                 "elle_unpack", "elle_pack_rows", "elle_gather",
+                                 "elle_block_square")}
+EXCHANGES = ("packed", "dense")
 
 
 def reset_launches() -> None:
@@ -97,6 +121,17 @@ def resolve_device(flag: Optional[bool]) -> Tuple[bool, bool]:
     return bool(flag), bool(flag)
 
 
+def resolve_exchange(mode: Optional[str]) -> str:
+    """The sharded closure's exchange mode: ``JEPSEN_ELLE_EXCHANGE`` beats
+    the argument, which beats ``"packed"``."""
+    env = os.environ.get("JEPSEN_ELLE_EXCHANGE")
+    mode = (env or mode or "packed").strip().lower()
+    if mode not in EXCHANGES:
+        raise ValueError(f"unknown elle exchange mode {mode!r}; expected 'packed' "
+                         "or 'dense'")
+    return mode
+
+
 # ---------------------------------------------------------------------------
 # Byte model
 
@@ -115,6 +150,24 @@ def dense_closure_bytes(n: int, bytes_per_entry: int = 2) -> int:
     """The same closure dense (bf16 by default): 16x the packed form."""
     pad = closure_pad(n)
     return pad * pad * bytes_per_entry
+
+
+def sharded_pad(n: int, n_shards: int) -> int:
+    """The sharded closure's pad: a power of two that gives every shard at
+    least one word of rows."""
+    return max(closure_pad(n), WORD_BITS * int(n_shards))
+
+
+def shard_exchange_bytes_per_step(n: int, n_devices: int, mode: str = "packed") -> int:
+    """Bytes every shard receives per squaring step from the sharded
+    closure's gather of the whole matrix: packed words, or dense bf16 (16x
+    more)."""
+    pad = sharded_pad(n, n_devices)
+    if mode == "packed":
+        return pad * packed_words(pad) * 4
+    if mode == "dense":
+        return pad * pad * 2
+    raise ValueError(f"unknown exchange mode {mode!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +194,18 @@ def unpack_bits_host(packed: np.ndarray, m: int) -> np.ndarray:
     shifts = np.arange(WORD_BITS, dtype=np.uint32)
     bits = (packed[:, :, None] >> shifts) & np.uint32(1)
     return bits.reshape(packed.shape[0], -1)[:, :m].astype(bool)
+
+
+def edge_words(srcs, dsts, pad: int) -> np.ndarray:
+    """uint32 ``[pad, pad/32]`` row words with bit ``(s, d)`` set for every
+    edge: ``pack_bits_host`` of the adjacency, built from the edge list
+    without a dense matrix."""
+    words = np.zeros((pad, packed_words(pad)), np.uint32)
+    s = np.asarray(srcs, np.int64)
+    d = np.asarray(dsts, np.int64)
+    if s.size:
+        np.bitwise_or.at(words, (s, d >> 5), np.left_shift(1, d & 31).astype(np.uint32))
+    return words
 
 
 def row_bit(packed_row: np.ndarray, j: int) -> bool:
@@ -180,19 +245,43 @@ def square_plain(a: torch.Tensor) -> torch.Tensor:
     return torch.clamp(a + torch.matmul(a, a), max=1.0)
 
 
+def pack_rows_plain(a: torch.Tensor) -> torch.Tensor:
+    """int32 ``[..., r, c/32]`` bit patterns of ``a > 0`` (``c % 32 == 0``)."""
+    shifts = torch.arange(WORD_BITS, dtype=torch.int64, device=a.device)
+    bits = (a > 0).reshape(*a.shape[:-1], -1, WORD_BITS).to(torch.int64)
+    words = (bits << shifts).sum(dim=-1)
+    return torch.where(words > 0x7FFFFFFF, words - (1 << 32), words).to(torch.int32)
+
+
 def labels_pack_plain(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(packed int32 [nb, pad, pad/32] bit patterns, labels int32 [nb, pad])
     of ``reach = a > 0``."""
-    nb, pad, _ = a.shape
+    pad = a.shape[-1]
     reach = a > 0
-    shifts = torch.arange(WORD_BITS, dtype=torch.int64, device=a.device)
-    words = (reach.reshape(nb, pad, pad // WORD_BITS, WORD_BITS).to(torch.int64)
-             << shifts).sum(dim=-1)
-    packed = torch.where(words > 0x7FFFFFFF, words - (1 << 32), words).to(torch.int32)
     eye = torch.eye(pad, dtype=torch.bool, device=a.device)
     both = (reach & reach.transpose(1, 2)) | eye
     labels = torch.argmax(both.to(torch.uint8), dim=2).to(torch.int32)
-    return packed, labels
+    return pack_rows_plain(a), labels
+
+
+def unpack_plain(words: torch.Tensor, m: int) -> torch.Tensor:
+    """float32 0/1 ``[..., r, m]`` of int32 words ``[..., r, w]``: column ``j``
+    is bit ``j % 32`` of word ``j // 32`` (``m <= 32 w``)."""
+    shifts = torch.arange(WORD_BITS, dtype=torch.int32, device=words.device)
+    # An arithmetic shift keeps bit j in place; & 1 drops the sign's copies.
+    bits = (words.unsqueeze(-1) >> shifts) & 1
+    return bits.reshape(*words.shape[:-1], -1)[..., :m].to(torch.float32)
+
+
+def gather_plain(blocks: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """The full matrix gathered from ``n_shards`` contiguous row blocks."""
+    return torch.cat(blocks.chunk(n_shards, dim=0), dim=0)
+
+
+def block_square_plain(b: torch.Tensor, full: torch.Tensor) -> torch.Tensor:
+    """One sharded step ``min(b + b @ full, 1)`` in float32."""
+    b = b.float()
+    return torch.clamp(b + torch.matmul(b, full.float()), max=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -279,6 +368,84 @@ def labels_pack(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return packed, labels
 
 
+def unpack(words: torch.Tensor, m: int, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """0/1 ``[r, m]`` of int32 words ``[r, w]`` (``m <= 32 w``): bf16 from the
+    kernel (into ``out`` when given), float32 from the plain version on the
+    CPU."""
+    if words.device.type == "cpu":
+        return unpack_plain(words, m)
+    r, w = words.shape
+    if not (1 <= r and 1 <= m <= w * WORD_BITS):
+        raise ValueError(f"elle_unpack: {m} columns from {r} rows of {w} words")
+    _check("elle_unpack", words, torch.int32, (r, w))
+    if out is None:
+        out = torch.empty((r, m), dtype=torch.bfloat16, device=words.device)
+    _check("elle_unpack", out, torch.bfloat16, (r, m))
+    _launch("elle_unpack", _ptr(words), _ptr(out), ctypes.c_int(r), ctypes.c_int(w),
+            ctypes.c_int(m), _stream())
+    return out
+
+
+def pack_rows(a: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int32 words ``[r, c/32]`` of ``a > 0`` for a ``[r, c]`` matrix (``c`` a
+    multiple of 32), into ``out`` when given."""
+    if a.device.type == "cpu":
+        return pack_rows_plain(a)
+    r, c = a.shape
+    if r < 1 or c < WORD_BITS or c % WORD_BITS:
+        raise ValueError(f"elle_pack_rows: a [{r}, {c}] matrix; columns must be a "
+                         f"positive multiple of {WORD_BITS}")
+    _check("elle_pack_rows", a, torch.bfloat16, (r, c))
+    if out is None:
+        out = torch.empty((r, c // WORD_BITS), dtype=torch.int32, device=a.device)
+    _check("elle_pack_rows", out, torch.int32, (r, c // WORD_BITS))
+    _launch("elle_pack_rows", _ptr(a), _ptr(out), ctypes.c_int(r), ctypes.c_int(c), _stream())
+    return out
+
+
+def gather(blocks: torch.Tensor, n_shards: int,
+           out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The ``dense`` exchange: the full ``[r, c]`` matrix every shard reads,
+    gathered from the ``n_shards`` contiguous row blocks of ``blocks``,
+    into ``out`` (another buffer) when given."""
+    if blocks.device.type == "cpu":
+        return gather_plain(blocks, n_shards)
+    r, c = blocks.shape
+    if n_shards < 1 or r % n_shards or (r // n_shards * c) % 8:
+        raise ValueError(f"elle_gather: [{r}, {c}] blocks do not split into {n_shards} "
+                         "shards of whole 16-byte rows")
+    _check("elle_gather", blocks, torch.bfloat16, (r, c))
+    if out is None:
+        out = torch.empty_like(blocks)
+    _check("elle_gather", out, torch.bfloat16, (r, c))
+    if out.data_ptr() == blocks.data_ptr():
+        raise ValueError("elle_gather: out must be another buffer than blocks")
+    _launch("elle_gather", _ptr(blocks), _ptr(out), ctypes.c_int(r), ctypes.c_int(c),
+            ctypes.c_int(n_shards), _stream())
+    return out
+
+
+def block_square(b: torch.Tensor, full: torch.Tensor,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One sharded step ``min(b + b @ full, 1)`` of every shard's block rows
+    (``b`` and ``full`` ``[pad, pad]``), into ``out`` (a third buffer) when
+    given."""
+    if b.device.type == "cpu":
+        return block_square_plain(b, full)
+    pad = b.shape[0]
+    _check_pad(pad, 1)
+    _check("elle_block_square", b, torch.bfloat16, (pad, pad))
+    _check("elle_block_square", full, torch.bfloat16, (pad, pad))
+    if out is None:
+        out = torch.empty_like(b)
+    _check("elle_block_square", out, torch.bfloat16, (pad, pad))
+    if out.data_ptr() in (b.data_ptr(), full.data_ptr()):
+        raise ValueError("elle_block_square: out must be another buffer than b and full")
+    _launch("elle_block_square", _ptr(b), _ptr(full), _ptr(out), ctypes.c_int(pad),
+            _stream())
+    return out
+
+
 def batched_closure(S, D, pad: int, torch_device=None,
                     plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Closures and SCC labels of ``nb`` members at bucket ``pad``: the
@@ -330,3 +497,56 @@ def sccs_from_labels(labels: np.ndarray, packed: np.ndarray, n: int) -> list:
         if len(comp) > 1 or row_bit(packed[comp[0]], comp[0]):
             out.append(sorted(comp))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Mesh-sharded closure
+
+
+def sharded_closure_words(words: torch.Tensor, n_shards: int, exchange: str = "packed",
+                          plain: bool = False) -> torch.Tensor:
+    """The closure of the graph whose adjacency rows are ``words`` (int32
+    ``[pad, pad/32]`` on the device), block-row sharded over ``n_shards``
+    shards of that device, packed the same way. Each of the ``ceil(log2
+    pad)`` steps gathers the whole matrix (``packed``: pack and unpack;
+    ``dense``: a copy of the blocks), then squares every shard's rows
+    against it. ``plain`` runs the plain versions on the device."""
+    pad = words.shape[0]
+    steps = closure_steps(pad)
+    if plain:
+        b = unpack_plain(words, pad)
+        for _ in range(steps):
+            full = unpack_plain(pack_rows_plain(b), pad) if exchange == "packed" \
+                else gather_plain(b, n_shards)
+            b = block_square_plain(b, full)
+        return pack_rows_plain(b)
+    b = unpack(words, pad)
+    wbuf = full = spare = None
+    if b.device.type == "cuda":
+        wbuf, full, spare = torch.empty_like(words), torch.empty_like(b), torch.empty_like(b)
+    for _ in range(steps):
+        if exchange == "packed":
+            wbuf = pack_rows(b, wbuf)
+            full = unpack(wbuf, pad, full)
+        else:
+            full = gather(b, n_shards, full)
+        b, spare = block_square(b, full, spare), b
+    del spare, full
+    return pack_rows(b, wbuf)
+
+
+def sharded_closure(srcs, dsts, n: int, mesh, exchange: Optional[str] = None) -> np.ndarray:
+    """One graph's closure, block-row sharded over the leading axis of
+    ``mesh`` (a power of two ``D``) on ``mesh.device``: the port of the
+    reference's ``sharded_closure``. The host builds the packed adjacency
+    rows from the edge list; the result is the uint32 ``[pad, pad/32]``
+    closure (paths of length >= 1) at ``pad = max(closure_pad(n), 32 D)``,
+    with no bucket ceiling and no labels."""
+    exchange = resolve_exchange(exchange)
+    D = int(mesh.shape[mesh.axis_names[0]])
+    if D & (D - 1):
+        raise ValueError(f"sharded closure needs a power-of-two mesh axis, got {D}")
+    pad = sharded_pad(n, D)
+    words = torch.from_numpy(edge_words(srcs, dsts, pad).view(np.int32)).to(mesh.device)
+    out = sharded_closure_words(words, D, exchange)
+    return out.cpu().numpy().view(np.uint32)

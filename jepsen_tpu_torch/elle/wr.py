@@ -63,10 +63,10 @@ def check(history, anomalies: Iterable[str] = DEFAULT_ANOMALIES,
     only with the extra edges report as suffixed anomalies
     ("G-single-realtime", …).
 
-    ``report`` and ``torch_device`` as in
-    :func:`jepsen_tpu_torch.elle.append.check`; ``metrics`` and ``mesh``
-    come with later slices of the port and raise ``ValueError``."""
-    check_unported(metrics, mesh)
+    ``report``, ``mesh`` and ``torch_device`` as in
+    :func:`jepsen_tpu_torch.elle.append.check`; ``metrics`` comes with a
+    later slice of the port and raises ``ValueError``."""
+    check_unported(metrics)
     requested = expand_anomalies(anomalies)
     extra = _check_extra(additional_graphs)
     requested = suffixed_requests(requested, extra)
@@ -187,7 +187,7 @@ def check(history, anomalies: Iterable[str] = DEFAULT_ANOMALIES,
 
     problems.update(cycle_anomalies(g, device=device, extra=extra,
                                     n_txns=n_txns, report=report,
-                                    torch_device=torch_device))
+                                    mesh=mesh, torch_device=torch_device))
     res = result_map(
         problems, requested | {"duplicate-writes"}, lambda i: repr(oks[i])
     )

@@ -21,25 +21,33 @@ Each rung runs in chunks with per-member level budgets. The stacked
 tables are made once, on the device, and each rung row-selects its
 members from them (the reference instead stacks the next rung's tables
 on the host while the device runs the current chunk).
+
+**A mesh** (``mesh=``, a :class:`jepsen_tpu_torch.parallel.Mesh`) shards
+the member axis over its ``batch_axis`` ("dp") shards as the reference
+does. Its shards sit on one device, so on the card the mesh is the member
+axis plus the reference's divisibility padding: the planned rows, and each
+rung's live rows, pad to a multiple of ``dp`` with copies of their first
+row, which run, are decided and are dropped; and a chunk's level budget
+counts ``ceil(Bk/dp)`` members, as each of the reference's devices runs
+that many.
 """
 
 from __future__ import annotations
 
+import math
 import time as _time
 from typing import Optional, Sequence
 
 import numpy as np
 
 from ..checker import provenance as _prov
-from ..devices import resolve_device
+from ..devices import mesh_device, resolve_device
 from ..history import History
 from ..models import Model
 from ..ops import wgl
 from ..ops import wgl_level as _lv
 from ..ops.encode import EncodedHistory, encode_history
 
-_MESH_SLICE = "mesh= (a batch sharded over several GPUs) comes with a later slice " \
-    "of the port (the multi-device search)"
 _TELEMETRY_SLICE = "comes with a later slice of the port (the WGL driver's telemetry)"
 _RESILIENCE_SLICE = "retries= (the batch's retry and circuit breaker) comes with a " \
     "later slice of the port (the checking pipeline's resilience)"
@@ -49,6 +57,7 @@ def check_encoded_batch(
     encs: Sequence[EncodedHistory],
     f: int = 256,
     mesh=None,
+    batch_axis: str = "dp",
     max_open: int = 128,
     window_cap: int = 1024,
     escalate=True,
@@ -75,11 +84,17 @@ def check_encoded_batch(
     ``"serial"`` sends every overflowing member straight to the serial
     driver. ``False`` reports them unknown.
 
+    ``mesh``: shard the member axis over the product of the mesh's axes
+    named ``batch_axis`` (see the module docstring); the batch runs on the
+    mesh's device, and a ``device`` that differs raises ``ValueError``.
+
     ``plain``: run the plain PyTorch version of every stage (a loop over
-    members) even on the GPU. ``mesh``, ``metrics``, ``chunk_callback``
-    and ``retries`` come with later slices and raise ``ValueError``."""
+    members) even on the GPU. ``metrics``, ``chunk_callback`` and
+    ``retries`` come with later slices and raise ``ValueError``."""
+    dp = 1
     if mesh is not None:
-        raise ValueError(_MESH_SLICE)
+        device = mesh_device(mesh, device)
+        dp = math.prod(mesh.shape[a] for a in mesh.axis_names if a == batch_axis) or 1
     if metrics is not None:
         raise ValueError(f"metrics= {_TELEMETRY_SLICE}")
     if chunk_callback is not None:
@@ -89,12 +104,12 @@ def check_encoded_batch(
     if not encs:
         return []
     return _check_encoded_batch_once(
-        encs, f=f, max_open=max_open, window_cap=window_cap, escalate=escalate,
+        encs, f=f, dp=dp, max_open=max_open, window_cap=window_cap, escalate=escalate,
         f_schedule=f_schedule, levels_per_call=levels_per_call,
         device=resolve_device(device), plain=plain)
 
 
-def _check_encoded_batch_once(encs, f, max_open, window_cap, escalate, f_schedule,
+def _check_encoded_batch_once(encs, f, dp, max_open, window_cap, escalate, f_schedule,
                               levels_per_call, device, plain) -> list[dict]:
     mk = wgl._model_cache_key(encs[0].model)
     if any(wgl._model_cache_key(e.model) != mk for e in encs):
@@ -125,7 +140,13 @@ def _check_encoded_batch_once(encs, f, max_open, window_cap, escalate, f_schedul
     W, KO, ND, NO = (int(dims[:, k].max()) for k in (0, 1, 3, 4))
     padded = [wgl.plan_device(encs[i], max_open=max_open, window_cap=window_cap,
                               pad_to=(W, KO, ND, NO), device="cpu") for i in idx]
-    stack = wgl.stack_plans(padded, device)  # row r <-> encs[idx[r]]
+    # Row r <-> encs[orig[r]]; None marks a copy of row 0 that pads the
+    # rows to a multiple of the mesh's dp shards.
+    orig: list[Optional[int]] = list(idx)
+    while len(padded) % dp:
+        padded.append(padded[0])
+        orig.append(None)
+    stack = wgl.stack_plans(padded, device)
     CC = stack.B or (W + KO * 32)
 
     sched = sorted(set(f_schedule if f_schedule is not None else wgl.F_SCHEDULE))
@@ -142,14 +163,19 @@ def _check_encoded_batch_once(encs, f, max_open, window_cap, escalate, f_schedul
     prev_live: list = []
     fr5 = None  # stacked frontier of `live`, at the current capacity
 
+    def pad_rows(rows):
+        """Mesh divisibility: repeat the first row (its verdicts are dropped)."""
+        return rows + rows[:1] * (-len(rows) % dp)
+
     for ri, F in enumerate(rungs):
+        live = pad_rows(live)
         Bk = len(live)
         # The top rung runs as a per-member beam, as the single driver does
         # at its schedule's top capacity: on overflow it keeps the best F
         # configs and goes on. A single-rung ladder stays lossless (its
         # overflow verdicts belong to the fallback policy).
         lossy_rung = batched_esc and len(rungs) > 1 and F == rungs[-1]
-        for r in live:
+        for r in set(live):
             status[r] = "run"
         plan = stack if ri == 0 else stack.select(live)
         if ri == 0:
@@ -162,7 +188,9 @@ def _check_encoded_batch_once(encs, f, max_open, window_cap, escalate, f_schedul
         g = wgl.level_geometry(plan, F)
         ws = _lv.BatchWorkspace(g, Bk, device)
         nD, nO = plan.nD.tolist(), plan.nO.tolist()
-        lpc = levels_per_call or wgl._levels_per_call(F * CC * max(1, Bk))
+        # Each of the reference's dp devices runs ceil(Bk/dp) members in
+        # turn; the chunk length follows, so levels and rungs match it.
+        lpc = levels_per_call or wgl._levels_per_call(F * CC * max(1, -(-Bk // dp)))
         totals = totals_all[live]
         lsub = lvls[live].copy()
         fsub = fmax_all[live].copy()
@@ -197,13 +225,16 @@ def _check_encoded_batch_once(encs, f, max_open, window_cap, escalate, f_schedul
                 active = active & ~acc & ~ovf & nonempty & (lsub < totals)
         lvls[live] = lsub
         fmax_all[live] = fsub
-        rung_stats.append({"F": F, "members": Bk, "calls": calls,
+        rung_stats.append({"F": F, "members": sum(orig[r] is not None for r in live),
+                           "calls": calls,
                            "wall_s": round(_time.perf_counter() - t_rung, 3)})
         # Classify this rung's members; decided members get results now.
         overflowed = []
         fr_host = None
         for b, r in enumerate(live):
-            i = idx[r]
+            i = orig[r]
+            if status[r] != "run":
+                continue  # a padding copy of a row decided at its first place
             truncated = lossy_rung and bool(ovf_s[b])
             if acc_s[b]:
                 status[r] = "acc"
@@ -215,6 +246,8 @@ def _check_encoded_batch_once(encs, f, max_open, window_cap, escalate, f_schedul
                 continue
             else:
                 status[r] = "exhausted"
+            if i is None:
+                continue
             base = {"op_count": encs[i].n, "device": True, "levels": int(lvls[r]),
                     "frontier_max": int(fmax_all[r]), "batched": True}
             if ri > 0:
@@ -257,9 +290,9 @@ def _check_encoded_batch_once(encs, f, max_open, window_cap, escalate, f_schedul
     # Members still undecided past the top rung: the serial single-history
     # driver is the last resort (optimistic beam, exhaustive phase).
     for r in live:
-        if status[r] != "ovf":
+        i = orig[r]
+        if status[r] != "ovf" or i is None:
             continue
-        i = idx[r]
         if escalate is False:
             results[i] = _prov.attach({
                 "valid": "unknown", "op_count": encs[i].n, "device": True,

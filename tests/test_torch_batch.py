@@ -20,7 +20,7 @@ from jepsen_tpu.testing import random_register_history as ref_random
 from jepsen_tpu_torch.models import CasRegister
 from jepsen_tpu_torch.ops import wgl_host
 from jepsen_tpu_torch.ops.encode import encode_history
-from jepsen_tpu_torch.parallel import check_batch, check_encoded_batch, check_histories
+from jepsen_tpu_torch.parallel import Mesh, check_batch, check_encoded_batch, check_histories
 from jepsen_tpu_torch.testing import perturb_history, random_register_history
 
 KEYS = ("valid", "levels", "frontier_max", "escalated", "decided_at_F", "beam",
@@ -177,9 +177,13 @@ def test_mixed_model_families_refused():
         check_encoded_batch(encs, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(metrics=object()),
-                                dict(chunk_callback=print), dict(retries=2)])
+@pytest.mark.parametrize("kw", [dict(mesh=Mesh((2, 1), ("dp", "mp"), "cuda")),
+                                dict(metrics=object()), dict(chunk_callback=print),
+                                dict(retries=2)])
 def test_later_slice_options_raise(kw):
+    """The options a later slice brings raise; a mesh is ported, and one
+    on another device than ``device=`` raises."""
     _, h2 = _seed77()
-    with pytest.raises(ValueError, match="later slice"):
+    match = "not the mesh's device" if "mesh" in kw else "later slice"
+    with pytest.raises(ValueError, match=match):
         check_batch(CasRegister(init=0), h2[:1], device="cpu", **kw)

@@ -16,6 +16,7 @@ from jepsen_tpu_torch.models import CasRegister
 from jepsen_tpu_torch.ops import wgl
 from jepsen_tpu_torch.ops import wgl_level as lv
 from jepsen_tpu_torch.ops.encode import encode_history
+from jepsen_tpu_torch.parallel import Mesh
 from jepsen_tpu_torch.testing import perturb_history, random_register_history
 
 pytestmark = pytest.mark.cuda
@@ -287,7 +288,8 @@ def test_elle_kernels_match_plain(cuda, seed):
     torch.cuda.synchronize()
     assert torch.equal(pk, ppk) and torch.equal(lb, plb)
     assert {k: eo.LAUNCHES[k] - before[k] for k in before} == {
-        "elle_adjacency": 1, "elle_square": eo.closure_steps(pad), "elle_labels_pack": 1}
+        "elle_adjacency": 1, "elle_square": eo.closure_steps(pad), "elle_labels_pack": 1,
+        "elle_unpack": 0, "elle_pack_rows": 0, "elle_gather": 0, "elle_block_square": 0}
     got = eo.batched_closure(S, D, pad)
     want = eo.batched_closure(S.cpu(), D.cpu(), pad, torch_device="cpu")
     assert all(torch.equal(x.cpu(), y) for x, y in zip(got, want))
@@ -306,6 +308,72 @@ def test_elle_append_check_on_the_card_matches_the_cpu(cuda):
     want = ea.check(h, device=True, additional_graphs=("process",), report={},
                     torch_device="cpu")
     assert got == want and got["valid"] is False
+
+
+# -- the mesh-sharded Elle closure ---------------------------------------------
+
+
+@pytest.mark.parametrize("d", [1, 2, 8])
+@pytest.mark.parametrize("pad", [256, 1024])
+def test_sharded_closure_kernels_match_plain(cuda, pad, d):
+    """elle_unpack, elle_pack_rows, elle_gather and elle_block_square, each
+    against its plain version on the same inputs at every step of both
+    modes, then the whole sharded closure against the plain chain and the
+    bucketed kernels, bit for bit."""
+    from jepsen_tpu_torch.elle import ops as eo
+
+    rng = np.random.default_rng(pad + d)
+    n = pad - 7
+    srcs, dsts = rng.integers(0, n, 2 * n), rng.integers(0, n, 2 * n)
+    assert eo.sharded_pad(n, d) == pad
+    words = torch.from_numpy(eo.edge_words(srcs, dsts, pad).view(np.int32)).to(cuda)
+    before = dict(eo.LAUNCHES)
+    b = eo.unpack(words, pad)
+    assert b.dtype == torch.bfloat16 and torch.equal(b.float(), eo.unpack_plain(words, pad))
+    cut = eo.unpack(words[:5], pad - 13)  # m cutting inside a word
+    assert torch.equal(cut.float(), eo.unpack_plain(words[:5], pad - 13))
+    for _ in range(eo.closure_steps(pad)):
+        pk = eo.pack_rows(b)
+        assert torch.equal(pk, eo.pack_rows_plain(b.float()))
+        full = eo.unpack(pk, pad)
+        gathered = eo.gather(b, d)
+        assert torch.equal(gathered, eo.gather_plain(b, d)) and torch.equal(gathered, full)
+        nxt = eo.block_square(b, full)
+        assert torch.equal(nxt.float(), eo.block_square_plain(b.float(), full.float()))
+        b = nxt
+    torch.cuda.synchronize()
+    steps = eo.closure_steps(pad)
+    assert {k: eo.LAUNCHES[k] - before[k] for k in ("elle_unpack", "elle_pack_rows",
+                                                     "elle_gather", "elle_block_square")} \
+        == {"elle_unpack": 2 + steps, "elle_pack_rows": steps, "elle_gather": steps,
+            "elle_block_square": steps}
+    s, t = eo.pad_edges(srcs, dsts, pad, eo.edge_pad(len(srcs)))
+    bucketed = eo.batched_closure(s[None], t[None], pad)[0][0]
+    for mode in eo.EXCHANGES:
+        got = eo.sharded_closure_words(words, d, mode)
+        want = eo.sharded_closure_words(words, d, mode, plain=True)
+        assert torch.equal(got, want) and torch.equal(got, bucketed)
+    mesh = Mesh((d, 1), ("dp", "mp"), cuda)
+    assert np.array_equal(eo.sharded_closure(srcs, dsts, n, mesh),
+                          bucketed.cpu().numpy().view(np.uint32))
+
+
+def test_sharded_closure_wrappers_refuse_bad_buffers(cuda):
+    from jepsen_tpu_torch.elle import ops as eo
+
+    b = torch.zeros((256, 256), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        eo.block_square(b, b, b)
+    with pytest.raises(ValueError):
+        eo.gather(b, 3)
+    with pytest.raises(ValueError):
+        eo.gather(b, 2, b)
+    with pytest.raises(ValueError):
+        eo.pack_rows(b[:, :40].contiguous())
+    with pytest.raises(ValueError):
+        eo.unpack(torch.zeros((4, 2), dtype=torch.int32, device=cuda), 65)
+    with pytest.raises(ValueError):
+        eo.block_square(b.float(), b)
 
 
 # -- the frontier-sharded level ------------------------------------------------

@@ -422,11 +422,10 @@ def test_what_later_slices_bring_raises():
     for chk in (p_wl_append.checker(), p_wl_wr.checker()):
         with pytest.raises(ValueError, match="later slice"):
             chk.check(store_test, h, {})
-    for kw in ({"mesh": object()}, {"metrics": object()}):
-        with pytest.raises(ValueError, match="later slice"):
-            p_append.check(h, **kw, **CPU)
-        with pytest.raises(ValueError, match="later slice"):
-            P.cycle_anomalies(P.DepGraph(2), **kw, **CPU)
+    with pytest.raises(ValueError, match="later slice"):
+        p_append.check(h, metrics=object(), **CPU)
+    with pytest.raises(ValueError, match="later slice"):
+        P.cycle_anomalies(P.DepGraph(2), metrics=object(), **CPU)
     with pytest.raises(ValueError, match="later slice"):
         P.cycle_anomalies_batch([], metrics=object())
     with pytest.raises(ValueError, match="later slice"):
