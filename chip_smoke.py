@@ -75,6 +75,10 @@ and then runs these phases, each printing JSON lines:
 - ``elle_sharded_kernels``: the sharded closure's four kernels against
   their plain versions bit for bit at pad 256, 8192 and 32768 (D = 8),
   with device times;
+- ``elle_square_sweep``: the square kernel at every bucket pad, on an
+  all-ones member at 8192 and on an all-ones 32768 block-square step, bit
+  for bit against the plain version, with its ms, its share of the bf16
+  bound and ``torch.matmul``'s ms on the same inputs;
 - ``sharded_kernels``: the north-star frontier (800 beam levels at 4096)
   laid on 8 shards of 512 rows; one sharded level in each exchange mode,
   every stage (the new ``wgl_route``, ``wgl_exchange``,
@@ -172,6 +176,7 @@ ELLE_SHARD_D = 8
 ELLE_SHARD_20K_PAD = 32768  # closure_pad(20000): above the bucket ceiling
 ELLE_SHARD_8K_MESHES = ((1, "packed"), (2, "packed"), (8, "packed"), (8, "dense"))
 ELLE_SHARD_RANDOM_PAD = 256
+SWEEP_NB = 3  # members at each bucket pad of elle_square_sweep
 ELLE_SHARD_PROGRAM = "jepsen_tpu/elle/ops.py:296"
 ELLE_SHARD_REPLACES = {"elle_unpack": "jepsen_tpu/elle/ops.py:199",
                        "elle_pack_rows": "jepsen_tpu/elle/ops.py:320",
@@ -252,6 +257,18 @@ def max_abs_err(a, b) -> int:
     if a.numel() == 0:
         return 0
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def bound_fields(ms, nbytes, ops=0, library_ms=None) -> dict:
+    """bound_ms (the larger of the bytes over HBM_BYTES_PER_S and the bf16
+    operations over BF16_TFLOPS), what bounds it, the kernel's share of the
+    bound, library_ms and the kernel's time over the library call's."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / BF16_TFLOPS
+    bound = max(t_bytes, t_ops)
+    return {"bound_ms": bound, "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "bound_share": bound / ms, "library_ms": library_ms,
+            "vs_library": ms / library_ms if library_ms else None}
 
 
 def batch_ms(fn, inputs, hold=True, clone=True, batch=BATCH, batches=BATCHES) -> tuple:
@@ -727,12 +744,8 @@ def elle_kernel_check(eo, S, D, pad, label):
     out = {}
 
     def record(name, err, ms, plain_ms, call_ms, nbytes, ops=0, library_ms=None):
-        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-        t_ops = 1e3 * ops / BF16_TFLOPS
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "call_ms": call_ms,
-                     "bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "operations" if t_ops > t_bytes else "bytes",
-                     "library_ms": library_ms}
+                     **bound_fields(ms, nbytes, ops, library_ms)}
 
     # adjacency
     a = eo.adjacency(src, dst, pad)
@@ -1711,12 +1724,8 @@ def elle_sharded_kernel_check(eo, srcs, dsts, n, D, label):
     out = {}
 
     def record(name, err, ms, plain_ms, call_ms, nbytes, ops=0, library_ms=None):
-        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-        t_ops = 1e3 * ops / BF16_TFLOPS
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "call_ms": call_ms,
-                     "bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "operations" if t_ops > t_bytes else "bytes",
-                     "library_ms": library_ms}
+                     **bound_fields(ms, nbytes, ops, library_ms)}
 
     def err_of(k, p):
         return int((k.float() - p.float()).abs().max())
@@ -1789,6 +1798,60 @@ def elle_sharded_kernel_check(eo, srcs, dsts, n, D, label):
         if v["max_abs_err"] != 0 or any(whole.values()):
             raise AssertionError(f"{k} disagrees with its plain version at {label}")
     return out
+
+
+def elle_square_sweep():
+    """The square kernel at every bucket pad (nb = SWEEP_NB random masks, 2
+    entries a row), on an all-ones member at 8192 and on an all-ones
+    [32768, 32768] elle_block_square step (every count is 32768): each bit
+    for bit against its plain version, with its ms beside bf16
+    ``torch.matmul``'s on the same inputs. Returns {label: row}."""
+    import torch
+
+    from jepsen_tpu_torch.elle import ops as eo
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    rows = {}
+
+    def measure(label, kernel, plain, library, inputs, ops, nbytes, reps):
+        got = kernel(*inputs)
+        want = plain(*(t.float() for t in inputs))
+        torch.cuda.synchronize()
+        err = int((got.float() - want).abs().max())
+        ones = int(want.sum())
+        del got, want
+        ms, call_ms = batch_ms(lambda t: kernel(*t), inputs, clone=False, **reps)
+        library_ms, _ = batch_ms(lambda t: library(*t), inputs, clone=False, **reps)
+        rows[label] = {"max_abs_err": err, "result_ones": ones, "ms": ms, "call_ms": call_ms,
+                       **bound_fields(ms, nbytes, ops, library_ms)}
+        torch.cuda.empty_cache()
+
+    for pad in eo.BUCKETS:
+        nb = SWEEP_NB
+        a = (torch.rand((nb, pad, pad), generator=gen, device="cuda") < 2.0 / pad).to(
+            torch.bfloat16)
+        spare = torch.empty_like(a)
+        measure(f"square_pad{pad}_nb{nb}", lambda x: eo.square(x, spare), eo.square_plain,
+                lambda x: torch.matmul(x, x), (a,), 2 * pad ** 3 * nb, 2 * nb * pad * pad * 2,
+                {})
+    ones = torch.ones((1, 8192, 8192), dtype=torch.bfloat16, device="cuda")
+    spare = torch.empty_like(ones)
+    measure("square_all_ones_pad8192_nb1", lambda x: eo.square(x, spare), eo.square_plain,
+            lambda x: torch.matmul(x, x), (ones,), 2 * 8192 ** 3, 2 * 8192 * 8192 * 2, {})
+    del ones, spare
+    pad = ELLE_SHARD_20K_PAD
+    ones = torch.ones((pad, pad), dtype=torch.bfloat16, device="cuda")
+    spare = torch.empty_like(ones)
+    measure(f"block_square_all_ones_pad{pad}", lambda x, y: eo.block_square(x, y, spare),
+            eo.block_square_plain, torch.matmul, (ones, ones), 2 * pad ** 3,
+            3 * pad * pad * 2, dict(batch=2, batches=3))
+    del ones, spare
+    torch.cuda.empty_cache()
+    emit({"phase": "elle_square_sweep", "random_density": "2 / pad", "rows": rows})
+    bad = [k for k, r in rows.items() if r["max_abs_err"] != 0]
+    if bad:
+        raise AssertionError(f"the square kernel disagrees with its plain version: {bad}")
+    return rows
 
 
 def elle_sharded_phases(ctx):
@@ -1943,9 +2006,14 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build()
     _build.load()
-    ptxas = [ln.strip() for ln in built["log"].splitlines() if "registers" in ln]
+    log = built["log"].splitlines()
+    ptxas = [ln.strip() for ln in log if "registers" in ln]
+    # The square kernel's instances: registers, spills, barriers, static smem.
+    square_ptxas = [x.strip() for i, ln in enumerate(log)
+                    if "Compiling entry" in ln and "k_square" in ln for x in log[i:i + 4]]
     emit({"phase": "build", "built": built["built"], "seconds": time.perf_counter() - t0,
-          "compile_seconds": built["compile_seconds"], "ptxas": ptxas})
+          "compile_seconds": built["compile_seconds"], "ptxas": ptxas,
+          "square_ptxas": square_ptxas})
     model = CasRegister(init=0)
 
     # -- kernels against their plain versions on the card -------------------
@@ -2219,6 +2287,8 @@ def main() -> int:
     elle_main, elle_launch, elle_errs, elle_ctx = elle_phases()
     closure_main, closure_shapes, closure_paths, closure_errs = elle_sharded_phases(elle_ctx)
     del elle_ctx
+    sweep = elle_square_sweep()
+    sweep_err = max(v["max_abs_err"] for v in sweep.values())
 
     kernels = []
     paths = {"main_path": launches, "batch_8x10k": big_launches, "mutex_5k": mutex_launches,
@@ -2284,9 +2354,13 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": ELLE_SOURCE,
             "replaces": ELLE_REPLACES[kname], "launches": elle_launch[kname],
-            "max_abs_err": elle_errs[kname], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "max_abs_err": max(elle_errs[kname], sweep_err if kname == "elle_square" else 0),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": "elle_append_8k: nb 6, pad 8192"})
+            "library_ms": r["library_ms"], "bound_share": r["bound_share"],
+            "vs_library": r["vs_library"], "shape": "elle_append_8k: nb 6, pad 8192",
+            **({"at_pads": {k: v for k, v in sweep.items() if k.startswith("square")}}
+               if kname == "elle_square" else {})})
     main_paths = ("elle_sharded_20k_packed", "elle_sharded_20k_dense")
     for kname, r in closure_main.items():
         kernels.append({
@@ -2294,9 +2368,14 @@ def main() -> int:
             "replaces": ELLE_SHARD_REPLACES[kname], "program": ELLE_SHARD_PROGRAM,
             "launches": sum(closure_paths[p][kname] for p in main_paths),
             "launches_by_path": {p: c[kname] for p, c in closure_paths.items()},
-            **summary(r), "max_abs_err": closure_errs[kname],
+            **summary(r),
+            "max_abs_err": max(closure_errs[kname],
+                               sweep_err if kname == "elle_block_square" else 0),
             "shape": f"elle_sharded_20k: one mask, pad 32768, D {ELLE_SHARD_D}",
-            "at_shapes": {label: summary(v[kname]) for label, v in closure_shapes.items()}})
+            "bound_share": r["bound_share"], "vs_library": r["vs_library"],
+            "at_shapes": {label: summary(v[kname]) for label, v in closure_shapes.items()},
+            **({"all_ones": sweep[f"block_square_all_ones_pad{ELLE_SHARD_20K_PAD}"]}
+               if kname == "elle_block_square" else {})})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -15,12 +15,10 @@
 //   edges carry the sacrificial index `pad` and are dropped (the reference
 //   writes them into row/column `pad` of a [pad+1, pad+1] matrix and slices
 //   them off).
-// - elle_square: one step A <- min(A + A.A, 1), launched ceil(log2 pad)
-//   times between two buffers. bf16 tensor-core products (mma.sync m16n8k16,
-//   fp32 accumulate) on 128x128 output tiles, a 3-stage cp.async ring of
-//   32-deep K tiles; the add and the clamp are fused into the epilogue. Every
-//   entry is a path count of at most pad, exact in the fp32 accumulator while
-//   pad < 2^24, and the epilogue writes 1 where the old entry or the count is
+// - elle_square: one step A <- min(A + A.A, 1) (jepsen_tpu/elle/ops.py
+//   lines 240-242), launched ceil(log2 pad) times between two buffers, on
+//   the square kernel described below. Every entry is a path count of at
+//   most pad, exact in the fp32 accumulator while pad < 2^24, and the epilogue writes 1 where the old entry or the count is
 //   nonzero, re-binarising every step, so the bits equal the reference's
 //   whatever the rounding, at any pad.
 // - elle_labels_pack: reach = A > 0 packed into words (bit j of word w is
@@ -48,21 +46,53 @@
 // - elle_gather: the dense all_gather, a 16-byte-wide copy of each shard's
 //   rows (blockIdx.y = shard) from `blocks` into `full`. A stage of its own,
 //   so a transport across cards can take its place and its bytes show.
-// - elle_block_square (row 11's step): out = min(b + b.full, 1), the D
-//   block-row [P, pad] x [pad, pad] products as one [pad, pad] product with
-//   A = `blocks` and B = `full`, on elle_square's tile machinery (the same
-//   kernel, given a B pointer apart from A). A 128-row tile may span several
-//   shards when P < 128; that is the same product.
+// - elle_block_square (row 11's step): out = min(b + b.full, 1)
+//   (jepsen_tpu/elle/ops.py line 325), the D block-row [P, pad] x [pad, pad]
+//   products as one [pad, pad] product with A = `blocks` and B = `full`, on
+//   the same square kernel given a B apart from A. A 128-row tile may span
+//   several shards when P < 128; that is the same product.
 //
-// What bounds them: elle_square and elle_block_square are 2 pad^3 operations
-// per member and step against 4-6 pad^2 bytes, far above the card's 295
-// operations per byte, so they are bound by the tensor cores; the others are
-// one pass over their matrix and bound by memory. The plain PyTorch version
-// of every entry point is in jepsen_tpu_torch/elle/ops.py and the two are
-// compared bit for bit.
+// The square kernel (k_square). What bounds it: 2 pad^3 operations per
+// member and step over 989 TFLOP/s of bf16 tensor cores, against 4-6 pad^2
+// bytes, so it is bound by operations, provided each byte fetched from
+// device memory feeds enough products: a 128x256 output tile does 2*128*256
+// operations for each k against 2*(128+256) bytes of operands, about 85
+// operations a byte, so operands shared between tiles in L2 have to supply
+// the rest of the card's 295. The design, for Hopper only
+// (sm_90a):
 //
-// Every extern "C" entry point returns cudaGetLastError().
+// - wgmma.mma_async m64n256k16 (m64n128k16 at pad 128, where a row has only
+//   128 columns), bf16 operands from shared memory, fp32 accumulators in
+//   registers: A (the left matrix) K-major, B (the right one, row-major, so
+//   N-contiguous) through wgmma's transpose bit, both 128-byte swizzled;
+// - TMA (cp.async.bulk.tensor) loads of 64x64 boxes into a ring of 4 stages
+//   of 64-deep K, each with a full and an empty mbarrier; one producer
+//   warpgroup whose single thread only issues loads (setmaxnreg gives its
+//   registers to the two consumer warpgroups, 64 rows of the tile each);
+// - one block per SM (the persistent grid) walking the tiles of every
+//   member in bands of 16 row panels with the rows fastest, so the ~132
+//   tiles in flight share 16 A row panels and ~9 B column panels in L2;
+// - no separate read of the old entries: the old entry A[r][c] is column c
+//   of A itself (B = A for elle_square, A = b for elle_block_square), so a
+//   consumer copies its old bits out of the A stages whose K range is the
+//   tile's columns while the products run; the binarised tile leaves
+//   through shared memory by TMA stores, 64 columns at a time, double
+//   buffered, while the producer already fills the ring for the next tile.
+//
+// The tensor maps are encoded on the host for each launch
+// (cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint) and
+// passed as __grid_constant__ parameters; a batch [nb, pad, pad] is one 2-D
+// map of nb*pad rows, since a tile never crosses a member (pad % 128 == 0).
+// TMA needs 16-byte-aligned bases; the entry points refuse others.
+//
+// The other kernels are one pass over their matrix and bound by memory.
+// The plain PyTorch version of every entry point is in
+// jepsen_tpu_torch/elle/ops.py and the two are compared bit for bit.
+//
+// Every extern "C" entry point returns cudaGetLastError(), or the square's
+// refusal (a bad shape, a misaligned base, a tensor map that did not encode).
 
+#include <cuda.h>  // CUtensorMap and its enums (declarations only; libcuda is not linked)
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -92,151 +122,375 @@ __global__ void k_scatter(const int* __restrict__ src, const int* __restrict__ d
 }
 
 // ---------------------------------------------------------------------------
-// elle_square
+// elle_square and elle_block_square: one persistent, warp-specialised kernel
 
-#define SQ_BM 128
-#define SQ_BN 128
-#define SQ_BK 32
-#define SQ_STAGES 3
-#define SQ_THREADS 256
-#define SQ_A_LD (SQ_BK + 8)  // halves per A-tile row (80 bytes: ldmatrix is conflict-free)
-#define SQ_B_LD (SQ_BN + 8)  // halves per B-tile row (272 bytes)
-#define SQ_SMEM (SQ_STAGES * (SQ_BM * SQ_A_LD + SQ_BK * SQ_B_LD) * 2)
+#define SQ_BM 128        // output tile rows: one 64-row slab per consumer warpgroup
+#define SQ_BK 64         // K depth of a stage: one 128-byte swizzle row of bf16
+#define SQ_STAGES 4      // the ring of stages in shared memory
+#define SQ_BOX 64        // every TMA box is 64 x 64 bf16, 128-byte swizzled
+#define SQ_BOX_BYTES (SQ_BOX * SQ_BOX * 2)
+#define SQ_CONSUMERS 2   // consumer warpgroups; warpgroup 0 is the producer
+#define SQ_THREADS (128 * (1 + SQ_CONSUMERS))
+#define SQ_GROUP 16      // row panels in one band of the tile order
+#define SQ_A_BYTES (SQ_BM * SQ_BK * 2)
+
+// Shared memory from a 1024-byte-aligned base (the 128-byte swizzle repeats
+// every 1024 bytes): the A ring, the B ring, two 64x64 staging boxes per
+// consumer for the output, then full[STAGES] and empty[STAGES] mbarriers.
+template <int BN>
+struct SqShape {
+  static constexpr int kBBytes = SQ_BK * BN * 2;
+  static constexpr int kStageBytes = SQ_A_BYTES + kBBytes;
+  static constexpr int kCBytes = SQ_CONSUMERS * 2 * SQ_BOX_BYTES;
+  static constexpr int kSmem = 1024 + SQ_STAGES * kStageBytes + kCBytes + 2 * SQ_STAGES * 8;
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)),
-               "l"(gmem)
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Spin until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 64x64 box at (column c0, row c1) into shared memory; completion is
+// counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   (uint64_t)map),
+               "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// At most N of this thread's bulk stores still reading shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Generic-proxy writes to shared memory made visible to the TMA store.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` over the 128 threads of one consumer warpgroup.
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ uint32_t ld_shared_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// A wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 (B128).
+__device__ __forceinline__ uint64_t sq_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
-                                        const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(smem_addr(p)));
-}
+// Keeps the compiler from moving reads or writes of an accumulator register
+// across a wgmma fence or wait.
+__device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                              uint32_t& r3, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
+// d[64 x N] (+)= A[64 x 16] . B[16 x N], fp32 accumulators: A K-major, B
+// MN-major (imm-trans-b = 1), both read from shared memory by descriptor;
+// scale_d = 0 starts the sums afresh.
+__device__ __forceinline__ void wgmma_n256(float* d, uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// One 128x128 tile of out = min(A + A.B, 1) for one member: grid (pad/128
-// column tiles, pad/128 row tiles, nb). Eight warps in a 2x4 grid, each 64x32
-// (4x4 mma tiles). elle_square passes B = A; elle_block_square the gathered
-// matrix.
-__global__ void __launch_bounds__(SQ_THREADS)
-    k_square(const bf16_t* __restrict__ ain, const bf16_t* __restrict__ bin,
-             bf16_t* __restrict__ aout, int pad) {
-  extern __shared__ __align__(128) unsigned char sq_smem[];
-  bf16_t* As = (bf16_t*)sq_smem;                  // [STAGES][BM][A_LD]
-  bf16_t* Bs = As + SQ_STAGES * SQ_BM * SQ_A_LD;  // [STAGES][BK][B_LD]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const long base = (long)blockIdx.z * pad * pad;
-  const bf16_t* A = ain + base;
-  const bf16_t* B = bin + base;
-  const int row0 = blockIdx.y * SQ_BM, col0 = blockIdx.x * SQ_BN;
+__device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float* d, uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (BN == 256)
+    wgmma_n256(d, da, db, scale_d);
+  else
+    wgmma_n128(d, da, db, scale_d);
+}
+
+// Tile t of the persistent order: member-major; inside a member, bands of
+// SQ_GROUP row panels, and inside a band the row panels fastest, so that the
+// tiles in flight at one moment share a few A row panels and B column panels
+// in L2.
+__device__ __forceinline__ void sq_tile(int t, int tiles_m, int tiles_n, int& member, int& tm,
+                                        int& tn) {
+  const int per = tiles_m * tiles_n;
+  member = t / per;
+  const int r = t - member * per;
+  const int first = r / (SQ_GROUP * tiles_n) * SQ_GROUP;
+  const int rows = min(SQ_GROUP, tiles_m - first);
+  const int in = r - first * tiles_n;
+  tm = first + in % rows;
+  tn = in / rows;
+}
+
+// out = 1 where the old entry or (A.B) is nonzero, else 0, for every member
+// of a batch laid out as [nb * pad, pad] rows; a SQ_BM x BN output tile
+// never crosses a member. One block per SM walks the tiles t = blockIdx.x,
+// + gridDim.x, ... Warpgroup 0's first thread issues every TMA load into a
+// ring of SQ_STAGES stages (A: 128 rows x 64 k, two boxes; B: 64 k x BN
+// columns, BN/64 boxes); warpgroups 1 and 2 each run wgmma on their 64 rows
+// of A against the whole B stage, read their old entries out of the A
+// stages whose k range is the tile's columns (the old entry A[r][c] is A's
+// own column c: B = A for elle_square, and A = b for elle_block_square),
+// and store the binarised tile through shared memory by TMA, 64 columns at
+// a time, while the producer already fills the ring with the next tile.
+template <int BN>
+__global__ void __launch_bounds__(SQ_THREADS, 1)
+    k_square(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+             const __grid_constant__ CUtensorMap map_out, int pad, int nb) {
+  typedef SqShape<BN> Sh;
+  extern __shared__ unsigned char sq_raw[];
+  const uint32_t base = (smem_addr(sq_raw) + 1023u) & ~1023u;
+  const uint32_t a_ring = base;
+  const uint32_t b_ring = a_ring + SQ_STAGES * SQ_A_BYTES;
+  const uint32_t c_bufs = b_ring + SQ_STAGES * Sh::kBBytes;
+  const uint32_t full_bar = c_bufs + Sh::kCBytes;       // + 8 * stage
+  const uint32_t empty_bar = full_bar + 8 * SQ_STAGES;  // + 8 * stage
+  const int tiles_m = pad / SQ_BM, tiles_n = pad / BN;
+  const int ntiles = tiles_m * tiles_n * nb;
   const int KT = pad / SQ_BK;
 
-  // A operand: rows [row0, +128) x k [k0, +32); B operand: k [k0, +32) x
-  // columns [col0, +128). 16-byte copies.
-  auto load = [&](int stage, int kt) {
-    const int k0 = kt * SQ_BK;
-    bf16_t* as = As + stage * SQ_BM * SQ_A_LD;
-    bf16_t* bs = Bs + stage * SQ_BK * SQ_B_LD;
-#pragma unroll
-    for (int c = tid; c < SQ_BM * SQ_BK / 8; c += SQ_THREADS) {
-      const int r = c >> 2, q = c & 3;
-      cp_async16(as + r * SQ_A_LD + q * 8, A + (long)(row0 + r) * pad + k0 + q * 8);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SQ_STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, SQ_CONSUMERS * 4);  // one arrival per consumer warp
     }
-#pragma unroll
-    for (int c = tid; c < SQ_BK * SQ_BN / 8; c += SQ_THREADS) {
-      const int r = c >> 4, q = c & 15;
-      cp_async16(bs + r * SQ_B_LD + q * 8, B + (long)(k0 + r) * pad + col0 + q * 8);
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < SQ_STAGES - 1; ++s) {
-    if (s < KT) load(s, s);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<SQ_STAGES - 2>();
-    __syncthreads();  // tile kt is in; every warp is done with tile kt-1
-    const int nk = kt + SQ_STAGES - 1;
-    if (nk < KT) load(nk % SQ_STAGES, nk);
-    cp_async_commit();
-    const bf16_t* as = As + (kt % SQ_STAGES) * SQ_BM * SQ_A_LD;
-    const bf16_t* bs = Bs + (kt % SQ_STAGES) * SQ_BK * SQ_B_LD;
-#pragma unroll
-    for (int kk = 0; kk < SQ_BK; kk += 16) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldsm_x4(af[mi][0], af[mi][1], af[mi][2], af[mi][3],
-                as + (wm * 64 + mi * 16 + (lane & 15)) * SQ_A_LD + kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj)
-        ldsm_x4_trans(bfr[2 * nj][0], bfr[2 * nj][1], bfr[2 * nj + 1][0], bfr[2 * nj + 1][1],
-                      bs + (kk + (lane & 15)) * SQ_B_LD + wn * 32 + nj * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bfr[ni]);
-    }
-  }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  // Epilogue: out = 1 where the old entry or the path count is nonzero.
-  bf16_t* Out = aout + base;
+  if (threadIdx.x < 128) {
+    // -- producer ------------------------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+        int member, tm, tn;
+        sq_tile(t, tiles_m, tiles_n, member, tm, tn);
+        const int arow = member * pad + tm * SQ_BM, brow = member * pad, col0 = tn * BN;
+        for (int kb = 0; kb < KT; ++kb) {
+          const uint32_t full = full_bar + 8 * stage;
+          mbar_wait(empty_bar + 8 * stage, phase ^ 1u);  // the first pass finds it free
+          mbar_expect_tx(full, Sh::kStageBytes);
+          const uint32_t a = a_ring + stage * SQ_A_BYTES, b = b_ring + stage * Sh::kBBytes;
+          const int k0 = kb * SQ_BK;
+          tma_load(a, &map_a, k0, arow, full);
+          tma_load(a + SQ_BOX_BYTES, &map_a, k0, arow + SQ_BOX, full);
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = row0 + wm * 64 + mi * 16 + (lane >> 2) + 8 * h;
-        const int c = col0 + wn * 32 + ni * 8 + 2 * (lane & 3);
-        const long off = (long)r * pad + c;
-        const uint32_t old = *(const uint32_t*)(A + off);
-        const uint32_t lo = (BF16_NONZERO(old) || acc[mi][ni][2 * h] != 0.f) ? BF16_ONE : 0u;
-        const uint32_t hi =
-            (BF16_NONZERO(old >> 16) || acc[mi][ni][2 * h + 1] != 0.f) ? BF16_ONE : 0u;
-        *(uint32_t*)(Out + off) = lo | (hi << 16);
+          for (int j = 0; j < BN / SQ_BOX; ++j)
+            tma_load(b + j * SQ_BOX_BYTES, &map_b, col0 + j * SQ_BOX, brow + k0, full);
+          if (++stage == SQ_STAGES) {
+            stage = 0;
+            phase ^= 1u;
+          }
+        }
       }
+    }
+  } else {
+    // -- consumers -----------------------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int c = (threadIdx.x >> 7) - 1, tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31, quad = lane >> 2;
+    // This thread's accumulator rows are warp*16 + quad (+8): quad is also
+    // the row's 128-byte swizzle (row % 8), its columns 8j + 2*(lane%4) (+1).
+    const uint32_t row_off = (warp * 16 + quad) * 128, col_off = (lane & 3) * 4;
+    const uint32_t stage_bufs = c_bufs + c * 2 * SQ_BOX_BYTES;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    int stage = 0, sbuf = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      int member, tm, tn;
+      sq_tile(t, tiles_m, tiles_n, member, tm, tn);
+      const int kb_cols = tn * (BN / SQ_BK);  // the k block of the tile's first columns
+      uint32_t old[BN / SQ_BOX];              // bit 4jj + 2h + e: the old entry of acc[4(8s+jj)+2h+e]
+#pragma unroll
+      for (int s = 0; s < BN / SQ_BOX; ++s) old[s] = 0u;
+      int prev = -1;
+      for (int kb = 0; kb < KT; ++kb) {
+        mbar_wait(full_bar + 8 * stage, phase);
+        const uint32_t a = a_ring + stage * SQ_A_BYTES + c * SQ_BOX_BYTES;  // this slab's rows
+        const uint32_t b = b_ring + stage * Sh::kBBytes;
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < SQ_BK / 16; ++k)  // A: +32 bytes a k16 step; B: +16 rows of 128 bytes
+          wgmma_tile<BN>(acc, sq_desc(a + 32 * k, 16, 1024),
+                         sq_desc(b + 2048 * k, SQ_BOX_BYTES, 1024), (kb | k) != 0);
+        wgmma_commit();
+        const int s = kb - kb_cols;
+        if (s >= 0 && s < BN / SQ_BOX) {  // this A stage holds the old entries of columns 64s..
+          uint32_t bits = 0u;
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const uint32_t v =
+                  ld_shared_u32(a + row_off + h * 1024 + ((jj ^ quad) << 4) + col_off);
+              bits |= (BF16_NONZERO(v) ? 1u : 0u) << (4 * jj + 2 * h);
+              bits |= (BF16_NONZERO(v >> 16) ? 1u : 0u) << (4 * jj + 2 * h + 1);
+            }
+#pragma unroll
+          for (int si = 0; si < BN / SQ_BOX; ++si)
+            if (si == s) old[si] = bits;
+        }
+        wgmma_wait<1>();  // the previous stage's products are done: release it
+        if (prev >= 0) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty_bar + 8 * prev);
+        }
+        prev = stage;
+        if (++stage == SQ_STAGES) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_bar + 8 * prev);
+
+      // Epilogue: 64 columns at a time into a staging box, then a TMA store.
+      const int orow = member * pad + tm * SQ_BM + c * SQ_BOX;
+#pragma unroll
+      for (int s = 0; s < BN / SQ_BOX; ++s) {
+        const uint32_t buf = stage_bufs + sbuf * SQ_BOX_BYTES;
+        if (tid == 0) bulk_wait_read<1>();  // this box's previous store has read it
+        named_sync(1 + c);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * (8 * s + jj) + 2 * h;
+            const uint32_t ob = old[s] >> (4 * jj + 2 * h);
+            const uint32_t lo = ((ob & 1u) || acc[i] != 0.f) ? BF16_ONE : 0u;
+            const uint32_t hi = ((ob & 2u) || acc[i + 1] != 0.f) ? BF16_ONE : 0u;
+            st_shared_u32(buf + row_off + h * 1024 + ((jj ^ quad) << 4) + col_off, lo | (hi << 16));
+          }
+        fence_proxy_async();
+        named_sync(1 + c);
+        if (tid == 0) {
+          tma_store(&map_out, buf, tn * BN + s * SQ_BOX, orow);
+          bulk_commit();
+        }
+        sbuf ^= 1;
+      }
+    }
+    if (tid == 0) bulk_wait_all();
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -367,6 +621,105 @@ __global__ void __launch_bounds__(XC_THREADS)
 }
 
 // ---------------------------------------------------------------------------
+// Host side of the square
+
+// The square's tensor maps. cuTensorMapEncodeTiled lives in libcuda: it is
+// fetched once through the runtime's entry-point query, so the library
+// links against the runtime alone.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                            &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+// A bf16 [rows, pad] row-major matrix read or written in 64x64 boxes,
+// 128-byte swizzled. Returns 0, or the error the entry point returns.
+static int square_map(CUtensorMap* map, const void* ptr, long rows, int pad) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  if (((uintptr_t)ptr & 15u) != 0u) return (int)cudaErrorMisalignedAddress;
+  const cuuint64_t dims[2] = {(cuuint64_t)pad, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)pad * sizeof(bf16_t)};
+  const cuuint32_t box[2] = {SQ_BOX, SQ_BOX};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, (void*)ptr, dims, strides,
+                            box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The current device's SM count: the persistent grid.
+static int sm_count(int* n) {
+  static int cached[64] = {0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    e = cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  *n = cached[dev];
+  return 0;
+}
+
+template <int BN>
+static int launch_square_tiles(const CUtensorMap& ma, const CUtensorMap& mb,
+                               const CUtensorMap& mo, int pad, int nb, cudaStream_t s) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(k_square<BN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         SqShape<BN>::kSmem);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  int sms = 0;
+  const int rc = sm_count(&sms);
+  if (rc != 0) return rc;
+  const long tiles = (long)(pad / SQ_BM) * (pad / BN) * nb;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  k_square<BN><<<grid, SQ_THREADS, SqShape<BN>::kSmem, s>>>(ma, mb, mo, pad, nb);
+  return (int)cudaGetLastError();
+}
+
+// out = min(A + A.B, 1) for nb members: A, B, out bf16 [nb, pad, pad] (B's
+// member stride pad*pad like A's; nb = 1 for the block square). 256-column
+// tiles, or 128-column ones where pad is not a multiple of 256 (pad 128).
+static int launch_square(const void* a, const void* b, void* out, int pad, int nb,
+                         void* stream) {
+  if (pad % SQ_BM != 0 || nb < 1 || nb > 65535 || (long)nb * pad > 0x7FFFFFFFL ||
+      (long)(pad / SQ_BM) * (pad / SQ_BM) * nb > 0x7FFFFFFFL)
+    return (int)cudaErrorInvalidValue;
+  const long rows = (long)nb * pad;
+  CUtensorMap ma, mb, mo;
+  int rc = square_map(&ma, a, rows, pad);
+  if (rc == 0) rc = square_map(&mb, b, rows, pad);
+  if (rc == 0) rc = square_map(&mo, out, rows, pad);
+  if (rc != 0) return rc;
+  cudaStream_t s = (cudaStream_t)stream;
+  return pad % 256 == 0 ? launch_square_tiles<256>(ma, mb, mo, pad, nb, s)
+                        : launch_square_tiles<128>(ma, mb, mo, pad, nb, s);
+}
+
+// ---------------------------------------------------------------------------
 // C entry points (ctypes). Pointers and the stream arrive as void*.
 
 extern "C" {
@@ -382,23 +735,6 @@ int elle_adjacency(void* src, void* dst, void* a, int epad, int pad, int nb, voi
   if (epad > 0)
     k_scatter<<<dim3((epad + 255) / 256, nb), 256, 0, s>>>((const int*)src, (const int*)dst,
                                                          (bf16_t*)a, epad, pad);
-  return (int)cudaGetLastError();
-}
-
-static int launch_square(const void* a, const void* b, void* out, int pad, int nb,
-                         void* stream) {
-  static bool configured = false;
-  if (pad % SQ_BM != 0 || pad / SQ_BM > 65535 || nb < 1 || nb > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (!configured) {
-    cudaError_t e =
-        cudaFuncSetAttribute(k_square, cudaFuncAttributeMaxDynamicSharedMemorySize, SQ_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
-  dim3 grid(pad / SQ_BN, pad / SQ_BM, nb);
-  k_square<<<grid, SQ_THREADS, SQ_SMEM, (cudaStream_t)stream>>>(
-      (const bf16_t*)a, (const bf16_t*)b, (bf16_t*)out, pad);
   return (int)cudaGetLastError();
 }
 

@@ -312,6 +312,14 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
                          f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
 
 
+def _check_aligned(name: str, t: torch.Tensor) -> None:
+    """The square's TMA loads and stores need 16-byte-aligned bases (its
+    rows, ``pad`` bf16 values, are whole 16-byte pieces at every pad)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the tensor's data does not start on a 16-byte boundary "
+                         "(a view at an offset); the kernel's TMA needs one")
+
+
 def _check_pad(pad: int, nb: int) -> None:
     if pad < BUCKETS[0] or pad & (pad - 1):
         raise ValueError(f"pad {pad} is not a power of two >= {BUCKETS[0]}")
@@ -348,6 +356,8 @@ def square(a: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     _check("elle_square", out, torch.bfloat16, (nb, pad, pad))
     if out.data_ptr() == a.data_ptr():
         raise ValueError("elle_square: out must be another buffer than a")
+    for t in (a, out):
+        _check_aligned("elle_square", t)
     _launch("elle_square", _ptr(a), _ptr(out), ctypes.c_int(pad), ctypes.c_int(nb),
             _stream())
     return out
@@ -441,6 +451,8 @@ def block_square(b: torch.Tensor, full: torch.Tensor,
     _check("elle_block_square", out, torch.bfloat16, (pad, pad))
     if out.data_ptr() in (b.data_ptr(), full.data_ptr()):
         raise ValueError("elle_block_square: out must be another buffer than b and full")
+    for t in (b, full, out):
+        _check_aligned("elle_block_square", t)
     _launch("elle_block_square", _ptr(b), _ptr(full), _ptr(out), ctypes.c_int(pad),
             _stream())
     return out

@@ -1,16 +1,30 @@
 #!/usr/bin/env python3
-"""Wall time of the port's main path in two checkouts, alternated on one GPU.
+"""Wall time of one of the port's paths in two checkouts, alternated on one GPU.
 
-    python3 main_path_ab.py OLD_ROOT NEW_ROOT [--pairs 3] [--repeat 2]
+    python3 main_path_ab.py OLD_ROOT NEW_ROOT [--path north_star] [--pairs 3] [--repeat 2]
 
 Each root is the top of a checkout holding ``jepsen_tpu_torch``. The
 script runs one process per turn, in the order old, new, new, old, repeated
 ``--pairs`` times; each process builds its checkout's kernels, warms up on
-a short history, then decides the north-star history (10,000 cas-register
-ops, ``random.Random(2026)``) through ``check_history(..., backend="device")``
-``--repeat`` times and prints one JSON line of walls. The last line is a
-summary per root: every wall, the median, and the levels. It fails if a
-verdict is not ``True`` or the two roots disagree on the levels.
+a short history, then runs the path ``--repeat`` times and prints one JSON
+line of walls. The paths:
+
+- ``north_star`` (the default): the north-star history (10,000
+  cas-register ops, ``random.Random(2026)``) through
+  ``check_history(..., backend="device")``; its result is the levels, and
+  the verdict must be ``True``;
+- ``elle_append_8k``: ``chip_smoke.py``'s 8000-txn list-append history
+  through ``elle.append.check`` with the process graph (six masks at
+  bucket 8192 on the closure kernels);
+- ``elle_sharded_20k``: its 20,000-txn history through
+  ``elle.append.check(..., mesh=make_mesh(8))`` (three closures at pad
+  32768 on the sharded-closure kernels).
+
+The Elle paths' result is the verdict and the anomaly types, and each line
+also gives the closures' share of the wall (``closure_s``: the time inside
+the closure entry point, ending in a synchronize). The last line is a
+summary per root: every wall, the median, and the result. It fails if the
+two roots disagree on the result.
 """
 
 import argparse
@@ -24,21 +38,29 @@ import time
 
 NORTH_STAR = dict(n_ops=10000, n_procs=10, cas=True, crash_p=0.002, fail_p=0.02)
 NORTH_STAR_SEED = 2026
+# chip_smoke.py's Elle histories (APPEND_8K, APPEND_20K there).
+APPEND_8K = dict(seed=11, n_txns=8000, lag=(0, 8000), depth=16)
+APPEND_20K = dict(seed=11, n_txns=20000, lag=(8000, 11000), depth=16)
+ELLE_WARM = dict(seed=5, n_txns=2000, lag=(600, 1100), depth=8)
+PATHS = ("north_star", "elle_append_8k", "elle_sharded_20k")
 
 
-def one(root: str, repeat: int) -> dict:
-    """Time the main path of the checkout at ``root`` in this process."""
+def one(root: str, repeat: int, path: str = "north_star") -> dict:
+    """Time ``path`` in the checkout at ``root`` in this process."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
     from jepsen_tpu_torch import _build
-    from jepsen_tpu_torch.models import CasRegister
-    from jepsen_tpu_torch.ops import wgl
-    from jepsen_tpu_torch.testing import random_register_history
 
     if not torch.cuda.is_available():
         raise SystemExit("main_path_ab: CUDA is not available")
     _build.load()
+    if path != "north_star":
+        return elle(root, repeat, path)
+    from jepsen_tpu_torch.models import CasRegister
+    from jepsen_tpu_torch.ops import wgl
+    from jepsen_tpu_torch.testing import random_register_history
+
     model = CasRegister(init=0)
     warm = random_register_history(random.Random(0), n_ops=500, n_procs=10, cas=True)
     wgl.check_history(model, warm, backend="device")
@@ -53,19 +75,62 @@ def one(root: str, repeat: int) -> dict:
         if res["valid"] is not True:
             raise AssertionError(f"north-star history not accepted: {res['valid']}")
         levels = res["levels"]
-    return {"root": root, "walls_s": walls, "levels": levels,
+    return {"root": root, "walls_s": walls, "result": levels,
             "ms_per_level": [1e3 * w / levels for w in walls]}
+
+
+def elle(root: str, repeat: int, path: str) -> dict:
+    """An Elle path: walls, the time inside the closure entry point, and
+    the verdict with the anomaly types."""
+    import torch
+
+    from jepsen_tpu_torch.elle import append
+    from jepsen_tpu_torch.elle import ops as eo
+    from jepsen_tpu_torch.parallel import make_mesh
+    from jepsen_tpu_torch.testing import lagged_append_history
+
+    name = "sharded_closure" if path == "elle_sharded_20k" else "batched_closure"
+    inner = getattr(eo, name)
+    closure_s = [0.0]
+
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        out = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        closure_s[0] += time.perf_counter() - t
+        return out
+
+    setattr(eo, name, timed)
+    if path == "elle_sharded_20k":
+        run = lambda h: append.check(h, mesh=make_mesh(8))  # noqa: E731
+        hist = lagged_append_history(**APPEND_20K)
+    else:
+        run = lambda h: append.check(h, device=None, additional_graphs=("process",))  # noqa: E731
+        hist = lagged_append_history(**APPEND_8K)
+    run(lagged_append_history(**ELLE_WARM))
+    walls, closures, result = [], [], None
+    for _ in range(repeat):
+        closure_s[0] = 0.0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = run(hist)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        closures.append(closure_s[0])
+        result = [res["valid"], sorted(res["anomaly_types"])]
+    return {"root": root, "walls_s": walls, "closure_s": closures, "result": result}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("roots", nargs="*")
+    ap.add_argument("--path", choices=PATHS, default="north_star")
     ap.add_argument("--pairs", type=int, default=3)
     ap.add_argument("--repeat", type=int, default=2)
     ap.add_argument("--one", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.one:
-        print(json.dumps(one(a.one, a.repeat)), flush=True)
+        print(json.dumps(one(a.one, a.repeat, a.path)), flush=True)
         return 0
     if len(a.roots) != 2:
         ap.error("give two checkout roots: OLD_ROOT NEW_ROOT")
@@ -74,23 +139,26 @@ def main() -> int:
     for _ in range(a.pairs):
         for root in (old, new, new, old):
             out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root,
-                                  "--repeat", str(a.repeat)], capture_output=True, text=True,
-                                 timeout=600)
+                                  "--repeat", str(a.repeat), "--path", a.path],
+                                 capture_output=True, text=True, timeout=600)
             if out.returncode != 0:
                 sys.stderr.write(out.stderr)
                 raise SystemExit(f"main_path_ab: the run of {root} failed")
             line = json.loads(out.stdout.strip().splitlines()[-1])
             print(json.dumps(line), flush=True)
             runs[root].append(line)
-    levels = {r: {x["levels"] for x in v} for r, v in runs.items()}
-    if levels[old] != levels[new] or len(levels[old]) != 1:
-        raise AssertionError(f"levels differ: {levels}")
+    results = {r: {json.dumps(x["result"]) for x in v} for r, v in runs.items()}
+    if results[old] != results[new] or len(results[old]) != 1:
+        raise AssertionError(f"results differ: {results}")
     summary = {}
     for r, v in runs.items():
         walls = [w for x in v for w in x["walls_s"]]
         summary[r] = {"walls_s": walls, "median_s": statistics.median(walls),
-                      "levels": v[0]["levels"]}
-    print(json.dumps({"summary": summary}), flush=True)
+                      "result": v[0]["result"]}
+        if "closure_s" in v[0]:
+            closures = [c for x in v for c in x["closure_s"]]
+            summary[r].update(closure_s=closures, closure_median_s=statistics.median(closures))
+    print(json.dumps({"summary": summary, "path": a.path}), flush=True)
     return 0
 
 

@@ -310,6 +310,85 @@ def test_elle_append_check_on_the_card_matches_the_cpu(cuda):
     assert got == want and got["valid"] is False
 
 
+def _random_01(shape, density, seed, device):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.random(shape) < density).to(device=device, dtype=torch.bfloat16)
+
+
+def _square_cases():
+    from jepsen_tpu_torch.elle import ops as eo
+
+    return [(pad, nb) for pad in eo.BUCKETS for nb in (1, 3)] + [(8192, 6)]
+
+
+@pytest.mark.parametrize("pad,nb", _square_cases())
+def test_square_matches_plain_at_every_bucket(cuda, pad, nb):
+    """One elle_square step bit for bit against square_plain on random masks
+    (sparse, as a dependency graph's adjacency, and a half-closed density),
+    one launch a step."""
+    from jepsen_tpu_torch.elle import ops as eo
+
+    for density in (2.0 / pad, 0.02):
+        a = _random_01((nb, pad, pad), density, pad * 10 + nb, cuda)
+        before = eo.LAUNCHES["elle_square"]
+        got = eo.square(a)
+        torch.cuda.synchronize()
+        assert eo.LAUNCHES["elle_square"] == before + 1
+        assert torch.equal(got.float(), eo.square_plain(a.float()))
+
+
+@pytest.mark.parametrize("fill", [1.0, 0.0])
+def test_square_of_all_ones_and_empty_members(cuda, fill):
+    """Every path count reaches pad in an all-ones member at 8192 (exact in
+    fp32), and an empty member stays empty."""
+    from jepsen_tpu_torch.elle import ops as eo
+
+    a = torch.full((1, 8192, 8192), fill, dtype=torch.bfloat16, device=cuda)
+    got = eo.square(a)
+    assert torch.equal(got.float(), eo.square_plain(a.float()))
+    assert bool((got == fill).all())
+
+
+@pytest.mark.parametrize("pad", [256, 1024])
+def test_block_square_matches_plain(cuda, pad):
+    """elle_block_square with B apart from A, at pad 256 with D = 8 (P = 32
+    rows a shard, so a 128-row tile spans four shards) and at 1024."""
+    from jepsen_tpu_torch.elle import ops as eo
+
+    b = _random_01((pad, pad), 3.0 / pad, pad, cuda)
+    full = _random_01((pad, pad), 3.0 / pad, pad + 1, cuda)
+    full[: pad // 8] = b[: pad // 8]  # shard 0's rows, as a gather leaves them
+    got = eo.block_square(b, full)
+    assert torch.equal(got.float(), eo.block_square_plain(b.float(), full.float()))
+    ones = torch.ones_like(b)
+    assert bool((eo.block_square(ones, ones) == 1).all())
+
+
+def test_square_with_tiles_not_a_multiple_of_the_sms(cuda):
+    """The persistent grid: 640 tiles of 128 x 256 at pad 2048 with 5
+    members, not a multiple of the SM count, so the blocks take unequal
+    shares."""
+    from jepsen_tpu_torch.elle import ops as eo
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    pad, nb = 2048, 5
+    tiles = (pad // 128) * (pad // 256) * nb
+    assert tiles > sms and tiles % sms
+    a = _random_01((nb, pad, pad), 2.0 / pad, 77, cuda)
+    assert torch.equal(eo.square(a).float(), eo.square_plain(a.float()))
+
+
+def test_square_wrappers_refuse_a_misaligned_view(cuda):
+    from jepsen_tpu_torch.elle import ops as eo
+
+    flat = torch.zeros(256 * 256 + 8, dtype=torch.bfloat16, device=cuda)
+    view = flat[1:1 + 256 * 256].view(1, 256, 256)
+    with pytest.raises(ValueError, match="16-byte"):
+        eo.square(view)
+    with pytest.raises(ValueError, match="16-byte"):
+        eo.block_square(view[0], torch.zeros_like(view[0]))
+
+
 # -- the mesh-sharded Elle closure ---------------------------------------------
 
 

@@ -162,3 +162,37 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="expected cuda"):
         ops._check("elle_square", torch.zeros(1, 128, 128, dtype=torch.bfloat16),
                    torch.bfloat16, (1, 128, 128))
+
+
+def test_square_wrappers_refuse_a_misaligned_view():
+    """The square's TMA needs 16-byte-aligned bases: a contiguous view at an
+    odd element offset is refused, an aligned one passes."""
+    flat = torch.zeros(128 * 128 + 8, dtype=torch.bfloat16)
+    ops._check_aligned("elle_square", flat[8:].view(1, 128, 128))
+    view = flat[1:1 + 128 * 128].view(1, 128, 128)
+    assert view.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte"):
+        ops._check_aligned("elle_square", view)
+
+
+def _extreme_edges(kind: str, pad: int):
+    """A complete graph on all pad nodes (self loops included), where every
+    path count of a squaring reaches pad, or an edgeless one."""
+    if kind == "edgeless":
+        return [], []
+    nodes = np.arange(pad)
+    return np.repeat(nodes, pad).tolist(), np.tile(nodes, pad).tolist()
+
+
+@pytest.mark.parametrize("pad", [128, 256])
+@pytest.mark.parametrize("kind", ["complete", "edgeless"])
+def test_closure_of_extreme_graphs_bit_identical(pad, kind):
+    s, d = _extreme_edges(kind, pad)
+    epad = ref.edge_pad(len(s))
+    S, D = (x[None] for x in ref.pad_edges(s, d, pad, epad))
+    want_pk, want_lb = ref.batched_closure_kernel(pad, epad)(S, D)
+    got_pk, got_lb = ops.batched_closure(S, D, pad, torch_device="cpu")
+    assert np.array_equal(got_pk.numpy().view(np.uint32), np.asarray(want_pk))
+    assert np.array_equal(got_lb.numpy(), np.asarray(want_lb))
+    bits = int(np.unpackbits(got_pk.numpy().view(np.uint8)).sum())
+    assert bits == (pad * pad if kind == "complete" else 0)
