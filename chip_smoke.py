@@ -11,7 +11,13 @@ and then runs these phases, each printing JSON lines:
 - ``kernels``: every stage of one level, kernel against its plain PyTorch
   version bit for bit, at several capacities of the north-star history
   (a 10,000-op cas-register history), plus the radix sort on random keys;
-- ``steady_state``: device busy time and idle share per level;
+- ``radix_sort_sweep``: the radix sort at 1 to 1,048,576 pairs, 1, 3 and
+  8 members, on each key family of ``testing.SORT_KEY_FAMILIES``, bit for
+  bit against the plain sort, with its ms beside ``torch.sort``'s, its
+  bound and the path it takes; both paths at the sizes one block holds,
+  and the device launches of one call at each size;
+- ``steady_state``: device busy time, idle share and device launches per
+  level;
 - ``main_path``: the north-star history decided through
   ``check_history(..., backend="device")`` with every kernel's launch
   count checked, then the same search through the plain versions on the
@@ -85,6 +91,9 @@ and then runs these phases, each printing JSON lines:
   ``wgl_shard_reduce`` and sharded finalize, and every existing stage at
   the exchanged row count) against its plain version bit for bit, the
   new ones timed;
+- ``exchange_scale``: ``wgl_exchange`` alone at the shard geometry of a
+  global capacity of 262144 (8 shards, both modes) on seeded rows, bit for
+  bit against the plain exchange and timed beside one PyTorch copy;
 - ``sharded_10k``: the reference bench leg's 10,000-op history
   (``bench.py:1847-1849``) through ``parallel.frontier.check_encoded_sharded``
   on 8 shards at a global capacity of 4096 in both modes (same verdict;
@@ -139,6 +148,14 @@ REPLAY_PLAIN_MEMBERS = 16  # the plain path runs on this prefix of the members
 # smoke leg runs them.
 BIG = dict(seed=17, n=8, f=256, f_schedule=(256, 2048, 8192))
 BIG_KERNELS_F = 8192  # the ladder's top rung, where the batch spends its levels
+# radix_sort_sweep: each size at 1, 3 and 8 members, each key family of
+# testing.SORT_KEY_FAMILIES, against the plain sort and torch.sort; both
+# paths at the sizes one block holds (the crossover), and the device
+# launches of one call at each size.
+SORT_SWEEP_SIZES = (1, 31, 2048, 16384, 16385, 32768, 32769, 131072, 1048576)
+SORT_SWEEP_NB = (1, 3, 8)
+SORT_CROSSOVER_SIZES = (2048, 4096, 8192, 16384)
+SORT_SWEEP_REPS = dict(batch=10, batches=3)
 SOURCE = "jepsen_tpu_torch/csrc/wgl_level.cu"
 REPLACES = {
     "wgl_chunk_init": "jepsen_tpu/ops/wgl.py:830",
@@ -217,6 +234,10 @@ SHARD_CHUNK_LEVELS = 100  # the first chunk held against the plain path
 SHARD_WIDE_ESCALATIONS = 3
 SHARD_REFUTE_SEED = 2033
 SHARD_REFUTE_WITHIN = 0.02  # the broken read lies in the first 2% of the history
+# The exchange alone at the shard geometry of f_total 262144 (the third
+# escalation's rung: 32768 rows a shard, 131072 stage-1 rows, 1,048,576
+# received rows a shard under allgather), on seeded rows.
+SHARD_BIG_F_TOTAL = 262144
 SHARD_PROGRAM = "jepsen_tpu/parallel/frontier.py:72"
 SHARD_REPLACES = {"wgl_route": "jepsen_tpu/ops/wgl.py:551",
                   "wgl_exchange": "jepsen_tpu/ops/wgl.py:592",
@@ -405,18 +426,22 @@ def steady_state(plan, F, lv, wgl, model):
     levels, wall, launched = window()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         p_levels, p_wall, _ = window()
-    by_kernel = {}
+    by_kernel, launches_by = {}, {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or 0
         if us > 0 and getattr(e, "device_type", None) is not None \
                 and "cuda" in str(e.device_type).lower():
             name = e.key.split("(")[0]
             by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3
+            launches_by[name] = launches_by.get(name, 0) + e.count
     busy = sum(by_kernel.values())
+    per = max(p_levels, 1)
     return {"phase": "steady_state", "F": F, "from_level": lvl0, "levels": levels,
             "frontier_configs": int(saved[4].sum()),
             "ms_per_level": 1e3 * wall / max(levels, 1),
             "launches_per_level": {k: v / max(levels, 1) for k, v in launched.items()},
+            "device_launches_per_level": sum(launches_by.values()) / per if busy else None,
+            "device_launches_per_level_by_kernel": {k: v / per for k, v in launches_by.items()},
             "profiled_ms_per_level": 1e3 * p_wall / max(p_levels, 1),
             "device_busy_ms_per_level": busy / max(p_levels, 1) if busy else None,
             "device_idle_share": (1 - (busy / max(p_levels, 1))
@@ -554,7 +579,7 @@ class StageCheck:
                               ins)
             self.record("radix_sort_pairs",
                         max(max_abs_err(k[0], p[0]), max_abs_err(k[1], p[1])), t,
-                        e4(4 * nb * g.L), self._library_sort(keys))
+                        e4(4 * nb * g.L), library_sort_ms(keys))
             keys, perm = p[0], p[1]
         # prune
         fprio = z(nb, g.L)
@@ -572,7 +597,7 @@ class StageCheck:
                           lambda t: lv.radix_sort_pairs_plain(t[0], t[1], None, ctl),
                           ins)
         self.record("radix_sort_pairs", max(max_abs_err(k[0], p[0]), max_abs_err(k[1], p[1])),
-                    t, e4(4 * nb * g.L), self._library_sort(fprio))
+                    t, e4(4 * nb * g.L), library_sort_ms(fprio))
         order = p[1]
         # gather + finalize
         stats = torch.zeros((nb, lv.LEVEL_STAT_ROWS, 4), dtype=torch.int32, device=dev)
@@ -609,16 +634,6 @@ class StageCheck:
             return batch_ms(lambda t: torch.index_select(column[0], 0, t[0][0]), (perm,))[0]
         return batch_ms(lambda t: torch.gather(column, 1, t[0]), (perm.long(),))[0]
 
-    @staticmethod
-    def _library_sort(keys) -> float:
-        """``torch.sort(dim=1, stable=True)`` of the same u32 keys (sign bit
-        flipped so int32 order is u32 order), each member's row on its own:
-        a yardstick only."""
-        import torch
-
-        flipped = keys ^ torch.tensor(-2**31, dtype=torch.int32, device=keys.device)
-        return batch_ms(lambda t: torch.sort(t[0], dim=1, stable=True), (flipped,))[0]
-
 
 def stage_summary(chk, lv):
     """{kernel: summary} of a StageCheck, failing on any disagreement."""
@@ -634,6 +649,94 @@ def stage_summary(chk, lv):
                   "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
                   "library_ms": statistics.mean(v["library_ms"]) if v["library_ms"] else None}
     return out
+
+
+def library_sort_ms(keys, **reps) -> float:
+    """``torch.sort(dim=1, stable=True)`` of the same u32 keys (sign bit
+    flipped so int32 order is u32 order), each member's row on its own:
+    a yardstick only."""
+    import torch
+
+    flipped = keys ^ torch.tensor(-2**31, dtype=torch.int32, device=keys.device)
+    return batch_ms(lambda t: torch.sort(t[0], dim=1, stable=True), (flipped,), **reps)[0]
+
+
+def sort_device_launches(lv, keys, vals, scratch) -> int:
+    """Device kernels one radix_sort_pairs call launches (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    k, v = keys.clone(), vals.clone()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lv.radix_sort_pairs(k, v, scratch)
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if "k_sort" in e.name and "cuda" in str(e.device_type).lower())
+
+
+def radix_sort_sweep(lv):
+    """radix_sort_pairs at every SORT_SWEEP_SIZES x SORT_SWEEP_NB x key
+    family, bit for bit against the plain sort, with its ms, torch.sort's
+    ms, bound_ms (16 bytes a pair over HBM) and the path its default
+    scratch takes; both paths at SORT_CROSSOVER_SIZES (each family, 1 and 8
+    members); the device launches of one call at each size. Fails on any
+    disagreement. Returns the random-key cases and the crossover rows."""
+    import torch
+
+    from jepsen_tpu_torch.testing import SORT_KEY_FAMILIES, sort_keys
+
+    def case(n, nb, family, path=None):
+        keys = torch.from_numpy(sort_keys(family, nb, n, seed=n + nb)).to("cuda")
+        vals = torch.arange(n, dtype=torch.int32, device="cuda").repeat(nb, 1)
+        scratch = lv.sort_scratch(n, "cuda", nb, path=path)
+        k, v, kp, vp = keys.clone(), vals.clone(), keys.clone(), vals.clone()
+        lv.radix_sort_pairs(k, v, scratch)
+        lv.radix_sort_pairs_plain(kp, vp)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(k, kp), max_abs_err(v, vp))
+        if err:
+            raise AssertionError(f"radix_sort_pairs disagrees with the plain sort: n {n}, "
+                                 f"nb {nb}, {family}, path {lv.sort_path(scratch)}")
+        ms, call_ms = batch_ms(lambda t: lv.radix_sort_pairs(t[0], t[1], scratch),
+                               (keys, vals), **SORT_SWEEP_REPS)
+        row = {"n": n, "nb": nb, "family": family, "path": lv.sort_path(scratch),
+               "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+               "library_ms": library_sort_ms(keys, **SORT_SWEEP_REPS),
+               "bound_ms": 1e3 * 16 * nb * n / HBM_BYTES_PER_S, "bound_by": "bytes"}
+        row["vs_library"] = ms / row["library_ms"]
+        return row, (keys, vals, scratch)
+
+    random_rows = []
+    for n in SORT_SWEEP_SIZES:
+        rows, launches = [], None
+        for nb in SORT_SWEEP_NB:
+            for family in SORT_KEY_FAMILIES:
+                row, inputs = case(n, nb, family)
+                rows.append(row)
+                if family == "random":
+                    random_rows.append(row)
+                    if nb == 1:
+                        launches = sort_device_launches(lv, *inputs)
+        emit({"phase": "radix_sort_sweep", "n": n, "path": rows[0]["path"],
+              "device_launches": launches,
+              "cases": [{k: r[k] for k in ("nb", "family", "ms", "library_ms", "bound_ms")}
+                        for r in rows]})
+        for r in random_rows[-len(SORT_SWEEP_NB):]:
+            r["device_launches"] = launches
+    crossover = []
+    for n in SORT_CROSSOVER_SIZES:
+        for nb in (1, 8):
+            for family in SORT_KEY_FAMILIES:
+                for path in lv.SORT_PATHS:
+                    row, inputs = case(n, nb, family, path)
+                    if family == "random":
+                        row["device_launches"] = sort_device_launches(lv, *inputs)
+                    crossover.append({k: row.get(k) for k in ("n", "nb", "family", "path", "ms",
+                                                              "library_ms", "device_launches")})
+    emit({"phase": "radix_sort_sweep", "one_block_max": lv._build.SORT_CTA_MAX,
+          "both_paths": crossover})
+    return random_rows, crossover
 
 
 def batch_plan(encs, wgl, dev="cuda"):
@@ -1216,6 +1319,58 @@ def _library_exchange(g, send):
                         (send,), clone=False)[0]
     return batch_ms(lambda t: t[0][None].expand((D,) + tuple(t[0].shape)).contiguous(),
                     (send,), clone=False)[0]
+
+
+def exchange_scale_phase(lv, wgl, enc, model):
+    """wgl_exchange alone at the shard geometry of SHARD_BIG_F_TOTAL on
+    SHARD_D shards, both modes, on seeded rows (alltoall: each bucket's
+    valid rows a prefix, the rest zero, as wgl_route leaves them; every
+    source's n_cand between P / 2 and 9 P / 8): bit for bit against the
+    plain exchange, timed beside ``_library_exchange``'s one copy.
+    Returns {mode: summary}."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SHARD_BIG_F_TOTAL)
+    out = {}
+    for mode in lv.EXCHANGES:
+        plan, g, _tabs = sharded_setup(lv, wgl, enc, SHARD_BIG_F_TOTAL, SHARD_D, mode, model)
+        D, NC, a2a = g.D, g.NC, mode == "alltoall"
+        SR = D * g.PBK if a2a else g.P
+        rint = lambda lo, hi, shape: torch.randint(lo, hi, shape, generator=gen,  # noqa: E731
+                                                   device="cuda", dtype=torch.int64)
+        send = rint(-2**31, 2**31 - 1, (D, SR, NC)).to(torch.int32)
+        svalid = None
+        if a2a:
+            fill = rint(0, g.PBK + 1, (D, D, 1))
+            slot = torch.arange(g.PBK, device="cuda")
+            svalid = (slot < fill).reshape(D, SR).to(torch.uint8)
+            send *= svalid[..., None].to(torch.int32)
+        ctl = torch.zeros((D, lv.CTL_SIZE), dtype=torch.int32, device="cuda")
+        ctl[:, lv.CTL_GO] = 1
+        ctl[:, lv.CTL_NEXP] = rint(g.P // 2, g.P + g.P // 8, (D,)).to(torch.int32)
+        recv = torch.zeros((D, g.L, NC), dtype=torch.int32, device="cuda")
+        rvalid = torch.zeros((D, g.L), dtype=torch.uint8, device="cuda")
+        rp, vp = recv.clone(), rvalid.clone()
+        lv.exchange(g, send, svalid, ctl, recv, rvalid)
+        lv.exchange_plain(g, send, svalid, ctl, rp, vp)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(recv, rp), max_abs_err(rvalid, vp))
+        del rp, vp
+        if err:
+            raise AssertionError(f"wgl_exchange disagrees with its plain version at f_total "
+                                 f"{SHARD_BIG_F_TOTAL} ({mode})")
+        ms, call_ms = batch_ms(lambda t: lv.exchange(g, send, svalid, ctl, t[0], t[1]),
+                               (recv, rvalid), clone=False)
+        lib = _library_exchange(g, send)
+        nbytes = sharded_bytes(lv, "exchange", g, ctl)
+        out[mode] = {"max_abs_err": err, "ms": ms, "call_ms": call_ms,
+                     "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+                     "library_ms": lib, "vs_library": ms / lib}
+        emit({"phase": "exchange_scale", "exchange": mode, "f_total": SHARD_BIG_F_TOTAL,
+              "D": D, "F": g.F, "P": g.P, "PBK": g.PBK, "L": g.L, "NC": NC, **out[mode]})
+        del send, svalid, recv, rvalid
+        torch.cuda.empty_cache()
+    return out
 
 
 def sharded_kernels_phase(lv, wgl, enc, model):
@@ -2049,6 +2204,7 @@ def main() -> int:
     emit({"phase": "kernels", "random_sort_n": n, "max_abs_err": rerr})
     if rerr:
         raise AssertionError("radix_sort_pairs disagrees with the stable sort on random keys")
+    sort_rows, sort_crossover = radix_sort_sweep(lv)
 
     emit(steady_state(plan, TIMED_F, lv, wgl, model))
 
@@ -2276,6 +2432,7 @@ def main() -> int:
 
     # -- the frontier-sharded search on SHARD_D shards of the card ------------
     shard_stats, shard_errs = sharded_kernels_phase(lv, wgl, enc, model)
+    exchange_big = exchange_scale_phase(lv, wgl, enc, model)
     shard_launches = sharded_10k_phase(lv, wgl, model, frontier, make_mesh, encode_history,
                                        random_register_history)
     shard_refute_launches = sharded_refutation_phase(
@@ -2330,6 +2487,12 @@ def main() -> int:
                    if name == "owner-aware-mutex" else {}),
                 launches_keyed=keyed_mr_launches[kname] if name == "multi-register" else 0)
                 for name, f in families.items()]
+        if kname == "radix_sort_pairs":  # random keys at every size (radix_sort_sweep)
+            entry["one_block_max"] = lv._build.SORT_CTA_MAX
+            entry["sweep"] = [{k: r[k] for k in ("n", "nb", "path", "device_launches", "ms",
+                                                 "library_ms", "bound_ms")}
+                              for r in sort_rows]
+            entry["both_paths"] = sort_crossover
         if kname in shard_errs:  # every stage at the sharded L (sharded_kernels)
             entry["sharded_L_max_abs_err"] = shard_errs[kname]
             entry["max_abs_err"] = max(entry["max_abs_err"], shard_errs[kname])
@@ -2349,6 +2512,10 @@ def main() -> int:
                  "launches_by_path": {k: v[count] for k, v in shard_paths.items()}}
         if kname in shard_stats["allgather"]:
             entry["allgather"] = summary(shard_stats["allgather"][kname])
+        if kname == "wgl_exchange":
+            entry[f"f_total_{SHARD_BIG_F_TOTAL}"] = exchange_big
+            entry["max_abs_err"] = max([entry["max_abs_err"]]
+                                       + [v["max_abs_err"] for v in exchange_big.values()])
         kernels.append(entry)
     for kname, r in elle_main.items():
         kernels.append({

@@ -30,8 +30,12 @@ BUILD = PKG / "_build"
 LIB = BUILD / "libjepsen_kernels.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# Elements per warp tile of the radix sort (RS_TILE in csrc/wgl_level.cu).
-RS_TILE = 1024
+# The radix sort's sizes (csrc/wgl_level.cu): pairs one block sorts alone
+# (RS_CTA_MAX), the Onesweep tile (RS_TILE) and the words of its per-member
+# state header (RS_HDR).
+SORT_CTA_MAX = 16384
+SORT_TILE = 4096
+SORT_HDR = 1040
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 # entry point -> argument types, in order (the C signatures).

@@ -71,9 +71,18 @@
 #define UNKNOWN_VAL ((int)0x80000000)
 #define FULL 0xFFFFFFFFu
 
-// Elements per warp tile of the radix sort (must match _build.RS_TILE).
-#define RS_TILE 1024
-#define RS_WARPS 8
+// The radix sort (K3 below). Path S: pairs one block holds (must match
+// _build.SORT_CTA_MAX), items a thread holds there, and the stride of the
+// per-warp digit counters (257: the scan's column reads avoid bank
+// conflicts). Path L: threads and items of a tile, the tile (must match
+// _build.SORT_TILE) and the per-member state header (_build.SORT_HDR).
+#define RS_CTA_MAX 16384
+#define RS_CTA_IPT 16
+#define RS_CNT 257
+#define RS_L_THREADS 512
+#define RS_L_IPT 8
+#define RS_TILE (RS_L_THREADS * RS_L_IPT)
+#define RS_HDR 1040
 
 typedef unsigned int u32;
 
@@ -91,7 +100,8 @@ __device__ __forceinline__ u32 lane_lt_mask(int lane) {
 }
 
 // ---------------------------------------------------------------------------
-// Block-wide scans (blockDim.x == 1024, 32 warps)
+// Block-wide scans (block_excl_sum: blockDim.x a multiple of 32, at most
+// 1024; block_incl_max: 1024 threads)
 
 __device__ int block_excl_sum(int v, int* total) {
   __shared__ int ws[32];
@@ -104,7 +114,7 @@ __device__ int block_excl_sum(int v, int* total) {
   if (lane == 31) ws[w] = x;
   __syncthreads();
   if (w == 0) {
-    int s = ws[lane];
+    int s = lane < (int)(blockDim.x >> 5) ? ws[lane] : 0;
     for (int o = 1; o < 32; o <<= 1) {
       int y = __shfl_up_sync(FULL, s, o);
       if (lane >= o) s += y;
@@ -659,74 +669,403 @@ __global__ void k_take_col(const u32* __restrict__ src, long src_member, int str
 }
 
 // ---------------------------------------------------------------------------
-// K3 stable LSD radix sort of (u32 key, u32 value) pairs, 8-bit digits,
-// segmented: each member's row of n pairs is sorted on its own (the
-// member is the grid's y coordinate, not a key prefix, so no pass is
-// added). Used for the dedup sort (reference lines 644-657, one pass per
-// key from the last open-mask word to the fused key; stability makes it
-// lexicographic) and the compaction sort (lines 725-740, stability is the
-// iota tiebreak). Per pass: a per-warp-tile digit histogram
-// ([nb, 256, tiles], digit-major per member), one exclusive scan of each
-// member's histogram, and a stable scatter inside the member's segment in
-// which each warp walks its tile in order and ranks equal digits with
-// __match_any_sync.
+// K3 stable ascending LSD radix sort of (u32 key, u32 value) pairs, 8-bit
+// digits, segmented: each member's row of n pairs is sorted on its own (the
+// member is a grid coordinate, not a key prefix), in place. Used for the
+// dedup sort (reference lines 644-657, one sort per key from the last
+// open-mask word to the fused key; stability makes it lexicographic) and
+// the compaction sort (lines 725-740, stability is the iota tiebreak).
+//
+// What bounds it: 16 bytes a pair (keys and values read once and written
+// once), about 0.08 us of HBM time at the main path's 16384 pairs; what
+// costs is the chain of dependent passes and their launches. Two paths,
+// chosen by the scratch the caller passes (ops/wgl_level.py sort_scratch):
+//
+// Path S (k_sort_cta, n <= RS_CTA_MAX): one launch, one 1024-thread block
+// per member. The keys live in registers, warp-striped (warp w holds items
+// [w * 32 * ipt, (w + 1) * 32 * ipt), lane l item w * 32 * ipt + 32 j + l),
+// the values in shared memory; every digit pass stays in the block: a
+// stable rank per warp (match8 below and per-warp digit counters), one
+// block scan of the counters in (digit, warp) order, a scatter of keys and
+// values into shared memory and a re-read of the keys. The pairs cross
+// device memory once each way.
+//
+// Path L (above that): Onesweep (Adinets & Merrill 2022). One upsweep
+// launch builds the four digit histograms of every member in one read of
+// the keys (and zeroes the look-back words and tile counters); then one
+// launch per digit pass, in which each block takes its tile from an atomic
+// counter (so that look-back waits only on tiles that are already
+// running), ranks the tile in shared memory, publishes its digit counts by
+// decoupled look-back (status and count in one 32-bit word, read with
+// acquire) and writes the tile out digit run by digit run: each pass reads
+// and writes the data once. Five launches at most.
+//
+// Both skip a digit that is the same on every key of the member (`diff`,
+// the OR of each key XOR the first, has a zero byte there): the compaction
+// key has PB + 7 bits, so its top byte is zero at every realistic ND, and
+// an all-zero open-mask word skips all four. Path L ping-pongs between
+// keys/vals and the scratch; when the passes that run are odd in number it
+// runs the first uniform digit too (an identity copy), so the result ends
+// in keys/vals. A member whose control block says stop is not touched.
 
-__global__ void k_rs_hist(const u32* __restrict__ keys, int n, int shift, int* __restrict__ hist,
-                          int NT, const int* ctl) {
+// Bit mask of the passes path L runs: each digit that is not uniform,
+// plus the first uniform one when those are odd in number.
+__device__ __forceinline__ int rs_passes(u32 diff) {
+  int live = 0;
+  for (int p = 0; p < 4; ++p)
+    if ((diff >> (8 * p)) & 255u) live |= 1 << p;
+  if (__popc(live) & 1) live |= 1 << (__ffs(~live) - 1);
+  return live;
+}
+
+// The OR of v over the block; *slot is shared, zero, and published by a
+// __syncthreads() before the call.
+__device__ __forceinline__ u32 block_or(u32 v, u32* slot) {
+  v = __reduce_or_sync(FULL, v);
+  if ((threadIdx.x & 31) == 0 && v) atomicOr(slot, v);
+  __syncthreads();
+  return *slot;
+}
+
+// The lanes of `act` whose 8-bit digit d equals this lane's, two ways to
+// the same mask: __match_any_sync, whose cost grows with the number of
+// distinct digits in the warp (cheap on the level's open-mask and priority
+// keys, which take few values), or `many`: eight ballots, one a digit bit,
+// a fixed cost (cheaper on random digits such as the fused hash). Every
+// lane of the warp calls it.
+#define RS_MATCH_ANY_MAX 16
+__device__ __forceinline__ u32 match8(u32 d, u32 act, bool many) {
+  const int lane = threadIdx.x & 31;
+  if (!many) return __match_any_sync(FULL, ((act >> lane) & 1u) ? d : 256u + lane) & act;
+  u32 m = act;
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    const u32 v = __ballot_sync(FULL, (d >> b) & 1u);
+    m &= ((d >> b) & 1u) ? v : ~v;
+  }
+  return m;
+}
+
+// Stable rank of digit d among the warp's items so far, for the lanes of
+// `act` (the others take part and get nothing): the count of the warp's
+// earlier items with digit d (its counter wc[d], which the group's leader
+// advances) plus the lanes below with the same digit in this step. A
+// pass's first step (`probe`) matches with __match_any_sync and sets
+// `many` when it saw more than RS_MATCH_ANY_MAX distinct digits: a warp's
+// items are alike along a pass (a run of the fused hash, or of
+// priorities), so the rest of the pass takes the cheaper way for them.
+__device__ __forceinline__ int warp_rank8(u32 d, u32 act, int* wc, bool& many, bool probe) {
+  const int lane = threadIdx.x & 31;
+  const bool on = (act >> lane) & 1u;
+  const u32 peers = match8(d, act, many);
+  const bool leader = on && lane == __ffs(peers) - 1;
+  if (probe) many = __popc(__ballot_sync(FULL, leader)) > RS_MATCH_ANY_MAX;
+  const int before = on ? wc[d] : 0;
+  __syncwarp();
+  if (leader) wc[d] = before + __popc(peers);
+  __syncwarp();
+  return before + __popc(peers & lane_lt_mask(lane));
+}
+
+static size_t rs_cta_smem(int ipt) {
+  return (size_t)3 * 1024 * ipt * sizeof(u32) + (size_t)32 * RS_CNT * sizeof(int);
+}
+
+__global__ void __launch_bounds__(1024, 1)
+k_sort_cta(u32* __restrict__ keys, u32* __restrict__ vals, int n, const int* ctl) {
+  const int b = blockIdx.x;
+  // Read with the keys below: a stopped member's block loads and leaves.
+  const bool stop = stopped(member_ctl(ctl, b));
+  keys += (size_t)b * n;
+  vals += (size_t)b * n;
+  extern __shared__ u32 rs_smem[];
+  __shared__ u32 s_diff;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int ipt = (n + 1023) >> 10;       // 1 .. RS_CTA_IPT, block-uniform
+  const int cap = ipt << 10;              // items, the padded ones last
+  const int wbase = w * 32 * ipt + lane;  // item j of this thread: wbase + 32 j
+  u32* sk = rs_smem;                      // [cap] keys in the pass's order
+  u32* vs = sk + cap;                     // [cap] values, current order
+  u32* vd = vs + cap;                     // [cap] values, next order
+  int* cnt = (int*)(vd + cap);            // [32][RS_CNT] per-warp digit counters
+  int* wc = cnt + w * RS_CNT;
+  if (threadIdx.x == 0) s_diff = 0;
+  const u32 k0 = keys[0];
+  u32 k[RS_CTA_IPT];
+  int rk[RS_CTA_IPT];
+  u32 diff = 0;
+#pragma unroll
+  for (int j = 0; j < RS_CTA_IPT; ++j) {
+    const int i = wbase + 32 * j;
+    k[j] = FULL;  // padding sorts after every real key: it comes last
+    if (j < ipt && i < n) {
+      k[j] = keys[i];
+      vs[i] = vals[i];
+      diff |= k[j] ^ k0;
+    }
+  }
+  __syncthreads();
+  diff = block_or(diff, &s_diff);
+  if (stop || diff == 0) return;  // diff 0: every digit uniform, the row is sorted
+  for (int p = 0; p < 4; ++p) {
+    const int shift = 8 * p;
+    if (((diff >> shift) & 255u) == 0) continue;
+    for (int i = threadIdx.x; i < 32 * RS_CNT; i += 1024) cnt[i] = 0;
+    __syncthreads();
+    // Stable rank inside the warp: its items in order, equal digits of one
+    // step by lane.
+    bool many = false;
+#pragma unroll
+    for (int j = 0; j < RS_CTA_IPT; ++j)
+      if (j < ipt) rk[j] = warp_rank8((k[j] >> shift) & 255u, FULL, wc, many, j == 0);
+    __syncthreads();
+    // Exclusive offsets in (digit, warp) order: thread t sums digit t / 4
+    // over warps 8 (t % 4) .. 8 (t % 4) + 7, one block scan, and writes
+    // each counter's start back.
+    {
+      const int d = threadIdx.x >> 2, w0 = (threadIdx.x & 3) * 8;
+      int s = 0;
+      for (int u = 0; u < 8; ++u) s += cnt[(w0 + u) * RS_CNT + d];
+      int off = block_excl_sum(s, nullptr);
+      for (int u = 0; u < 8; ++u) {
+        int* c = cnt + (w0 + u) * RS_CNT + d;
+        const int v = *c;
+        *c = off;
+        off += v;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < RS_CTA_IPT; ++j) {
+      if (j < ipt) {
+        const int pos = wc[(k[j] >> shift) & 255u] + rk[j];
+        sk[pos] = k[j];
+        vd[pos] = vs[wbase + 32 * j];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < RS_CTA_IPT; ++j)
+      if (j < ipt) k[j] = sk[wbase + 32 * j];
+    u32* t = vs;
+    vs = vd;
+    vd = t;
+  }
+#pragma unroll
+  for (int j = 0; j < RS_CTA_IPT; ++j) {
+    const int i = wbase + 32 * j;
+    if (j < ipt && i < n) {
+      keys[i] = k[j];
+      vals[i] = vs[i];
+    }
+  }
+}
+
+// Path L state, per member b at state + b * RS_HDR: hist[4][256] (each
+// pass's digit counts), diff, ctr[4] (each pass's tile counter) and done
+// (blocks of the last pass finished); after all members' headers, two
+// look-back buffers of [nb][tiles][256] words. A call starts with hist and
+// diff zero (sort_scratch allocates zeros, and the last block of each
+// call's final launch zeroes them again); the upsweep zeroes ctr, done and
+// look-back buffer 0, and each pass zeroes its tile's row of the buffer the
+// next pass uses.
+#define RS_H_DIFF 1024
+#define RS_H_CTR 1025
+#define RS_H_DONE 1029
+#define RS_FLAG_A (1u << 30)  // look-back word: the tile's own count
+#define RS_FLAG_P (2u << 30)  // look-back word: count through this tile
+#define RS_VALUE (RS_FLAG_A - 1u)
+
+__device__ __forceinline__ u32 ld_acquire(const u32* p) {
+  u32 v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(u32* p, u32 v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ u32* rs_lookback(u32* state, int nb, int tiles, int buf, int b) {
+  return state + (size_t)nb * RS_HDR + ((size_t)buf * nb + b) * tiles * 256;
+}
+
+// Upsweep: the four digit histograms and diff of each member's keys, a
+// block per `chunk` keys.
+__global__ void __launch_bounds__(RS_L_THREADS)
+k_sort_upsweep(const u32* __restrict__ keys, int n, int chunk, u32* state, int tiles, int nb,
+               const int* ctl) {
   const int b = blockIdx.y;
   if (stopped(member_ctl(ctl, b))) return;
   keys += (size_t)b * n;
-  hist += (size_t)b * 256 * NT;
-  __shared__ int h[RS_WARPS][256];
-  int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  int tile = blockIdx.x * RS_WARPS + w;
-  for (int d = lane; d < 256; d += 32) h[w][d] = 0;
-  __syncwarp();
-  if (tile < NT) {
-    int base = tile * RS_TILE;
-    for (int j = lane; j < RS_TILE; j += 32) {
-      int i = base + j;
-      if (i < n) atomicAdd(&h[w][(keys[i] >> shift) & 255u], 1);
+  u32* hdr = state + (size_t)b * RS_HDR;
+  u32* lb0 = rs_lookback(state, nb, tiles, 0, b);
+  __shared__ int h[4 * 256];
+  __shared__ u32 s_diff;
+  const int lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < 4 * 256; i += blockDim.x) h[i] = 0;
+  if (threadIdx.x == 0) s_diff = 0;
+  if (blockIdx.x == 0 && threadIdx.x < 5) hdr[RS_H_CTR + threadIdx.x] = 0;  // ctr, done
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < (size_t)tiles * 256;
+       i += (size_t)gridDim.x * blockDim.x)
+    lb0[i] = 0;
+  __syncthreads();
+  const u32 k0 = keys[0];
+  u32 diff = 0;
+  bool many[4] = {false, false, false, false};  // see warp_rank8
+  const int i0 = blockIdx.x * chunk, i1 = min(n, i0 + chunk);
+  for (int base = i0; base < i1; base += blockDim.x) {  // uniform across the block
+    const int i = base + threadIdx.x;
+    const bool act = i < i1;
+    const u32 k = act ? keys[i] : 0u;
+    if (act) diff |= k ^ k0;
+    const u32 am = __ballot_sync(FULL, act);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const u32 d = (k >> (8 * p)) & 255u;
+      const u32 peers = match8(d, am, many[p]);
+      const bool leader = act && lane == __ffs(peers) - 1;
+      if (base == i0) many[p] = __popc(__ballot_sync(FULL, leader)) > RS_MATCH_ANY_MAX;
+      if (leader) atomicAdd(&h[p * 256 + d], __popc(peers));
     }
   }
-  __syncwarp();
-  if (tile < NT)
-    for (int d = lane; d < 256; d += 32) hist[d * NT + tile] = h[w][d];
+  diff = block_or(diff, &s_diff);
+  for (int i = threadIdx.x; i < 4 * 256; i += blockDim.x)
+    if (h[i]) atomicAdd(&hdr[i], (u32)h[i]);
+  if (threadIdx.x == 0 && diff) atomicOr(&hdr[RS_H_DIFF], diff);
 }
 
-__global__ void k_rs_scatter(const u32* __restrict__ kin, const u32* __restrict__ vin,
-                             u32* __restrict__ kout, u32* __restrict__ vout, int n, int shift,
-                             const int* __restrict__ hist, int NT, const int* ctl) {
+// One digit pass of path L over every member: (ka, va) -> (kb, vb) when the
+// pass is an even one of those that run, else back. Shared memory: the
+// tile's keys and values in digit order, then the per-warp counters.
+__global__ void __launch_bounds__(RS_L_THREADS, 2)
+k_sort_pass(u32* ka, u32* va, u32* kb, u32* vb, int n, u32* state, int tiles, int nb, int pass,
+            const int* ctl) {
   const int b = blockIdx.y;
   if (stopped(member_ctl(ctl, b))) return;
-  kin += (size_t)b * n;
-  vin += (size_t)b * n;
-  kout += (size_t)b * n;
-  vout += (size_t)b * n;
-  hist += (size_t)b * 256 * NT;
-  __shared__ int base[RS_WARPS][256];
-  int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  int tile = blockIdx.x * RS_WARPS + w;
-  if (tile >= NT) return;  // warp-uniform
-  for (int d = lane; d < 256; d += 32) base[w][d] = hist[d * NT + tile];
-  __syncwarp();
-  int start = tile * RS_TILE;
-  for (int j = 0; j < RS_TILE; j += 32) {
-    int i = start + j + lane;
-    if (start + j >= n) break;  // warp-uniform
-    bool act = i < n;
-    u32 k = act ? kin[i] : 0u;
-    u32 d = act ? ((k >> shift) & 255u) : (256u + lane);
-    u32 peers = __match_any_sync(FULL, d);
-    int rank = __popc(peers & lane_lt_mask(lane));
-    int dst = act ? base[w][d] + rank : 0;
-    __syncwarp();
-    if (act) {
-      kout[dst] = k;
-      vout[dst] = vin[i];
-      if (rank == 0) base[w][d] += __popc(peers);
+  extern __shared__ u32 rs_smem[];
+  __shared__ int s_tile, s_last;
+  __shared__ int s_start[256], s_gex[256], s_shift[256];
+  u32* hdr = state + (size_t)b * RS_HDR;
+  const u32 diff = hdr[RS_H_DIFF];
+  const int run = rs_passes(diff);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  if ((run >> pass) & 1) {
+    const int nth = __popc(run & ((1 << pass) - 1));  // passes run before this one
+    const size_t m = (size_t)b * n;
+    const u32* sk_ = (nth & 1) ? kb + m : ka + m;
+    const u32* sv_ = (nth & 1) ? vb + m : va + m;
+    u32* dk = (nth & 1) ? ka + m : kb + m;
+    u32* dv = (nth & 1) ? va + m : vb + m;
+    u32* lb = rs_lookback(state, nb, tiles, nth & 1, b);
+    u32* lbn = rs_lookback(state, nb, tiles, (nth & 1) ^ 1, b);
+    const int shift = 8 * pass;
+    if (((diff >> shift) & 255u) == 0) {
+      // A uniform digit run for parity: the identity, tile by tile.
+      const int t0 = blockIdx.x * RS_TILE, tn = min(RS_TILE, n - t0);
+      for (int q = threadIdx.x; q < tn; q += RS_L_THREADS) {
+        dk[t0 + q] = sk_[t0 + q];
+        dv[t0 + q] = sv_[t0 + q];
+      }
+      if (threadIdx.x < 256) lbn[(size_t)blockIdx.x * 256 + threadIdx.x] = 0;
+    } else {
+      u32* tk = rs_smem;                // [RS_TILE] the tile in digit order
+      u32* tv = tk + RS_TILE;
+      int* cnt = (int*)(tv + RS_TILE);  // [16][RS_CNT] per-warp digit counters
+      int* wc = cnt + w * RS_CNT;
+      if (threadIdx.x == 0) s_tile = (int)atomicAdd(&hdr[RS_H_CTR + pass], 1u);
+      for (int i = threadIdx.x; i < (RS_L_THREADS / 32) * RS_CNT; i += RS_L_THREADS) cnt[i] = 0;
+      __syncthreads();
+      const int tile = s_tile;
+      const int t0 = tile * RS_TILE, tn = min(RS_TILE, n - t0);
+      const int wbase = w * 32 * RS_L_IPT + lane;
+      u32 k[RS_L_IPT], v[RS_L_IPT];
+      int rk[RS_L_IPT];
+#pragma unroll
+      for (int j = 0; j < RS_L_IPT; ++j) {
+        const int i = wbase + 32 * j;
+        const bool act = i < tn;
+        k[j] = act ? sk_[t0 + i] : 0u;
+        v[j] = act ? sv_[t0 + i] : 0u;
+      }
+      bool many = false;
+#pragma unroll
+      for (int j = 0; j < RS_L_IPT; ++j)
+        rk[j] = warp_rank8((k[j] >> shift) & 255u, __ballot_sync(FULL, wbase + 32 * j < tn), wc,
+                           many, j == 0);
+      __syncthreads();
+      // Digit d's count in the tile and each warp's start inside it.
+      int tcount = 0;
+      if (threadIdx.x < 256) {
+        for (int u = 0; u < RS_L_THREADS / 32; ++u) {
+          int* c = cnt + u * RS_CNT + threadIdx.x;
+          const int x = *c;
+          *c = tcount;
+          tcount += x;
+        }
+      }
+      // One scan gives both the tile's digit starts (threads 0-255, its
+      // counts) and the member's global digit offsets (threads 256-511,
+      // the pass's histogram, less the tile's tn counted before them).
+      const int hv = threadIdx.x < 256 ? tcount : (int)hdr[pass * 256 + threadIdx.x - 256];
+      const int ex = block_excl_sum(hv, nullptr);
+      if (threadIdx.x < 256)
+        s_start[threadIdx.x] = ex;
+      else
+        s_gex[threadIdx.x - 256] = ex - tn;
+      __syncthreads();
+      if (threadIdx.x < 256) {
+        // Decoupled look-back for digit d: publish the tile's count, add
+        // the earlier tiles' until one that holds its inclusive count.
+        const int d = threadIdx.x;
+        u32* mine = lb + (size_t)tile * 256 + d;
+        int pre = 0;
+        if (tile == 0) {
+          st_release(mine, RS_FLAG_P | (u32)tcount);
+        } else {
+          st_release(mine, RS_FLAG_A | (u32)tcount);
+          for (int t = tile - 1;; --t) {
+            u32 x;
+            do {
+              x = ld_acquire(lb + (size_t)t * 256 + d);
+            } while ((x & ~RS_VALUE) == 0);
+            pre += (int)(x & RS_VALUE);
+            if (x & RS_FLAG_P) break;
+          }
+          st_release(mine, RS_FLAG_P | (u32)(pre + tcount));
+        }
+        s_shift[d] = s_gex[d] + pre - s_start[d];
+      }
+#pragma unroll
+      for (int j = 0; j < RS_L_IPT; ++j) {
+        if (wbase + 32 * j < tn) {
+          const u32 d = (k[j] >> shift) & 255u;
+          const int pos = s_start[d] + wc[d] + rk[j];
+          tk[pos] = k[j];
+          tv[pos] = v[j];
+        }
+      }
+      __syncthreads();
+      for (int q = threadIdx.x; q < tn; q += RS_L_THREADS) {
+        const u32 x = tk[q];
+        const int o = s_shift[(x >> shift) & 255u] + q;
+        dk[o] = x;
+        dv[o] = tv[q];
+      }
+      if (threadIdx.x < 256) lbn[(size_t)tile * 256 + threadIdx.x] = 0;
     }
-    __syncwarp();
+  }
+  if (pass == 3) {
+    // The member's last block of the call's last launch leaves hist and
+    // diff zero for the next call.
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      s_last = atomicAdd(&hdr[RS_H_DONE], 1u) == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (s_last)
+      for (int i = threadIdx.x; i <= RS_H_DIFF; i += RS_L_THREADS) hdr[i] = 0;
   }
 }
 
@@ -1012,29 +1351,116 @@ __global__ void k_route(const u32* __restrict__ crows, int* ctl, u32* __restrict
   }
 }
 
-// The exchange (reference lines 592-611), a thread per received row of
-// each destination shard d: recv[d][s * Bk + j] = send[s][d * dst_stride
-// + j] for source shard s, with dst_stride = PBK = Bk (tiled all_to_all)
-// or 0 and Bk = P (tiled all_gather). Received rows are in source order,
-// as the tiled collectives give them. Validity: svalid, or (all_gather
-// of the stage-1 rows) j < min(n_cand of s, P); invalid rows are written
-// as zeros, so the received buffers are the same on every run.
-__global__ void k_exchange(const u32* __restrict__ send, const unsigned char* __restrict__ svalid,
-                           const int* ctl, u32* __restrict__ recv,
-                           unsigned char* __restrict__ rvalid, int SR, int Bk, int dst_stride,
-                           int NC, int P) {
-  const int d = blockIdx.y;
-  if (stopped(member_ctl(ctl, d))) return;
-  const int L = gridDim.y * Bk;
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= L) return;
-  int s = r / Bk, j = r - s * Bk;
-  size_t src = (size_t)s * SR + (size_t)d * dst_stride + j;
-  bool v = svalid ? svalid[src] != 0 : j < min(ctl[(size_t)s * CTL_SIZE + CTL_NEXP], P);
-  const u32* a = send + src * NC;
-  u32* o = recv + ((size_t)d * L + r) * NC;
-  for (int k = 0; k < NC; ++k) o[k] = v ? a[k] : 0u;
-  rvalid[(size_t)d * L + r] = v ? 1 : 0;
+// The exchange (reference lines 592-611): recv[d][s * Bk + j] = send[s][d *
+// dst_stride + j], j < Bk, for destination shard d and source shard s, with
+// dst_stride = PBK = Bk (tiled all_to_all) or 0 and Bk = P (tiled
+// all_gather). Received rows are in source order, as the tiled collectives
+// give them. Validity: svalid, or (all_gather of the stage-1 rows) j <
+// min(n_cand of s, P); invalid rows are written as zeros, so the received
+// buffers are the same on every run.
+//
+// Each (d, s) pair is one contiguous run of Bk * NC words in both buffers,
+// so the exchange is D^2 block copies: a block moves EX_WORDS words of one
+// run (grid x: the chunk, y: s, z: d), a thread one 16-byte vector aligned
+// to the destination, with a scalar head and tail where the run does not
+// start on 16 bytes (PBK * NC need not be a multiple of 4), and a vector
+// load too where the source has the same alignment. Bound by bytes: each
+// row is read once (the all_gather's sources from L2 after the first) and
+// written once; at the main path's sizes a call is a few microseconds of
+// latency, so a thread issues its row, its validity and the stop test at
+// once and waits a single round trip.
+#define EX_THREADS 256
+#define EX_WORDS (EX_THREADS * 4)  // a 16-byte group a thread
+
+// Whether word w of the run is a valid row's: its row's svalid byte, or
+// (svalid null) w below the all_gather's valid prefix of vw words.
+__device__ __forceinline__ bool ex_valid(const unsigned char* sv, int vw, int w, int NC) {
+  return sv ? sv[w / NC] != 0 : w < vw;
+}
+
+// Loads the compiler keeps where they are written (volatile asm is not
+// moved past another): k_exchange issues its row before it tests the stop.
+__device__ __forceinline__ uint4 ld_v4_now(const u32* p) {
+  uint4 v;
+  asm volatile("ld.global.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ int ld_now(const int* p) {
+  int v;
+  asm volatile("ld.global.s32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ bool ld_flag_now(const unsigned char* p) {
+  u32 v;
+  asm volatile("ld.global.u8 %0, [%1];" : "=r"(v) : "l"(p));
+  return v != 0;
+}
+
+__global__ void __launch_bounds__(EX_THREADS)
+k_exchange(const u32* __restrict__ send, const unsigned char* __restrict__ svalid,
+           const int* ctl, u32* __restrict__ recv, unsigned char* __restrict__ rvalid, int SR,
+           int Bk, int dst_stride, int NC, int P) {
+  const int s = blockIdx.y, d = blockIdx.z;
+  const int RW = Bk * NC;  // words of the run
+  const int c0 = blockIdx.x * EX_WORDS;
+  if (c0 >= RW) return;
+  const int c1 = min(RW, c0 + EX_WORDS);
+  const size_t srow = (size_t)s * SR + (size_t)d * dst_stride;
+  const size_t drow = ((size_t)d * gridDim.y + s) * Bk;
+  const u32* a = send + srow * NC;
+  u32* o = recv + drow * NC;
+  const unsigned char* sv = svalid ? svalid + srow : nullptr;
+  // The destination's 16-byte groups inside [c0, c1), a scalar head and tail.
+  const int g0 = min(c1, c0 + (int)((4 - (((uintptr_t)(o + c0) >> 2) & 3)) & 3));
+  const int ng = (c1 - g0) >> 2;
+  const int g1 = g0 + 4 * ng;
+  const int t = threadIdx.x;
+  const int w = g0 + 4 * t;
+  // The loads go out together: the stop test and the source's n_cand do
+  // not hold up the row's (a stopped destination's are just not stored).
+  const bool stop = ctl != nullptr && ld_now(ctl + (size_t)d * CTL_SIZE + CTL_GO) == 0;
+  const int ncand = sv ? 0 : ld_now(ctl + (size_t)s * CTL_SIZE + CTL_NEXP);
+  uint4 x = make_uint4(0u, 0u, 0u, 0u);
+  // The group's words lie in row r (from word e of it) and, past its end,
+  // row r + 1 (NC >= 3: four words span at most two rows); their validity.
+  const int r = w / NC, e = w - r * NC;
+  bool v0 = true, v1 = true;
+  if (t < ng) {
+    if ((((uintptr_t)(a + g0)) & 15) == 0) {
+      x = ld_v4_now(a + w);
+    } else {
+      x.x = a[w];
+      x.y = a[w + 1];
+      x.z = a[w + 2];
+      x.w = a[w + 3];
+    }
+    if (sv) {
+      v0 = ld_flag_now(sv + r);
+      if (e + 3 >= NC) v1 = ld_flag_now(sv + r + 1);
+    }
+  }
+  if (stop) return;
+  const int vw = sv ? 0 : max(0, min(ncand, P)) * NC;
+  if (t < g0 - c0) o[c0 + t] = ex_valid(sv, vw, c0 + t, NC) ? a[c0 + t] : 0u;
+  if (t < c1 - g1) o[g1 + t] = ex_valid(sv, vw, g1 + t, NC) ? a[g1 + t] : 0u;
+  if (t < ng) {
+    if (!sv) {
+      v0 = w < vw;  // the valid prefix ends on a row boundary
+      v1 = w + 3 < vw;
+    }
+    x.x = (e < NC ? v0 : v1) ? x.x : 0u;
+    x.y = (e + 1 < NC ? v0 : v1) ? x.y : 0u;
+    x.z = (e + 2 < NC ? v0 : v1) ? x.z : 0u;
+    x.w = (e + 3 < NC ? v0 : v1) ? x.w : 0u;
+    *reinterpret_cast<uint4*>(o + w) = x;
+  }
+  // The validity bytes of the rows whose first word is in [c0, c1).
+  for (int r = (c0 + NC - 1) / NC + t; r * NC < c1; r += EX_THREADS)
+    rvalid[drow + r] = ex_valid(sv, vw, r * NC, NC) ? 1 : 0;
 }
 
 // The cross-shard reductions over the D control blocks, one thread (D is
@@ -1194,27 +1620,46 @@ int wgl_take_col(void* src, long src_member, int stride, int col, void* idx, voi
   return (int)cudaGetLastError();
 }
 
-// keys/vals [nb, n]; tmp_k/tmp_v [nb, n] each; hist [nb, 256 * ceil(n / RS_TILE)].
-int radix_sort_pairs(void* keys, void* vals, void* tmp_k, void* tmp_v, void* hist, int n, int nb,
+// keys/vals [nb, n]. Path S (tmp_k null, n <= RS_CTA_MAX): one launch.
+// Path L: tmp_k/tmp_v [nb, n] each and `state`, nb * RS_HDR +
+// 2 * nb * ceil(n / RS_TILE) * 256 words, zero on the first call (each
+// call leaves it so): at most five launches, whatever the digits.
+int radix_sort_pairs(void* keys, void* vals, void* tmp_k, void* tmp_v, void* state, int n, int nb,
                      void* ctl, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int* c = (const int*)ctl;
-  int NT = nblk(n, RS_TILE);
-  dim3 grid(nblk(NT, RS_WARPS), nb);
-  u32* ka = (u32*)keys;
-  u32* va = (u32*)vals;
-  u32* kb = (u32*)tmp_k;
-  u32* vb = (u32*)tmp_v;
-  for (int pass = 0; pass < 4; ++pass) {
-    int shift = 8 * pass;
-    k_rs_hist<<<grid, 32 * RS_WARPS, 0, s>>>(ka, n, shift, (int*)hist, NT, c);
-    k_scan_excl_sum<<<nb, 1024, 0, s>>>((int*)hist, 256 * NT, c);
-    k_rs_scatter<<<grid, 32 * RS_WARPS, 0, s>>>(ka, va, kb, vb, n, shift, (const int*)hist, NT,
-                                               c);
-    u32* t = ka; ka = kb; kb = t;
-    t = va; va = vb; vb = t;
+  if (n <= 0 || nb <= 0) return (int)cudaGetLastError();
+  if (tmp_k == nullptr) {
+    if (n > RS_CTA_MAX) return (int)cudaErrorInvalidValue;
+    static bool sized = false;
+    if (!sized) {
+      cudaError_t e = cudaFuncSetAttribute(k_sort_cta, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)rs_cta_smem(RS_CTA_IPT));
+      if (e != cudaSuccess) return (int)e;
+      sized = true;
+    }
+    k_sort_cta<<<nb, 1024, rs_cta_smem((n + 1023) >> 10), s>>>((u32*)keys, (u32*)vals, n, c);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();  // four passes: the result is back in keys/vals
+  const size_t smem = (size_t)2 * RS_TILE * sizeof(u32) + (RS_L_THREADS / 32) * RS_CNT * sizeof(int);
+  static bool sized_l = false;
+  if (!sized_l) {
+    cudaError_t e =
+        cudaFuncSetAttribute(k_sort_pass, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    sized_l = true;
+  }
+  const int tiles = nblk(n, RS_TILE);
+  // Upsweep blocks: a tile each, or more tiles a block once the batch has
+  // more than 512 tiles (fewer histogram atomics).
+  const int chunk = RS_TILE * nblk((long)tiles * nb, 512);
+  u32* st = (u32*)state;
+  k_sort_upsweep<<<dim3(nblk(n, chunk), nb), RS_L_THREADS, 0, s>>>((const u32*)keys, n, chunk, st,
+                                                                  tiles, nb, c);
+  for (int pass = 0; pass < 4; ++pass)
+    k_sort_pass<<<dim3(tiles, nb), RS_L_THREADS, smem, s>>>((u32*)keys, (u32*)vals, (u32*)tmp_k,
+                                                           (u32*)tmp_v, n, st, tiles, nb, pass, c);
+  return (int)cudaGetLastError();
 }
 
 int wgl_prune(void* drows, void* skey, void* perm, void* ctl, void* fprio, void* pflags,
@@ -1258,8 +1703,8 @@ int wgl_route(void* crows, void* ctl, void* send, void* svalid, int P, int NC, i
 // n_cand and P); recv [D, D * Bk, NC], rvalid [D, D * Bk].
 int wgl_exchange(void* send, void* svalid, void* ctl, void* recv, void* rvalid, int SR, int Bk,
                  int dst_stride, int NC, int P, int D, void* stream) {
-  long L = (long)D * Bk;
-  k_exchange<<<dim3(nblk(L, 256), D), 256, 0, (cudaStream_t)stream>>>(
+  if (D < 1 || D > MAX_SHARDS) return (int)cudaErrorInvalidValue;
+  k_exchange<<<dim3(nblk((long)Bk * NC, EX_WORDS), D, D), EX_THREADS, 0, (cudaStream_t)stream>>>(
       (const u32*)send, (const unsigned char*)svalid, (const int*)ctl, (u32*)recv,
       (unsigned char*)rvalid, SR, Bk, dst_stride, NC, P);
   return (int)cudaGetLastError();

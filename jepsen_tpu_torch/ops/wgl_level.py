@@ -18,7 +18,9 @@ stage                   what it computes
 ``stage1_hash``         stable compaction of valid rows into P rows (when
                         ``M > BIG_M_THRESHOLD``), FNV group hash, fused key
 ``take_col``            ``out[i] = src[idx[i], col]`` (sort-key gather)
-``radix_sort_pairs``    stable LSD radix sort of (u32 key, u32 value) pairs
+``radix_sort_pairs``    stable LSD radix sort of (u32 key, u32 value) pairs:
+                        one block per member up to 16384 pairs, Onesweep
+                        above (see :func:`sort_scratch`)
 ``prune``               same-group / adjacent-subset / group-head dominance,
                         keep count, fused compaction priority
 ``gather_finalize``     top-F gather into the frontier (in place), the
@@ -175,13 +177,38 @@ def _nblk(n: int, per: int) -> int:
     return max(1, -(-n // per))
 
 
-def sort_scratch(n: int, device, nb: int = 1) -> tuple:
-    """Scratch of :func:`radix_sort_pairs` for ``nb`` rows of ``n`` pairs:
-    the ping-pong key and value buffers ``[2, nb, n]`` and each member's
-    per-tile digit histogram ``[nb, 256 * tiles]``."""
+SORT_PATHS = ("cta", "onesweep")
+
+
+def sort_scratch(n: int, device, nb: int = 1, path: Optional[str] = None) -> tuple:
+    """Scratch of :func:`radix_sort_pairs` for ``nb`` rows of ``n`` pairs,
+    which also picks the kernel's path. ``"cta"``, one block per member
+    with everything in shared memory, is the default up to the most pairs
+    a block holds (``_build.SORT_CTA_MAX``; the crossover sweep on the card
+    is in ``PERF.md`` §6) and needs no scratch: ``(tmp [2, nb, 0], state
+    [0])``. ``"onesweep"`` needs the ping-pong keys and values ``tmp [2,
+    nb, n]`` and ``state``: each member's digit histograms, tile counters
+    and look-back words, zeroed (each call leaves them zero)."""
+    if path is None:
+        path = "cta" if n <= _build.SORT_CTA_MAX else "onesweep"
+    if path not in SORT_PATHS:
+        raise ValueError(f"unknown sort path {path!r} (expected one of {SORT_PATHS})")
+    if path == "cta":
+        if n > _build.SORT_CTA_MAX:
+            raise ValueError(f"sort of {n} pairs: one block holds {_build.SORT_CTA_MAX}")
+        return (torch.empty((2, nb, 0), dtype=torch.int32, device=device),
+                torch.empty((0,), dtype=torch.int32, device=device))
     return (torch.empty((2, nb, n), dtype=torch.int32, device=device),
-            torch.empty((nb, 256 * _nblk(n, _build.RS_TILE)), dtype=torch.int32,
-                        device=device))
+            torch.zeros((_sort_state_words(n, nb),), dtype=torch.int32, device=device))
+
+
+def _sort_state_words(n: int, nb: int) -> int:
+    return nb * (_build.SORT_HDR + 2 * 256 * _nblk(n, _build.SORT_TILE))
+
+
+def sort_path(scratch: tuple) -> str:
+    """The path a :func:`radix_sort_pairs` call with ``scratch`` takes."""
+    return "cta" if scratch[0].shape[-1] == 0 else "onesweep"
 
 
 class BatchWorkspace:
@@ -912,27 +939,38 @@ def radix_sort_pairs(keys: torch.Tensor, vals: torch.Tensor, scratch: tuple,
                      ctl: Optional[torch.Tensor] = None) -> None:
     """Stage K3: stable ascending sort of each member's row of (u32 key,
     u32 value) pairs (``[nb, n]``), in place. ``scratch`` is ``(tmp,
-    hist)`` from :func:`sort_scratch` (a :class:`BatchWorkspace` holds
-    one)."""
+    state)`` from :func:`sort_scratch` (a :class:`BatchWorkspace` holds
+    one); it chooses the kernel's path: one launch, or at most five."""
     if keys.device.type == "cpu":
         return radix_sort_pairs_plain(keys, vals, scratch, ctl)
     _launch("radix_sort_pairs", *_radix_sort_pairs_args(keys, vals, scratch, ctl))
 
 
 def _radix_sort_pairs_args(keys, vals, scratch, ctl) -> tuple:
-    tmp, hist = scratch
-    _check_cuda(keys, vals, tmp, hist, ctl)
+    tmp, state = scratch
+    _check_cuda(keys, vals, tmp, state, ctl)
     if keys.dim() != 2:
         raise ValueError("radix_sort_pairs: keys must be [nb, n]")
     nb, n = keys.shape
     _check_members(nb)
     if vals.shape != keys.shape:
         raise ValueError("radix_sort_pairs: keys and values differ in shape")
-    if tmp.shape != (2, nb, n) or hist.numel() < nb * 256 * _nblk(n, _build.RS_TILE):
+    if n >= 2**30:
+        raise ValueError(f"radix_sort_pairs: {n} pairs a row; the kernel takes fewer than 2**30")
+    one_block = sort_path(scratch) == "cta"
+    if one_block:
+        fits = tmp.shape == (2, nb, 0) and n <= _build.SORT_CTA_MAX
+    else:
+        fits = tmp.shape == (2, nb, n) and state.numel() >= _sort_state_words(n, nb)
+    if not fits:
         raise ValueError("radix_sort_pairs: scratch does not fit (see sort_scratch)")
     if ctl is not None:
         _check_shapes("radix_sort_pairs", (ctl, (nb, CTL_SIZE)))
-    return (_ptr(keys), _ptr(vals), _ptr(tmp[0]), _ptr(tmp[1]), _ptr(hist),
+    none = ctypes.c_void_p(0)
+    if one_block:
+        return (_ptr(keys), _ptr(vals), none, none, none, ctypes.c_int(n), ctypes.c_int(nb),
+                _ptr(ctl), _stream())
+    return (_ptr(keys), _ptr(vals), _ptr(tmp[0]), _ptr(tmp[1]), _ptr(state),
             ctypes.c_int(n), ctypes.c_int(nb), _ptr(ctl), _stream())
 
 

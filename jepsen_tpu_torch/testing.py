@@ -7,7 +7,7 @@ history in either package. ``random_model_history`` simulates an atomic
 service of any device model, and ``lagged_append_history`` and
 ``lagged_wr_history`` simulate transactional stores for the Elle checkers
 (the reference has no such generators; tests hand the same op rows to
-both packages).
+both packages). ``sort_keys`` draws the radix sort's test keys.
 """
 
 from __future__ import annotations
@@ -450,3 +450,32 @@ def lagged_wr_history(seed: int, n_txns: int, lag: Optional[tuple] = None,
         return 1
 
     return _lagged_txns(seed, n_txns, lag, depth, key_count, max_txn_length, n_procs, mop)
+
+
+# Key families of the radix sort's tests: stability (equal and two distinct
+# keys), pass skipping (a zero top byte, as the compaction key fprio has at
+# PB = 14: PB + 7 bits), presorted and reversed rows, and random keys.
+SORT_KEY_FAMILIES = ("equal", "two", "top_byte", "sorted", "reversed", "random")
+
+
+def sort_keys(family: str, nb: int, n: int, seed: int = 0):
+    """``[nb, n]`` int32 keys (u32 bit patterns) of one family, drawn with
+    numpy from ``seed``; each member's row on its own."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, 2**32, size=(nb, n), dtype=np.uint64).astype(np.uint32)
+    if family == "equal":
+        u[:] = u[:, :1]
+    elif family == "two":
+        pair = rng.integers(0, 2**32, size=(nb, 2), dtype=np.uint64).astype(np.uint32)
+        u = np.where(rng.random((nb, n)) < 0.5, pair[:, :1], pair[:, 1:])
+    elif family == "top_byte":
+        u = u >> np.uint32(32 - (14 + 7))
+    elif family == "sorted":
+        u = np.sort(u, axis=1)
+    elif family == "reversed":
+        u = np.sort(u, axis=1)[:, ::-1]
+    elif family != "random":
+        raise ValueError(f"unknown key family {family!r} (expected one of {SORT_KEY_FAMILIES})")
+    return np.array(u, dtype=np.uint32, order="C").view(np.int32)  # a copy, strides >= 0

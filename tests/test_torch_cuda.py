@@ -17,7 +17,8 @@ from jepsen_tpu_torch.ops import wgl
 from jepsen_tpu_torch.ops import wgl_level as lv
 from jepsen_tpu_torch.ops.encode import encode_history
 from jepsen_tpu_torch.parallel import Mesh
-from jepsen_tpu_torch.testing import perturb_history, random_register_history
+from jepsen_tpu_torch.testing import (SORT_KEY_FAMILIES, perturb_history,
+                                      random_register_history, sort_keys)
 
 pytestmark = pytest.mark.cuda
 
@@ -91,7 +92,95 @@ def test_radix_sort_refuses_short_scratch(cuda):
     keys = torch.zeros((1, 5000), dtype=torch.int32, device=cuda)
     vals = torch.zeros((1, 5000), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
-        lv.radix_sort_pairs(keys, vals, lv.sort_scratch(4096, cuda))
+        lv.radix_sort_pairs(keys, vals, lv.sort_scratch(4096, cuda, path="onesweep"))
+    big = torch.zeros((1, lv._build.SORT_CTA_MAX + 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # one block holds no more than SORT_CTA_MAX pairs
+        lv.radix_sort_pairs(big, big.clone(), lv.sort_scratch(16, cuda))
+
+
+SORT_SIZES = (1, 31, 2048, 16384, 16385, 32768, 32769, 131072, 1048576)
+
+
+def _sort_both(keys, vals, scratch, ctl=None):
+    """The kernel and the plain version on copies of the same pairs, bit
+    for bit; returns the kernel's."""
+    kk, vk, kp, vp = keys.clone(), vals.clone(), keys.clone(), vals.clone()
+    lv.radix_sort_pairs(kk, vk, scratch, ctl)
+    lv.radix_sort_pairs_plain(kp, vp, None, ctl)
+    torch.cuda.synchronize()
+    assert torch.equal(kk, kp) and torch.equal(vk, vp)
+    return kk, vk
+
+
+def _iota(nb, n, cuda):
+    return torch.arange(n, dtype=torch.int32, device=cuda).repeat(nb, 1)
+
+
+@pytest.mark.parametrize("family", SORT_KEY_FAMILIES)
+@pytest.mark.parametrize("nb", [1, 3, 8])
+@pytest.mark.parametrize("n", SORT_SIZES)
+def test_radix_sort_sweep_matches_plain(cuda, n, nb, family):
+    """Both paths on both sides of the crossover, each key family (stability,
+    skipped passes, presorted rows), bit for bit against the plain sort."""
+    keys = torch.from_numpy(sort_keys(family, nb, n, seed=n + nb)).to(cuda)
+    _sort_both(keys, _iota(nb, n, cuda), lv.sort_scratch(n, cuda, nb))
+
+
+@pytest.mark.parametrize("family", ["equal", "two", "top_byte", "random"])
+@pytest.mark.parametrize("n", [1, 31, 2048, 4096, 16384])
+def test_radix_sort_onesweep_below_the_crossover(cuda, n, family):
+    keys = torch.from_numpy(sort_keys(family, 3, n, seed=7)).to(cuda)
+    _sort_both(keys, _iota(3, n, cuda), lv.sort_scratch(n, cuda, 3, path="onesweep"))
+
+
+def test_radix_sort_scratch_is_reusable(cuda):
+    """One Onesweep scratch through every family and two sizes in turn:
+    each call leaves the digit histograms and diff words zero."""
+    nb = 3
+    scratch = lv.sort_scratch(50000, cuda, nb)
+    hdr = lambda: scratch[1][:nb * lv._build.SORT_HDR].view(nb, -1)[:, :1025]  # noqa: E731
+    for rep, family in enumerate(SORT_KEY_FAMILIES * 2):
+        n = 50000 if rep % 2 else 40000
+        keys = torch.from_numpy(sort_keys(family, nb, n, seed=rep)).to(cuda)
+        small = (scratch[0][:, :, :n].contiguous(), scratch[1])
+        _sort_both(keys, _iota(nb, n, cuda), scratch if n == 50000 else small)
+        assert int(hdr().abs().sum()) == 0
+
+
+@pytest.mark.parametrize("path", lv.SORT_PATHS)
+def test_radix_sort_leaves_a_stopped_member_untouched(cuda, path):
+    nb, n = 3, 16384 if path == "cta" else 20000
+    keys = torch.from_numpy(sort_keys("random", nb, n, seed=3)).to(cuda)
+    vals = _iota(nb, n, cuda)
+    ctl = torch.zeros((nb, lv.CTL_SIZE), dtype=torch.int32, device=cuda)
+    ctl[:, lv.CTL_GO] = 1
+    ctl[1, lv.CTL_GO] = 0
+    scratch = lv.sort_scratch(n, cuda, nb, path=path)
+    kk, vk = _sort_both(keys, vals, scratch, ctl)
+    assert torch.equal(kk[1], keys[1]) and torch.equal(vk[1], vals[1])
+    assert not torch.equal(kk[0], keys[0])
+    if path == "onesweep":  # nor its state header
+        hdr = scratch[1][:nb * lv._build.SORT_HDR].view(nb, -1)
+        assert int(hdr[1].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("n,launches", [(16384, 1), (16385, 5), (1048576, 5)])
+def test_radix_sort_device_launches(cuda, n, launches):
+    """One block's launch at the main path's size, five above the crossover
+    (an upsweep and four passes, whatever the digits)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    keys = torch.from_numpy(sort_keys("top_byte", 1, n, seed=1)).to(cuda)
+    vals = _iota(1, n, cuda)
+    scratch = lv.sort_scratch(n, cuda)
+    lv.radix_sort_pairs(keys.clone(), vals.clone(), scratch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lv.radix_sort_pairs(keys, vals, scratch)
+        torch.cuda.synchronize()
+    sort_kernels = [e for e in prof.events()
+                    if "k_sort" in e.name and "cuda" in str(e.device_type).lower()]
+    assert len(sort_kernels) == launches, [e.name for e in sort_kernels]
 
 
 def test_wrappers_refuse_cpu_cuda_mix(cuda):
@@ -518,6 +607,51 @@ def test_sharded_search_matches_plain(cuda, mode):
         [(a["F"], a["levels"], a["calls"]) for a in p["attempts"]]
     single = wgl.check_encoded_device(enc)
     assert k["valid"] == single["valid"]
+
+
+def _exchange_case(D, mode, NC, P, cuda):
+    """A geometry of D shards with NC words a row and random send buffers
+    (alltoall: random bucket validity, not a prefix), each source's n_cand
+    0, below P or above P, one destination stopped at D = 3, and receive
+    buffers prefilled with a pattern."""
+    F = 13
+    g = lv.Geometry(F=F, W=32, KO=1, S=NC - 3, ND=64, NO=32, B=-(-P // F), SEL=False,
+                    two_stage=True, P=P, D=D, exchange=mode)
+    assert g.NC == NC
+    rng = np.random.default_rng(D * 100 + NC)
+    a2a = mode == "alltoall"
+    SR = D * g.PBK if a2a else P
+    send = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, size=(D, SR, NC),
+                                         dtype=np.int64).astype(np.int32)).to(cuda)
+    svalid = (torch.from_numpy((rng.random((D, SR)) < 0.6).astype(np.uint8)).to(cuda)
+              if a2a else None)
+    ctl = torch.zeros((D, lv.CTL_SIZE), dtype=torch.int32, device=cuda)
+    ctl[:, lv.CTL_GO] = 1
+    if D == 3:
+        ctl[2, lv.CTL_GO] = 0
+    ctl[:, lv.CTL_NEXP] = torch.tensor([(0, P // 2, P + 7)[s % 3] for s in range(D)])
+    recv = torch.full((D, g.L, NC), 0x5A5A5A5A, dtype=torch.int32, device=cuda)
+    rvalid = torch.full((D, g.L), 7, dtype=torch.uint8, device=cuda)
+    return g, send, svalid, ctl, recv, rvalid
+
+
+@pytest.mark.parametrize("P", [52, 4108])
+@pytest.mark.parametrize("NC", range(3, 9))
+@pytest.mark.parametrize("mode", ["alltoall", "allgather"])
+@pytest.mark.parametrize("D", [1, 2, 3, 8])
+def test_exchange_matches_plain(cuda, D, mode, NC, P):
+    """The block-copy exchange bit for bit against exchange_plain: runs
+    that start off 16 bytes (PBK = 18 or 7 at P = 52), several blocks a run
+    at P = 4108, sources with n_cand 0, below P and above P, invalid rows
+    zeroed and a stopped destination left as it was."""
+    g, send, svalid, ctl, recv, rvalid = _exchange_case(D, mode, NC, P, cuda)
+    rk, vk, rp, vp = recv.clone(), rvalid.clone(), recv.clone(), rvalid.clone()
+    lv.exchange(g, send, svalid, ctl, rk, vk)
+    lv.exchange_plain(g, send, svalid, ctl, rp, vp)
+    torch.cuda.synchronize()
+    assert torch.equal(rk, rp) and torch.equal(vk, vp)
+    if D == 3:
+        assert torch.equal(rk[2], recv[2])
 
 
 def test_sharded_wrappers_refuse_bad_meshes(cuda):
