@@ -16,6 +16,14 @@ and then runs these phases, each printing JSON lines:
   bit against the plain sort, with its ms beside ``torch.sort``'s, its
   bound and the path it takes; both paths at the sizes one block holds,
   and the device launches of one call at each size;
+- ``stage1_sweep``: the stage-1 compaction and hash alone at 1 to 262,144
+  rows (around the smallest tile, the main path's 131,072 and the batch's
+  262,144), 1, 3 and 8 members and each validity density of
+  ``testing.STAGE1_DENSITIES``, both arms (with the key, and the
+  compaction alone), bit for bit under its contract against the plain
+  version, with ms, bound and share of the bound; the device launches of
+  one call of each arm (counted from a stream capture: one); every tile
+  size at the main path's and the batch's shapes;
 - ``steady_state``: device busy time, idle share and device launches per
   level;
 - ``main_path``: the north-star history decided through
@@ -85,6 +93,9 @@ and then runs these phases, each printing JSON lines:
   all-ones member at 8192 and on an all-ones 32768 block-square step, bit
   for bit against the plain version, with its ms, its share of the bf16
   bound and ``torch.matmul``'s ms on the same inputs;
+- ``gather_scale``: ``elle_gather`` alone at pad 8192 and 32768 on 8
+  shards, bit for bit against the plain gather, timed in turns with
+  ``clone()`` (its recorded library call) and ``full.copy_(blocks)``;
 - ``sharded_kernels``: the north-star frontier (800 beam levels at 4096)
   laid on 8 shards of 512 rows; one sharded level in each exchange mode,
   every stage (the new ``wgl_route``, ``wgl_exchange``,
@@ -156,6 +167,21 @@ SORT_SWEEP_SIZES = (1, 31, 2048, 16384, 16385, 32768, 32769, 131072, 1048576)
 SORT_SWEEP_NB = (1, 3, 8)
 SORT_CROSSOVER_SIZES = (2048, 4096, 8192, 16384)
 SORT_SWEEP_REPS = dict(batch=10, batches=3)
+# stage1_sweep: the two-stage compaction and hash alone at the card tests'
+# sizes (M around the tile, the main path's 131072 and the batch's 262144)
+# and each validity density of testing.STAGE1_DENSITIES, both arms, bit
+# for bit against the plain version; every tile size at the main path's
+# and the batch's shapes.
+STAGE1_SWEEP_M = (2047, 2048, 2049, 1, 31, 131072, 262144)  # around the smallest tile
+STAGE1_SWEEP_NB = (1, 3, 8)
+STAGE1_SWEEP_NC = 5  # the north star's row: p, two window words, state, open word
+STAGE1_TILE_SHAPES = ((131072, 1), (262144, 8))
+STAGE1_SWEEP_REPS = dict(batch=10, batches=3)
+# gather_scale: elle_gather alone at pad 8192 and 32768 on D = 8 shards,
+# alternated in turns with clone() (its recorded library call) and
+# full.copy_(blocks).
+GATHER_SCALE_PADS = (8192, 32768)
+GATHER_SCALE_TURNS = 3
 SOURCE = "jepsen_tpu_torch/csrc/wgl_level.cu"
 REPLACES = {
     "wgl_chunk_init": "jepsen_tpu/ops/wgl.py:830",
@@ -538,6 +564,8 @@ class StageCheck:
                     fb + min(4 * nb * g.ND * 8, e4(sum(self.valid_configs) * g.W * 5))
                     + e4(sum(n_exp) * g.NC) + nb * g.M)
         self.n_exp = n_exp
+        check_nexp(lv, k[0], k[2], "wgl_expand (kernel)")
+        check_nexp(lv, p[0], p[2], "wgl_expand (plain)")
         if self.expand_only:
             return
         ctl, rows, nval = p[0], p[1], p[2]
@@ -550,7 +578,7 @@ class StageCheck:
             ins = (rows, nval, ctl, fkey)
         pick = (lambda t: (t[0], t[1], t[2], t[3], t[4])) if g.two_stage else \
             (lambda t: (t[0], t[1], t[2], t[0], t[3]))
-        k, p, t = measure(lambda t: lv.stage1_hash(g, *pick(t), ws.blk),
+        k, p, t = measure(lambda t: lv.stage1_hash(g, *pick(t), ws.s1),
                           lambda t: lv.stage1_hash_plain(g, *pick(t), None), ins)
         kd, kf = pick(k)[3], pick(k)[4]
         pd, pf = pick(p)[3], pick(p)[4]
@@ -662,17 +690,9 @@ def library_sort_ms(keys, **reps) -> float:
 
 
 def sort_device_launches(lv, keys, vals, scratch) -> int:
-    """Device kernels one radix_sort_pairs call launches (torch.profiler)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device launches of one radix_sort_pairs call."""
     k, v = keys.clone(), vals.clone()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        lv.radix_sort_pairs(k, v, scratch)
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if "k_sort" in e.name and "cuda" in str(e.device_type).lower())
+    return device_launches(lambda: lv.radix_sort_pairs(k, v, scratch))
 
 
 def radix_sort_sweep(lv):
@@ -737,6 +757,169 @@ def radix_sort_sweep(lv):
     emit({"phase": "radix_sort_sweep", "one_block_max": lv._build.SORT_CTA_MAX,
           "both_paths": crossover})
     return random_rows, crossover
+
+
+def _stage1_err(lv, g, ins, k, p, with_key) -> int:
+    """max_abs_err of a stage-1 call under its contract: each member's
+    valid prefix of drows (and fkey), the rest of drows as it was, and the
+    sign bit of every key."""
+    drows0, fkey0, ctl = ins[3], ins[4], ins[2]
+    err = 0
+    for b in range(ctl.shape[0]):
+        n = min(int(ctl[b, lv.CTL_NEXP]), g.P)
+        err = max(err, max_abs_err(k[0][b, :n], p[0][b, :n]),
+                  max_abs_err(k[0][b, n:], drows0[b, n:]))
+        if with_key:
+            err = max(err, max_abs_err(k[1][b, :n], p[1][b, :n]),
+                      max_abs_err(k[1][b] < 0, p[1][b] < 0))
+        else:
+            err = max(err, max_abs_err(k[1][b], fkey0[b]))
+    return err
+
+
+def check_nexp(lv, ctl, nvalid, where) -> None:
+    """Each member's ``ctl[CTL_NEXP]`` is its count of nonzero ``nvalid``
+    bytes: the stage-1 kernel's tail hash reads drows rows [n_cand, P)
+    while other blocks write rows [0, min(n_cand, P)), race-free only
+    then."""
+    got = ctl[:, lv.CTL_NEXP].tolist()
+    want = (nvalid != 0).sum(dim=1).tolist()
+    if got != want:
+        raise AssertionError(f"{where}: ctl[CTL_NEXP] {got} is not the count of valid rows "
+                             f"{want}")
+
+
+def device_launches(call) -> int:
+    """Device launches (kernels, copies and memsets) one ``call()`` issues,
+    counted exactly from a capture of the call (``testing.device_work``)."""
+    from jepsen_tpu_torch.testing import device_work
+
+    return sum(device_work(call).values())
+
+
+def stage1_sweep(lv):
+    """wgl_stage1_hash alone: every STAGE1_SWEEP_M x STAGE1_SWEEP_NB x
+    density, both arms (the key, and the compaction alone), bit for bit
+    under the contract against the plain version, with ms, bound_ms (the
+    validity bytes, the surviving rows read and written, the keys written
+    and the tail's identity words read) and the share of the bound; the
+    device launches of one call of each arm; and every tile size at
+    STAGE1_TILE_SHAPES. Fails on any disagreement. Returns the rows at the
+    main path's and the batch's shapes."""
+    import torch
+
+    from jepsen_tpu_torch.testing import STAGE1_DENSITIES, stage1_case
+
+    NC = STAGE1_SWEEP_NC
+
+    def case(M, nb, density, tiles=(None,)):
+        P = max(1, min(M, M // 8 + 3)) if M not in (131072, 262144) else M // 8
+        g = lv.Geometry(F=M, W=64, KO=1, S=NC - 4, ND=64, NO=4, B=1, SEL=False,
+                        two_stage=True, P=P)
+        ins = tuple(torch.from_numpy(a).to("cuda")
+                    for a in stage1_case(M + nb, nb, M, P, NC, density))
+        scratch = lv.stage1_scratch(M, nb, "cuda")
+        n_valid = [min(int(x), P) for x in ins[2][:, lv.CTL_NEXP]]
+        out = {"M": M, "nb": nb, "density": density, "P": P, "n_valid": sum(n_valid)}
+        check_nexp(lv, ins[2], ins[1], f"stage1_sweep M {M} nb {nb} {density}")
+        auto = lv.stage1_tile
+        for tile in tiles:
+            if tile is not None:  # this call's tile, forced for the sweep
+                lv.stage1_tile = lambda *a, tile=tile: tile
+            try:
+                for arm in ("key", "compact"):
+                    wk = arm == "key"
+                    call = (lambda t, wk=wk: lv.stage1_hash(g, t[0], t[1], t[2], t[3],
+                                                             t[4] if wk else None, scratch))
+                    k, p = tuple(t.clone() for t in ins), tuple(t.clone() for t in ins)
+                    call(k)
+                    lv.stage1_hash_plain(g, p[0], p[1], p[2], p[3], p[4] if wk else None)
+                    torch.cuda.synchronize()
+                    err = _stage1_err(lv, g, ins, (k[3], k[4]), (p[3], p[4]), wk)
+                    if err or scratch[1:lv.STAGE1_HDR].abs().sum():
+                        raise AssertionError(f"wgl_stage1_hash disagrees with plain: M {M}, "
+                                             f"nb {nb}, {density}, {arm}, tile {tile}")
+                    ms, call_ms = batch_ms(call, ins, **STAGE1_SWEEP_REPS)
+                    rows = sum(n_valid) * NC
+                    nbytes = nb * M + 4 * (2 * rows + (nb * P + sum(P - n for n in n_valid)
+                                                       * g.NID if wk else 0))
+                    label = arm if tile is None else f"{arm}_tile{tile}"
+                    out[label] = {"ms": ms, "call_ms": call_ms, "max_abs_err": err,
+                                  **bound_fields(ms, nbytes)}
+            finally:
+                lv.stage1_tile = auto
+        return out, g, ins, scratch
+
+    launches = {}
+    for M in STAGE1_SWEEP_M:
+        rows = []
+        for nb in STAGE1_SWEEP_NB:
+            for density in STAGE1_DENSITIES:
+                row, g, ins, scratch = case(M, nb, density)
+                rows.append(row)
+                if M == 131072 and nb == 1 and density == "p05":
+                    for wk in (True, False):
+                        launches["key" if wk else "compact"] = device_launches(
+                            lambda wk=wk: lv.stage1_hash(g, *ins[:4], ins[4] if wk else None,
+                                                         scratch))
+        emit({"phase": "stage1_sweep", "M": M, "NC": NC,
+              "cases": [{"nb": r["nb"], "tile": lv.stage1_tile(M, r["nb"], "cuda"),
+                         "density": r["density"], "P": r["P"],
+                         "n_valid": r["n_valid"],
+                         **{a: {k: r[a][k] for k in ("ms", "bound_ms", "bound_share")}
+                            for a in ("key", "compact")}} for r in rows]})
+    if launches != {"key": 1, "compact": 1}:
+        raise AssertionError(f"wgl_stage1_hash: device launches a call {launches}, expected 1")
+    tiles = []
+    for M, nb in STAGE1_TILE_SHAPES:
+        for density in ("p05", "p50"):
+            row = case(M, nb, density, tiles=lv.STAGE1_TILES)[0]
+            tiles.append(row)
+    emit({"phase": "stage1_sweep", "device_launches": launches, "tiles": tiles})
+    return {"device_launches": launches, "tiles": tiles}
+
+
+def gather_scale():
+    """elle_gather alone at GATHER_SCALE_PADS on D = 8 shards of random
+    bf16 bits, bit for bit against the plain gather, timed in
+    GATHER_SCALE_TURNS turns that alternate the kernel, clone() (the
+    recorded library call) and full.copy_(blocks); medians of the turns.
+    Returns {pad: row}."""
+    import torch
+
+    from jepsen_tpu_torch.elle import ops as eo
+
+    out = {}
+    for pad in GATHER_SCALE_PADS:
+        gen = torch.Generator(device="cuda").manual_seed(pad)
+        blocks = torch.randint(-2**15, 2**15, (pad, pad), generator=gen, device="cuda",
+                               dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+        full = torch.zeros_like(blocks)
+        eo.gather(blocks, ELLE_SHARD_D, full)
+        want = eo.gather_plain(blocks, ELLE_SHARD_D)
+        torch.cuda.synchronize()
+        err = max_abs_err(full.view(torch.int16), want.view(torch.int16))
+        del want
+        if err:
+            raise AssertionError(f"elle_gather disagrees with the plain gather at pad {pad}")
+        reps = dict(batch=10, batches=3) if pad < 32768 else dict(batch=4, batches=3)
+        turns = {"kernel": [], "clone": [], "copy": []}
+        calls = {"kernel": lambda t: eo.gather(t[0], ELLE_SHARD_D, full),
+                 "clone": lambda t: t[0].clone(), "copy": lambda t: full.copy_(t[0])}
+        for _ in range(GATHER_SCALE_TURNS):
+            for k, call in calls.items():
+                turns[k].append(batch_ms(call, (blocks,), clone=False, **reps)[0])
+        med = {k: statistics.median(v) for k, v in turns.items()}
+        nbytes = 2 * pad * pad * 2
+        row = {"pad": pad, "D": ELLE_SHARD_D, "bytes": nbytes, "max_abs_err": err,
+               "ms": med["kernel"], "clone_ms": med["clone"], "copy_ms": med["copy"],
+               **bound_fields(med["kernel"], nbytes, 0, med["clone"]),
+               "vs_copy": med["kernel"] / med["copy"], "turns": turns}
+        emit({"phase": "gather_scale", **row})
+        out[pad] = row
+        del blocks, full
+        torch.cuda.empty_cache()
+    return out
 
 
 def batch_plan(encs, wgl, dev="cuda"):
@@ -2205,6 +2388,7 @@ def main() -> int:
     if rerr:
         raise AssertionError("radix_sort_pairs disagrees with the stable sort on random keys")
     sort_rows, sort_crossover = radix_sort_sweep(lv)
+    stage1 = stage1_sweep(lv)
 
     emit(steady_state(plan, TIMED_F, lv, wgl, model))
 
@@ -2446,6 +2630,7 @@ def main() -> int:
     del elle_ctx
     sweep = elle_square_sweep()
     sweep_err = max(v["max_abs_err"] for v in sweep.values())
+    gathers = gather_scale()
 
     kernels = []
     paths = {"main_path": launches, "batch_8x10k": big_launches, "mutex_5k": mutex_launches,
@@ -2493,6 +2678,9 @@ def main() -> int:
                                                  "library_ms", "bound_ms")}
                               for r in sort_rows]
             entry["both_paths"] = sort_crossover
+        if kname == "wgl_stage1_hash":  # the stage alone (stage1_sweep)
+            entry["device_launches"] = stage1["device_launches"]
+            entry["tiles"] = stage1["tiles"]
         if kname in shard_errs:  # every stage at the sharded L (sharded_kernels)
             entry["sharded_L_max_abs_err"] = shard_errs[kname]
             entry["max_abs_err"] = max(entry["max_abs_err"], shard_errs[kname])
@@ -2542,7 +2730,8 @@ def main() -> int:
             "bound_share": r["bound_share"], "vs_library": r["vs_library"],
             "at_shapes": {label: summary(v[kname]) for label, v in closure_shapes.items()},
             **({"all_ones": sweep[f"block_square_all_ones_pad{ELLE_SHARD_20K_PAD}"]}
-               if kname == "elle_block_square" else {})})
+               if kname == "elle_block_square" else {}),
+            **({"gather_scale": gathers} if kname == "elle_gather" else {})})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": kernels})

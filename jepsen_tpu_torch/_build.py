@@ -42,7 +42,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 SIGNATURES = {
     "wgl_chunk_init": [_P, _P, _I, _I, _P],
     "wgl_expand": [_P] * 14 + [_I] * 10 + [_P],
-    "wgl_stage1_hash": [_P] * 6 + [_I] * 5 + [_P],
+    "wgl_stage1_hash": [_P] * 6 + [_I] * 6 + [_P],
     "wgl_take_col": [_P, _L, _I, _I, _P, _P, _I, _I, _P, _P],
     "radix_sort_pairs": [_P] * 5 + [_I, _I, _P, _P],
     "wgl_prune": [_P] * 7 + [_I] * 6 + [_P],

@@ -43,9 +43,10 @@
 //   four lanes joined into a word by shuffles. In packed mode each step it
 //   writes every shard's rows into rows d*P of the one `words` buffer (the
 //   pack and the all_gather in one pass); it also packs the output.
-// - elle_gather: the dense all_gather, a 16-byte-wide copy of each shard's
-//   rows (blockIdx.y = shard) from `blocks` into `full`. A stage of its own,
-//   so a transport across cards can take its place and its bytes show.
+// - elle_gather: the dense all_gather from `blocks` into `full`: on one
+//   card the D row blocks are one contiguous range, copied 16 bytes wide
+//   with sixteen streaming loads in flight a thread (below). A stage of its
+//   own, so a transport across cards can take its place and its bytes show.
 // - elle_block_square (row 11's step): out = min(b + b.full, 1)
 //   (jepsen_tpu/elle/ops.py line 325), the D block-row [P, pad] x [pad, pad]
 //   products as one [pad, pad] product with A = `blocks` and B = `full`, on
@@ -610,14 +611,32 @@ __global__ void __launch_bounds__(XC_THREADS)
   }
 }
 
-// Shard blockIdx.y's rows, n16 16-byte pieces of them, copied from the
-// blocks into the full matrix: grid (min(ceil(n16 / 256), 264), shards).
+// elle_gather: the D shards' row blocks are rows d*P.. of `blocks` and go
+// to the same rows of `full`, so on one card the all_gather is one
+// contiguous copy of n16 16-byte pieces. It is bound by bytes (each read
+// once and written once: 2 x 2 GiB at pad 32768 through a 50 MB L2), so
+// each thread issues GA_UNROLL independent streaming loads (evict-first)
+// before their stores, and the grid is GA_BLOCKS_PER_SM blocks an SM:
+// 128 KB in flight an SM, several times what HBM's latency needs. Of 4-16
+// loads a thread at 2-8 blocks an SM, with and without the hints, this
+// was the fastest on the H100; bulk copies through a shared-memory ring
+// came within 2% of it either way, at several times the code.
+#define GA_UNROLL 16
+#define GA_BLOCKS_PER_SM 2
+
 __global__ void __launch_bounds__(XC_THREADS)
     k_gather(const uint4* __restrict__ blocks, uint4* __restrict__ full, long n16) {
-  const long base = (long)blockIdx.y * n16;
-  for (long i = (long)blockIdx.x * XC_THREADS + threadIdx.x; i < n16;
-       i += (long)gridDim.x * XC_THREADS)
-    full[base + i] = __ldg(blocks + base + i);
+  const long step = (long)gridDim.x * XC_THREADS * GA_UNROLL;
+  for (long i0 = (long)blockIdx.x * XC_THREADS * GA_UNROLL + threadIdx.x; i0 < n16;
+       i0 += step) {
+    uint4 v[GA_UNROLL];
+#pragma unroll
+    for (int u = 0; u < GA_UNROLL; ++u)
+      if (i0 + u * XC_THREADS < n16) v[u] = __ldcs(blocks + i0 + u * XC_THREADS);
+#pragma unroll
+    for (int u = 0; u < GA_UNROLL; ++u)
+      if (i0 + u * XC_THREADS < n16) __stcs(full + i0 + u * XC_THREADS, v[u]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -773,18 +792,23 @@ int elle_pack_rows(void* a, void* words, int r, int c, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// blocks, full: bf16 [rows, cols], rows split into `shards` blocks of whole
-// 16-byte pieces.
+// blocks, full: bf16 [rows, cols] at 16-byte-aligned bases, rows split
+// into `shards` blocks of whole 16-byte pieces. The shards are the seam a
+// transport across cards (one block a card) takes the place of; on one
+// card their blocks are one contiguous range.
 int elle_gather(void* blocks, void* full, int rows, int cols, int shards, void* stream) {
-  if (shards < 1 || shards > MAX_GRID_Y || rows % shards != 0)
+  if (shards < 1 || shards > MAX_GRID_Y || rows < 1 || cols < 1 || rows % shards != 0)
     return (int)cudaErrorInvalidValue;
   const long per = (long)(rows / shards) * cols;
-  if (per % 8 != 0) return (int)cudaErrorInvalidValue;
-  const long n16 = per / 8;
-  long bx = (n16 + XC_THREADS - 1) / XC_THREADS;
-  const long cap = 132L * 16 / shards + 1;
-  if (bx > cap) bx = cap;
-  k_gather<<<dim3((unsigned)bx, shards), XC_THREADS, 0, (cudaStream_t)stream>>>(
+  if (per % 8 != 0 || ((uintptr_t)blocks | (uintptr_t)full) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  const int rc = sm_count(&sms);
+  if (rc != 0) return rc;
+  const long n16 = per / 8 * shards;
+  const long need = (n16 + XC_THREADS * GA_UNROLL - 1) / (XC_THREADS * GA_UNROLL);
+  const long cap = (long)sms * GA_BLOCKS_PER_SM;
+  k_gather<<<(unsigned)(need < cap ? need : cap), XC_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint4*)blocks, (uint4*)full, n16);
   return (int)cudaGetLastError();
 }

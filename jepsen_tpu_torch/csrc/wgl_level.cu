@@ -99,6 +99,26 @@ __device__ __forceinline__ u32 lane_lt_mask(int lane) {
   return (lane == 0) ? 0u : (FULL >> (32 - lane));
 }
 
+// Decoupled look-back (Merrill & Garland 2016), used by the stage-1
+// compaction and the radix sort's Onesweep passes: a tile publishes its
+// own count, then the count through it, in one 32-bit word (two flag
+// bits, a 30-bit count; zero means not yet published). The sort's words
+// are written with release and read with acquire semantics; the stage-1
+// compaction keeps its words beside a call epoch (see K2).
+#define LB_AGG (1u << 30)   // the tile's own count
+#define LB_INCL (2u << 30)  // the count through this tile
+#define LB_VALUE (LB_AGG - 1u)
+
+__device__ __forceinline__ u32 ld_acquire(const u32* p) {
+  u32 v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(u32* p, u32 v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // Block-wide scans (block_excl_sum: blockDim.x a multiple of 32, at most
 // 1024; block_incl_max: 1024 threads)
@@ -152,25 +172,6 @@ __device__ int block_incl_max(int v, int* total) {
   if (total) *total = ws[31];
   __syncthreads();
   return res;
-}
-
-// Exclusive prefix sum of each member's row a[b][0..n) in place: one block
-// of 1024 threads per member, each thread owning a contiguous segment.
-__global__ void k_scan_excl_sum(int* a, int n, const int* ctl) {
-  const int b = blockIdx.x;
-  if (stopped(member_ctl(ctl, b))) return;
-  a += (size_t)b * n;
-  int per = (n + 1023) / 1024;
-  int s0 = threadIdx.x * per;
-  int s1 = min(s0 + per, n);
-  int sum = 0;
-  for (int i = s0; i < s1; ++i) sum += a[i];
-  int off = block_excl_sum(sum, nullptr);
-  for (int i = s0; i < s1; ++i) {
-    int v = a[i];
-    a[i] = off;
-    off += v;
-  }
 }
 
 // Exclusive prefix max of each member's row a[b][0..n) in place (-1 before
@@ -599,6 +600,10 @@ __global__ void k_expand(const int* __restrict__ tabD, const int* __restrict__ s
   for (int o = 16; o; o >>= 1) n_ok += __shfl_xor_sync(FULL, n_ok, o);
   bool any_acc = __any_sync(FULL, acc);
   if (lane == 0) {
+    // n_ok is the count of this warp's nonzero nvalid bytes, so CTL_NEXP
+    // ends as the member's count of valid rows: wgl_stage1_hash relies on
+    // it (its tail hash reads drows rows [n_cand, P) while other blocks
+    // write rows [0, min(n_cand, P))), and chip_smoke's StageCheck checks it.
     if (n_ok) atomicAdd(&ctl[CTL_NEXP], n_ok);
     if (any_acc) atomicOr(&ctl[CTL_ACCNOW], 1);
     if (SEL && cnt > B) atomicOr(&ctl[CTL_ROWOVF], 1);
@@ -606,52 +611,302 @@ __global__ void k_expand(const int* __restrict__ tabD, const int* __restrict__ s
 }
 
 // ---------------------------------------------------------------------------
-// K2 stage-1 compaction (reference lines 523-549) and group hash + fused
-// key (lines 628-645). The per-block counts `blk` are [nb, gridDim.x], so
-// the block prefix never crosses a member boundary.
+// K2 stage-1 compaction (reference lines 523-549) fused with the group
+// hash and fused key (lines 628-645), one launch for every member.
+//
+// What bounds it: the member's nvalid bytes, its valid rows (NC words
+// each) read once, the P survivors and their keys written once: well
+// under 1 MB at the main path's shapes, about 0.1 us of HBM time. What
+// costs is latency: the dependent steps of a scan across the member.
+// The design is a single-pass stable compaction with decoupled look-back:
+//
+// - a block takes a tile of T = IPT * S1_THREADS rows of its member
+//   (blockIdx.y), its tile number from the member's atomic counter, so
+//   that it only ever waits on tiles whose blocks are already running;
+// - each thread reads IPT validity bytes as one vector, the block scans
+//   the counts and lists the tile's valid rows in order in shared memory,
+//   and publishes the tile's count at once;
+// - warp 0 looks back over 32 predecessors at a time to the nearest tile
+//   that holds its inclusive count, and publishes its own;
+// - the tile's rows of rank < P are gathered into shared memory with
+//   cp.async (every load in flight at once) and written as one coalesced
+//   run of contiguous words at rank * NC; the FNV hash of each is taken
+//   from shared memory and its key written beside it, so no row is read
+//   from device memory twice;
+// - while warp 0 looks back, the other warps hash the tail rows
+//   [min(n_cand, P), P) from what drows holds, as invalid (the sign bit):
+//   the expand's count n_cand (ctl[CTL_NEXP]) is the member's number of
+//   valid rows, so no block writes those rows in this launch;
+// - the look-back words (64-bit: the call's epoch beside the flags and the
+//   count), the ticket and done counters and the epoch live in a scratch of
+//   4 + 2 * nb * tiles words (zero on the first call); the call's last
+//   block to finish its look-back resets the counters and moves the epoch
+//   on, so an earlier call's words read as unpublished and neither a
+//   memset launch nor a zeroing pass is needed.
+//
+// With fkey null (a sharded level's stage 1) the rows are compacted only.
 
-__global__ void k_block_count(const unsigned char* nvalid, int M, int* blk, const int* ctl) {
-  const int b = blockIdx.y;
-  if (stopped(member_ctl(ctl, b))) return;
-  nvalid += (size_t)b * M;
-  int i = blockIdx.x * 1024 + threadIdx.x;
-  int c = __syncthreads_count(i < M && nvalid[i]);
-  if (threadIdx.x == 0) blk[(size_t)b * gridDim.x + blockIdx.x] = c;
+#define S1_THREADS 512
+#define S1_STAGE_WORDS 8192  // the staging buffer: 32 KB of rows
+
+// Bit k set where byte k of x is nonzero.
+__device__ __forceinline__ u32 nonzero_bytes(u32 x) {
+  const u32 m = __vcmpne4(x, 0u) & 0x01010101u;
+  return (m | (m >> 7) | (m >> 14) | (m >> 21)) & 0xFu;
 }
 
-__global__ void k_compact(const u32* __restrict__ rows, const unsigned char* __restrict__ nvalid,
-                          const int* __restrict__ blk_off, u32* __restrict__ crows,
-                          int M, int NC, int P, const int* ctl) {
-  const int b = blockIdx.y;
-  if (stopped(member_ctl(ctl, b))) return;
-  rows += (size_t)b * M * NC;
-  nvalid += (size_t)b * M;
-  crows += (size_t)b * P * NC;
-  int i = blockIdx.x * 1024 + threadIdx.x;
-  int v = (i < M && nvalid[i]) ? 1 : 0;
-  int rank = blk_off[(size_t)b * gridDim.x + blockIdx.x] + block_excl_sum(v, nullptr);
-  if (v && rank < P) {
-    const u32* src = rows + (size_t)i * NC;
-    u32* dst = crows + (size_t)rank * NC;
-    for (int c = 0; c < NC; ++c) dst[c] = src[c];
+// IPT validity bytes from p (IPT-aligned) as bits, by one vector load.
+template <int IPT>
+__device__ __forceinline__ u32 load_flags(const unsigned char* p) {
+  if constexpr (IPT == 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    return nonzero_bytes(v.x) | (nonzero_bytes(v.y) << 4) | (nonzero_bytes(v.z) << 8) |
+           (nonzero_bytes(v.w) << 12);
+  } else if constexpr (IPT == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    return nonzero_bytes(v.x) | (nonzero_bytes(v.y) << 4);
+  } else {
+    return nonzero_bytes(*reinterpret_cast<const u32*>(p));
   }
 }
 
-// valid row i: nvalid[i] when nvalid != null, else i < min(ctl[NEXP], P).
-__global__ void k_hash(const u32* __restrict__ drows, const unsigned char* __restrict__ nvalid,
-                       u32* __restrict__ fkey, int L, int NC, int NID, int P, const int* ctl) {
-  const int b = blockIdx.y;
-  const int* c = member_ctl(ctl, b);
-  if (stopped(c)) return;
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= L) return;
-  drows += (size_t)b * L * NC;
-  fkey += (size_t)b * L;
-  bool valid = nvalid ? (nvalid[(size_t)b * L + i] != 0) : (i < min(c[CTL_NEXP], P));
-  const u32* r = drows + (size_t)i * NC;
+// Bits of rows i0 .. i0 + IPT - 1 (< M) of a member's validity bytes.
+template <int IPT>
+__device__ __forceinline__ u32 tile_flags(const unsigned char* nvalid, int i0, int M) {
+  if (i0 + IPT <= M && ((uintptr_t)(nvalid + i0) & (IPT - 1)) == 0)
+    return load_flags<IPT>(nvalid + i0);
+  u32 fl = 0u;
+  for (int k = 0; k < IPT; ++k)
+    if (i0 + k < M && nvalid[i0 + k]) fl |= 1u << k;
+  return fl;
+}
+
+// The FNV group hash of a row's NID identity words: they are loaded eight
+// at a time before they are combined, so a row in device memory costs one
+// round trip, not NID.
+__device__ __forceinline__ u32 fnv_row(const u32* r, int NID) {
   u32 gh = 2166136261u;
-  for (int k = 0; k < NID; ++k) gh = (gh ^ r[k]) * 16777619u;
-  fkey[i] = (gh >> 1) | (valid ? 0u : 0x80000000u);
+  for (int k0 = 0; k0 < NID; k0 += 8) {
+    u32 w[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) w[k] = k0 + k < NID ? r[k0 + k] : 0u;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (k0 + k < NID) gh = (gh ^ w[k]) * 16777619u;
+  }
+  return gh;
+}
+
+__device__ __forceinline__ void cp_async4(u32* smem, const u32* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Dynamic shared memory: the tile's valid-row list (T u16), then the
+// staging buffer.
+__host__ __device__ constexpr size_t s1_smem(int ipt) {
+  return (size_t)ipt * S1_THREADS * 2 + (size_t)S1_STAGE_WORDS * 4;
+}
+
+// Scratch: a header of S1_HDR words (the call's epoch, the ticket counter,
+// the done counter), then a 64-bit look-back word for each tile of each
+// member: the epoch of the call that wrote it above the flag bits and the
+// count. Its layout does not depend on the member count or the tile, and a
+// word of an earlier call reads as unpublished (epochs repeat only after
+// 2^32 calls), so one scratch serves calls of any shape.
+#define S1_HDR 4
+#define S1_EPOCH 0
+#define S1_CTR 1
+#define S1_DONE 2
+#define S1_LB_WORDS 4  // look-back words a lane reads in one round
+
+// A look-back word carries all it publishes, so relaxed (coherent at gpu
+// scope, unordered) loads and stores suffice.
+__device__ __forceinline__ u32 lb_word(const unsigned long long* p, unsigned long long epoch) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return (v & 0xFFFFFFFF00000000ull) == epoch ? (u32)v : 0u;
+}
+
+__device__ __forceinline__ void lb_publish(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ int warp_incl_sum(int x, int lane) {
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, x, o);
+    if (lane >= o) x += y;
+  }
+  return x;
+}
+
+// The last of the call's blocks to be done with the look-back words (the
+// one whose done ticket is blocks - 1) resets the counters and moves the
+// epoch on, so no word needs zeroing between calls.
+__device__ __forceinline__ void s1_last(u32* hdr, u32 done_ticket, int blocks) {
+  if (done_ticket == (u32)(blocks - 1)) {
+    hdr[S1_CTR] = 0u;
+    hdr[S1_DONE] = 0u;
+    hdr[S1_EPOCH] += 1u;
+  }
+}
+
+template <int IPT>
+__global__ void __launch_bounds__(S1_THREADS)
+k_stage1(const u32* __restrict__ rows, const unsigned char* __restrict__ nvalid,
+         const int* __restrict__ ctl, u32* __restrict__ drows, u32* __restrict__ fkey,
+         u32* state, int M, int NC, int NID, int P) {
+  constexpr int T = IPT * S1_THREADS;
+  const int tid = threadIdx.x, lane = tid & 31;
+  extern __shared__ __align__(16) u32 s1_buf[];
+  unsigned short* list = reinterpret_cast<unsigned short*>(s1_buf);
+  u32* stage = s1_buf + T / 2;
+  __shared__ int s_ticket, s_off, s_warp[S1_THREADS / 32];
+  __shared__ u32 s_epoch;
+  const int tiles = gridDim.x, blocks = gridDim.x * gridDim.y;
+  u32* hdr = state;
+  // The block's (member, tile) comes from one ticket counter over the whole
+  // grid, member-major, so a block looks back only at tiles whose blocks
+  // took earlier tickets and are running. The ticket, the call's epoch, and
+  // the control block and flags of (blockIdx.y, blockIdx.x) (blocks start in
+  // blockIdx order, so most likely its own) are all read at once; the
+  // guess is read again only if the ticket names another tile. A stopped
+  // member's blocks take tickets too.
+  if (tid == 0) {
+    s_ticket = (int)atomicAdd(&hdr[S1_CTR], 1u);
+    s_epoch = hdr[S1_EPOCH];
+  }
+  int b = blockIdx.y, tile = blockIdx.x;
+  const int* c = ctl + (size_t)b * CTL_SIZE;
+  int go = c[CTL_GO], n_cand = c[CTL_NEXP];
+  u32 fl = tile_flags<IPT>(nvalid + (size_t)b * M, tile * T + tid * IPT, M);
+  // The block's exclusive scan of the counts: warps, and the warps' totals
+  // through the barrier that also brings the ticket.
+  int sc = warp_incl_sum(__popc(fl), lane);
+  if (lane == 31) s_warp[tid >> 5] = sc;
+  __syncthreads();
+  if (s_ticket != b * tiles + tile) {  // the guess was wrong: read the tile's own
+    b = s_ticket / tiles;
+    tile = s_ticket - b * tiles;
+    c = ctl + (size_t)b * CTL_SIZE;
+    go = c[CTL_GO];
+    n_cand = c[CTL_NEXP];
+    fl = tile_flags<IPT>(nvalid + (size_t)b * M, tile * T + tid * IPT, M);
+    sc = warp_incl_sum(__popc(fl), lane);
+    if (lane == 31) s_warp[tid >> 5] = sc;
+    __syncthreads();
+  }
+  n_cand = min(max(n_cand, 0), P);
+  const unsigned long long epoch = (unsigned long long)s_epoch << 32;
+  if (go == 0) {
+    if (tid == 0) s1_last(hdr, atomicAdd(&hdr[S1_DONE], 1u), blocks);
+    return;
+  }
+  unsigned long long* lb = reinterpret_cast<unsigned long long*>(hdr + S1_HDR) + (size_t)b * tiles;
+  const int t0 = tile * T;
+  rows += (size_t)b * M * NC;
+  drows += (size_t)b * P * NC;
+  if (fkey) fkey += (size_t)b * P;
+  int count = 0, pos = sc - __popc(fl);
+  for (int w = 0; w < S1_THREADS / 32; ++w) {
+    const int v = s_warp[w];
+    count += v;
+    if (w < (tid >> 5)) pos += v;
+  }
+  for (int k = 0; k < IPT; ++k)
+    if ((fl >> k) & 1u) list[pos++] = (unsigned short)(tid * IPT + k);
+  if (tid == 0) lb_publish(&lb[tile], epoch | (tile == 0 ? LB_INCL : LB_AGG) | (u32)count);
+  __syncthreads();
+  // The first chunk of the tile's valid rows is on its way into shared
+  // memory while warp 0 looks back (it is written only if its ranks are
+  // below P) and the other warps hash the tail.
+  const int chunk = S1_STAGE_WORDS / NC;
+  const int n0 = min(chunk, count), nw0 = n0 * NC;
+  for (int j = tid; j < nw0; j += S1_THREADS) {
+    const int r = j / NC;
+    cp_async4(stage + j, rows + (size_t)(t0 + list[r]) * NC + (j - r * NC));
+  }
+  u32 done_ticket = 0u;
+  if (tid < 32) {
+    // 32 * S1_LB_WORDS predecessors a round, nearest first; a word of
+    // another epoch (an earlier call's) is not yet published.
+    int pre = 0;
+    for (int t = tile - 1; t >= 0; t -= 32 * S1_LB_WORDS) {
+      u32 x[S1_LB_WORDS];
+#pragma unroll
+      for (int k = 0; k < S1_LB_WORDS; ++k) {
+        const int j = t - 32 * k - lane;
+        x[k] = j >= 0 ? lb_word(&lb[j], epoch) : LB_INCL;  // before tile 0: an inclusive zero
+      }
+      bool found = false;
+#pragma unroll
+      for (int k = 0; k < S1_LB_WORDS && !found; ++k) {
+        const int j = t - 32 * k - lane;
+        while (__any_sync(FULL, x[k] == 0u))
+          if (x[k] == 0u) x[k] = lb_word(&lb[j], epoch);
+        const u32 incl = __ballot_sync(FULL, (x[k] & LB_INCL) != 0u);
+        // the nearest tile with its inclusive count is the lowest such lane
+        const int upto = incl ? __ffs(incl) - 1 : 31;
+        int v = lane <= upto ? (int)(x[k] & LB_VALUE) : 0;
+        for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+        pre += v;
+        found = incl != 0u;
+      }
+      if (found) break;
+    }
+    if (lane == 0) {
+      if (tile > 0) lb_publish(&lb[tile], epoch | LB_INCL | (u32)(pre + count));
+      s_off = pre;
+      // This block reads no look-back word again: its done ticket is taken
+      // now and read at the end, so the atomic's round trip is not waited on.
+      done_ticket = atomicAdd(&hdr[S1_DONE], 1u);
+    }
+  } else if (fkey) {
+    const int per = S1_THREADS - 32;
+    for (int r = n_cand + tile * per + tid - 32; r < P; r += tiles * per)
+      fkey[r] = (fnv_row(drows + (size_t)r * NC, NID) >> 1) | 0x80000000u;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  const int off = s_off;
+  const int n_out = max(0, min(count, P - off));
+  for (int r0 = 0; r0 < n_out; r0 += chunk) {
+    const int n = min(chunk, n_out - r0), nw = n * NC;
+    if (r0 > 0) {
+      for (int j = tid; j < nw; j += S1_THREADS) {
+        const int r = j / NC;
+        cp_async4(stage + j, rows + (size_t)(t0 + list[r0 + r]) * NC + (j - r * NC));
+      }
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    u32* dst = drows + (size_t)(off + r0) * NC;
+    for (int j = tid; j < nw; j += S1_THREADS) dst[j] = stage[j];
+    if (fkey) {
+      for (int r = tid; r < n; r += S1_THREADS) {
+        const int rank = off + r0 + r;
+        fkey[rank] = (fnv_row(stage + r * NC, NID) >> 1) | (rank < n_cand ? 0u : 0x80000000u);
+      }
+    }
+    if (r0 + chunk < n_out) __syncthreads();  // the stage is loaded again
+  }
+  if (tid == 0) s1_last(hdr, done_ticket, blocks);
+}
+
+// The single-stage arm (and a sharded level's received rows): the hash and
+// fused key of all L rows of `drows` in place, validity from `nvalid`.
+__global__ void k_hash(const u32* __restrict__ drows, const unsigned char* __restrict__ nvalid,
+                       u32* __restrict__ fkey, int L, int NC, int NID, const int* ctl) {
+  const int b = blockIdx.y;
+  if (stopped(member_ctl(ctl, b))) return;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= L) return;
+  const size_t r = (size_t)b * L + i;
+  fkey[r] = (fnv_row(drows + r * NC, NID) >> 1) | (nvalid[r] ? 0u : 0x80000000u);
 }
 
 // ---------------------------------------------------------------------------
@@ -872,20 +1127,6 @@ k_sort_cta(u32* __restrict__ keys, u32* __restrict__ vals, int n, const int* ctl
 #define RS_H_DIFF 1024
 #define RS_H_CTR 1025
 #define RS_H_DONE 1029
-#define RS_FLAG_A (1u << 30)  // look-back word: the tile's own count
-#define RS_FLAG_P (2u << 30)  // look-back word: count through this tile
-#define RS_VALUE (RS_FLAG_A - 1u)
-
-__device__ __forceinline__ u32 ld_acquire(const u32* p) {
-  u32 v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(u32* p, u32 v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
 __device__ __forceinline__ u32* rs_lookback(u32* state, int nb, int tiles, int buf, int b) {
   return state + (size_t)nb * RS_HDR + ((size_t)buf * nb + b) * tiles * 256;
 }
@@ -1021,18 +1262,18 @@ k_sort_pass(u32* ka, u32* va, u32* kb, u32* vb, int n, u32* state, int tiles, in
         u32* mine = lb + (size_t)tile * 256 + d;
         int pre = 0;
         if (tile == 0) {
-          st_release(mine, RS_FLAG_P | (u32)tcount);
+          st_release(mine, LB_INCL | (u32)tcount);
         } else {
-          st_release(mine, RS_FLAG_A | (u32)tcount);
+          st_release(mine, LB_AGG | (u32)tcount);
           for (int t = tile - 1;; --t) {
             u32 x;
             do {
               x = ld_acquire(lb + (size_t)t * 256 + d);
-            } while ((x & ~RS_VALUE) == 0);
-            pre += (int)(x & RS_VALUE);
-            if (x & RS_FLAG_P) break;
+            } while ((x & ~LB_VALUE) == 0);
+            pre += (int)(x & LB_VALUE);
+            if (x & LB_INCL) break;
           }
-          st_release(mine, RS_FLAG_P | (u32)(pre + tcount));
+          st_release(mine, LB_INCL | (u32)(pre + tcount));
         }
         s_shift[d] = s_gex[d] + pre - s_start[d];
       }
@@ -1564,6 +1805,23 @@ static void regroup_launch(const void* src, void* dst, const int* idx, int n_new
 
 static inline int nblk(long n, int per) { return (int)((n + per - 1) / per); }
 
+template <int IPT>
+static int stage1_launch(dim3 grid, cudaStream_t s, const u32* rows, const unsigned char* nvalid,
+                         const int* ctl, void* drows, void* fkey, void* state, int M, int NC,
+                         int NID, int P) {
+  static bool sized = false;
+  if (!sized) {
+    cudaError_t e = cudaFuncSetAttribute(k_stage1<IPT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)s1_smem(IPT));
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  k_stage1<IPT><<<grid, S1_THREADS, s1_smem(IPT), s>>>(rows, nvalid, ctl, (u32*)drows,
+                                                       (u32*)fkey, (u32*)state, M, NC, NID, P);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 const char* wgl_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
@@ -1587,30 +1845,32 @@ int wgl_expand(void* tabD, void* sufret, void* invO, void* opO, void* a1O, void*
   return (int)cudaGetLastError();
 }
 
-// P > 0: two-stage (compact the valid rows of `rows` into `drows`, then
-// hash P rows, unless `fkey` is null); P == 0: hash the M rows of `rows`
+// P > 0: two-stage, in one launch: compact the valid rows of `rows` into
+// `drows` and hash P rows, unless `fkey` is null (compaction only). `state`:
+// 4 + 2 * nb * ceil(M / tile) words, zero before its first call; tile is
+// 2048, 4096 or 8192 rows, M below 2^30. P == 0: hash the M rows of `rows`
 // (== drows) in place, validity from `nvalid`.
-// `blk` is scratch of nb * ceil(M / 1024) ints.
-int wgl_stage1_hash(void* rows, void* nvalid, void* ctl, void* drows, void* fkey, void* blk_,
-                    int M, int NC, int NID, int P, int nb, void* stream) {
+int wgl_stage1_hash(void* rows, void* nvalid, void* ctl, void* drows, void* fkey, void* state,
+                    int M, int NC, int NID, int P, int nb, int tile, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  int* c = (int*)ctl;
-  if (P > 0) {
-    int nbk = nblk(M, 1024);
-    int* blk = (int*)blk_;
-    k_block_count<<<dim3(nbk, nb), 1024, 0, s>>>((const unsigned char*)nvalid, M, blk, c);
-    k_scan_excl_sum<<<nb, 1024, 0, s>>>(blk, nbk, c);
-    k_compact<<<dim3(nbk, nb), 1024, 0, s>>>((const u32*)rows, (const unsigned char*)nvalid,
-                                            blk, (u32*)drows, M, NC, P, c);
-    if (fkey)  // a sharded level hashes the exchanged rows instead
-      k_hash<<<dim3(nblk(P, 256), nb), 256, 0, s>>>((const u32*)drows, nullptr, (u32*)fkey, P,
-                                                    NC, NID, P, c);
-  } else {
-    k_hash<<<dim3(nblk(M, 256), nb), 256, 0, s>>>((const u32*)rows,
-                                                  (const unsigned char*)nvalid, (u32*)fkey, M,
-                                                  NC, NID, 0, c);
+  const int* c = (const int*)ctl;
+  if (M <= 0 || M >= (1 << 30) || nb <= 0) return (int)cudaErrorInvalidValue;
+  if (P == 0) {
+    k_hash<<<dim3(nblk(M, 256), nb), 256, 0, s>>>((const u32*)rows, (const unsigned char*)nvalid,
+                                                  (u32*)fkey, M, NC, NID, c);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  if (state == nullptr) return (int)cudaErrorInvalidValue;
+  if (tile <= 0 || (long)nb * nblk(M, tile) >= (1L << 31)) return (int)cudaErrorInvalidValue;
+  const dim3 grid(nblk(M, tile), nb);
+  const u32* r = (const u32*)rows;
+  const unsigned char* v = (const unsigned char*)nvalid;
+  switch (tile) {
+    case 2048: return stage1_launch<4>(grid, s, r, v, c, drows, fkey, state, M, NC, NID, P);
+    case 4096: return stage1_launch<8>(grid, s, r, v, c, drows, fkey, state, M, NC, NID, P);
+    case 8192: return stage1_launch<16>(grid, s, r, v, c, drows, fkey, state, M, NC, NID, P);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int wgl_take_col(void* src, long src_member, int stride, int col, void* idx, void* out, int n,

@@ -313,8 +313,10 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
 
 
 def _check_aligned(name: str, t: torch.Tensor) -> None:
-    """The square's TMA loads and stores need 16-byte-aligned bases (its
-    rows, ``pad`` bf16 values, are whole 16-byte pieces at every pad)."""
+    """The square's TMA loads and stores, and the gather's 16-byte copies,
+    need 16-byte-aligned bases (the square's rows, ``pad`` bf16 values, are
+    whole 16-byte pieces at every pad; the gather's blocks by its own
+    check)."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: the tensor's data does not start on a 16-byte boundary "
                          "(a view at an offset); the kernel's TMA needs one")
@@ -417,7 +419,9 @@ def gather(blocks: torch.Tensor, n_shards: int,
            out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The ``dense`` exchange: the full ``[r, c]`` matrix every shard reads,
     gathered from the ``n_shards`` contiguous row blocks of ``blocks``,
-    into ``out`` (another buffer) when given."""
+    into ``out`` (another buffer) when given. On one device the blocks are
+    one contiguous range: the kernel is one 16-byte-wide copy of it, and
+    both bases must be 16-byte aligned."""
     if blocks.device.type == "cpu":
         return gather_plain(blocks, n_shards)
     r, c = blocks.shape
@@ -430,6 +434,8 @@ def gather(blocks: torch.Tensor, n_shards: int,
     _check("elle_gather", out, torch.bfloat16, (r, c))
     if out.data_ptr() == blocks.data_ptr():
         raise ValueError("elle_gather: out must be another buffer than blocks")
+    for t in (blocks, out):
+        _check_aligned("elle_gather", t)
     _launch("elle_gather", _ptr(blocks), _ptr(out), ctypes.c_int(r), ctypes.c_int(c),
             ctypes.c_int(n_shards), _stream())
     return out

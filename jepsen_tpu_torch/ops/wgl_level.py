@@ -16,7 +16,9 @@ stage                   what it computes
                         :func:`step_spec`), bit set + renormalise; packed
                         candidate rows ``[M, NC]``
 ``stage1_hash``         stable compaction of valid rows into P rows (when
-                        ``M > BIG_M_THRESHOLD``), FNV group hash, fused key
+                        ``M > BIG_M_THRESHOLD``) fused with the FNV group
+                        hash and fused key: one single-pass launch with
+                        decoupled look-back (see :func:`stage1_scratch`)
 ``take_col``            ``out[i] = src[idx[i], col]`` (sort-key gather)
 ``radix_sort_pairs``    stable LSD radix sort of (u32 key, u32 value) pairs:
                         one block per member up to 16384 pairs, Onesweep
@@ -67,6 +69,7 @@ loop does.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
@@ -206,6 +209,49 @@ def _sort_state_words(n: int, nb: int) -> int:
     return nb * (_build.SORT_HDR + 2 * 256 * _nblk(n, _build.SORT_TILE))
 
 
+# Rows of one stage-1 tile (``wgl_stage1_hash``'s tile argument): the
+# kernel takes these sizes, all on one scratch from :func:`stage1_scratch`;
+# :func:`stage1_tile` picks one per call.
+STAGE1_TILES = (2048, 4096, 8192)
+# Rows of a member the two-stage compaction takes (its look-back counts
+# are 30 bits).
+STAGE1_MAX_M = (1 << 30) - 1
+
+
+# The stage-1 scratch's header (csrc/wgl_level.cu S1_HDR): the call epoch,
+# the ticket counter, the done counter and a pad word.
+STAGE1_HDR = 4
+
+
+def stage1_scratch(M: int, nb: int, device) -> torch.Tensor:
+    """Scratch of the two-stage :func:`stage1_hash` over ``nb`` members of
+    ``M`` rows, for the smallest tile of :data:`STAGE1_TILES`: the header
+    (the call epoch, the ticket and done counters), then a 64-bit look-back
+    word for each tile of each member. Zeroed here; every call leaves both
+    counters zero and the epoch one higher, so an earlier call's words read
+    as unpublished, whatever the shape of the next call."""
+    return torch.zeros((_stage1_words(M, nb, min(STAGE1_TILES)),), dtype=torch.int32,
+                       device=device)
+
+
+def _stage1_words(M: int, nb: int, tile: int) -> int:
+    return STAGE1_HDR + 2 * nb * _nblk(M, tile)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def stage1_tile(M: int, nb: int, device) -> int:
+    """The stage-1 tile of a call over ``nb`` members of ``M`` rows: the
+    smallest tile whose grid has at most two blocks an SM (the main path's
+    single member takes 2048, the batch's 8 x 262144 rows 8192: the fastest
+    of each in ``chip_smoke.py``'s ``stage1_sweep`` on the H100)."""
+    blocks = 2 * _sm_count(torch.device(device))
+    return next((t for t in STAGE1_TILES if nb * _nblk(M, t) <= blocks), STAGE1_TILES[-1])
+
+
 def sort_path(scratch: tuple) -> str:
     """The path a :func:`radix_sort_pairs` call with ``scratch`` takes."""
     return "cta" if scratch[0].shape[-1] == 0 else "onesweep"
@@ -243,9 +289,11 @@ class BatchWorkspace:
         self.ctl = torch.zeros((nb, CTL_SIZE), dtype=i32, device=device)
         self.stats = torch.zeros((nb, LEVEL_STAT_ROWS, 4), dtype=i32, device=device)
         self.sort = sort_scratch(L, device, nb)
+        # the two-stage compaction's look-back state (zero between calls)
+        self.s1 = stage1_scratch(g.M, nb, device) if g.two_stage else None
         self.flags = torch.empty((nb, L), dtype=u8, device=device)  # prune
-        # block sums of the compaction and the prune, [nb, blocks]
-        self.blk = torch.empty((nb, _nblk(max(g.M, L), 1024)), dtype=i32, device=device)
+        # the prune's per-block segment starts, [nb, blocks]
+        self.blk = torch.empty((nb, _nblk(L, 1024)), dtype=i32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -423,10 +471,13 @@ def _fnv_fkey(idcols: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 def stage1_hash_reference(g: Geometry, rows: torch.Tensor, nvalid: torch.Tensor,
                           ctl: torch.Tensor, drows: torch.Tensor,
-                          fkey: torch.Tensor, blk: Optional[torch.Tensor] = None) -> None:
+                          fkey: torch.Tensor, scratch: Optional[torch.Tensor] = None) -> None:
     """Plain version of ``wgl_stage1_hash`` (reference ``ops/wgl.py:523-549``
-    and ``:628-645``). ``blk`` is the kernel's scratch, unused here. With
-    ``fkey`` None (a sharded level) only the compaction runs."""
+    and ``:628-645``). ``scratch`` is the kernel's, unused here. With
+    ``fkey`` None (a sharded level) only the compaction runs. The rows
+    after the valid ones get the invalid rows here and stay as they were
+    in the kernel; only the valid prefix and the keys' sign bits are the
+    contract there."""
     if not _go(ctl):
         return
     nv = nvalid.bool()
@@ -884,31 +935,43 @@ def _expand_args(g, tabs, fr, ctl, rows, nvalid, model) -> tuple:
 
 
 def stage1_hash(g: Geometry, rows: torch.Tensor, nvalid: torch.Tensor,
-                ctl: torch.Tensor, drows: torch.Tensor, fkey: torch.Tensor,
-                blk: torch.Tensor) -> None:
-    """Stage K2 (see module docstring). ``blk``: ``BatchWorkspace.blk``,
-    the per-block counts of the two-stage compaction. ``fkey`` None: the
-    compaction alone (a sharded level hashes the exchanged rows)."""
+                ctl: torch.Tensor, drows: torch.Tensor, fkey: Optional[torch.Tensor],
+                scratch: Optional[torch.Tensor]) -> None:
+    """Stage K2 (see module docstring). ``scratch``: ``BatchWorkspace.s1``
+    (:func:`stage1_scratch`), the two-stage compaction's look-back state;
+    None for a single-stage level. ``fkey`` None: the compaction alone (a
+    sharded level hashes the exchanged rows). A member's ``ctl[CTL_NEXP]``
+    must be its count of valid rows, as the expand leaves it."""
     if ctl.device.type == "cpu":
-        return stage1_hash_plain(g, rows, nvalid, ctl, drows, fkey, blk)
-    _launch("wgl_stage1_hash", *_stage1_hash_args(g, rows, nvalid, ctl, drows, fkey, blk))
+        return stage1_hash_plain(g, rows, nvalid, ctl, drows, fkey, scratch)
+    _launch("wgl_stage1_hash", *_stage1_hash_args(g, rows, nvalid, ctl, drows, fkey, scratch))
 
 
-def _stage1_hash_args(g, rows, nvalid, ctl, drows, fkey, blk) -> tuple:
-    _check_cuda(rows, nvalid, ctl, drows, fkey, blk)
+def _stage1_hash_args(g, rows, nvalid, ctl, drows, fkey, scratch) -> tuple:
+    _check_cuda(rows, nvalid, ctl, drows, fkey, scratch)
     nb = ctl.shape[0]
     _check_members(nb)
     _check_shapes("stage1_hash", (ctl, (nb, CTL_SIZE)), (rows, (nb, g.M, g.NC)),
                   (nvalid, (nb, g.M)), (drows, (nb, g.P, g.NC)))
+    if g.M > STAGE1_MAX_M:
+        raise ValueError(f"stage1_hash: {g.M} rows a member; the kernel takes at most "
+                         f"{STAGE1_MAX_M}")
     if fkey is not None:
         _check_shapes("stage1_hash", (fkey, (nb, g.P)))
     elif not g.two_stage:
         raise ValueError("stage1_hash: a single-stage level must hash its rows")
-    if blk.numel() < nb * _nblk(g.M, 1024):
-        raise ValueError("stage1_hash: block-count scratch too small")
+    tile = 0  # the single-stage arm takes no tile
+    if g.two_stage:
+        tile = stage1_tile(g.M, nb, rows.device)
+        if tile not in STAGE1_TILES:
+            raise ValueError(f"stage1_hash: tile {tile}; the kernel takes {STAGE1_TILES}")
+        if (scratch is None or scratch.dtype != torch.int32
+                or scratch.numel() < _stage1_words(g.M, nb, tile)):
+            raise ValueError("stage1_hash: look-back scratch too small (see stage1_scratch)")
     ci = ctypes.c_int
-    return (_ptr(rows), _ptr(nvalid), _ptr(ctl), _ptr(drows), _ptr(fkey), _ptr(blk),
-            ci(g.M), ci(g.NC), ci(g.NID), ci(g.P if g.two_stage else 0), ci(nb), _stream())
+    return (_ptr(rows), _ptr(nvalid), _ptr(ctl), _ptr(drows), _ptr(fkey),
+            _ptr(scratch if g.two_stage else None), ci(g.M), ci(g.NC), ci(g.NID),
+            ci(g.P if g.two_stage else 0), ci(nb), ci(tile), _stream())
 
 
 def take_col(src: torch.Tensor, col: int, idx: torch.Tensor, out: torch.Tensor,
@@ -1053,7 +1116,7 @@ def _hash_rows_args(g, drows, rvalid, ctl, fkey) -> tuple:
                   (rvalid, (nb, g.L)), (fkey, (nb, g.L)))
     ci = ctypes.c_int
     return (_ptr(drows), _ptr(rvalid), _ptr(ctl), _ptr(drows), _ptr(fkey), _ptr(None),
-            ci(g.L), ci(g.NC), ci(g.NID), ci(0), ci(nb), _stream())
+            ci(g.L), ci(g.NC), ci(g.NID), ci(0), ci(nb), ci(0), _stream())
 
 
 def route(g: Geometry, crows: torch.Tensor, ctl: torch.Tensor, send: torch.Tensor,
@@ -1190,7 +1253,7 @@ def _level_stages(g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace,
         return _sharded_level_stages(g, tabs, fr, ws, model)
     ctl = ws.ctl
     out = [("expand", (g, tabs, fr, ctl, ws.rows, ws.nvalid, model)),
-           ("stage1_hash", (g, ws.rows, ws.nvalid, ctl, ws.drows, ws.fkey, ws.blk)),
+           ("stage1_hash", (g, ws.rows, ws.nvalid, ctl, ws.drows, ws.fkey, ws.s1)),
            ("reset", (ws.perm, ws.iota))]
     return out + _dedup_stages(g, fr, ws)
 
@@ -1230,7 +1293,7 @@ def _sharded_level_stages(g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace
     ctl = ws.ctl
     a2a = g.exchange == "alltoall"
     out = [("expand", (g, tabs, fr, ctl, ws.rows, ws.nvalid, model)),
-           ("stage1_hash", (g, ws.rows, ws.nvalid, ctl, ws.crows, None, ws.blk))]
+           ("stage1_hash", (g, ws.rows, ws.nvalid, ctl, ws.crows, None, ws.s1))]
     if a2a:
         out.append(("route", (g, ws.crows, ctl, ws.send, ws.svalid)))
     out += [("exchange", (g, ws.send if a2a else ws.crows, ws.svalid, ctl, ws.drows,

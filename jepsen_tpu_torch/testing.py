@@ -7,7 +7,9 @@ history in either package. ``random_model_history`` simulates an atomic
 service of any device model, and ``lagged_append_history`` and
 ``lagged_wr_history`` simulate transactional stores for the Elle checkers
 (the reference has no such generators; tests hand the same op rows to
-both packages). ``sort_keys`` draws the radix sort's test keys.
+both packages). ``sort_keys`` draws the radix sort's test keys,
+``stage1_case`` the stage-1 compaction's inputs; ``device_work`` counts the
+device launches of one call on the card.
 """
 
 from __future__ import annotations
@@ -479,3 +481,85 @@ def sort_keys(family: str, nb: int, n: int, seed: int = 0):
     elif family != "random":
         raise ValueError(f"unknown key family {family!r} (expected one of {SORT_KEY_FAMILIES})")
     return np.array(u, dtype=np.uint32, order="C").view(np.int32)  # a copy, strides >= 0
+
+
+# Validity patterns of one member's stage-1 rows (``stage1_case``): none,
+# one row, every row, exactly P, P + 1, and random 5% / 50% of the rows.
+STAGE1_DENSITIES = ("none", "one", "all", "exactly_P", "P_plus_1", "p05", "p50")
+
+
+def stage1_case(seed: int, nb: int, M: int, P: int, NC: int, density: str) -> tuple:
+    """Seeded numpy inputs of one two-stage ``wgl_level.stage1_hash`` call
+    on ``nb`` members: ``(rows [nb, M, NC] int32, nvalid [nb, M] uint8 with
+    random nonzero bytes where valid, ctl [nb, CTL_SIZE] int32 (go, and
+    n_cand the count of valid rows, as the expand leaves it), drows [nb,
+    P, NC] and fkey [nb, P] int32: what the outputs held before)``."""
+    import numpy as np
+
+    from .ops import wgl_level as lv
+
+    if density not in STAGE1_DENSITIES:
+        raise ValueError(f"unknown density {density!r} (expected one of {STAGE1_DENSITIES})")
+    rng = np.random.default_rng(seed)
+    word = lambda *shape: rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)  # noqa: E731
+    rows = word(nb, M, NC)
+    want = {"none": 0, "one": 1, "all": M, "exactly_P": P, "P_plus_1": P + 1,
+            "p05": int(0.05 * M), "p50": int(0.5 * M)}[density]
+    nvalid = np.zeros((nb, M), dtype=np.uint8)
+    for b in range(nb):
+        idx = rng.choice(M, size=min(want, M), replace=False)
+        nvalid[b, idx] = rng.integers(1, 256, len(idx), dtype=np.int64).astype(np.uint8)
+    ctl = np.zeros((nb, lv.CTL_SIZE), dtype=np.int32)
+    ctl[:, lv.CTL_GO] = 1
+    ctl[:, lv.CTL_NEXP] = (nvalid != 0).sum(axis=1)
+    return rows, nvalid, ctl, word(nb, P, NC), word(nb, P)
+
+
+# CUgraphNodeType values (cuda.h).
+_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+def device_work(call) -> dict:
+    """The device work one ``call()`` issues on the card, counted exactly:
+    the call runs under CUDA stream capture (relaxed mode, on a side stream
+    made current), so nothing executes and nothing is sampled, and the
+    nodes of the captured graph are counted by kind: ``{"kernel": n,
+    "memcpy": n, "memset": n, "other": n}``. ``call`` must issue all its
+    work on the current stream and must not synchronize; call it once
+    before, so that first-use set-up (kernel attributes, module loading)
+    is out of the count."""
+    import ctypes
+
+    import torch
+
+    drv = ctypes.CDLL("libcuda.so.1")
+
+    def ok(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"device_work: {what} failed with CUresult {rc}")
+
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    handle, graph = ctypes.c_void_p(stream.cuda_stream), ctypes.c_void_p()
+    with torch.cuda.stream(stream):
+        ok(drv.cuStreamBeginCapture_v2(handle, ctypes.c_int(2)), "cuStreamBeginCapture")
+        try:
+            call()
+        finally:
+            rc = drv.cuStreamEndCapture(handle, ctypes.byref(graph))
+    try:
+        ok(rc, "cuStreamEndCapture")
+        n = ctypes.c_size_t(0)
+        ok(drv.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+        nodes = (ctypes.c_void_p * max(n.value, 1))()
+        ok(drv.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+        out = {"kernel": 0, "memcpy": 0, "memset": 0, "other": 0}
+        for node in nodes[:n.value]:
+            kind = ctypes.c_int(-1)
+            ok(drv.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+               "cuGraphNodeGetType")
+            out[_NODE_KINDS.get(kind.value, "other")] += 1
+        return out
+    finally:
+        if graph.value:
+            drv.cuGraphDestroy(graph)

@@ -207,7 +207,7 @@ def test_level_program_packs_each_launch_once(KO, monkeypatch):
     want = [("wgl_expand", lv._expand_args(g, tabs, fr, ws.ctl, ws.rows, ws.nvalid,
                                            CasRegister(init=0))),
             ("wgl_stage1_hash", lv._stage1_hash_args(g, ws.rows, ws.nvalid, ws.ctl, ws.drows,
-                                                     ws.fkey, ws.blk))]
+                                                     ws.fkey, ws.s1))]
     for name, args in sorts + [("wgl_take_col", lv._take_col_args(ws.fkey, 0, ws.perm,
                                                                     ws.keys, ws.ctl))]:
         want += [(name, args), ("radix_sort_pairs", lv._radix_sort_pairs_args(

@@ -17,8 +17,9 @@ from jepsen_tpu_torch.ops import wgl
 from jepsen_tpu_torch.ops import wgl_level as lv
 from jepsen_tpu_torch.ops.encode import encode_history
 from jepsen_tpu_torch.parallel import Mesh
-from jepsen_tpu_torch.testing import (SORT_KEY_FAMILIES, perturb_history,
-                                      random_register_history, sort_keys)
+from jepsen_tpu_torch.testing import (SORT_KEY_FAMILIES, STAGE1_DENSITIES, device_work,
+                                      perturb_history, random_register_history, sort_keys,
+                                      stage1_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -164,23 +165,21 @@ def test_radix_sort_leaves_a_stopped_member_untouched(cuda, path):
         assert int(hdr[1].abs().sum()) == 0
 
 
+def _launches_only(kernels):
+    """A call's device work of ``kernels`` launches and nothing else."""
+    return {"kernel": kernels, "memcpy": 0, "memset": 0, "other": 0}
+
+
 @pytest.mark.parametrize("n,launches", [(16384, 1), (16385, 5), (1048576, 5)])
 def test_radix_sort_device_launches(cuda, n, launches):
     """One block's launch at the main path's size, five above the crossover
     (an upsweep and four passes, whatever the digits)."""
-    from torch.profiler import ProfilerActivity, profile
-
     keys = torch.from_numpy(sort_keys("top_byte", 1, n, seed=1)).to(cuda)
     vals = _iota(1, n, cuda)
     scratch = lv.sort_scratch(n, cuda)
     lv.radix_sort_pairs(keys.clone(), vals.clone(), scratch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        lv.radix_sort_pairs(keys, vals, scratch)
-        torch.cuda.synchronize()
-    sort_kernels = [e for e in prof.events()
-                    if "k_sort" in e.name and "cuda" in str(e.device_type).lower()]
-    assert len(sort_kernels) == launches, [e.name for e in sort_kernels]
+    work = device_work(lambda: lv.radix_sort_pairs(keys, vals, scratch))
+    assert work == _launches_only(launches), work
 
 
 def test_wrappers_refuse_cpu_cuda_mix(cuda):
@@ -189,6 +188,149 @@ def test_wrappers_refuse_cpu_cuda_mix(cuda):
         lv.radix_sort_pairs(keys, torch.zeros((1, 4), dtype=torch.int32),
                             lv.sort_scratch(4, cuda))
     assert np.all(keys.cpu().numpy() == 0)
+
+
+# -- the stage-1 compaction and hash --------------------------------------------
+
+
+def _stage1_header(scratch):
+    """(call epoch, ticket counter, done counter, pad) of a stage-1 scratch."""
+    return scratch[:lv.STAGE1_HDR].tolist()
+
+
+def _stage1_geometry(M, P, NC):
+    return lv.Geometry(F=M, W=32, KO=0, S=NC - 3, ND=64, NO=4, B=1, SEL=False,
+                       two_stage=True, P=P)
+
+
+def _stage1_both(cuda, g, case, scratch, with_key=True):
+    """The kernel and the plain version on the same inputs, each held to the
+    contract: the valid prefix of drows and fkey and the sign bit of every
+    key equal; the kernel leaves drows' tail as it was and keys it as
+    invalid from what it holds. Returns the kernel's (drows, fkey)."""
+    rows, nvalid, ctl, drows0, fkey0 = (torch.from_numpy(a).to(cuda) for a in case)
+    kd, kf, pd, pf = drows0.clone(), fkey0.clone(), drows0.clone(), fkey0.clone()
+    lv.stage1_hash(g, rows, nvalid, ctl, kd, kf if with_key else None, scratch)
+    lv.stage1_hash_plain(g, rows, nvalid, ctl, pd, pf if with_key else None, None)
+    torch.cuda.synchronize()
+    for b in range(ctl.shape[0]):
+        if not int(ctl[b, lv.CTL_GO]):
+            assert torch.equal(kd[b], drows0[b]) and torch.equal(kf[b], fkey0[b])
+            continue
+        n = min(int(ctl[b, lv.CTL_NEXP]), g.P)
+        assert torch.equal(kd[b, :n], pd[b, :n])
+        assert torch.equal(kd[b, n:], drows0[b, n:])
+        if with_key:
+            assert torch.equal(kf[b, :n], pf[b, :n])
+            assert torch.equal(kf[b] < 0, pf[b] < 0)
+            tail = lv._fnv_fkey(drows0[b, n:, :g.NID], torch.zeros(g.P - n, dtype=torch.bool,
+                                                                     device=cuda))
+            assert torch.equal(kf[b, n:], tail)
+        else:
+            assert torch.equal(kf[b], fkey0[b])
+    return kd, kf
+
+
+_T = min(lv.STAGE1_TILES)
+
+
+@pytest.mark.parametrize("density", STAGE1_DENSITIES)
+@pytest.mark.parametrize("nb", [1, 3, 8])
+@pytest.mark.parametrize("M", [1, 31, _T - 1, _T, _T + 1, 131072, 262144])
+def test_stage1_matches_plain(cuda, M, nb, density):
+    """Both arms (with the key, and the compaction alone) at one member and
+    batches of 3 and 8, at sizes around the tile and the main path's."""
+    P = max(1, min(M, M // 8 + 3))
+    g = _stage1_geometry(M, P, 5)
+    case = stage1_case(M + nb, nb, M, P, 5, density)
+    scratch = lv.stage1_scratch(M, nb, cuda)
+    _stage1_both(cuda, g, case, scratch)
+    _stage1_both(cuda, g, case, scratch, with_key=False)
+    assert _stage1_header(scratch) == [2, 0, 0, 0]
+
+
+@pytest.mark.parametrize("NC", range(3, 10))
+@pytest.mark.parametrize("M", [_T + 1, 131072])
+def test_stage1_matches_plain_at_every_row_width(cuda, M, NC):
+    P = M // 8
+    g = _stage1_geometry(M, P, NC)
+    for density in ("p05", "p50", "P_plus_1"):
+        case = stage1_case(NC + M, 3, M, P, NC, density)
+        scratch = lv.stage1_scratch(M, 3, cuda)
+        _stage1_both(cuda, g, case, scratch)
+        _stage1_both(cuda, g, case, scratch, with_key=False)
+
+
+@pytest.mark.parametrize("tile", lv.STAGE1_TILES)
+@pytest.mark.parametrize("M", [2047, 4097, 8193, 131072])
+def test_stage1_matches_plain_at_every_tile(cuda, M, tile, monkeypatch):
+    monkeypatch.setattr(lv, "stage1_tile", lambda *a: tile)
+    P = M // 4
+    g = _stage1_geometry(M, P, 7)
+    scratch = lv.stage1_scratch(M, 3, cuda)
+    for density in ("p05", "exactly_P", "all"):
+        _stage1_both(cuda, g, stage1_case(tile + M, 3, M, P, 7, density), scratch)
+
+
+def test_stage1_leaves_a_stopped_member_untouched(cuda):
+    M, P, nb = 131072, 16384, 3
+    g = _stage1_geometry(M, P, 5)
+    case = stage1_case(3, nb, M, P, 5, "p50")
+    case[2][1, lv.CTL_GO] = 0
+    scratch = lv.stage1_scratch(M, nb, cuda)
+    kd, _ = _stage1_both(cuda, g, case, scratch)
+    assert not torch.equal(kd[0].cpu(), torch.from_numpy(case[3][0]))
+    assert _stage1_header(scratch) == [1, 0, 0, 0]
+
+
+@pytest.mark.parametrize("tile", [None, 2048, 8192])
+def test_stage1_scratch_cleans_itself(cuda, tile, monkeypatch):
+    """Calls in a row on one scratch, at two sizes, two member counts and
+    both arms (and a stopped member): each leaves the ticket and done
+    counters zero and the epoch one higher, so the words of the call before
+    (at other offsets when the shape changes) are never read as this
+    call's."""
+    if tile is not None:
+        monkeypatch.setattr(lv, "stage1_tile", lambda *a: tile)
+    scratch = lv.stage1_scratch(262144, 8, cuda)
+    for rep in range(8):
+        nb, M = (8, 262144) if rep % 2 else (3, 100000)
+        P = M // 8
+        g = _stage1_geometry(M, P, 5)
+        case = stage1_case(rep, nb, M, P, 5, STAGE1_DENSITIES[rep % len(STAGE1_DENSITIES)])
+        if rep == 4:
+            case[2][1, lv.CTL_GO] = 0
+        _stage1_both(cuda, g, case, scratch, with_key=rep % 3 != 2)
+        assert _stage1_header(scratch) == [rep + 1, 0, 0, 0]
+
+
+@pytest.mark.parametrize("with_key", [True, False])
+def test_stage1_device_launches(cuda, with_key):
+    """One device launch a call on the two-stage arm, with or without the
+    key: no other kernel, copy or memset."""
+    M, P, nb = 131072, 16384, 1
+    g = _stage1_geometry(M, P, 5)
+    rows, nvalid, ctl, drows, fkey = (torch.from_numpy(a).to(cuda)
+                                      for a in stage1_case(1, nb, M, P, 5, "p05"))
+    scratch = lv.stage1_scratch(M, nb, cuda)
+    key = fkey if with_key else None
+    lv.stage1_hash(g, rows, nvalid, ctl, drows, key, scratch)
+    work = device_work(lambda: lv.stage1_hash(g, rows, nvalid, ctl, drows, key, scratch))
+    assert work == _launches_only(1), work
+
+
+def test_stage1_refuses_short_scratch_and_cpu_mix(cuda):
+    M, P, nb = 4097, 512, 3
+    g = _stage1_geometry(M, P, 5)
+    rows, nvalid, ctl, drows, fkey = (torch.from_numpy(a).to(cuda)
+                                      for a in stage1_case(2, nb, M, P, 5, "p50"))
+    with pytest.raises(ValueError, match="scratch"):
+        lv.stage1_hash(g, rows, nvalid, ctl, drows, fkey,
+                       lv.stage1_scratch(M, nb, cuda)[:nb])
+    with pytest.raises(ValueError):
+        lv.stage1_hash(g, rows, nvalid, ctl, drows, fkey, lv.stage1_scratch(M, nb, "cpu"))
+    with pytest.raises(ValueError):
+        lv.stage1_hash(g, rows.cpu(), nvalid, ctl, drows, fkey, lv.stage1_scratch(M, nb, cuda))
 
 
 # -- the member axis ---------------------------------------------------------
@@ -542,6 +684,66 @@ def test_sharded_closure_wrappers_refuse_bad_buffers(cuda):
         eo.unpack(torch.zeros((4, 2), dtype=torch.int32, device=cuda), 65)
     with pytest.raises(ValueError):
         eo.block_square(b.float(), b)
+
+
+def _random_bf16(shape, seed, device):
+    """bf16 tensors of random bit patterns (NaNs included: compare as int16)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bits = torch.randint(-2**15, 2**15, shape, generator=gen, device=device, dtype=torch.int32)
+    return bits.to(torch.int16).view(torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+@pytest.mark.parametrize("pad", [128, 256, 8192, 32768])
+def test_gather_matches_plain(cuda, pad, d):
+    from jepsen_tpu_torch.elle import ops as eo
+
+    b = _random_bf16((pad, pad), pad + d, cuda)
+    before = eo.LAUNCHES["elle_gather"]
+    got = eo.gather(b, d)
+    out = torch.empty_like(b)
+    assert eo.gather(b, d, out) is out
+    want = eo.gather_plain(b, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert torch.equal(out.view(torch.int16), want.view(torch.int16))
+    assert eo.LAUNCHES["elle_gather"] - before == 2
+
+
+@pytest.mark.parametrize("rows,cols,d", [(64, 4, 2), (16, 12, 2), (24, 12, 3), (16, 4, 8),
+                                         (40, 20, 5)])
+def test_gather_of_rows_shorter_than_16_bytes(cuda, rows, cols, d):
+    """Rows that are not whole 16-byte pieces, in blocks that are."""
+    from jepsen_tpu_torch.elle import ops as eo
+
+    assert (cols * 2) % 16 and (rows // d * cols * 2) % 16 == 0
+    b = _random_bf16((rows, cols), rows * cols, cuda)
+    got = eo.gather(b, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), eo.gather_plain(b, d).view(torch.int16))
+
+
+def test_gather_refusals(cuda):
+    from jepsen_tpu_torch.elle import ops as eo
+
+    b = torch.zeros((256, 256), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        eo.gather(b, 3)  # rows % shards
+    with pytest.raises(ValueError):
+        eo.gather(torch.zeros((3, 4), dtype=torch.bfloat16, device=cuda), 3)  # 8-byte blocks
+    with pytest.raises(ValueError):
+        eo.gather(b, 2, b)  # out aliases blocks
+    with pytest.raises(ValueError):
+        eo.gather(b, 2, torch.zeros((256, 128), dtype=torch.bfloat16, device=cuda))
+    with pytest.raises(ValueError):
+        eo.gather(b.float(), 2)
+    flat = torch.zeros(256 * 256 + 8, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        eo.gather(flat[1:1 + 256 * 256].view(256, 256), 2)
+    with pytest.raises(ValueError, match="16-byte"):
+        eo.gather(b, 2, flat[1:1 + 256 * 256].view(256, 256))
+    with pytest.raises(ValueError):
+        eo.gather(b, 2, torch.zeros((256, 256), dtype=torch.bfloat16))
 
 
 # -- the frontier-sharded level ------------------------------------------------

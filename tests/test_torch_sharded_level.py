@@ -405,6 +405,7 @@ def test_sharded_level_program_launches(mode, monkeypatch):
     monkeypatch.setattr(lv._build, "load", lambda: lib)
     monkeypatch.setattr(lv, "_check_cuda", lambda *ts: None)
     monkeypatch.setattr(lv, "_stream", lambda: 0)
+    monkeypatch.setattr(lv, "_sm_count", lambda device: 132)  # the stage-1 tile's choice
     pair = Pair(register_enc(31, 60, 4, 0.05), 3, mode, B=None)
     fr = wgl.frontier_from_arrays(*pair.initial(), device="cpu", n_shards=3)[:5]
     ws = lv.BatchWorkspace(pair.g, 3, "cpu")
