@@ -24,8 +24,16 @@ and then runs these phases, each printing JSON lines:
   version, with ms, bound and share of the bound; the device launches of
   one call of each arm (counted from a stream capture: one); every tile
   size at the main path's and the batch's shapes;
+- ``prune_sweep``: ``wgl_prune`` alone at 64 to 1,048,576 rows a member
+  (the main path's 16384, the batch's 32768, the allgather arm's
+  1,048,576), 1, 3 and 8 members and each group family of
+  ``testing.PRUNE_FAMILIES``, bit for bit against the plain prune, with
+  its ms, bound and share of the bound, the device launches of one call
+  (counted from a stream capture: one), and every tile at the main path's
+  and the batch's shapes;
 - ``steady_state``: device busy time, idle share and device launches per
-  level;
+  level (the launches counted from a stream capture of one level, plus the
+  window's control-block reads);
 - ``main_path``: the north-star history decided through
   ``check_history(..., backend="device")`` with every kernel's launch
   count checked, then the same search through the plain versions on the
@@ -52,6 +60,11 @@ and then runs these phases, each printing JSON lines:
   for bit, at the selected and unselected layouts, from a frontier warmed
   for 200 levels on a 2000-op history of the family; at state widths 2, 3,
   4 and 8 every downstream stage too;
+- ``expand_scale``: ``wgl_expand`` at the north star's and the batch's
+  warmed frontiers, bit for bit against the plain expand (each member's
+  ``ctl[CTL_NEXP]`` its count of valid rows), with its ms, its ms with
+  every member stopped, its bound and the device launches of one call,
+  beside each family's ms from ``model_kernels``;
 - ``mutex_5k``: BASELINE config 3, a 5000-op owner-aware-mutex history
   through the lock workload's checker (``workloads.lock.checker``), in
   agreement with the plain path, with wall, ms/level and idle share;
@@ -177,6 +190,16 @@ STAGE1_SWEEP_NB = (1, 3, 8)
 STAGE1_SWEEP_NC = 5  # the north star's row: p, two window words, state, open word
 STAGE1_TILE_SHAPES = ((131072, 1), (262144, 8))
 STAGE1_SWEEP_REPS = dict(batch=10, batches=3)
+# prune_sweep: the prune alone at the card tests' sizes (the main path's
+# L 16384, the batch's 32768, the allgather arm's 1,048,576 at f_total
+# 262144), 1, 3 and 8 members, each group family of
+# testing.PRUNE_FAMILIES, bit for bit against the plain prune; every tile
+# at the main path's and the batch's shapes.
+PRUNE_SWEEP_L = (64, 2047, 16384, 32768, 131072, 1048576)
+PRUNE_SWEEP_NB = (1, 3, 8)
+PRUNE_SWEEP_NC = 5  # the north star's row: p, two window words, state, open word
+PRUNE_TILE_SHAPES = ((16384, 1), (32768, 8))
+PRUNE_SWEEP_REPS = dict(batch=10, batches=3)
 # gather_scale: elle_gather alone at pad 8192 and 32768 on D = 8 shards,
 # alternated in turns with clone() (its recorded library call) and
 # full.copy_(blocks).
@@ -431,25 +454,46 @@ def steady_state(plan, F, lv, wgl, model):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from jepsen_tpu_torch.testing import device_work
+
     g = wgl.level_geometry(plan, F)
     fr, ws, (lvl0,) = warm_frontier(plan, F, lv, wgl, model)
     saved = tuple(t.clone() for t in fr)
     nDO = (plan.nD.tolist(), plan.nO.tolist())
 
-    def window():
+    def window(reads=None):
         for t, s in zip(fr, saved):
             t.copy_(s)
         torch.cuda.synchronize()
         before = dict(lv.LAUNCHES)
-        t0 = time.perf_counter()
-        (flags,) = lv.run_chunk_batch(lv.KERNELS, g, plan.tabs, fr, ws, [lvl0],
-                                      [lvl0 + PROFILE_LEVELS], [1], *nDO, model)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        real_cpu = torch.Tensor.cpu
+        if reads is not None:  # count the host's reads of the control blocks
+            def cpu(t, *a, **k):
+                reads[0] += t.data_ptr() == ws.ctl.data_ptr()
+                return real_cpu(t, *a, **k)
+            torch.Tensor.cpu = cpu
+        try:
+            t0 = time.perf_counter()
+            (flags,) = lv.run_chunk_batch(lv.KERNELS, g, plan.tabs, fr, ws, [lvl0],
+                                          [lvl0 + PROFILE_LEVELS], [1], *nDO, model)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            torch.Tensor.cpu = real_cpu
         return flags[3] - lvl0, wall, {k: lv.LAUNCHES[k] - before[k] for k in before}
 
     window()  # warm-up
-    levels, wall, launched = window()
+    reads = [0]
+    levels, wall, launched = window(reads)
+    # One level's device work, counted from a stream capture of the level
+    # program (kernels, copies, memsets; packed inside the capture, so on
+    # its stream), and the control-block reads the window made a level: the
+    # device launches a level.
+    before = dict(lv.LAUNCHES)
+    level_work = device_work(lambda: lv._LevelProgram(g, plan.tabs, fr, ws, model)())
+    for k in before:
+        lv.LAUNCHES[k] = before[k]
+    captured = sum(level_work.values()) + reads[0] / max(levels, 1)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         p_levels, p_wall, _ = window()
     by_kernel, launches_by = {}, {}
@@ -466,8 +510,11 @@ def steady_state(plan, F, lv, wgl, model):
             "frontier_configs": int(saved[4].sum()),
             "ms_per_level": 1e3 * wall / max(levels, 1),
             "launches_per_level": {k: v / max(levels, 1) for k, v in launched.items()},
-            "device_launches_per_level": sum(launches_by.values()) / per if busy else None,
-            "device_launches_per_level_by_kernel": {k: v / per for k, v in launches_by.items()},
+            "device_launches_per_level": captured,
+            "device_work_per_level": level_work,
+            "control_block_reads_per_level": reads[0] / max(levels, 1),
+            "profiled_launches_per_level": sum(launches_by.values()) / per if busy else None,
+            "profiled_launches_per_level_by_kernel": {k: v / per for k, v in launches_by.items()},
             "profiled_ms_per_level": 1e3 * p_wall / max(p_levels, 1),
             "device_busy_ms_per_level": busy / max(p_levels, 1) if busy else None,
             "device_idle_share": (1 - (busy / max(p_levels, 1))
@@ -613,8 +660,8 @@ class StageCheck:
         fprio = z(nb, g.L)
         ins = (ctl, fprio)
         k, p, t = measure(
-            lambda t: lv.prune(g, drows, keys, perm, t[0], t[1], ws.flags, ws.blk),
-            lambda t: lv.prune_plain(g, drows, keys, perm, t[0], t[1], None, None), ins)
+            lambda t: lv.prune(g, drows, keys, perm, t[0], t[1], ws.pr),
+            lambda t: lv.prune_plain(g, drows, keys, perm, t[0], t[1]), ins)
         self.record("wgl_prune", max(max_abs_err(k[0], p[0]), max_abs_err(k[1], p[1])),
                     t, e4(3 * nb * g.L, nb * g.L * g.NC))
         ctl, fprio = p[0], p[1]
@@ -877,6 +924,130 @@ def stage1_sweep(lv):
             tiles.append(row)
     emit({"phase": "stage1_sweep", "device_launches": launches, "tiles": tiles})
     return {"device_launches": launches, "tiles": tiles}
+
+
+def prune_sweep(lv):
+    """wgl_prune alone: every PRUNE_SWEEP_L x PRUNE_SWEEP_NB x group family,
+    bit for bit against the plain prune (fprio and every control block),
+    with ms, bound_ms (keys, perm and rows read once, priorities written
+    once) and the share of the bound; the device launches of one call at
+    each size and member count (one expected); and every tile of
+    lv.PRUNE_TILES at PRUNE_TILE_SHAPES. Fails on any disagreement or a
+    call of more than one launch. Returns the rows at the main path's and
+    the batch's shapes, the tiles and the launch counts."""
+    import torch
+
+    from jepsen_tpu_torch.testing import PRUNE_FAMILIES, prune_case
+
+    NC = PRUNE_SWEEP_NC
+
+    def case(L, nb, family, tile=None):
+        g = lv.Geometry(F=L, W=32, KO=1, S=NC - 3, ND=64, NO=32, B=1, SEL=False,
+                        two_stage=True, P=L)
+        drows, skey, perm, ctl, fprio = (torch.from_numpy(a).to("cuda")
+                                         for a in prune_case(L + nb, nb, L, NC, g.NID, family))
+        scratch = lv.prune_scratch(L, nb, "cuda")
+        auto = lv.prune_tile
+        if tile is not None:  # this call's tile, forced for the sweep
+            lv.prune_tile = lambda *a, tile=tile: tile
+        try:
+            used = lv.prune_tile(L, nb, g.NC, g.KO1, "cuda")
+            call = lambda t: lv.prune(g, drows, skey, perm, t[0], t[1], scratch)  # noqa: E731
+            k, p = (ctl.clone(), fprio.clone()), (ctl.clone(), fprio.clone())
+            call(k)
+            lv.prune_plain(g, drows, skey, perm, p[0], p[1])
+            torch.cuda.synchronize()
+            err = max(max_abs_err(k[0], p[0]), max_abs_err(k[1], p[1]))
+            if err or scratch[1:lv.STAGE1_HDR].abs().sum():
+                raise AssertionError(f"wgl_prune disagrees with plain: L {L}, nb {nb}, "
+                                     f"{family}, tile {used}")
+            ms, call_ms = batch_ms(call, (ctl, fprio), **PRUNE_SWEEP_REPS)
+            launches = None
+            if family == "straddle":
+                c, f = ctl.clone(), fprio.clone()
+                launches = device_launches(lambda: lv.prune(g, drows, skey, perm, c, f, scratch))
+        finally:
+            lv.prune_tile = auto
+        nbytes = 4 * nb * L * (3 + NC)
+        return {"L": L, "nb": nb, "family": family, "tile": used, "ms": ms, "call_ms": call_ms,
+                "max_abs_err": err, "device_launches": launches,
+                "kept": int(k[0][:, lv.CTL_COUNT].sum()), **bound_fields(ms, nbytes)}
+
+    main, launches = [], {}
+    for L in PRUNE_SWEEP_L:
+        rows = [case(L, nb, family) for nb in PRUNE_SWEEP_NB for family in PRUNE_FAMILIES]
+        for r in rows:
+            if r["device_launches"] is not None:
+                launches[f"{L}x{r['nb']}"] = r["device_launches"]
+        main += [r for r in rows if (L, r["nb"]) in PRUNE_TILE_SHAPES]
+        emit({"phase": "prune_sweep", "L": L, "NC": NC,
+              "cases": [{k: r[k] for k in ("nb", "family", "tile", "kept", "ms", "bound_ms",
+                                           "bound_share")} for r in rows]})
+    if set(launches.values()) != {1}:
+        raise AssertionError(f"wgl_prune: device launches a call {launches}, expected 1")
+    tiles = [{k: r[k] for k in ("L", "nb", "family", "tile", "ms", "bound_share")}
+             for L, nb in PRUNE_TILE_SHAPES for tile in lv.PRUNE_TILES
+             for r in [case(L, nb, f, tile) for f in ("straddle", "distinct")]]
+    emit({"phase": "prune_sweep", "device_launches": launches, "tiles": tiles})
+    return {"main": main, "tiles": tiles, "device_launches": launches}
+
+
+def expand_scale(lv, wgl, model, plan, bplan, families):
+    """wgl_expand at the north star's (F TIMED_F) and the batch's (F
+    BIG_KERNELS_F) warmed frontiers: bit for bit against the plain expand
+    (control blocks, nvalid, the valid rows; each member's NEXP its count
+    of valid rows), its ms, its ms with every member stopped, bound_ms and
+    the device launches of one call (one expected); with each family's ms
+    at its model_kernels frontier. Returns {shape: row}."""
+    import torch
+
+    out = {}
+    for label, p, F in (("north_star", plan, TIMED_F), ("batch_8x8192", bplan, BIG_KERNELS_F)):
+        g = wgl.level_geometry(p, F)
+        fr, _ws, lvls = warm_frontier(p, F, lv, wgl, model)
+        nb = p.nb
+        ctl = torch.zeros((nb, lv.CTL_SIZE), dtype=torch.int32)
+        ctl[:, lv.CTL_LVL] = torch.tensor(lvls)
+        ctl[:, lv.CTL_MAXLVL] = torch.tensor(lvls) + 1
+        ctl[:, lv.CTL_FMAX], ctl[:, lv.CTL_LOSSY] = 1, 1
+        ctl[:, lv.CTL_ND], ctl[:, lv.CTL_NO] = p.nD, p.nO
+        ctl = ctl.to("cuda")
+        lv.chunk_init_plain(ctl, fr[4])
+        rows = torch.zeros((nb, g.M, g.NC), dtype=torch.int32, device="cuda")
+        nval = torch.zeros((nb, g.M), dtype=torch.uint8, device="cuda")
+        kernel = lambda t: lv.expand(g, p.tabs, fr, t[0], t[1], t[2], model)  # noqa: E731
+        plain = lambda t: lv.expand_plain(g, p.tabs, fr, t[0], t[1], t[2], model)  # noqa: E731
+        k, q = (ctl.clone(), rows.clone(), nval.clone()), (ctl.clone(), rows.clone(), nval.clone())
+        kernel(k)
+        plain(q)
+        torch.cuda.synchronize()
+        vm = q[2].bool()
+        err = max(max_abs_err(k[0], q[0]), max_abs_err(k[2], q[2]),
+                  max_abs_err(k[1][vm], q[1][vm]))
+        check_nexp(lv, k[0], k[2], f"expand_scale {label}")
+        if err:
+            raise AssertionError(f"wgl_expand disagrees with plain at {label}: {err}")
+        ms, call_ms = batch_ms(kernel, (ctl, rows, nval))
+        plain_ms, _ = batch_ms(plain, (ctl, rows, nval), hold=False, batch=3, batches=3)
+        stopped = ctl.clone()
+        stopped[:, lv.CTL_GO] = 0
+        stopped_ms, _ = batch_ms(kernel, (stopped, rows, nval))
+        c, r, n = ctl.clone(), rows.clone(), nval.clone()
+        launches = device_launches(lambda: lv.expand(g, p.tabs, fr, c, r, n, model))
+        if launches != 1:
+            raise AssertionError(f"wgl_expand: {launches} device launches a call")
+        valid_configs = [int(x) for x in fr[4].sum(dim=1)]
+        n_exp = [int(x) for x in vm.sum(dim=1)]
+        nbytes = nb * g.F * (4 * g.NC + 1) + min(4 * nb * g.ND * 8,
+                                                 4 * sum(valid_configs) * g.W * 5) \
+            + 4 * sum(n_exp) * g.NC + nb * g.M
+        out[label] = {"nb": nb, "F": F, "W": g.W, "B": g.B, "valid_configs": sum(valid_configs),
+                      "expanded": sum(n_exp), "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+                      "plain_ms": plain_ms, "stopped_ms": stopped_ms,
+                      "device_launches": launches, **bound_fields(ms, nbytes)}
+    out["families"] = {name: f["ms"] for name, f in families.items()}
+    emit({"phase": "expand_scale", **out})
+    return out
 
 
 def gather_scale():
@@ -2389,6 +2560,7 @@ def main() -> int:
         raise AssertionError("radix_sort_pairs disagrees with the stable sort on random keys")
     sort_rows, sort_crossover = radix_sort_sweep(lv)
     stage1 = stage1_sweep(lv)
+    prunes = prune_sweep(lv)
 
     emit(steady_state(plan, TIMED_F, lv, wgl, model))
 
@@ -2609,6 +2781,7 @@ def main() -> int:
     families, widths, model_errs = model_kernel_phase(lv, wgl, hists)
     for k, v in model_errs.items():
         errs[k] = max(errs.get(k, 0), v)
+    expands = expand_scale(lv, wgl, model, plan, batch_plan(big_encs, wgl), families)
     mutex_launches, mutex_expand = mutex_5k_phase(lv, wgl)
     errs["wgl_expand"] = max(errs["wgl_expand"], mutex_expand["max_abs_err"])
     family_launches = models_2k_phase(lv, wgl, wgl_host, hists)
@@ -2678,6 +2851,13 @@ def main() -> int:
                                                  "library_ms", "bound_ms")}
                               for r in sort_rows]
             entry["both_paths"] = sort_crossover
+        if kname == "wgl_prune":  # the stage alone (prune_sweep)
+            entry["device_launches"] = prunes["device_launches"]
+            entry["sweep"] = [{k: r[k] for k in ("L", "nb", "family", "tile", "ms", "bound_ms")}
+                              for r in prunes["main"]]
+            entry["tiles"] = prunes["tiles"]
+        if kname == "wgl_expand":  # the stage at both frontiers (expand_scale)
+            entry["scale"] = {k: v for k, v in expands.items() if k != "families"}
         if kname == "wgl_stage1_hash":  # the stage alone (stage1_sweep)
             entry["device_launches"] = stage1["device_launches"]
             entry["tiles"] = stage1["tiles"]

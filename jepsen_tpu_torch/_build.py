@@ -45,7 +45,7 @@ SIGNATURES = {
     "wgl_stage1_hash": [_P] * 6 + [_I] * 6 + [_P],
     "wgl_take_col": [_P, _L, _I, _I, _P, _P, _I, _I, _P, _P],
     "radix_sort_pairs": [_P] * 5 + [_I, _I, _P, _P],
-    "wgl_prune": [_P] * 7 + [_I] * 6 + [_P],
+    "wgl_prune": [_P] * 6 + [_I] * 7 + [_P],
     "wgl_gather_finalize": [_P] * 10 + [_I] * 10 + [_P],
     "wgl_regroup": [_P] * 11 + [_I] * 6 + [_P],
     "wgl_route": [_P] * 4 + [_I] * 5 + [_P],

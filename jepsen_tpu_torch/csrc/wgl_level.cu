@@ -120,8 +120,7 @@ __device__ __forceinline__ void st_release(u32* p, u32 v) {
 }
 
 // ---------------------------------------------------------------------------
-// Block-wide scans (block_excl_sum: blockDim.x a multiple of 32, at most
-// 1024; block_incl_max: 1024 threads)
+// Block-wide exclusive sum (blockDim.x a multiple of 32, at most 1024)
 
 __device__ int block_excl_sum(int v, int* total) {
   __shared__ int ws[32];
@@ -149,53 +148,6 @@ __device__ int block_excl_sum(int v, int* total) {
   return res;
 }
 
-__device__ int block_incl_max(int v, int* total) {
-  __shared__ int ws[32];
-  int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    int y = __shfl_up_sync(FULL, x, o);
-    if (lane >= o) x = max(x, y);
-  }
-  if (lane == 31) ws[w] = x;
-  __syncthreads();
-  if (w == 0) {
-    int s = ws[lane];
-    for (int o = 1; o < 32; o <<= 1) {
-      int y = __shfl_up_sync(FULL, s, o);
-      if (lane >= o) s = max(s, y);
-    }
-    ws[lane] = s;
-  }
-  __syncthreads();
-  int res = (w > 0) ? max(ws[w - 1], x) : x;
-  if (total) *total = ws[31];
-  __syncthreads();
-  return res;
-}
-
-// Exclusive prefix max of each member's row a[b][0..n) in place (-1 before
-// the first), one block per member.
-__global__ void k_scan_excl_max(int* a, int n, const int* ctl) {
-  const int b = blockIdx.x;
-  if (stopped(member_ctl(ctl, b))) return;
-  a += (size_t)b * n;
-  __shared__ int pre[1024];
-  int per = (n + 1023) / 1024;
-  int s0 = threadIdx.x * per;
-  int s1 = min(s0 + per, n);
-  int m = -1;
-  for (int i = s0; i < s1; ++i) m = max(m, a[i]);
-  pre[threadIdx.x] = block_incl_max(m, nullptr);
-  __syncthreads();
-  int run = threadIdx.x ? pre[threadIdx.x - 1] : -1;
-  for (int i = s0; i < s1; ++i) {
-    int v = a[i];
-    a[i] = run;
-    run = max(run, v);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Chunk start: frontier count and the stop test (reference lines 830-843),
 // one block per member.
@@ -217,8 +169,38 @@ __global__ void k_chunk_init(int* ctl, const unsigned char* valid, int F) {
 }
 
 // ---------------------------------------------------------------------------
-// K1 expand (reference lines 363-490): one warp per configuration, the
-// member in blockIdx.y.
+// K1 expand (reference lines 363-490): one warp per configuration, EX_WARPS
+// configurations a block, the member in blockIdx.y.
+//
+// What bounds it: a few hundred bytes a configuration (its frontier row,
+// its window's table rows, its valid candidate rows), about 0.2 us of HBM
+// time at the main path's F = 4096; what costs is the chain of dependent
+// loads (frontier row -> window rows -> stores) and the instructions a
+// configuration issues. The design:
+//
+// - two round trips: the control block, p and valid first, so that a
+//   stopped member or an invalid configuration (most of a batch's at the
+//   ladder's top rung) costs one and writes only its zero nvalid words;
+//   then the configuration's masks and state, the open-op table fields and
+//   its window's table rows, all at once;
+// - the window is read once: lane l holds the table fields of slots
+//   c * 32 + l in registers (KDM words at most, a template parameter), and
+//   m1, its slot am and m2 come from one butterfly that carries (min,
+//   argmin, second min);
+// - one model step a candidate, for every family: the child's state lanes
+//   are written straight into the row's slot of the warp's staging buffer;
+// - the selected layout's written rows are one contiguous run ([0,
+//   min(cnt, B)) of the configuration's B), staged 32 at a time and stored
+//   as 16-byte stores (a refused candidate's row holds whatever its slot
+//   held: its nvalid byte is zero); its nvalid bytes are gathered in
+//   shared memory and written as whole words at the end. The unselected
+//   layout stores each valid row from its lane and nvalid as words of a
+//   ballot;
+// - at most 64 registers a thread for windows of up to 64 slots
+//   (EX_MIN_BLOCKS), so that a full frontier of 4096 configurations is one
+//   wave of warps on the card;
+// - NEXP, ACCNOW and ROWOVF are reduced in shared memory: one atomic each a
+//   block, not a warp.
 
 // Model steps. Each is a transcription of the reference model's `step_jax`
 // (not of its `step_scalar`: the two differ on opcodes outside the model's
@@ -226,8 +208,8 @@ __global__ void k_chunk_init(int* ctl, const unsigned char* valid, int F) {
 // program runs `step_jax`); its plain version is the model's `step_torch`
 // in jepsen_tpu_torch/models/. A step reads the parent's S state lanes
 // `s` and returns ok; when `o` is not null it also writes the child's S
-// lanes there (k_expand calls it once without `o` to decide the row and
-// once with it for a row it keeps).
+// lanes there (k_expand calls it once a candidate, `o` the child's lanes
+// in the row's staging slot, which a refused candidate's row discards).
 //
 // Dispatch: one `switch` on a step id that is a kernel argument, so it is
 // uniform across the grid and costs one predictable branch per candidate;
@@ -241,7 +223,7 @@ __global__ void k_chunk_init(int* ctl, const unsigned char* valid, int F) {
 // The state width S is a runtime argument with no cap: MultiRegister and
 // Bank have one lane per register or account. Their steps copy the
 // parent's lanes and overwrite the one or two that change; the fixed-width
-// steps (S = 1, 2, 4) work in registers. The reference's arithmetic is
+// steps (S = 1, 2, 4) read and write fixed lanes. The reference's arithmetic is
 // int32 and wraps, so sums and differences are taken in u32 (signed
 // overflow is undefined in C++) and compared as int. Lane indices from a
 // padded or clamped table row (the unselected layout steps every slot)
@@ -438,175 +420,284 @@ __device__ __forceinline__ bool model_step(int step, const int* s, int S, int op
   }
 }
 
-__device__ __forceinline__ u32 new_word(const u32* mDf, int KD, int k, int t, int W) {
-  if (k >= KD) return 0u;
-  u32 x = mDf[k];
-  if (t < W && (t >> 5) == k) x |= 1u << (t & 31);
-  return x;
+#define EX_WARPS 4  // configurations a block
+// Blocks an SM for windows of up to two words (W <= 64, the main path's):
+// at most 64 registers a thread. The wider templates hold 4 * KDM window
+// fields in registers and are left to the compiler.
+#define EX_MIN_BLOCKS 8
+
+// Words of one warp's slot of the expand's shared memory: the staging rows
+// (32 rows), the parent's open masks and state, and the selected layout's
+// nvalid bytes (nvb words); rounded up to 16 bytes.
+__host__ __device__ constexpr int ex_warp_words(int NC, int KO1, int S, int nvb) {
+  return (32 * NC + KO1 + S + nvb + 3) & ~3;
 }
 
-__global__ void k_expand(const int* __restrict__ tabD, const int* __restrict__ sufret,
-                         const int* __restrict__ invO, const int* __restrict__ opO,
-                         const int* __restrict__ a1O, const int* __restrict__ a2O,
-                         const int* __restrict__ p, const u32* __restrict__ mD,
-                         const u32* __restrict__ mO, const int* __restrict__ st,
-                         const unsigned char* __restrict__ valid, int* ctl,
-                         u32* __restrict__ rows, unsigned char* __restrict__ nvalid,
-                         int F, int W, int KO, int ND, int NO, int B, int S, int step,
-                         int prm) {
+// The expand's dynamic shared memory: EX_WARPS warp slots.
+__host__ __device__ constexpr size_t ex_smem(int NC, int KO, int S, int B) {
+  return (size_t)4 * EX_WARPS *
+         ex_warp_words(NC, KO > 0 ? KO : 1, S, B > 0 ? (B + 3) / 4 : 0);
+}
+
+// Words [0, n) of src to dst by one warp, as 16-byte stores where dst is
+// aligned (src is read a word at a time: the two need not share an
+// alignment).
+__device__ __forceinline__ void warp_store_words(u32* dst, const u32* src, int n, int lane) {
+  const int head = min(n, (int)((4u - (u32)((reinterpret_cast<uintptr_t>(dst) >> 2) & 3u)) & 3u));
+  if (lane < head) dst[lane] = src[lane];
+  const int n4 = (n - head) >> 2;
+  uint4* d4 = reinterpret_cast<uint4*>(dst + head);
+  for (int q = lane; q < n4; q += 32) {
+    const u32* w = src + head + 4 * q;
+    d4[q] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  const int done = head + 4 * n4;
+  if (lane < n - done) dst[done + lane] = src[done + lane];
+}
+
+template <int KDM>
+__global__ void __launch_bounds__(EX_WARPS * 32, KDM == 2 ? EX_MIN_BLOCKS : 1)
+k_expand(const int* __restrict__ tabD, const int* __restrict__ sufret,
+         const int* __restrict__ invO, const int* __restrict__ opO,
+         const int* __restrict__ a1O, const int* __restrict__ a2O,
+         const int* __restrict__ p, const u32* __restrict__ mD,
+         const u32* __restrict__ mO, const int* __restrict__ st,
+         const unsigned char* __restrict__ valid, int* ctl,
+         u32* __restrict__ rows, unsigned char* __restrict__ nvalid,
+         int F, int W, int KO, int ND, int NO, int B, int S, int step, int prm) {
+  extern __shared__ __align__(16) u32 ex_buf[];
+  __shared__ int s_nok[EX_WARPS], s_flags[EX_WARPS];
   const int b = blockIdx.y;
-  ctl += (size_t)b * CTL_SIZE;
-  if (stopped(ctl)) return;
-  const int lane = threadIdx.x & 31;
-  const int f = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (f >= F) return;
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int f = blockIdx.x * EX_WARPS + wid;
   const int KD = W >> 5;
   const int KO1 = KO > 0 ? KO : 1;
   const int NC = 1 + KD + S + KO1;
   const int C = W + 32 * KO;
   const bool SEL = B > 0;
-  const size_t M = (size_t)F * (SEL ? B : C);
-  // This member's tables, frontier and candidate rows.
+  const int R = SEL ? B : C;  // rows a configuration owns
+  // This member's control block and tables, this configuration's rows.
+  ctl += (size_t)b * CTL_SIZE;
   tabD += (size_t)b * ND * 8;
   sufret += (size_t)b * (ND + 1);
   invO += (size_t)b * NO;
   opO += (size_t)b * NO;
   a1O += (size_t)b * NO;
   a2O += (size_t)b * NO;
-  p += (size_t)b * F;
-  mD += (size_t)b * F * KD;
-  mO += (size_t)b * F * KO1;
-  st += (size_t)b * F * S;
-  valid += (size_t)b * F;
-  rows += (size_t)b * M * NC;
-  nvalid += (size_t)b * M;
-  const int nD = ctl[CTL_ND], nO = ctl[CTL_NO];
-  const int pf = p[f];
-  const bool vf = valid[f] != 0;
-  const u32* mDf = mD + (size_t)f * KD;
-  const u32* mOf = mO + (size_t)f * KO1;
-  const int* stf = st + (size_t)f * S;
+  const size_t bf = (size_t)b * F + f;
+  rows += bf * R * NC;
+  nvalid += bf * R;
+  u32* stage = ex_buf + (size_t)wid * ex_warp_words(NC, KO1, S, SEL ? (B + 3) / 4 : 0);
+  u32* sMO = stage + 32 * NC;
+  int* sST = reinterpret_cast<int*>(sMO + KO1);
+  u32* sNV = reinterpret_cast<u32*>(sST + S);
+  // First round trip: the control block and whether this configuration
+  // is valid; a stopped member or an invalid configuration goes no further.
+  const int go = ctl[CTL_GO], nD = ctl[CTL_ND], nO = ctl[CTL_NO];
+  const bool live = f < F;
+  const int pf = live ? p[bf] : 0;
+  const bool vf = live && valid[bf] != 0;
+  if (go == 0) return;  // block-uniform
 
-  // Two-min over unlinearized window rets: m1, its first slot am, and the
-  // min over the other slots m2.
-  int best = I32MAX, bidx = I32MAX;
-  for (int c = 0; c < KD; ++c) {
-    int t = c * 32 + lane;
-    int row = pf + t;
-    bool inr = row < nD;
-    bool bit = (mDf[c] >> lane) & 1u;
-    int val = (inr && !bit) ? tabD[(size_t)min(row, ND - 1) * 8 + 1] : I32MAX;
-    if (val < best || (val == best && t < bidx)) { best = val; bidx = t; }
-  }
-  for (int o = 16; o; o >>= 1) {
-    int ob = __shfl_xor_sync(FULL, best, o);
-    int oi = __shfl_xor_sync(FULL, bidx, o);
-    if (ob < best || (ob == best && oi < bidx)) { best = ob; bidx = oi; }
-  }
-  const int m1 = best, am = bidx;
-  int m2 = I32MAX;
-  for (int c = 0; c < KD; ++c) {
-    int t = c * 32 + lane;
-    int row = pf + t;
-    bool inr = row < nD;
-    bool bit = (mDf[c] >> lane) & 1u;
-    int val = (inr && !bit) ? tabD[(size_t)min(row, ND - 1) * 8 + 1] : I32MAX;
-    if (t != am) m2 = min(m2, val);
-  }
-  for (int o = 16; o; o >>= 1) m2 = min(m2, __shfl_xor_sync(FULL, m2, o));
-  const int tail = sufret[min(pf + W, nD)];
-  const int mra = min(m1, tail);
-
-  int cnt = 0;  // candidates so far (warp-uniform)
   int n_ok = 0;
   bool acc = false;
-  for (int c = 0; c < KD + KO; ++c) {
-    const int t = c * 32 + lane;
-    bool cand;
-    int op, a1, a2;
-    if (c < KD) {
-      int row = pf + t;
-      bool inr = row < nD;
-      int rr = min(row, ND - 1);
-      bool bit = (mDf[c] >> lane) & 1u;
-      const int* tr = tabD + (size_t)rr * 8;
-      int inv = inr ? tr[0] : I32MAX;
-      int excl = min((t == am) ? m2 : m1, tail);
-      cand = inr && !bit && inv < excl;
-      op = inr ? tr[2] : 0;
-      a1 = inr ? tr[3] : 0;
-      a2 = inr ? tr[4] : 0;
-    } else {
-      int o = t - W;
-      int oc = min(o, NO - 1);
-      bool oin = o < nO;
-      bool obit = (mOf[c - KD] >> lane) & 1u;
-      int invo = oin ? invO[oc] : I32MAX;
-      cand = oin && !obit && invo < mra;
-      op = opO[oc];
-      a1 = a1O[oc];
-      a2 = a2O[oc];
-    }
-    cand = cand && vf;
-    const u32 bal = __ballot_sync(FULL, cand);
-    bool write;
-    size_t outrow;
-    if (SEL) {
-      int k = cnt + __popc(bal & lane_lt_mask(lane));
-      write = cand && k < B;
-      outrow = (size_t)f * B + k;
-      cnt += __popc(bal);
-    } else {
-      write = true;
-      outrow = (size_t)f * C + t;
-    }
-    if (!write) continue;
-    bool nv = cand && model_step(step, stf, S, op, a1, a2, prm, nullptr);
-    nvalid[outrow] = nv ? 1 : 0;
-    if (!nv) continue;
-    // bit set, trailing ones across the words, multi-word right shift
-    int s = 0;
-    for (int k = 0; k < KD; ++k) {
-      u32 x = new_word(mDf, KD, k, t, W);
-      int t1 = (x == FULL) ? 32 : (__ffs(~x) - 1);
-      s += t1;
-      if (t1 != 32) break;
-    }
-    const int np = pf + s;
-    const int sw = s >> 5, sb = s & 31;
-    u32* out = rows + outrow * NC;
-    out[0] = (u32)np;
-    for (int k = 0; k < KD; ++k) {
-      u32 lo = new_word(mDf, KD, k + sw, t, W);
-      u32 hi = new_word(mDf, KD, k + sw + 1, t, W);
-      out[1 + k] = (lo >> sb) | (sb ? (hi << (32 - sb)) : 0u);
-    }
-    model_step(step, stf, S, op, a1, a2, prm, out + 1 + KD);
-    for (int k = 0; k < KO1; ++k) {
-      u32 ow = 0u;
-      if (KO > 0) {
-        ow = mOf[k];
-        int o = t - W;
-        if (o >= 0 && (o >> 5) == k) ow |= 1u << (o & 31);
+  int cnt = 0;  // candidates so far (warp-uniform; selected layout)
+  if (vf) {
+    // Second round trip: the configuration's masks and state and the
+    // window's table rows, read once: lane l holds slot c * 32 + l's
+    // fields.
+    u32 mdw[KDM];
+#pragma unroll
+    for (int c = 0; c < KDM; ++c) mdw[c] = c < KD ? mD[bf * KD + c] : 0u;
+    for (int k = lane; k < KO1; k += 32) sMO[k] = mO[bf * KO1 + k];
+    for (int k = lane; k < S; k += 32) sST[k] = st[bf * S + k];
+    if (SEL)
+      for (int k = lane; k < (B + 3) / 4; k += 32) sNV[k] = 0u;
+    const int tail = sufret[min(pf + W, nD)];
+    // The window's fields, and the local (min, argmin, second min) of the
+    // unlinearized rets.
+    int inv[KDM], op[KDM], a1[KDM], a2[KDM];
+    u32 open = 0u;  // bit c: the slot is in range and unlinearized
+    int best = I32MAX, bidx = I32MAX, second = I32MAX;
+#pragma unroll
+    for (int c = 0; c < KDM; ++c) {
+      if (c < KD) {
+        const int t = c * 32 + lane;
+        const int row = pf + t;
+        const bool inr = row < nD;
+        const int* tr = tabD + (size_t)min(row, ND - 1) * 8;
+        const int4 q = *reinterpret_cast<const int4*>(tr);
+        const int q4 = tr[4];
+        const bool avail = inr && !((mdw[c] >> lane) & 1u);
+        inv[c] = inr ? q.x : I32MAX;
+        op[c] = inr ? q.z : 0;
+        a1[c] = inr ? q.w : 0;
+        a2[c] = inr ? q4 : 0;
+        open |= avail ? (1u << c) : 0u;
+        const int val = avail ? q.y : I32MAX;
+        if (val < best || (val == best && t < bidx)) {
+          second = best;
+          best = val;
+          bidx = t;
+        } else {
+          second = min(second, val);
+        }
       }
-      out[1 + KD + S + k] = ow;
     }
-    n_ok += 1;
-    acc = acc || (np >= nD);
-  }
-  if (SEL) {
-    for (int k = min(cnt, B) + lane; k < B; k += 32) nvalid[(size_t)f * B + k] = 0;
+    for (int o = 16; o; o >>= 1) {
+      const int ob = __shfl_xor_sync(FULL, best, o);
+      const int oi = __shfl_xor_sync(FULL, bidx, o);
+      const int os = __shfl_xor_sync(FULL, second, o);
+      if (ob < best || (ob == best && oi < bidx)) {
+        second = min(best, os);
+        best = ob;
+        bidx = oi;
+      } else {
+        second = min(second, ob);
+      }
+    }
+    const int m1 = best, am = bidx, m2 = second;
+    const int mra = min(m1, tail);
+    __syncwarp();  // the state, open masks and nvalid bytes in shared memory
+
+    // The selected layout's rows [base, cnt) wait in the staging buffer
+    // (row k at slot k - base) and go out in one run once a chunk would
+    // overflow it, or at the end.
+    int base = 0;
+    // One chunk of 32 slots a step (c < KD: window, else open): select,
+    // step and build each written row in the staging buffer. One call
+    // site for every chunk: the lane's fields are picked from registers.
+    for (int c = 0; c < KD + KO; ++c) {
+      int t, iv, op_, a1_, a2_;
+      bool cand;
+      if (c < KD) {
+        t = c * 32 + lane;
+        iv = inv[0], op_ = op[0], a1_ = a1[0], a2_ = a2[0];
+#pragma unroll
+        for (int j = 1; j < KDM; ++j)
+          if (c == j) iv = inv[j], op_ = op[j], a1_ = a1[j], a2_ = a2[j];
+        const int excl = min((t == am) ? m2 : m1, tail);
+        cand = ((open >> c) & 1u) && iv < excl;
+      } else {
+        // The open-op table (only its first 32 * KO entries are slots),
+        // the same for every configuration: read through L1.
+        const int o = (c - KD) * 32 + lane;
+        const int oc = min(o, NO - 1);
+        t = W + o;
+        iv = invO[oc], op_ = opO[oc], a1_ = a1O[oc], a2_ = a2O[oc];
+        cand = o < nO && !((sMO[c - KD] >> lane) & 1u) && iv < mra;
+      }
+      const u32 bal = __ballot_sync(FULL, cand);
+      if (SEL && bal == 0u) continue;
+      int slot = lane, k = 0;
+      bool write = true;
+      if (SEL) {
+        const int n = __popc(bal);
+        if (min(cnt + n, B) - base > 32) {  // flush the staged rows first
+          __syncwarp();
+          warp_store_words(rows + (size_t)base * NC, stage, (min(cnt, B) - base) * NC, lane);
+          __syncwarp();
+          base = min(cnt, B);
+        }
+        k = cnt + __popc(bal & lane_lt_mask(lane));
+        write = cand && k < B;
+        slot = k - base;
+        cnt += n;
+      }
+      u32* r = stage + slot * NC;
+      bool nv = false;
+      if (write && cand) {
+        nv = model_step(step, sST, S, op_, a1_, a2_, prm, r + 1 + KD);
+        if (nv) {
+          // bit set, trailing ones across the words, multi-word right
+          // shift (in place in the row: word k reads words k + sw and up)
+          int s = 0;
+          bool carry = true;
+#pragma unroll
+          for (int w = 0; w < KDM; ++w) {
+            if (w < KD) {
+              const u32 x = mdw[w] | ((t < W && (t >> 5) == w) ? (1u << (t & 31)) : 0u);
+              r[1 + w] = x;
+              const int t1 = (x == FULL) ? 32 : (__ffs(~x) - 1);
+              s += carry ? t1 : 0;
+              carry = carry && t1 == 32;
+            }
+          }
+          const int sw = s >> 5, sb = s & 31;
+          for (int w = 0; w < KD; ++w) {
+            const u32 lo = w + sw < KD ? r[1 + w + sw] : 0u;
+            const u32 hi = w + sw + 1 < KD ? r[2 + w + sw] : 0u;
+            r[1 + w] = __funnelshift_r(lo, hi, sb);
+          }
+          r[0] = (u32)(pf + s);
+          for (int w = 0; w < KO1; ++w) {
+            u32 ow = 0u;
+            if (KO > 0) {
+              ow = sMO[w];
+              const int o = t - W;
+              if (o >= 0 && (o >> 5) == w) ow |= 1u << (o & 31);
+            }
+            r[1 + KD + S + w] = ow;
+          }
+          n_ok += 1;
+          acc = acc || (pf + s >= nD);
+          if (SEL) reinterpret_cast<unsigned char*>(sNV)[k] = 1;
+        }
+      }
+      if (!SEL) {
+        const u32 nvb = __ballot_sync(FULL, nv);
+        if (lane < 8)
+          reinterpret_cast<u32*>(nvalid + (size_t)c * 32)[lane] =
+              ((nvb >> (4 * lane)) & 1u) | (((nvb >> (4 * lane + 1)) & 1u) << 8) |
+              (((nvb >> (4 * lane + 2)) & 1u) << 16) | (((nvb >> (4 * lane + 3)) & 1u) << 24);
+        if (nv) {
+          u32* dst = rows + ((size_t)c * 32 + lane) * NC;
+          for (int w = 0; w < NC; ++w) dst[w] = r[w];
+        }
+      }
+    }
+    if (SEL && min(cnt, B) > base) {
+      __syncwarp();
+      warp_store_words(rows + (size_t)base * NC, stage, (min(cnt, B) - base) * NC, lane);
+    }
+    if (SEL) {
+      // The configuration's B nvalid bytes, as words (bytes where B is not
+      // a multiple of 4).
+      __syncwarp();
+      if ((B & 3) == 0 && (reinterpret_cast<uintptr_t>(nvalid) & 3u) == 0) {
+        for (int k = lane; k < B / 4; k += 32) reinterpret_cast<u32*>(nvalid)[k] = sNV[k];
+      } else {
+        const unsigned char* nb8 = reinterpret_cast<const unsigned char*>(sNV);
+        for (int k = lane; k < B; k += 32) nvalid[k] = nb8[k];
+      }
+    }
+  } else if (live) {
+    // No candidate: every row's nvalid byte is zero (as words where the
+    // row count allows).
+    const int R4 = (R & 3) == 0 && (reinterpret_cast<uintptr_t>(nvalid) & 3u) == 0 ? R / 4 : 0;
+    for (int k = lane; k < R4; k += 32) reinterpret_cast<u32*>(nvalid)[k] = 0u;
+    for (int k = 4 * R4 + lane; k < R; k += 32) nvalid[k] = 0;
   }
   for (int o = 16; o; o >>= 1) n_ok += __shfl_xor_sync(FULL, n_ok, o);
-  bool any_acc = __any_sync(FULL, acc);
+  const bool any_acc = __any_sync(FULL, acc);
   if (lane == 0) {
-    // n_ok is the count of this warp's nonzero nvalid bytes, so CTL_NEXP
+    s_nok[wid] = n_ok;
+    s_flags[wid] = (any_acc ? 1 : 0) | ((SEL && cnt > B) ? 2 : 0);
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int nok = 0, fl = 0;
+    for (int w = 0; w < EX_WARPS; ++w) {
+      nok += s_nok[w];
+      fl |= s_flags[w];
+    }
+    // nok is the count of the block's nonzero nvalid bytes, so CTL_NEXP
     // ends as the member's count of valid rows: wgl_stage1_hash relies on
     // it (its tail hash reads drows rows [n_cand, P) while other blocks
     // write rows [0, min(n_cand, P))), and chip_smoke's StageCheck checks it.
-    if (n_ok) atomicAdd(&ctl[CTL_NEXP], n_ok);
-    if (any_acc) atomicOr(&ctl[CTL_ACCNOW], 1);
-    if (SEL && cnt > B) atomicOr(&ctl[CTL_ROWOVF], 1);
+    if (nok) atomicAdd(&ctl[CTL_NEXP], nok);
+    if (fl & 1) atomicOr(&ctl[CTL_ACCNOW], 1);
+    if (fl & 2) atomicOr(&ctl[CTL_ROWOVF], 1);
   }
 }
 
@@ -1313,81 +1404,235 @@ k_sort_pass(u32* ka, u32* va, u32* kb, u32* vb, int n, u32* state, int tiles, in
 // ---------------------------------------------------------------------------
 // K4 prune (reference lines 657-736): over the dedup-sorted order, the
 // same-group test on the real identity columns, the adjacent-subset rule,
-// the group-head rule (each row's segment start found by a prefix max over
-// the member's own block maxima), the keep count and the fused compaction
-// priority.
+// the group-head rule (each row's segment start is a prefix max), the keep
+// count and the fused compaction priority; one launch for every member.
+//
+// What bounds it: the member's sorted keys and perm read once, its L rows
+// gathered once through perm, the priorities written once: about 0.5 MB,
+// 0.15 us of HBM time, at the main path's L = 16384. What costs is
+// latency, so the design is one single-pass launch:
+//
+// - a block takes a tile of T rows of its member (blockIdx.y), one row a
+//   thread, its tile number from one ticket counter over the grid (as
+//   k_stage1), so that it only ever waits on tiles whose blocks run;
+// - the tile's keys and perm, and those of the PR_HALO rows before it, are
+//   read with the ticket; then those rows are gathered once through perm
+//   into shared memory with cp.async, a word a thread, every load in
+//   flight at once;
+// - the predecessor tests read shared memory; the tile's segment starts
+//   come from a block-wide prefix max;
+// - a row before the tile's first start continues a group from an earlier
+//   tile; its start is the last start before the tile, found in the halo
+//   when the group began there (groups are short: the common case needs no
+//   other block), else carried by a decoupled look-back on a max
+//   (idempotent: a tile that knows its inclusive value publishes it at
+//   once, a tile that needs the carry looks back first, any other tile
+//   publishes only that it holds no start). The words are stage 1's,
+//   64-bit with a call epoch, in a scratch of the same layout that cleans
+//   itself;
+// - the head's open words come from shared memory when the head is in the
+//   tile or the halo, else from device memory, once a tile;
+// - the keep count: one atomicAdd a block into ctl[CTL_COUNT].
 
-#define PF_VALID 1
-#define PF_SAME 2
-#define PF_PSUB 4
+#define PR_HALO 32  // rows before the tile a block reads: warp 0's
 
-__global__ void k_prune_a(const u32* __restrict__ drows, const u32* __restrict__ skey,
-                          const int* __restrict__ perm, unsigned char* __restrict__ pflags,
-                          int* __restrict__ blk, int L, int NC, int NID, int KO1, const int* ctl) {
-  const int b = blockIdx.y;
-  if (stopped(member_ctl(ctl, b))) return;
-  drows += (size_t)b * L * NC;
-  skey += (size_t)b * L;
-  perm += (size_t)b * L;
-  pflags += (size_t)b * L;
-  int i = blockIdx.x * 1024 + threadIdx.x;
-  int st = -1;
-  if (i < L) {
-    bool sv = (skey[i] >> 31) == 0;
-    bool same = false, psub = false;
-    if (sv && i > 0 && (skey[i - 1] >> 31) == 0) {
-      const u32* r = drows + (size_t)perm[i] * NC;
-      const u32* q = drows + (size_t)perm[i - 1] * NC;
-      same = true;
-      for (int c = 0; c < NID; ++c) same = same && (r[c] == q[c]);
-      if (same) {
-        psub = true;
-        for (int w = 0; w < KO1; ++w) psub = psub && ((q[NID + w] & ~r[NID + w]) == 0u);
-      }
-    }
-    pflags[i] = (sv ? PF_VALID : 0) | (same ? PF_SAME : 0) | (psub ? PF_PSUB : 0);
-    if (sv && !same) st = i;
-  }
-  int m;
-  block_incl_max(st, &m);
-  if (threadIdx.x == 0) blk[(size_t)b * gridDim.x + blockIdx.x] = m;
+// Dynamic shared memory of a tile of T rows of NC words: the halo's and
+// the tile's rows, their perm entries and validity bytes, and the carried
+// head's open words.
+__host__ __device__ constexpr size_t pr_smem(int T, int NC, int KO1) {
+  return 4 * ((size_t)(T + PR_HALO) * NC + (T + PR_HALO) + KO1) + (size_t)(T + PR_HALO);
 }
 
-__global__ void k_prune_b(const u32* __restrict__ drows, const int* __restrict__ perm,
-                          const unsigned char* __restrict__ pflags, const int* __restrict__ blk_pre,
-                          int* ctl, u32* __restrict__ fprio, int L, int NC, int NID, int KO1,
-                          int PB) {
-  const int b = blockIdx.y;
-  ctl += (size_t)b * CTL_SIZE;
-  if (stopped(ctl)) return;
+__global__ void __launch_bounds__(1024)
+k_prune(const u32* __restrict__ drows, const u32* __restrict__ skey, const int* __restrict__ perm,
+        int* ctl, u32* __restrict__ fprio, u32* state, int L, int NC, int NID, int KO1, int PB) {
+  const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  // Slot s holds row i0 - PR_HALO + s: the halo in slots [0, PR_HALO).
+  extern __shared__ __align__(16) u32 pr_buf[];
+  u32* srow = pr_buf;                                                      // [T + PR_HALO][NC]
+  int* sperm = reinterpret_cast<int*>(srow + (size_t)(T + PR_HALO) * NC);   // [T + PR_HALO]
+  u32* shead = reinterpret_cast<u32*>(sperm + T + PR_HALO);                 // [KO1]
+  unsigned char* sval = reinterpret_cast<unsigned char*>(shead + KO1);     // [T + PR_HALO]
+  __shared__ int s_ticket, s_max[32], s_first[32], s_cont[32], s_carry;
+  __shared__ u32 s_epoch;
+  const int tiles = gridDim.x, blocks = gridDim.x * gridDim.y;
+  u32* hdr = state;
+  if (tid == 0) {
+    s_ticket = (int)atomicAdd(&hdr[S1_CTR], 1u);
+    s_epoch = hdr[S1_EPOCH];
+  }
+  // The guessed tile's control block, keys and perm (blocks start in
+  // blockIdx order, so most likely its own) are read, and put in shared
+  // memory, with the ticket; again only if the ticket names another tile.
+  int b = blockIdx.y, tile = blockIdx.x, go;
+  auto load = [&]() {
+    go = ctl[(size_t)b * CTL_SIZE + CTL_GO];
+    const int i = tile * T + tid;
+    const u32 key = i < L ? skey[(size_t)b * L + i] : FULL;
+    sperm[PR_HALO + tid] = i < L ? perm[(size_t)b * L + i] : 0;
+    sval[PR_HALO + tid] = (key >> 31) == 0u ? 1 : 0;
+    if (tid < PR_HALO) {  // warp 0: the halo
+      const int h = tile * T - PR_HALO + tid;
+      const u32 hkey = h >= 0 ? skey[(size_t)b * L + h] : FULL;
+      sperm[tid] = h >= 0 ? perm[(size_t)b * L + h] : 0;
+      sval[tid] = (hkey >> 31) == 0u ? 1 : 0;
+    }
+  };
+  load();
+  __syncthreads();
+  if (s_ticket != b * tiles + tile) {
+    b = s_ticket / tiles;
+    tile = s_ticket - b * tiles;
+    load();
+    __syncthreads();
+  }
+  const unsigned long long epoch = (unsigned long long)s_epoch << 32;
+  if (go == 0) {
+    if (tid == 0) s1_last(hdr, atomicAdd(&hdr[S1_DONE], 1u), blocks);
+    return;
+  }
+  const int i0 = tile * T, i = i0 + tid;
+  const int n = min(T, L - i0);  // rows of the tile
   drows += (size_t)b * L * NC;
-  perm += (size_t)b * L;
-  pflags += (size_t)b * L;
-  fprio += (size_t)b * L;
-  int i = blockIdx.x * 1024 + threadIdx.x;
-  unsigned char fl = (i < L) ? pflags[i] : 0;
-  bool sv = fl & PF_VALID, same = fl & PF_SAME, psub = fl & PF_PSUB;
-  bool is_start = sv && !same;
-  int seg = block_incl_max(is_start ? i : -1, nullptr);
-  seg = max(seg, blk_pre[(size_t)b * gridDim.x + blockIdx.x]);
+  const int s0 = max(0, PR_HALO - i0);  // the first slot of a row >= 0
+  for (int j = s0 * NC + tid; j < (PR_HALO + n) * NC; j += T) {
+    const int r = j / NC;
+    cp_async4(srow + j, drows + (size_t)sperm[r] * NC + (j - r * NC));
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  // Row r's group tests against row r - 1 (slots r and r - 1 >= 0).
+  auto tests = [&](int r, bool& same, bool& psub) {
+    const u32* me = srow + (size_t)r * NC;
+    const u32* pr = me - NC;
+    same = psub = false;
+    if (sval[r] && sval[r - 1]) {
+      same = true;
+      for (int c = 0; c < NID; ++c) same = same && (me[c] == pr[c]);
+      if (same) {
+        psub = true;
+        for (int w = 0; w < KO1; ++w) psub = psub && ((pr[NID + w] & ~me[NID + w]) == 0u);
+      }
+    }
+  };
+  const int slot = PR_HALO + tid;
+  const u32* me = srow + (size_t)slot * NC;
+  const bool sv = sval[slot] != 0;
+  bool same, psub;
+  tests(slot, same, psub);
+  const bool is_start = sv && !same;
+  // The last start in the halo (slots 1 .. PR_HALO - 1; slot 0 has no
+  // predecessor here), as a look-back value: its row + 1, 0 for none.
+  u32 hc = 0u;
+  if (wid == 0) {
+    bool hs = false, hp;
+    if (lane > 0) {
+      tests(lane, hs, hp);
+      hs = sval[lane] && !hs;
+    }
+    const u32 hb = __ballot_sync(FULL, hs);
+    if (hb) hc = (u32)(i0 - PR_HALO + 31 - __clz(hb) + 1);
+  }
+  // The block's inclusive prefix max of the starts: each warp's scan, then
+  // each thread's max over the earlier warps' last starts. Each warp's
+  // first start and first continuing row (valid, not a start) tell
+  // whether a row before the tile's first start continues a group.
+  int seg = is_start ? i : -1;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, seg, o);
+    if (lane >= o) seg = max(seg, y);
+  }
+  const u32 starts = __ballot_sync(FULL, is_start), conts = __ballot_sync(FULL, sv && !is_start);
+  if (lane == 31) s_max[wid] = seg;
+  if (lane == 0) {
+    s_first[wid] = starts ? i0 + 32 * wid + __ffs(starts) - 1 : I32MAX;
+    s_cont[wid] = conts ? i0 + 32 * wid + __ffs(conts) - 1 : I32MAX;
+  }
+  __syncthreads();
+  for (int w = 0; w < wid; ++w) seg = max(seg, s_max[w]);
+  int last = -1;  // the tile's last start, or -1 (warp 0's)
+  bool need = false;  // a row before the tile's first start continues a group (warp 0's)
+  if (wid == 0) {
+    int first = I32MAX, cont = I32MAX;
+    for (int w = 0; w < (T >> 5); ++w) {
+      last = max(last, s_max[w]);
+      first = min(first, s_first[w]);
+      cont = min(cont, s_cont[w]);
+    }
+    need = cont < first;
+  }
+  unsigned long long* lb =
+      reinterpret_cast<unsigned long long*>(hdr + S1_HDR) + (size_t)b * tiles;
+  u32 done_ticket = 0u;
+  const bool look = need && hc == 0u;  // warp-0 values; tid 0 decides
+  if (tid == 0) {
+    if (last >= 0) lb_publish(&lb[tile], epoch | LB_INCL | (u32)(last + 1));
+    else if (hc != 0u || tile == 0) lb_publish(&lb[tile], epoch | LB_INCL | hc);
+    else lb_publish(&lb[tile], epoch | LB_AGG);
+    if (!look) done_ticket = atomicAdd(&hdr[S1_DONE], 1u);
+    s_carry = (int)hc;
+  }
+  if (wid == 0 && look) {
+    // 32 * S1_LB_WORDS predecessors a round, nearest first, until the
+    // nearest that holds its inclusive value; the ones between hold no
+    // start.
+    u32 carry = 0u;
+    for (int t = tile - 1; t >= 0; t -= 32 * S1_LB_WORDS) {
+      u32 x[S1_LB_WORDS];
+#pragma unroll
+      for (int k = 0; k < S1_LB_WORDS; ++k) {
+        const int j = t - 32 * k - lane;
+        x[k] = j >= 0 ? lb_word(&lb[j], epoch) : LB_INCL;  // before tile 0: none
+      }
+      bool found = false;
+#pragma unroll
+      for (int k = 0; k < S1_LB_WORDS && !found; ++k) {
+        const int j = t - 32 * k - lane;
+        while (__any_sync(FULL, x[k] == 0u))
+          if (x[k] == 0u) x[k] = lb_word(&lb[j], epoch);
+        const u32 incl = __ballot_sync(FULL, (x[k] & LB_INCL) != 0u);
+        const int upto = incl ? __ffs(incl) - 1 : 31;
+        u32 v = lane <= upto ? (x[k] & LB_VALUE) : 0u;
+        for (int o = 16; o; o >>= 1) v = max(v, __shfl_xor_sync(FULL, v, o));
+        carry = max(carry, v);
+        found = incl != 0u;
+      }
+      if (found) break;
+    }
+    if (lane == 0) {
+      if (last < 0) lb_publish(&lb[tile], epoch | LB_INCL | carry);
+      done_ticket = atomicAdd(&hdr[S1_DONE], 1u);
+      s_carry = (int)carry;
+    }
+    // The carried head's open words: it lies before the halo.
+    const int h = (int)carry - 1;
+    if (h >= 0) {
+      const u32* hr = drows + (size_t)perm[(size_t)b * L + h] * NC + NID;
+      for (int w = lane; w < KO1; w += 32) shead[w] = hr[w];
+    }
+  }
+  __syncthreads();
   bool keep = false;
   if (i < L) {
-    const u32* r = drows + (size_t)perm[i] * NC;
     bool head_sub = false;
-    if (sv && !is_start && seg >= 0) {
-      const u32* h = drows + (size_t)perm[seg] * NC;
+    if (sv && !is_start) {
+      const int h = seg >= 0 ? seg : s_carry - 1;
+      const u32* ho = h >= i0 - PR_HALO ? srow + (size_t)(h - i0 + PR_HALO) * NC + NID : shead;
       head_sub = true;
-      for (int w = 0; w < KO1; ++w) head_sub = head_sub && ((h[NID + w] & ~r[NID + w]) == 0u);
+      for (int w = 0; w < KO1; ++w) head_sub = head_sub && ((ho[w] & ~me[NID + w]) == 0u);
     }
     keep = sv && !(same && psub) && !head_sub;
     int opc = 0;
-    for (int w = 0; w < KO1; ++w) opc += __popc(r[NID + w]);
-    u32 maxp = (PB >= 32) ? FULL : ((1u << PB) - 1u);
-    fprio[i] = ((keep ? 0u : 1u) << (PB + 6)) | ((maxp - r[0]) << 6) | (u32)min(opc, 63);
+    for (int w = 0; w < KO1; ++w) opc += __popc(me[NID + w]);
+    const u32 maxp = (PB >= 32) ? FULL : ((1u << PB) - 1u);
+    fprio[(size_t)b * L + i] =
+        ((keep ? 0u : 1u) << (PB + 6)) | ((maxp - me[0]) << 6) | (u32)min(opc, 63);
   }
-  int total;
-  block_excl_sum(keep ? 1 : 0, &total);
-  if (threadIdx.x == 0 && total) atomicAdd(&ctl[CTL_COUNT], total);
+  const int kept = __syncthreads_count(keep);
+  if (tid == 0) {
+    if (kept) atomicAdd(&ctl[(size_t)b * CTL_SIZE + CTL_COUNT], kept);
+    s1_last(hdr, done_ticket, blocks);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1822,6 +2067,28 @@ static int stage1_launch(dim3 grid, cudaStream_t s, const u32* rows, const unsig
   return (int)cudaGetLastError();
 }
 
+// One k_expand<KDM> launch, its dynamic shared memory allowed past 48 KB
+// when a wide row needs it.
+template <int KDM>
+static int expand_launch(dim3 grid, size_t smem, cudaStream_t s, void* tabD, void* sufret,
+                         void* invO, void* opO, void* a1O, void* a2O, void* p, void* mD, void* mO,
+                         void* st, void* valid, void* ctl, void* rows, void* nvalid, int F, int W,
+                         int KO, int ND, int NO, int B, int S, int step, int prm) {
+  static size_t sized = 48 * 1024;
+  if (smem > sized) {
+    cudaError_t e = cudaFuncSetAttribute(k_expand<KDM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    sized = smem;
+  }
+  k_expand<KDM><<<grid, EX_WARPS * 32, smem, s>>>(
+      (const int*)tabD, (const int*)sufret, (const int*)invO, (const int*)opO, (const int*)a1O,
+      (const int*)a2O, (const int*)p, (const u32*)mD, (const u32*)mO, (const int*)st,
+      (const unsigned char*)valid, (int*)ctl, (u32*)rows, (unsigned char*)nvalid, F, W, KO, ND,
+      NO, B, S, step, prm);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 const char* wgl_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
@@ -1831,18 +2098,28 @@ int wgl_chunk_init(void* ctl, void* valid, int F, int nb, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// tabD 16-byte aligned; W a multiple of 32, at most 1024.
 int wgl_expand(void* tabD, void* sufret, void* invO, void* opO, void* a1O, void* a2O,
                void* p, void* mD, void* mO, void* st, void* valid, void* ctl, void* rows,
                void* nvalid, int F, int W, int KO, int ND, int NO, int B, int S, int step,
                int prm, int nb, void* stream) {
-  const int threads = 128;  // 4 configurations per block
-  dim3 grid(nblk((long)F * 32, threads), nb);
-  k_expand<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const int*)tabD, (const int*)sufret, (const int*)invO, (const int*)opO,
-      (const int*)a1O, (const int*)a2O, (const int*)p, (const u32*)mD, (const u32*)mO,
-      (const int*)st, (const unsigned char*)valid, (int*)ctl, (u32*)rows,
-      (unsigned char*)nvalid, F, W, KO, ND, NO, B, S, step, prm);
-  return (int)cudaGetLastError();
+  const int KD = W >> 5;
+  if (W <= 0 || (W & 31) || KD > 32 || ((uintptr_t)tabD & 15)) return (int)cudaErrorInvalidValue;
+  const int NC = 1 + KD + S + (KO > 0 ? KO : 1);
+  const size_t smem = ex_smem(NC, KO, S, B);
+  const dim3 grid(nblk(F, EX_WARPS), nb);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (KD <= 2 ? 2 : KD <= 8 ? 8 : 32) {
+    case 2: return expand_launch<2>(grid, smem, s, tabD, sufret, invO, opO, a1O, a2O, p, mD, mO,
+                                    st, valid, ctl, rows, nvalid, F, W, KO, ND, NO, B, S, step,
+                                    prm);
+    case 8: return expand_launch<8>(grid, smem, s, tabD, sufret, invO, opO, a1O, a2O, p, mD, mO,
+                                    st, valid, ctl, rows, nvalid, F, W, KO, ND, NO, B, S, step,
+                                    prm);
+    default: return expand_launch<32>(grid, smem, s, tabD, sufret, invO, opO, a1O, a2O, p, mD,
+                                      mO, st, valid, ctl, rows, nvalid, F, W, KO, ND, NO, B, S,
+                                      step, prm);
+  }
 }
 
 // P > 0: two-stage, in one launch: compact the valid rows of `rows` into
@@ -1922,17 +2199,25 @@ int radix_sort_pairs(void* keys, void* vals, void* tmp_k, void* tmp_v, void* sta
   return (int)cudaGetLastError();
 }
 
-int wgl_prune(void* drows, void* skey, void* perm, void* ctl, void* fprio, void* pflags,
-              void* blk, int L, int NC, int NID, int KO1, int PB, int nb, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  int nbk = nblk(L, 1024);
-  k_prune_a<<<dim3(nbk, nb), 1024, 0, s>>>((const u32*)drows, (const u32*)skey,
-                                          (const int*)perm, (unsigned char*)pflags, (int*)blk,
-                                          L, NC, NID, KO1, (const int*)ctl);
-  k_scan_excl_max<<<nb, 1024, 0, s>>>((int*)blk, nbk, (const int*)ctl);
-  k_prune_b<<<dim3(nbk, nb), 1024, 0, s>>>((const u32*)drows, (const int*)perm,
-                                          (const unsigned char*)pflags, (const int*)blk,
-                                          (int*)ctl, (u32*)fprio, L, NC, NID, KO1, PB);
+// state: 4 + 2 * nb * ceil(L / tile) words, zero before its first call
+// (each call leaves its counters zero and its epoch one higher); tile: rows
+// a block, a multiple of 32 up to 1024; L below 2^30.
+int wgl_prune(void* drows, void* skey, void* perm, void* ctl, void* fprio, void* state, int L,
+              int NC, int NID, int KO1, int PB, int nb, int tile, void* stream) {
+  if (L <= 0 || L >= (1 << 30) - 1 || nb <= 0 || state == nullptr || tile < 32 || tile > 1024 ||
+      (tile & 31) || (long)nb * nblk(L, tile) >= (1L << 31))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = pr_smem(tile, NC, KO1);
+  static size_t sized = 48 * 1024;
+  if (smem > sized) {
+    cudaError_t e =
+        cudaFuncSetAttribute(k_prune, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    sized = smem;
+  }
+  k_prune<<<dim3(nblk(L, tile), nb), tile, smem, (cudaStream_t)stream>>>(
+      (const u32*)drows, (const u32*)skey, (const int*)perm, (int*)ctl, (u32*)fprio,
+      (u32*)state, L, NC, NID, KO1, PB);
   return (int)cudaGetLastError();
 }
 

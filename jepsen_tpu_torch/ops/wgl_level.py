@@ -24,7 +24,9 @@ stage                   what it computes
                         one block per member up to 16384 pairs, Onesweep
                         above (see :func:`sort_scratch`)
 ``prune``               same-group / adjacent-subset / group-head dominance,
-                        keep count, fused compaction priority
+                        keep count, fused compaction priority: one
+                        single-pass launch with decoupled look-back (see
+                        :func:`prune_scratch`)
 ``gather_finalize``     top-F gather into the frontier (in place), the
                         lossless restore, flags, stats row, stop test
 ``chunk_init``          frontier count and stop test at a chunk's start
@@ -94,6 +96,8 @@ CTL_GCOUNT, CTL_GOVF, CTL_NSUM, CTL_NMAX, CTL_NMIN = range(15, 20)
 CTL_SIZE = 20
 # A member is a grid coordinate (blockIdx.y) of the batched launches.
 MAX_MEMBERS = 65535
+# The widest window the expand kernel holds (the planner's window cap).
+EXPAND_MAX_W = 1024
 # Shards of one mesh (``k_route`` counts per destination in shared memory).
 MAX_SHARDS = 256
 EXCHANGES = ("alltoall", "allgather")
@@ -252,6 +256,53 @@ def stage1_tile(M: int, nb: int, device) -> int:
     return next((t for t in STAGE1_TILES if nb * _nblk(M, t) <= blocks), STAGE1_TILES[-1])
 
 
+# Rows of one prune tile (a block, one row a thread): :func:`prune_tile`
+# picks one per call, all on one scratch from :func:`prune_scratch`.
+PRUNE_TILES = (256, 512, 1024)
+# Rows of a member the prune takes (its look-back values are 30 bits).
+PRUNE_MAX_L = (1 << 30) - 2
+# Shared memory a block may take (H100: 227 KB).
+_MAX_SMEM = 232448
+
+
+def prune_scratch(L: int, nb: int, device) -> torch.Tensor:
+    """Scratch of :func:`prune` over ``nb`` members of ``L`` rows, for the
+    smallest tile of :data:`PRUNE_TILES`: the stage-1 scratch's layout (a
+    header with the call epoch and the ticket and done counters, then a
+    64-bit look-back word for each tile of each member). Zeroed here; every
+    call leaves both counters zero and the epoch one higher, so one scratch
+    serves calls of any shape."""
+    return torch.zeros((_prune_words(L, nb, min(PRUNE_TILES)),), dtype=torch.int32,
+                       device=device)
+
+
+def _prune_words(L: int, nb: int, tile: int) -> int:
+    return STAGE1_HDR + 2 * nb * _nblk(L, tile)
+
+
+# Rows before its tile a prune block reads (csrc ``PR_HALO``).
+PRUNE_HALO = 32
+
+
+def _prune_smem(tile: int, NC: int, KO1: int) -> int:
+    """The prune's dynamic shared memory (csrc ``pr_smem``)."""
+    rows = tile + PRUNE_HALO
+    return 4 * (rows * NC + rows + KO1) + rows
+
+
+def prune_tile(L: int, nb: int, NC: int, KO1: int, device) -> int:
+    """The prune tile of a call over ``nb`` members of ``L`` rows of ``NC``
+    words: the smallest of :data:`PRUNE_TILES` whose grid has at most two
+    blocks an SM, or the largest; halved while its rows do not fit a
+    block's shared memory, down to the smallest (the wrapper refuses rows
+    too wide for that)."""
+    blocks = 2 * _sm_count(torch.device(device))
+    tile = next((t for t in PRUNE_TILES if nb * _nblk(L, t) <= blocks), PRUNE_TILES[-1])
+    while tile > PRUNE_TILES[0] and _prune_smem(tile, NC, KO1) > _MAX_SMEM:
+        tile //= 2
+    return tile
+
+
 def sort_path(scratch: tuple) -> str:
     """The path a :func:`radix_sort_pairs` call with ``scratch`` takes."""
     return "cta" if scratch[0].shape[-1] == 0 else "onesweep"
@@ -291,9 +342,8 @@ class BatchWorkspace:
         self.sort = sort_scratch(L, device, nb)
         # the two-stage compaction's look-back state (zero between calls)
         self.s1 = stage1_scratch(g.M, nb, device) if g.two_stage else None
-        self.flags = torch.empty((nb, L), dtype=u8, device=device)  # prune
-        # the prune's per-block segment starts, [nb, blocks]
-        self.blk = torch.empty((nb, _nblk(L, 1024)), dtype=i32, device=device)
+        # the prune's look-back state (zero between calls)
+        self.pr = prune_scratch(L, nb, device)
 
 
 # ---------------------------------------------------------------------------
@@ -616,10 +666,9 @@ def radix_sort_pairs_reference(keys: torch.Tensor, vals: torch.Tensor,
 
 def prune_reference(g: Geometry, drows: torch.Tensor, skey: torch.Tensor,
                     perm: torch.Tensor, ctl: torch.Tensor, fprio: torch.Tensor,
-                    flags: Optional[torch.Tensor] = None,
-                    blk: Optional[torch.Tensor] = None) -> None:
+                    scratch: Optional[torch.Tensor] = None) -> None:
     """Plain version of ``wgl_prune`` (reference ``ops/wgl.py:657-736``).
-    ``flags`` and ``blk`` are the kernel's scratch, unused here."""
+    ``scratch`` is the kernel's (see :func:`prune_scratch`), unused here."""
     if not _go(ctl):
         return
     dev = drows.device
@@ -783,7 +832,14 @@ chunk_init_plain = vmap_members(chunk_init_reference)
 expand_plain = vmap_members(expand_reference)
 stage1_hash_plain = vmap_members(stage1_hash_reference)
 take_col_plain = vmap_members(take_col_reference)
-prune_plain = vmap_members(prune_reference)
+
+
+def prune_plain(g: Geometry, drows, skey, perm, ctl, fprio, scratch=None) -> None:
+    """Per-member loop of :func:`prune_reference` (the kernel's scratch is
+    not member-major and is not used)."""
+    vmap_members(prune_reference)(g, drows, skey, perm, ctl, fprio, None)
+
+
 route_plain = vmap_members(route_reference)
 hash_rows_plain = vmap_members(hash_rows_reference)
 
@@ -916,6 +972,9 @@ def _expand_args(g, tabs, fr, ctl, rows, nvalid, model) -> tuple:
     t = tabs
     _check_cuda(t["tabD"], t["sufret"], t["invO"], t["opO"], t["a1O"], t["a2O"],
                 p, mD, mO, st, valid, ctl, rows, nvalid)
+    if g.W % 32 or not 32 <= g.W <= EXPAND_MAX_W or t["tabD"].data_ptr() % 16:
+        raise ValueError(f"expand: W {g.W} must be a multiple of 32 up to {EXPAND_MAX_W}, "
+                         "tabD 16-byte aligned")
     nb = ctl.shape[0]
     _check_members(nb)
     F = g.F
@@ -1039,26 +1098,32 @@ def _radix_sort_pairs_args(keys, vals, scratch, ctl) -> tuple:
 
 def prune(g: Geometry, drows: torch.Tensor, skey: torch.Tensor,
           perm: torch.Tensor, ctl: torch.Tensor, fprio: torch.Tensor,
-          flags: torch.Tensor, blk: torch.Tensor) -> None:
-    """Stage K4 (see module docstring). ``flags`` and ``blk``:
-    ``BatchWorkspace.flags`` and ``.blk`` (per-row flags, per-block
-    segment starts)."""
+          scratch: torch.Tensor) -> None:
+    """Stage K4 (see module docstring): one launch. ``scratch``:
+    ``BatchWorkspace.pr`` (:func:`prune_scratch`), the look-back state."""
     if ctl.device.type == "cpu":
-        return prune_plain(g, drows, skey, perm, ctl, fprio, flags, blk)
-    _launch("wgl_prune", *_prune_args(g, drows, skey, perm, ctl, fprio, flags, blk))
+        return prune_plain(g, drows, skey, perm, ctl, fprio, scratch)
+    _launch("wgl_prune", *_prune_args(g, drows, skey, perm, ctl, fprio, scratch))
 
 
-def _prune_args(g, drows, skey, perm, ctl, fprio, flags, blk) -> tuple:
-    _check_cuda(drows, skey, perm, ctl, fprio, flags, blk)
+def _prune_args(g, drows, skey, perm, ctl, fprio, scratch) -> tuple:
+    _check_cuda(drows, skey, perm, ctl, fprio, scratch)
     nb, L = skey.shape
     _check_members(nb)
     _check_shapes("prune", (ctl, (nb, CTL_SIZE)), (perm, (nb, L)), (fprio, (nb, L)),
                   (drows, (nb, L, g.NC)))
-    if flags.numel() < nb * L or blk.numel() < nb * _nblk(L, 1024):
-        raise ValueError("prune: scratch too small")
+    if L > PRUNE_MAX_L:
+        raise ValueError(f"prune: {L} rows a member; the kernel takes at most {PRUNE_MAX_L}")
+    tile = prune_tile(L, nb, g.NC, g.KO1, drows.device)
+    if tile < 32 or tile > max(PRUNE_TILES) or tile % 32 or \
+            _prune_smem(tile, g.NC, g.KO1) > _MAX_SMEM:
+        raise ValueError(f"prune: tile {tile} for rows of {g.NC} words does not fit a block")
+    if (scratch is None or scratch.dtype != torch.int32
+            or scratch.numel() < _prune_words(L, nb, tile)):
+        raise ValueError("prune: look-back scratch too small (see prune_scratch)")
     ci = ctypes.c_int
-    return (_ptr(drows), _ptr(skey), _ptr(perm), _ptr(ctl), _ptr(fprio), _ptr(flags),
-            _ptr(blk), ci(L), ci(g.NC), ci(g.NID), ci(g.KO1), ci(g.PB), ci(nb), _stream())
+    return (_ptr(drows), _ptr(skey), _ptr(perm), _ptr(ctl), _ptr(fprio), _ptr(scratch),
+            ci(L), ci(g.NC), ci(g.NID), ci(g.KO1), ci(g.PB), ci(nb), ci(tile), _stream())
 
 
 def gather_finalize(g: Geometry, drows: torch.Tensor, perm: torch.Tensor,
@@ -1271,7 +1336,7 @@ def _dedup_stages(g: Geometry, fr: tuple, ws: BatchWorkspace, reduce: tuple = ()
     for src, col in cols + [(ws.fkey, 0)]:
         out += [("take_col", (src, col, ws.perm, ws.keys, ctl)),
                 ("radix_sort_pairs", (ws.keys, ws.perm, ws.sort, ctl))]
-    out += [("prune", (g, ws.drows, ws.keys, ws.perm, ctl, ws.fprio, ws.flags, ws.blk)),
+    out += [("prune", (g, ws.drows, ws.keys, ws.perm, ctl, ws.fprio, ws.pr)),
             *reduce,
             # Compaction order: (priority, position) — stability is the tiebreak.
             ("reset", (ws.order, ws.iota)),

@@ -515,6 +515,64 @@ def stage1_case(seed: int, nb: int, M: int, P: int, NC: int, density: str) -> tu
     return rows, nvalid, ctl, word(nb, P, NC), word(nb, P)
 
 
+# Group families of the prune's tests (``prune_case``): every row its own
+# group; one group over all rows; groups that begin 16 rows past a
+# multiple of 32 and run 32, 64, 160 or 1280 rows, so that every tile and
+# halo boundary falls inside a group and some outlast the largest tile; and
+# short groups with half the rows invalid, anywhere in the order.
+PRUNE_FAMILIES = ("distinct", "one_group", "straddle", "half_invalid")
+
+
+def prune_case(seed: int, nb: int, L: int, NC: int, NID: int, family: str) -> tuple:
+    """Seeded numpy inputs of one ``wgl_level.prune`` call on ``nb`` members
+    of ``L`` rows of ``NC`` words (``NID`` identity words, then the open
+    words): ``(drows [nb, L, NC], skey [nb, L], perm [nb, L], ctl [nb,
+    CTL_SIZE] (go), fprio [nb, L])``, int32 bit patterns. Row ``i`` of the
+    sorted order is ``drows[b, perm[b, i]]``; rows of one group share their
+    identity words and draw their open words from six bits, so that the
+    subset rules fire; a key's sign bit marks an invalid row."""
+    import numpy as np
+
+    from .ops import wgl_level as lv
+
+    if family not in PRUNE_FAMILIES:
+        raise ValueError(f"unknown family {family!r} (expected one of {PRUNE_FAMILIES})")
+    rng = np.random.default_rng(seed)
+    drows = np.zeros((nb, L, NC), dtype=np.uint32)
+    skey = np.zeros((nb, L), dtype=np.uint32)
+    perm = np.zeros((nb, L), dtype=np.int32)
+    idx = np.arange(L)
+    for b in range(nb):
+        valid = np.ones(L, dtype=bool)
+        if family == "distinct":
+            gid = idx.copy()
+        elif family == "one_group":
+            gid = np.zeros(L, dtype=np.int64)
+        elif family == "straddle":
+            starts, pos = [0], 16
+            while pos < L:
+                starts.append(pos)
+                pos += 32 * int(rng.choice([1, 2, 5, 40]))
+            gid = np.searchsorted(np.asarray(starts), idx, side="right") - 1
+        else:
+            gid = np.cumsum(rng.random(L) < 0.3)
+            valid = rng.random(L) < 0.5
+        gid = gid.astype(np.uint64) + np.uint64(1000 * b)
+        ident = [gid & np.uint64(0x3F)] + [
+            (gid * np.uint64(2654435761) + np.uint64(k)) & np.uint64(0xFFFFFFFF)
+            for k in range(1, NID)]
+        rows = np.stack(ident + [rng.integers(0, 64, L).astype(np.uint64)
+                                 for _ in range(NC - NID)], axis=1).astype(np.uint32)
+        hsh = ((gid * np.uint64(2246822519)) >> np.uint64(1)) & np.uint64(0x7FFFFFFF)
+        skey[b] = (hsh | np.where(valid, 0, 0x80000000).astype(np.uint64)).astype(np.uint32)
+        perm[b] = rng.permutation(L).astype(np.int32)
+        drows[b, perm[b]] = rows
+    ctl = np.zeros((nb, lv.CTL_SIZE), dtype=np.int32)
+    ctl[:, lv.CTL_GO] = 1
+    fprio = rng.integers(-2**31, 2**31, (nb, L), dtype=np.int64).astype(np.int32)
+    return drows.view(np.int32), skey.view(np.int32), perm, ctl, fprio
+
+
 # CUgraphNodeType values (cuda.h).
 _NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
 

@@ -18,7 +18,16 @@ line of walls. The paths:
   bucket 8192 on the closure kernels);
 - ``elle_sharded_20k``: its 20,000-txn history through
   ``elle.append.check(..., mesh=make_mesh(8))`` (three closures at pad
-  32768 on the sharded-closure kernels).
+  32768 on the sharded-closure kernels);
+- ``level_kernels``: the level's ``wgl_expand`` and ``wgl_prune`` alone,
+  each through its checkout's own wrapper and arguments (its level
+  program's, ``_level_stages``), at ``chip_smoke.py``'s frontiers: the
+  north star's at F 4096 (800 beam levels), the eight 10k-op members' at
+  F 8192, and each other device model family's at F 4096 (200 levels).
+  Device ms a call as ``chip_smoke.py`` times them (``batch_ms``, from the
+  checkout's own script); the result is each case's checksums (per member
+  the expand's NEXP and valid rows, the prune's keep count and the sum of
+  its priorities), which must agree between the two checkouts.
 
 The Elle paths' result is the verdict and the anomaly types, and each line
 also gives the closures' share of the wall (``closure_s``: the time inside
@@ -42,7 +51,7 @@ NORTH_STAR_SEED = 2026
 APPEND_8K = dict(seed=11, n_txns=8000, lag=(0, 8000), depth=16)
 APPEND_20K = dict(seed=11, n_txns=20000, lag=(8000, 11000), depth=16)
 ELLE_WARM = dict(seed=5, n_txns=2000, lag=(600, 1100), depth=8)
-PATHS = ("north_star", "elle_append_8k", "elle_sharded_20k")
+PATHS = ("north_star", "elle_append_8k", "elle_sharded_20k", "level_kernels")
 
 
 def one(root: str, repeat: int, path: str = "north_star") -> dict:
@@ -55,6 +64,8 @@ def one(root: str, repeat: int, path: str = "north_star") -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("main_path_ab: CUDA is not available")
     _build.load()
+    if path == "level_kernels":
+        return level_kernels(root)
     if path != "north_star":
         return elle(root, repeat, path)
     from jepsen_tpu_torch.models import CasRegister
@@ -121,6 +132,68 @@ def elle(root: str, repeat: int, path: str) -> dict:
     return {"root": root, "walls_s": walls, "closure_s": closures, "result": result}
 
 
+def level_kernels(root: str) -> dict:
+    """The level_kernels path: {case: ms} of wgl_expand and wgl_prune, and
+    each case's checksums as the result."""
+    import torch
+
+    import chip_smoke as cs
+    from jepsen_tpu_torch.models import CasRegister
+    from jepsen_tpu_torch.ops import wgl
+    from jepsen_tpu_torch.ops import wgl_level as lv
+    from jepsen_tpu_torch.ops.encode import encode_history
+    from jepsen_tpu_torch.testing import history_model, random_register_history
+
+    cas = CasRegister(init=0)
+    hist = random_register_history(random.Random(NORTH_STAR_SEED), **NORTH_STAR)
+    cases = [("north_star", cas, [encode_history(cas, hist)], 4096, cs.WARM_LEVELS),
+             ("batch_8x8192", cas, [encode_history(cas, h)
+                                    for h in cs.big_histories(random_register_history)],
+              8192, cs.WARM_LEVELS)]
+    for name, (good, _bad) in cs.model_histories().items():
+        model = history_model(name)
+        cases.append((name, model, [encode_history(model, good)], 4096, cs.MODEL_WARM_LEVELS))
+    times, result = {}, {}
+    for label, model, encs, F, warm in cases:
+        plan = cs.batch_plan(encs, wgl)
+        g = wgl.level_geometry(plan, F)
+        fr, ws, lvls = cs.warm_frontier(plan, F, lv, wgl, model, warm)
+        nb = plan.nb
+        ctl = torch.zeros((nb, lv.CTL_SIZE), dtype=torch.int32)
+        ctl[:, lv.CTL_LVL] = torch.tensor(lvls)
+        ctl[:, lv.CTL_MAXLVL] = torch.tensor(lvls) + 1
+        ctl[:, lv.CTL_FMAX], ctl[:, lv.CTL_LOSSY] = 1, 1
+        ctl[:, lv.CTL_ND], ctl[:, lv.CTL_NO] = plan.nD, plan.nO
+        ctl = ctl.to("cuda")
+        lv.chunk_init_plain(ctl, fr[4])
+        ws.ctl.copy_(ctl)
+        sums, row = [], {}
+        for stage, args in lv._level_stages(g, plan.tabs, fr, ws, model):
+            if stage == "reset":
+                args[0].copy_(args[1])
+                continue
+            if stage in ("expand", "prune"):
+                before = ws.ctl.clone()
+                # the control block is an input and an output: each timed
+                # call gets its own copy of the one before the stage
+                call = lambda t, a=args, s=stage: getattr(lv, s)(*(  # noqa: E731
+                    t[0] if x is ws.ctl else x for x in a))
+                row[f"{stage}_ms"] = cs.batch_ms(call, (before,))[0]
+                ws.ctl.copy_(before)
+            getattr(lv.KERNELS, stage)(*args)
+            if stage == "expand":
+                sums.append(ws.ctl[:, lv.CTL_NEXP].tolist())
+                sums.append((ws.nvalid != 0).sum(dim=1).tolist())
+            if stage == "prune":
+                sums.append(ws.ctl[:, lv.CTL_COUNT].tolist())
+                sums.append(ws.fprio.to(torch.int64).sum(dim=1).tolist())
+                break
+        torch.cuda.synchronize()
+        row["valid_configs"] = int(fr[4].sum())
+        times[label], result[label] = row, sums
+    return {"root": root, "walls_s": [], "kernels": times, "result": result}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("roots", nargs="*")
@@ -152,6 +225,10 @@ def main() -> int:
         raise AssertionError(f"results differ: {results}")
     summary = {}
     for r, v in runs.items():
+        if "kernels" in v[0]:  # level_kernels: the median of each case's ms
+            summary[r] = {c: {k: statistics.median(x["kernels"][c][k] for x in v)
+                              for k in v[0]["kernels"][c]} for c in v[0]["kernels"]}
+            continue
         walls = [w for x in v for w in x["walls_s"]]
         summary[r] = {"walls_s": walls, "median_s": statistics.median(walls),
                       "result": v[0]["result"]}

@@ -187,6 +187,7 @@ def test_level_program_packs_each_launch_once(KO, monkeypatch):
     monkeypatch.setattr(lv._build, "load", lambda: lib)
     monkeypatch.setattr(lv, "_check_cuda", lambda *ts: None)
     monkeypatch.setattr(lv, "_stream", lambda: 0)
+    monkeypatch.setattr(lv, "_sm_count", lambda device: 132)  # the prune's tile
     nb, F, W = 2, 8, 32
     g = lv.Geometry(F=F, W=W, KO=KO, S=1, ND=40, NO=4, B=W + 32 * KO, SEL=False,
                     two_stage=False, P=F * (W + 32 * KO))
@@ -213,7 +214,7 @@ def test_level_program_packs_each_launch_once(KO, monkeypatch):
         want += [(name, args), ("radix_sort_pairs", lv._radix_sort_pairs_args(
             ws.keys, ws.perm, ws.sort, ws.ctl))]
     want += [("wgl_prune", lv._prune_args(g, ws.drows, ws.keys, ws.perm, ws.ctl, ws.fprio,
-                                          ws.flags, ws.blk)),
+                                          ws.pr)),
              ("radix_sort_pairs", lv._radix_sort_pairs_args(ws.fprio, ws.order, ws.sort,
                                                             ws.ctl)),
              ("wgl_gather_finalize", lv._gather_finalize_args(g, ws.drows, ws.perm, ws.order,

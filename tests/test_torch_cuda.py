@@ -17,9 +17,9 @@ from jepsen_tpu_torch.ops import wgl
 from jepsen_tpu_torch.ops import wgl_level as lv
 from jepsen_tpu_torch.ops.encode import encode_history
 from jepsen_tpu_torch.parallel import Mesh
-from jepsen_tpu_torch.testing import (SORT_KEY_FAMILIES, STAGE1_DENSITIES, device_work,
-                                      perturb_history, random_register_history, sort_keys,
-                                      stage1_case)
+from jepsen_tpu_torch.testing import (PRUNE_FAMILIES, SORT_KEY_FAMILIES, STAGE1_DENSITIES,
+                                      device_work, perturb_history, prune_case,
+                                      random_register_history, sort_keys, stage1_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -331,6 +331,290 @@ def test_stage1_refuses_short_scratch_and_cpu_mix(cuda):
         lv.stage1_hash(g, rows, nvalid, ctl, drows, fkey, lv.stage1_scratch(M, nb, "cpu"))
     with pytest.raises(ValueError):
         lv.stage1_hash(g, rows.cpu(), nvalid, ctl, drows, fkey, lv.stage1_scratch(M, nb, cuda))
+
+
+# -- the prune -------------------------------------------------------------------
+
+
+def _prune_geometry(L, NC=5, KO=1, ND=64):
+    """A two-stage geometry of L = P rows of NC words: p, one window word,
+    NC - 2 - max(KO, 1) state words and max(KO, 1) open words."""
+    KO1 = max(KO, 1)
+    return lv.Geometry(F=L, W=32, KO=KO, S=NC - 2 - KO1, ND=ND, NO=32, B=1, SEL=False,
+                       two_stage=True, P=L)
+
+
+def _prune_both(cuda, g, case, scratch):
+    """The kernel and the plain prune on the same inputs: fprio and every
+    control block equal (a stopped member's untouched). Returns the
+    kernel's (ctl, fprio)."""
+    drows, skey, perm, ctl, fprio = (torch.from_numpy(a).to(cuda) for a in case)
+    kc, kf, pc, pf = ctl.clone(), fprio.clone(), ctl.clone(), fprio.clone()
+    lv.prune(g, drows, skey, perm, kc, kf, scratch)
+    lv.prune_plain(g, drows, skey, perm, pc, pf)
+    torch.cuda.synchronize()
+    assert torch.equal(kf, pf) and torch.equal(kc, pc)
+    for b in range(ctl.shape[0]):
+        if not int(ctl[b, lv.CTL_GO]):
+            assert torch.equal(kf[b], fprio[b]) and torch.equal(kc[b], ctl[b])
+    return kc, kf
+
+
+def _prune_scratch_for(L, nb, tile, cuda):
+    """A prune scratch for a forced tile (``prune_scratch`` sizes it for the
+    smallest tile the wrapper picks)."""
+    return torch.zeros((lv._prune_words(L, nb, tile),), dtype=torch.int32, device=cuda)
+
+
+def _prune_header(scratch):
+    """(call epoch, ticket counter, done counter, pad) of a prune scratch."""
+    return scratch[:lv.STAGE1_HDR].tolist()
+
+
+@pytest.mark.parametrize("family", PRUNE_FAMILIES)
+@pytest.mark.parametrize("nb", [1, 3, 8])
+@pytest.mark.parametrize("L", [1, 33, 256, 2047, 16384, 32768, 131072])
+def test_prune_matches_plain(cuda, L, nb, family):
+    """One member and batches of 3 and 8, from one row to the batch's L, on
+    each group family: distinct rows, one group over the member, groups
+    straddling every tile and halo boundary (some longer than the largest
+    tile), half the rows invalid."""
+    g = _prune_geometry(L)
+    scratch = lv.prune_scratch(L, nb, cuda)
+    _prune_both(cuda, g, prune_case(L + nb, nb, L, g.NC, g.NID, family), scratch)
+    assert _prune_header(scratch) == [1, 0, 0, 0]
+
+
+@pytest.mark.parametrize("tile", [32, 64, 256, 512, 1024])
+@pytest.mark.parametrize("family", ["one_group", "straddle"])
+def test_prune_matches_plain_at_every_tile(cuda, family, tile, monkeypatch):
+    """Every tile the kernel takes, where groups outlast the halo and the
+    tile: the look-back carries their starts."""
+    monkeypatch.setattr(lv, "prune_tile", lambda *a: tile)
+    L, nb = 20000, 3
+    g = _prune_geometry(L, NC=7, KO=2)
+    scratch = _prune_scratch_for(L, nb, tile, cuda)
+    _prune_both(cuda, g, prune_case(tile, nb, L, g.NC, g.NID, family), scratch)
+
+
+@pytest.mark.parametrize("NC,KO", [(4, 0), (5, 1), (6, 2), (12, 4), (40, 4)])
+def test_prune_matches_plain_at_every_row_width(cuda, NC, KO):
+    L, nb = 16384, 3
+    g = _prune_geometry(L, NC=NC, KO=KO)
+    scratch = lv.prune_scratch(L, nb, cuda)
+    for family in PRUNE_FAMILIES:
+        _prune_both(cuda, g, prune_case(NC + L, nb, L, g.NC, g.NID, family), scratch)
+
+
+def test_prune_leaves_a_stopped_member_untouched(cuda):
+    L, nb = 32768, 3
+    g = _prune_geometry(L)
+    case = prune_case(5, nb, L, g.NC, g.NID, "straddle")
+    case[3][1, lv.CTL_GO] = 0
+    scratch = lv.prune_scratch(L, nb, cuda)
+    kc, kf = _prune_both(cuda, g, case, scratch)
+    assert not torch.equal(kf[0].cpu(), torch.from_numpy(case[4][0]))
+    assert int(kc[0, lv.CTL_COUNT]) > 0 and int(kc[1, lv.CTL_COUNT]) == 0
+    assert _prune_header(scratch) == [1, 0, 0, 0]
+
+
+@pytest.mark.parametrize("mode", ["alltoall", "allgather"])
+def test_prune_at_the_sharded_geometries(cuda, mode):
+    """The prune at both sharded arms' shapes: the D shards of a mesh as its
+    members, L = D * ceil(P / D) (alltoall) or D * P (allgather) rows, at
+    f_total 4096 and 262144 on 8 shards; a shard whose count is its local
+    one (what wgl_shard_reduce reads)."""
+    model, enc = _sharded_history(1)
+    D = 8
+    for f_total in (4096, 262144):
+        plan = wgl.plan_device(enc, device="cuda")
+        g = wgl.sharded_geometry(plan, f_total // D, D, mode)
+        assert g.L == (D * g.PBK if mode == "alltoall" else D * g.P)
+        scratch = lv.prune_scratch(g.L, D, cuda)
+        for family in ("straddle", "half_invalid"):
+            case = prune_case(f_total + D, D, g.L, g.NC, g.NID, family)
+            kc, _ = _prune_both(cuda, g, case, scratch)
+            assert len(set(kc[:, lv.CTL_COUNT].tolist())) > 1  # local counts
+
+
+@pytest.mark.parametrize("tile", [None, 32, 1024])
+def test_prune_scratch_cleans_itself(cuda, tile, monkeypatch):
+    """Calls in a row on one scratch at two sizes and member counts (and a
+    stopped member): each leaves the counters zero and the epoch one
+    higher, so the words of the call before are never read as this
+    call's."""
+    if tile is not None:
+        monkeypatch.setattr(lv, "prune_tile", lambda *a: tile)
+    scratch = _prune_scratch_for(32768, 8, tile or min(lv.PRUNE_TILES), cuda)
+    for rep in range(8):
+        nb, L = (8, 32768) if rep % 2 else (3, 20000)
+        g = _prune_geometry(L)
+        case = prune_case(rep, nb, L, g.NC, g.NID, PRUNE_FAMILIES[rep % len(PRUNE_FAMILIES)])
+        if rep == 4:
+            case[3][1, lv.CTL_GO] = 0
+        _prune_both(cuda, g, case, scratch)
+        assert _prune_header(scratch) == [rep + 1, 0, 0, 0]
+
+
+@pytest.mark.parametrize("L,nb", [(16384, 1), (32768, 8), (2048, 8), (1 << 20, 1)])
+def test_prune_device_launches(cuda, L, nb):
+    """One device launch a call: the main path's, the batch's and a sharded
+    arm's shapes and a member of 2**20 rows; no other kernel, copy or
+    memset."""
+    g = _prune_geometry(L)
+    drows, skey, perm, ctl, fprio = (torch.from_numpy(a).to(cuda)
+                                     for a in prune_case(1, nb, L, g.NC, g.NID, "straddle"))
+    scratch = lv.prune_scratch(L, nb, cuda)
+    lv.prune(g, drows, skey, perm, ctl, fprio, scratch)
+    work = device_work(lambda: lv.prune(g, drows, skey, perm, ctl, fprio, scratch))
+    assert work == _launches_only(1), work
+
+
+def test_prune_refuses_short_scratch_and_cpu_mix(cuda):
+    L, nb = 4097, 3
+    g = _prune_geometry(L)
+    drows, skey, perm, ctl, fprio = (torch.from_numpy(a).to(cuda)
+                                     for a in prune_case(2, nb, L, g.NC, g.NID, "straddle"))
+    with pytest.raises(ValueError, match="scratch"):
+        lv.prune(g, drows, skey, perm, ctl, fprio, lv.prune_scratch(L, nb, cuda)[:nb])
+    with pytest.raises(ValueError):
+        lv.prune(g, drows, skey, perm, ctl, fprio, lv.prune_scratch(L, nb, "cpu"))
+    with pytest.raises(ValueError):
+        lv.prune(g, drows.cpu(), skey, perm, ctl, fprio, lv.prune_scratch(L, nb, cuda))
+
+
+# -- the expand ------------------------------------------------------------------
+
+
+def _expand_case(cuda, name, nb, F=64, crash_p=0.1, B=None, sel=True, seed=3, levels=6):
+    """``nb`` histories of one model family planned together, their frontier
+    warmed ``levels`` beam levels on the kernels at capacity F, and a
+    level's control blocks: (geometry, tables, frontier, ctl, model). ``B``
+    overrides the selected layout's candidate cap; ``sel=False`` takes the
+    unselected layout."""
+    import chip_smoke
+    from jepsen_tpu_torch.testing import history_model, random_model_history
+
+    model = history_model(name) if name != "cas-register" else CasRegister(init=0)
+    hists = [random_model_history(random.Random(seed + b), name, n_ops=80, n_procs=6,
+                                  crash_p=crash_p) if name != "cas-register" else
+             random_register_history(random.Random(seed + b), n_ops=80, n_procs=6,
+                                     crash_p=crash_p) for b in range(nb)]
+    plan = chip_smoke.batch_plan([encode_history(model, h) for h in hists], wgl)
+    plan.B = None if not sel else (B or plan.B or 8)
+    g = wgl.level_geometry(plan, F)
+    assert g.SEL == sel
+    fr, _ws, lvls = chip_smoke.warm_frontier(plan, F, lv, wgl, model, levels)
+    ctl = torch.zeros((nb, lv.CTL_SIZE), dtype=torch.int32)
+    ctl[:, lv.CTL_LVL] = torch.tensor(lvls)
+    ctl[:, lv.CTL_MAXLVL] = torch.tensor(lvls) + 1
+    ctl[:, lv.CTL_LOSSY] = 1
+    ctl[:, lv.CTL_ND], ctl[:, lv.CTL_NO] = plan.nD, plan.nO
+    ctl = ctl.to(cuda)
+    lv.chunk_init_plain(ctl, fr[4])
+    return g, plan.tabs, fr, ctl, model
+
+
+def _expand_batch_both(g, tabs, fr, ctl, model):
+    """wgl_expand and the plain expand on the same batch: control blocks,
+    nvalid and the valid rows equal; ctl[CTL_NEXP] each member's count of
+    valid rows; a stopped member's buffers untouched. Returns (ctl,
+    nvalid)."""
+    out = []
+    nb = ctl.shape[0]
+    for fn in (lv.expand, lv.expand_plain):
+        c = ctl.clone()
+        rows = torch.full((nb, g.M, g.NC), -7, dtype=torch.int32, device=ctl.device)
+        nval = torch.full((nb, g.M), 9, dtype=torch.uint8, device=ctl.device)
+        fn(g, tabs, tuple(a.clone() for a in fr), c, rows, nval, model)
+        torch.cuda.synchronize()
+        out.append((c, nval, rows))
+    (kc, kn, kr), (pc, pn, pr) = out
+    assert torch.equal(kc, pc) and torch.equal(kn, pn)
+    assert torch.equal(kr[kn.bool()], pr[pn.bool()])
+    for b in range(nb):
+        if int(ctl[b, lv.CTL_GO]):
+            assert int(kc[b, lv.CTL_NEXP]) == int((kn[b] != 0).sum())
+        else:
+            assert (kn[b] == 9).all() and (kr[b] == -7).all()
+    return kc, kn
+
+
+@pytest.mark.parametrize("sel", [True, False])
+@pytest.mark.parametrize("crash_p", [0.0, 0.1])
+@pytest.mark.parametrize("name", ["cas-register", "multi-register", "bank"])
+def test_expand_matches_plain(cuda, name, crash_p, sel):
+    """The selected and the unselected layout, with no open op (KO = 0) and
+    with some, at a fixed-width state (S = 1) and the runtime-width ones
+    (multi-register's three lanes, bank's accounts); a batch of three."""
+    g, tabs, fr, ctl, model = _expand_case(cuda, name, 3, crash_p=crash_p, sel=sel)
+    assert (g.KO == 0) == (crash_p == 0.0)
+    _kc, kn = _expand_batch_both(g, tabs, fr, ctl, model)
+    assert int(kn.sum()) > 0
+
+
+def test_expand_flags_a_row_with_more_than_b_candidates(cuda):
+    """A candidate cap below the rows' candidate counts: the row overflow
+    flag, and the first B candidates of each row, as the plain version."""
+    g, tabs, fr, ctl, model = _expand_case(cuda, "cas-register", 2, B=2, crash_p=0.2)
+    kc, _kn = _expand_batch_both(g, tabs, fr, ctl, model)
+    assert kc[:, lv.CTL_ROWOVF].any()
+
+
+def test_expand_leaves_a_stopped_member_untouched(cuda):
+    g, tabs, fr, ctl, model = _expand_case(cuda, "cas-register", 3)
+    ctl[1, lv.CTL_GO] = 0
+    kc, _kn = _expand_batch_both(g, tabs, fr, ctl, model)
+    assert int(kc[1, lv.CTL_NEXP]) == 0 and int(kc[0, lv.CTL_NEXP]) > 0
+
+
+@pytest.mark.parametrize("W", [64, 96, 288, 1024])
+def test_expand_at_every_window_width(cuda, W):
+    """Window widths on each side of the kernel's register templates (2, 8
+    and 32 words), padded onto a history's own tables."""
+    import chip_smoke
+
+    model = CasRegister(init=0)
+    h = random_register_history(random.Random(W), n_ops=120, n_procs=8, crash_p=0.05)
+    enc = encode_history(model, h)
+    own = wgl.plan_device(enc, device="cpu")
+    plan = wgl.stack_plans([wgl.plan_device(enc, pad_to=(W, own.dims[1], own.dims[3],
+                                                         own.dims[4]), device="cpu")], "cuda")
+    g = wgl.level_geometry(plan, 64)
+    assert g.W == W
+    fr, _ws, lvls = chip_smoke.warm_frontier(plan, 64, lv, wgl, model, 8)
+    ctl = torch.zeros((1, lv.CTL_SIZE), dtype=torch.int32)
+    ctl[0, lv.CTL_LVL], ctl[0, lv.CTL_MAXLVL], ctl[0, lv.CTL_LOSSY] = lvls[0], lvls[0] + 1, 1
+    ctl[0, lv.CTL_ND], ctl[0, lv.CTL_NO] = int(plan.nD[0]), int(plan.nO[0])
+    ctl = ctl.to(cuda)
+    lv.chunk_init_plain(ctl, fr[4])
+    _kc, kn = _expand_batch_both(g, plan.tabs, fr, ctl, model)
+    assert int(kn.sum()) > 0
+
+
+def test_prune_is_one_launch_on_every_path(cuda):
+    """The prune as each level program packs it is one device launch
+    (counted from a stream capture of the call): the single search, a
+    batch, and both sharded arms."""
+    import chip_smoke
+
+    model, enc = _sharded_history(1)
+    levels = []
+    for plan in (wgl.stack_plans([wgl.plan_device(enc, device="cpu")], "cuda"),
+                 chip_smoke.batch_plan([enc, enc, enc], wgl)):
+        g = wgl.level_geometry(plan, 64)
+        fr = wgl.initial_frontier_batch(64, g.W, g.KO, plan.init_state)
+        levels.append((g, plan.tabs, fr, lv.BatchWorkspace(g, plan.nb, cuda)))
+    for mode in ("alltoall", "allgather"):
+        plan, g, tabs = chip_smoke.sharded_setup(lv, wgl, enc, 64 * 8, 8, mode, model)
+        fr0 = wgl.initial_frontier(64 * 8, g.W, g.KO, g.S, plan.init_state, "cuda")
+        fr = tuple(a.reshape((8, 64) + tuple(a.shape[1:])).contiguous() for a in fr0[:5])
+        levels.append((g, tabs, fr, lv.BatchWorkspace(g, 8, cuda)))
+    for g, tabs, fr, ws in levels:
+        ws.ctl[:, lv.CTL_GO] = 1
+        (args,) = [a for s, a in lv._level_stages(g, tabs, fr, ws, model) if s == "prune"]
+        lv.prune(*args)
+        assert device_work(lambda: lv.prune(*args)) == _launches_only(1)
 
 
 # -- the member axis ---------------------------------------------------------
