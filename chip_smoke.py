@@ -11,6 +11,10 @@ and then runs these phases, each printing JSON lines:
 - ``kernels``: every stage of one level, kernel against its plain PyTorch
   version bit for bit, at several capacities of the north-star history
   (a 10,000-op cas-register history), plus the radix sort on random keys;
+  the level's stages are the expand, stage 1, one take-col sort a dedup
+  key (the first from the identity order), the prune, the compaction sort
+  (which carries the dedup order as its values) and the one-launch
+  gather-finalize;
 - ``radix_sort_sweep``: the radix sort at 1 to 1,048,576 pairs, 1, 3 and
   8 members, on each key family of ``testing.SORT_KEY_FAMILIES``, bit for
   bit against the plain sort, with its ms beside ``torch.sort``'s, its
@@ -43,6 +47,21 @@ and then runs these phases, each printing JSON lines:
   driver path, each against the plain path;
 - ``kernels_batch``: every stage on the member axis and the regroup,
   kernel against plain, at nb = 8, F = 8192 and nb = 3, F = 64;
+- ``gather_sort_scale``: the two kernels that fold the level's index
+  work into their neighbours, at the north star's (F 4096) and the
+  batch's (8 x 8192) level inputs from ``kernels``/``kernels_batch``:
+  ``wgl_take_col_sort`` (identity and read values) beside the parent
+  design it replaces (a ``take_col`` launch, then ``radix_sort_pairs``;
+  the parent's kernels are built from ``yardsticks/wgl_parent.cu``, which
+  only this script compiles, into a library apart from the port's),
+  ``radix_sort_pairs`` alone on the same keys and ``index_select`` +
+  ``torch.sort``; the one-launch ``wgl_gather_finalize`` beside the
+  parent's gather and finalize launches (the yardstick) and
+  ``index_select`` of the F kept rows;
+  both bit for bit against their plain versions (the yardsticks too),
+  with the device launches of one call; and the take-col sort alone at
+  1 to 1,048,576 pairs (1 and 8 members, both ``ident`` settings, random
+  and all-equal keys), with the same yardsticks;
 - ``batch_replay_100``: 100 histories decided by ``check_batch``, by the
   keyed ``independent.checker(linearizable(...))``, by the plain path and
   by the host oracle, in agreement; every keyed result comes from the
@@ -205,12 +224,19 @@ PRUNE_SWEEP_REPS = dict(batch=10, batches=3)
 # full.copy_(blocks).
 GATHER_SCALE_PADS = (8192, 32768)
 GATHER_SCALE_TURNS = 3
+# gather_sort_scale: the take-col sort alone at the sort sweep's sizes, 1
+# and 8 members, random and all-equal keys in column 3 of 5-word rows (the
+# north star's open word), both ident settings.
+TAKE_SORT_SIZES = SORT_SWEEP_SIZES
+TAKE_SORT_NB = (1, 8)
+TAKE_SORT_SWEEP_FAMILIES = ("random", "equal")
+TAKE_SORT_REPS = dict(batch=10, batches=3)
 SOURCE = "jepsen_tpu_torch/csrc/wgl_level.cu"
 REPLACES = {
     "wgl_chunk_init": "jepsen_tpu/ops/wgl.py:830",
     "wgl_expand": "jepsen_tpu/ops/wgl.py:363",
     "wgl_stage1_hash": "jepsen_tpu/ops/wgl.py:523",
-    "wgl_take_col": "jepsen_tpu/ops/wgl.py:647",
+    "wgl_take_col_sort": "jepsen_tpu/ops/wgl.py:647",
     "radix_sort_pairs": "jepsen_tpu/ops/wgl.py:647",
     "wgl_prune": "jepsen_tpu/ops/wgl.py:659",
     "wgl_gather_finalize": "jepsen_tpu/ops/wgl.py:741",
@@ -220,7 +246,7 @@ REPLACES = {
 # the level program, the regroup its re-batch program.
 BATCH_REPLACES = {"level": "jepsen_tpu/ops/wgl.py:949",
                   "wgl_regroup": "jepsen_tpu/parallel/batch.py:95"}
-LEVEL_KERNELS = ("wgl_chunk_init", "wgl_expand", "wgl_stage1_hash", "wgl_take_col",
+LEVEL_KERNELS = ("wgl_chunk_init", "wgl_expand", "wgl_stage1_hash", "wgl_take_col_sort",
                  "radix_sort_pairs", "wgl_prune", "wgl_gather_finalize")
 # Elle: lagged list-append / rw-register histories (8 keys, at most 5
 # micro-ops a txn, 10 processes: the shape of bench.py's cockroachdb txn
@@ -635,26 +661,25 @@ class StageCheck:
             if g.two_stage else (nb * g.M + e4(nb * g.M * g.NID, nb * g.M))
         self.record("wgl_stage1_hash", err, t, nbytes)
         drows, fkey = pd, pf
-        # dedup order: take_col + radix sort per key (last open word first)
-        perm = torch.arange(g.L, dtype=torch.int32, device=dev).repeat(nb, 1)
+        # dedup order: a take-col sort per key (last open word first, from
+        # the identity order)
+        perm = z(nb, g.L)
         keys = z(nb, g.L)
         cols = ([(drows, g.NID + w) for w in reversed(range(g.KO1))] if g.KO else []) \
             + [(fkey, 0)]
-        for src, col in cols:
-            ins = (perm, keys)
-            k, p, t = measure(
-                lambda t, s=src, c=col: lv.take_col(s, c, t[0], t[1], ctl),
-                lambda t, s=src, c=col: lv.take_col_plain(s, c, t[0], t[1], ctl), ins)
-            self.record("wgl_take_col", max_abs_err(k[1], p[1]), t, e4(3 * nb * g.L),
-                        self._library_take(src, col, perm))
-            keys = p[1]
+        self.take_sorts = []  # each call's inputs, for gather_sort_scale
+        for j, (src, col) in enumerate(cols):
+            ident = j == 0
             ins = (keys, perm)
-            k, p, t = measure(lambda t: lv.radix_sort_pairs(t[0], t[1], ws.sort, ctl),
-                              lambda t: lv.radix_sort_pairs_plain(t[0], t[1], None, ctl),
-                              ins)
-            self.record("radix_sort_pairs",
+            self.take_sorts.append((src, col, keys, perm, ctl, ident))
+            k, p, t = measure(
+                lambda t, s=src, c=col, i=ident: lv.take_col_sort(s, c, t[0], t[1], ws.sort,
+                                                                  ctl, i),
+                lambda t, s=src, c=col, i=ident: lv.take_col_sort_plain(s, c, t[0], t[1], None,
+                                                                        ctl, i), ins)
+            self.record("wgl_take_col_sort",
                         max(max_abs_err(k[0], p[0]), max_abs_err(k[1], p[1])), t,
-                        e4(4 * nb * g.L), library_sort_ms(keys))
+                        take_sort_bytes(nb, g.L, ident))
             keys, perm = p[0], p[1]
         # prune
         fprio = z(nb, g.L)
@@ -665,25 +690,24 @@ class StageCheck:
         self.record("wgl_prune", max(max_abs_err(k[0], p[0]), max_abs_err(k[1], p[1])),
                     t, e4(3 * nb * g.L, nb * g.L * g.NC))
         ctl, fprio = p[0], p[1]
-        # compaction order
-        order = torch.arange(g.L, dtype=torch.int32, device=dev).repeat(nb, 1)
-        ins = (fprio, order)
+        # compaction order: the sort carries the dedup order's rows
+        ins = (fprio, perm)
         k, p, t = measure(lambda t: lv.radix_sort_pairs(t[0], t[1], ws.sort, ctl),
                           lambda t: lv.radix_sort_pairs_plain(t[0], t[1], None, ctl),
                           ins)
         self.record("radix_sort_pairs", max(max_abs_err(k[0], p[0]), max_abs_err(k[1], p[1])),
                     t, e4(4 * nb * g.L), library_sort_ms(fprio))
-        order = p[1]
+        perm = p[1]
         # gather + finalize
         stats = torch.zeros((nb, lv.LEVEL_STAT_ROWS, 4), dtype=torch.int32, device=dev)
         ins = (ctl, stats) + tuple(self.fr)
+        self.gather = (drows, perm, ctl, stats)  # for gather_sort_scale
         k, p, t = measure(
-            lambda t: lv.gather_finalize(g, drows, perm, order, t[0], t[1], t[2:]),
-            lambda t: lv.gather_finalize_plain(g, drows, perm, order, t[0], t[1], t[2:]),
+            lambda t: lv.gather_finalize(g, drows, perm, t[0], t[1], t[2:], ws.gf),
+            lambda t: lv.gather_finalize_plain(g, drows, perm, t[0], t[1], t[2:]),
             ins)
-        kept = int(ctl[:, lv.CTL_COUNT].clamp(max=g.F).sum())
         self.record("wgl_gather_finalize", max(max_abs_err(a, b) for a, b in zip(k, p)),
-                    t, e4(2 * nb * g.F, kept * g.NC) + fb)
+                    t, gather_bytes(lv, g, ctl))
         # regroup: every member, a repeated one, into twice the capacity
         idx = [nb - 1] + list(range(nb)) if nb > 1 else [0]
         F_new = 2 * g.F
@@ -697,17 +721,6 @@ class StageCheck:
         row_bytes = 4 * (1 + g.KD + g.KO1 + g.S) + 1
         self.record("wgl_regroup", max(max_abs_err(a, b) for a, b in zip(k, p)),
                     (ms, plain_ms, call_ms), len(idx) * (g.F + F_new) * row_bytes)
-
-    def _library_take(self, src, col, perm) -> float:
-        """One PyTorch call of the sort-key gather (a yardstick only):
-        ``index_select`` of the key column for one member, ``gather`` along
-        each member's row for a batch."""
-        import torch
-
-        column = src if src.dim() == 2 else src[:, :, col]
-        if self.nb == 1:
-            return batch_ms(lambda t: torch.index_select(column[0], 0, t[0][0]), (perm,))[0]
-        return batch_ms(lambda t: torch.gather(column, 1, t[0]), (perm.long(),))[0]
 
 
 def stage_summary(chk, lv):
@@ -724,6 +737,30 @@ def stage_summary(chk, lv):
                   "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
                   "library_ms": statistics.mean(v["library_ms"]) if v["library_ms"] else None}
     return out
+
+
+def take_sort_bytes(nb, n, ident) -> int:
+    """Bytes of one take-col sort: the gathered key column and (unless
+    ``ident``) the values read once, keys and values written once."""
+    return 4 * nb * n * (3 if ident else 4)
+
+
+def gather_bytes(lv, g, ctl) -> int:
+    """Bytes of one gather_finalize call at the control blocks ``ctl`` it
+    starts from: each kept row and its index read once, each live member's
+    frontier (F rows of NC words and a validity byte) written once, its
+    control block read and written and its stats row written."""
+    total = 0
+    for s_, c in enumerate(ctl.tolist()):
+        if not c[lv.CTL_GO]:
+            continue
+        # (ovf_now, dead, stuck_now, kept[, offset])
+        out = lv._sharded_outcome(g, c, s_) if g.exchange else lv._level_outcome(g, c)
+        dead, kept = out[1], out[3]
+        total += 8 * lv.CTL_SIZE + 16
+        if not dead:
+            total += 4 * kept * (g.NC + 1) + g.F * (4 * g.NC + 1)
+    return total
 
 
 def library_sort_ms(keys, **reps) -> float:
@@ -1090,6 +1127,233 @@ def gather_scale():
         out[pad] = row
         del blocks, full
         torch.cuda.empty_cache()
+    return out
+
+
+# The parent designs gather_sort_scale times beside their replacements:
+# built from yardsticks/wgl_parent.cu into a library of their own, never
+# into the port's. Entry point -> ctypes argument kinds.
+YARDSTICK_SRC = ("yardsticks", "wgl_parent.cu")
+YARDSTICKS = {"yardstick_take_col": "PLIIPPIIPP",
+              "yardstick_gather_finalize": "P" * 10 + "I" * 10 + "P"}
+_YARD = {}  # the yardsticks' build: "proc", "lib", "log", "t0"; then "cdll"
+
+
+def start_yardstick_build(_build) -> None:
+    """Start the one ``nvcc`` of the yardsticks' source, beside the
+    library's build; :func:`finish_yardstick_build` waits for it."""
+    import os
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), *YARDSTICK_SRC)
+    _build.BUILD.mkdir(parents=True, exist_ok=True)
+    _YARD.update(lib=_build.BUILD / "libwgl_parent_yardsticks.so",
+                 log=_build.BUILD / "yardsticks.log", t0=time.perf_counter())
+    with open(_YARD["log"], "w") as log:
+        _YARD["proc"] = subprocess.Popen(
+            [_build.nvcc(), *_build.ARCH, *_build.FLAGS, "-shared", src, "-o", str(_YARD["lib"])],
+            stdout=log, stderr=subprocess.STDOUT)
+
+
+def finish_yardstick_build() -> float:
+    """Wait for the yardsticks' build and load it; its seconds."""
+    import ctypes
+
+    proc = _YARD.get("proc")
+    if proc is None:
+        raise RuntimeError("the yardsticks' build was not started")
+    if proc.wait() != 0:
+        raise RuntimeError(f"nvcc of the yardsticks failed:\n{_YARD['log'].read_text()[-4000:]}")
+    lib = ctypes.CDLL(str(_YARD["lib"]))
+    kinds = {"P": ctypes.c_void_p, "I": ctypes.c_int, "L": ctypes.c_long}
+    for name, sig in YARDSTICKS.items():
+        getattr(lib, name).argtypes = [kinds[k] for k in sig]
+        getattr(lib, name).restype = ctypes.c_int
+    _YARD["cdll"] = lib
+    return time.perf_counter() - _YARD["t0"]
+
+
+def _yard_call(name, *args) -> None:
+    rc = getattr(_YARD["cdll"], name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+
+
+def yard_take_sort(lv, src, col, keys, vals, scratch, ctl, ident) -> None:
+    """The parent design of one take-col sort, the yardstick: the identity
+    copied into vals (the first key only), a take_col launch, then
+    radix_sort_pairs."""
+    import ctypes
+
+    import torch
+
+    nb, n = keys.shape
+    if ident:
+        vals.copy_(torch.arange(n, dtype=torch.int32, device=vals.device).expand(nb, n))
+    stride = src.shape[2] if src.dim() == 3 else 1
+    ci = ctypes.c_int
+    _yard_call("yardstick_take_col", lv._ptr(src), ctypes.c_long(src.stride(0)), ci(stride),
+               ci(col), lv._ptr(vals), lv._ptr(keys), ci(n), ci(nb), lv._ptr(ctl), lv._stream())
+    lv.radix_sort_pairs(keys, vals, scratch, ctl)
+
+
+def yard_gather_finalize(lv, g, drows, perm, order, ctl, stats, fr) -> None:
+    """The parent's gather (frontier slot k from perm[order[off + k]]) and
+    finalize launches, the yardstick."""
+    import ctypes
+
+    ci = ctypes.c_int
+    nb = ctl.shape[0]
+    _yard_call("yardstick_gather_finalize", lv._ptr(drows), lv._ptr(perm), lv._ptr(order),
+               lv._ptr(ctl), lv._ptr(stats), *(lv._ptr(a) for a in fr), ci(g.F), ci(g.L),
+               ci(g.NC), ci(g.KD), ci(g.S), ci(g.KO1), ci(g.P if g.two_stage else 0),
+               ci(lv.LEVEL_STAT_ROWS), ci(lv._EX_MODE[g.exchange]), ci(nb), lv._stream())
+
+
+def take_sort_case(lv, src, col, keys, vals, scratch, ctl, ident, reps) -> dict:
+    """One take-col sort: the kernel, the parent's take_col + sort and the
+    plain version on copies of the same inputs, bit for bit; the kernel's
+    ms beside the parent's, ``radix_sort_pairs`` alone on the gathered
+    keys and ``index_select`` (``gather`` for a batch) + ``torch.sort`` of
+    the same column; the device launches of one call."""
+    import torch
+
+    nb, n = keys.shape
+    outs = {}
+    for name, fn in (("kernel", lv.take_col_sort), ("parent", lambda *a: yard_take_sort(lv, *a)),
+                     ("plain", lv.take_col_sort_plain)):
+        k, v = keys.clone(), vals.clone()
+        fn(src, col, k, v, scratch, ctl, ident)
+        outs[name] = (k, v)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(a, b) for name in ("kernel", "parent")
+              for a, b in zip(outs[name], outs["plain"]))
+    if err:
+        raise AssertionError(f"wgl_take_col_sort (or its yardstick) disagrees with plain: n {n}, "
+                             f"nb {nb}, ident {ident}")
+    # the gathered, unsorted pairs, for the sort alone
+    gv = torch.arange(n, dtype=torch.int32, device="cuda").repeat(nb, 1) if ident else vals.clone()
+    gk = keys.clone()
+    lv.take_col_plain(src, col, gv, gk, ctl)
+    column = (src[:, :, col] if src.dim() == 3 else src) ^ torch.tensor(
+        -2**31, dtype=torch.int32, device="cuda")  # u32 order as int32 order
+    column = column.contiguous()
+    idx = gv.long()
+    if nb == 1:
+        library = lambda t: torch.sort(torch.index_select(column[0], 0, idx[0]),  # noqa: E731
+                                       stable=True)
+    else:
+        library = lambda t: torch.sort(torch.gather(column, 1, idx), dim=1,  # noqa: E731
+                                       stable=True)
+    calls = {"ms": (lambda t: lv.take_col_sort(src, col, t[0], t[1], scratch, ctl, ident),
+                    (keys, vals)),
+             "parent_ms": (lambda t: yard_take_sort(lv, src, col, t[0], t[1], scratch, ctl,
+                                                    ident), (keys, vals)),
+             "sort_only_ms": (lambda t: lv.radix_sort_pairs(t[0], t[1], scratch, ctl), (gk, gv)),
+             "index_select_sort_ms": (library, (gk,))}
+    turns = {k: [] for k in calls}
+    for order in (list(calls), list(calls)[::-1]):  # in turns, then back
+        for k in order:
+            fn, ins = calls[k]
+            turns[k].append(batch_ms(fn, ins, clone=k != "index_select_sort_ms", **reps)[0])
+    row = {"n": n, "nb": nb, "ident": ident, "path": lv.sort_path(scratch), "max_abs_err": err,
+           **{k: statistics.median(v) for k, v in turns.items()}}
+    k, v = keys.clone(), vals.clone()
+    row["device_launches"] = device_launches(
+        lambda: lv.take_col_sort(src, col, k, v, scratch, ctl, ident))
+    row["over_sort_ms"] = row["ms"] - row["sort_only_ms"]
+    row.update(bound_fields(row["ms"], take_sort_bytes(nb, n, ident)))
+    return row
+
+
+def gather_sort_scale(lv, checks):
+    """wgl_take_col_sort and the one-launch wgl_gather_finalize at the level
+    inputs of ``checks`` ({label: StageCheck}: the north star's at TIMED_F,
+    the batch's at BIG_KERNELS_F), each beside its parent design (the
+    yardsticks of ``yardsticks/wgl_parent.cu``), bit for bit, and the
+    take-col sort alone at TAKE_SORT_SIZES x TAKE_SORT_NB x
+    TAKE_SORT_SWEEP_FAMILIES x both ident settings. Returns
+    {"wgl_take_col_sort": {...}, "wgl_gather_finalize": {...}}."""
+    import numpy as np
+    import torch
+
+    from jepsen_tpu_torch.testing import sort_keys
+
+    out = {"wgl_take_col_sort": {}, "wgl_gather_finalize": {}}
+    for label, chk in checks.items():
+        g, nb, ws = chk.g, chk.nb, chk.ws
+        rows = [take_sort_case(lv, src, col, keys, perm, ws.sort, ctl, ident, {})
+                for src, col, keys, perm, ctl, ident in chk.take_sorts]
+        out["wgl_take_col_sort"][label] = rows
+        drows, perm, ctl, stats = chk.gather
+        ins = (ctl, stats) + tuple(chk.fr)
+        order = torch.arange(g.L, dtype=torch.int32, device="cuda").repeat(nb, 1)
+        calls = {"kernel": lambda t: lv.gather_finalize(g, drows, perm, t[0], t[1], t[2:], ws.gf),
+                 "parent": lambda t: yard_gather_finalize(lv, g, drows, perm, order, t[0], t[1],
+                                                          t[2:]),
+                 "plain": lambda t: lv.gather_finalize_plain(g, drows, perm, t[0], t[1], t[2:])}
+        res = {}
+        for name, fn in calls.items():
+            t = tuple(x.clone() for x in ins)
+            fn(t)
+            res[name] = t
+        torch.cuda.synchronize()
+        err = max(max_abs_err(a, b) for name in ("kernel", "parent")
+                  for a, b in zip(res[name], res["plain"]))
+        if err:
+            raise AssertionError(f"wgl_gather_finalize (or its yardstick) disagrees with plain "
+                                 f"at {label}")
+        flat = (perm[:, :g.F].long() + g.L * torch.arange(nb, device="cuda")[:, None]).flatten()
+        table = drows.view(nb * g.L, g.NC)
+        timed = {"ms": (calls["kernel"], ins, True), "parent_ms": (calls["parent"], ins, True),
+                 "index_select_ms": (lambda t: torch.index_select(table, 0, flat), (), False)}
+        turns = {k: [] for k in timed}
+        for order_ in (list(timed), list(timed)[::-1]):
+            for k in order_:
+                fn, i, clone = timed[k]
+                turns[k].append(batch_ms(fn, i, clone=clone)[0])
+        t = tuple(x.clone() for x in ins)
+        launches = device_launches(lambda: lv.gather_finalize(g, drows, perm, t[0], t[1], t[2:],
+                                                              ws.gf))
+        if launches != 1:
+            raise AssertionError(f"wgl_gather_finalize: {launches} device launches a call")
+        row = {"nb": nb, "F": g.F, "L": g.L, "NC": g.NC, "max_abs_err": err,
+               "kept": int(res["plain"][0][:, lv.CTL_FCOUNT].sum()), "device_launches": launches,
+               **{k: statistics.median(v) for k, v in turns.items()}}
+        row.update(bound_fields(row["ms"], gather_bytes(lv, g, ctl)))
+        out["wgl_gather_finalize"][label] = row
+        emit({"phase": "gather_sort_scale", "shape": label, "wgl_take_col_sort": rows,
+              "wgl_gather_finalize": row})
+    sweep = []
+    col = 3
+    for n in TAKE_SORT_SIZES:
+        for nb in TAKE_SORT_NB:
+            rng = np.random.default_rng(n + nb)
+            vals = torch.from_numpy(np.stack([rng.permutation(n) for _ in range(nb)])
+                                    .astype(np.int32)).to("cuda")
+            src = torch.randint(-2**31, 2**31 - 1, (nb, n, STAGE1_SWEEP_NC), device="cuda",
+                                dtype=torch.int64).to(torch.int32)
+            scratch = lv.sort_scratch(n, "cuda", nb)
+            keys = torch.zeros((nb, n), dtype=torch.int32, device="cuda")
+            for family in TAKE_SORT_SWEEP_FAMILIES:
+                src[:, :, col] = torch.from_numpy(sort_keys(family, nb, n, seed=n + nb)).to("cuda")
+                for ident in (True, False):
+                    row = take_sort_case(lv, src, col, keys, vals, scratch, None, ident,
+                                         TAKE_SORT_REPS)
+                    sweep.append(dict(row, family=family))
+            del src, vals, keys, scratch
+            torch.cuda.empty_cache()
+        emit({"phase": "gather_sort_scale", "n": n,
+              "cases": [{k: r[k] for k in ("nb", "family", "ident", "path", "device_launches",
+                                           "ms", "sort_only_ms", "parent_ms",
+                                           "index_select_sort_ms", "bound_ms")}
+                        for r in sweep if r["n"] == n]})
+    bad = [r for r in sweep if r["path"] == "cta" and r["device_launches"] != 1]
+    if bad:
+        raise AssertionError(f"wgl_take_col_sort: more than one device launch on the one-block "
+                             f"path: {bad[:2]}")
+    out["wgl_take_col_sort"]["sweep"] = [
+        {k: r[k] for k in ("n", "nb", "ident", "path", "device_launches", "ms", "sort_only_ms",
+                           "parent_ms", "bound_ms")} for r in sweep if r["family"] == "random"]
     return out
 
 
@@ -1580,8 +1844,8 @@ def _stage_err(lv, name, ak, ap, wk, wp, fk, fp) -> int:
         return max(max_abs_err(wk.drows, wp.drows), max_abs_err(wk.rvalid, wp.rvalid))
     if name == "hash_rows":
         return max_abs_err(wk.fkey, wp.fkey)
-    if name == "take_col":
-        return max_abs_err(ak[3], ap[3])
+    if name == "take_col_sort":
+        return max(max_abs_err(ak[2], ap[2]), max_abs_err(ak[3], ap[3]))
     if name == "radix_sort_pairs":
         return max(max_abs_err(ak[0], ap[0]), max_abs_err(ak[1], ap[1]))
     if name == "prune":
@@ -1616,10 +1880,6 @@ def sharded_lockstep(lv, g, tabs, model, fr, ctl, on_stage=None):
     errs = {}
     for (name, ak), (_n, ap) in zip(lv._sharded_level_stages(g, tabs, fk, wk, model),
                                     lv._sharded_level_stages(g, tabs, fp, wp, model)):
-        if name == "reset":
-            ak[0].copy_(ak[1])
-            ap[0].copy_(ap[1])
-            continue
         if on_stage is not None:
             on_stage(name, ak, ap)
         getattr(lv.KERNELS, name)(*ak)
@@ -1639,7 +1899,8 @@ def _sharded_call(lv, name, a, plain):
         return (lambda t: f(a[0], a[1], a[2], a[3], t[0], t[1])), (a[4], a[5])
     if name == "shard_reduce":
         return (lambda t: f(a[0], t[0], a[2])), (a[1],)
-    return (lambda t: f(a[0], a[1], a[2], a[3], t[0], t[1], t[2:])), (a[4], a[5]) + tuple(a[6])
+    # gather_finalize (g, drows, perm, ctl, stats, fr, scratch)
+    return (lambda t: f(a[0], a[1], a[2], t[0], t[1], t[2:], a[6])), (a[3], a[4]) + tuple(a[5])
 
 
 def sharded_bytes(lv, name, g, ctl_after) -> int:
@@ -1660,7 +1921,7 @@ def sharded_bytes(lv, name, g, ctl_after) -> int:
         return 2 * ctl_b
     kept = int(ctl_after[0, lv.CTL_NSUM])
     fr_row = 4 * (1 + g.KD + g.KO1 + g.S) + 1
-    return kept * (row + 8) + 2 * ctl_b + D * g.F * fr_row
+    return kept * (row + 4) + 2 * ctl_b + D * g.F * fr_row
 
 
 def _library_exchange(g, send):
@@ -1752,7 +2013,7 @@ def sharded_kernels_phase(lv, wgl, enc, model):
             ms, call_ms = batch_ms(fk, ik)
             plain_ms, _ = batch_ms(fp, ip, hold=False, batch=3, batches=3)
             lib = _library_exchange(g, ak[1]) if name == "exchange" else None
-            ctl_arg = {"route": 2, "exchange": 3, "shard_reduce": 1, "gather_finalize": 4}
+            ctl_arg = {"route": 2, "exchange": 3, "shard_reduce": 1, "gather_finalize": 3}
             timed[stage_kernel(lv, name)] = {"ms": ms, "call_ms": call_ms,
                                              "plain_ms": plain_ms, "library_ms": lib,
                                              "name": name, "ctl": ap[ctl_arg[name]].cpu()}
@@ -2513,16 +2774,20 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    built = _build.build()
-    _build.load()
+    start_yardstick_build(_build)
+    try:
+        built = _build.build()
+        _build.load()
+    finally:
+        yard_s = finish_yardstick_build()
     log = built["log"].splitlines()
     ptxas = [ln.strip() for ln in log if "registers" in ln]
     # The square kernel's instances: registers, spills, barriers, static smem.
     square_ptxas = [x.strip() for i, ln in enumerate(log)
                     if "Compiling entry" in ln and "k_square" in ln for x in log[i:i + 4]]
     emit({"phase": "build", "built": built["built"], "seconds": time.perf_counter() - t0,
-          "compile_seconds": built["compile_seconds"], "ptxas": ptxas,
-          "square_ptxas": square_ptxas})
+          "compile_seconds": built["compile_seconds"], "yardsticks_seconds": yard_s,
+          "ptxas": ptxas, "square_ptxas": square_ptxas})
     model = CasRegister(init=0)
 
     # -- kernels against their plain versions on the card -------------------
@@ -2544,7 +2809,7 @@ def main() -> int:
         for k, v in stages.items():
             errs[k] = max(errs.get(k, 0), v["max_abs_err"])
         if F == TIMED_F:
-            timed = stages
+            timed, north_chk = stages, chk
     # random keys for the radix sort at the largest L
     gen = torch.Generator(device="cuda").manual_seed(11)
     n = wgl.level_geometry(plan, KERNEL_FS[-1]).L
@@ -2659,7 +2924,9 @@ def main() -> int:
         for k, v in stages.items():
             errs[k] = max(errs.get(k, 0), v["max_abs_err"])
         if batch_stages is None:
-            batch_stages = dict(stages, _nb=bplan.nb, _F=F)
+            batch_stages, batch_chk = dict(stages, _nb=bplan.nb, _F=F), chk
+    scale = gather_sort_scale(lv, {"north_star": north_chk, "batch_8x8192": batch_chk})
+    del north_chk, batch_chk
 
     # -- batch replay: 100 histories, four ways -------------------------------
     check_batch(model, replay, f=REPLAY["f"])  # workspaces and first-call costs
@@ -2858,6 +3125,8 @@ def main() -> int:
             entry["tiles"] = prunes["tiles"]
         if kname == "wgl_expand":  # the stage at both frontiers (expand_scale)
             entry["scale"] = {k: v for k, v in expands.items() if k != "families"}
+        if kname in scale:  # beside the parent design (gather_sort_scale)
+            entry["scale"] = scale[kname]
         if kname == "wgl_stage1_hash":  # the stage alone (stage1_sweep)
             entry["device_launches"] = stage1["device_launches"]
             entry["tiles"] = stage1["tiles"]

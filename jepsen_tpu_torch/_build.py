@@ -36,6 +36,8 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SORT_CTA_MAX = 16384
 SORT_TILE = 4096
 SORT_HDR = 1040
+# Frontier slots a block of the gather-finalize takes (GF_ROWS).
+GF_ROWS = 128
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 # entry point -> argument types, in order (the C signatures).
@@ -43,7 +45,7 @@ SIGNATURES = {
     "wgl_chunk_init": [_P, _P, _I, _I, _P],
     "wgl_expand": [_P] * 14 + [_I] * 10 + [_P],
     "wgl_stage1_hash": [_P] * 6 + [_I] * 6 + [_P],
-    "wgl_take_col": [_P, _L, _I, _I, _P, _P, _I, _I, _P, _P],
+    "wgl_take_col_sort": [_P, _L, _I, _I, _I] + [_P] * 5 + [_I, _I, _P, _P],
     "radix_sort_pairs": [_P] * 5 + [_I, _I, _P, _P],
     "wgl_prune": [_P] * 6 + [_I] * 7 + [_P],
     "wgl_gather_finalize": [_P] * 10 + [_I] * 10 + [_P],

@@ -1001,26 +1001,14 @@ __global__ void k_hash(const u32* __restrict__ drows, const unsigned char* __res
 }
 
 // ---------------------------------------------------------------------------
-// Sort-key gather: out[b][i] = src[b][idx[b][i] * stride + col].
-
-__global__ void k_take_col(const u32* __restrict__ src, long src_member, int stride, int col,
-                           const int* __restrict__ idx, u32* __restrict__ out, int n,
-                           const int* ctl) {
-  const int b = blockIdx.y;
-  if (stopped(member_ctl(ctl, b))) return;
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n)
-    out[(size_t)b * n + i] =
-        src[(size_t)b * src_member + (size_t)idx[(size_t)b * n + i] * stride + col];
-}
-
-// ---------------------------------------------------------------------------
 // K3 stable ascending LSD radix sort of (u32 key, u32 value) pairs, 8-bit
 // digits, segmented: each member's row of n pairs is sorted on its own (the
 // member is a grid coordinate, not a key prefix), in place. Used for the
 // dedup sort (reference lines 644-657, one sort per key from the last
 // open-mask word to the fused key; stability makes it lexicographic) and
-// the compaction sort (lines 725-740, stability is the iota tiebreak).
+// the compaction sort (lines 725-740, stability is the position
+// tiebreak: its values are the dedup order's row indices, so they come
+// out as the rows in compaction order and the gather reads them direct).
 //
 // What bounds it: 16 bytes a pair (keys and values read once and written
 // once), about 0.08 us of HBM time at the main path's 16384 pairs; what
@@ -1053,6 +1041,32 @@ __global__ void k_take_col(const u32* __restrict__ src, long src_member, int str
 // keys/vals and the scratch; when the passes that run are odd in number it
 // runs the first uniform digit too (an identity copy), so the result ends
 // in keys/vals. A member whose control block says stop is not touched.
+//
+// The dedup sorts take their keys through a gather (wgl_take_col_sort,
+// replacing the reference's sort operands, lines 647-651): key i of member
+// b is src[b][v * stride + col], v = i for the first key (the identity
+// order) and vals[b][i] after it; rows [0, n) of src exist. There is no
+// gather launch: the kernels take a compile-time GATHER and gather where
+// they load the keys anyway. Path S reads the key column (rows [0, n), in
+// row order) and the values in one round of loads, with the control
+// block: the identity's keys are the column, and read values take theirs
+// from the column staged in shared memory (one SM gathering 16384
+// scattered words from device memory would fetch a 32-byte sector for
+// each). It stores nothing before every load is done (vals is the index
+// and the output of the launch).
+// Path L's upsweep, which reads every key once for its histograms,
+// gathers them and writes keys (and the identity values) as it goes, and
+// the passes run as they are. Either way the gathered pairs are stored
+// even when every digit is uniform (an all-zero open-mask column, sorted
+// first at every level with no open op): nothing else writes them. With
+// GATHER false the kernels are the plain sort's.
+
+// The key gather of a take-col sort (see above).
+struct KeyGather {
+  const u32* src;
+  long member;  // src's stride between members, in words
+  int stride, col, ident;
+};
 
 // Bit mask of the passes path L runs: each digit that is not uniform,
 // plus the first uniform one when those are odd in number.
@@ -1117,8 +1131,9 @@ static size_t rs_cta_smem(int ipt) {
   return (size_t)3 * 1024 * ipt * sizeof(u32) + (size_t)32 * RS_CNT * sizeof(int);
 }
 
+template <bool GATHER>
 __global__ void __launch_bounds__(1024, 1)
-k_sort_cta(u32* __restrict__ keys, u32* __restrict__ vals, int n, const int* ctl) {
+k_sort_cta(u32* __restrict__ keys, u32* __restrict__ vals, int n, const int* ctl, KeyGather kg) {
   const int b = blockIdx.x;
   // Read with the keys below: a stopped member's block loads and leaves.
   const bool stop = stopped(member_ctl(ctl, b));
@@ -1136,23 +1151,64 @@ k_sort_cta(u32* __restrict__ keys, u32* __restrict__ vals, int n, const int* ctl
   int* cnt = (int*)(vd + cap);            // [32][RS_CNT] per-warp digit counters
   int* wc = cnt + w * RS_CNT;
   if (threadIdx.x == 0) s_diff = 0;
-  const u32 k0 = keys[0];
   u32 k[RS_CTA_IPT];
   int rk[RS_CTA_IPT];
   u32 diff = 0;
+  if constexpr (GATHER) {
+    // One round of loads, with the control block: the key column (rows
+    // [0, n) of src, which the wrapper checks exist) and the values. The
+    // identity's keys are the column itself. Read values take theirs from
+    // the column staged in shared memory, so no device load waits on
+    // another and one SM never gathers scattered words (a value past n,
+    // which the level never passes, is read from device memory).
+    const u32* src = kg.src + (size_t)b * kg.member + kg.col;
 #pragma unroll
-  for (int j = 0; j < RS_CTA_IPT; ++j) {
-    const int i = wbase + 32 * j;
-    k[j] = FULL;  // padding sorts after every real key: it comes last
-    if (j < ipt && i < n) {
-      k[j] = keys[i];
-      vs[i] = vals[i];
-      diff |= k[j] ^ k0;
+    for (int j = 0; j < RS_CTA_IPT; ++j) {
+      const int i = wbase + 32 * j;
+      k[j] = FULL;
+      if (j < ipt && i < n) {
+        const u32 x = src[(size_t)i * kg.stride];
+        if (kg.ident) {
+          k[j] = x;
+          vs[i] = (u32)i;
+        } else {
+          sk[i] = x;
+          vs[i] = vals[i];
+        }
+      }
+    }
+    auto key_of = [&](u32 v) { return v < (u32)n ? sk[v] : src[(size_t)v * kg.stride]; };
+    if (!kg.ident) {
+      __syncthreads();
+      if (stop) return;
+#pragma unroll
+      for (int j = 0; j < RS_CTA_IPT; ++j) {
+        const int i = wbase + 32 * j;
+        if (j < ipt && i < n) k[j] = key_of(vs[i]);
+      }
+    }
+    const u32 k0 = kg.ident ? src[0] : key_of(vs[0]);
+#pragma unroll
+    for (int j = 0; j < RS_CTA_IPT; ++j)
+      if (j < ipt && wbase + 32 * j < n) diff |= k[j] ^ k0;
+  } else {
+    const u32 k0 = keys[0];
+#pragma unroll
+    for (int j = 0; j < RS_CTA_IPT; ++j) {
+      const int i = wbase + 32 * j;
+      k[j] = FULL;  // padding sorts after every real key: it comes last
+      if (j < ipt && i < n) {
+        k[j] = keys[i];
+        vs[i] = vals[i];
+        diff |= k[j] ^ k0;
+      }
     }
   }
   __syncthreads();
   diff = block_or(diff, &s_diff);
-  if (stop || diff == 0) return;  // diff 0: every digit uniform, the row is sorted
+  // diff 0: every digit uniform, the row is sorted (a gathered row is
+  // still stored below)
+  if (stop || (!GATHER && diff == 0)) return;
   for (int p = 0; p < 4; ++p) {
     const int shift = 8 * p;
     if (((diff >> shift) & 255u) == 0) continue;
@@ -1224,12 +1280,15 @@ __device__ __forceinline__ u32* rs_lookback(u32* state, int nb, int tiles, int b
 
 // Upsweep: the four digit histograms and diff of each member's keys, a
 // block per `chunk` keys.
+template <bool GATHER>
 __global__ void __launch_bounds__(RS_L_THREADS)
-k_sort_upsweep(const u32* __restrict__ keys, int n, int chunk, u32* state, int tiles, int nb,
-               const int* ctl) {
+k_sort_upsweep(u32* __restrict__ keys, u32* __restrict__ vals, int n, int chunk, u32* state,
+               int tiles, int nb, const int* ctl, KeyGather kg) {
   const int b = blockIdx.y;
   if (stopped(member_ctl(ctl, b))) return;
   keys += (size_t)b * n;
+  vals += (size_t)b * n;
+  const u32* src = GATHER ? kg.src + (size_t)b * kg.member + kg.col : nullptr;
   u32* hdr = state + (size_t)b * RS_HDR;
   u32* lb0 = rs_lookback(state, nb, tiles, 0, b);
   __shared__ int h[4 * 256];
@@ -1242,15 +1301,26 @@ k_sort_upsweep(const u32* __restrict__ keys, int n, int chunk, u32* state, int t
        i += (size_t)gridDim.x * blockDim.x)
     lb0[i] = 0;
   __syncthreads();
-  const u32 k0 = keys[0];
+  // Key 0, gathered by every block: block 0 writes keys[0] in this launch.
+  const u32 k0 = GATHER ? src[(size_t)(kg.ident ? 0u : vals[0]) * kg.stride] : keys[0];
   u32 diff = 0;
   bool many[4] = {false, false, false, false};  // see warp_rank8
   const int i0 = blockIdx.x * chunk, i1 = min(n, i0 + chunk);
   for (int base = i0; base < i1; base += blockDim.x) {  // uniform across the block
     const int i = base + threadIdx.x;
     const bool act = i < i1;
-    const u32 k = act ? keys[i] : 0u;
-    if (act) diff |= k ^ k0;
+    u32 k = 0u;
+    if (act) {
+      if constexpr (GATHER) {
+        const u32 v = kg.ident ? (u32)i : vals[i];
+        k = src[(size_t)v * kg.stride];
+        keys[i] = k;
+        if (kg.ident) vals[i] = v;
+      } else {
+        k = keys[i];
+      }
+      diff |= k ^ k0;
+    }
     const u32 am = __ballot_sync(FULL, act);
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
@@ -1645,6 +1715,31 @@ k_prune(const u32* __restrict__ drows, const u32* __restrict__ skey, const int* 
 // of the shard's own order, allgather the shard's slice [s*F, s*F + F) of
 // the global order, valid below min(count, F*D); no stats row is written
 // (the reference collects none when sharded).
+//
+// What bounds it: the kept rows (NC words each) and their indices read
+// once, the frontier (F rows of NC words and a validity byte) written
+// once: about 0.3 MB, 0.1 us of HBM time, at the main path's F = 4096
+// with every row kept. What costs is latency, so the design is one launch
+// with two dependent loads a row:
+//
+// - the compaction sort carries the dedup order's row indices as its
+//   values, so perm[off + k] is the row of frontier slot k (no separate
+//   order to read first);
+// - a block takes GF_ROWS slots of its member (blockIdx.y): it reads their
+//   indices, then gathers the kept rows into shared memory with cp.async,
+//   a word a thread of warps 1-7, every load in flight at once, and all
+//   its warps store p, mD, st, mO and valid each as one coalesced run of
+//   the block's slots (zeros past the kept rows);
+// - the slots' row indices are read with the control block (where they
+//   lie does not depend on the outcome);
+// - every block that did not find the member stopped takes a ticket from
+//   a per-member counter in a scratch once all its threads have read the
+//   control block, on thread 0 with an acq_rel add while warps 1-7
+//   gather; the block that drew the last ticket runs the loop carry
+//   update, the stats row and the stop test on one thread (the other
+//   blocks only write the frontier, which the finalize does not read) and
+//   puts the counter back to zero: the scratch cleans itself. A dead level (the frontier kept)
+//   stores no row but still takes its tickets.
 
 __device__ __forceinline__ void level_outcome(const int* ctl, int F, int P2, bool* ovf_now,
                                               bool* dead, bool* stuck_now, int* kept) {
@@ -1677,57 +1772,32 @@ __device__ __forceinline__ void sharded_outcome(const int* ctl, int s, int F, in
   *off = (mode == EX_ALLGATHER) ? s * F : 0;
 }
 
-__global__ void k_gather(const u32* __restrict__ drows, const int* __restrict__ perm,
-                         const int* __restrict__ order, const int* ctl, int* __restrict__ p,
-                         u32* __restrict__ mD, u32* __restrict__ mO, int* __restrict__ st,
-                         unsigned char* __restrict__ valid, int F, int L, int NC, int KD, int S,
-                         int KO1, int P2, int mode) {
-  const int b = blockIdx.y;
-  ctl += (size_t)b * CTL_SIZE;
-  if (stopped(ctl)) return;
-  bool ovf_now, dead, stuck_now;
-  int kept, off = 0;
-  if (mode)
-    sharded_outcome(ctl, b, F, gridDim.y, mode, &ovf_now, &dead, &stuck_now, &kept, &off);
-  else
-    level_outcome(ctl, F, P2, &ovf_now, &dead, &stuck_now, &kept);
-  if (dead) return;  // lossless restore / dead end: keep the old frontier
-  int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= F) return;
-  drows += (size_t)b * L * NC;
-  perm += (size_t)b * L;
-  order += (size_t)b * L;
-  p += (size_t)b * F;
-  mD += (size_t)b * F * KD;
-  mO += (size_t)b * F * KO1;
-  st += (size_t)b * F * S;
-  valid += (size_t)b * F;
-  bool kv = k < kept;
-  const u32* r = kv ? drows + (size_t)perm[order[off + k]] * NC : nullptr;
-  p[k] = kv ? (int)r[0] : 0;
-  for (int w = 0; w < KD; ++w) mD[(size_t)k * KD + w] = kv ? r[1 + w] : 0u;
-  for (int i = 0; i < S; ++i) st[(size_t)k * S + i] = kv ? (int)r[1 + KD + i] : 0;
-  for (int w = 0; w < KO1; ++w) mO[(size_t)k * KO1 + w] = kv ? r[1 + KD + S + w] : 0u;
-  valid[k] = kv ? 1 : 0;
+#define GF_THREADS 256
+#define GF_ROWS 128  // frontier slots a block, at most GF_THREADS
+static_assert(GF_ROWS <= GF_THREADS, "a thread reads each slot's row index");
+
+// Dynamic shared memory of k_gather_finalize: the block's rows and their
+// indices.
+__host__ __device__ constexpr size_t gf_smem(int NC) {
+  return 4 * ((size_t)GF_ROWS * NC + GF_ROWS);
 }
 
-__global__ void k_finalize(int* ctl, int* stats, int F, int P2, int n_stat_rows, int mode) {
-  const int b = blockIdx.x;
-  ctl += (size_t)b * CTL_SIZE;
-  if (stopped(ctl)) return;
+// The loop carry update, stats row and stop test of member s (of D) after
+// its level (reference lines 791-843), on one thread.
+__device__ void finalize_member(int* ctl, int* stats, int s, int D, int F, int P2,
+                                int n_stat_rows, int mode) {
   bool ovf_now, dead, stuck_now;
-  int kept, off, fm, nonempty;
+  int kept, off = 0, fm, nonempty;
   int lvl = ctl[CTL_LVL];
   if (mode) {
-    sharded_outcome(ctl, b, F, gridDim.x, mode, &ovf_now, &dead, &stuck_now, &kept, &off);
-    fm = min(ctl[CTL_GCOUNT], F * (int)gridDim.x);
+    sharded_outcome(ctl, s, F, D, mode, &ovf_now, &dead, &stuck_now, &kept, &off);
+    fm = min(ctl[CTL_GCOUNT], F * D);
     nonempty = ctl[CTL_NSUM] > 0;  // every shard's, as the reduce saw them
   } else {
     level_outcome(ctl, F, P2, &ovf_now, &dead, &stuck_now, &kept);
     fm = kept;
     nonempty = (dead ? ctl[CTL_FCOUNT] : kept) > 0;
-    stats += (size_t)b * n_stat_rows * 4;
-    int* row = stats + ((lvl + 1) % n_stat_rows) * 4;
+    int* row = stats + (size_t)s * n_stat_rows * 4 + ((lvl + 1) % n_stat_rows) * 4;
     row[0] = lvl + 1;
     row[1] = kept;
     row[2] = ctl[CTL_NEXP];
@@ -1750,6 +1820,87 @@ __global__ void k_finalize(int* ctl, int* stats, int F, int P2, int n_stat_rows,
   ctl[CTL_ACCNOW] = 0;
   ctl[CTL_ROWOVF] = 0;
   ctl[CTL_COUNT] = 0;
+}
+
+// atomicAdd(p, 1) with acq_rel semantics at device scope (atomicAdd is
+// relaxed).
+__device__ __forceinline__ u32 ticket_acq_rel(u32* p) {
+  u32 t;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;" : "=r"(t) : "l"(p) : "memory");
+  return t;
+}
+
+// Words [c0, c0 + w) of the block's nr staged rows to dst (w words a slot),
+// zeros from row nk on.
+__device__ __forceinline__ void gf_store(u32* __restrict__ dst, const u32* srow, int NC, int c0,
+                                         int w, int nr, int nk) {
+  for (int j = threadIdx.x; j < nr * w; j += GF_THREADS) {
+    const int r = j / w;
+    dst[j] = r < nk ? srow[r * NC + c0 + (j - r * w)] : 0u;
+  }
+}
+
+__global__ void __launch_bounds__(GF_THREADS)
+k_gather_finalize(const u32* __restrict__ drows, const int* __restrict__ perm, int* ctl,
+                  int* stats, int* __restrict__ p, u32* __restrict__ mD, u32* __restrict__ mO,
+                  int* __restrict__ st, unsigned char* __restrict__ valid, u32* tickets, int F,
+                  int L, int NC, int KD, int S, int KO1, int P2, int n_stat_rows, int mode) {
+  const int b = blockIdx.y, tid = threadIdx.x;
+  int* c = ctl + (size_t)b * CTL_SIZE;
+  extern __shared__ __align__(16) u32 gf_buf[];
+  u32* srow = gf_buf;                                               // [GF_ROWS][NC]
+  int* sidx = reinterpret_cast<int*>(srow + (size_t)GF_ROWS * NC);  // [GF_ROWS]
+  __shared__ int s_last;
+  const int k0 = blockIdx.x * GF_ROWS;
+  const int nr = min(GF_ROWS, F - k0);  // the block's slots
+  // The slots' row indices are read with the control block: where they
+  // lie in perm does not depend on the level's outcome.
+  const size_t pi = (size_t)(mode == EX_ALLGATHER ? b * F : 0) + k0 + tid;
+  const int idx = tid < nr && pi < (size_t)L ? perm[(size_t)b * L + pi] : 0;
+  if (stopped(c)) return;  // the member is skipped whole: no ticket
+  bool ovf_now, dead, stuck_now;
+  int kept, off = 0;
+  if (mode)
+    sharded_outcome(c, b, F, gridDim.y, mode, &ovf_now, &dead, &stuck_now, &kept, &off);
+  else
+    level_outcome(c, F, P2, &ovf_now, &dead, &stuck_now, &kept);
+  const int nk = dead ? 0 : max(0, min(nr, kept - k0));  // slots kept
+  if (tid < GF_ROWS) sidx[tid] = idx;
+  // Every thread's reads of the control block, which the member's last
+  // block overwrites, are ordered by this barrier before thread 0's
+  // ticket, an acq_rel add at device scope: its release half (cumulative)
+  // puts the block's reads before the ticket, every later ticket of the
+  // member continues its release sequence, and its acquire half puts the
+  // finalize's writes after the last ticket. So every block's reads happen
+  // before the finalize's writes. Thread 0 takes the ticket while warps
+  // 1-7 gather, so the add's ordering waits behind neither the gather nor
+  // the stores.
+  __syncthreads();
+  if (tid == 0) s_last = ticket_acq_rel(tickets + b) == gridDim.x - 1;
+  // A dead level (lossless restore or dead end: the old frontier is kept)
+  // has nk = 0 and stores nothing.
+  const u32* rows = drows + (size_t)b * L * NC;
+  if (tid >= 32)
+    for (int j = tid - 32; j < nk * NC; j += GF_THREADS - 32) {
+      const int r = j / NC;
+      cp_async4(srow + j, rows + (size_t)sidx[r] * NC + (j - r * NC));
+    }
+  cp_async_wait_all();
+  __syncthreads();
+  if (!dead) {
+    const size_t f0 = (size_t)b * F + k0;
+    if (tid < nr) {
+      p[f0 + tid] = tid < nk ? (int)srow[(size_t)tid * NC] : 0;
+      valid[f0 + tid] = tid < nk ? 1 : 0;
+    }
+    gf_store(mD + f0 * KD, srow, NC, 1, KD, nr, nk);
+    gf_store(reinterpret_cast<u32*>(st) + f0 * S, srow, NC, 1 + KD, S, nr, nk);
+    gf_store(mO + f0 * KO1, srow, NC, 1 + KD + S, KO1, nr, nk);
+  }
+  if (s_last && tid == 0) {
+    tickets[b] = 0;
+    finalize_member(c, stats, b, gridDim.y, F, P2, n_stat_rows, mode);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -2089,6 +2240,48 @@ static int expand_launch(dim3 grid, size_t smem, cudaStream_t s, void* tabD, voi
   return (int)cudaGetLastError();
 }
 
+// radix_sort_pairs, with the key gather of wgl_take_col_sort when GATHER.
+template <bool GATHER>
+static int sort_pairs(void* keys, void* vals, void* tmp_k, void* tmp_v, void* state, int n,
+                      int nb, void* ctl, void* stream, KeyGather kg) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int* c = (const int*)ctl;
+  if (n <= 0 || nb <= 0) return (int)cudaGetLastError();
+  if (tmp_k == nullptr) {
+    if (n > RS_CTA_MAX) return (int)cudaErrorInvalidValue;
+    static bool sized = false;
+    if (!sized) {
+      cudaError_t e = cudaFuncSetAttribute(k_sort_cta<GATHER>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)rs_cta_smem(RS_CTA_IPT));
+      if (e != cudaSuccess) return (int)e;
+      sized = true;
+    }
+    k_sort_cta<GATHER><<<nb, 1024, rs_cta_smem((n + 1023) >> 10), s>>>((u32*)keys, (u32*)vals,
+                                                                       n, c, kg);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = (size_t)2 * RS_TILE * sizeof(u32) + (RS_L_THREADS / 32) * RS_CNT * sizeof(int);
+  static bool sized_l = false;
+  if (!sized_l) {
+    cudaError_t e =
+        cudaFuncSetAttribute(k_sort_pass, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    sized_l = true;
+  }
+  const int tiles = nblk(n, RS_TILE);
+  // Upsweep blocks: a tile each, or more tiles a block once the batch has
+  // more than 512 tiles (fewer histogram atomics).
+  const int chunk = RS_TILE * nblk((long)tiles * nb, 512);
+  u32* st = (u32*)state;
+  k_sort_upsweep<GATHER><<<dim3(nblk(n, chunk), nb), RS_L_THREADS, 0, s>>>(
+      (u32*)keys, (u32*)vals, n, chunk, st, tiles, nb, c, kg);
+  for (int pass = 0; pass < 4; ++pass)
+    k_sort_pass<<<dim3(tiles, nb), RS_L_THREADS, smem, s>>>((u32*)keys, (u32*)vals, (u32*)tmp_k,
+                                                           (u32*)tmp_v, n, st, tiles, nb, pass, c);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 const char* wgl_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
@@ -2150,53 +2343,26 @@ int wgl_stage1_hash(void* rows, void* nvalid, void* ctl, void* drows, void* fkey
   }
 }
 
-int wgl_take_col(void* src, long src_member, int stride, int col, void* idx, void* out, int n,
-                 int nb, void* ctl, void* stream) {
-  k_take_col<<<dim3(nblk(n, 256), nb), 256, 0, (cudaStream_t)stream>>>(
-      (const u32*)src, src_member, stride, col, (const int*)idx, (u32*)out, n, (const int*)ctl);
-  return (int)cudaGetLastError();
-}
-
 // keys/vals [nb, n]. Path S (tmp_k null, n <= RS_CTA_MAX): one launch.
 // Path L: tmp_k/tmp_v [nb, n] each and `state`, nb * RS_HDR +
 // 2 * nb * ceil(n / RS_TILE) * 256 words, zero on the first call (each
 // call leaves it so): at most five launches, whatever the digits.
 int radix_sort_pairs(void* keys, void* vals, void* tmp_k, void* tmp_v, void* state, int n, int nb,
                      void* ctl, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int* c = (const int*)ctl;
-  if (n <= 0 || nb <= 0) return (int)cudaGetLastError();
-  if (tmp_k == nullptr) {
-    if (n > RS_CTA_MAX) return (int)cudaErrorInvalidValue;
-    static bool sized = false;
-    if (!sized) {
-      cudaError_t e = cudaFuncSetAttribute(k_sort_cta, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)rs_cta_smem(RS_CTA_IPT));
-      if (e != cudaSuccess) return (int)e;
-      sized = true;
-    }
-    k_sort_cta<<<nb, 1024, rs_cta_smem((n + 1023) >> 10), s>>>((u32*)keys, (u32*)vals, n, c);
-    return (int)cudaGetLastError();
-  }
-  const size_t smem = (size_t)2 * RS_TILE * sizeof(u32) + (RS_L_THREADS / 32) * RS_CNT * sizeof(int);
-  static bool sized_l = false;
-  if (!sized_l) {
-    cudaError_t e =
-        cudaFuncSetAttribute(k_sort_pass, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    sized_l = true;
-  }
-  const int tiles = nblk(n, RS_TILE);
-  // Upsweep blocks: a tile each, or more tiles a block once the batch has
-  // more than 512 tiles (fewer histogram atomics).
-  const int chunk = RS_TILE * nblk((long)tiles * nb, 512);
-  u32* st = (u32*)state;
-  k_sort_upsweep<<<dim3(nblk(n, chunk), nb), RS_L_THREADS, 0, s>>>((const u32*)keys, n, chunk, st,
-                                                                  tiles, nb, c);
-  for (int pass = 0; pass < 4; ++pass)
-    k_sort_pass<<<dim3(tiles, nb), RS_L_THREADS, smem, s>>>((u32*)keys, (u32*)vals, (u32*)tmp_k,
-                                                           (u32*)tmp_v, n, st, tiles, nb, pass, c);
-  return (int)cudaGetLastError();
+  return sort_pairs<false>(keys, vals, tmp_k, tmp_v, state, n, nb, ctl, stream, KeyGather{});
+}
+
+// radix_sort_pairs of the pairs (src[b][v * stride + col], v) with v = i
+// (ident) or vals[b][i]: keys and vals are written whatever the digits.
+// src [nb, rows >= n, stride] (member stride src_member words) must not
+// overlap keys or vals; the scratch is radix_sort_pairs'.
+int wgl_take_col_sort(void* src, long src_member, int stride, int col, int ident, void* keys,
+                      void* vals, void* tmp_k, void* tmp_v, void* state, int n, int nb,
+                      void* ctl, void* stream) {
+  if (src == nullptr || stride <= 0 || col < 0 || col >= stride)
+    return (int)cudaErrorInvalidValue;
+  return sort_pairs<true>(keys, vals, tmp_k, tmp_v, state, n, nb, ctl, stream,
+                          KeyGather{(const u32*)src, src_member, stride, col, ident ? 1 : 0});
 }
 
 // state: 4 + 2 * nb * ceil(L / tile) words, zero before its first call
@@ -2222,16 +2388,26 @@ int wgl_prune(void* drows, void* skey, void* perm, void* ctl, void* fprio, void*
 }
 
 // mode: 0, or EX_ALLTOALL / EX_ALLGATHER for the nb shards of one sharded
-// search (stats may then be null).
-int wgl_gather_finalize(void* drows, void* perm, void* order, void* ctl, void* stats, void* p,
-                        void* mD, void* mO, void* st, void* valid, int F, int L, int NC, int KD,
-                        int S, int KO1, int P2, int n_stat_rows, int mode, int nb,
+// search (stats may then be null). perm [nb, L]: the rows in compaction
+// order. tickets [nb] words, zero before the first call (each call leaves
+// them so).
+int wgl_gather_finalize(void* drows, void* perm, void* ctl, void* stats, void* p, void* mD,
+                        void* mO, void* st, void* valid, void* tickets, int F, int L, int NC,
+                        int KD, int S, int KO1, int P2, int n_stat_rows, int mode, int nb,
                         void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  k_gather<<<dim3(nblk(F, 256), nb), 256, 0, s>>>(
-      (const u32*)drows, (const int*)perm, (const int*)order, (const int*)ctl, (int*)p,
-      (u32*)mD, (u32*)mO, (int*)st, (unsigned char*)valid, F, L, NC, KD, S, KO1, P2, mode);
-  k_finalize<<<nb, 1, 0, s>>>((int*)ctl, (int*)stats, F, P2, n_stat_rows, mode);
+  if (F <= 0 || nb <= 0 || tickets == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = gf_smem(NC);
+  static size_t sized = 48 * 1024;
+  if (smem > sized) {
+    cudaError_t e = cudaFuncSetAttribute(k_gather_finalize,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    sized = smem;
+  }
+  k_gather_finalize<<<dim3(nblk(F, GF_ROWS), nb), GF_THREADS, smem, (cudaStream_t)stream>>>(
+      (const u32*)drows, (const int*)perm, (int*)ctl, (int*)stats, (int*)p, (u32*)mD, (u32*)mO,
+      (int*)st, (unsigned char*)valid, (u32*)tickets, F, L, NC, KD, S, KO1, P2, n_stat_rows,
+      mode);
   return (int)cudaGetLastError();
 }
 

@@ -19,7 +19,10 @@ stage                   what it computes
                         ``M > BIG_M_THRESHOLD``) fused with the FNV group
                         hash and fused key: one single-pass launch with
                         decoupled look-back (see :func:`stage1_scratch`)
-``take_col``            ``out[i] = src[idx[i], col]`` (sort-key gather)
+``take_col_sort``       the radix sort of ``(src[v, col], v)`` with ``v``
+                        the identity or the values: the sort-key gather
+                        folded into the sort's key load (one launch on
+                        the one-block path)
 ``radix_sort_pairs``    stable LSD radix sort of (u32 key, u32 value) pairs:
                         one block per member up to 16384 pairs, Onesweep
                         above (see :func:`sort_scratch`)
@@ -28,7 +31,8 @@ stage                   what it computes
                         single-pass launch with decoupled look-back (see
                         :func:`prune_scratch`)
 ``gather_finalize``     top-F gather into the frontier (in place), the
-                        lossless restore, flags, stats row, stop test
+                        lossless restore, flags, stats row, stop test: one
+                        launch (see :func:`gather_scratch`)
 ``chunk_init``          frontier count and stop test at a chunk's start
 ``regroup``             row-gather of members' frontiers, zero-padded to a
                         larger capacity
@@ -106,7 +110,7 @@ _EX_MODE = {None: 0, "alltoall": 1, "allgather": 2}  # EX_* in the kernels
 # Launch counts per wrapper (kernel launches only; the CPU path counts
 # nothing). ``reset_launches`` zeroes them.
 LAUNCHES = {name: 0 for name in (
-    "wgl_chunk_init", "wgl_expand", "wgl_stage1_hash", "wgl_take_col",
+    "wgl_chunk_init", "wgl_expand", "wgl_stage1_hash", "wgl_take_col_sort",
     "radix_sort_pairs", "wgl_prune", "wgl_gather_finalize", "wgl_regroup", "wgl_route",
     "wgl_exchange", "wgl_shard_reduce")}
 
@@ -303,6 +307,13 @@ def prune_tile(L: int, nb: int, NC: int, KO1: int, device) -> int:
     return tile
 
 
+def gather_scratch(nb: int, device) -> torch.Tensor:
+    """Scratch of :func:`gather_finalize` for ``nb`` members: one ticket
+    counter a member, zero (each call leaves it zero: the member's last
+    block resets its counter when it runs the finalize)."""
+    return torch.zeros(nb, dtype=torch.int32, device=device)
+
+
 def sort_path(scratch: tuple) -> str:
     """The path a :func:`radix_sort_pairs` call with ``scratch`` takes."""
     return "cta" if scratch[0].shape[-1] == 0 else "onesweep"
@@ -335,8 +346,6 @@ class BatchWorkspace:
         self.keys = torch.zeros((nb, L), dtype=i32, device=device)
         self.perm = torch.zeros((nb, L), dtype=i32, device=device)
         self.fprio = torch.zeros((nb, L), dtype=i32, device=device)
-        self.order = torch.zeros((nb, L), dtype=i32, device=device)
-        self.iota = torch.arange(L, dtype=i32, device=device).repeat(nb, 1)
         self.ctl = torch.zeros((nb, CTL_SIZE), dtype=i32, device=device)
         self.stats = torch.zeros((nb, LEVEL_STAT_ROWS, 4), dtype=i32, device=device)
         self.sort = sort_scratch(L, device, nb)
@@ -344,6 +353,8 @@ class BatchWorkspace:
         self.s1 = stage1_scratch(g.M, nb, device) if g.two_stage else None
         # the prune's look-back state (zero between calls)
         self.pr = prune_scratch(L, nb, device)
+        # the gather-finalize's tickets (zero between calls)
+        self.gf = gather_scratch(nb, device)
 
 
 # ---------------------------------------------------------------------------
@@ -652,6 +663,20 @@ def take_col_reference(src: torch.Tensor, col: int, idx: torch.Tensor,
     out.copy_(src2[idx.long(), col])
 
 
+def take_col_sort_reference(src: torch.Tensor, col: int, keys: torch.Tensor,
+                            vals: torch.Tensor, ctl: Optional[torch.Tensor] = None,
+                            ident: bool = False) -> None:
+    """Plain version of ``wgl_take_col_sort`` for one member: ``vals``
+    becomes the identity when ``ident``, then the take of the key column
+    through it and the stable sort of ``(keys, vals)``."""
+    if ctl is not None and not _go(ctl):
+        return
+    if ident:
+        vals.copy_(torch.arange(vals.shape[0], dtype=vals.dtype, device=vals.device))
+    take_col_reference(src, col, vals, keys)
+    radix_sort_pairs_reference(keys, vals)
+
+
 def radix_sort_pairs_reference(keys: torch.Tensor, vals: torch.Tensor,
                                scratch: Optional[tuple] = None,
                                ctl: Optional[torch.Tensor] = None) -> None:
@@ -722,15 +747,16 @@ def _sharded_outcome(g: Geometry, c: list, s: int) -> tuple:
     return ovf_now, dead, stuck_now, _shard_kept(g, c[CTL_COUNT], count, s), off
 
 
-def gather_finalize_reference(g: Geometry, drows: torch.Tensor,
-                              perm: torch.Tensor, order: torch.Tensor,
-                              ctl: torch.Tensor, stats: torch.Tensor,
-                              fr: tuple, shard: int = 0) -> None:
+def gather_finalize_reference(g: Geometry, drows: torch.Tensor, perm: torch.Tensor,
+                              ctl: torch.Tensor, stats: torch.Tensor, fr: tuple,
+                              shard: int = 0) -> None:
     """Plain version of ``wgl_gather_finalize`` (reference
     ``ops/wgl.py:741-843``) for one member: top-F gather into the frontier
     unless the level is dead, then the loop carry, stats row and stop test.
-    In a sharded level ``shard`` is the member's index, the outcome is the
-    replicated one and no stats row is written."""
+    ``perm`` holds the rows in compaction order (the compaction sort
+    carries the dedup order as its values). In a sharded level ``shard``
+    is the member's index, the outcome is the replicated one and no stats
+    row is written."""
     if not _go(ctl):
         return
     c = ctl.tolist()
@@ -742,7 +768,7 @@ def gather_finalize_reference(g: Geometry, drows: torch.Tensor,
     if not dead:
         p, mD, mO, st, valid = fr
         kvalid = torch.arange(g.F, device=drows.device) < kept
-        src = perm.long()[order.long()[off:off + g.F]]
+        src = perm.long()[off:off + g.F]
         rows = drows[src] * kvalid[:, None].to(torch.int32)
         KD, S = g.KD, g.S
         p.copy_(rows[:, 0])
@@ -834,6 +860,15 @@ stage1_hash_plain = vmap_members(stage1_hash_reference)
 take_col_plain = vmap_members(take_col_reference)
 
 
+def take_col_sort_plain(src: torch.Tensor, col: int, keys: torch.Tensor, vals: torch.Tensor,
+                        scratch: Optional[tuple] = None, ctl: Optional[torch.Tensor] = None,
+                        ident: bool = False) -> None:
+    """Per-member loop of :func:`take_col_sort_reference`: ``take_col_plain``
+    then ``radix_sort_pairs_plain`` (the kernel's scratch is not
+    member-major and is not used)."""
+    vmap_members(take_col_sort_reference)(src, col, keys, vals, ctl, ident)
+
+
 def prune_plain(g: Geometry, drows, skey, perm, ctl, fprio, scratch=None) -> None:
     """Per-member loop of :func:`prune_reference` (the kernel's scratch is
     not member-major and is not used)."""
@@ -844,12 +879,13 @@ route_plain = vmap_members(route_reference)
 hash_rows_plain = vmap_members(hash_rows_reference)
 
 
-def gather_finalize_plain(g: Geometry, drows, perm, order, ctl, stats, fr) -> None:
+def gather_finalize_plain(g: Geometry, drows, perm, ctl, stats, fr, scratch=None) -> None:
     """Per-member loop of :func:`gather_finalize_reference` (each shard's
-    index passed along in a sharded level)."""
+    index passed along in a sharded level; the kernel's scratch is not
+    used)."""
     for b in range(ctl.shape[0]):
-        gather_finalize_reference(g, *(_member(a, b) for a in (drows, perm, order, ctl,
-                                                               stats, fr)), shard=b)
+        gather_finalize_reference(g, *(_member(a, b) for a in (drows, perm, ctl, stats, fr)),
+                                  shard=b)
 
 
 def radix_sort_pairs_plain(keys: torch.Tensor, vals: torch.Tensor,
@@ -1033,30 +1069,6 @@ def _stage1_hash_args(g, rows, nvalid, ctl, drows, fkey, scratch) -> tuple:
             ci(g.P if g.two_stage else 0), ci(nb), ci(tile), _stream())
 
 
-def take_col(src: torch.Tensor, col: int, idx: torch.Tensor, out: torch.Tensor,
-             ctl: Optional[torch.Tensor] = None) -> None:
-    """``out[b, i] = src[b, idx[b, i], col]`` (``src [nb, L, NC]``, or
-    ``[nb, L]`` with ``col=0``)."""
-    if src.device.type == "cpu":
-        return take_col_plain(src, col, idx, out, ctl)
-    _launch("wgl_take_col", *_take_col_args(src, col, idx, out, ctl))
-
-
-def _take_col_args(src, col, idx, out, ctl) -> tuple:
-    _check_cuda(src, idx, out, ctl)
-    nb, n = out.shape
-    _check_members(nb)
-    stride = src.shape[2] if src.dim() == 3 else 1
-    if src.dim() not in (2, 3) or src.shape[0] != nb or not 0 <= col < stride \
-            or idx.shape != out.shape:
-        raise ValueError("take_col: bad column or shapes")
-    if ctl is not None:
-        _check_shapes("take_col", (ctl, (nb, CTL_SIZE)))
-    ci = ctypes.c_int
-    return (_ptr(src), ctypes.c_long(src.stride(0)), ci(stride), ci(col), _ptr(idx),
-            _ptr(out), ci(n), ci(nb), _ptr(ctl), _stream())
-
-
 def radix_sort_pairs(keys: torch.Tensor, vals: torch.Tensor, scratch: tuple,
                      ctl: Optional[torch.Tensor] = None) -> None:
     """Stage K3: stable ascending sort of each member's row of (u32 key,
@@ -1096,6 +1108,38 @@ def _radix_sort_pairs_args(keys, vals, scratch, ctl) -> tuple:
             ctypes.c_int(n), ctypes.c_int(nb), _ptr(ctl), _stream())
 
 
+def take_col_sort(src: torch.Tensor, col: int, keys: torch.Tensor, vals: torch.Tensor,
+                  scratch: tuple, ctl: Optional[torch.Tensor] = None,
+                  ident: bool = False) -> None:
+    """:func:`radix_sort_pairs` of ``(src[b, v, col], v)`` in place in
+    ``(keys, vals)`` (``src [nb, L, NC]``, or ``[nb, L]`` with ``col=0``,
+    ``L`` at least the pairs a member): ``v`` is the position ``i`` when
+    ``ident``, else ``vals[b, i]``. One kernel gathers the keys where the
+    sort loads them (one launch on the one-block path)."""
+    if keys.device.type == "cpu":
+        return take_col_sort_plain(src, col, keys, vals, scratch, ctl, ident)
+    _launch("wgl_take_col_sort", *_take_col_sort_args(src, col, keys, vals, scratch, ctl, ident))
+
+
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return a0 < b0 + b.numel() * b.element_size() and b0 < a0 + a.numel() * a.element_size()
+
+
+def _take_col_sort_args(src, col, keys, vals, scratch, ctl, ident) -> tuple:
+    sort = _radix_sort_pairs_args(keys, vals, scratch, ctl)
+    _check_cuda(src, keys)
+    nb, n = keys.shape
+    stride = src.shape[2] if src.dim() == 3 else 1
+    if src.dim() not in (2, 3) or src.shape[0] != nb or not 0 <= col < stride \
+            or src.shape[1] < n:
+        raise ValueError("take_col_sort: bad column or shapes")
+    if _overlap(src, keys) or _overlap(src, vals):
+        raise ValueError("take_col_sort: src overlaps keys or vals")
+    ci = ctypes.c_int
+    return (_ptr(src), ctypes.c_long(src.stride(0)), ci(stride), ci(col), ci(int(ident))) + sort
+
+
 def prune(g: Geometry, drows: torch.Tensor, skey: torch.Tensor,
           perm: torch.Tensor, ctl: torch.Tensor, fprio: torch.Tensor,
           scratch: torch.Tensor) -> None:
@@ -1127,29 +1171,35 @@ def _prune_args(g, drows, skey, perm, ctl, fprio, scratch) -> tuple:
 
 
 def gather_finalize(g: Geometry, drows: torch.Tensor, perm: torch.Tensor,
-                    order: torch.Tensor, ctl: torch.Tensor, stats: torch.Tensor,
-                    fr: tuple) -> None:
-    """Stage K5 (see module docstring). Writes each member's frontier in
-    place."""
+                    ctl: torch.Tensor, stats: torch.Tensor, fr: tuple,
+                    scratch: Optional[torch.Tensor] = None) -> None:
+    """Stage K5 (see module docstring): one launch. Writes each member's
+    frontier in place from ``perm``, the rows in compaction order.
+    ``scratch``: ``BatchWorkspace.gf`` (:func:`gather_scratch`), the
+    tickets."""
     if ctl.device.type == "cpu":
-        return gather_finalize_plain(g, drows, perm, order, ctl, stats, fr)
-    _launch("wgl_gather_finalize", *_gather_finalize_args(g, drows, perm, order, ctl, stats, fr))
+        return gather_finalize_plain(g, drows, perm, ctl, stats, fr, scratch)
+    _launch("wgl_gather_finalize", *_gather_finalize_args(g, drows, perm, ctl, stats, fr, scratch))
 
 
-def _gather_finalize_args(g, drows, perm, order, ctl, stats, fr) -> tuple:
+def _gather_finalize_args(g, drows, perm, ctl, stats, fr, scratch) -> tuple:
     p, mD, mO, st, valid = fr
-    _check_cuda(drows, perm, order, ctl, stats, p, mD, mO, st, valid)
+    _check_cuda(drows, perm, ctl, stats, p, mD, mO, st, valid, scratch)
     nb = ctl.shape[0]
     _check_members(nb)
     F, L = g.F, g.L
     _check_shapes("gather_finalize", (ctl, (nb, CTL_SIZE)), (drows, (nb, L, g.NC)),
-                  (perm, (nb, L)), (order, (nb, L)), (p, (nb, F)), (mD, (nb, F, g.KD)),
+                  (perm, (nb, L)), (p, (nb, F)), (mD, (nb, F, g.KD)),
                   (mO, (nb, F, g.KO1)), (st, (nb, F, g.S)), (valid, (nb, F)),
                   (stats, (nb, LEVEL_STAT_ROWS, 4)))
+    if scratch is None or scratch.dtype != torch.int32 or scratch.numel() < nb:
+        raise ValueError("gather_finalize: ticket scratch too small (see gather_scratch)")
+    if 4 * _build.GF_ROWS * (g.NC + 1) > _MAX_SMEM:
+        raise ValueError(f"gather_finalize: rows of {g.NC} words do not fit a block")
     ci = ctypes.c_int
     _check_sharded("gather_finalize", g, nb)
-    return (_ptr(drows), _ptr(perm), _ptr(order), _ptr(ctl), _ptr(stats), _ptr(p), _ptr(mD),
-            _ptr(mO), _ptr(st), _ptr(valid), ci(F), ci(L), ci(g.NC), ci(g.KD), ci(g.S),
+    return (_ptr(drows), _ptr(perm), _ptr(ctl), _ptr(stats), _ptr(p), _ptr(mD), _ptr(mO),
+            _ptr(st), _ptr(valid), _ptr(scratch), ci(F), ci(L), ci(g.NC), ci(g.KD), ci(g.S),
             ci(g.KO1), ci(g.P if g.two_stage else 0), ci(LEVEL_STAT_ROWS),
             ci(_EX_MODE[g.exchange]), ci(nb), _stream())
 
@@ -1296,12 +1346,12 @@ class _Stages:
 
 
 KERNELS = _Stages(chunk_init=chunk_init, expand=expand, stage1_hash=stage1_hash,
-                  take_col=take_col, radix_sort_pairs=radix_sort_pairs,
+                  take_col_sort=take_col_sort, radix_sort_pairs=radix_sort_pairs,
                   prune=prune, gather_finalize=gather_finalize, regroup=regroup,
                   route=route, exchange=exchange, hash_rows=hash_rows,
                   shard_reduce=shard_reduce)
 PLAIN = _Stages(chunk_init=chunk_init_plain, expand=expand_plain,
-                stage1_hash=stage1_hash_plain, take_col=take_col_plain,
+                stage1_hash=stage1_hash_plain, take_col_sort=take_col_sort_plain,
                 radix_sort_pairs=radix_sort_pairs_plain, prune=prune_plain,
                 gather_finalize=gather_finalize_plain, regroup=regroup_reference,
                 route=route_plain, exchange=exchange_plain, hash_rows=hash_rows_plain,
@@ -1312,14 +1362,12 @@ def _level_stages(g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace,
                   model: Model) -> list:
     """One BFS level for every member, in order, as ``(stage, arguments)``
     pairs: one call per stage for the whole batch (each stage returns at
-    once for a member whose control block says stop). ``"reset"`` copies
-    ``ws.iota`` into an index buffer."""
+    once for a member whose control block says stop)."""
     if g.exchange:
         return _sharded_level_stages(g, tabs, fr, ws, model)
     ctl = ws.ctl
     out = [("expand", (g, tabs, fr, ctl, ws.rows, ws.nvalid, model)),
-           ("stage1_hash", (g, ws.rows, ws.nvalid, ctl, ws.drows, ws.fkey, ws.s1)),
-           ("reset", (ws.perm, ws.iota))]
+           ("stage1_hash", (g, ws.rows, ws.nvalid, ctl, ws.drows, ws.fkey, ws.s1))]
     return out + _dedup_stages(g, fr, ws)
 
 
@@ -1330,18 +1378,20 @@ def _dedup_stages(g: Geometry, fr: tuple, ws: BatchWorkspace, reduce: tuple = ()
     ctl = ws.ctl
     out = []
     # Dedup order: lexicographic over (fkey, open-mask words), built as
-    # stable sorts from the last key to the first. With no open ops the
-    # single open column is all zeros and sorts as the identity.
+    # stable sorts from the last key to the first, each gathering its key
+    # column through the order so far (the first from the identity). With
+    # no open ops the single open column is all zeros and sorts as the
+    # identity.
     cols = [(ws.drows, g.NID + w) for w in reversed(range(g.KO1))] if g.KO else []
-    for src, col in cols + [(ws.fkey, 0)]:
-        out += [("take_col", (src, col, ws.perm, ws.keys, ctl)),
-                ("radix_sort_pairs", (ws.keys, ws.perm, ws.sort, ctl))]
+    for j, (src, col) in enumerate(cols + [(ws.fkey, 0)]):
+        out.append(("take_col_sort", (src, col, ws.keys, ws.perm, ws.sort, ctl, j == 0)))
     out += [("prune", (g, ws.drows, ws.keys, ws.perm, ctl, ws.fprio, ws.pr)),
             *reduce,
-            # Compaction order: (priority, position) — stability is the tiebreak.
-            ("reset", (ws.order, ws.iota)),
-            ("radix_sort_pairs", (ws.fprio, ws.order, ws.sort, ctl)),
-            ("gather_finalize", (g, ws.drows, ws.perm, ws.order, ctl, ws.stats, fr))]
+            # Compaction order: (priority, position) — stability is the
+            # tiebreak. The values are the dedup order's rows, so they come
+            # out as the rows in compaction order.
+            ("radix_sort_pairs", (ws.fprio, ws.perm, ws.sort, ctl)),
+            ("gather_finalize", (g, ws.drows, ws.perm, ctl, ws.stats, fr, ws.gf))]
     return out
 
 
@@ -1363,8 +1413,7 @@ def _sharded_level_stages(g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace
         out.append(("route", (g, ws.crows, ctl, ws.send, ws.svalid)))
     out += [("exchange", (g, ws.send if a2a else ws.crows, ws.svalid, ctl, ws.drows,
                           ws.rvalid)),
-            ("hash_rows", (g, ws.drows, ws.rvalid, ctl, ws.fkey)),
-            ("reset", (ws.perm, ws.iota))]
+            ("hash_rows", (g, ws.drows, ws.rvalid, ctl, ws.fkey))]
     return out + _dedup_stages(g, fr, ws, reduce=(("shard_reduce", (g, ctl, 1)),))
 
 
@@ -1372,16 +1421,13 @@ def run_level_batch(ops: _Stages, g: Geometry, tabs: dict, fr: tuple,
                     ws: BatchWorkspace, model: Model) -> None:
     """Enqueue one BFS level for every member through ``ops``."""
     for stage, args in _level_stages(g, tabs, fr, ws, model):
-        if stage == "reset":
-            args[0].copy_(args[1])
-        else:
-            getattr(ops, stage)(*args)
+        getattr(ops, stage)(*args)
 
 
 # stage -> (kernel entry point, its argument check and packing)
 _PACKERS = {"expand": ("wgl_expand", _expand_args),
             "stage1_hash": ("wgl_stage1_hash", _stage1_hash_args),
-            "take_col": ("wgl_take_col", _take_col_args),
+            "take_col_sort": ("wgl_take_col_sort", _take_col_sort_args),
             "radix_sort_pairs": ("radix_sort_pairs", _radix_sort_pairs_args),
             "prune": ("wgl_prune", _prune_args),
             "gather_finalize": ("wgl_gather_finalize", _gather_finalize_args),
@@ -1394,24 +1440,18 @@ _PACKERS = {"expand": ("wgl_expand", _expand_args),
 class _LevelProgram:
     """:func:`run_level_batch` on the kernels with every launch's arguments
     checked and packed once (per chunk: the buffers do not change between
-    its levels), so enqueueing a level costs only its ctypes calls and two
-    copies."""
+    its levels), so enqueueing a level costs only its ctypes calls."""
 
     def __init__(self, g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace, model: Model):
         lib = _build.load()
         self.steps = []
         for stage, args in _level_stages(g, tabs, fr, ws, model):
-            if stage == "reset":
-                self.steps.append((None, args[0].copy_, (args[1],)))
-            else:
-                name, pack = _PACKERS[stage]
-                self.steps.append((name, getattr(lib, name), pack(*args)))
+            name, pack = _PACKERS[stage]
+            self.steps.append((name, getattr(lib, name), pack(*args)))
 
     def __call__(self) -> None:
         for name, fn, args in self.steps:
             rc = fn(*args)
-            if name is None:
-                continue
             if rc != 0:
                 raise RuntimeError(f"{name}: CUDA error {rc} ({_build.error_string(rc)})")
             LAUNCHES[name] += 1

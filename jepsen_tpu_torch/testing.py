@@ -573,6 +573,81 @@ def prune_case(seed: int, nb: int, L: int, NC: int, NID: int, family: str) -> tu
     return drows.view(np.int32), skey.view(np.int32), perm, ctl, fprio
 
 
+# Key columns of the take-col sort's tests (``take_sort_case``): random
+# keys, an all-zero column (an open-mask word with no open op: every digit
+# uniform, so a sort alone would write nothing) and all-equal keys.
+TAKE_SORT_FAMILIES = ("random", "zero", "equal")
+
+
+def take_sort_case(seed: int, nb: int, n: int, stride: int, col: int, family: str) -> tuple:
+    """Seeded numpy inputs of one ``wgl_level.take_col_sort`` call on ``nb``
+    members of ``n`` pairs: ``(src [nb, n, stride] ([nb, n] when stride is
+    1) whose column ``col`` holds keys of the family, keys [nb, n] (stale
+    values), vals [nb, n]: each member a permutation of its rows)``,
+    int32 bit patterns."""
+    import numpy as np
+
+    if family not in TAKE_SORT_FAMILIES:
+        raise ValueError(f"unknown family {family!r} (expected one of {TAKE_SORT_FAMILIES})")
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(-2**31, 2**31, (nb, n, stride), dtype=np.int64).astype(np.int32)
+    rows[:, :, col] = 0 if family == "zero" else sort_keys(family, nb, n, seed)
+    src = rows if stride > 1 else np.ascontiguousarray(rows[:, :, 0])
+    keys = rng.integers(-9, 9, (nb, n)).astype(np.int32)
+    vals = np.stack([rng.permutation(n) for _ in range(nb)]).astype(np.int32)
+    return src, keys, vals
+
+
+# A level's end for ``gather_case``: members that fit, overflow (lossy or
+# not) or run dry, the dead arms alone, and both sharded arms.
+GATHER_CASES = ("single", "single_dead", "single_stuck", "alltoall", "allgather")
+
+
+def gather_case(seed: int, case: str, nb: int, F: int, P: int) -> tuple:
+    """Seeded inputs of one level's compaction sort and gather-finalize on
+    ``nb`` members (the shards of one mesh in a sharded case) at capacity
+    ``F`` and ``P`` stage-1 rows: ``(geometry, drows [nb, L, NC], perm [nb,
+    L]: the dedup order, fprio [nb, L]: priorities with ties, ctl [nb,
+    CTL_SIZE])``, numpy int32 but for the geometry. ``single``: counts
+    around F (member 0's F // 2, the rest up to F + 9), half the members
+    lossy; ``single_dead``: every member's rows overflowed, lossless;
+    ``single_stuck``: every count zero; the sharded cases hold the reduced
+    fields ``wgl_shard_reduce`` would have written."""
+    import numpy as np
+
+    from .ops import wgl_level as lv
+
+    if case not in GATHER_CASES:
+        raise ValueError(f"unknown case {case!r} (expected one of {GATHER_CASES})")
+    rng = np.random.default_rng(seed)
+    mode = case if case in lv.EXCHANGES else None
+    g = lv.Geometry(F=F, W=32, KO=1, S=2, ND=64, NO=32, B=8, SEL=True, two_stage=True, P=P,
+                    D=nb if mode else 1, exchange=mode)
+    L = g.L
+    drows = rng.integers(-2**31, 2**31, (nb, L, g.NC), dtype=np.int64).astype(np.int32)
+    perm = np.stack([rng.permutation(L) for _ in range(nb)]).astype(np.int32)
+    fprio = rng.integers(0, 7, (nb, L)).astype(np.int32) << 6
+    ctl = np.zeros((nb, lv.CTL_SIZE), dtype=np.int32)
+    ctl[:, lv.CTL_GO] = 1
+    ctl[:, lv.CTL_LVL], ctl[:, lv.CTL_MAXLVL], ctl[:, lv.CTL_FMAX] = 7, 50, 3
+    ctl[:, lv.CTL_FCOUNT] = rng.integers(1, F, nb)
+    ctl[:, lv.CTL_NEXP] = rng.integers(0, P, nb)
+    ctl[:, lv.CTL_COUNT] = rng.integers(0, F + 10, nb)
+    if case == "single":
+        ctl[:, lv.CTL_COUNT] = rng.integers(1, F + 10, nb)
+        ctl[0, lv.CTL_COUNT] = F // 2
+        ctl[:, lv.CTL_LOSSY] = rng.random(nb) < 0.5
+    elif case == "single_dead":
+        ctl[:, lv.CTL_ROWOVF] = 1
+    elif case == "single_stuck":
+        ctl[:, lv.CTL_COUNT] = 0
+    else:
+        ctl[:, lv.CTL_GCOUNT] = int(ctl[:, lv.CTL_COUNT].sum()) if mode == "alltoall" \
+            else int(rng.integers(F, F * nb + 5))
+        ctl[:, lv.CTL_NSUM] = int(ctl[:, lv.CTL_FCOUNT].sum())
+    return g, drows, perm, fprio, ctl
+
+
 # CUgraphNodeType values (cuda.h).
 _NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
 

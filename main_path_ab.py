@@ -19,15 +19,22 @@ line of walls. The paths:
 - ``elle_sharded_20k``: its 20,000-txn history through
   ``elle.append.check(..., mesh=make_mesh(8))`` (three closures at pad
   32768 on the sharded-closure kernels);
-- ``level_kernels``: the level's ``wgl_expand`` and ``wgl_prune`` alone,
-  each through its checkout's own wrapper and arguments (its level
-  program's, ``_level_stages``), at ``chip_smoke.py``'s frontiers: the
-  north star's at F 4096 (800 beam levels), the eight 10k-op members' at
-  F 8192, and each other device model family's at F 4096 (200 levels).
-  Device ms a call as ``chip_smoke.py`` times them (``batch_ms``, from the
-  checkout's own script); the result is each case's checksums (per member
-  the expand's NEXP and valid rows, the prune's keep count and the sum of
-  its priorities), which must agree between the two checkouts.
+- ``level_kernels``: every stage of one level alone, each through its
+  checkout's own wrapper and arguments (its level program's,
+  ``_level_stages``; a stage that runs more than once a level is summed,
+  and a parent's index-reset copies are timed as ``reset``), at
+  ``chip_smoke.py``'s frontiers: the north star's at F 4096 (800 beam
+  levels), the eight 10k-op members' at F 8192, and each other device
+  model family's at F 4096 (200 levels). Device ms a call as
+  ``chip_smoke.py`` times them (``batch_ms``, from the checkout's own
+  script), with the sums over the dedup stages (``dedup_ms``: from stage
+  1 to the prune), over the stages after the prune
+  (``compaction_gather_ms``) and over the level (``level_ms``); the
+  result is each case's checksums (per member the expand's NEXP and
+  valid rows, the prune's keep count and the sum of its priorities, and
+  after the gather-finalize the control block's level, frontier count,
+  go flag and frontier peak and the sums of the new frontier's p and
+  valid), which must agree between the two checkouts.
 
 The Elle paths' result is the verdict and the anomaly types, and each line
 also gives the closures' share of the wall (``closure_s``: the time inside
@@ -133,8 +140,8 @@ def elle(root: str, repeat: int, path: str) -> dict:
 
 
 def level_kernels(root: str) -> dict:
-    """The level_kernels path: {case: ms} of wgl_expand and wgl_prune, and
-    each case's checksums as the result."""
+    """The level_kernels path: {case: {stage: ms}} of every stage of one
+    level, and each case's checksums as the result."""
     import torch
 
     import chip_smoke as cs
@@ -168,30 +175,63 @@ def level_kernels(root: str) -> dict:
         lv.chunk_init_plain(ctl, fr[4])
         ws.ctl.copy_(ctl)
         sums, row = [], {}
+        # the buffers a stage may both read and write: each timed call
+        # gets its own copies of those it takes
+        mutable = [ws.ctl, ws.keys, ws.perm, ws.fprio, ws.stats, *fr]
+        mutable += [ws.order] if hasattr(ws, "order") else []  # a parent's
+        part = "dedup"
         for stage, args in lv._level_stages(g, plan.tabs, fr, ws, model):
-            if stage == "reset":
-                args[0].copy_(args[1])
-                continue
-            if stage in ("expand", "prune"):
-                before = ws.ctl.clone()
-                # the control block is an input and an output: each timed
-                # call gets its own copy of the one before the stage
-                call = lambda t, a=args, s=stage: getattr(lv, s)(*(  # noqa: E731
-                    t[0] if x is ws.ctl else x for x in a))
-                row[f"{stage}_ms"] = cs.batch_ms(call, (before,))[0]
-                ws.ctl.copy_(before)
-            getattr(lv.KERNELS, stage)(*args)
+            ins = tuple(t for t in _tensors(args) if any(t is m for m in mutable))
+            call = lambda t, s=stage, a=args, i=ins: _run_stage(  # noqa: E731
+                lv, s, _subst(a, {id(x): y for x, y in zip(i, t)}))
+            ms = cs.batch_ms(call, ins)[0]
+            for key in (f"{stage}_ms", "level_ms") + (() if stage == "expand" else (
+                    "compaction_gather_ms" if part == "tail" else "dedup_ms",)):
+                row[key] = row.get(key, 0.0) + ms
+            _run_stage(lv, stage, args)
             if stage == "expand":
                 sums.append(ws.ctl[:, lv.CTL_NEXP].tolist())
                 sums.append((ws.nvalid != 0).sum(dim=1).tolist())
             if stage == "prune":
                 sums.append(ws.ctl[:, lv.CTL_COUNT].tolist())
                 sums.append(ws.fprio.to(torch.int64).sum(dim=1).tolist())
-                break
+                part = "tail"
+            if stage == "gather_finalize":
+                sums.append(ws.ctl[:, [lv.CTL_LVL, lv.CTL_FCOUNT, lv.CTL_GO, lv.CTL_FMAX]]
+                            .tolist())
+                sums.append([fr[0].to(torch.int64).sum(dim=1).tolist(),
+                             fr[4].to(torch.int64).sum(dim=1).tolist()])
         torch.cuda.synchronize()
         row["valid_configs"] = int(fr[4].sum())
         times[label], result[label] = row, sums
     return {"root": root, "walls_s": [], "kernels": times, "result": result}
+
+
+def _tensors(args):
+    """The tensors among a stage's arguments, tuples (the frontier) opened."""
+    import torch
+
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            yield a
+        elif isinstance(a, tuple):
+            yield from _tensors(a)
+
+
+def _subst(args, swap: dict):
+    """A stage's arguments with each tensor whose id is in ``swap`` replaced."""
+    if isinstance(args, tuple):
+        return tuple(_subst(a, swap) for a in args)
+    return swap.get(id(args), args)
+
+
+def _run_stage(lv, stage, args) -> None:
+    """One stage of a checkout's level program on the kernels (a parent's
+    ``reset`` copies its second argument into its first)."""
+    if stage == "reset":
+        args[0].copy_(args[1])
+    else:
+        getattr(lv.KERNELS, stage)(*args)
 
 
 def main() -> int:

@@ -181,8 +181,10 @@ class _FakeLib:
 def test_level_program_packs_each_launch_once(KO, monkeypatch):
     """The kernel path's level program checks and packs its launches once
     per chunk: a level is the wrappers' launches in ``run_level_batch``'s
-    order with the wrappers' own arguments, the two index resets, and one
-    count per launch."""
+    order with the wrappers' own arguments (no copies: the first dedup
+    sort makes the identity order itself, the compaction sort carries the
+    dedup order), and one count per launch: ``KO1 + 6`` launches a level
+    with open words, 6 without."""
     lib = _FakeLib()
     monkeypatch.setattr(lv._build, "load", lambda: lib)
     monkeypatch.setattr(lv, "_check_cuda", lambda *ts: None)
@@ -198,35 +200,32 @@ def test_level_program_packs_each_launch_once(KO, monkeypatch):
     fr = wgl.initial_frontier_batch(F, W, KO, torch.zeros((nb, 1), dtype=torch.int32))
     ws = lv.BatchWorkspace(g, nb, "cpu")
     prog = lv._LevelProgram(g, tabs, fr, ws, CasRegister(init=0))
-    ws.perm.zero_()
-    ws.order.zero_()
     lv.reset_launches()
     prog()
     prog()
-    sorts = [("wgl_take_col", lv._take_col_args(ws.drows, g.NID + w, ws.perm, ws.keys, ws.ctl))
-             for w in reversed(range(g.KO1))] if KO else []
+    keys = [(ws.drows, g.NID + w) for w in reversed(range(g.KO1))] if KO else []
+    keys.append((ws.fkey, 0))
     want = [("wgl_expand", lv._expand_args(g, tabs, fr, ws.ctl, ws.rows, ws.nvalid,
                                            CasRegister(init=0))),
             ("wgl_stage1_hash", lv._stage1_hash_args(g, ws.rows, ws.nvalid, ws.ctl, ws.drows,
                                                      ws.fkey, ws.s1))]
-    for name, args in sorts + [("wgl_take_col", lv._take_col_args(ws.fkey, 0, ws.perm,
-                                                                    ws.keys, ws.ctl))]:
-        want += [(name, args), ("radix_sort_pairs", lv._radix_sort_pairs_args(
-            ws.keys, ws.perm, ws.sort, ws.ctl))]
+    want += [("wgl_take_col_sort", lv._take_col_sort_args(src, col, ws.keys, ws.perm, ws.sort,
+                                                           ws.ctl, j == 0))
+             for j, (src, col) in enumerate(keys)]
     want += [("wgl_prune", lv._prune_args(g, ws.drows, ws.keys, ws.perm, ws.ctl, ws.fprio,
                                           ws.pr)),
-             ("radix_sort_pairs", lv._radix_sort_pairs_args(ws.fprio, ws.order, ws.sort,
+             ("radix_sort_pairs", lv._radix_sort_pairs_args(ws.fprio, ws.perm, ws.sort,
                                                             ws.ctl)),
-             ("wgl_gather_finalize", lv._gather_finalize_args(g, ws.drows, ws.perm, ws.order,
-                                                              ws.ctl, ws.stats, fr))]
+             ("wgl_gather_finalize", lv._gather_finalize_args(g, ws.drows, ws.perm, ws.ctl,
+                                                              ws.stats, fr, ws.gf))]
     want = [(n, [getattr(a, "value", a) for a in args]) for n, args in want]
     assert lib.calls == want + want
-    torch.testing.assert_close(ws.perm, ws.iota)
-    torch.testing.assert_close(ws.order, ws.iota)
-    n_sorts = (g.KO1 + 1 if KO else 1) + 1
+    assert len(want) == (g.KO1 + 6 if KO else 6)
+    assert [a[4] for n, a in want if n == "wgl_take_col_sort"] == [1] + [0] * (len(keys) - 1)
+    assert not hasattr(ws, "order") and not hasattr(ws, "iota")
     assert lv.LAUNCHES == {"wgl_chunk_init": 0, "wgl_expand": 2, "wgl_stage1_hash": 2,
-                           "wgl_take_col": 2 * (n_sorts - 1),
-                           "radix_sort_pairs": 2 * n_sorts, "wgl_prune": 2,
+                           "wgl_take_col_sort": 2 * len(keys),
+                           "radix_sort_pairs": 2, "wgl_prune": 2,
                            "wgl_gather_finalize": 2, "wgl_regroup": 0, "wgl_route": 0,
                            "wgl_exchange": 0, "wgl_shard_reduce": 0}
     lib.rc = 700

@@ -17,9 +17,11 @@ from jepsen_tpu_torch.ops import wgl
 from jepsen_tpu_torch.ops import wgl_level as lv
 from jepsen_tpu_torch.ops.encode import encode_history
 from jepsen_tpu_torch.parallel import Mesh
-from jepsen_tpu_torch.testing import (PRUNE_FAMILIES, SORT_KEY_FAMILIES, STAGE1_DENSITIES,
-                                      device_work, perturb_history, prune_case,
-                                      random_register_history, sort_keys, stage1_case)
+from jepsen_tpu_torch.testing import (GATHER_CASES, PRUNE_FAMILIES, SORT_KEY_FAMILIES,
+                                      STAGE1_DENSITIES, TAKE_SORT_FAMILIES, device_work,
+                                      gather_case, perturb_history, prune_case,
+                                      random_register_history, sort_keys, stage1_case,
+                                      take_sort_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -481,6 +483,180 @@ def test_prune_refuses_short_scratch_and_cpu_mix(cuda):
         lv.prune(g, drows, skey, perm, ctl, fprio, lv.prune_scratch(L, nb, "cpu"))
     with pytest.raises(ValueError):
         lv.prune(g, drows.cpu(), skey, perm, ctl, fprio, lv.prune_scratch(L, nb, cuda))
+
+
+# -- the take-col sort and the one-launch gather-finalize -------------------------
+
+
+def _take_sort_both(cuda, case, col, scratch, ctl=None, ident=False):
+    """The kernel and the plain version (take_col, then the sort) on copies
+    of the same inputs, bit for bit; returns the kernel's pairs."""
+    src, keys, vals = (torch.from_numpy(a).to(cuda) for a in case)
+    kk, vk, kp, vp = keys.clone(), vals.clone(), keys.clone(), vals.clone()
+    lv.take_col_sort(src, col, kk, vk, scratch, ctl, ident)
+    lv.take_col_sort_plain(src, col, kp, vp, None, ctl, ident)
+    torch.cuda.synchronize()
+    assert torch.equal(kk, kp) and torch.equal(vk, vp)
+    return kk, vk
+
+
+@pytest.mark.parametrize("family", TAKE_SORT_FAMILIES)
+@pytest.mark.parametrize("ident", [True, False])
+@pytest.mark.parametrize("nb", [1, 3, 8])
+@pytest.mark.parametrize("n", [1, 31, 2048, 16384, 16385, 32768, 131072])
+def test_take_col_sort_matches_plain(cuda, n, nb, ident, family):
+    """Both paths (one block to 16384 pairs, Onesweep above), the identity
+    and read values, and the keys whose digits are all uniform (an
+    all-zero column, all-equal keys): the gathered pairs are stored even
+    where the sort has nothing to do."""
+    case = take_sort_case(n + nb, nb, n, 5, 3, family)
+    _kk, vk = _take_sort_both(cuda, case, 3, lv.sort_scratch(n, cuda, nb), ident=ident)
+    if family != "random" and n > 1:  # nothing to sort: the gathered pairs in row order
+        idx = np.arange(n) if ident else case[2]
+        np.testing.assert_array_equal(vk.cpu().numpy(), np.broadcast_to(idx, (nb, n)))
+
+
+@pytest.mark.parametrize("path", lv.SORT_PATHS)
+@pytest.mark.parametrize("stride", [1, 5])
+def test_take_col_sort_on_either_path_at_every_stride(cuda, path, stride):
+    n, nb = 12000, 3
+    col = stride - 1
+    for family in TAKE_SORT_FAMILIES:
+        for ident in (True, False):
+            _take_sort_both(cuda, take_sort_case(7, nb, n, stride, col, family), col,
+                            lv.sort_scratch(n, cuda, nb, path=path), ident=ident)
+
+
+@pytest.mark.parametrize("path", lv.SORT_PATHS)
+@pytest.mark.parametrize("ident", [True, False])
+def test_take_col_sort_leaves_a_stopped_member_untouched(cuda, path, ident):
+    nb, n = 3, 16384 if path == "cta" else 20000
+    case = take_sort_case(4, nb, n, 5, 3, "random")
+    ctl = torch.zeros((nb, lv.CTL_SIZE), dtype=torch.int32, device=cuda)
+    ctl[:, lv.CTL_GO] = 1
+    ctl[1, lv.CTL_GO] = 0
+    scratch = lv.sort_scratch(n, cuda, nb, path=path)
+    kk, vk = _take_sort_both(cuda, case, 3, scratch, ctl, ident)
+    assert np.array_equal(kk[1].cpu().numpy(), case[1][1])
+    assert np.array_equal(vk[1].cpu().numpy(), case[2][1])
+    if path == "onesweep":  # nor its state header
+        hdr = scratch[1][:nb * lv._build.SORT_HDR].view(nb, -1)
+        assert int(hdr[1].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("n,launches", [(16384, 1), (16385, 5), (1048576, 5)])
+def test_take_col_sort_device_launches(cuda, n, launches):
+    """No gather launch: one block's launch at the main path's size, the
+    sort's five above it."""
+    src, keys, vals = (torch.from_numpy(a).to(cuda) for a in take_sort_case(1, 1, n, 5, 3, "zero"))
+    scratch = lv.sort_scratch(n, cuda)
+    for ident in (True, False):
+        lv.take_col_sort(src, 3, keys.clone(), vals.clone(), scratch, None, ident)
+        work = device_work(lambda: lv.take_col_sort(src, 3, keys, vals, scratch, None, ident))
+        assert work == _launches_only(launches), work
+
+
+def test_take_col_sort_refuses_overlap_and_cpu_mix(cuda):
+    keys = torch.zeros((1, 64), dtype=torch.int32, device=cuda)
+    vals = torch.zeros((1, 64), dtype=torch.int32, device=cuda)
+    scratch = lv.sort_scratch(64, cuda)
+    with pytest.raises(ValueError, match="overlaps"):
+        lv.take_col_sort(keys, 0, keys, vals, scratch)
+    with pytest.raises(ValueError):
+        lv.take_col_sort(torch.zeros((1, 64), dtype=torch.int32), 0, keys, vals, scratch)
+
+
+def _gather_both(cuda, g, case, scratch, stop=None):
+    """The level's compaction sort (plain) of the case, then the one-launch
+    gather-finalize and its plain version on copies of the same frontier,
+    control blocks and stats ring, bit for bit; returns the kernel's."""
+    _g, drows, perm, fprio, ctl = (torch.from_numpy(a).to(cuda) if isinstance(a, np.ndarray)
+                                   else a for a in case)
+    if stop is not None:
+        ctl[stop, lv.CTL_GO] = 0
+    lv.radix_sort_pairs_plain(fprio, perm, None, ctl)
+    nb = ctl.shape[0]
+    gen = torch.Generator().manual_seed(g.F)
+    fr0 = [torch.randint(-9, 9, (nb, g.F) + s, generator=gen, dtype=torch.int32)
+           for s in ((), (g.KD,), (g.KO1,), (g.S,))]
+    fr0 = tuple(t.to(cuda) for t in fr0) + (torch.ones((nb, g.F), dtype=torch.bool,
+                                                          device=cuda),)
+    stats = torch.randint(-9, 9, (nb, lv.LEVEL_STAT_ROWS, 4), generator=gen,
+                          dtype=torch.int32).to(cuda)
+    k = (ctl.clone(), stats.clone(), tuple(t.clone() for t in fr0))
+    p = (ctl.clone(), stats.clone(), tuple(t.clone() for t in fr0))
+    lv.gather_finalize(g, drows, perm, k[0], k[1], k[2], scratch)
+    lv.gather_finalize_plain(g, drows, perm, p[0], p[1], p[2])
+    torch.cuda.synchronize()
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    for a, b in zip(k[2], p[2]):
+        assert torch.equal(a, b)
+    assert int(scratch.abs().sum()) == 0  # the tickets clean themselves
+    return k, fr0
+
+
+@pytest.mark.parametrize("case", GATHER_CASES)
+@pytest.mark.parametrize("F", [40, 100, 4096])
+def test_gather_finalize_matches_plain(cuda, case, F):
+    """Capacities below, not a multiple of and many times the block's 64
+    slots; members that fit, overflow lossy, die (the frontier kept) or
+    run dry; both sharded arms on 8 shards."""
+    nb = 8 if case in lv.EXCHANGES else 3
+    c = gather_case(F, case, nb, F, 2 * F + 10)
+    k, fr0 = _gather_both(cuda, c[0], c, lv.gather_scratch(nb, cuda))
+    if case in ("single_dead", "single_stuck"):  # the frontier kept
+        for a, b in zip(k[2], fr0):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["single", "alltoall", "allgather"])
+def test_gather_finalize_leaves_a_stopped_member_untouched(cuda, case):
+    nb = 4
+    c = gather_case(3, case, nb, 100, 210)
+    k, fr0 = _gather_both(cuda, c[0], c, lv.gather_scratch(nb, cuda), stop=1)
+    assert int(k[0][1, lv.CTL_GO]) == 0 and int(k[0][1, lv.CTL_LVL]) == 7
+    for a, b in zip(k[2], fr0):
+        assert torch.equal(a[1], b[1])
+
+
+def test_gather_finalize_scratch_cleans_itself(cuda):
+    """Calls in a row on one ticket scratch, at other capacities, member
+    counts and cases (a stopped member, a dead level): each call's last
+    block of each member resets its counter, so every call finalizes."""
+    scratch = lv.gather_scratch(8, cuda)
+    for rep in range(8):
+        case = GATHER_CASES[rep % len(GATHER_CASES)]
+        nb = 8 if case in lv.EXCHANGES or rep % 2 else 3
+        F = (64, 130, 4096)[rep % 3]
+        c = gather_case(rep, case, nb, F, 2 * F)
+        _gather_both(cuda, c[0], c, scratch[:nb], stop=1 if rep == 4 else None)
+
+
+@pytest.mark.parametrize("F,nb", [(4096, 1), (8192, 8), (40, 3)])
+def test_gather_finalize_device_launches(cuda, F, nb):
+    """One device launch a call: no finalize launch, copy or memset."""
+    g, drows, perm, _fprio, ctl = (torch.from_numpy(a).to(cuda) if isinstance(a, np.ndarray)
+                                   else a for a in gather_case(1, "single", nb, F, 2 * F))
+    fr = wgl.initial_frontier_batch(F, g.W, g.KO, torch.zeros((nb, g.S), dtype=torch.int32,
+                                                              device=cuda))
+    stats = torch.zeros((nb, lv.LEVEL_STAT_ROWS, 4), dtype=torch.int32, device=cuda)
+    scratch = lv.gather_scratch(nb, cuda)
+    lv.gather_finalize(g, drows, perm, ctl.clone(), stats, fr, scratch)
+    work = device_work(lambda: lv.gather_finalize(g, drows, perm, ctl, stats, fr, scratch))
+    assert work == _launches_only(1), work
+
+
+def test_gather_finalize_refuses_short_scratch_and_cpu_mix(cuda):
+    nb = 3
+    g, drows, perm, _fprio, ctl = (torch.from_numpy(a).to(cuda) if isinstance(a, np.ndarray)
+                                   else a for a in gather_case(2, "single", nb, 40, 90))
+    fr = wgl.initial_frontier_batch(40, g.W, g.KO, torch.zeros((nb, g.S), dtype=torch.int32,
+                                                               device=cuda))
+    stats = torch.zeros((nb, lv.LEVEL_STAT_ROWS, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="ticket scratch"):
+        lv.gather_finalize(g, drows, perm, ctl, stats, fr, lv.gather_scratch(nb - 1, cuda))
+    with pytest.raises(ValueError):
+        lv.gather_finalize(g, drows, perm, ctl, stats, fr, lv.gather_scratch(nb, "cpu"))
 
 
 # -- the expand ------------------------------------------------------------------

@@ -94,6 +94,33 @@ def test_every_kernel_entry_point_has_a_signature_and_a_source():
     assert {p.name for p in _build._sources()} >= {"wgl_level.cu", "elle_closure.cu"}
 
 
+@pytest.mark.parametrize("name,define", [("SORT_CTA_MAX", "RS_CTA_MAX"),
+                                         ("SORT_HDR", "RS_HDR"), ("GF_ROWS", "GF_ROWS")])
+def test_build_sizes_match_the_cuda_source(name, define):
+    """The sizes the wrappers read from ``_build`` are the ones the CUDA
+    source defines."""
+    from jepsen_tpu_torch import _build
+
+    src = (_build.CSRC / "wgl_level.cu").read_text()
+    found = re.findall(rf"^#define {define} (\d+)\b", src, re.M)
+    assert found == [str(getattr(_build, name))], (name, found)
+
+
+def test_yardsticks_stay_out_of_the_library():
+    """The parent designs that chip_smoke.py times are defined in its own
+    source, which the library's build does not compile, and the port
+    declares none of them."""
+    import chip_smoke
+    from jepsen_tpu_torch import _build
+
+    library = "".join(p.read_text() for p in _build._sources())
+    yard = ROOT.joinpath(*chip_smoke.YARDSTICK_SRC)
+    assert yard not in _build._sources() and "k_yard" not in library
+    for name in chip_smoke.YARDSTICKS:
+        assert re.search(rf"\bint {name}\(", yard.read_text()), name
+        assert name not in library and name not in _build.SIGNATURES, name
+
+
 def _history():
     return random_register_history(random.Random(3), n_ops=20, n_procs=3)
 

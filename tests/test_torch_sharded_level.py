@@ -182,10 +182,7 @@ def _partial_level(pair, fr, upto):
     lv.chunk_init_plain(ws.ctl, pfr[4])
     lv.shard_reduce_plain(pair.g, ws.ctl, 0)
     for stage, args in lv._sharded_level_stages(pair.g, pair.tabs, pfr, ws, pair.model):
-        if stage == "reset":
-            args[0].copy_(args[1])
-        else:
-            getattr(lv.PLAIN, stage)(*args)
+        getattr(lv.PLAIN, stage)(*args)
         if stage == upto:
             return ws
     raise AssertionError(upto)
@@ -355,19 +352,19 @@ def test_shard_reduce_and_finalize_plain_match_numpy(D, mode):
         # the sharded finalize: each shard's rows and the replicated carry
         L = g.L
         drows = torch.from_numpy(rng.integers(0, 2**20, size=(D, L, g.NC)).astype(np.int32))
+        # the rows in compaction order (the compaction sort's values)
         perm = torch.stack([torch.randperm(L) for _ in range(D)]).to(torch.int32)
-        order = torch.stack([torch.randperm(L) for _ in range(D)]).to(torch.int32)
         fr = tuple(t.clone() for t in wgl.initial_frontier_batch(
             F, 32, 1, torch.zeros((D, 1), dtype=torch.int32)))
         fr0 = tuple(t.clone() for t in fr)
         stats = torch.zeros((D, lv.LEVEL_STAT_ROWS, 4), dtype=torch.int32)
-        lv.gather_finalize(g, drows, perm, order, ctl, stats, fr)
+        lv.gather_finalize(g, drows, perm, ctl, stats, fr, lv.gather_scratch(D, "cpu"))
         for s in range(D):
             if dead:
                 np.testing.assert_array_equal(fr[0][s].numpy(), fr0[0][s].numpy())
                 continue
             off = s * F if mode == "allgather" else 0
-            src = perm[s].numpy()[order[s].numpy()[off:off + F]]
+            src = perm[s].numpy()[off:off + F]
             want = np.where((np.arange(F) < kept[s])[:, None], drows[s].numpy()[src], 0)
             np.testing.assert_array_equal(fr[0][s].numpy(), want[:, 0])
             np.testing.assert_array_equal(fr[4][s].numpy(), np.arange(F) < kept[s])
@@ -399,8 +396,8 @@ class _FakeLib:
 def test_sharded_level_program_launches(mode, monkeypatch):
     """The kernel path packs a sharded level once per chunk: the stages in
     order (route only under alltoall, the received rows hashed by the
-    stage-1 entry point, the reduce between the prune and the compaction
-    sort), one count per launch."""
+    stage-1 entry point, one take-col sort a dedup key, the reduce between
+    the prune and the compaction sort), one count per launch."""
     lib = _FakeLib()
     monkeypatch.setattr(lv._build, "load", lambda: lib)
     monkeypatch.setattr(lv, "_check_cuda", lambda *ts: None)
@@ -412,7 +409,7 @@ def test_sharded_level_program_launches(mode, monkeypatch):
     prog = lv._LevelProgram(pair.g, pair.tabs, fr, ws, pair.model)
     lv.reset_launches()
     prog()
-    sorts = ["wgl_take_col", "radix_sort_pairs"] * (pair.g.KO1 + 1)
+    sorts = ["wgl_take_col_sort"] * (pair.g.KO1 + 1)
     want = (["wgl_expand", "wgl_stage1_hash"] + (["wgl_route"] if mode == "alltoall" else [])
             + ["wgl_exchange", "wgl_stage1_hash"] + sorts
             + ["wgl_prune", "wgl_shard_reduce", "radix_sort_pairs", "wgl_gather_finalize"])
