@@ -130,13 +130,22 @@ and then runs these phases, each printing JSON lines:
   ``clone()`` (its recorded library call) and ``full.copy_(blocks)``;
 - ``sharded_kernels``: the north-star frontier (800 beam levels at 4096)
   laid on 8 shards of 512 rows; one sharded level in each exchange mode,
-  every stage (the new ``wgl_route``, ``wgl_exchange``,
-  ``wgl_shard_reduce`` and sharded finalize, and every existing stage at
-  the exchanged row count) against its plain version bit for bit, the
-  new ones timed;
-- ``exchange_scale``: ``wgl_exchange`` alone at the shard geometry of a
-  global capacity of 262144 (8 shards, both modes) on seeded rows, bit for
-  bit against the plain exchange and timed beside one PyTorch copy;
+  every stage (``wgl_route``: the owner routing and the all_to_all in one
+  scatter; ``wgl_exchange``: the all_gather; the prune with the
+  cross-shard reduce in its last block; the sharded finalize; and every
+  other stage at the exchanged row count) against its plain version bit
+  for bit; the route, the exchange, the sharded prune and the finalize
+  timed, the route and the prune beside their parent designs (the route
+  and the alltoall exchange, the prune and the reduce: two launches each,
+  built from ``yardsticks/wgl_parent.cu`` and checked against the plain
+  versions too); the sharded chunk start (the reduce in its last block)
+  the same way; the device launches of a sharded level in each mode and
+  of a chunk start (``testing.device_work``: 9 and 1 at KO = 1);
+- ``exchange_scale``: the route (alltoall) and the exchange (allgather)
+  alone at the shard geometry of a global capacity of 262144 (8 shards)
+  on seeded rows, bit for bit against their plain versions, the route
+  timed beside its parent design and the exchange beside one PyTorch
+  copy;
 - ``sharded_10k``: the reference bench leg's 10,000-op history
   (``bench.py:1847-1849``) through ``parallel.frontier.check_encoded_sharded``
   on 8 shards at a global capacity of 4096 in both modes (same verdict;
@@ -155,6 +164,7 @@ phase raises: the script then exits non-zero and prints no result.
 Without CUDA it exits 2.
 """
 
+import dataclasses
 import json
 import random
 import statistics
@@ -314,10 +324,19 @@ SHARD_REFUTE_WITHIN = 0.02  # the broken read lies in the first 2% of the histor
 # received rows a shard under allgather), on seeded rows.
 SHARD_BIG_F_TOTAL = 262144
 SHARD_PROGRAM = "jepsen_tpu/parallel/frontier.py:72"
+# The sharded level's kernels (SHARD_KERNEL below) and what each replaces:
+# the route the owner routing and the all_to_all (lines 551-611), the
+# exchange the all_gather, the sharded prune the prune and the pmax / psum
+# after it (lines 490, 612, 697-711), the sharded chunk start the chunk's
+# stop test and its pmin / pmax / psum (lines 830-836, 877-890).
 SHARD_REPLACES = {"wgl_route": "jepsen_tpu/ops/wgl.py:551",
                   "wgl_exchange": "jepsen_tpu/ops/wgl.py:592",
-                  "wgl_shard_reduce": "jepsen_tpu/ops/wgl.py:490",
+                  "wgl_prune_sharded": "jepsen_tpu/ops/wgl.py:697",
+                  "wgl_chunk_init_sharded": "jepsen_tpu/ops/wgl.py:830",
                   "wgl_gather_finalize_sharded": "jepsen_tpu/ops/wgl.py:743"}
+# The mode whose path a kernel's kernels-line entry reports (the other
+# mode's figures beside it, where it runs there too).
+SHARD_PRIMARY = {"wgl_exchange": "allgather"}
 STEP_REPLACES = {  # each family's step_jax, which k_expand inlines
     "multi-register": "jepsen_tpu/models/register.py:162",
     "counter": "jepsen_tpu/models/counter.py:70",
@@ -1130,12 +1149,16 @@ def gather_scale():
     return out
 
 
-# The parent designs gather_sort_scale times beside their replacements:
-# built from yardsticks/wgl_parent.cu into a library of their own, never
-# into the port's. Entry point -> ctypes argument kinds.
+# The parent designs gather_sort_scale, sharded_kernels and exchange_scale
+# time beside their replacements: built from yardsticks/wgl_parent.cu into
+# a library of their own, never into the port's. Entry point -> ctypes
+# argument kinds.
 YARDSTICK_SRC = ("yardsticks", "wgl_parent.cu")
 YARDSTICKS = {"yardstick_take_col": "PLIIPPIIPP",
-              "yardstick_gather_finalize": "P" * 10 + "I" * 10 + "P"}
+              "yardstick_gather_finalize": "P" * 10 + "I" * 10 + "P",
+              "yardstick_route_exchange": "P" * 6 + "I" * 5 + "P",
+              "yardstick_prune_reduce": "P" * 6 + "I" * 10 + "P",
+              "yardstick_chunk_init_reduce": "PPIIP"}
 _YARD = {}  # the yardsticks' build: "proc", "lib", "log", "t0"; then "cdll"
 
 
@@ -1207,6 +1230,36 @@ def yard_gather_finalize(lv, g, drows, perm, order, ctl, stats, fr) -> None:
                lv._ptr(ctl), lv._ptr(stats), *(lv._ptr(a) for a in fr), ci(g.F), ci(g.L),
                ci(g.NC), ci(g.KD), ci(g.S), ci(g.KO1), ci(g.P if g.two_stage else 0),
                ci(lv.LEVEL_STAT_ROWS), ci(lv._EX_MODE[g.exchange]), ci(nb), lv._stream())
+
+
+def yard_route_exchange(lv, g, crows, ctl, send, svalid, drows, rvalid) -> None:
+    """The parent's sharded route into send buckets and its alltoall
+    exchange of them into the receive rows (two launches), the
+    yardstick."""
+    import ctypes
+
+    ci = ctypes.c_int
+    _yard_call("yardstick_route_exchange", *(lv._ptr(t) for t in (crows, ctl, send, svalid,
+                                                                   drows, rvalid)),
+               ci(g.P), ci(g.NC), ci(g.NID), ci(g.D), ci(g.PBK), lv._stream())
+
+
+def yard_prune_reduce(lv, g, drows, skey, perm, ctl, fprio, scratch) -> None:
+    """The parent's sharded prune: the single level's prune, then the
+    one-thread reduce launch (the yardstick), on the prune's own
+    arguments."""
+    _yard_call("yardstick_prune_reduce", *lv._prune_args(g, drows, skey, perm, ctl, fprio,
+                                                         scratch))
+
+
+def yard_chunk_init_reduce(lv, ctl, valid) -> None:
+    """The parent's sharded chunk start: the chunk init, then the
+    one-thread reduce launch (the yardstick)."""
+    import ctypes
+
+    nb, F = valid.shape
+    _yard_call("yardstick_chunk_init_reduce", lv._ptr(ctl), lv._ptr(valid), ctypes.c_int(F),
+               ctypes.c_int(nb), lv._stream())
 
 
 def take_sort_case(lv, src, col, keys, vals, scratch, ctl, ident, reps) -> dict:
@@ -1837,32 +1890,36 @@ def _stage_err(lv, name, ak, ap, wk, wp, fk, fp) -> int:
     if name == "stage1_hash":
         n = wp.ctl[:, lv.CTL_NEXP].clamp(max=wp.crows.shape[1]).tolist()
         return _rows_err(wk.crows, wp.crows, n)
-    if name == "route":
-        return max(max_abs_err(wk.send, wp.send), max_abs_err(wk.svalid, wp.svalid),
+    if name in ("route", "exchange"):
+        return max(max_abs_err(wk.drows, wp.drows), max_abs_err(wk.rvalid, wp.rvalid),
                    max_abs_err(wk.ctl, wp.ctl))
-    if name == "exchange":
-        return max(max_abs_err(wk.drows, wp.drows), max_abs_err(wk.rvalid, wp.rvalid))
     if name == "hash_rows":
         return max_abs_err(wk.fkey, wp.fkey)
     if name == "take_col_sort":
         return max(max_abs_err(ak[2], ap[2]), max_abs_err(ak[3], ap[3]))
     if name == "radix_sort_pairs":
         return max(max_abs_err(ak[0], ap[0]), max_abs_err(ak[1], ap[1]))
-    if name == "prune":
+    if name == "prune":  # the control blocks hold the cross-shard reduce's fields
         return max(max_abs_err(wk.fprio, wp.fprio), max_abs_err(wk.ctl, wp.ctl))
-    if name == "shard_reduce":
-        return max_abs_err(wk.ctl, wp.ctl)
     if name == "gather_finalize":
         return max([max_abs_err(a, b) for a, b in zip(fk, fp)] + [max_abs_err(wk.ctl, wp.ctl)])
     raise KeyError(name)
 
 
+# The kernels line's names of the sharded level's own launches (the prune,
+# the chunk start and the finalize are listed apart from the single
+# level's: their sharded arms run the cross-shard reduce or the shard's
+# slice) and the LAUNCHES key each is counted under.
+SHARD_KERNEL = {"route": "wgl_route", "exchange": "wgl_exchange", "prune": "wgl_prune_sharded",
+                "gather_finalize": "wgl_gather_finalize_sharded"}
+SHARD_COUNT = {"wgl_prune_sharded": "wgl_prune", "wgl_chunk_init_sharded": "wgl_chunk_init",
+               "wgl_gather_finalize_sharded": "wgl_gather_finalize"}
+
+
 def stage_kernel(lv, name) -> str:
-    """The kernel (LAUNCHES) name of a sharded stage; the sharded finalize
-    is listed on its own."""
-    if name == "gather_finalize":
-        return "wgl_gather_finalize_sharded"
-    return lv._PACKERS[name][0]
+    """The kernel name of a sharded stage (SHARD_KERNEL, else its entry
+    point's)."""
+    return SHARD_KERNEL.get(name) or lv._PACKERS[name][0]
 
 
 def sharded_lockstep(lv, g, tabs, model, fr, ctl, on_stage=None):
@@ -1890,17 +1947,41 @@ def sharded_lockstep(lv, g, tabs, model, fr, ctl, on_stage=None):
     return errs, wp
 
 
+# Timed sharded stages: the index of each one's control blocks among its
+# arguments.
+SHARD_TIMED_CTL = {"route": 2, "exchange": 2, "prune": 4, "gather_finalize": 3}
+
+
 def _sharded_call(lv, name, a, plain):
     """(fn, written inputs) of one sharded stage call for ``batch_ms``."""
     f = getattr(lv.PLAIN if plain else lv.KERNELS, name)
-    if name == "route":
-        return (lambda t: f(a[0], a[1], t[0], t[1], t[2])), (a[2], a[3], a[4])
-    if name == "exchange":
-        return (lambda t: f(a[0], a[1], a[2], a[3], t[0], t[1])), (a[4], a[5])
-    if name == "shard_reduce":
-        return (lambda t: f(a[0], t[0], a[2])), (a[1],)
+    if name == "route":  # (g, crows, ctl, drows, rvalid, scratch)
+        return (lambda t: f(a[0], a[1], t[0], t[1], t[2], a[5])), (a[2], a[3], a[4])
+    if name == "exchange":  # (g, crows, ctl, recv, rvalid)
+        return (lambda t: f(a[0], a[1], a[2], t[0], t[1])), (a[3], a[4])
+    if name == "prune":  # (g, drows, skey, perm, ctl, fprio, scratch)
+        return (lambda t: f(a[0], a[1], a[2], a[3], t[0], t[1], a[6])), (a[4], a[5])
     # gather_finalize (g, drows, perm, ctl, stats, fr, scratch)
     return (lambda t: f(a[0], a[1], a[2], t[0], t[1], t[2:], a[6])), (a[3], a[4]) + tuple(a[5])
+
+
+def _parent_call(lv, name, a):
+    """(fn, written inputs) of the parent design of a timed sharded stage
+    (the yardsticks), or None: the route and the alltoall exchange, or the
+    prune and the reduce, each two launches."""
+    import torch
+
+    g = a[0]
+    if name == "route":  # (g, crows, ctl, drows, rvalid, scratch)
+        sr = g.D * g.PBK
+        send = torch.zeros((g.D, sr, g.NC), dtype=torch.int32, device="cuda")
+        svalid = torch.zeros((g.D, sr), dtype=torch.uint8, device="cuda")
+        return ((lambda t: yard_route_exchange(lv, g, a[1], t[0], send, svalid, t[1], t[2])),
+                (a[2], a[3], a[4]))
+    if name == "prune":
+        return ((lambda t: yard_prune_reduce(lv, g, a[1], a[2], a[3], t[0], t[1], a[6])),
+                (a[4], a[5]))
+    return None
 
 
 def sharded_bytes(lv, name, g, ctl_after) -> int:
@@ -1909,40 +1990,42 @@ def sharded_bytes(lv, name, g, ctl_after) -> int:
     D, NC, L = g.D, g.NC, g.L
     row = 4 * NC
     ctl_b = 4 * D * lv.CTL_SIZE
-    if name == "route":
-        n = int(ctl_after[:, lv.CTL_NEXP].clamp(max=g.P).sum())
-        return n * row + ctl_b + D * D * g.PBK * (row + 1)
-    if name == "exchange":
-        if g.exchange == "alltoall":
-            return D * D * g.PBK * (row + 1) + D * L * (row + 1)
-        n = int(ctl_after[:, lv.CTL_NEXP].clamp(max=g.P).sum())
-        return n * row + ctl_b + D * L * (row + 1)
-    if name == "shard_reduce":
-        return 2 * ctl_b
+    n = int(ctl_after[:, lv.CTL_NEXP].clamp(max=g.P).sum())  # stage-1 rows
+    if name in ("route", "exchange"):  # every received row and its byte written
+        return n * row + 2 * ctl_b + D * L * (row + 1)
+    if name == "prune":  # keys, perm and priorities, the rows gathered
+        return D * L * (12 + row) + 2 * ctl_b
+    if name == "chunk_init":
+        return D * g.F + 2 * ctl_b
     kept = int(ctl_after[0, lv.CTL_NSUM])
     fr_row = 4 * (1 + g.KD + g.KO1 + g.S) + 1
     return kept * (row + 4) + 2 * ctl_b + D * g.F * fr_row
 
 
 def _library_exchange(g, send):
-    """One PyTorch call moving the same rows as the exchange (a yardstick
-    only): the tiled all_to_all as a transpose of the shards' bucket axis,
-    the all_gather as a broadcast copy."""
-    D, NC = g.D, g.NC
-    if g.exchange == "alltoall":
-        return batch_ms(lambda t: t[0].view(D, D, g.PBK, NC).transpose(0, 1).contiguous(),
-                        (send,), clone=False)[0]
-    return batch_ms(lambda t: t[0][None].expand((D,) + tuple(t[0].shape)).contiguous(),
+    """One PyTorch call moving the same rows as the allgather (a yardstick
+    only): a broadcast copy of the stage-1 rows to every shard."""
+    return batch_ms(lambda t: t[0][None].expand((g.D,) + tuple(t[0].shape)).contiguous(),
                     (send,), clone=False)[0]
 
 
+def _timed_summary(err, ms, call_ms, plain_ms, nbytes, library_ms=None, parent_ms=None) -> dict:
+    out = {"max_abs_err": err, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+           "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+           "library_ms": library_ms}
+    if parent_ms is not None:
+        out.update(parent_ms=parent_ms, vs_parent=ms / parent_ms)
+    return out
+
+
 def exchange_scale_phase(lv, wgl, enc, model):
-    """wgl_exchange alone at the shard geometry of SHARD_BIG_F_TOTAL on
-    SHARD_D shards, both modes, on seeded rows (alltoall: each bucket's
-    valid rows a prefix, the rest zero, as wgl_route leaves them; every
-    source's n_cand between P / 2 and 9 P / 8): bit for bit against the
-    plain exchange, timed beside ``_library_exchange``'s one copy.
-    Returns {mode: summary}."""
+    """The route (alltoall) and the exchange (allgather) alone at the
+    shard geometry of SHARD_BIG_F_TOTAL on SHARD_D shards, on seeded
+    stage-1 rows (every source's n_cand between P / 2 and 9 P / 8), bit
+    for bit against their plain versions; the route timed beside the
+    parent's route and exchange (the yardstick, checked too), the
+    exchange beside ``_library_exchange``'s one copy. Returns {mode:
+    summary}."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SHARD_BIG_F_TOTAL)
@@ -1950,50 +2033,114 @@ def exchange_scale_phase(lv, wgl, enc, model):
     for mode in lv.EXCHANGES:
         plan, g, _tabs = sharded_setup(lv, wgl, enc, SHARD_BIG_F_TOTAL, SHARD_D, mode, model)
         D, NC, a2a = g.D, g.NC, mode == "alltoall"
-        SR = D * g.PBK if a2a else g.P
         rint = lambda lo, hi, shape: torch.randint(lo, hi, shape, generator=gen,  # noqa: E731
                                                    device="cuda", dtype=torch.int64)
-        send = rint(-2**31, 2**31 - 1, (D, SR, NC)).to(torch.int32)
-        svalid = None
-        if a2a:
-            fill = rint(0, g.PBK + 1, (D, D, 1))
-            slot = torch.arange(g.PBK, device="cuda")
-            svalid = (slot < fill).reshape(D, SR).to(torch.uint8)
-            send *= svalid[..., None].to(torch.int32)
+        crows = rint(-2**31, 2**31 - 1, (D, g.P, NC)).to(torch.int32)
         ctl = torch.zeros((D, lv.CTL_SIZE), dtype=torch.int32, device="cuda")
         ctl[:, lv.CTL_GO] = 1
         ctl[:, lv.CTL_NEXP] = rint(g.P // 2, g.P + g.P // 8, (D,)).to(torch.int32)
         recv = torch.zeros((D, g.L, NC), dtype=torch.int32, device="cuda")
         rvalid = torch.zeros((D, g.L), dtype=torch.uint8, device="cuda")
-        rp, vp = recv.clone(), rvalid.clone()
-        lv.exchange(g, send, svalid, ctl, recv, rvalid)
-        lv.exchange_plain(g, send, svalid, ctl, rp, vp)
+        if a2a:
+            name, args = "route", (g, crows, ctl, recv, rvalid, lv.route_scratch(g, "cuda"))
+        else:
+            name, args = "exchange", (g, crows, ctl, recv, rvalid)
+        fk, ins = _sharded_call(lv, name, args, plain=False)
+        fp, _ = _sharded_call(lv, name, args, plain=True)
+        ki, pi = tuple(t.clone() for t in ins), tuple(t.clone() for t in ins)
+        fk(ki)
+        fp(pi)
+        parent = _parent_call(lv, name, args)
+        if parent is not None:
+            yi = tuple(t.clone() for t in ins)
+            parent[0](yi)
         torch.cuda.synchronize()
-        err = max(max_abs_err(recv, rp), max_abs_err(rvalid, vp))
-        del rp, vp
-        if err:
-            raise AssertionError(f"wgl_exchange disagrees with its plain version at f_total "
-                                 f"{SHARD_BIG_F_TOTAL} ({mode})")
-        ms, call_ms = batch_ms(lambda t: lv.exchange(g, send, svalid, ctl, t[0], t[1]),
-                               (recv, rvalid), clone=False)
-        lib = _library_exchange(g, send)
-        nbytes = sharded_bytes(lv, "exchange", g, ctl)
-        out[mode] = {"max_abs_err": err, "ms": ms, "call_ms": call_ms,
-                     "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
-                     "library_ms": lib, "vs_library": ms / lib}
+        err = max(max_abs_err(a, b) for a, b in zip(ki, pi))
+        perr = max(max_abs_err(a, b) for a, b in zip(yi, pi)) if parent else 0
+        del ki, pi
+        if err or perr:
+            raise AssertionError(f"{SHARD_KERNEL[name]} (or its parent) disagrees with its plain "
+                                 f"version at f_total {SHARD_BIG_F_TOTAL} ({mode})")
+        ms, call_ms = batch_ms(fk, ins)
+        plain_ms, _ = batch_ms(fp, ins, hold=False, batch=3, batches=3)
+        parent_ms = batch_ms(*parent)[0] if parent else None
+        lib = None if a2a else _library_exchange(g, crows)
+        out[mode] = dict(_timed_summary(err, ms, call_ms, plain_ms,
+                                        sharded_bytes(lv, name, g, ctl), lib, parent_ms),
+                         kernel=SHARD_KERNEL[name],
+                         tile=lv.route_tile(g.P, D, "cuda") if a2a else None)
         emit({"phase": "exchange_scale", "exchange": mode, "f_total": SHARD_BIG_F_TOTAL,
               "D": D, "F": g.F, "P": g.P, "PBK": g.PBK, "L": g.L, "NC": NC, **out[mode]})
-        del send, svalid, recv, rvalid
+        del crows, recv, rvalid, args, ins
         torch.cuda.empty_cache()
     return out
+
+
+def sharded_device_launches(lv, wgl, enc, model) -> dict:
+    """Device launches of one sharded level (each mode, its level program)
+    and of a sharded chunk start, counted from a stream capture
+    (``testing.device_work``): 8 + KO1 and 1."""
+    from jepsen_tpu_torch.testing import device_work
+
+    out = {}
+    for mode in lv.EXCHANGES:
+        plan, g, tabs = sharded_setup(lv, wgl, enc, SHARD_F_TOTAL, SHARD_D, mode, model)
+        fr = wgl.initial_frontier(SHARD_F_TOTAL, g.W, g.KO, g.S, plan.init_state, "cuda")
+        fr = shard_frontier(tuple(a[None] for a in fr[:5]), SHARD_D)
+        ws = lv.BatchWorkspace(g, SHARD_D, "cuda")
+        lv._LevelProgram(g, tabs, fr, ws, model)()
+        # packed inside the capture, so that the launches go to its stream
+        out[mode] = device_work(lambda: lv._LevelProgram(g, tabs, fr, ws, model)())
+        if mode == "alltoall":
+            out["chunk_start"] = device_work(lambda: lv.chunk_init(ws.ctl, fr[4], ws.gf))
+        want = 8 + g.KO1
+        if out[mode] != {"kernel": want, "memcpy": 0, "memset": 0, "other": 0}:
+            raise AssertionError(f"a sharded level ({mode}) is not {want} launches: {out[mode]}")
+    if out["chunk_start"]["kernel"] != 1 or sum(out["chunk_start"].values()) != 1:
+        raise AssertionError(f"a sharded chunk start is not one launch: {out['chunk_start']}")
+    return out
+
+
+def sharded_chunk_start(lv, fr) -> dict:
+    """The sharded chunk start (one launch: the reduce in its last block) on
+    the warmed frontier's SHARD_D shards, bit for bit against its plain
+    version (the chunk init, then shard_reduce_plain stage 0) and timed
+    beside the parent's two launches (the yardstick, checked too)."""
+    import torch
+
+    D, F = fr[4].shape
+    ctl = torch.zeros((D, lv.CTL_SIZE), dtype=torch.int32, device="cuda")
+    ctl[:, lv.CTL_MAXLVL] = 1 << 20  # the search goes on
+    ticket = torch.zeros(1, dtype=torch.int32, device="cuda")
+    kernel = lambda t: lv.chunk_init(t[0], fr[4], ticket)  # noqa: E731
+    plain = lambda t: lv.chunk_init_plain(t[0], fr[4], ticket)  # noqa: E731
+    parent = lambda t: yard_chunk_init_reduce(lv, t[0], fr[4])  # noqa: E731
+    outs = []
+    for fn in (kernel, plain, parent):
+        c = (ctl.clone(),)
+        fn(c)
+        outs.append(c[0])
+    torch.cuda.synchronize()
+    err = max_abs_err(outs[0], outs[1])
+    if err or max_abs_err(outs[2], outs[1]) or int(ticket[0]):
+        raise AssertionError("the sharded chunk start (or its parent) disagrees with plain")
+    ms, call_ms = batch_ms(kernel, (ctl,))
+    plain_ms, _ = batch_ms(plain, (ctl,), hold=False, batch=3, batches=3)
+    parent_ms, _ = batch_ms(parent, (ctl,))
+    nbytes = D * F + 2 * 4 * D * lv.CTL_SIZE
+    return _timed_summary(err, ms, call_ms, plain_ms, nbytes, None, parent_ms)
 
 
 def sharded_kernels_phase(lv, wgl, enc, model):
     """The north-star frontier warmed for WARM_LEVELS beam levels at
     SHARD_F_TOTAL, laid on SHARD_D shards; one sharded level in each mode,
-    every stage kernel against plain bit for bit, and the new kernels
-    timed. The level runs as a beam (lossy) so that the gather runs.
-    Returns {mode: {kernel: summary}} and {kernel: max_abs_err}."""
+    every stage kernel against plain bit for bit, the route, the
+    exchange, the sharded prune and the sharded finalize timed (the route
+    and the prune beside their parent designs, the yardsticks); the
+    sharded chunk start on the same frontier; the device launches of a
+    level and of a chunk start. The level runs as a beam (lossy) so that
+    the gather runs. Returns ({mode: {kernel: summary}, "chunk_start":
+    summary, "device_launches": counts}, {kernel: max_abs_err})."""
     import torch
 
     single = wgl.stack_plans([wgl.plan_device(enc, device="cpu")], "cuda")
@@ -2006,38 +2153,60 @@ def sharded_kernels_phase(lv, wgl, enc, model):
         timed = {}
 
         def on_stage(name, ak, ap):
-            if name not in ("route", "exchange", "shard_reduce", "gather_finalize"):
+            if name not in SHARD_TIMED_CTL:
                 return
             fk, ik = _sharded_call(lv, name, ak, plain=False)
             fp, ip = _sharded_call(lv, name, ap, plain=True)
             ms, call_ms = batch_ms(fk, ik)
             plain_ms, _ = batch_ms(fp, ip, hold=False, batch=3, batches=3)
+            parent = _parent_call(lv, name, ak)
+            perr, parent_ms = 0, None
+            if parent is not None:  # the parent's outputs against the plain version's
+                yi, pi = tuple(t.clone() for t in parent[1]), tuple(t.clone() for t in ip)
+                parent[0](yi)
+                fp(pi)
+                torch.cuda.synchronize()
+                perr = max(max_abs_err(a, b) for a, b in zip(yi, pi))
+                parent_ms = batch_ms(*parent)[0]
             lib = _library_exchange(g, ak[1]) if name == "exchange" else None
-            ctl_arg = {"route": 2, "exchange": 3, "shard_reduce": 1, "gather_finalize": 3}
             timed[stage_kernel(lv, name)] = {"ms": ms, "call_ms": call_ms,
                                              "plain_ms": plain_ms, "library_ms": lib,
-                                             "name": name, "ctl": ap[ctl_arg[name]].cpu()}
+                                             "parent_ms": parent_ms, "parent_err": perr,
+                                             "name": name,
+                                             "ctl": ap[SHARD_TIMED_CTL[name]].cpu()}
+            if name == "prune":  # the single level's instantiation on the same rows
+                alone = dataclasses.replace(g, exchange=None, D=1)
+                timed[stage_kernel(lv, name)]["unsharded_ms"] = batch_ms(
+                    lambda t: lv.prune(alone, ak[1], ak[2], ak[3], t[0], t[1], ak[6]), ik)[0]
 
         stage_errs, wp = sharded_lockstep(lv, g, tabs, model, fr, ctl, on_stage)
         for k, v in stage_errs.items():
             errs[k] = max(errs.get(k, 0), v)
         summary = {}
         for k, t in timed.items():
-            nbytes = sharded_bytes(lv, t["name"], g, t["ctl"])
-            summary[k] = {"max_abs_err": stage_errs[k], "ms": t["ms"], "call_ms": t["call_ms"],
-                          "plain_ms": t["plain_ms"], "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
-                          "bound_by": "bytes", "library_ms": t["library_ms"]}
+            summary[k] = _timed_summary(stage_errs[k], t["ms"], t["call_ms"], t["plain_ms"],
+                                        sharded_bytes(lv, t["name"], g, t["ctl"]),
+                                        t["library_ms"], t["parent_ms"])
+            if "unsharded_ms" in t:  # the parent's sharded prune without its reduce
+                summary[k]["unsharded_ms"] = t["unsharded_ms"]
         out[mode] = summary
         emit({"phase": "sharded_kernels", "exchange": mode, "D": SHARD_D, "F": g.F,
               "from_level": lvl, "valid_configs": int(fr[4].sum()), "P": g.P, "L": g.L,
-              "PBK": g.PBK, "NC": g.NC,
+              "PBK": g.PBK, "NC": g.NC, "route_tile": lv.route_tile(g.P, SHARD_D, "cuda"),
               "kept": int(wp.ctl[0, lv.CTL_NSUM]), "stage_max_abs_err": stage_errs,
-              "new_kernels": summary,
+              "timed": summary,
               "exchange_bytes_per_level": wgl.exchange_bytes_per_level(plan, g.F, SHARD_D, mode)})
         bad = {k: v for k, v in stage_errs.items() if v}
+        bad.update({f"{k} (parent)": t["parent_err"] for k, t in timed.items()
+                    if t["parent_err"]})
         if bad:
             raise AssertionError(f"sharded stages disagree with their plain versions ({mode}): "
                                  f"{bad}")
+    out["chunk_start"] = sharded_chunk_start(lv, fr)
+    errs["wgl_chunk_init_sharded"] = out["chunk_start"]["max_abs_err"]
+    out["device_launches"] = sharded_device_launches(lv, wgl, enc, model)
+    emit({"phase": "sharded_kernels", "chunk_start": out["chunk_start"],
+          "device_launches": out["device_launches"]})
     return out, errs
 
 
@@ -2104,9 +2273,11 @@ def sharded_10k_phase(lv, wgl, model, frontier, make_mesh, encode_history,
                                              exchange=mode, max_escalations=esc)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        need = LEVEL_KERNELS + ("wgl_exchange", "wgl_shard_reduce") + \
-            (("wgl_route",) if mode == "alltoall" else ())
-        counts = launch_counts(lv, f"sharded_10k D={D} {mode}", need)
+        # the alltoall's exchange is the route's: no wgl_exchange launch
+        own, other = ("wgl_route", "wgl_exchange")[::1 if mode == "alltoall" else -1]
+        counts = launch_counts(lv, f"sharded_10k D={D} {mode}", LEVEL_KERNELS + (own,))
+        if counts[other]:
+            raise AssertionError(f"sharded_10k D={D} {mode} launched {other}")
         enqueued = counts["wgl_expand"]
         run = {"D": D, "exchange": mode, "max_escalations": esc, "valid": res["valid"],
                "levels": res.get("levels"),
@@ -2211,8 +2382,9 @@ def checker_sharded_phase(lv, model, jchecker, make_mesh, random_register_histor
         rows.append({"valid": r["valid"], "device_valid": d["valid"], "sharded": r.get("sharded"),
                      "n_shards": r.get("n_shards"), "exchange": r.get("exchange"),
                      "levels": r.get("levels"), "device_levels": d.get("levels")})
-    counts = launch_counts(lv, "checker_sharded", ("wgl_route", "wgl_exchange",
-                                                   "wgl_shard_reduce"))
+    counts = launch_counts(lv, "checker_sharded", ("wgl_route", "wgl_prune", "wgl_chunk_init"))
+    if counts["wgl_exchange"]:
+        raise AssertionError("checker_sharded (alltoall) launched wgl_exchange")
     emit({"phase": "checker_sharded", "runs": rows, "launches": counts})
     if not all(r["sharded"] is True and r["n_shards"] == SHARD_D and r["valid"] == r["device_valid"]
                for r in rows) or rows[0]["valid"] is not True or rows[1]["valid"] is not False:
@@ -3139,20 +3311,31 @@ def main() -> int:
                    "sharded_refutation": shard_refute_launches,
                    "checker_sharded": checker_shard_launches}
     for kname, replaces in SHARD_REPLACES.items():
-        r = shard_stats["alltoall"][kname]
-        count = "wgl_gather_finalize" if kname.endswith("_sharded") else kname
+        mode = SHARD_PRIMARY.get(kname, "alltoall")
+        other = lv.EXCHANGES[1 - lv.EXCHANGES.index(mode)]
+        r = (shard_stats["chunk_start"] if kname == "wgl_chunk_init_sharded"
+             else shard_stats[mode][kname])
+        count = SHARD_COUNT.get(kname, kname)
         entry = {"name": kname, "route": "cuda", "source": SOURCE, "replaces": replaces,
-                 "program": SHARD_PROGRAM, "launches": shard_launches["alltoall"][count],
+                 "program": SHARD_PROGRAM, "launches": shard_launches[mode][count],
                  **summary(r), "max_abs_err": shard_errs[kname],
                  "shape": f"sharded_kernels: D {SHARD_D}, F {SHARD_F_TOTAL // SHARD_D} a shard, "
-                          "alltoall",
+                          + ("either mode" if kname == "wgl_chunk_init_sharded" else mode),
                  "launches_by_path": {k: v[count] for k, v in shard_paths.items()}}
-        if kname in shard_stats["allgather"]:
-            entry["allgather"] = summary(shard_stats["allgather"][kname])
-        if kname == "wgl_exchange":
-            entry[f"f_total_{SHARD_BIG_F_TOTAL}"] = exchange_big
-            entry["max_abs_err"] = max([entry["max_abs_err"]]
-                                       + [v["max_abs_err"] for v in exchange_big.values()])
+        # the parent design (two launches) and the prune without the reduce
+        for extra in ("parent_ms", "unsharded_ms"):
+            if r.get(extra) is not None:
+                entry[extra] = r[extra]
+        if kname in ("wgl_route", "wgl_exchange"):  # a whole level of its mode, captured
+            entry["level_device_launches"] = shard_stats["device_launches"][mode]
+        if kname in shard_stats[other]:
+            entry[other] = summary(shard_stats[other][kname])
+        for v in exchange_big.values():  # the route or the exchange at the largest rung
+            if v["kernel"] == kname:
+                entry[f"f_total_{SHARD_BIG_F_TOTAL}"] = v
+                entry["max_abs_err"] = max(entry["max_abs_err"], v["max_abs_err"])
+        if kname == "wgl_chunk_init_sharded":
+            entry["device_launches"] = shard_stats["device_launches"]["chunk_start"]
         kernels.append(entry)
     for kname, r in elle_main.items():
         kernels.append({

@@ -42,17 +42,16 @@ GF_ROWS = 128
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 # entry point -> argument types, in order (the C signatures).
 SIGNATURES = {
-    "wgl_chunk_init": [_P, _P, _I, _I, _P],
+    "wgl_chunk_init": [_P, _P, _P, _I, _I, _P],
     "wgl_expand": [_P] * 14 + [_I] * 10 + [_P],
     "wgl_stage1_hash": [_P] * 6 + [_I] * 6 + [_P],
     "wgl_take_col_sort": [_P, _L, _I, _I, _I] + [_P] * 5 + [_I, _I, _P, _P],
     "radix_sort_pairs": [_P] * 5 + [_I, _I, _P, _P],
-    "wgl_prune": [_P] * 6 + [_I] * 7 + [_P],
+    "wgl_prune": [_P] * 6 + [_I] * 10 + [_P],
     "wgl_gather_finalize": [_P] * 10 + [_I] * 10 + [_P],
     "wgl_regroup": [_P] * 11 + [_I] * 6 + [_P],
-    "wgl_route": [_P] * 4 + [_I] * 5 + [_P],
-    "wgl_exchange": [_P] * 5 + [_I] * 6 + [_P],
-    "wgl_shard_reduce": [_P] + [_I] * 5 + [_P],
+    "wgl_route": [_P] * 5 + [_I] * 6 + [_P],
+    "wgl_exchange": [_P] * 4 + [_I] * 3 + [_P],
     "elle_adjacency": [_P, _P, _P, _I, _I, _I, _P],
     "elle_square": [_P, _P, _I, _I, _P],
     "elle_labels_pack": [_P, _P, _P, _I, _I, _P],

@@ -49,10 +49,11 @@
 #define CTL_COUNT 12
 #define CTL_ND 13
 #define CTL_NO 14
-// Frontier-sharded levels only (wgl_shard_reduce writes them, replicated
-// to every shard's block): this level's global keep count and overflow,
-// and the sum, max and min over shards of the frontier counts the level
-// leaves (or the chunk starts with).
+// Frontier-sharded levels only (the cross-shard reduce in the last block
+// of k_prune, or of k_chunk_init at a chunk's start, writes them,
+// replicated to every shard's block): this level's global keep count and
+// overflow, and the sum, max and min over shards of the frontier counts
+// the level leaves (or the chunk starts with).
 #define CTL_GCOUNT 15
 #define CTL_GOVF 16
 #define CTL_NSUM 17
@@ -63,8 +64,7 @@
 // Exchange modes of a frontier-sharded level (0: not sharded).
 #define EX_ALLTOALL 1
 #define EX_ALLGATHER 2
-// Shards of one mesh: k_route keeps a per-warp count per destination in
-// shared memory.
+// Shards of one mesh (the ops wrapper's limit).
 #define MAX_SHARDS 256
 
 #define I32MAX 0x7FFFFFFF
@@ -119,6 +119,20 @@ __device__ __forceinline__ void st_release(u32* p, u32 v) {
   asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
+// atomicAdd(p, 1) with acq_rel semantics at device scope (atomicAdd is
+// relaxed): the ticket that tells a launch's last block that every other
+// block's writes before its ticket are visible to it.
+__device__ __forceinline__ u32 ticket_acq_rel(u32* p) {
+  u32 t;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;" : "=r"(t) : "l"(p) : "memory");
+  return t;
+}
+
+// A load from L2, never from a stale L1 line (ld.global.cg): the last
+// block's reads of the other shards' control blocks, after the ticket's
+// acquire. A plain load to the compiler, so a lane's loads issue together.
+__device__ __forceinline__ int ld_l2(const int* p) { return __ldcg(p); }
+
 // ---------------------------------------------------------------------------
 // Block-wide exclusive sum (blockDim.x a multiple of 32, at most 1024)
 
@@ -149,22 +163,162 @@ __device__ int block_excl_sum(int v, int* total) {
 }
 
 // ---------------------------------------------------------------------------
-// Chunk start: frontier count and the stop test (reference lines 830-843),
-// one block per member.
+// Cross-shard reductions of a frontier-sharded search (the reference's
+// pmax / psum / pmin over the mesh axis). The D shards of a mesh are the
+// members of one batch on one card, so a collective over them is a pass
+// over their D control blocks by the last block of a launch that spans
+// every shard: each block takes an acq_rel ticket after its own writes,
+// and the block that draws the last one runs the reduce on warp 0 (a
+// lane a shard, shuffles across the warp, the lanes looping when D > 32)
+// and writes the result to every shard's block. No block of that launch
+// reads the fields the reduce writes.
 
-__global__ void k_chunk_init(int* ctl, const unsigned char* valid, int F) {
+__device__ __forceinline__ int warp_sum(int x) {
+  for (int o = 16; o; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
+  return x;
+}
+
+__device__ __forceinline__ int warp_max(int x) {
+  for (int o = 16; o; o >>= 1) x = max(x, __shfl_xor_sync(FULL, x, o));
+  return x;
+}
+
+__device__ __forceinline__ int warp_min(int x) {
+  for (int o = 16; o; o >>= 1) x = min(x, __shfl_xor_sync(FULL, x, o));
+  return x;
+}
+
+// Rows shard s of D keeps: alltoall, its own owned rows; allgather, its
+// slice of the global order of `count` kept rows.
+__device__ __forceinline__ int shard_kept(int mode, int count_local, int count, int s, int F,
+                                          int D) {
+  if (mode == EX_ALLTOALL) return min(count_local, F);
+  return max(0, min(min(count, F * D) - s * F, F));
+}
+
+// Writes the sum, max and min of the shards' frontier counts `f` (lane
+// values, one a shard) to every shard; warp 0.
+__device__ __forceinline__ void put_counts(int* ctl, int D, int sum, int mx, int mn, int lane) {
+  sum = warp_sum(sum);
+  mx = warp_max(mx);
+  mn = warp_min(mn);
+  for (int s = lane; s < D; s += 32) {
+    int* c = ctl + (size_t)s * CTL_SIZE;
+    c[CTL_NSUM] = sum;
+    c[CTL_NMAX] = mx;
+    c[CTL_NMIN] = mn;
+  }
+}
+
+// At a chunk's start (reference lines 830-836): the shards' frontier
+// counts and the global stop test (shard 0's loop carry, which every shard
+// holds). All loads issue in one round.
+__device__ void chunk_reduce(int* ctl, int D) {
+  const int lane = threadIdx.x & 31;
+  const int acc = ld_l2(ctl + CTL_ACC), lossy = ld_l2(ctl + CTL_LOSSY),
+            ovf = ld_l2(ctl + CTL_OVF), stuck = ld_l2(ctl + CTL_STUCK),
+            lvl = ld_l2(ctl + CTL_LVL), maxlvl = ld_l2(ctl + CTL_MAXLVL);
+  int sum = 0, mx = 0, mn = I32MAX;
+  for (int s = lane; s < D; s += 32) {
+    const int f = ld_l2(ctl + (size_t)s * CTL_SIZE + CTL_FCOUNT);
+    sum += f;
+    mx = max(mx, f);
+    mn = min(mn, f);
+  }
+  const int nonempty = warp_sum(sum) > 0;
+  const bool go = !acc && (lossy || !ovf) && !stuck && nonempty && lvl < maxlvl;
+  for (int s = lane; s < D; s += 32) ctl[(size_t)s * CTL_SIZE + CTL_GO] = go ? 1 : 0;
+  put_counts(ctl, D, sum, mx, mn, lane);
+}
+
+// After the prune: acc_now (pmax, line 490), pre_ovf (pmax, line 612), the
+// keep count (psum under alltoall, line 697; shard 0's under allgather,
+// where every shard counts the same global rows) and its overflow, and the
+// frontier count each shard holds after the level (the finalize's stop
+// test reads their sum, the chunk's flags their sum, max and min: lines
+// 877-890). Nothing when shard 0 is stopped (every shard's go is the
+// same). A lane holds its shards' fields (at most MAX_SHARDS / 32), all
+// loaded in one round.
+__device__ void level_reduce(int* ctl, int D, int F, int P, int mode) {
+  constexpr int PER = MAX_SHARDS / 32;
+  const int lane = threadIdx.x & 31;
+  const int go0 = ld_l2(ctl + CTL_GO), lossy = ld_l2(ctl + CTL_LOSSY),
+            count0 = ld_l2(ctl + CTL_COUNT);
+  int cnt[PER], fc[PER];
+  bool acc = false, pre = false, big = false;
+  int csum = 0;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int s = lane + 32 * k;
+    cnt[k] = fc[k] = 0;
+    if (s < D) {
+      const int* c = ctl + (size_t)s * CTL_SIZE;
+      cnt[k] = ld_l2(c + CTL_COUNT);
+      fc[k] = ld_l2(c + CTL_FCOUNT);
+      acc = acc || ld_l2(c + CTL_ACCNOW) != 0;
+      pre = pre || ld_l2(c + CTL_ROWOVF) != 0 || ld_l2(c + CTL_NEXP) > P;
+      big = big || cnt[k] > F;
+      csum += cnt[k];
+    }
+  }
+  if (go0 == 0) return;  // uniform across the warp
+  // Every shuffle and vote runs on the whole warp before any branch.
+  const int a2a = mode == EX_ALLTOALL;
+  csum = warp_sum(csum);
+  const bool any_pre = __any_sync(FULL, pre), any_big = __any_sync(FULL, big);
+  const int accnow = __any_sync(FULL, acc) ? 1 : 0;
+  const int count = a2a ? csum : count0;
+  const bool ovf_now = any_pre || (a2a ? any_big : count > F * D);
+  const bool dead = (ovf_now && !lossy) || count == 0;
+  int sum = 0, mx = 0, mn = I32MAX;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int s = lane + 32 * k;
+    if (s < D) {
+      const int f = dead ? fc[k] : shard_kept(mode, cnt[k], count, s, F, D);
+      sum += f;
+      mx = max(mx, f);
+      mn = min(mn, f);
+    }
+  }
+  for (int s = lane; s < D; s += 32) {
+    int* c = ctl + (size_t)s * CTL_SIZE;
+    c[CTL_ACCNOW] = accnow;
+    c[CTL_GCOUNT] = count;
+    c[CTL_GOVF] = ovf_now ? 1 : 0;
+  }
+  put_counts(ctl, D, sum, mx, mn, lane);
+}
+
+// ---------------------------------------------------------------------------
+// Chunk start: frontier count and the stop test (reference lines 830-843),
+// one block per member. With `ticket` (one zero word, left zero) the
+// members are the D shards of one sharded search, and the last block by
+// the ticket, taken after thread 0 wrote the block's count, runs the
+// chunk-start reduce (chunk_reduce): one launch where the parent design
+// took two.
+
+__global__ void k_chunk_init(int* ctl, const unsigned char* valid, int F, u32* ticket) {
   const int b = blockIdx.x;
-  ctl += (size_t)b * CTL_SIZE;
+  int* c = ctl + (size_t)b * CTL_SIZE;
   valid += (size_t)b * F;
-  int c = 0;
-  for (int i = threadIdx.x; i < F; i += blockDim.x) c += valid[i] ? 1 : 0;
+  int n = 0;
+  for (int i = threadIdx.x; i < F; i += blockDim.x) n += valid[i] ? 1 : 0;
   int total;
-  block_excl_sum(c, &total);
+  block_excl_sum(n, &total);
+  __shared__ bool s_last;
   if (threadIdx.x == 0) {
-    ctl[CTL_FCOUNT] = total;
-    bool go = !ctl[CTL_ACC] && (ctl[CTL_LOSSY] || !ctl[CTL_OVF]) && !ctl[CTL_STUCK] &&
-              total > 0 && ctl[CTL_LVL] < ctl[CTL_MAXLVL];
-    ctl[CTL_GO] = go ? 1 : 0;
+    c[CTL_FCOUNT] = total;
+    bool go = !c[CTL_ACC] && (c[CTL_LOSSY] || !c[CTL_OVF]) && !c[CTL_STUCK] &&
+              total > 0 && c[CTL_LVL] < c[CTL_MAXLVL];
+    c[CTL_GO] = go ? 1 : 0;
+    if (ticket) s_last = ticket_acq_rel(ticket) == gridDim.x - 1;
+  }
+  if (ticket == nullptr) return;
+  __syncthreads();
+  if (s_last && threadIdx.x < 32) {
+    if (threadIdx.x == 0) *ticket = 0u;
+    chunk_reduce(ctl, gridDim.x);
   }
 }
 
@@ -835,6 +989,39 @@ __device__ __forceinline__ int warp_incl_sum(int x, int lane) {
   return x;
 }
 
+// Warp 0's look-back of a count: the sum of the counts of the tiles
+// before `tile`, on every lane. 32 * S1_LB_WORDS predecessors a round,
+// nearest first, until the nearest that holds its inclusive count; a word
+// of another epoch (an earlier call's) is not yet published.
+__device__ __forceinline__ int lb_sum_before(const unsigned long long* lb, int tile,
+                                             unsigned long long epoch, int lane) {
+  int pre = 0;
+  for (int t = tile - 1; t >= 0; t -= 32 * S1_LB_WORDS) {
+    u32 x[S1_LB_WORDS];
+#pragma unroll
+    for (int k = 0; k < S1_LB_WORDS; ++k) {
+      const int j = t - 32 * k - lane;
+      x[k] = j >= 0 ? lb_word(&lb[j], epoch) : LB_INCL;  // before tile 0: an inclusive zero
+    }
+    bool found = false;
+#pragma unroll
+    for (int k = 0; k < S1_LB_WORDS && !found; ++k) {
+      const int j = t - 32 * k - lane;
+      while (__any_sync(FULL, x[k] == 0u))
+        if (x[k] == 0u) x[k] = lb_word(&lb[j], epoch);
+      const u32 incl = __ballot_sync(FULL, (x[k] & LB_INCL) != 0u);
+      // the nearest tile with its inclusive count is the lowest such lane
+      const int upto = incl ? __ffs(incl) - 1 : 31;
+      int v = lane <= upto ? (int)(x[k] & LB_VALUE) : 0;
+      for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+      pre += v;
+      found = incl != 0u;
+    }
+    if (found) break;
+  }
+  return pre;
+}
+
 // The last of the call's blocks to be done with the look-back words (the
 // one whose done ticket is blocks - 1) resets the counters and moves the
 // epoch on, so no word needs zeroing between calls.
@@ -923,32 +1110,7 @@ k_stage1(const u32* __restrict__ rows, const unsigned char* __restrict__ nvalid,
   }
   u32 done_ticket = 0u;
   if (tid < 32) {
-    // 32 * S1_LB_WORDS predecessors a round, nearest first; a word of
-    // another epoch (an earlier call's) is not yet published.
-    int pre = 0;
-    for (int t = tile - 1; t >= 0; t -= 32 * S1_LB_WORDS) {
-      u32 x[S1_LB_WORDS];
-#pragma unroll
-      for (int k = 0; k < S1_LB_WORDS; ++k) {
-        const int j = t - 32 * k - lane;
-        x[k] = j >= 0 ? lb_word(&lb[j], epoch) : LB_INCL;  // before tile 0: an inclusive zero
-      }
-      bool found = false;
-#pragma unroll
-      for (int k = 0; k < S1_LB_WORDS && !found; ++k) {
-        const int j = t - 32 * k - lane;
-        while (__any_sync(FULL, x[k] == 0u))
-          if (x[k] == 0u) x[k] = lb_word(&lb[j], epoch);
-        const u32 incl = __ballot_sync(FULL, (x[k] & LB_INCL) != 0u);
-        // the nearest tile with its inclusive count is the lowest such lane
-        const int upto = incl ? __ffs(incl) - 1 : 31;
-        int v = lane <= upto ? (int)(x[k] & LB_VALUE) : 0;
-        for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-        pre += v;
-        found = incl != 0u;
-      }
-      if (found) break;
-    }
+    const int pre = lb_sum_before(lb, tile, epoch, lane);
     if (lane == 0) {
       if (tile > 0) lb_publish(&lb[tile], epoch | LB_INCL | (u32)(pre + count));
       s_off = pre;
@@ -1502,7 +1664,14 @@ k_sort_pass(u32* ka, u32* va, u32* kb, u32* vb, int n, u32* state, int tiles, in
 //   itself;
 // - the head's open words come from shared memory when the head is in the
 //   tile or the halo, else from device memory, once a tile;
-// - the keep count: one atomicAdd a block into ctl[CTL_COUNT].
+// - the keep count: one atomicAdd a block into ctl[CTL_COUNT];
+// - in a frontier-sharded level (SHARDED: the members are the D shards of
+//   one search) the launch also runs the cross-shard reduce that the
+//   parent design launched after it (level_reduce): each block takes its
+//   done ticket after its keep count is added, with an acq_rel add
+//   instead of the relaxed one taken early, and the block that draws the
+//   last ticket sees every shard's count. The single level's
+//   instantiation is the prune as it was: no ticket order, no reduce.
 
 #define PR_HALO 32  // rows before the tile a block reads: warp 0's
 
@@ -1513,9 +1682,11 @@ __host__ __device__ constexpr size_t pr_smem(int T, int NC, int KO1) {
   return 4 * ((size_t)(T + PR_HALO) * NC + (T + PR_HALO) + KO1) + (size_t)(T + PR_HALO);
 }
 
+template <bool SHARDED>
 __global__ void __launch_bounds__(1024)
 k_prune(const u32* __restrict__ drows, const u32* __restrict__ skey, const int* __restrict__ perm,
-        int* ctl, u32* __restrict__ fprio, u32* state, int L, int NC, int NID, int KO1, int PB) {
+        int* ctl, u32* __restrict__ fprio, u32* state, int L, int NC, int NID, int KO1, int PB,
+        int F, int P, int mode) {
   const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   // Slot s holds row i0 - PR_HALO + s: the halo in slots [0, PR_HALO).
   extern __shared__ __align__(16) u32 pr_buf[];
@@ -1525,8 +1696,20 @@ k_prune(const u32* __restrict__ drows, const u32* __restrict__ skey, const int* 
   unsigned char* sval = reinterpret_cast<unsigned char*>(shead + KO1);     // [T + PR_HALO]
   __shared__ int s_ticket, s_max[32], s_first[32], s_cont[32], s_carry;
   __shared__ u32 s_epoch;
+  __shared__ bool s_last;
   const int tiles = gridDim.x, blocks = gridDim.x * gridDim.y;
   u32* hdr = state;
+  // SHARDED: the done ticket, taken once the block's count is in; the
+  // last runs the reduce on warp 0.
+  auto done_last = [&]() {
+    if (tid == 0) {
+      const u32 t = ticket_acq_rel(&hdr[S1_DONE]);
+      s1_last(hdr, t, blocks);
+      s_last = t == (u32)(blocks - 1);
+    }
+    __syncthreads();
+    if (s_last && wid == 0) level_reduce(ctl, gridDim.y, F, P, mode);
+  };
   if (tid == 0) {
     s_ticket = (int)atomicAdd(&hdr[S1_CTR], 1u);
     s_epoch = hdr[S1_EPOCH];
@@ -1558,7 +1741,8 @@ k_prune(const u32* __restrict__ drows, const u32* __restrict__ skey, const int* 
   }
   const unsigned long long epoch = (unsigned long long)s_epoch << 32;
   if (go == 0) {
-    if (tid == 0) s1_last(hdr, atomicAdd(&hdr[S1_DONE], 1u), blocks);
+    if (SHARDED) done_last();
+    else if (tid == 0) s1_last(hdr, atomicAdd(&hdr[S1_DONE], 1u), blocks);
     return;
   }
   const int i0 = tile * T, i = i0 + tid;
@@ -1639,7 +1823,7 @@ k_prune(const u32* __restrict__ drows, const u32* __restrict__ skey, const int* 
     if (last >= 0) lb_publish(&lb[tile], epoch | LB_INCL | (u32)(last + 1));
     else if (hc != 0u || tile == 0) lb_publish(&lb[tile], epoch | LB_INCL | hc);
     else lb_publish(&lb[tile], epoch | LB_AGG);
-    if (!look) done_ticket = atomicAdd(&hdr[S1_DONE], 1u);
+    if (!SHARDED && !look) done_ticket = atomicAdd(&hdr[S1_DONE], 1u);
     s_carry = (int)hc;
   }
   if (wid == 0 && look) {
@@ -1671,7 +1855,7 @@ k_prune(const u32* __restrict__ drows, const u32* __restrict__ skey, const int* 
     }
     if (lane == 0) {
       if (last < 0) lb_publish(&lb[tile], epoch | LB_INCL | carry);
-      done_ticket = atomicAdd(&hdr[S1_DONE], 1u);
+      if (!SHARDED) done_ticket = atomicAdd(&hdr[S1_DONE], 1u);
       s_carry = (int)carry;
     }
     // The carried head's open words: it lies before the halo.
@@ -1699,10 +1883,9 @@ k_prune(const u32* __restrict__ drows, const u32* __restrict__ skey, const int* 
         ((keep ? 0u : 1u) << (PB + 6)) | ((maxp - me[0]) << 6) | (u32)min(opc, 63);
   }
   const int kept = __syncthreads_count(keep);
-  if (tid == 0) {
-    if (kept) atomicAdd(&ctl[(size_t)b * CTL_SIZE + CTL_COUNT], kept);
-    s1_last(hdr, done_ticket, blocks);
-  }
+  if (tid == 0 && kept) atomicAdd(&ctl[(size_t)b * CTL_SIZE + CTL_COUNT], kept);
+  if (SHARDED) done_last();
+  else if (tid == 0) s1_last(hdr, done_ticket, blocks);
 }
 
 // ---------------------------------------------------------------------------
@@ -1710,7 +1893,7 @@ k_prune(const u32* __restrict__ drows, const u32* __restrict__ skey, const int* 
 // carry update (lines 791-843), each member into its own frontier, control
 // block and stats ring. In a frontier-sharded level (`mode` EX_ALLTOALL or
 // EX_ALLGATHER) the members are the shards of one search, and the outcome
-// comes from the replicated fields wgl_shard_reduce wrote (reference lines
+// comes from the replicated fields the prune's reduce wrote (reference lines
 // 697-711 and 743-757): alltoall keeps the first min(count_local, F) rows
 // of the shard's own order, allgather the shard's slice [s*F, s*F + F) of
 // the global order, valid below min(count, F*D); no stats row is written
@@ -1750,14 +1933,6 @@ __device__ __forceinline__ void level_outcome(const int* ctl, int F, int P2, boo
   *stuck_now = (count == 0) && !(*ovf_now && !lossy);
   *dead = (*ovf_now && !lossy) || count == 0;
   *kept = min(count, F);
-}
-
-// Rows shard s of D keeps: alltoall, its own owned rows; allgather, its
-// slice of the global order of `count` kept rows.
-__device__ __forceinline__ int shard_kept(int mode, int count_local, int count, int s, int F,
-                                          int D) {
-  if (mode == EX_ALLTOALL) return min(count_local, F);
-  return max(0, min(min(count, F * D) - s * F, F));
 }
 
 __device__ __forceinline__ void sharded_outcome(const int* ctl, int s, int F, int D, int mode,
@@ -1820,14 +1995,6 @@ __device__ void finalize_member(int* ctl, int* stats, int s, int D, int F, int P
   ctl[CTL_ACCNOW] = 0;
   ctl[CTL_ROWOVF] = 0;
   ctl[CTL_COUNT] = 0;
-}
-
-// atomicAdd(p, 1) with acq_rel semantics at device scope (atomicAdd is
-// relaxed).
-__device__ __forceinline__ u32 ticket_acq_rel(u32* p) {
-  u32 t;
-  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;" : "=r"(t) : "l"(p) : "memory");
-  return t;
 }
 
 // Words [c0, c0 + w) of the block's nr staged rows to dst (w words a slot),
@@ -1904,116 +2071,283 @@ k_gather_finalize(const u32* __restrict__ drows, const int* __restrict__ perm, i
 }
 
 // ---------------------------------------------------------------------------
-// Frontier-sharded level: owner routing, exchange and cross-shard reduce.
-// Replaces the reference's sharded program, jepsen_tpu/parallel/frontier.py
-// `_sharded_kernel` (line 72), i.e. the `axis_name` arms of ops/wgl.py
-// `_build_kernel` (lines 490-493, 525-630, 697-757, 830-836, 877-890). The
-// D shards of a mesh are the members of one batch on one device, so each
-// collective becomes a kernel: `all_to_all`/`all_gather` a row copy between
-// the shards' buffers (k_exchange), `pmax`/`psum`/`pmin` a pass over the D
-// control blocks (k_shard_reduce). Shards run in one launch as blocks that
-// cannot wait for each other, so a reduction sits at a launch boundary
-// after the stage that wrote its inputs: one reduce a level, after the
-// prune, computes everything the rest of the level needs (acc_now,
-// pre_ovf, the global and per-shard counts, the next frontier sizes and
-// hence the global nonempty of the stop test). What bounds these kernels:
-// bytes (k_route and k_exchange copy each candidate row once) and, at
-// the main path's sizes, launch latency; each is one pass and one launch.
+// Frontier-sharded level: owner routing with the exchange, and the
+// allgather. Replaces the reference's sharded program,
+// jepsen_tpu/parallel/frontier.py `_sharded_kernel` (line 72), i.e. the
+// `axis_name` arms of ops/wgl.py `_build_kernel` (lines 490-493, 525-630,
+// 697-757, 830-836, 877-890). The D shards of a mesh are the members of
+// one batch on one device, so each collective becomes a kernel over the
+// shards' buffers: `all_to_all` is folded into the owner routing
+// (k_route), `all_gather` is a row copy (k_exchange), and
+// `pmax`/`psum`/`pmin` run in the last block of the launch before them
+// (k_prune, k_chunk_init; see "Cross-shard reductions" above).
 
-// Owner routing (reference lines 551-598), one block per shard over its P
-// stage-1 survivors in position order: owner = FNV(p, window mask, state)
-// mod D (unsigned), a stable partition by owner into fixed buckets of PBK
-// rows (send[d * PBK + j], j the row's rank among its owner's rows), the
-// bucket-overflow flag when an owner gets more than PBK rows, and empty
-// slots zeroed. Ranks: per chunk of 1024 rows, __match_any_sync inside a
-// warp and per-warp counts in shared memory across warps, added to the
-// rows routed by earlier chunks.
-__global__ void k_route(const u32* __restrict__ crows, int* ctl, u32* __restrict__ send,
-                        unsigned char* __restrict__ svalid, int P, int NC, int NID, int D,
-                        int PBK) {
-  const int b = blockIdx.x;
-  ctl += (size_t)b * CTL_SIZE;
-  if (stopped(ctl)) return;
-  crows += (size_t)b * P * NC;
-  send += (size_t)b * D * PBK * NC;
-  svalid += (size_t)b * D * PBK;
-  __shared__ int base[MAX_SHARDS];
-  __shared__ int wc[32 * MAX_SHARDS];
-  int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) base[d] = 0;
-  const int n = min(ctl[CTL_NEXP], P);
-  for (int c0 = 0; c0 < P; c0 += blockDim.x) {  // uniform across the block
-    for (int k = threadIdx.x; k < 32 * D; k += blockDim.x) wc[(k / D) * MAX_SHARDS + k % D] = 0;
-    __syncthreads();
-    int i = c0 + threadIdx.x;
-    int o = D;  // not routed
-    if (i < n) {
-      const u32* r = crows + (size_t)i * NC;
-      u32 gh = 2166136261u;
-      for (int k = 0; k < NID; ++k) gh = (gh ^ r[k]) * 16777619u;
-      o = (int)(gh % (u32)D);
-    }
-    u32 peers = __match_any_sync(FULL, (u32)o);
-    int rank = __popc(peers & lane_lt_mask(lane));
-    if (o < D && rank == 0) wc[w * MAX_SHARDS + o] = __popc(peers);
-    __syncthreads();
-    if (o < D) {
-      int j = base[o] + rank;
-      for (int v = 0; v < w; ++v) j += wc[v * MAX_SHARDS + o];
-      if (j < PBK) {
-        const u32* r = crows + (size_t)i * NC;
-        u32* dst = send + ((size_t)o * PBK + j) * NC;
-        for (int k = 0; k < NC; ++k) dst[k] = r[k];
-        svalid[(size_t)o * PBK + j] = 1;
-      }
-    }
-    __syncthreads();
-    for (int d = threadIdx.x; d < D; d += blockDim.x) {
-      int t = 0;
-      for (int v = 0; v < 32; ++v) t += wc[v * MAX_SHARDS + d];
-      base[d] += t;
-    }
-    __syncthreads();
-  }
-  for (int slot = threadIdx.x; slot < D * PBK; slot += blockDim.x) {
-    if (slot % PBK >= base[slot / PBK]) {
-      svalid[slot] = 0;
-      for (int k = 0; k < NC; ++k) send[(size_t)slot * NC + k] = 0u;
-    }
-  }
-  if (threadIdx.x == 0) {
-    bool over = false;
-    for (int d = 0; d < D; ++d) over = over || base[d] > PBK;
-    if (over) ctl[CTL_ROWOVF] = 1;
-  }
+// Owner routing and the alltoall exchange in one scatter (reference lines
+// 551-611): shard s's stage-1 rows i < n_s = min(n_cand of s, P), in
+// position order, each to its owner d = FNV(identity words) mod D
+// (unsigned) at drows[d][s * PBK + j], j its rank among s's rows owned by
+// d, with rvalid 1, when j < PBK; slots [count(s, d), PBK) are zeros with
+// rvalid 0; count(s, d) > PBK sets ctl[s][CTL_ROWOVF]. The TPU program
+// sorted each shard's rows by owner into send buckets and let the
+// collective move them; with every shard on one card each row is written
+// once, straight to its place in its owner's receive rows, so there is no
+// send buffer and no second copy (on several cards a send layout comes
+// back). A destination that is stopped is not written; a source that is
+// stopped sends nothing (its buckets are empty).
+//
+// What bounds it: each routed row is read and written once and each bucket
+// slot written once: about 0.14 us of HBM time at sharded_10k's 8 x 2048
+// stage-1 rows. What costs is latency, and the identity words that every
+// (s, d) block reads (each row's D times, from L2). The design:
+//
+// - a block owns destination d of source s over a tile of RT_THREADS * IPT
+//   rows (row i0 + k * RT_THREADS + tid for k < IPT); its (s, tile, d)
+//   comes from one ticket counter over the grid, so it only waits on
+//   blocks that took earlier tickets and run;
+// - one owner is tested a block, so a warp ranks its rows with one ballot a
+//   k and a popcount, not with __match_any_sync (whose cost grows with the
+//   distinct owners of a warp: ~0.56 us each on the H100); warp 0 scans
+//   the (k, warp) counts, which are in position order;
+// - a tile's offset in its bucket is carried across the tiles of (s, d) by
+//   stage 1's decoupled look-back (epoch-tagged 64-bit words keyed by (s,
+//   d, tile), a scratch that cleans itself);
+// - rows of at most RT_REG_WORDS words (RW, a template parameter: the
+//   north star's are 5) are read whole with the hash's loads and kept in
+//   registers; the thread that holds a selected row stores it at its rank
+//   (a warp's selected rows are one contiguous run), so the stores wait on
+//   no load. Wider rows: the selected rows' positions are listed in shared
+//   memory and their words copied into the bucket's run, consecutive
+//   threads storing consecutive words, four loads in flight a thread.
+//   Staging the whole tile in shared memory first, as the expand and the
+//   gather-finalize stage theirs, was slower on the H100 (PERF.md §6):
+//   only 1/D of the tile is stored;
+// - the bucket's end: the last tile of (s, d) knows its count, sets the
+//   overflow flag and zeroes the slots [count, min(PBK, RT_FILL)); the
+//   slots past RT_FILL (a bucket of the largest rungs) are zeroed by fill
+//   blocks, RT_FILL slots each, whose tickets follow the source's data
+//   blocks and which wait on the last tile's inclusive count (an earlier
+//   ticket: its block runs or has run).
+
+#define RT_THREADS 512
+#define RT_FILL 2048  // bucket slots a fill block zeroes
+#define RT_REG_WORDS 8  // rows at most this wide are kept in registers
+
+// Zeros with rvalid 0 in rows [a, b) of the run that starts at row r0.
+__device__ __forceinline__ void rt_zero(u32* __restrict__ drows, unsigned char* __restrict__ rvalid,
+                                        size_t r0, int a, int b, int NC) {
+  if (a >= b) return;
+  u32* dst = drows + (r0 + a) * NC;
+  for (int j = threadIdx.x; j < (b - a) * NC; j += RT_THREADS) dst[j] = 0u;
+  for (int r = a + threadIdx.x; r < b; r += RT_THREADS) rvalid[r0 + r] = 0;
 }
 
-// The exchange (reference lines 592-611): recv[d][s * Bk + j] = send[s][d *
-// dst_stride + j], j < Bk, for destination shard d and source shard s, with
-// dst_stride = PBK = Bk (tiled all_to_all) or 0 and Bk = P (tiled
-// all_gather). Received rows are in source order, as the tiled collectives
-// give them. Validity: svalid, or (all_gather of the stage-1 rows) j <
-// min(n_cand of s, P); invalid rows are written as zeros, so the received
-// buffers are the same on every run.
+template <int IPT, int RW>
+__global__ void __launch_bounds__(RT_THREADS)
+k_route(const u32* __restrict__ crows, int* ctl, u32* __restrict__ drows,
+        unsigned char* __restrict__ rvalid, u32* state, int P, int NC, int NID, int D, int PBK,
+        int tiles, int nfill) {
+  constexpr int T = IPT * RT_THREADS, NW = RT_THREADS / 32, E = IPT * NW;
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  __shared__ unsigned short s_list[T];
+  __shared__ int s_cnt[E];
+  __shared__ int s_ticket, s_count, s_off;
+  __shared__ u32 s_epoch;
+  const int per_s = (tiles + nfill) * D, blocks = gridDim.x;
+  u32* hdr = state;
+  if (tid == 0) {
+    s_ticket = (int)atomicAdd(&hdr[S1_CTR], 1u);
+    s_epoch = hdr[S1_EPOCH];
+  }
+  // A ticket's block: source s, then its data blocks (tile-major, then d),
+  // then its fill blocks (slice z >= 1, then d).
+  int s, d, tile, z;
+  auto role = [&](int t) {
+    s = t / per_s;
+    const int r = t - s * per_s;
+    if (r < tiles * D) {
+      tile = r / D;
+      d = r - tile * D;
+      z = 0;
+    } else {
+      z = 1 + (r - tiles * D) / D;
+      d = r - tiles * D - (z - 1) * D;
+      tile = tiles - 1;
+    }
+  };
+  // The control blocks and (a data block) the owners of the tile's rows,
+  // each warp's ballot a k and its count in shared memory. The rows past
+  // n_s are hashed too (whatever they hold) and masked: their loads need
+  // not wait for n_s.
+  int n = 0, go_d = 0, live = 0;
+  u32 ball[IPT];
+  u32 rw[IPT][RW > 0 ? RW : 1];  // RW: the thread's rows
+  const u32* src = nullptr;  // the tile's rows
+  auto load = [&]() {
+    const int* cs = ctl + (size_t)s * CTL_SIZE;
+    const int go_s = cs[CTL_GO];
+    go_d = ctl[(size_t)d * CTL_SIZE + CTL_GO];
+    n = go_s ? min(max(cs[CTL_NEXP], 0), P) : 0;
+    live = go_s || go_d;
+    if (z > 0) return;
+    src = crows + ((size_t)s * P + (size_t)tile * T) * NC;
+    u32 h[IPT];
+#pragma unroll
+    for (int k = 0; k < IPT; ++k) {
+      const int i = tile * T + k * RT_THREADS + tid;
+      const u32* r = src + (size_t)(k * RT_THREADS + tid) * NC;
+      if constexpr (RW > 0) {
+#pragma unroll
+        for (int c = 0; c < RW; ++c) rw[k][c] = i < P && c < NC ? r[c] : 0u;
+        u32 gh = 2166136261u;
+#pragma unroll
+        for (int c = 0; c < RW; ++c)
+          if (c < NID) gh = (gh ^ rw[k][c]) * 16777619u;
+        h[k] = gh;
+      } else {
+        h[k] = i < P ? fnv_row(r, NID) : 0u;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < IPT; ++k) {
+      const int i = tile * T + k * RT_THREADS + tid;
+      ball[k] = __ballot_sync(FULL, i < n && h[k] % (u32)D == (u32)d);
+      if (lane == 0) s_cnt[k * NW + wid] = __popc(ball[k]);
+    }
+  };
+  // Blocks start in blockIdx order, so the guess is most likely the
+  // ticket; it is loaded again only if the ticket names another block.
+  role(blockIdx.x);
+  load();
+  __syncthreads();
+  if (s_ticket != (int)blockIdx.x) {
+    role(s_ticket);
+    load();
+    __syncthreads();
+  }
+  const unsigned long long epoch = (unsigned long long)s_epoch << 32;
+  if (!live) {  // both shards stopped
+    if (tid == 0) s1_last(hdr, atomicAdd(&hdr[S1_DONE], 1u), blocks);
+    return;
+  }
+  const size_t r0 = ((size_t)d * D + s) * PBK;  // the bucket's first row in drows
+  unsigned long long* lb =
+      reinterpret_cast<unsigned long long*>(hdr + S1_HDR) + ((size_t)s * D + d) * tiles;
+  u32 done_ticket = 0u;
+  if (z > 0) {  // a fill block: the bucket's count from its last tile
+    if (tid == 0) {
+      u32 x;
+      do x = lb_word(&lb[tiles - 1], epoch);
+      while ((x & LB_INCL) == 0u);
+      s_count = (int)(x & LB_VALUE);
+      done_ticket = atomicAdd(&hdr[S1_DONE], 1u);
+    }
+    __syncthreads();
+    if (go_d) rt_zero(drows, rvalid, r0, max(s_count, z * RT_FILL), min(PBK, (z + 1) * RT_FILL), NC);
+    if (tid == 0) s1_last(hdr, done_ticket, blocks);
+    return;
+  }
+  // Warp 0 scans the (k, warp) counts (at most 64: two a lane) and
+  // publishes the tile's count before it looks back.
+  if (wid == 0) {
+    constexpr int PER = (E + 31) / 32;
+    int v[PER], own = 0;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int e = lane * PER + j;
+      v[j] = e < E ? s_cnt[e] : 0;
+      own += v[j];
+    }
+    const int incl = warp_incl_sum(own, lane);
+    int run = incl - own;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int e = lane * PER + j;
+      if (e < E) s_cnt[e] = run;
+      run += v[j];
+    }
+    const int count = __shfl_sync(FULL, incl, 31);
+    if (lane == 0) {
+      s_count = count;
+      lb_publish(&lb[tile], epoch | (tile == 0 ? LB_INCL : LB_AGG) | (u32)count);
+    }
+  }
+  __syncthreads();
+  if constexpr (RW == 0) {
+#pragma unroll
+    for (int k = 0; k < IPT; ++k)
+      if ((ball[k] >> lane) & 1u)
+        s_list[s_cnt[k * NW + wid] + __popc(ball[k] & lane_lt_mask(lane))] =
+            (unsigned short)(k * RT_THREADS + tid);
+  }
+  if (wid == 0) {
+    const int pre = lb_sum_before(lb, tile, epoch, lane);
+    if (lane == 0) {
+      if (tile > 0) lb_publish(&lb[tile], epoch | LB_INCL | (u32)(pre + s_count));
+      s_off = pre;
+      done_ticket = atomicAdd(&hdr[S1_DONE], 1u);
+    }
+  }
+  __syncthreads();
+  const int off = s_off, count = s_count;
+  if (go_d && RW > 0) {
+    u32* dst = drows + (r0 + off) * NC;
+#pragma unroll
+    for (int k = 0; k < IPT; ++k) {
+      const int j = s_cnt[k * NW + wid] + __popc(ball[k] & lane_lt_mask(lane));
+      if (((ball[k] >> lane) & 1u) && off + j < PBK) {
+#pragma unroll
+        for (int c = 0; c < (RW > 0 ? RW : 1); ++c)
+          if (c < NC) dst[(size_t)j * NC + c] = rw[k][c];
+        rvalid[r0 + off + j] = 1;
+      }
+    }
+  } else if (go_d) {
+    const int nw = max(0, min(count, PBK - off)) * NC;
+    u32* dst = drows + (r0 + off) * NC;
+    for (int j0 = 0; j0 < nw; j0 += 4 * RT_THREADS) {
+      u32 w[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int j = j0 + u * RT_THREADS + tid;
+        if (j < nw) {
+          const int r = j / NC;
+          w[u] = src[(size_t)s_list[r] * NC + (j - r * NC)];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int j = j0 + u * RT_THREADS + tid;
+        if (j < nw) dst[j] = w[u];
+      }
+    }
+    for (int r = tid; r * NC < nw; r += RT_THREADS) rvalid[r0 + off + r] = 1;
+  }
+  if (tile == tiles - 1) {  // the bucket's end
+    const int total = off + count;
+    if (tid == 0 && total > PBK) ctl[(size_t)s * CTL_SIZE + CTL_ROWOVF] = 1;
+    if (go_d) rt_zero(drows, rvalid, r0, total, min(PBK, RT_FILL), NC);
+  }
+  if (tid == 0) s1_last(hdr, done_ticket, blocks);
+}
+
+// The tiled all_gather of the stage-1 rows (reference lines 592-611):
+// recv[d][s * P + j] = send[s][j], valid below min(n_cand of s, P), for
+// destination shard d and source shard s; invalid rows are written as
+// zeros, so the received buffers are the same on every run. Received rows
+// are in source order, as the tiled collective gives them.
 //
-// Each (d, s) pair is one contiguous run of Bk * NC words in both buffers,
+// Each (d, s) pair is one contiguous run of P * NC words in both buffers,
 // so the exchange is D^2 block copies: a block moves EX_WORDS words of one
 // run (grid x: the chunk, y: s, z: d), a thread one 16-byte vector aligned
 // to the destination, with a scalar head and tail where the run does not
-// start on 16 bytes (PBK * NC need not be a multiple of 4), and a vector
+// start on 16 bytes (P * NC need not be a multiple of 4), and a vector
 // load too where the source has the same alignment. Bound by bytes: each
-// row is read once (the all_gather's sources from L2 after the first) and
-// written once; at the main path's sizes a call is a few microseconds of
-// latency, so a thread issues its row, its validity and the stop test at
-// once and waits a single round trip.
+// row is read once (from L2 after the first destination) and written once;
+// at the main path's sizes a call is a few microseconds of latency, so a
+// thread issues its row and the stop test at once and waits a single
+// round trip.
 #define EX_THREADS 256
 #define EX_WORDS (EX_THREADS * 4)  // a 16-byte group a thread
-
-// Whether word w of the run is a valid row's: its row's svalid byte, or
-// (svalid null) w below the all_gather's valid prefix of vw words.
-__device__ __forceinline__ bool ex_valid(const unsigned char* sv, int vw, int w, int NC) {
-  return sv ? sv[w / NC] != 0 : w < vw;
-}
 
 // Loads the compiler keeps where they are written (volatile asm is not
 // moved past another): k_exchange issues its row before it tests the stop.
@@ -2031,26 +2365,17 @@ __device__ __forceinline__ int ld_now(const int* p) {
   return v;
 }
 
-__device__ __forceinline__ bool ld_flag_now(const unsigned char* p) {
-  u32 v;
-  asm volatile("ld.global.u8 %0, [%1];" : "=r"(v) : "l"(p));
-  return v != 0;
-}
-
 __global__ void __launch_bounds__(EX_THREADS)
-k_exchange(const u32* __restrict__ send, const unsigned char* __restrict__ svalid,
-           const int* ctl, u32* __restrict__ recv, unsigned char* __restrict__ rvalid, int SR,
-           int Bk, int dst_stride, int NC, int P) {
+k_exchange(const u32* __restrict__ send, const int* ctl, u32* __restrict__ recv,
+           unsigned char* __restrict__ rvalid, int P, int NC) {
   const int s = blockIdx.y, d = blockIdx.z;
-  const int RW = Bk * NC;  // words of the run
+  const int RW = P * NC;  // words of the run
   const int c0 = blockIdx.x * EX_WORDS;
   if (c0 >= RW) return;
   const int c1 = min(RW, c0 + EX_WORDS);
-  const size_t srow = (size_t)s * SR + (size_t)d * dst_stride;
-  const size_t drow = ((size_t)d * gridDim.y + s) * Bk;
-  const u32* a = send + srow * NC;
+  const size_t drow = ((size_t)d * gridDim.y + s) * P;
+  const u32* a = send + (size_t)s * P * NC;
   u32* o = recv + drow * NC;
-  const unsigned char* sv = svalid ? svalid + srow : nullptr;
   // The destination's 16-byte groups inside [c0, c1), a scalar head and tail.
   const int g0 = min(c1, c0 + (int)((4 - (((uintptr_t)(o + c0) >> 2) & 3)) & 3));
   const int ng = (c1 - g0) >> 2;
@@ -2060,12 +2385,8 @@ k_exchange(const u32* __restrict__ send, const unsigned char* __restrict__ svali
   // The loads go out together: the stop test and the source's n_cand do
   // not hold up the row's (a stopped destination's are just not stored).
   const bool stop = ctl != nullptr && ld_now(ctl + (size_t)d * CTL_SIZE + CTL_GO) == 0;
-  const int ncand = sv ? 0 : ld_now(ctl + (size_t)s * CTL_SIZE + CTL_NEXP);
+  const int ncand = ld_now(ctl + (size_t)s * CTL_SIZE + CTL_NEXP);
   uint4 x = make_uint4(0u, 0u, 0u, 0u);
-  // The group's words lie in row r (from word e of it) and, past its end,
-  // row r + 1 (NC >= 3: four words span at most two rows); their validity.
-  const int r = w / NC, e = w - r * NC;
-  bool v0 = true, v1 = true;
   if (t < ng) {
     if ((((uintptr_t)(a + g0)) & 15) == 0) {
       x = ld_v4_now(a + w);
@@ -2075,89 +2396,22 @@ k_exchange(const u32* __restrict__ send, const unsigned char* __restrict__ svali
       x.z = a[w + 2];
       x.w = a[w + 3];
     }
-    if (sv) {
-      v0 = ld_flag_now(sv + r);
-      if (e + 3 >= NC) v1 = ld_flag_now(sv + r + 1);
-    }
   }
   if (stop) return;
-  const int vw = sv ? 0 : max(0, min(ncand, P)) * NC;
-  if (t < g0 - c0) o[c0 + t] = ex_valid(sv, vw, c0 + t, NC) ? a[c0 + t] : 0u;
-  if (t < c1 - g1) o[g1 + t] = ex_valid(sv, vw, g1 + t, NC) ? a[g1 + t] : 0u;
+  // The valid prefix ends on a row boundary, so a word's test is its row's.
+  const int vw = max(0, min(ncand, P)) * NC;
+  if (t < g0 - c0) o[c0 + t] = c0 + t < vw ? a[c0 + t] : 0u;
+  if (t < c1 - g1) o[g1 + t] = g1 + t < vw ? a[g1 + t] : 0u;
   if (t < ng) {
-    if (!sv) {
-      v0 = w < vw;  // the valid prefix ends on a row boundary
-      v1 = w + 3 < vw;
-    }
-    x.x = (e < NC ? v0 : v1) ? x.x : 0u;
-    x.y = (e + 1 < NC ? v0 : v1) ? x.y : 0u;
-    x.z = (e + 2 < NC ? v0 : v1) ? x.z : 0u;
-    x.w = (e + 3 < NC ? v0 : v1) ? x.w : 0u;
+    x.x = w < vw ? x.x : 0u;
+    x.y = w + 1 < vw ? x.y : 0u;
+    x.z = w + 2 < vw ? x.z : 0u;
+    x.w = w + 3 < vw ? x.w : 0u;
     *reinterpret_cast<uint4*>(o + w) = x;
   }
   // The validity bytes of the rows whose first word is in [c0, c1).
   for (int r = (c0 + NC - 1) / NC + t; r * NC < c1; r += EX_THREADS)
-    rvalid[drow + r] = ex_valid(sv, vw, r * NC, NC) ? 1 : 0;
-}
-
-// The cross-shard reductions over the D control blocks, one thread (D is
-// a mesh's shard count). stage 0, at a chunk's start (reference lines
-// 830-836): the global nonempty and the stop test. stage 1, after the
-// prune: acc_now (pmax, line 490), pre_ovf (pmax, line 612), the keep
-// count (psum under alltoall, line 697; already replicated under
-// allgather) and its overflow, and the frontier count each shard will
-// hold after the level (the finalize's stop test reads their sum, the
-// chunk's flags their sum, max and min: lines 877-890). The results go
-// to every shard's block.
-__global__ void k_shard_reduce(int* ctl, int D, int F, int P, int mode, int stage) {
-  if (threadIdx.x != 0) return;
-  int sum = 0, mx = 0, mn = I32MAX;
-  if (stage == 0) {
-    for (int s = 0; s < D; ++s) {
-      int f = ctl[(size_t)s * CTL_SIZE + CTL_FCOUNT];
-      sum += f;
-      mx = max(mx, f);
-      mn = min(mn, f);
-    }
-    bool go = !ctl[CTL_ACC] && (ctl[CTL_LOSSY] || !ctl[CTL_OVF]) && !ctl[CTL_STUCK] && sum > 0 &&
-              ctl[CTL_LVL] < ctl[CTL_MAXLVL];
-    for (int s = 0; s < D; ++s) {
-      int* c = ctl + (size_t)s * CTL_SIZE;
-      c[CTL_NSUM] = sum;
-      c[CTL_NMAX] = mx;
-      c[CTL_NMIN] = mn;
-      c[CTL_GO] = go ? 1 : 0;
-    }
-    return;
-  }
-  if (stopped(ctl)) return;  // every shard's go is the same
-  int acc = 0, pre = 0, csum = 0, cbig = 0;
-  for (int s = 0; s < D; ++s) {
-    const int* c = ctl + (size_t)s * CTL_SIZE;
-    acc |= c[CTL_ACCNOW] != 0;
-    pre |= c[CTL_ROWOVF] != 0 || c[CTL_NEXP] > P;
-    csum += c[CTL_COUNT];
-    cbig |= c[CTL_COUNT] > F;
-  }
-  int count = (mode == EX_ALLTOALL) ? csum : ctl[CTL_COUNT];
-  bool ovf_now = pre || ((mode == EX_ALLTOALL) ? cbig != 0 : count > F * D);
-  bool dead = (ovf_now && !ctl[CTL_LOSSY]) || count == 0;
-  for (int s = 0; s < D; ++s) {
-    const int* c = ctl + (size_t)s * CTL_SIZE;
-    int f = dead ? c[CTL_FCOUNT] : shard_kept(mode, c[CTL_COUNT], count, s, F, D);
-    sum += f;
-    mx = max(mx, f);
-    mn = min(mn, f);
-  }
-  for (int s = 0; s < D; ++s) {
-    int* c = ctl + (size_t)s * CTL_SIZE;
-    c[CTL_ACCNOW] = acc;
-    c[CTL_GCOUNT] = count;
-    c[CTL_GOVF] = ovf_now ? 1 : 0;
-    c[CTL_NSUM] = sum;
-    c[CTL_NMAX] = mx;
-    c[CTL_NMIN] = mn;
-  }
+    rvalid[drow + r] = r * NC < vw ? 1 : 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -2282,12 +2536,34 @@ static int sort_pairs(void* keys, void* vals, void* tmp_k, void* tmp_v, void* st
   return (int)cudaGetLastError();
 }
 
+// One k_prune<SHARDED> launch, its dynamic shared memory allowed past
+// 48 KB when the tile's rows need it.
+template <bool SHARDED>
+static int prune_launch(dim3 grid, int tile, size_t smem, cudaStream_t s, void* drows,
+                        void* skey, void* perm, void* ctl, void* fprio, void* state, int L, int NC,
+                        int NID, int KO1, int PB, int F, int P, int mode) {
+  static size_t sized = 48 * 1024;
+  if (smem > sized) {
+    cudaError_t e = cudaFuncSetAttribute(k_prune<SHARDED>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    sized = smem;
+  }
+  k_prune<SHARDED><<<grid, tile, smem, s>>>((const u32*)drows, (const u32*)skey,
+                                            (const int*)perm, (int*)ctl, (u32*)fprio,
+                                            (u32*)state, L, NC, NID, KO1, PB, F, P, mode);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 const char* wgl_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-int wgl_chunk_init(void* ctl, void* valid, int F, int nb, void* stream) {
-  k_chunk_init<<<nb, 1024, 0, (cudaStream_t)stream>>>((int*)ctl, (const unsigned char*)valid, F);
+// ticket: null, or for the nb shards of one sharded search one word,
+// zero before the call (each call leaves it so).
+int wgl_chunk_init(void* ctl, void* valid, void* ticket, int F, int nb, void* stream) {
+  k_chunk_init<<<nb, 1024, 0, (cudaStream_t)stream>>>((int*)ctl, (const unsigned char*)valid, F,
+                                                       (u32*)ticket);
   return (int)cudaGetLastError();
 }
 
@@ -2367,24 +2643,24 @@ int wgl_take_col_sort(void* src, long src_member, int stride, int col, int ident
 
 // state: 4 + 2 * nb * ceil(L / tile) words, zero before its first call
 // (each call leaves its counters zero and its epoch one higher); tile: rows
-// a block, a multiple of 32 up to 1024; L below 2^30.
+// a block, a multiple of 32 up to 1024; L below 2^30. mode: 0, or
+// EX_ALLTOALL / EX_ALLGATHER for the nb shards of one sharded search at
+// capacity F a shard and P stage-1 rows (the launch then also runs the
+// cross-shard reduce).
 int wgl_prune(void* drows, void* skey, void* perm, void* ctl, void* fprio, void* state, int L,
-              int NC, int NID, int KO1, int PB, int nb, int tile, void* stream) {
+              int NC, int NID, int KO1, int PB, int F, int P, int mode, int nb, int tile,
+              void* stream) {
   if (L <= 0 || L >= (1 << 30) - 1 || nb <= 0 || state == nullptr || tile < 32 || tile > 1024 ||
-      (tile & 31) || (long)nb * nblk(L, tile) >= (1L << 31))
+      (tile & 31) || (long)nb * nblk(L, tile) >= (1L << 31) || mode < 0 || mode > EX_ALLGATHER)
     return (int)cudaErrorInvalidValue;
   const size_t smem = pr_smem(tile, NC, KO1);
-  static size_t sized = 48 * 1024;
-  if (smem > sized) {
-    cudaError_t e =
-        cudaFuncSetAttribute(k_prune, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    sized = smem;
-  }
-  k_prune<<<dim3(nblk(L, tile), nb), tile, smem, (cudaStream_t)stream>>>(
-      (const u32*)drows, (const u32*)skey, (const int*)perm, (int*)ctl, (u32*)fprio,
-      (u32*)state, L, NC, NID, KO1, PB);
-  return (int)cudaGetLastError();
+  const dim3 grid(nblk(L, tile), nb);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (mode)
+    return prune_launch<true>(grid, tile, smem, s, drows, skey, perm, ctl, fprio, state, L, NC,
+                              NID, KO1, PB, F, P, mode);
+  return prune_launch<false>(grid, tile, smem, s, drows, skey, perm, ctl, fprio, state, L, NC,
+                             NID, KO1, PB, F, P, mode);
 }
 
 // mode: 0, or EX_ALLTOALL / EX_ALLGATHER for the nb shards of one sharded
@@ -2411,28 +2687,49 @@ int wgl_gather_finalize(void* drows, void* perm, void* ctl, void* stats, void* p
   return (int)cudaGetLastError();
 }
 
-// crows [D, P, NC] stage-1 rows; send [D, D * PBK, NC]; svalid [D, D * PBK].
-int wgl_route(void* crows, void* ctl, void* send, void* svalid, int P, int NC, int NID, int D,
-              int PBK, void* stream) {
-  if (D < 1 || D > MAX_SHARDS) return (int)cudaErrorInvalidValue;
-  k_route<<<D, 1024, 0, (cudaStream_t)stream>>>((const u32*)crows, (int*)ctl, (u32*)send,
-                                                (unsigned char*)svalid, P, NC, NID, D, PBK);
+// crows [D, P, NC] stage-1 rows; drows [D, D * PBK, NC] and rvalid [D, D *
+// PBK] the received rows; state: 4 + 2 * D * D * ceil(P / tile) words,
+// zero before its first call (each call leaves its counters zero and its
+// epoch one higher); tile: RT_THREADS times 1, 2 or 4 rows.
+int wgl_route(void* crows, void* ctl, void* drows, void* rvalid, void* state, int P, int NC,
+              int NID, int D, int PBK, int tile, void* stream) {
+  if (D < 1 || D > MAX_SHARDS || P <= 0 || P >= (1 << 30) || PBK <= 0 || state == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = nblk(P, tile), nfill = (PBK - 1) / RT_FILL;
+  const long blocks = (long)D * D * (tiles + nfill);
+  if (blocks >= (1L << 31)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const u32* c = (const u32*)crows;
+  switch (tile) {
+#define RT_LAUNCH(IPT, RW)                                                                  \
+  k_route<IPT, RW><<<(unsigned)blocks, RT_THREADS, 0, s>>>(c, (int*)ctl, (u32*)drows,       \
+                                                           (unsigned char*)rvalid,          \
+                                                           (u32*)state, P, NC, NID, D, PBK, \
+                                                           tiles, nfill)
+#define RT_CASE(IPT)                    \
+  case IPT * RT_THREADS:                \
+    if (NC <= RT_REG_WORDS)             \
+      RT_LAUNCH(IPT, RT_REG_WORDS);     \
+    else                                \
+      RT_LAUNCH(IPT, 0);                \
+    break;
+    RT_CASE(1)
+    RT_CASE(2)
+    RT_CASE(4)
+#undef RT_CASE
+#undef RT_LAUNCH
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
-// send [D, SR, NC] (svalid [D, SR] or null: validity from each source's
-// n_cand and P); recv [D, D * Bk, NC], rvalid [D, D * Bk].
-int wgl_exchange(void* send, void* svalid, void* ctl, void* recv, void* rvalid, int SR, int Bk,
-                 int dst_stride, int NC, int P, int D, void* stream) {
-  if (D < 1 || D > MAX_SHARDS) return (int)cudaErrorInvalidValue;
-  k_exchange<<<dim3(nblk((long)Bk * NC, EX_WORDS), D, D), EX_THREADS, 0, (cudaStream_t)stream>>>(
-      (const u32*)send, (const unsigned char*)svalid, (const int*)ctl, (u32*)recv,
-      (unsigned char*)rvalid, SR, Bk, dst_stride, NC, P);
-  return (int)cudaGetLastError();
-}
-
-int wgl_shard_reduce(void* ctl, int D, int F, int P, int mode, int stage, void* stream) {
-  k_shard_reduce<<<1, 32, 0, (cudaStream_t)stream>>>((int*)ctl, D, F, P, mode, stage);
+// The allgather: send [D, P, NC] the stage-1 rows, valid below each
+// source's n_cand and P; recv [D, D * P, NC], rvalid [D, D * P].
+int wgl_exchange(void* send, void* ctl, void* recv, void* rvalid, int P, int NC, int D,
+                 void* stream) {
+  if (D < 1 || D > MAX_SHARDS || P <= 0) return (int)cudaErrorInvalidValue;
+  k_exchange<<<dim3(nblk((long)P * NC, EX_WORDS), D, D), EX_THREADS, 0, (cudaStream_t)stream>>>(
+      (const u32*)send, (const int*)ctl, (u32*)recv, (unsigned char*)rvalid, P, NC);
   return (int)cudaGetLastError();
 }
 

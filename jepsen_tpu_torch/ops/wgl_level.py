@@ -34,23 +34,27 @@ stage                   what it computes
                         lossless restore, flags, stats row, stop test: one
                         launch (see :func:`gather_scratch`)
 ``chunk_init``          frontier count and stop test at a chunk's start
+                        (sharded: and the cross-shard reduce, in its last
+                        block)
 ``regroup``             row-gather of members' frontiers, zero-padded to a
                         larger capacity
-``route``               sharded level: owner hash, stable partition of a
-                        shard's stage-1 rows into per-destination buckets
-``exchange``            sharded level: the all_to_all / all_gather of the
-                        candidate rows between the shards' buffers
+``route``               sharded level (alltoall): owner hash and one
+                        scatter of each shard's stage-1 rows straight into
+                        their owners' receive rows (the all_to_all folded
+                        in; see :func:`route_scratch`)
+``exchange``            sharded level (allgather): the all_gather of the
+                        stage-1 rows between the shards' buffers
 ``hash_rows``           sharded level: FNV group hash and fused key of the
                         exchanged rows
-``shard_reduce``        sharded level: the cross-shard pmax / psum / pmin
-                        over the shards' control blocks
 ======================  ====================================================
 
 A frontier-sharded search (the reference's ``parallel/frontier.py``) is a
 batch whose members are the D shards of one search on one device: the
 buffers are shard-major, every stage above runs unchanged at the
-exchanged row count ``L``, and the four sharded stages stand where the
-reference's collectives were (see :func:`_sharded_level_stages`).
+exchanged row count ``L``, the route or the exchange and the hash stand
+where the reference's collectives were, and its cross-shard reductions
+(pmax / psum / pmin) run in the last block of the prune and of the chunk
+start (see :func:`_sharded_level_stages`).
 
 Every buffer is member-major: ``[nb, ...]``, one row per member, and the
 single-history search is the batch of one. The wrappers take the batched
@@ -93,16 +97,17 @@ LEVEL_STAT_ROWS = 512
 (CTL_LVL, CTL_ACC, CTL_OVF, CTL_FMAX, CTL_STUCK, CTL_MAXLVL, CTL_LOSSY,
  CTL_GO, CTL_FCOUNT, CTL_NEXP, CTL_ACCNOW, CTL_ROWOVF, CTL_COUNT, CTL_ND,
  CTL_NO) = range(15)
-# Sharded levels only, written to every shard by ``shard_reduce``: the
-# level's global keep count and overflow, and the sum, max and min over
-# shards of the frontier counts after the level (or at a chunk's start).
+# Sharded levels only, written to every shard by the cross-shard reduce
+# (the prune's, or the chunk start's): the level's global keep count and
+# overflow, and the sum, max and min over shards of the frontier counts
+# after the level (or at a chunk's start).
 CTL_GCOUNT, CTL_GOVF, CTL_NSUM, CTL_NMAX, CTL_NMIN = range(15, 20)
 CTL_SIZE = 20
 # A member is a grid coordinate (blockIdx.y) of the batched launches.
 MAX_MEMBERS = 65535
 # The widest window the expand kernel holds (the planner's window cap).
 EXPAND_MAX_W = 1024
-# Shards of one mesh (``k_route`` counts per destination in shared memory).
+# Shards of one mesh.
 MAX_SHARDS = 256
 EXCHANGES = ("alltoall", "allgather")
 _EX_MODE = {None: 0, "alltoall": 1, "allgather": 2}  # EX_* in the kernels
@@ -112,7 +117,7 @@ _EX_MODE = {None: 0, "alltoall": 1, "allgather": 2}  # EX_* in the kernels
 LAUNCHES = {name: 0 for name in (
     "wgl_chunk_init", "wgl_expand", "wgl_stage1_hash", "wgl_take_col_sort",
     "radix_sort_pairs", "wgl_prune", "wgl_gather_finalize", "wgl_regroup", "wgl_route",
-    "wgl_exchange", "wgl_shard_reduce")}
+    "wgl_exchange")}
 
 
 def reset_launches() -> None:
@@ -310,8 +315,43 @@ def prune_tile(L: int, nb: int, NC: int, KO1: int, device) -> int:
 def gather_scratch(nb: int, device) -> torch.Tensor:
     """Scratch of :func:`gather_finalize` for ``nb`` members: one ticket
     counter a member, zero (each call leaves it zero: the member's last
-    block resets its counter when it runs the finalize)."""
+    block resets its counter when it runs the finalize). A sharded
+    search's :func:`chunk_init` takes its ticket from the first word (and
+    leaves it zero too)."""
     return torch.zeros(nb, dtype=torch.int32, device=device)
+
+
+# Rows of one route tile (``RT_THREADS`` times 1, 2 or 4 rows a thread):
+# :func:`route_tile` picks one per call, all on one scratch from
+# :func:`route_scratch`.
+ROUTE_TILES = (512, 1024, 2048)
+# Bucket slots a fill block of the route zeroes (csrc ``RT_FILL``).
+ROUTE_FILL = 2048
+
+
+def route_scratch(g: Geometry, device) -> torch.Tensor:
+    """Scratch of :func:`route` for a sharded geometry, for the smallest
+    tile of :data:`ROUTE_TILES`: the stage-1 scratch's layout (a header
+    with the call epoch and the ticket and done counters, then a 64-bit
+    look-back word for each tile of each (source, destination) pair).
+    Zeroed here; every call leaves both counters zero and the epoch one
+    higher, so one scratch serves calls of any shape."""
+    return torch.zeros((_route_words(g.P, g.D, min(ROUTE_TILES)),), dtype=torch.int32,
+                       device=device)
+
+
+def _route_words(P: int, D: int, tile: int) -> int:
+    return STAGE1_HDR + 2 * D * D * _nblk(P, tile)
+
+
+def route_tile(P: int, D: int, device) -> int:
+    """The route tile of a call over D shards of ``P`` stage-1 rows: the
+    smallest of :data:`ROUTE_TILES` whose D * D tiles of data blocks are at
+    most one block an SM, or the largest (sharded_10k's 8 x 2048 rows take
+    1024, f_total 262144's 8 x 131072 rows 2048: the fastest of each in
+    ``chip_smoke.py``'s timings on the H100, PERF.md)."""
+    blocks = _sm_count(torch.device(device))
+    return next((t for t in ROUTE_TILES if D * D * _nblk(P, t) <= blocks), ROUTE_TILES[-1])
 
 
 def sort_path(scratch: tuple) -> str:
@@ -330,15 +370,12 @@ class BatchWorkspace:
         self.rows = torch.zeros((nb, g.M, g.NC), dtype=i32, device=device)
         self.nvalid = torch.zeros((nb, g.M), dtype=u8, device=device)
         if g.exchange:
-            # stage-1 rows, the send buckets, the exchanged rows (drows)
+            # stage-1 rows, the exchanged rows (drows), the route's
+            # look-back state (zero between calls)
             self.crows = torch.zeros((nb, g.P, g.NC), dtype=i32, device=device)
-            sr = g.D * g.PBK
-            self.send = (torch.zeros((nb, sr, g.NC), dtype=i32, device=device)
-                         if g.exchange == "alltoall" else None)
-            self.svalid = (torch.zeros((nb, sr), dtype=u8, device=device)
-                           if g.exchange == "alltoall" else None)
             self.drows = torch.zeros((nb, L, g.NC), dtype=i32, device=device)
             self.rvalid = torch.zeros((nb, L), dtype=u8, device=device)
+            self.rt = route_scratch(g, device) if g.exchange == "alltoall" else None
         else:
             self.drows = (torch.zeros((nb, g.P, g.NC), dtype=i32, device=device)
                           if g.two_stage else self.rows)
@@ -564,11 +601,11 @@ def hash_rows_reference(g: Geometry, drows: torch.Tensor, rvalid: torch.Tensor,
 
 def route_reference(g: Geometry, crows: torch.Tensor, ctl: torch.Tensor,
                     send: torch.Tensor, svalid: torch.Tensor) -> None:
-    """Plain version of ``wgl_route`` for one shard, a restatement of the
-    reference's owner routing (``ops/wgl.py:551-590``): owner = FNV of the
-    identity columns mod D, a stable (owner, position) order, fixed buckets
-    of ``PBK`` rows, the bucket overflow into the row-overflow flag. Empty
-    slots are zeros."""
+    """One shard's owner routing into send buckets, a restatement of the
+    reference's (``ops/wgl.py:551-590``): owner = FNV of the identity
+    columns mod D, a stable (owner, position) order, fixed buckets of
+    ``PBK`` rows, the bucket overflow into the row-overflow flag. Empty
+    slots are zeros. The first half of :func:`route_plain`."""
     if not _go(ctl):
         return
     D, P, PBK = g.D, g.P, g.PBK
@@ -590,12 +627,15 @@ def route_reference(g: Geometry, crows: torch.Tensor, ctl: torch.Tensor,
     svalid.copy_(bvalid)
 
 
-def exchange_plain(g: Geometry, send: torch.Tensor, svalid: Optional[torch.Tensor],
-                   ctl: torch.Tensor, recv: torch.Tensor, rvalid: torch.Tensor) -> None:
-    """Plain version of ``wgl_exchange`` over all D shards (reference
-    ``ops/wgl.py:592-611``): alltoall ``recv[d][s*PBK + j] = send[s][d*PBK +
-    j]``, allgather ``recv[d][s*P + j] = send[s][j]`` (the stage-1 rows,
-    valid below each source's ``min(n_cand, P)``). Invalid rows are zeros."""
+def collective_plain(g: Geometry, send: torch.Tensor, svalid: Optional[torch.Tensor],
+                     ctl: torch.Tensor, recv: torch.Tensor, rvalid: torch.Tensor) -> None:
+    """The reference's tiled collectives between the D shards' buffers
+    (``ops/wgl.py:592-611``): alltoall (``svalid``: the send buckets'
+    validity) ``recv[d][s*PBK + j] = send[s][d*PBK + j]``, allgather
+    (``svalid`` None) ``recv[d][s*P + j] = send[s][j]`` (the stage-1 rows,
+    valid below each source's ``min(n_cand, P)``). Invalid rows are zeros;
+    a stopped destination is not written. The second half of
+    :func:`route_plain`, and :func:`exchange_plain`."""
     D = g.D
     a2a = g.exchange == "alltoall"
     Bk = g.PBK if a2a else g.P
@@ -619,15 +659,16 @@ def _shard_kept(g: Geometry, count_local: int, count: int, s: int) -> int:
     return max(0, min(min(count, g.F * g.D) - s * g.F, g.F))
 
 
-def shard_reduce_plain(g: Geometry, ctl: torch.Tensor, stage: int) -> None:
-    """Plain version of ``wgl_shard_reduce`` over the D control blocks.
-    ``stage`` 0 (a chunk's start, reference ``ops/wgl.py:830-836``): the
-    global nonempty and the stop test. ``stage`` 1 (after the prune): the
-    pmax of acc_now (``:490``) and pre_ovf (``:612``), the keep count (psum
-    under alltoall, ``:697``) and its overflow, and the frontier count each
-    shard holds after the level (``:877-890``)."""
+def shard_reduce_plain(g: Optional[Geometry], ctl: torch.Tensor, stage: int) -> None:
+    """The cross-shard reductions over the D control blocks, written to
+    every shard's block: the plain version of the reduce in the last block
+    of the sharded :func:`chunk_init` (``stage`` 0, a chunk's start,
+    reference ``ops/wgl.py:830-836``: the global nonempty and the stop
+    test; ``g`` is not read) and of the sharded :func:`prune` (``stage``
+    1: the pmax of acc_now (``:490``) and pre_ovf (``:612``), the keep
+    count (psum under alltoall, ``:697``) and its overflow, and the
+    frontier count each shard holds after the level (``:877-890``))."""
     c = ctl.tolist()
-    D, F = g.D, g.F
     c0 = c[0]
     if stage == 0:
         fc = [r[CTL_FCOUNT] for r in c]
@@ -638,6 +679,7 @@ def shard_reduce_plain(g: Geometry, ctl: torch.Tensor, stage: int) -> None:
     else:
         if not c0[CTL_GO]:
             return
+        D, F = g.D, g.F
         acc = int(any(r[CTL_ACCNOW] for r in c))
         pre = any(r[CTL_ROWOVF] or r[CTL_NEXP] > g.P for r in c)
         if g.exchange == "alltoall":
@@ -737,8 +779,8 @@ def _level_outcome(g: Geometry, c: list) -> tuple:
 
 def _sharded_outcome(g: Geometry, c: list, s: int) -> tuple:
     """(ovf_now, dead, stuck_now, kept, offset) of shard ``s`` from the
-    replicated fields ``shard_reduce`` wrote (reference ``ops/wgl.py:697-711``,
-    ``:743-757``, ``:791-797``)."""
+    replicated fields the prune's reduce wrote (reference
+    ``ops/wgl.py:697-711``, ``:743-757``, ``:791-797``)."""
     count, ovf_now = c[CTL_GCOUNT], bool(c[CTL_GOVF])
     lossy = c[CTL_LOSSY] != 0
     stuck_now = count == 0 and not (ovf_now and not lossy)
@@ -854,7 +896,17 @@ def vmap_members(ref):
     return run
 
 
-chunk_init_plain = vmap_members(chunk_init_reference)
+def chunk_init_plain(ctl: torch.Tensor, valid: torch.Tensor,
+                     ticket: Optional[torch.Tensor] = None) -> None:
+    """Per-member loop of :func:`chunk_init_reference`; with ``ticket`` (a
+    sharded search, its members the shards; the kernel's ticket word, not
+    used here) then the chunk-start reduce (:func:`shard_reduce_plain`,
+    stage 0)."""
+    vmap_members(chunk_init_reference)(ctl, valid)
+    if ticket is not None:
+        shard_reduce_plain(None, ctl, 0)
+
+
 expand_plain = vmap_members(expand_reference)
 stage1_hash_plain = vmap_members(stage1_hash_reference)
 take_col_plain = vmap_members(take_col_reference)
@@ -871,11 +923,31 @@ def take_col_sort_plain(src: torch.Tensor, col: int, keys: torch.Tensor, vals: t
 
 def prune_plain(g: Geometry, drows, skey, perm, ctl, fprio, scratch=None) -> None:
     """Per-member loop of :func:`prune_reference` (the kernel's scratch is
-    not member-major and is not used)."""
+    not member-major and is not used); in a sharded level then the
+    cross-shard reduce (:func:`shard_reduce_plain`, stage 1)."""
     vmap_members(prune_reference)(g, drows, skey, perm, ctl, fprio, None)
+    if g.exchange:
+        shard_reduce_plain(g, ctl, 1)
 
 
-route_plain = vmap_members(route_reference)
+def route_plain(g: Geometry, crows, ctl, drows, rvalid, scratch=None) -> None:
+    """Plain version of ``wgl_route`` over all D shards: each shard's
+    :func:`route_reference` into send buckets of its own (zeros), then the
+    tiled all_to_all of the buckets into the receive rows
+    (:func:`collective_plain`). The kernel's scratch is not used."""
+    sr = g.D * g.PBK
+    send = torch.zeros((g.D, sr, g.NC), dtype=torch.int32, device=crows.device)
+    svalid = torch.zeros((g.D, sr), dtype=torch.uint8, device=crows.device)
+    vmap_members(route_reference)(g, crows, ctl, send, svalid)
+    collective_plain(g, send, svalid, ctl, drows, rvalid)
+
+
+def exchange_plain(g: Geometry, crows, ctl, recv, rvalid) -> None:
+    """Plain version of ``wgl_exchange``: the tiled all_gather of the
+    stage-1 rows (:func:`collective_plain`)."""
+    collective_plain(g, crows, None, ctl, recv, rvalid)
+
+
 hash_rows_plain = vmap_members(hash_rows_reference)
 
 
@@ -946,20 +1018,27 @@ def _launch(name: str, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def chunk_init(ctl: torch.Tensor, valid: torch.Tensor) -> None:
+def chunk_init(ctl: torch.Tensor, valid: torch.Tensor,
+               ticket: Optional[torch.Tensor] = None) -> None:
     """Each member's frontier count and stop test (``ctl [nb, CTL_SIZE]``,
-    ``valid [nb, F]``)."""
+    ``valid [nb, F]``). With ``ticket`` (a sharded search: its members are
+    the shards; ``BatchWorkspace.gf``, whose first word must be zero and is
+    left zero) the same launch's last block also runs the chunk-start
+    reduce over the shards."""
     if ctl.device.type == "cpu":
-        return chunk_init_plain(ctl, valid)
-    _launch("wgl_chunk_init", *_chunk_init_args(ctl, valid))
+        return chunk_init_plain(ctl, valid, ticket)
+    _launch("wgl_chunk_init", *_chunk_init_args(ctl, valid, ticket))
 
 
-def _chunk_init_args(ctl, valid) -> tuple:
-    _check_cuda(ctl, valid)
+def _chunk_init_args(ctl, valid, ticket=None) -> tuple:
+    _check_cuda(ctl, valid, ticket)
     nb, F = valid.shape
     _check_members(nb)
     _check_shapes("chunk_init", (ctl, (nb, CTL_SIZE)))
-    return _ptr(ctl), _ptr(valid), ctypes.c_int(F), ctypes.c_int(nb), _stream()
+    if ticket is not None and (ticket.dtype != torch.int32 or ticket.numel() < 1):
+        raise ValueError("chunk_init: the ticket is one int32 word (see gather_scratch)")
+    return (_ptr(ctl), _ptr(valid), _ptr(ticket), ctypes.c_int(F), ctypes.c_int(nb),
+            _stream())
 
 
 # The model steps ``k_expand`` inlines, by class: (step id, the attribute
@@ -1144,7 +1223,9 @@ def prune(g: Geometry, drows: torch.Tensor, skey: torch.Tensor,
           perm: torch.Tensor, ctl: torch.Tensor, fprio: torch.Tensor,
           scratch: torch.Tensor) -> None:
     """Stage K4 (see module docstring): one launch. ``scratch``:
-    ``BatchWorkspace.pr`` (:func:`prune_scratch`), the look-back state."""
+    ``BatchWorkspace.pr`` (:func:`prune_scratch`), the look-back state. In
+    a sharded level (``g.exchange``; the members are its D shards) the
+    launch's last block also runs the cross-shard reduce."""
     if ctl.device.type == "cpu":
         return prune_plain(g, drows, skey, perm, ctl, fprio, scratch)
     _launch("wgl_prune", *_prune_args(g, drows, skey, perm, ctl, fprio, scratch))
@@ -1165,9 +1246,12 @@ def _prune_args(g, drows, skey, perm, ctl, fprio, scratch) -> tuple:
     if (scratch is None or scratch.dtype != torch.int32
             or scratch.numel() < _prune_words(L, nb, tile)):
         raise ValueError("prune: look-back scratch too small (see prune_scratch)")
+    if g.exchange:
+        _check_sharded("prune", g, nb)
     ci = ctypes.c_int
     return (_ptr(drows), _ptr(skey), _ptr(perm), _ptr(ctl), _ptr(fprio), _ptr(scratch),
-            ci(L), ci(g.NC), ci(g.NID), ci(g.KO1), ci(g.PB), ci(nb), ci(tile), _stream())
+            ci(L), ci(g.NC), ci(g.NID), ci(g.KO1), ci(g.PB), ci(g.F), ci(g.P),
+            ci(_EX_MODE[g.exchange]), ci(nb), ci(tile), _stream())
 
 
 def gather_finalize(g: Geometry, drows: torch.Tensor, perm: torch.Tensor,
@@ -1234,76 +1318,63 @@ def _hash_rows_args(g, drows, rvalid, ctl, fkey) -> tuple:
             ci(g.L), ci(g.NC), ci(g.NID), ci(0), ci(nb), ci(0), _stream())
 
 
-def route(g: Geometry, crows: torch.Tensor, ctl: torch.Tensor, send: torch.Tensor,
-          svalid: torch.Tensor) -> None:
+def route(g: Geometry, crows: torch.Tensor, ctl: torch.Tensor, drows: torch.Tensor,
+          rvalid: torch.Tensor, scratch: Optional[torch.Tensor]) -> None:
     """Sharded stage (alltoall): each shard's stage-1 rows ``crows [D, P,
-    NC]`` routed to their owners' buckets ``send [D, D*PBK, NC]``, validity
-    ``svalid [D, D*PBK]``; a bucket overflow sets the shard's row-overflow
-    flag."""
+    NC]`` routed to their owners and written straight into the owners'
+    receive rows ``drows [D, D*PBK, NC]`` (source s's bucket at rows
+    ``[s*PBK, (s+1)*PBK)``), validity ``rvalid [D, D*PBK]``; a bucket
+    overflow sets the source's row-overflow flag. One launch. ``scratch``:
+    ``BatchWorkspace.rt`` (:func:`route_scratch`), the look-back state."""
     if ctl.device.type == "cpu":
-        return route_plain(g, crows, ctl, send, svalid)
-    _launch("wgl_route", *_route_args(g, crows, ctl, send, svalid))
+        return route_plain(g, crows, ctl, drows, rvalid, scratch)
+    _launch("wgl_route", *_route_args(g, crows, ctl, drows, rvalid, scratch))
 
 
-def _route_args(g, crows, ctl, send, svalid) -> tuple:
-    _check_cuda(crows, ctl, send, svalid)
+def _route_args(g, crows, ctl, drows, rvalid, scratch) -> tuple:
+    _check_cuda(crows, ctl, drows, rvalid, scratch)
     D = g.D
     _check_sharded("route", g, ctl.shape[0])
     if g.exchange != "alltoall":
         raise ValueError("route: only the alltoall exchange routes rows")
     _check_shapes("route", (ctl, (D, CTL_SIZE)), (crows, (D, g.P, g.NC)),
-                  (send, (D, D * g.PBK, g.NC)), (svalid, (D, D * g.PBK)))
+                  (drows, (D, g.L, g.NC)), (rvalid, (D, g.L)))
+    if g.P > STAGE1_MAX_M:
+        raise ValueError(f"route: {g.P} rows a shard; the kernel takes at most {STAGE1_MAX_M}")
+    tile = route_tile(g.P, D, crows.device)
+    if tile not in ROUTE_TILES:
+        raise ValueError(f"route: tile {tile}; the kernel takes {ROUTE_TILES}")
+    if (scratch is None or scratch.dtype != torch.int32
+            or scratch.numel() < _route_words(g.P, D, tile)):
+        raise ValueError("route: look-back scratch too small (see route_scratch)")
     ci = ctypes.c_int
-    return (_ptr(crows), _ptr(ctl), _ptr(send), _ptr(svalid), ci(g.P), ci(g.NC), ci(g.NID),
-            ci(D), ci(g.PBK), _stream())
+    return (_ptr(crows), _ptr(ctl), _ptr(drows), _ptr(rvalid), _ptr(scratch), ci(g.P),
+            ci(g.NC), ci(g.NID), ci(D), ci(g.PBK), ci(tile), _stream())
 
 
-def exchange(g: Geometry, send: torch.Tensor, svalid: Optional[torch.Tensor],
-             ctl: torch.Tensor, recv: torch.Tensor, rvalid: torch.Tensor) -> None:
-    """Sharded stage: the collective between the D shards' buffers on one
-    device. alltoall: ``send [D, D*PBK, NC]`` buckets with ``svalid``;
-    allgather: ``send`` is the stage-1 rows ``[D, P, NC]`` and ``svalid``
-    None. Writes ``recv [D, L, NC]`` and ``rvalid [D, L]``."""
+def exchange(g: Geometry, crows: torch.Tensor, ctl: torch.Tensor, recv: torch.Tensor,
+             rvalid: torch.Tensor) -> None:
+    """Sharded stage (allgather): the all_gather of the stage-1 rows
+    ``crows [D, P, NC]`` between the D shards' buffers on one device, into
+    ``recv [D, D*P, NC]`` and ``rvalid [D, D*P]``. (The alltoall's
+    exchange is part of :func:`route`.)"""
+    if g.exchange != "allgather":
+        raise ValueError("exchange: the allgather's stage (the alltoall's is route)")
     if ctl.device.type == "cpu":
-        return exchange_plain(g, send, svalid, ctl, recv, rvalid)
-    _launch("wgl_exchange", *_exchange_args(g, send, svalid, ctl, recv, rvalid))
+        return exchange_plain(g, crows, ctl, recv, rvalid)
+    _launch("wgl_exchange", *_exchange_args(g, crows, ctl, recv, rvalid))
 
 
-def _exchange_args(g, send, svalid, ctl, recv, rvalid) -> tuple:
-    _check_cuda(send, svalid, ctl, recv, rvalid)
+def _exchange_args(g, crows, ctl, recv, rvalid) -> tuple:
+    _check_cuda(crows, ctl, recv, rvalid)
     D = g.D
     _check_sharded("exchange", g, ctl.shape[0])
-    a2a = g.exchange == "alltoall"
-    if g.exchange not in EXCHANGES or (svalid is None) == a2a:
-        raise ValueError("exchange: bucket validity goes with alltoall only")
-    SR = D * g.PBK if a2a else g.P
-    Bk = g.PBK if a2a else g.P
-    _check_shapes("exchange", (ctl, (D, CTL_SIZE)), (send, (D, SR, g.NC)),
+    if g.exchange != "allgather":
+        raise ValueError("exchange: the allgather's stage (the alltoall's is route)")
+    _check_shapes("exchange", (ctl, (D, CTL_SIZE)), (crows, (D, g.P, g.NC)),
                   (recv, (D, g.L, g.NC)), (rvalid, (D, g.L)))
-    if a2a:
-        _check_shapes("exchange", (svalid, (D, SR)))
     ci = ctypes.c_int
-    return (_ptr(send), _ptr(svalid), _ptr(ctl), _ptr(recv), _ptr(rvalid), ci(SR), ci(Bk),
-            ci(Bk if a2a else 0), ci(g.NC), ci(g.P), ci(D), _stream())
-
-
-def shard_reduce(g: Geometry, ctl: torch.Tensor, stage: int) -> None:
-    """Sharded stage: the cross-shard reductions over ``ctl [D, CTL_SIZE]``
-    (``stage`` 0 at a chunk's start, 1 after the prune), written to every
-    shard's block."""
-    if ctl.device.type == "cpu":
-        return shard_reduce_plain(g, ctl, stage)
-    _launch("wgl_shard_reduce", *_shard_reduce_args(g, ctl, stage))
-
-
-def _shard_reduce_args(g, ctl, stage) -> tuple:
-    _check_cuda(ctl)
-    _check_sharded("shard_reduce", g, ctl.shape[0])
-    if g.exchange not in EXCHANGES or stage not in (0, 1):
-        raise ValueError("shard_reduce: a sharded geometry and stage 0 or 1")
-    _check_shapes("shard_reduce", (ctl, (g.D, CTL_SIZE)))
-    ci = ctypes.c_int
-    return (_ptr(ctl), ci(g.D), ci(g.F), ci(g.P), ci(_EX_MODE[g.exchange]), ci(stage),
+    return (_ptr(crows), _ptr(ctl), _ptr(recv), _ptr(rvalid), ci(g.P), ci(g.NC), ci(D),
             _stream())
 
 
@@ -1348,14 +1419,12 @@ class _Stages:
 KERNELS = _Stages(chunk_init=chunk_init, expand=expand, stage1_hash=stage1_hash,
                   take_col_sort=take_col_sort, radix_sort_pairs=radix_sort_pairs,
                   prune=prune, gather_finalize=gather_finalize, regroup=regroup,
-                  route=route, exchange=exchange, hash_rows=hash_rows,
-                  shard_reduce=shard_reduce)
+                  route=route, exchange=exchange, hash_rows=hash_rows)
 PLAIN = _Stages(chunk_init=chunk_init_plain, expand=expand_plain,
                 stage1_hash=stage1_hash_plain, take_col_sort=take_col_sort_plain,
                 radix_sort_pairs=radix_sort_pairs_plain, prune=prune_plain,
                 gather_finalize=gather_finalize_plain, regroup=regroup_reference,
-                route=route_plain, exchange=exchange_plain, hash_rows=hash_rows_plain,
-                shard_reduce=shard_reduce_plain)
+                route=route_plain, exchange=exchange_plain, hash_rows=hash_rows_plain)
 
 
 def _level_stages(g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace,
@@ -1371,10 +1440,9 @@ def _level_stages(g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace,
     return out + _dedup_stages(g, fr, ws)
 
 
-def _dedup_stages(g: Geometry, fr: tuple, ws: BatchWorkspace, reduce: tuple = ()) -> list:
+def _dedup_stages(g: Geometry, fr: tuple, ws: BatchWorkspace) -> list:
     """The stages from the dedup sort on: over ``ws.drows``' ``L`` rows
-    keyed by ``ws.fkey``; ``reduce`` goes between the prune and the
-    compaction sort."""
+    keyed by ``ws.fkey``."""
     ctl = ws.ctl
     out = []
     # Dedup order: lexicographic over (fkey, open-mask words), built as
@@ -1386,7 +1454,6 @@ def _dedup_stages(g: Geometry, fr: tuple, ws: BatchWorkspace, reduce: tuple = ()
     for j, (src, col) in enumerate(cols + [(ws.fkey, 0)]):
         out.append(("take_col_sort", (src, col, ws.keys, ws.perm, ws.sort, ctl, j == 0)))
     out += [("prune", (g, ws.drows, ws.keys, ws.perm, ctl, ws.fprio, ws.pr)),
-            *reduce,
             # Compaction order: (priority, position) — stability is the
             # tiebreak. The values are the dedup order's rows, so they come
             # out as the rows in compaction order.
@@ -1400,21 +1467,21 @@ def _sharded_level_stages(g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace
     """One level of a frontier-sharded search, its D shards the members
     (the reference's ``_build_kernel(axis_name=...)``): each shard expands
     and compacts its stage-1 rows (two-stage at every M, reference
-    ``ops/wgl.py:525``), the alltoall routes them to their owners' buckets,
-    the exchange moves them between the shards, the received rows are
-    hashed and deduplicated as in a single level at ``L`` rows, the
-    reduce replicates the cross-shard values after the prune, and the
-    finalize keeps each shard's rows (``ops/wgl.py:743-757``)."""
+    ``ops/wgl.py:525``); the alltoall's route writes them straight into
+    their owners' receive rows, the allgather's exchange copies them to
+    every shard; the received rows are hashed and deduplicated as in a
+    single level at ``L`` rows, the prune's last block replicates the
+    cross-shard values, and the finalize keeps each shard's rows
+    (``ops/wgl.py:743-757``)."""
     ctl = ws.ctl
-    a2a = g.exchange == "alltoall"
     out = [("expand", (g, tabs, fr, ctl, ws.rows, ws.nvalid, model)),
            ("stage1_hash", (g, ws.rows, ws.nvalid, ctl, ws.crows, None, ws.s1))]
-    if a2a:
-        out.append(("route", (g, ws.crows, ctl, ws.send, ws.svalid)))
-    out += [("exchange", (g, ws.send if a2a else ws.crows, ws.svalid, ctl, ws.drows,
-                          ws.rvalid)),
-            ("hash_rows", (g, ws.drows, ws.rvalid, ctl, ws.fkey))]
-    return out + _dedup_stages(g, fr, ws, reduce=(("shard_reduce", (g, ctl, 1)),))
+    if g.exchange == "alltoall":
+        out.append(("route", (g, ws.crows, ctl, ws.drows, ws.rvalid, ws.rt)))
+    else:
+        out.append(("exchange", (g, ws.crows, ctl, ws.drows, ws.rvalid)))
+    out.append(("hash_rows", (g, ws.drows, ws.rvalid, ctl, ws.fkey)))
+    return out + _dedup_stages(g, fr, ws)
 
 
 def run_level_batch(ops: _Stages, g: Geometry, tabs: dict, fr: tuple,
@@ -1433,8 +1500,7 @@ _PACKERS = {"expand": ("wgl_expand", _expand_args),
             "gather_finalize": ("wgl_gather_finalize", _gather_finalize_args),
             "route": ("wgl_route", _route_args),
             "exchange": ("wgl_exchange", _exchange_args),
-            "hash_rows": ("wgl_stage1_hash", _hash_rows_args),
-            "shard_reduce": ("wgl_shard_reduce", _shard_reduce_args)}
+            "hash_rows": ("wgl_stage1_hash", _hash_rows_args)}
 
 
 class _LevelProgram:
@@ -1478,9 +1544,7 @@ def _run_levels(ops: _Stages, g: Geometry, tabs: dict, fr: tuple, ws: BatchWorks
     init[:, CTL_NO] = torch.as_tensor(list(nO), dtype=torch.int32)
     ctl.copy_(init)
     ws.stats.zero_()
-    ops.chunk_init(ctl, fr[4])
-    if g.exchange:
-        ops.shard_reduce(g, ctl, 0)
+    ops.chunk_init(ctl, fr[4], ws.gf if g.exchange else None)
     remaining = max(0, int((init[:, CTL_MAXLVL] - init[:, CTL_LVL]).max()))
     pipelined = ops is KERNELS and ctl.device.type == "cuda"
     batch = 4 if pipelined else 1

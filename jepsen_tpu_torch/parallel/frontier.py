@@ -16,8 +16,11 @@ escalation on hash imbalance.
 
 The shards of a :class:`~jepsen_tpu_torch.parallel.Mesh` sit on one
 device, as the members of one batch of the level kernels
-(``ops.wgl_level.run_chunk_sharded``); the collectives are the kernels
-``wgl_route``, ``wgl_exchange`` and ``wgl_shard_reduce``.
+(``ops.wgl_level.run_chunk_sharded``); the collectives are kernels:
+``wgl_route`` (the owner routing with the all_to_all folded in: one
+scatter into the owners' receive rows), ``wgl_exchange`` (the
+all_gather), and the reductions in the last block of ``wgl_prune`` and
+``wgl_chunk_init``.
 """
 
 from __future__ import annotations

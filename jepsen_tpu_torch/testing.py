@@ -612,7 +612,7 @@ def gather_case(seed: int, case: str, nb: int, F: int, P: int) -> tuple:
     around F (member 0's F // 2, the rest up to F + 9), half the members
     lossy; ``single_dead``: every member's rows overflowed, lossless;
     ``single_stuck``: every count zero; the sharded cases hold the reduced
-    fields ``wgl_shard_reduce`` would have written."""
+    fields the prune's cross-shard reduce would have written."""
     import numpy as np
 
     from .ops import wgl_level as lv

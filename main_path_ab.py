@@ -34,7 +34,18 @@ line of walls. The paths:
   valid rows, the prune's keep count and the sum of its priorities, and
   after the gather-finalize the control block's level, frontier count,
   go flag and frontier peak and the sums of the new frontier's p and
-  valid), which must agree between the two checkouts.
+  valid), which must agree between the two checkouts; then the sharded
+  level of ``chip_smoke.py``'s ``sharded_kernels`` in each mode (the north
+  star's frontier at F 4096 laid on 8 shards of 512 rows, lossy), every
+  stage of its own level program timed and summed the same way;
+- ``sharded_10k``: ``chip_smoke.py``'s ``SHARD_10K`` history (10,000
+  cas-register ops, ``random.Random(2032)``: the reference bench leg's)
+  through ``parallel.frontier.check_encoded_sharded`` on 8 shards at a
+  global capacity of 4096, in both exchange modes: each mode's walls,
+  levels enqueued and ms per enqueued level, then one run under
+  ``torch.profiler`` for the device's busy time (the sum of the kernels'
+  device time) and its idle share (1 - busy / the median wall); the
+  result is each mode's verdict and levels.
 
 The Elle paths' result is the verdict and the anomaly types, and each line
 also gives the closures' share of the wall (``closure_s``: the time inside
@@ -58,7 +69,11 @@ NORTH_STAR_SEED = 2026
 APPEND_8K = dict(seed=11, n_txns=8000, lag=(0, 8000), depth=16)
 APPEND_20K = dict(seed=11, n_txns=20000, lag=(8000, 11000), depth=16)
 ELLE_WARM = dict(seed=5, n_txns=2000, lag=(600, 1100), depth=8)
-PATHS = ("north_star", "elle_append_8k", "elle_sharded_20k", "level_kernels")
+# chip_smoke.py's SHARD_10K (its seed apart), on SHARD_D shards at SHARD_F_TOTAL.
+SHARD_10K = dict(n_ops=10000, n_procs=10, cas=True, crash_p=20 / 10000, fail_p=0.02)
+SHARD_10K_SEED = 2032
+SHARD_D, SHARD_F_TOTAL = 8, 4096
+PATHS = ("north_star", "elle_append_8k", "elle_sharded_20k", "level_kernels", "sharded_10k")
 
 
 def one(root: str, repeat: int, path: str = "north_star") -> dict:
@@ -73,6 +88,8 @@ def one(root: str, repeat: int, path: str = "north_star") -> dict:
     _build.load()
     if path == "level_kernels":
         return level_kernels(root)
+    if path == "sharded_10k":
+        return sharded_10k(root, repeat)
     if path != "north_star":
         return elle(root, repeat, path)
     from jepsen_tpu_torch.models import CasRegister
@@ -139,28 +156,75 @@ def elle(root: str, repeat: int, path: str) -> dict:
     return {"root": root, "walls_s": walls, "closure_s": closures, "result": result}
 
 
-def level_kernels(root: str) -> dict:
-    """The level_kernels path: {case: {stage: ms}} of every stage of one
-    level, and each case's checksums as the result."""
+def sharded_10k(root: str, repeat: int) -> dict:
+    """The sharded_10k path: each mode's walls, levels enqueued, ms per
+    level, device busy time and idle share; the result is each mode's
+    verdict and levels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from jepsen_tpu_torch.models import CasRegister
+    from jepsen_tpu_torch.ops import wgl_level as lv
+    from jepsen_tpu_torch.ops.encode import encode_history
+    from jepsen_tpu_torch.parallel import frontier, make_mesh
+    from jepsen_tpu_torch.testing import random_register_history
+
+    model = CasRegister(init=0)
+    enc = encode_history(model, random_register_history(random.Random(SHARD_10K_SEED),
+                                                        **SHARD_10K))
+    warm = encode_history(model, random_register_history(random.Random(0), n_ops=500,
+                                                         n_procs=10, cas=True))
+    out = {"root": root, "walls_s": [], "modes": {}, "result": {}}
+    for mode in ("alltoall", "allgather"):
+        def run(e, mode=mode):
+            res = frontier.check_encoded_sharded(e, mesh=make_mesh(SHARD_D),
+                                                 f_total=SHARD_F_TOTAL, exchange=mode)
+            torch.cuda.synchronize()
+            return res
+
+        run(warm)
+        walls = []
+        for _ in range(repeat):
+            lv.reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = run(enc)
+            walls.append(time.perf_counter() - t)
+        levels = lv.LAUNCHES["wgl_expand"]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(enc)
+        busy = sum((getattr(e, "self_device_time_total", 0) or 0) / 1e3
+                   for e in prof.key_averages()
+                   if "cuda" in str(getattr(e, "device_type", "")).lower())
+        wall_ms = 1e3 * statistics.median(walls)
+        out["modes"][mode] = {"walls_s": walls, "levels_enqueued": levels,
+                              "ms_per_level": [1e3 * w / levels for w in walls],
+                              "busy_ms": busy, "busy_ms_per_level": busy / levels,
+                              "idle_share": 1 - busy / wall_ms if busy else None}
+        out["result"][mode] = [res["valid"], res.get("levels")]
+        out["walls_s"] += walls
+    return out
+
+
+def _level_cases(cs, lv, wgl):
+    """level_kernels' cases: (label, geometry, tables, frontier, workspace
+    with its control blocks at the level's start, model)."""
     import torch
 
-    import chip_smoke as cs
     from jepsen_tpu_torch.models import CasRegister
-    from jepsen_tpu_torch.ops import wgl
-    from jepsen_tpu_torch.ops import wgl_level as lv
     from jepsen_tpu_torch.ops.encode import encode_history
     from jepsen_tpu_torch.testing import history_model, random_register_history
 
     cas = CasRegister(init=0)
     hist = random_register_history(random.Random(NORTH_STAR_SEED), **NORTH_STAR)
-    cases = [("north_star", cas, [encode_history(cas, hist)], 4096, cs.WARM_LEVELS),
+    north = encode_history(cas, hist)
+    cases = [("north_star", cas, [north], 4096, cs.WARM_LEVELS),
              ("batch_8x8192", cas, [encode_history(cas, h)
                                     for h in cs.big_histories(random_register_history)],
               8192, cs.WARM_LEVELS)]
     for name, (good, _bad) in cs.model_histories().items():
         model = history_model(name)
         cases.append((name, model, [encode_history(model, good)], 4096, cs.MODEL_WARM_LEVELS))
-    times, result = {}, {}
     for label, model, encs, F, warm in cases:
         plan = cs.batch_plan(encs, wgl)
         g = wgl.level_geometry(plan, F)
@@ -174,13 +238,36 @@ def level_kernels(root: str) -> dict:
         ctl = ctl.to("cuda")
         lv.chunk_init_plain(ctl, fr[4])
         ws.ctl.copy_(ctl)
+        yield label, g, plan.tabs, fr, ws, model
+    # the sharded level of chip_smoke's sharded_kernels, each mode
+    single = wgl.stack_plans([wgl.plan_device(north, device="cpu")], "cuda")
+    fr1, _ws, (lvl,) = cs.warm_frontier(single, SHARD_F_TOTAL, lv, wgl, cas)
+    for mode in ("alltoall", "allgather"):
+        fr = cs.shard_frontier(fr1, SHARD_D)
+        plan, g, tabs = cs.sharded_setup(lv, wgl, north, SHARD_F_TOTAL, SHARD_D, mode, cas)
+        ws = lv.BatchWorkspace(g, SHARD_D, "cuda")
+        ws.ctl.copy_(cs.sharded_ctl(lv, g, plan, fr, lvl, lossy=True))
+        yield f"sharded_{mode}", g, tabs, fr, ws, cas
+
+
+def level_kernels(root: str) -> dict:
+    """The level_kernels path: {case: {stage: ms}} of every stage of one
+    level, and each case's checksums as the result."""
+    import torch
+
+    import chip_smoke as cs
+    from jepsen_tpu_torch.ops import wgl
+    from jepsen_tpu_torch.ops import wgl_level as lv
+
+    times, result = {}, {}
+    for label, g, tabs, fr, ws, model in _level_cases(cs, lv, wgl):
         sums, row = [], {}
         # the buffers a stage may both read and write: each timed call
         # gets its own copies of those it takes
         mutable = [ws.ctl, ws.keys, ws.perm, ws.fprio, ws.stats, *fr]
         mutable += [ws.order] if hasattr(ws, "order") else []  # a parent's
         part = "dedup"
-        for stage, args in lv._level_stages(g, plan.tabs, fr, ws, model):
+        for stage, args in lv._level_stages(g, tabs, fr, ws, model):
             ins = tuple(t for t in _tensors(args) if any(t is m for m in mutable))
             call = lambda t, s=stage, a=args, i=ins: _run_stage(  # noqa: E731
                 lv, s, _subst(a, {id(x): y for x, y in zip(i, t)}))
@@ -234,6 +321,13 @@ def _run_stage(lv, stage, args) -> None:
         getattr(lv.KERNELS, stage)(*args)
 
 
+def _median_or_none(xs):
+    """The median of the values that are not None (the profiler may see
+    no device time), or None."""
+    xs = [x for x in xs if x is not None]
+    return statistics.median(xs) if xs else None
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("roots", nargs="*")
@@ -265,6 +359,17 @@ def main() -> int:
         raise AssertionError(f"results differ: {results}")
     summary = {}
     for r, v in runs.items():
+        if "modes" in v[0]:  # sharded_10k: the medians of each mode
+            summary[r] = {m: {"walls_s": [w for x in v for w in x["modes"][m]["walls_s"]],
+                              **{k: _median_or_none([x["modes"][m][k] for x in v])
+                                 for k in ("busy_ms_per_level", "idle_share")},
+                              "levels_enqueued": v[0]["modes"][m]["levels_enqueued"]}
+                          for m in v[0]["modes"]}
+            for m, row in summary[r].items():
+                row["median_s"] = statistics.median(row["walls_s"])
+                row["median_ms_per_level"] = 1e3 * row["median_s"] / row["levels_enqueued"]
+            summary[r]["result"] = v[0]["result"]
+            continue
         if "kernels" in v[0]:  # level_kernels: the median of each case's ms
             summary[r] = {c: {k: statistics.median(x["kernels"][c][k] for x in v)
                               for k in v[0]["kernels"][c]} for c in v[0]["kernels"]}

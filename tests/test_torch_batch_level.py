@@ -227,7 +227,7 @@ def test_level_program_packs_each_launch_once(KO, monkeypatch):
                            "wgl_take_col_sort": 2 * len(keys),
                            "radix_sort_pairs": 2, "wgl_prune": 2,
                            "wgl_gather_finalize": 2, "wgl_regroup": 0, "wgl_route": 0,
-                           "wgl_exchange": 0, "wgl_shard_reduce": 0}
+                           "wgl_exchange": 0}
     lib.rc = 700
     monkeypatch.setattr(lv._build, "error_string", lambda rc: "an illegal memory access")
     with pytest.raises(RuntimeError, match="wgl_expand: CUDA error 700"):

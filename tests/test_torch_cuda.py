@@ -425,7 +425,8 @@ def test_prune_at_the_sharded_geometries(cuda, mode):
     """The prune at both sharded arms' shapes: the D shards of a mesh as its
     members, L = D * ceil(P / D) (alltoall) or D * P (allgather) rows, at
     f_total 4096 and 262144 on 8 shards; a shard whose count is its local
-    one (what wgl_shard_reduce reads)."""
+    one (what the cross-shard reduce in the sharded prune's last block
+    reads)."""
     model, enc = _sharded_history(1)
     D = 8
     for f_total in (4096, 262144):
@@ -1228,9 +1229,11 @@ def _sharded_history(S, seed=7):
 @pytest.mark.parametrize("D", [1, 2, 3, 8])
 def test_sharded_stages_match_plain(cuda, D, mode, S):
     """One sharded level from a warmed frontier, stage by stage: each kernel
-    (wgl_route, wgl_exchange, wgl_shard_reduce, the sharded finalize and
-    every existing stage at the exchanged row count) against its plain
-    version on identical inputs, bit for bit."""
+    (wgl_route with the all_to_all folded in, or wgl_exchange; the prune
+    with the cross-shard reduce in its last block; the sharded finalize
+    and every existing stage at the exchanged row count) against its plain
+    version on identical inputs, bit for bit, on the same grid. No reduce
+    launch exists."""
     import chip_smoke
 
     model, enc = _sharded_history(S)
@@ -1247,8 +1250,10 @@ def test_sharded_stages_match_plain(cuda, D, mode, S):
         errs, _wp = chip_smoke.sharded_lockstep(lv, g, tabs, model, fr, ctl)
         assert errs and not any(errs.values()), errs
     ran = {k for k in before if lv.LAUNCHES[k] > before[k]}
-    assert {"wgl_exchange", "wgl_shard_reduce", "wgl_gather_finalize"} <= ran
+    assert {"wgl_prune", "wgl_gather_finalize"} <= ran
     assert ("wgl_route" in ran) == (mode == "alltoall")
+    assert ("wgl_exchange" in ran) == (mode == "allgather")
+    assert "wgl_shard_reduce" not in lv.LAUNCHES
 
 
 @pytest.mark.parametrize("mode", ["alltoall", "allgather"])
@@ -1271,22 +1276,18 @@ def test_sharded_search_matches_plain(cuda, mode):
     assert k["valid"] == single["valid"]
 
 
-def _exchange_case(D, mode, NC, P, cuda):
-    """A geometry of D shards with NC words a row and random send buffers
-    (alltoall: random bucket validity, not a prefix), each source's n_cand
-    0, below P or above P, one destination stopped at D = 3, and receive
-    buffers prefilled with a pattern."""
+def _exchange_case(D, NC, P, cuda):
+    """An allgather geometry of D shards with NC words a row and random
+    stage-1 rows, each source's n_cand 0, below P or above P, one
+    destination stopped at D = 3, and receive buffers prefilled with a
+    pattern."""
     F = 13
     g = lv.Geometry(F=F, W=32, KO=1, S=NC - 3, ND=64, NO=32, B=-(-P // F), SEL=False,
-                    two_stage=True, P=P, D=D, exchange=mode)
+                    two_stage=True, P=P, D=D, exchange="allgather")
     assert g.NC == NC
     rng = np.random.default_rng(D * 100 + NC)
-    a2a = mode == "alltoall"
-    SR = D * g.PBK if a2a else P
-    send = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, size=(D, SR, NC),
+    send = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, size=(D, P, NC),
                                          dtype=np.int64).astype(np.int32)).to(cuda)
-    svalid = (torch.from_numpy((rng.random((D, SR)) < 0.6).astype(np.uint8)).to(cuda)
-              if a2a else None)
     ctl = torch.zeros((D, lv.CTL_SIZE), dtype=torch.int32, device=cuda)
     ctl[:, lv.CTL_GO] = 1
     if D == 3:
@@ -1294,26 +1295,242 @@ def _exchange_case(D, mode, NC, P, cuda):
     ctl[:, lv.CTL_NEXP] = torch.tensor([(0, P // 2, P + 7)[s % 3] for s in range(D)])
     recv = torch.full((D, g.L, NC), 0x5A5A5A5A, dtype=torch.int32, device=cuda)
     rvalid = torch.full((D, g.L), 7, dtype=torch.uint8, device=cuda)
-    return g, send, svalid, ctl, recv, rvalid
+    return g, send, ctl, recv, rvalid
 
 
 @pytest.mark.parametrize("P", [52, 4108])
 @pytest.mark.parametrize("NC", range(3, 9))
-@pytest.mark.parametrize("mode", ["alltoall", "allgather"])
 @pytest.mark.parametrize("D", [1, 2, 3, 8])
-def test_exchange_matches_plain(cuda, D, mode, NC, P):
-    """The block-copy exchange bit for bit against exchange_plain: runs
-    that start off 16 bytes (PBK = 18 or 7 at P = 52), several blocks a run
-    at P = 4108, sources with n_cand 0, below P and above P, invalid rows
-    zeroed and a stopped destination left as it was."""
-    g, send, svalid, ctl, recv, rvalid = _exchange_case(D, mode, NC, P, cuda)
+def test_exchange_matches_plain(cuda, D, NC, P):
+    """The block-copy all_gather bit for bit against exchange_plain: runs
+    that start off 16 bytes (P * NC odd), several blocks a run at P = 4108,
+    sources with n_cand 0, below P and above P, invalid rows zeroed and a
+    stopped destination left as it was. (The all_to_all is wgl_route's.)"""
+    g, send, ctl, recv, rvalid = _exchange_case(D, NC, P, cuda)
     rk, vk, rp, vp = recv.clone(), rvalid.clone(), recv.clone(), rvalid.clone()
-    lv.exchange(g, send, svalid, ctl, rk, vk)
-    lv.exchange_plain(g, send, svalid, ctl, rp, vp)
+    lv.exchange(g, send, ctl, rk, vk)
+    lv.exchange_plain(g, send, ctl, rp, vp)
     torch.cuda.synchronize()
     assert torch.equal(rk, rp) and torch.equal(vk, vp)
     if D == 3:
         assert torch.equal(rk[2], recv[2])
+
+
+def _route_case(D, NC, P, cuda, seed=0):
+    """An alltoall geometry of D shards with NC words a row: random stage-1
+    rows, every third row of a shard of one group (an over-full owner: a
+    bucket overflow at every D > 1), each source's n_cand below P, half of
+    it, above P or 0, one shard stopped at D = 3 (it sends nothing and is
+    not written), and receive rows prefilled with a pattern."""
+    F = 13
+    g = lv.Geometry(F=F, W=32, KO=1, S=NC - 3, ND=64, NO=32, B=-(-P // F), SEL=False,
+                    two_stage=True, P=P, D=D, exchange="alltoall")
+    assert g.NC == NC
+    rng = np.random.default_rng(seed + D * 100 + NC + P)
+    crows = rng.integers(-2**31, 2**31 - 1, size=(D, P, NC), dtype=np.int64).astype(np.int32)
+    crows[:, ::3, :g.NID] = crows[:, :1, :g.NID]
+    ctl = torch.zeros((D, lv.CTL_SIZE), dtype=torch.int32)
+    ctl[:, lv.CTL_GO] = 1
+    if D == 3:
+        ctl[2, lv.CTL_GO] = 0
+    ctl[:, lv.CTL_NEXP] = torch.tensor([(P - 3, P // 2, P + 7, 0)[s % 4] for s in range(D)])
+    drows = torch.full((D, g.L, NC), 0x5A5A5A5A, dtype=torch.int32)
+    rvalid = torch.full((D, g.L), 7, dtype=torch.uint8)
+    return g, *(t.to(cuda) for t in (torch.from_numpy(crows), ctl, drows, rvalid))
+
+
+def _route_both(g, crows, ctl, drows, rvalid, scratch):
+    """The route kernel and its plain version on the same inputs: the
+    received rows, their validity and every control block equal. Returns
+    the kernel's (ctl, drows, rvalid)."""
+    kc, kd, kv = ctl.clone(), drows.clone(), rvalid.clone()
+    pc, pd, pv = ctl.clone(), drows.clone(), rvalid.clone()
+    lv.route(g, crows, kc, kd, kv, scratch)
+    lv.route_plain(g, crows, pc, pd, pv)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, pd) and torch.equal(kv, pv) and torch.equal(kc, pc)
+    for d in range(g.D):
+        if not int(ctl[d, lv.CTL_GO]):
+            assert torch.equal(kd[d], drows[d]) and torch.equal(kv[d], rvalid[d])
+    return kc, kd, kv
+
+
+@pytest.mark.parametrize("tile", [None, 512, 2048])
+@pytest.mark.parametrize("P", [52, 4108, 20000])
+@pytest.mark.parametrize("NC", [3, 4, 5, 6, 7, 8, 9, 13])
+@pytest.mark.parametrize("D", [1, 2, 3, 8])
+def test_route_matches_plain(cuda, D, NC, P, tile, monkeypatch):
+    """The one-launch route (owner routing and all_to_all) bit for bit
+    against its plain version (route_reference into send buckets, then the
+    tiled all_to_all): one tile a shard or many (the look-back carries a
+    bucket's offset), buckets past RT_FILL slots (fill blocks zero them:
+    PBK 4108 and 20000 at D = 1, 10000 at D = 2), bucket overflows, n_cand
+    0 and above P, a stopped shard, and rows kept in registers (NC up to 8)
+    or copied through the listed positions (9 and 13). Replaces the
+    alltoall cases of test_exchange_matches_plain."""
+    if tile is not None:
+        monkeypatch.setattr(lv, "route_tile", lambda *a: tile)
+    g, crows, ctl, drows, rvalid = _route_case(D, NC, P, cuda)
+    scratch = lv.route_scratch(g, cuda)
+    kc, _kd, kv = _route_both(g, crows, ctl, drows, rvalid, scratch)
+    assert scratch[:lv.STAGE1_HDR].tolist() == [1, 0, 0, 0]
+    assert D == 1 or int(kc[:, lv.CTL_ROWOVF].max()) == 1
+    assert int((kv == 1).sum()) > 0
+
+
+def test_route_matches_plain_at_the_largest_rung(cuda):
+    """The route at exchange_scale's shape (f_total 262144 on 8 shards:
+    131072 stage-1 rows a shard, buckets of 16384 rows, seven fill blocks
+    a bucket) on the north star's row width."""
+    model, enc = _sharded_history(1)
+    plan = wgl.plan_device(enc, device="cuda")
+    g = wgl.sharded_geometry(plan, 262144 // 8, 8, "alltoall")
+    rng = np.random.default_rng(262144)
+    crows = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, size=(8, g.P, g.NC),
+                                          dtype=np.int64).astype(np.int32)).to(cuda)
+    ctl = torch.zeros((8, lv.CTL_SIZE), dtype=torch.int32, device=cuda)
+    ctl[:, lv.CTL_GO] = 1
+    ctl[:, lv.CTL_NEXP] = torch.from_numpy(rng.integers(g.P // 2, g.P + g.P // 8, 8)
+                                           .astype(np.int32))
+    drows = torch.zeros((8, g.L, g.NC), dtype=torch.int32, device=cuda)
+    rvalid = torch.zeros((8, g.L), dtype=torch.uint8, device=cuda)
+    scratch = lv.route_scratch(g, cuda)
+    for _ in range(2):  # the scratch cleans itself
+        _route_both(g, crows, ctl, drows, rvalid, scratch)
+    assert scratch[:lv.STAGE1_HDR].tolist() == [2, 0, 0, 0]
+
+
+def test_route_scratch_cleans_itself(cuda, monkeypatch):
+    """Calls in a row on one scratch at other shard counts, row counts and
+    tiles: each leaves the counters zero and the epoch one higher."""
+    scratch = None
+    shapes = [(8, 4108, 512), (3, 52, 1024), (2, 20000, 2048), (8, 2048, 512), (1, 9, 512)]
+    for rep, (D, P, tile) in enumerate(shapes * 2):
+        monkeypatch.setattr(lv, "route_tile", lambda *a, t=tile: t)
+        g, crows, ctl, drows, rvalid = _route_case(D, 5, P, cuda, seed=rep)
+        if scratch is None:
+            scratch = torch.zeros(max(lv._route_words(p, d, 512) for d, p, _t in shapes),
+                                  dtype=torch.int32, device=cuda)
+        _route_both(g, crows, ctl, drows, rvalid, scratch)
+        assert scratch[:lv.STAGE1_HDR].tolist() == [rep + 1, 0, 0, 0]
+
+
+@pytest.mark.parametrize("D", [1, 3, 8])
+def test_route_is_one_device_launch(cuda, D):
+    g, crows, ctl, drows, rvalid = _route_case(D, 5, 20000, cuda)
+    scratch = lv.route_scratch(g, cuda)
+    lv.route(g, crows, ctl, drows, rvalid, scratch)
+    work = device_work(lambda: lv.route(g, crows, ctl, drows, rvalid, scratch))
+    assert work == _launches_only(1), work
+
+
+def _sharded_prune_case(D, mode, L_of, seed, family):
+    """A sharded geometry of D shards and a prune case over its L rows,
+    with the control blocks' other fields (frontier counts, acc_now,
+    row-overflow flags, candidate counts, lossy) random."""
+    g = lv.Geometry(F=16, W=32, KO=1, S=2, ND=64, NO=32, B=3, SEL=False, two_stage=True,
+                    P=L_of, D=D, exchange=mode)
+    case = list(prune_case(seed, D, g.L, g.NC, g.NID, family))
+    rng = np.random.default_rng(seed)
+    ctl = case[3]
+    ctl[:, lv.CTL_FCOUNT] = rng.integers(0, g.F + 1, D)
+    ctl[:, lv.CTL_ACCNOW] = rng.random(D) < 0.05
+    ctl[:, lv.CTL_ROWOVF] = rng.random(D) < 0.05
+    ctl[:, lv.CTL_NEXP] = rng.integers(0, g.P + 2, D)
+    ctl[:, lv.CTL_LOSSY] = seed % 2
+    return g, tuple(case)
+
+
+@pytest.mark.parametrize("family", PRUNE_FAMILIES)
+@pytest.mark.parametrize("mode", ["alltoall", "allgather"])
+@pytest.mark.parametrize("D", [1, 2, 3, 8, 40])
+def test_sharded_prune_matches_plain(cuda, D, mode, family):
+    """The sharded prune (the reduce in its last block) bit for bit against
+    prune_plain (the prune of every shard, then shard_reduce_plain): every
+    control block, the replicated fields included; D above a warp (the
+    reduce's lanes loop)."""
+    for seed in range(3):
+        g, case = _sharded_prune_case(D, mode, 300, 10 * D + seed, family)
+        scratch = lv.prune_scratch(g.L, D, cuda)
+        kc, _kf = _prune_both(cuda, g, case, scratch)
+        assert _prune_header(scratch) == [1, 0, 0, 0]
+        assert (kc[:, lv.CTL_GCOUNT] == kc[0, lv.CTL_GCOUNT]).all()
+
+
+def test_single_level_prune_runs_no_reduce(cuda):
+    """The single level's prune is the unsharded instantiation: the fields
+    only a sharded level's reduce writes keep what they held, the call is
+    one device launch, and a single level is still 7 launches."""
+    L, nb = 16384, 3
+    g = _prune_geometry(L)
+    case = prune_case(9, nb, L, g.NC, g.NID, "straddle")
+    case[3][:, lv.CTL_GCOUNT:] = -7
+    scratch = lv.prune_scratch(L, nb, cuda)
+    kc, _kf = _prune_both(cuda, g, case, scratch)
+    assert (kc[:, lv.CTL_GCOUNT:] == -7).all()
+    assert _prune_header(scratch) == [1, 0, 0, 0]
+    drows, skey, perm, ctl, fprio = (torch.from_numpy(a).to(cuda) for a in case)
+    work = device_work(lambda: lv.prune(g, drows, skey, perm, ctl, fprio, scratch))
+    assert work == _launches_only(1), work
+    model, enc = _sharded_history(1)
+    plan = wgl.stack_plans([wgl.plan_device(enc, device="cpu")], "cuda")
+    gl = wgl.level_geometry(plan, 64)
+    ws = lv.BatchWorkspace(gl, 1, cuda)
+    fr = wgl.initial_frontier_batch(64, gl.W, gl.KO, plan.init_state)
+    lv._LevelProgram(gl, plan.tabs, fr, ws, model)()
+    # packed inside the capture, so that the launches go to its stream
+    work = device_work(lambda: lv._LevelProgram(gl, plan.tabs, fr, ws, model)())
+    assert work == _launches_only(6 + gl.KO1), work
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 8, 40, 256])
+def test_sharded_chunk_init_matches_plain(cuda, D):
+    """The sharded chunk start (one launch: the reduce in its last block)
+    bit for bit against chunk_init_plain with the ticket (every shard's
+    count, then shard_reduce_plain stage 0): random frontiers, some empty,
+    each stop condition; the ticket is left zero; one device launch."""
+    rng = np.random.default_rng(D)
+    ticket = lv.gather_scratch(D, cuda)
+    for trial in range(6):
+        valid = torch.from_numpy((rng.random((D, 100)) < rng.random((D, 1)))
+                                 .astype(np.uint8)).to(cuda)
+        if trial == 1:
+            valid.zero_()
+        ctl = torch.zeros((D, lv.CTL_SIZE), dtype=torch.int32)
+        ctl[:, lv.CTL_LVL] = int(rng.integers(0, 10))
+        ctl[:, lv.CTL_MAXLVL] = 9
+        ctl[:, lv.CTL_OVF] = int(trial == 3)
+        ctl[:, lv.CTL_LOSSY] = trial % 2
+        ctl[:, lv.CTL_STUCK] = int(trial == 4)
+        kc, pc = ctl.to(cuda), ctl.to(cuda)
+        lv.chunk_init(kc, valid, ticket)
+        lv.chunk_init_plain(pc, valid, ticket)
+        torch.cuda.synchronize()
+        assert torch.equal(kc, pc) and int(ticket.abs().sum()) == 0
+    assert device_work(lambda: lv.chunk_init(kc, valid, ticket)) == _launches_only(1)
+
+
+@pytest.mark.parametrize("mode", ["alltoall", "allgather"])
+def test_sharded_level_device_launches(cuda, mode):
+    """A sharded level at KO = 1 is 9 device launches in both modes (the
+    expand, stage 1, the route or the exchange, the hash, two take-col
+    sorts, the prune with the reduce, the compaction sort and the
+    gather-finalize), counted from a stream capture; no reduce launch."""
+    import chip_smoke
+
+    model, enc = _sharded_history(1)
+    plan, g, tabs = chip_smoke.sharded_setup(lv, wgl, enc, 64 * 8, 8, mode, model)
+    assert g.KO1 == 1
+    fr0 = wgl.initial_frontier(64 * 8, g.W, g.KO, g.S, plan.init_state, "cuda")
+    fr = tuple(a.reshape((8, 64) + tuple(a.shape[1:])).contiguous() for a in fr0[:5])
+    ws = lv.BatchWorkspace(g, 8, cuda)
+    ws.ctl[:, lv.CTL_GO] = 1
+    prog = lv._LevelProgram(g, tabs, fr, ws, model)
+    prog()
+    # packed inside the capture, so that the launches go to its stream
+    work = device_work(lambda: lv._LevelProgram(g, tabs, fr, ws, model)())
+    assert work == _launches_only(9), work
+    assert [name for name, _fn, _a in prog.steps].count("wgl_route") == (mode == "alltoall")
 
 
 def test_sharded_wrappers_refuse_bad_meshes(cuda):
@@ -1321,7 +1538,11 @@ def test_sharded_wrappers_refuse_bad_meshes(cuda):
     plan = wgl.plan_device(enc, device="cuda")
     g = wgl.sharded_geometry(plan, 16, 2, "alltoall")
     ctl = torch.zeros((3, lv.CTL_SIZE), dtype=torch.int32, device=cuda)
+    crows = torch.zeros((3, g.P, g.NC), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="members"):
-        lv.shard_reduce(g, ctl, 1)
+        lv.route(g, crows, ctl, torch.zeros((3, g.L, g.NC), dtype=torch.int32, device=cuda),
+                 torch.zeros((3, g.L), dtype=torch.uint8, device=cuda), lv.route_scratch(g, cuda))
+    with pytest.raises(ValueError, match="allgather"):
+        lv.exchange(g, crows, ctl, crows, crows)
     with pytest.raises(ValueError):
         wgl.sharded_geometry(plan, 16, lv.MAX_SHARDS + 1, "alltoall")

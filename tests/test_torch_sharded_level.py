@@ -3,9 +3,10 @@ sharded program (``parallel/frontier.py`` ``_sharded_kernel``) on the
 conftest's 8-virtual-device CPU mesh, from the same plan tables and the
 same global frontier: exact equality of the 8 packed flags and of the
 five global frontier arrays, at one level, two levels and a whole chunk,
-for D in {1, 2, 8} shards under both exchanges. Also the new plain stages
-(routing, exchange, cross-shard reduce, the sharded finalize) against a
-NumPy restatement of the reference's lines.
+for D in {1, 2, 8} shards under both exchanges. Also the sharded plain
+stages (the route with the all_to_all folded in, the all_gather, the
+cross-shard reduces in the prune and the chunk start, the sharded
+finalize) against NumPy restatements of the reference's lines.
 
 The port runs on the CPU (the plain stages; its D shards are the members
 of one batch). Tables cross with ``plan_from_arrays``, frontiers with
@@ -30,7 +31,8 @@ from jepsen_tpu.testing import random_register_history as ref_random
 from jepsen_tpu_torch.models import CasRegister, model_class
 from jepsen_tpu_torch.ops import wgl
 from jepsen_tpu_torch.ops import wgl_level as lv
-from jepsen_tpu_torch.testing import history_model, random_model_history
+from jepsen_tpu_torch.testing import (PRUNE_FAMILIES, history_model, prune_case,
+                                      random_model_history)
 
 MODES = ("alltoall", "allgather")
 F = 16  # per shard: the same compiled shapes on every mesh
@@ -243,32 +245,47 @@ def _np_route(pmat, n_cand, D, NID):
     return owner, bvalid, np.where(bvalid[:, None], pmat[bsrc], 0), bool((cnt > PBK).any())
 
 
-def _geometry(D, mode, P=48, F=16):
-    return lv.Geometry(F=F, W=32, KO=1, S=1, ND=64, NO=32, B=P // F, SEL=False,
+def _geometry(D, mode, P=48, F=16, S=1):
+    return lv.Geometry(F=F, W=32, KO=1, S=S, ND=64, NO=32, B=P // F, SEL=False,
                        two_stage=True, P=P, D=D, exchange=mode)
 
 
+@pytest.mark.parametrize("S", [1, 3])
 @pytest.mark.parametrize("D", [1, 2, 3, 8])
-def test_route_plain_matches_numpy(D):
-    rng = np.random.default_rng(D)
-    g = _geometry(D, "alltoall")
+def test_route_plain_matches_numpy(D, S):
+    """The route (the owner routing and the tiled all_to_all in one stage)
+    against ``ops/wgl.py:551-611`` in NumPy: source s's bucket for owner d
+    at drows[d][s*PBK, (s+1)*PBK), a bucket overflow (one owner
+    over-full), and at D = 3 a stopped shard (it sends nothing and its
+    receive rows are not written)."""
+    rng = np.random.default_rng(D + 10 * S)
+    g = _geometry(D, "alltoall", S=S)
+    PBK = g.PBK
     crows = rng.integers(-2**31, 2**31 - 1, size=(D, g.P, g.NC)).astype(np.int32)
     crows[:, ::3, :g.NID] = crows[:, :1, :g.NID]  # one owner over-full
     n_cand = [g.P - 5 * s for s in range(D)]
+    go = [int(not (D == 3 and s == 1)) for s in range(D)]
     ctl = torch.zeros((D, lv.CTL_SIZE), dtype=torch.int32)
-    ctl[:, lv.CTL_GO] = 1
+    ctl[:, lv.CTL_GO] = torch.tensor(go)
     ctl[:, lv.CTL_NEXP] = torch.tensor(n_cand)
-    send = torch.zeros((D, D * g.PBK, g.NC), dtype=torch.int32)
-    svalid = torch.zeros((D, D * g.PBK), dtype=torch.uint8)
-    lv.route(g, torch.from_numpy(crows), ctl, send, svalid)
-    for s in range(D):
-        owner, bvalid, bmat, over = _np_route(crows[s], n_cand[s], D, g.NID)
-        np.testing.assert_array_equal(svalid[s].numpy().astype(bool), bvalid)
-        np.testing.assert_array_equal(send[s].numpy(), bmat)
+    drows = torch.full((D, g.L, g.NC), 0x5A5A5A5A, dtype=torch.int32)
+    rvalid = torch.full((D, g.L), 7, dtype=torch.uint8)
+    lv.route(g, torch.from_numpy(crows), ctl, drows, rvalid, None)
+    routed = [_np_route(crows[s], n_cand[s] if go[s] else 0, D, g.NID) for s in range(D)]
+    for s, (_owner, _bvalid, _bmat, over) in enumerate(routed):
         assert int(ctl[s, lv.CTL_ROWOVF]) == int(over)
-        # every routed row sits in its owner's bucket
-        for slot in np.flatnonzero(bvalid):
-            assert _np_fnv(bmat[slot:slot + 1, :g.NID])[0] % D == slot // g.PBK
+    for d in range(D):
+        if not go[d]:
+            assert (drows[d] == 0x5A5A5A5A).all() and (rvalid[d] == 7).all()
+            continue
+        for s, (_owner, bvalid, bmat, _over) in enumerate(routed):
+            rows = slice(s * PBK, (s + 1) * PBK)
+            bucket = slice(d * PBK, (d + 1) * PBK)
+            np.testing.assert_array_equal(rvalid[d, rows].numpy().astype(bool), bvalid[bucket])
+            np.testing.assert_array_equal(drows[d, rows].numpy(), bmat[bucket])
+        # every received row is owned by its shard
+        got = drows[d].numpy()[rvalid[d].numpy().astype(bool)]
+        assert (_np_fnv(got[:, :g.NID]) % D == d).all()
     assert D == 1 or int(ctl[:, lv.CTL_ROWOVF].max()) == 1
 
 
@@ -276,7 +293,9 @@ def test_route_plain_matches_numpy(D):
 @pytest.mark.parametrize("mode", MODES)
 def test_exchange_plain_matches_numpy(D, mode):
     """Tiled all_to_all: recv[d][s*PBK + j] = send[s][d*PBK + j]; tiled
-    all_gather: recv[d][s*P + j] = send[s][j] (``ops/wgl.py:592-611``)."""
+    all_gather: recv[d][s*P + j] = send[s][j] (``ops/wgl.py:592-611``).
+    The all_to_all is the second half of the route's plain version; the
+    all_gather is the exchange stage, which an alltoall geometry refuses."""
     rng = np.random.default_rng(10 + D)
     g = _geometry(D, mode)
     a2a = mode == "alltoall"
@@ -289,8 +308,13 @@ def test_exchange_plain_matches_numpy(D, mode):
     ctl[:, lv.CTL_NEXP] = torch.from_numpy(n_cand.astype(np.int32))
     recv = torch.zeros((D, g.L, g.NC), dtype=torch.int32)
     rvalid = torch.zeros((D, g.L), dtype=torch.uint8)
-    lv.exchange(g, torch.from_numpy(send), torch.from_numpy(sval.astype(np.uint8)) if a2a
-                else None, ctl, recv, rvalid)
+    if a2a:
+        lv.collective_plain(g, torch.from_numpy(send), torch.from_numpy(sval.astype(np.uint8)),
+                            ctl, recv, rvalid)
+        with pytest.raises(ValueError, match="allgather"):
+            lv.exchange(g, torch.from_numpy(send), ctl, recv, rvalid)
+    else:
+        lv.exchange(g, torch.from_numpy(send), ctl, recv, rvalid)
     if a2a:
         mat = np.concatenate([(~sval).astype(np.uint32)[..., None],
                               send.view(np.uint32)], axis=2)
@@ -307,6 +331,111 @@ def test_exchange_plain_matches_numpy(D, mode):
                                   np.where(valid[..., None], want[..., 1:], 0))
 
 
+def _np_level_reduce(g, c0, c):
+    """The level's cross-shard values (``ops/wgl.py:490``, ``:612``,
+    ``:697-711``, ``:877-890``) in NumPy from the control blocks ``c0``
+    before the reduce (lossless), asserted on ``c`` after it; returns
+    (count, ovf_now, dead, kept, the shards' frontier counts)."""
+    D, F = g.D, g.F
+    counts = c0[:, lv.CTL_COUNT]
+    pre = bool(np.any(c0[:, lv.CTL_ROWOVF] | (c0[:, lv.CTL_NEXP] > g.P)))
+    if g.exchange == "alltoall":
+        count = int(counts.sum())
+        ovf_now = pre or bool(np.any(counts > F))
+        kept = np.minimum(counts, F)
+    else:
+        count = int(counts[0])  # every shard counts the same global rows
+        ovf_now = pre or count > F * D
+        kept = np.clip(min(count, F * D) - np.arange(D) * F, 0, F)
+    dead = ovf_now or count == 0
+    fc = c0[:, lv.CTL_FCOUNT] if dead else kept
+    assert (c[:, lv.CTL_GCOUNT] == count).all() and (c[:, lv.CTL_GOVF] == ovf_now).all()
+    assert (c[:, lv.CTL_ACCNOW] == c0[:, lv.CTL_ACCNOW].max()).all()
+    assert (c[:, lv.CTL_NSUM] == fc.sum()).all() and (c[:, lv.CTL_NMAX] == fc.max()).all()
+    assert (c[:, lv.CTL_NMIN] == fc.min()).all()
+    return count, ovf_now, dead, kept, fc
+
+
+def _random_level_ctl(rng, g, F=16):
+    """Control blocks of D shards at a level's prune: going, lossless,
+    random frontier counts, acc_now, row-overflow flags and candidate
+    counts (some above P)."""
+    D = g.D
+    ctl = torch.zeros((D, lv.CTL_SIZE), dtype=torch.int32)
+    ctl[:, lv.CTL_GO] = 1
+    ctl[:, lv.CTL_MAXLVL] = 100
+    ctl[:, lv.CTL_LVL] = 7
+    ctl[:, lv.CTL_FMAX] = 3
+    ctl[:, lv.CTL_FCOUNT] = torch.from_numpy(rng.integers(0, F + 1, D).astype(np.int32))
+    ctl[:, lv.CTL_ACCNOW] = torch.from_numpy((rng.random(D) < 0.1).astype(np.int32))
+    ctl[:, lv.CTL_ROWOVF] = torch.from_numpy((rng.random(D) < 0.1).astype(np.int32))
+    ctl[:, lv.CTL_NEXP] = torch.from_numpy(rng.integers(0, g.P + 3, D).astype(np.int32))
+    return ctl
+
+
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("D", [1, 2, 3, 8])
+@pytest.mark.parametrize("mode", MODES)
+def test_sharded_prune_plain_runs_the_reduce(mode, D, S):
+    """A sharded level's prune is the prune of every shard and then the
+    cross-shard reduce (the kernel runs it in its last block): the
+    priorities and keep counts of a per-shard ``prune_reference``, and the
+    replicated values of the NumPy restatement from those counts."""
+    rng = np.random.default_rng(30 + D + 10 * S)
+    g = _geometry(D, mode, S=S)
+    for trial, family in enumerate(PRUNE_FAMILIES):
+        drows, skey, perm, _go, _fprio = (torch.from_numpy(a) for a in prune_case(
+            40 + trial, D, g.L, g.NC, g.NID, family))
+        ctl = _random_level_ctl(rng, g)
+        want_ctl, want_fprio = ctl.clone(), torch.zeros((D, g.L), dtype=torch.int32)
+        for b in range(D):
+            lv.prune_reference(g, drows[b], skey[b], perm[b], want_ctl[b], want_fprio[b])
+        fprio = torch.zeros((D, g.L), dtype=torch.int32)
+        lv.prune(g, drows, skey, perm, ctl, fprio, None)
+        assert torch.equal(fprio, want_fprio)
+        assert torch.equal(ctl[:, lv.CTL_COUNT], want_ctl[:, lv.CTL_COUNT])
+        _np_level_reduce(g, want_ctl.numpy(), ctl.numpy())
+        # a stopped level is left as it was
+        ctl[:, lv.CTL_GO] = 0
+        before = ctl.clone()
+        lv.prune(g, drows, skey, perm, ctl, fprio, None)
+        assert torch.equal(ctl, before)
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 8])
+def test_sharded_chunk_init_plain_runs_the_reduce(D):
+    """A sharded chunk start (a ticket given) is each shard's frontier
+    count and then the chunk-start reduce (``ops/wgl.py:830-836``): the
+    sum, max and min of the counts and one global stop test from shard 0's
+    loop carry, on every shard; without the ticket each shard's own."""
+    rng = np.random.default_rng(50 + D)
+    F = 16
+    for trial in range(6):
+        valid = torch.from_numpy((rng.random((D, F)) < rng.random((D, 1))).astype(np.uint8))
+        if trial == 1:
+            valid.zero_()  # an empty frontier stops the search
+        ctl = torch.zeros((D, lv.CTL_SIZE), dtype=torch.int32)
+        ctl[:, lv.CTL_LVL] = int(rng.integers(0, 10))
+        ctl[:, lv.CTL_MAXLVL] = 9
+        ctl[:, lv.CTL_OVF] = int(trial == 3)
+        ctl[:, lv.CTL_LOSSY] = int(trial % 2)
+        ctl[:, lv.CTL_STUCK] = int(trial == 4)
+        alone = ctl.clone()
+        lv.chunk_init(ctl, valid, lv.gather_scratch(D, "cpu"))
+        lv.chunk_init(alone, valid)
+        fc = valid.sum(dim=1).numpy()
+        c0 = alone[0].tolist()
+        go = (not c0[lv.CTL_ACC] and (c0[lv.CTL_LOSSY] or not c0[lv.CTL_OVF])
+              and not c0[lv.CTL_STUCK] and fc.sum() > 0 and c0[lv.CTL_LVL] < c0[lv.CTL_MAXLVL])
+        c = ctl.numpy()
+        assert (c[:, lv.CTL_FCOUNT] == fc).all() and (c[:, lv.CTL_GO] == int(go)).all()
+        assert (c[:, lv.CTL_NSUM] == fc.sum()).all() and (c[:, lv.CTL_NMAX] == fc.max()).all()
+        assert (c[:, lv.CTL_NMIN] == fc.min()).all()
+        a = alone.numpy()
+        assert (a[:, lv.CTL_FCOUNT] == fc).all() and not a[:, lv.CTL_NSUM:].any()
+        assert (a[:, lv.CTL_GO] == [int(go and f > 0) for f in fc]).all()
+
+
 @pytest.mark.parametrize("D", [1, 2, 3, 8])
 @pytest.mark.parametrize("mode", MODES)
 def test_shard_reduce_and_finalize_plain_match_numpy(D, mode):
@@ -318,37 +447,14 @@ def test_shard_reduce_and_finalize_plain_match_numpy(D, mode):
     F = 16
     g = _geometry(D, mode, F=F)
     for trial in range(6):
-        ctl = torch.zeros((D, lv.CTL_SIZE), dtype=torch.int32)
-        ctl[:, lv.CTL_GO] = 1
-        ctl[:, lv.CTL_MAXLVL] = 100
-        ctl[:, lv.CTL_LVL] = 7
-        ctl[:, lv.CTL_FMAX] = 3
-        ctl[:, lv.CTL_FCOUNT] = torch.from_numpy(rng.integers(0, F + 1, D).astype(np.int32))
-        ctl[:, lv.CTL_ACCNOW] = torch.from_numpy((rng.random(D) < 0.1).astype(np.int32))
-        ctl[:, lv.CTL_ROWOVF] = torch.from_numpy((rng.random(D) < 0.1).astype(np.int32))
-        ctl[:, lv.CTL_NEXP] = torch.from_numpy(rng.integers(0, g.P + 3, D).astype(np.int32))
+        ctl = _random_level_ctl(rng, g, F)
         local = rng.integers(0, F + 3, D) if trial != 2 else np.zeros(D, int)
         same = int(rng.integers(0, F * D + 4))
         counts = local if mode == "alltoall" else np.full(D, same)
         ctl[:, lv.CTL_COUNT] = torch.from_numpy(counts.astype(np.int32))
         c0 = ctl.numpy().copy()
-        lv.shard_reduce(g, ctl, 1)
-        pre = bool(np.any(c0[:, lv.CTL_ROWOVF] | (c0[:, lv.CTL_NEXP] > g.P)))
-        if mode == "alltoall":
-            count = int(counts.sum())
-            ovf_now = pre or bool(np.any(counts > F))
-            kept = np.minimum(counts, F)
-        else:
-            count = same
-            ovf_now = pre or count > F * D
-            kept = np.clip(min(count, F * D) - np.arange(D) * F, 0, F)
-        dead = ovf_now or count == 0
-        fc = c0[:, lv.CTL_FCOUNT] if dead else kept
-        c = ctl.numpy()
-        assert (c[:, lv.CTL_GCOUNT] == count).all() and (c[:, lv.CTL_GOVF] == ovf_now).all()
-        assert (c[:, lv.CTL_ACCNOW] == c0[:, lv.CTL_ACCNOW].max()).all()
-        assert (c[:, lv.CTL_NSUM] == fc.sum()).all() and (c[:, lv.CTL_NMAX] == fc.max()).all()
-        assert (c[:, lv.CTL_NMIN] == fc.min()).all()
+        lv.shard_reduce_plain(g, ctl, 1)
+        count, ovf_now, dead, kept, fc = _np_level_reduce(g, c0, ctl.numpy())
         # the sharded finalize: each shard's rows and the replicated carry
         L = g.L
         drows = torch.from_numpy(rng.integers(0, 2**20, size=(D, L, g.NC)).astype(np.int32))
@@ -395,9 +501,11 @@ class _FakeLib:
 @pytest.mark.parametrize("mode", MODES)
 def test_sharded_level_program_launches(mode, monkeypatch):
     """The kernel path packs a sharded level once per chunk: the stages in
-    order (route only under alltoall, the received rows hashed by the
-    stage-1 entry point, one take-col sort a dedup key, the reduce between
-    the prune and the compaction sort), one count per launch."""
+    order (the route under alltoall, the exchange under allgather, the
+    received rows hashed by the stage-1 entry point, one take-col sort a
+    dedup key, the prune with the cross-shard reduce in its launch), one
+    count per launch: 9 launches a level at KO = 1 in both modes, and one
+    launch at a chunk's start (the chunk init with its ticket)."""
     lib = _FakeLib()
     monkeypatch.setattr(lv._build, "load", lambda: lib)
     monkeypatch.setattr(lv, "_check_cuda", lambda *ts: None)
@@ -409,12 +517,24 @@ def test_sharded_level_program_launches(mode, monkeypatch):
     prog = lv._LevelProgram(pair.g, pair.tabs, fr, ws, pair.model)
     lv.reset_launches()
     prog()
+    a2a = mode == "alltoall"
     sorts = ["wgl_take_col_sort"] * (pair.g.KO1 + 1)
-    want = (["wgl_expand", "wgl_stage1_hash"] + (["wgl_route"] if mode == "alltoall" else [])
-            + ["wgl_exchange", "wgl_stage1_hash"] + sorts
-            + ["wgl_prune", "wgl_shard_reduce", "radix_sort_pairs", "wgl_gather_finalize"])
-    assert lib.calls == want
-    assert lv.LAUNCHES["wgl_route"] == (mode == "alltoall")
-    assert lv.LAUNCHES["wgl_stage1_hash"] == 2 and lv.LAUNCHES["wgl_shard_reduce"] == 1
+    want = (["wgl_expand", "wgl_stage1_hash", "wgl_route" if a2a else "wgl_exchange",
+             "wgl_stage1_hash"] + sorts
+            + ["wgl_prune", "radix_sort_pairs", "wgl_gather_finalize"])
+    assert lib.calls == want and (pair.g.KO1 > 1 or len(want) == 9)
+    assert lv.LAUNCHES["wgl_route"] == a2a and lv.LAUNCHES["wgl_exchange"] == (not a2a)
+    assert lv.LAUNCHES["wgl_stage1_hash"] == 2 and "wgl_shard_reduce" not in lv.LAUNCHES
+    # the prune is told it runs the shards' reduce; the chunk start its ticket
+    prune = lv._prune_args(pair.g, ws.drows, ws.keys, ws.perm, ws.ctl, ws.fprio, ws.pr)
+    assert prune[13].value == lv._EX_MODE[mode] and prune[11].value == pair.g.F
+    init = lv._chunk_init_args(ws.ctl, fr[4], ws.gf)
+    assert init[2].value == ws.gf.data_ptr()
+    bad = torch.zeros((2, lv.CTL_SIZE), dtype=torch.int32)
     with pytest.raises(ValueError, match="members"):
-        lv._shard_reduce_args(pair.g, torch.zeros((2, lv.CTL_SIZE), dtype=torch.int32), 1)
+        lv._prune_args(pair.g, ws.drows[:2], ws.keys[:2], ws.perm[:2], bad, ws.fprio[:2], ws.pr)
+    with pytest.raises(ValueError, match="members"):
+        if a2a:
+            lv._route_args(pair.g, ws.crows[:2], bad, ws.drows[:2], ws.rvalid[:2], ws.rt)
+        else:
+            lv._exchange_args(pair.g, ws.crows[:2], bad, ws.drows[:2], ws.rvalid[:2])
