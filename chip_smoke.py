@@ -11,10 +11,13 @@ and then runs these phases, each printing JSON lines:
 - ``kernels``: every stage of one level, kernel against its plain PyTorch
   version bit for bit, at several capacities of the north-star history
   (a 10,000-op cas-register history), plus the radix sort on random keys;
-  the level's stages are the expand, stage 1, one take-col sort a dedup
-  key (the first from the identity order), the prune, the compaction sort
-  (which carries the dedup order as its values) and the one-launch
-  gather-finalize;
+  the level's stages are the expand, stage 1 (a two-stage level's: a
+  single-stage level's expand writes the fused keys, checked against the
+  plain hash of its rows and timed beside the parent's hash launch, the
+  yardstick ``k_hash``), one take-col sort a dedup key (the first from the
+  identity order), the prune, the compaction sort (which carries the dedup
+  order as its values) and the one-launch gather-finalize; the regroup
+  (one launch) beside its parent's five launches;
 - ``radix_sort_sweep``: the radix sort at 1 to 1,048,576 pairs, 1, 3 and
   8 members, on each key family of ``testing.SORT_KEY_FAMILIES``, bit for
   bit against the plain sort, with its ms beside ``torch.sort``'s, its
@@ -139,13 +142,23 @@ and then runs these phases, each printing JSON lines:
   and the alltoall exchange, the prune and the reduce: two launches each,
   built from ``yardsticks/wgl_parent.cu`` and checked against the plain
   versions too); the sharded chunk start (the reduce in its last block)
-  the same way; the device launches of a sharded level in each mode and
-  of a chunk start (``testing.device_work``: 9 and 1 at KO = 1);
+  the same way; the allgather's stage 1 also without its keys (the
+  alltoall's compaction), the parent's exchange without them, and the
+  parent's hash of the received rows (the yardstick: the route and the
+  exchange now write the keys with the rows); the device
+  launches of a sharded level in each mode and of a chunk start
+  (``testing.device_work``: 8 and 1 at KO = 1);
 - ``exchange_scale``: the route (alltoall) and the exchange (allgather)
   alone at the shard geometry of a global capacity of 262144 (8 shards)
-  on seeded rows, bit for bit against their plain versions, the route
-  timed beside its parent design and the exchange beside one PyTorch
-  copy;
+  on seeded rows with their keys, bit for bit against their plain
+  versions, each timed beside its parent design (the route: the route and
+  the alltoall exchange, then the hash; the exchange: the parent's
+  exchange without keys, then the hash, and that exchange alone), and the
+  exchange beside one PyTorch copy;
+- ``regroup_scale``: the sharded escalation's grow (the regroup of the
+  flattened global frontier) at f_total 4096 -> 16384, 16384 -> 65536 and
+  65536 -> 262144, bit for bit against the plain version and beside the
+  parent's five launches, with the kernel's device launches (one);
 - ``sharded_10k``: the reference bench leg's 10,000-op history
   (``bench.py:1847-1849``) through ``parallel.frontier.check_encoded_sharded``
   on 8 shards at a global capacity of 4096 in both modes (same verdict;
@@ -256,8 +269,16 @@ REPLACES = {
 # the level program, the regroup its re-batch program.
 BATCH_REPLACES = {"level": "jepsen_tpu/ops/wgl.py:949",
                   "wgl_regroup": "jepsen_tpu/parallel/batch.py:95"}
-LEVEL_KERNELS = ("wgl_chunk_init", "wgl_expand", "wgl_stage1_hash", "wgl_take_col_sort",
-                 "radix_sort_pairs", "wgl_prune", "wgl_gather_finalize")
+# The kernels every level launches. A two-stage level (M above
+# BIG_M_THRESHOLD, and every sharded level) also launches stage 1
+# (wgl_stage1_hash); a single-stage level's expand writes its keys.
+# launch_counts requires stage 1 where the path ran a two-stage level
+# (LevelShapes) and refuses it where it ran none.
+LEVEL_KERNELS = ("wgl_chunk_init", "wgl_expand", "wgl_take_col_sort", "radix_sort_pairs",
+                 "wgl_prune", "wgl_gather_finalize")
+STAGE1 = "wgl_stage1_hash"
+# A single search's kernels, stage 1 aside.
+SEARCH_KERNELS = tuple(k for k in REPLACES if k != STAGE1)
 # Elle: lagged list-append / rw-register histories (8 keys, at most 5
 # micro-ops a txn, 10 processes: the shape of bench.py's cockroachdb txn
 # config), reads inside the lag window seeing up to `depth` txns back.
@@ -323,6 +344,10 @@ SHARD_REFUTE_WITHIN = 0.02  # the broken read lies in the first 2% of the histor
 # escalation's rung: 32768 rows a shard, 131072 stage-1 rows, 1,048,576
 # received rows a shard under allgather), on seeded rows.
 SHARD_BIG_F_TOTAL = 262144
+# The sharded escalation's grows (x4 steps of the global capacity on
+# SHARD_D shards) the regroup is timed at, beside its parent design.
+REGROUP_GROWS = ((4096, 16384), (16384, 65536), (65536, 262144))
+REGROUP_SEED = 4
 SHARD_PROGRAM = "jepsen_tpu/parallel/frontier.py:72"
 # The sharded level's kernels (SHARD_KERNEL below) and what each replaces:
 # the route the owner routing and the all_to_all (lines 551-611), the
@@ -445,12 +470,43 @@ def warm_frontier(plan, F, lv, wgl, model, levels=WARM_LEVELS):
     return fr, ws, [f[3] for f in flags]
 
 
+class LevelShapes:
+    """Whether the path run since the last :func:`reset_counts` ran a
+    two-stage level: the single, batch and sharded drivers build every
+    chunk's geometry through ``wgl.level_geometry`` or
+    ``wgl.sharded_geometry``, which :meth:`install` wraps."""
+
+    two_stage = False
+
+    @classmethod
+    def install(cls, wgl) -> None:
+        for name in ("level_geometry", "sharded_geometry"):
+            def wrapped(*a, _build=getattr(wgl, name), **kw):
+                g = _build(*a, **kw)
+                cls.two_stage = cls.two_stage or g.two_stage
+                return g
+            setattr(wgl, name, wrapped)
+
+
+def reset_counts(lv) -> None:
+    """Every launch count to 0, and no level seen (:class:`LevelShapes`)."""
+    lv.reset_launches()
+    LevelShapes.two_stage = False
+
+
 def launch_counts(lv, where, required=None):
-    """The launch counts since the last reset; every kernel of the path
-    (``required``, default every kernel of the single search) must have
-    run."""
+    """The launch counts since :func:`reset_counts`; every kernel of the
+    path (``required``, default every kernel of the single search) must
+    have run, stage 1 too where the path ran a two-stage level, and stage
+    1 not at all where it ran none."""
     counts = dict(lv.LAUNCHES)
-    idle = [k for k in (required or REPLACES) if counts[k] == 0]
+    required = tuple(required or SEARCH_KERNELS)
+    if LevelShapes.two_stage:
+        required += (STAGE1,)
+    elif counts[STAGE1]:
+        raise AssertionError(f"{where} ran no two-stage level but launched {STAGE1} "
+                             f"{counts[STAGE1]} times")
+    idle = [k for k in required if counts[k] == 0]
     if idle:
         raise AssertionError(f"kernels never launched in {where}: {idle}")
     return counts
@@ -639,47 +695,47 @@ class StageCheck:
         k, p, t = measure(lambda t: lv.chunk_init(*t), lambda t: lv.chunk_init_plain(*t), ins)
         self.record("wgl_chunk_init", max_abs_err(k[0], p[0]), t, nb * g.F)
         ctl = p[0]
-        # expand
+        # expand (a single-stage level's writes the keys: it has no stage 1)
+        single = not g.two_stage
         rows = z(nb, g.M, g.NC)
         nval = torch.zeros((nb, g.M), dtype=torch.uint8, device=dev)
-        ins = (ctl, rows, nval) + tuple(self.fr)
+        ins = (ctl, rows, nval) + ((z(nb, g.M),) if single else ()) + tuple(self.fr)
         model = self.model
+        fr_at = 4 if single else 3  # the keys at 3
+        key_of = (lambda t: t[3]) if single else (lambda t: None)
         k, p, t = measure(
-            lambda t: lv.expand(g, tabs, t[3:], t[0], t[1], t[2], model),
-            lambda t: lv.expand_plain(g, tabs, t[3:], t[0], t[1], t[2], model), ins)
+            lambda t: lv.expand(g, tabs, t[fr_at:], t[0], t[1], t[2], model, key_of(t)),
+            lambda t: lv.expand_plain(g, tabs, t[fr_at:], t[0], t[1], t[2], model, key_of(t)),
+            ins)
         vm = p[2].bool()
         err = max(max_abs_err(k[0], p[0]), max_abs_err(k[2], p[2]),
                   max_abs_err(k[1][vm], p[1][vm]))
         n_exp = [int(x) for x in vm.sum(dim=1)]
         fb = nb * g.F * (4 * g.NC + 1)
-        self.record("wgl_expand", err, t,
+        self.record("wgl_expand", max(err, self.check_keys(k) if single else 0), t,
                     fb + min(4 * nb * g.ND * 8, e4(sum(self.valid_configs) * g.W * 5))
-                    + e4(sum(n_exp) * g.NC) + nb * g.M)
+                    + e4(sum(n_exp) * g.NC) + nb * g.M + (e4(nb * g.M) if single else 0))
         self.n_exp = n_exp
         check_nexp(lv, k[0], k[2], "wgl_expand (kernel)")
         check_nexp(lv, p[0], p[2], "wgl_expand (plain)")
+        if single:
+            self.hash_fold(ins, k, p)
         if self.expand_only:
             return
         ctl, rows, nval = p[0], p[1], p[2]
-        # stage-1 compaction + hash
-        drows = z(nb, g.L, g.NC) if g.two_stage else rows
-        fkey = z(nb, g.L)
-        if g.two_stage:
+        if single:
+            drows, fkey = rows, p[3]
+        else:  # stage-1 compaction + hash
+            drows, fkey = z(nb, g.L, g.NC), z(nb, g.L)
             ins = (rows, nval, ctl, drows, fkey)
-        else:
-            ins = (rows, nval, ctl, fkey)
-        pick = (lambda t: (t[0], t[1], t[2], t[3], t[4])) if g.two_stage else \
-            (lambda t: (t[0], t[1], t[2], t[0], t[3]))
-        k, p, t = measure(lambda t: lv.stage1_hash(g, *pick(t), ws.s1),
-                          lambda t: lv.stage1_hash_plain(g, *pick(t), None), ins)
-        kd, kf = pick(k)[3], pick(k)[4]
-        pd, pf = pick(p)[3], pick(p)[4]
-        nv = [min(n, g.P) for n in n_exp] if g.two_stage else [g.L] * nb
-        err = max(_rows_err(kf, pf, nv), _rows_err(kd, pd, nv), max_abs_err(kf < 0, pf < 0))
-        nbytes = (nb * g.M + e4(sum(n_exp) * g.NC, sum(nv) * g.NC, nb * g.L)) \
-            if g.two_stage else (nb * g.M + e4(nb * g.M * g.NID, nb * g.M))
-        self.record("wgl_stage1_hash", err, t, nbytes)
-        drows, fkey = pd, pf
+            k, p, t = measure(lambda t: lv.stage1_hash(g, *t, ws.s1),
+                              lambda t: lv.stage1_hash_plain(g, *t, None), ins)
+            nv = [min(n, g.P) for n in n_exp]
+            err = max(_rows_err(k[4], p[4], nv), _rows_err(k[3], p[3], nv),
+                      max_abs_err(k[4] < 0, p[4] < 0))
+            self.record("wgl_stage1_hash", err, t,
+                        nb * g.M + e4(sum(n_exp) * g.NC, sum(nv) * g.NC, nb * g.L))
+            drows, fkey = p[3], p[4]
         # dedup order: a take-col sort per key (last open word first, from
         # the identity order)
         perm = z(nb, g.L)
@@ -738,8 +794,54 @@ class StageCheck:
         plain_ms, _ = batch_ms(lambda t: lv.regroup_reference(t, idx, F_new), ins, hold=False,
                                **self.plain_reps)
         row_bytes = 4 * (1 + g.KD + g.KO1 + g.S) + 1
-        self.record("wgl_regroup", max(max_abs_err(a, b) for a, b in zip(k, p)),
+        y = yard_regroup(lv, ins, idx, F_new)
+        torch.cuda.synchronize()
+        self.record("wgl_regroup", max(max_abs_err(a, b) for a, b in zip(k + y, p + p)),
                     (ms, plain_ms, call_ms), len(idx) * (g.F + F_new) * row_bytes)
+        self.regroup = regroup_timing(lv, ins, idx, F_new, k)
+
+    def check_keys(self, k) -> int:
+        """A single-stage expand's keys (kernel outputs ``k``: ctl, rows,
+        nvalid, fkey) under their contract: each valid row's equal to
+        ``hash_rows_reference`` of the row, bit for bit, every invalid
+        slot's KEY_INVALID alone. Returns the largest difference."""
+        lv = self.lv
+        vm = k[2].bool()
+        want = k[3].clone()
+        lv.vmap_members(lv.hash_rows_reference)(self.g, k[1], k[2], k[0], want)
+        invalid = k[3][~vm]
+        bad = int((invalid != lv.KEY_INVALID - 2**32).sum())  # as int32 bit patterns
+        return max(max_abs_err(k[3][vm], want[vm]), bad)
+
+    def hash_fold(self, ins, k, p) -> None:
+        """What the expand's keys replace, at this single-stage level: the
+        parent's k_hash launch (the yardstick) over the expand's rows,
+        bit for bit against the plain hash; its ms beside the expand's ms
+        without its keys (the expand's own ms with them is the stage's)."""
+        import torch
+
+        lv, g = self.lv, self.g
+        y = k[3].clone()
+        yard_hash(lv, k[1], k[2], k[0], y, g.NC, g.NID)
+        q = k[3].clone()
+        lv.vmap_members(lv.hash_rows_reference)(g, k[1], k[2], k[0], q)
+        torch.cuda.synchronize()
+        vm = k[2].bool()
+        # the parent hashed every row; the valid rows' keys are the contract
+        err = max(max_abs_err(y, q), max_abs_err(y[vm], k[3][vm]))
+        if err:
+            raise AssertionError(f"the parent hash (yardstick) disagrees at F {self.F}: {err}")
+        hins = (k[1], k[2], k[0], y)
+        ms = batch_ms(lambda t: yard_hash(lv, t[0], t[1], t[2], t[3], g.NC, g.NID), hins)[0]
+        plain_ms = batch_ms(lambda t: lv.vmap_members(lv.hash_rows_reference)(g, *t), hins,
+                            hold=False, batch=3, batches=3)[0]
+        bare_ms = batch_ms(lambda t: lv.expand(g, self.tabs, t[3:], t[0], t[1], t[2],
+                                               self.model), ins[:3] + ins[4:])[0]
+        nbytes = self.nb * g.M * (4 * g.NID + 1 + 4)
+        self.hash_parent = {"F": self.F, "L": g.M, "nb": self.nb, "ms": ms, "plain_ms": plain_ms,
+                            "max_abs_err": err, "launches_per_level": 1,
+                            "expand_without_keys_ms": bare_ms,
+                            **bound_fields(ms, nbytes)}
 
 
 def stage_summary(chk, lv):
@@ -1157,8 +1259,11 @@ YARDSTICK_SRC = ("yardsticks", "wgl_parent.cu")
 YARDSTICKS = {"yardstick_take_col": "PLIIPPIIPP",
               "yardstick_gather_finalize": "P" * 10 + "I" * 10 + "P",
               "yardstick_route_exchange": "P" * 6 + "I" * 5 + "P",
+              "yardstick_gather": "PPPPIIIP",
               "yardstick_prune_reduce": "P" * 6 + "I" * 10 + "P",
-              "yardstick_chunk_init_reduce": "PPIIP"}
+              "yardstick_chunk_init_reduce": "PPIIP",
+              "yardstick_hash": "PPPPIIIIP",
+              "yardstick_regroup": "P" * 11 + "I" * 6 + "P"}
 _YARD = {}  # the yardsticks' build: "proc", "lib", "log", "t0"; then "cdll"
 
 
@@ -1244,6 +1349,16 @@ def yard_route_exchange(lv, g, crows, ctl, send, svalid, drows, rvalid) -> None:
                ci(g.P), ci(g.NC), ci(g.NID), ci(g.D), ci(g.PBK), lv._stream())
 
 
+def yard_gather(lv, g, crows, ctl, recv, rvalid) -> None:
+    """The parent's allgather exchange of the stage-1 rows, without their
+    keys (the yardstick)."""
+    import ctypes
+
+    ci = ctypes.c_int
+    _yard_call("yardstick_gather", *(lv._ptr(t) for t in (crows, ctl, recv, rvalid)), ci(g.P),
+               ci(g.NC), ci(g.D), lv._stream())
+
+
 def yard_prune_reduce(lv, g, drows, skey, perm, ctl, fprio, scratch) -> None:
     """The parent's sharded prune: the single level's prune, then the
     one-thread reduce launch (the yardstick), on the prune's own
@@ -1260,6 +1375,100 @@ def yard_chunk_init_reduce(lv, ctl, valid) -> None:
     nb, F = valid.shape
     _yard_call("yardstick_chunk_init_reduce", lv._ptr(ctl), lv._ptr(valid), ctypes.c_int(F),
                ctypes.c_int(nb), lv._stream())
+
+
+def yard_hash(lv, drows, nvalid, ctl, fkey, NC, NID) -> None:
+    """The parent's hash launch of a level's rows (``drows [nb, L, NC]``,
+    validity ``nvalid [nb, L]``) into ``fkey [nb, L]``, the yardstick: what
+    the expand, the route and the exchange now write with the rows."""
+    import ctypes
+
+    nb, L = fkey.shape
+    ci = ctypes.c_int
+    _yard_call("yardstick_hash", lv._ptr(drows), lv._ptr(nvalid), lv._ptr(ctl), lv._ptr(fkey),
+               ci(L), ci(NC), ci(NID), ci(nb), lv._stream())
+
+
+def yard_regroup(lv, fr, idx, F_new) -> tuple:
+    """The parent's re-batch (five launches, one an array), the yardstick:
+    ``lv.regroup``'s buffers and arguments."""
+    import torch
+
+    out = tuple(torch.empty((len(idx), F_new) + tuple(a.shape[2:]), dtype=a.dtype,
+                            device=a.device) for a in fr)
+    ix = torch.tensor(idx, dtype=torch.int32).pin_memory().to(fr[0].device, non_blocking=True)
+    yard_regroup_launch(lv, fr, out, idx, ix)
+    return out
+
+
+def yard_regroup_launch(lv, fr, out, idx, ix) -> None:
+    """The parent's five launches on ``lv.regroup``'s buffers, the index
+    ``ix`` on the card (the parent passed no index in its parameters)."""
+    args = lv._regroup_args(fr, out, idx, ix)
+    _yard_call("yardstick_regroup", *args[:11], *args[12:])
+
+
+def regroup_timing(lv, fr, idx, F_new, out) -> dict:
+    """The regroup beside its parent design (five launches, the
+    yardstick) on the same inputs: each wrapper's ms (the parent's with
+    its index's copy to the card) and each one's launches alone (``out``
+    the buffers, the parent's index already on the card), and the
+    kernel's device launches (``testing.device_work``: one kernel, no
+    copy: up to RG_INLINE indices go in its parameters)."""
+    import torch
+
+    from jepsen_tpu_torch.testing import device_work
+
+    ix = torch.tensor(idx, dtype=torch.int32, device=fr[0].device)
+    own = ix if len(idx) > lv._build.RG_INLINE else None
+    kernel = lambda t: lv._launch("wgl_regroup", *lv._regroup_args(t, out, idx, own))  # noqa: E731
+    parent = lambda t: yard_regroup_launch(lv, t, out, idx, ix)  # noqa: E731
+    work = device_work(lambda: kernel(fr))
+    if work["kernel"] != 1:
+        raise AssertionError(f"wgl_regroup: {work} device launches a call")
+    return {"launch_ms": batch_ms(kernel, fr, clone=False)[0],
+            "parent_ms": batch_ms(lambda t: yard_regroup(lv, t, idx, F_new), fr, clone=False)[0],
+            "parent_launch_ms": batch_ms(parent, fr, clone=False)[0],
+            "device_launches": work}
+
+
+def regroup_scale(lv, plan) -> list:
+    """The sharded escalation's grow (``wgl.pad_sharded_frontier``: the
+    regroup of one member over the flattened ``[D * F]`` frontier) at
+    REGROUP_GROWS, on a seeded frontier of the plan's widths: the kernel,
+    the parent's five launches (the yardstick) and the plain version bit
+    for bit; the ms of each (``regroup_timing``), the plain ms and the
+    bound (the old rows read once, the new rows written once)."""
+    import torch
+
+    W, KO, S = plan.dims[:3]
+    widths = (1, W // 32, max(KO, 1), S)
+    gen = torch.Generator(device="cuda").manual_seed(REGROUP_SEED)
+    out = []
+    for f_old, f_new in REGROUP_GROWS:
+        fr = tuple(torch.randint(-2**31, 2**31 - 1, (1, f_old, w), generator=gen, device="cuda",
+                                 dtype=torch.int64).to(torch.int32) for w in widths)
+        fr = (fr[0][..., 0],) + fr[1:] + (torch.randint(0, 2, (1, f_old), generator=gen,
+                                                        device="cuda").bool(),)
+        k = lv.regroup(fr, [0], f_new)
+        y = yard_regroup(lv, fr, [0], f_new)
+        p = lv.regroup_reference(fr, [0], f_new)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(a, b) for a, b in zip(k + y, p + p))
+        if err:
+            raise AssertionError(f"wgl_regroup (or its parent) disagrees with plain at the "
+                                 f"sharded grow {f_old} -> {f_new}")
+        ms, call_ms = batch_ms(lambda t: lv.regroup(t, [0], f_new), fr, clone=False)
+        plain_ms = batch_ms(lambda t: lv.regroup_reference(t, [0], f_new), fr, hold=False,
+                            clone=False, batch=3, batches=3)[0]
+        row = 4 * sum(widths) + 1
+        t = regroup_timing(lv, fr, [0], f_new, k)
+        out.append({"f_total": f_old, "to": f_new, "D": SHARD_D, "max_abs_err": err, "ms": ms,
+                    "call_ms": call_ms, "plain_ms": plain_ms, **t,
+                    **bound_fields(t["launch_ms"], (f_old + f_new) * row)})
+        del fr, k, y, p
+    emit({"phase": "regroup_scale", "grows": out})
+    return out
 
 
 def take_sort_case(lv, src, col, keys, vals, scratch, ctl, ident, reps) -> dict:
@@ -1668,7 +1877,9 @@ def mutex_5k_phase(lv, wgl):
     levels, rungs, per-level rows); every level kernel launched; wall,
     ms/level and the device's idle share; and wgl_expand against the plain
     expand at this history's own capacity (16) after MODEL_WARM_LEVELS
-    levels. Returns (the launch counts, that expand summary)."""
+    levels, with the parent's hash launch (the yardstick) that the
+    single-stage expand's keys replace. Returns (the launch counts, that
+    expand summary, the parent hash's summary or None)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1680,7 +1891,7 @@ def mutex_5k_phase(lv, wgl):
                             n_procs=MUTEX_5K["n_procs"])
     chk = lock.checker({"model": "owner-aware-mutex"})
     chk.check({}, h, {})  # workspaces and first-call costs
-    lv.reset_launches()
+    reset_counts(lv)
     torch.cuda.synchronize()
     t = time.perf_counter()
     res = chk.check({}, h, {})
@@ -1714,10 +1925,11 @@ def mutex_5k_phase(lv, wgl):
           "device_busy_ms_per_level": busy / levels if busy else None,
           "device_idle_share": 1 - busy / (1e3 * wall) if busy else None,
           "attempts": [(a["F"], a["levels"]) for a in lin["attempts"]],
-          "launches": launches, "same_as_plain": same, "wgl_expand_at_frontier": expand})
+          "launches": launches, "same_as_plain": same, "wgl_expand_at_frontier": expand,
+          "k_hash_parent": getattr(chk_k, "hash_parent", None)})
     if not (res["valid"] is True and lin["valid"] is True and "stats" in res and same):
         raise AssertionError("mutex_5k failed")
-    return launches, expand
+    return launches, expand, getattr(chk_k, "hash_parent", None)
 
 
 def models_2k_phase(lv, wgl, wgl_host, hists):
@@ -1734,7 +1946,7 @@ def models_2k_phase(lv, wgl, wgl_host, hists):
     launches = {}
     for name, (good, bad) in hists.items():
         model = history_model(name)
-        lv.reset_launches()
+        reset_counts(lv)
         t = time.perf_counter()
         rg = wgl.check_history(model, good, backend="device")
         torch.cuda.synchronize()
@@ -1800,11 +2012,11 @@ def keyed_multi_register_phase(lv, wgl_host, jchecker, independent, History):
             keyed_ops.append(o.with_(value=independent.KV(k, o.value), index=len(keyed_ops)))
     keyed_h = History(keyed_ops, reindex=False)
     check_batch(model, hists)  # workspaces and first-call costs
-    lv.reset_launches()
+    reset_counts(lv)
     rb = check_batch(model, hists)
     torch.cuda.synchronize()
     batch_launches = launch_counts(lv, "check_batch of the keyed members", LEVEL_KERNELS)
-    lv.reset_launches()
+    reset_counts(lv)
     t = time.perf_counter()
     keyed = independent.checker(jchecker.linearizable(model=model)).check({}, keyed_h, {})
     torch.cuda.synchronize()
@@ -1879,22 +2091,31 @@ def sharded_ctl(lv, g, plan, fr, lvl, lossy):
     return ctl
 
 
+def received_keys_err(lv, g, ctl, drows, rvalid, fkey) -> int:
+    """The received rows' keys against ``hash_rows_reference`` of the same
+    rows, every slot of every going shard, bit for bit."""
+    want = fkey.clone()
+    lv.vmap_members(lv.hash_rows_reference)(g, drows, rvalid, ctl, want)
+    return max_abs_err(fkey, want)
+
+
 def _stage_err(lv, name, ak, ap, wk, wp, fk, fp) -> int:
     """max_abs_err of what sharded stage ``name`` wrote, kernel against
     plain (rows nobody reads are left out: an unexpanded slot, a stage-1
-    row past the survivors)."""
+    row past the survivors, and its key); the received keys also against
+    the hash of the received rows."""
     if name == "expand":
         vm = wp.nvalid.bool()
         return max(max_abs_err(wk.ctl, wp.ctl), max_abs_err(wk.nvalid, wp.nvalid),
                    max_abs_err(wk.rows[vm], wp.rows[vm]))
     if name == "stage1_hash":
         n = wp.ctl[:, lv.CTL_NEXP].clamp(max=wp.crows.shape[1]).tolist()
-        return _rows_err(wk.crows, wp.crows, n)
+        return max(_rows_err(wk.crows, wp.crows, n),
+                   _rows_err(wk.ckey, wp.ckey, n) if wk.ckey is not None else 0)
     if name in ("route", "exchange"):
         return max(max_abs_err(wk.drows, wp.drows), max_abs_err(wk.rvalid, wp.rvalid),
-                   max_abs_err(wk.ctl, wp.ctl))
-    if name == "hash_rows":
-        return max_abs_err(wk.fkey, wp.fkey)
+                   max_abs_err(wk.ctl, wp.ctl), max_abs_err(wk.fkey, wp.fkey),
+                   received_keys_err(lv, ak[0], wk.ctl, wk.drows, wk.rvalid, wk.fkey))
     if name == "take_col_sort":
         return max(max_abs_err(ak[2], ap[2]), max_abs_err(ak[3], ap[3]))
     if name == "radix_sort_pairs":
@@ -1949,16 +2170,21 @@ def sharded_lockstep(lv, g, tabs, model, fr, ctl, on_stage=None):
 
 # Timed sharded stages: the index of each one's control blocks among its
 # arguments.
-SHARD_TIMED_CTL = {"route": 2, "exchange": 2, "prune": 4, "gather_finalize": 3}
+SHARD_TIMED_CTL = {"stage1_hash": 3, "route": 2, "exchange": 2, "prune": 4,
+                   "gather_finalize": 3}
 
 
 def _sharded_call(lv, name, a, plain):
     """(fn, written inputs) of one sharded stage call for ``batch_ms``."""
     f = getattr(lv.PLAIN if plain else lv.KERNELS, name)
-    if name == "route":  # (g, crows, ctl, drows, rvalid, scratch)
-        return (lambda t: f(a[0], a[1], t[0], t[1], t[2], a[5])), (a[2], a[3], a[4])
-    if name == "exchange":  # (g, crows, ctl, recv, rvalid)
-        return (lambda t: f(a[0], a[1], a[2], t[0], t[1])), (a[3], a[4])
+    if name == "stage1_hash":  # (g, rows, nvalid, ctl, crows, ckey, scratch)
+        if a[5] is not None:
+            return (lambda t: f(a[0], a[1], a[2], t[0], t[1], t[2], a[6])), (a[3], a[4], a[5])
+        return (lambda t: f(a[0], a[1], a[2], t[0], t[1], None, a[6])), (a[3], a[4])
+    if name == "route":  # (g, crows, ctl, drows, rvalid, scratch, fkey)
+        return (lambda t: f(a[0], a[1], t[0], t[1], t[2], a[5], t[3])), (a[2], a[3], a[4], a[6])
+    if name == "exchange":  # (g, crows, ctl, recv, rvalid, skey, fkey)
+        return (lambda t: f(a[0], a[1], a[2], t[0], t[1], a[5], t[2])), (a[3], a[4], a[6])
     if name == "prune":  # (g, drows, skey, perm, ctl, fprio, scratch)
         return (lambda t: f(a[0], a[1], a[2], a[3], t[0], t[1], a[6])), (a[4], a[5])
     # gather_finalize (g, drows, perm, ctl, stats, fr, scratch)
@@ -1967,21 +2193,38 @@ def _sharded_call(lv, name, a, plain):
 
 def _parent_call(lv, name, a):
     """(fn, written inputs) of the parent design of a timed sharded stage
-    (the yardsticks), or None: the route and the alltoall exchange, or the
-    prune and the reduce, each two launches."""
+    (the yardsticks), or None: the route and the alltoall exchange (two
+    launches) and the hash of the received rows, the allgather's exchange
+    without keys and the hash, or the prune and the reduce (two
+    launches)."""
     import torch
 
     g = a[0]
-    if name == "route":  # (g, crows, ctl, drows, rvalid, scratch)
+    if name == "route":  # (g, crows, ctl, drows, rvalid, scratch, fkey)
         sr = g.D * g.PBK
         send = torch.zeros((g.D, sr, g.NC), dtype=torch.int32, device="cuda")
         svalid = torch.zeros((g.D, sr), dtype=torch.uint8, device="cuda")
-        return ((lambda t: yard_route_exchange(lv, g, a[1], t[0], send, svalid, t[1], t[2])),
-                (a[2], a[3], a[4]))
+
+        def route(t):
+            yard_route_exchange(lv, g, a[1], t[0], send, svalid, t[1], t[2])
+            yard_hash(lv, t[1], t[2], t[0], t[3], g.NC, g.NID)
+        return route, (a[2], a[3], a[4], a[6])
+    if name == "exchange":  # (g, crows, ctl, recv, rvalid, skey, fkey)
+        def gather(t):
+            yard_gather(lv, g, a[1], a[2], t[0], t[1])
+            yard_hash(lv, t[0], t[1], a[2], t[2], g.NC, g.NID)
+        return gather, (a[3], a[4], a[6])
     if name == "prune":
         return ((lambda t: yard_prune_reduce(lv, g, a[1], a[2], a[3], t[0], t[1], a[6])),
                 (a[4], a[5]))
     return None
+
+
+def _gather_ms(lv, a) -> float:
+    """ms of the parent's allgather exchange alone (the yardstick, no
+    keys) on the exchange's arguments ``a``: the design before the keys
+    went with the rows."""
+    return batch_ms(lambda t: yard_gather(lv, a[0], a[1], a[2], t[0], t[1]), (a[3], a[4]))[0]
 
 
 def sharded_bytes(lv, name, g, ctl_after) -> int:
@@ -1991,8 +2234,14 @@ def sharded_bytes(lv, name, g, ctl_after) -> int:
     row = 4 * NC
     ctl_b = 4 * D * lv.CTL_SIZE
     n = int(ctl_after[:, lv.CTL_NEXP].clamp(max=g.P).sum())  # stage-1 rows
-    if name in ("route", "exchange"):  # every received row and its byte written
-        return n * row + 2 * ctl_b + D * L * (row + 1)
+    out = 2 * ctl_b + D * L * (row + 1 + 4)  # every received row, its byte and key written
+    if name == "stage1_hash":  # the validity bytes, the survivors read and written
+        key = 4 if g.exchange == "allgather" else 0  # (and their keys written)
+        return D * g.M + n * (2 * row + key) + 2 * ctl_b
+    if name == "route":  # the survivors read (their keys are hashed from them)
+        return n * row + out
+    if name == "exchange":  # the survivors and stage 1's keys of them read
+        return n * (row + 4) + out
     if name == "prune":  # keys, perm and priorities, the rows gathered
         return D * L * (12 + row) + 2 * ctl_b
     if name == "chunk_init":
@@ -2022,10 +2271,10 @@ def exchange_scale_phase(lv, wgl, enc, model):
     """The route (alltoall) and the exchange (allgather) alone at the
     shard geometry of SHARD_BIG_F_TOTAL on SHARD_D shards, on seeded
     stage-1 rows (every source's n_cand between P / 2 and 9 P / 8), bit
-    for bit against their plain versions; the route timed beside the
-    parent's route and exchange (the yardstick, checked too), the
-    exchange beside ``_library_exchange``'s one copy. Returns {mode:
-    summary}."""
+    for bit against their plain versions; each timed beside its parent
+    design (the yardsticks, checked too), the exchange also beside the
+    parent's exchange alone (no keys) and ``_library_exchange``'s one
+    copy. Returns {mode: summary}."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SHARD_BIG_F_TOTAL)
@@ -2041,10 +2290,15 @@ def exchange_scale_phase(lv, wgl, enc, model):
         ctl[:, lv.CTL_NEXP] = rint(g.P // 2, g.P + g.P // 8, (D,)).to(torch.int32)
         recv = torch.zeros((D, g.L, NC), dtype=torch.int32, device="cuda")
         rvalid = torch.zeros((D, g.L), dtype=torch.uint8, device="cuda")
+        fkey = torch.zeros((D, g.L), dtype=torch.int32, device="cuda")
         if a2a:
-            name, args = "route", (g, crows, ctl, recv, rvalid, lv.route_scratch(g, "cuda"))
-        else:
-            name, args = "exchange", (g, crows, ctl, recv, rvalid)
+            name, args = "route", (g, crows, ctl, recv, rvalid, lv.route_scratch(g, "cuda"),
+                                   fkey)
+        else:  # stage 1's keys of the rows: their hash below each source's n_cand
+            ckey = torch.zeros((D, g.P), dtype=torch.int32, device="cuda")
+            below = torch.arange(g.P, device="cuda")[None] < ctl[:, lv.CTL_NEXP, None]
+            lv.vmap_members(lv.hash_rows_reference)(g, crows, below, ctl, ckey)
+            name, args = "exchange", (g, crows, ctl, recv, rvalid, ckey, fkey)
         fk, ins = _sharded_call(lv, name, args, plain=False)
         fp, _ = _sharded_call(lv, name, args, plain=True)
         ki, pi = tuple(t.clone() for t in ins), tuple(t.clone() for t in ins)
@@ -2069,17 +2323,43 @@ def exchange_scale_phase(lv, wgl, enc, model):
                                         sharded_bytes(lv, name, g, ctl), lib, parent_ms),
                          kernel=SHARD_KERNEL[name],
                          tile=lv.route_tile(g.P, D, "cuda") if a2a else None)
+        if not a2a:
+            out[mode]["parent_gather_ms"] = _gather_ms(lv, args)
         emit({"phase": "exchange_scale", "exchange": mode, "f_total": SHARD_BIG_F_TOTAL,
               "D": D, "F": g.F, "P": g.P, "PBK": g.PBK, "L": g.L, "NC": NC, **out[mode]})
-        del crows, recv, rvalid, args, ins
+        del crows, recv, rvalid, fkey, args, ins
         torch.cuda.empty_cache()
     return out
+
+
+def received_hash_parent(lv, g, wp, ctl) -> dict:
+    """The parent's hash of the received rows (k_hash, the yardstick: what
+    the route and the exchange now write with the rows) on a sharded
+    level's received rows ``wp``, control blocks ``ctl`` (the level's,
+    going): bit for bit against the plain hash and the received keys, its
+    ms, plain ms and bound."""
+    import torch
+
+    hash_all = lv.vmap_members(lv.hash_rows_reference)
+    ctl = ctl.to("cuda")
+    y, q = wp.fkey.clone(), wp.fkey.clone()
+    yard_hash(lv, wp.drows, wp.rvalid, ctl, y, g.NC, g.NID)
+    hash_all(g, wp.drows, wp.rvalid, ctl, q)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(y, q), max_abs_err(y, wp.fkey))
+    ms = batch_ms(lambda t: yard_hash(lv, wp.drows, wp.rvalid, ctl, t[0], g.NC, g.NID),
+                  (wp.fkey,))[0]
+    plain_ms = batch_ms(lambda t: hash_all(g, wp.drows, wp.rvalid, ctl, t[0]), (wp.fkey,),
+                        hold=False, batch=3, batches=3)[0]
+    nbytes = g.D * g.L * (4 * g.NID + 1 + 4)
+    return {"L": g.L, "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            **bound_fields(ms, nbytes)}
 
 
 def sharded_device_launches(lv, wgl, enc, model) -> dict:
     """Device launches of one sharded level (each mode, its level program)
     and of a sharded chunk start, counted from a stream capture
-    (``testing.device_work``): 8 + KO1 and 1."""
+    (``testing.device_work``): 7 + KO1 and 1."""
     from jepsen_tpu_torch.testing import device_work
 
     out = {}
@@ -2093,7 +2373,7 @@ def sharded_device_launches(lv, wgl, enc, model) -> dict:
         out[mode] = device_work(lambda: lv._LevelProgram(g, tabs, fr, ws, model)())
         if mode == "alltoall":
             out["chunk_start"] = device_work(lambda: lv.chunk_init(ws.ctl, fr[4], ws.gf))
-        want = 8 + g.KO1
+        want = 7 + g.KO1
         if out[mode] != {"kernel": want, "memcpy": 0, "memset": 0, "other": 0}:
             raise AssertionError(f"a sharded level ({mode}) is not {want} launches: {out[mode]}")
     if out["chunk_start"]["kernel"] != 1 or sum(out["chunk_start"].values()) != 1:
@@ -2174,6 +2454,13 @@ def sharded_kernels_phase(lv, wgl, enc, model):
                                              "parent_ms": parent_ms, "parent_err": perr,
                                              "name": name,
                                              "ctl": ap[SHARD_TIMED_CTL[name]].cpu()}
+            if name == "stage1_hash" and ak[5] is not None:
+                # the compaction alone, as the alltoall's stage 1 runs it
+                timed[stage_kernel(lv, name)]["compaction_ms"] = batch_ms(
+                    lambda t: lv.stage1_hash(ak[0], ak[1], ak[2], t[0], t[1], None, ak[6]),
+                    (ak[3], ak[4]))[0]
+            if name == "exchange":
+                timed[stage_kernel(lv, name)]["parent_gather_ms"] = _gather_ms(lv, ak)
             if name == "prune":  # the single level's instantiation on the same rows
                 alone = dataclasses.replace(g, exchange=None, D=1)
                 timed[stage_kernel(lv, name)]["unsharded_ms"] = batch_ms(
@@ -2187,8 +2474,13 @@ def sharded_kernels_phase(lv, wgl, enc, model):
             summary[k] = _timed_summary(stage_errs[k], t["ms"], t["call_ms"], t["plain_ms"],
                                         sharded_bytes(lv, t["name"], g, t["ctl"]),
                                         t["library_ms"], t["parent_ms"])
-            if "unsharded_ms" in t:  # the parent's sharded prune without its reduce
-                summary[k]["unsharded_ms"] = t["unsharded_ms"]
+            # the prune without its reduce, stage 1 without its keys, the
+            # parent's exchange without them
+            for extra in ("unsharded_ms", "compaction_ms", "parent_gather_ms"):
+                if extra in t:
+                    summary[k][extra] = t[extra]
+        summary["k_hash_parent"] = received_hash_parent(
+            lv, g, wp, timed[SHARD_KERNEL["route" if mode == "alltoall" else "exchange"]]["ctl"])
         out[mode] = summary
         emit({"phase": "sharded_kernels", "exchange": mode, "D": SHARD_D, "F": g.F,
               "from_level": lvl, "valid_configs": int(fr[4].sum()), "P": g.P, "L": g.L,
@@ -2197,6 +2489,8 @@ def sharded_kernels_phase(lv, wgl, enc, model):
               "timed": summary,
               "exchange_bytes_per_level": wgl.exchange_bytes_per_level(plan, g.F, SHARD_D, mode)})
         bad = {k: v for k, v in stage_errs.items() if v}
+        if summary["k_hash_parent"]["max_abs_err"]:
+            bad["k_hash (parent)"] = summary["k_hash_parent"]["max_abs_err"]
         bad.update({f"{k} (parent)": t["parent_err"] for k, t in timed.items()
                     if t["parent_err"]})
         if bad:
@@ -2266,7 +2560,7 @@ def sharded_10k_phase(lv, wgl, model, frontier, make_mesh, encode_history,
     legs = [(SHARD_D, m, 2) for m in lv.EXCHANGES] + [(1, "alltoall", 2), (2, "alltoall", 2)] \
         + [(SHARD_D, "alltoall", SHARD_WIDE_ESCALATIONS)]
     for D, mode, esc in legs:
-        lv.reset_launches()
+        reset_counts(lv)
         torch.cuda.synchronize()
         t = time.perf_counter()
         res = frontier.check_encoded_sharded(enc, mesh=make_mesh(D), f_total=SHARD_F_TOTAL,
@@ -2341,7 +2635,7 @@ def sharded_refutation_phase(lv, wgl, model, frontier, make_mesh, encode_history
     enc = encode_history(model, bad)
     single = wgl.check_encoded_device(enc)
     out = {}
-    lv.reset_launches()
+    reset_counts(lv)
     for mode in lv.EXCHANGES:
         k = frontier.check_encoded_sharded(enc, mesh=make_mesh(SHARD_D), f_total=SHARD_F_TOTAL,
                                            exchange=mode)
@@ -2375,7 +2669,7 @@ def checker_sharded_phase(lv, model, jchecker, make_mesh, random_register_histor
     bad = perturb_history(rng, good)
     lin = jchecker.linearizable(model=model)
     device = [lin.check({}, h, {}) for h in (good, bad)]
-    lv.reset_launches()
+    reset_counts(lv)
     rows = []
     for h, d in zip((good, bad), device):
         r = lin.check({"checker_backend": "sharded", "mesh": make_mesh(SHARD_D)}, h, {})
@@ -2589,7 +2883,7 @@ def batch_mesh_phase(lv, model, check_batch, make_mesh, replay, rk):
 
     launches = {}
     for D, shape in ((8, None), (3, (3, 1))):
-        lv.reset_launches()
+        reset_counts(lv)
         torch.cuda.synchronize()
         t = time.perf_counter()
         got = check_batch(model, replay, f=REPLAY["f"], mesh=make_mesh(D, shape=shape))
@@ -2938,6 +3232,7 @@ def main() -> int:
     from jepsen_tpu_torch.parallel import check_batch, frontier, make_mesh
     from jepsen_tpu_torch.testing import perturb_history, random_register_history
 
+    LevelShapes.install(wgl)
     t_start = time.perf_counter()
     smi = card_line()
     name = torch.cuda.get_device_name(0)
@@ -2969,15 +3264,23 @@ def main() -> int:
     W, KO, S, ND, NO = plan.dims
     timed = None
     errs = {}  # kernel -> max_abs_err over every F
+    # the parent's k_hash at each single-stage level, and the regroup
+    # beside its parent, by shape
+    hash_parent, regroups = {}, {}
     for F in KERNEL_FS:
         chk = StageCheck(plan, F, lv, wgl, model)
         chk.run()
         g = chk.g
         stages = stage_summary(chk, lv)
+        if not g.two_stage:
+            hash_parent[f"north_star_F{F}"] = chk.hash_parent
         emit({"phase": "kernels", "F": F, "W": W, "KO": KO, "B": g.B, "M": g.M, "L": g.L,
               "two_stage": g.two_stage, "valid_configs": chk.valid_configs[0],
               "level_byte_floor": wgl.level_byte_floor(wgl.plan_device(enc, device="cpu"), F),
-              "stages": stages})
+              "stages": stages, "k_hash_parent": getattr(chk, "hash_parent", None),
+              "regroup": chk.regroup})
+        if F == TIMED_F:
+            regroups["north_star"] = dict(chk.regroup, F=F, to=2 * F, members=1)
         for k, v in stages.items():
             errs[k] = max(errs.get(k, 0), v["max_abs_err"])
         if F == TIMED_F:
@@ -3002,7 +3305,7 @@ def main() -> int:
     emit(steady_state(plan, TIMED_F, lv, wgl, model))
 
     # -- the main path -------------------------------------------------------
-    lv.reset_launches()
+    reset_counts(lv)
     torch.cuda.synchronize()
     t = time.perf_counter()
     res = wgl.check_history(model, hist, backend="device", collect_stats=True)
@@ -3033,7 +3336,7 @@ def main() -> int:
     rng = random.Random(REFUTE["seed"])
     bad = perturb_history(rng, random_register_history(
         rng, **{k: v for k, v in REFUTE.items() if k != "seed"}))
-    lv.reset_launches()
+    reset_counts(lv)
     dev_res = wgl.check_history(model, bad, backend="device", collect_stats=True)
     torch.cuda.synchronize()
     ref_launches = launch_counts(lv, "the refutation")
@@ -3052,7 +3355,7 @@ def main() -> int:
     # -- every driver path: beam, fallback, escalation, de-escalation ---------
     path_hist = random_register_history(random.Random(PATHS["seed"]),
                                         **{k: v for k, v in PATHS.items() if k != "seed"})
-    lv.reset_launches()
+    reset_counts(lv)
     dev_res = wgl.check_history(model, path_hist, backend="device", collect_stats=True,
                                 **PATHS_SEARCH)
     torch.cuda.synchronize()
@@ -3095,14 +3398,17 @@ def main() -> int:
               "stages": stages})
         for k, v in stages.items():
             errs[k] = max(errs.get(k, 0), v["max_abs_err"])
+        if not g.two_stage:
+            hash_parent[f"{label}_F{F}"] = chk.hash_parent
         if batch_stages is None:
             batch_stages, batch_chk = dict(stages, _nb=bplan.nb, _F=F), chk
+            regroups["batch_8x8192"] = dict(chk.regroup, F=F, to=2 * F, members=bplan.nb + 1)
     scale = gather_sort_scale(lv, {"north_star": north_chk, "batch_8x8192": batch_chk})
     del north_chk, batch_chk
 
     # -- batch replay: 100 histories, four ways -------------------------------
     check_batch(model, replay, f=REPLAY["f"])  # workspaces and first-call costs
-    lv.reset_launches()
+    reset_counts(lv)
     torch.cuda.synchronize()
     t = time.perf_counter()
     rk = check_batch(model, replay, f=REPLAY["f"])
@@ -3116,11 +3422,11 @@ def main() -> int:
     # The keyed checker runs the batch at its default shared capacity, as
     # the reference's does; its launches and rungs are compared against
     # check_batch's there. Its per-key fallback must not have run.
-    lv.reset_launches()
+    reset_counts(lv)
     rk_default = check_batch(model, replay)
     torch.cuda.synchronize()
     default_launches = launch_counts(lv, "check_batch at the default f", LEVEL_KERNELS)
-    lv.reset_launches()
+    reset_counts(lv)
     t = time.perf_counter()
     keyed = independent.checker(jchecker.linearizable(model=model)).check(
         {}, History(keyed_ops, reindex=False), {})
@@ -3166,7 +3472,7 @@ def main() -> int:
     mesh_launches = batch_mesh_phase(lv, model, check_batch, make_mesh, replay, rk)
 
     # -- eight 10k-op members through the escalation ladder -------------------
-    lv.reset_launches()
+    reset_counts(lv)
     torch.cuda.synchronize()
     t = time.perf_counter()
     rb = check_batch(model, big, f=BIG["f"], f_schedule=BIG["f_schedule"], escalate=True)
@@ -3221,7 +3527,7 @@ def main() -> int:
     for k, v in model_errs.items():
         errs[k] = max(errs.get(k, 0), v)
     expands = expand_scale(lv, wgl, model, plan, batch_plan(big_encs, wgl), families)
-    mutex_launches, mutex_expand = mutex_5k_phase(lv, wgl)
+    mutex_launches, mutex_expand, hash_parent["mutex_5k"] = mutex_5k_phase(lv, wgl)
     errs["wgl_expand"] = max(errs["wgl_expand"], mutex_expand["max_abs_err"])
     family_launches = models_2k_phase(lv, wgl, wgl_host, hists)
     keyed_mr_launches = keyed_multi_register_phase(lv, wgl_host, jchecker, independent, History)
@@ -3229,6 +3535,7 @@ def main() -> int:
     # -- the frontier-sharded search on SHARD_D shards of the card ------------
     shard_stats, shard_errs = sharded_kernels_phase(lv, wgl, enc, model)
     exchange_big = exchange_scale_phase(lv, wgl, enc, model)
+    regroups["sharded_grows"] = regroup_scale(lv, plan)
     shard_launches = sharded_10k_phase(lv, wgl, model, frontier, make_mesh, encode_history,
                                        random_register_history)
     shard_refute_launches = sharded_refutation_phase(
@@ -3297,11 +3604,21 @@ def main() -> int:
             entry["tiles"] = prunes["tiles"]
         if kname == "wgl_expand":  # the stage at both frontiers (expand_scale)
             entry["scale"] = {k: v for k, v in expands.items() if k != "families"}
+            # the single-stage levels' keys, written with the rows: each such
+            # level's parent launched k_hash once (the yardstick, timed here)
+            entry["keys_single_stage_levels_by_path"] = {
+                k: v["wgl_expand"] - v["wgl_stage1_hash"] for k, v in paths.items()
+                if not k.startswith("sharded")}
+            entry["k_hash_parent"] = hash_parent
+        if kname == "wgl_regroup":  # beside its parent design, and the sharded grows
+            entry["parent"] = regroups
         if kname in scale:  # beside the parent design (gather_sort_scale)
             entry["scale"] = scale[kname]
         if kname == "wgl_stage1_hash":  # the stage alone (stage1_sweep)
             entry["device_launches"] = stage1["device_launches"]
             entry["tiles"] = stage1["tiles"]
+            # a sharded level's (the allgather's with its keys)
+            entry["sharded"] = {m: shard_stats[m][kname] for m in lv.EXCHANGES}
         if kname in shard_errs:  # every stage at the sharded L (sharded_kernels)
             entry["sharded_L_max_abs_err"] = shard_errs[kname]
             entry["max_abs_err"] = max(entry["max_abs_err"], shard_errs[kname])
@@ -3322,12 +3639,16 @@ def main() -> int:
                  "shape": f"sharded_kernels: D {SHARD_D}, F {SHARD_F_TOTAL // SHARD_D} a shard, "
                           + ("either mode" if kname == "wgl_chunk_init_sharded" else mode),
                  "launches_by_path": {k: v[count] for k, v in shard_paths.items()}}
-        # the parent design (two launches) and the prune without the reduce
-        for extra in ("parent_ms", "unsharded_ms"):
+        # the parent design and the prune without the reduce; the parent's
+        # exchange without the keys
+        for extra in ("parent_ms", "unsharded_ms", "parent_gather_ms"):
             if r.get(extra) is not None:
                 entry[extra] = r[extra]
         if kname in ("wgl_route", "wgl_exchange"):  # a whole level of its mode, captured
             entry["level_device_launches"] = shard_stats["device_launches"][mode]
+            # the received rows' keys: the parent hashed them in a launch of
+            # its own (the yardstick, timed on the same rows)
+            entry["k_hash_parent"] = shard_stats[mode]["k_hash_parent"]
         if kname in shard_stats[other]:
             entry[other] = summary(shard_stats[other][kname])
         for v in exchange_big.values():  # the route or the exchange at the largest rung

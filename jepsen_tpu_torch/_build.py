@@ -38,20 +38,23 @@ SORT_TILE = 4096
 SORT_HDR = 1040
 # Frontier slots a block of the gather-finalize takes (GF_ROWS).
 GF_ROWS = 128
+# Member indices a regroup passes in its launch's parameters (RG_INLINE); a
+# longer index goes to the card first.
+RG_INLINE = 256
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 # entry point -> argument types, in order (the C signatures).
 SIGNATURES = {
     "wgl_chunk_init": [_P, _P, _P, _I, _I, _P],
-    "wgl_expand": [_P] * 14 + [_I] * 10 + [_P],
-    "wgl_stage1_hash": [_P] * 6 + [_I] * 6 + [_P],
+    "wgl_expand": [_P] * 15 + [_I] * 10 + [_P],
+    "wgl_stage1_hash": [_P] * 6 + [_I] * 7 + [_P],
     "wgl_take_col_sort": [_P, _L, _I, _I, _I] + [_P] * 5 + [_I, _I, _P, _P],
     "radix_sort_pairs": [_P] * 5 + [_I, _I, _P, _P],
     "wgl_prune": [_P] * 6 + [_I] * 10 + [_P],
     "wgl_gather_finalize": [_P] * 10 + [_I] * 10 + [_P],
-    "wgl_regroup": [_P] * 11 + [_I] * 6 + [_P],
-    "wgl_route": [_P] * 5 + [_I] * 6 + [_P],
-    "wgl_exchange": [_P] * 4 + [_I] * 3 + [_P],
+    "wgl_regroup": [_P] * 12 + [_I] * 6 + [_P],
+    "wgl_route": [_P] * 6 + [_I] * 6 + [_P],
+    "wgl_exchange": [_P] * 6 + [_I] * 4 + [_P],
     "elle_adjacency": [_P, _P, _P, _I, _I, _I, _P],
     "elle_square": [_P, _P, _I, _I, _P],
     "elle_labels_pack": [_P, _P, _P, _I, _I, _P],

@@ -322,6 +322,38 @@ __global__ void k_chunk_init(int* ctl, const unsigned char* valid, int F, u32* t
   }
 }
 
+// The fused key of a row (reference lines 628-645): a valid row's is its
+// FNV group hash shifted right by one, an invalid row's has the sign bit
+// set. The kernels that write a level's rows write their keys with them:
+// the single-stage expand (an invalid slot's key is the sign bit alone: its
+// row is not written, and no stage reads it), stage 1, the route and the
+// exchange (a zero row's key is zero_row_key).
+#define KEY_INVALID 0x80000000u
+
+// The FNV group hash of a row's NID identity words: they are loaded eight
+// at a time before they are combined, so a row in device memory costs one
+// round trip, not NID.
+__device__ __forceinline__ u32 fnv_row(const u32* r, int NID) {
+  u32 gh = 2166136261u;
+  for (int k0 = 0; k0 < NID; k0 += 8) {
+    u32 w[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) w[k] = k0 + k < NID ? r[k0 + k] : 0u;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (k0 + k < NID) gh = (gh ^ w[k]) * 16777619u;
+  }
+  return gh;
+}
+
+// The key of an invalid row of NID zero words: the received rows' empty
+// slots.
+__device__ __forceinline__ u32 zero_row_key(int NID) {
+  u32 gh = 2166136261u;
+  for (int k = 0; k < NID; ++k) gh *= 16777619u;
+  return (gh >> 1) | KEY_INVALID;
+}
+
 // ---------------------------------------------------------------------------
 // K1 expand (reference lines 363-490): one warp per configuration, EX_WARPS
 // configurations a block, the member in blockIdx.y.
@@ -354,7 +386,14 @@ __global__ void k_chunk_init(int* ctl, const unsigned char* valid, int F, u32* t
 //   (EX_MIN_BLOCKS), so that a full frontier of 4096 configurations is one
 //   wave of warps on the card;
 // - NEXP, ACCNOW and ROWOVF are reduced in shared memory: one atomic each a
-//   block, not a warp.
+//   block, not a warp;
+// - a single-stage level (KEYS, fkey not null) has no stage 1: the lane
+//   that stages a valid row hashes its identity words from shared memory
+//   and writes the row's key (the unselected layout one coalesced word a
+//   lane and chunk), the invalid slots get KEY_INVALID with their nvalid
+//   bytes. A template parameter, so that a two-stage level's expand (the
+//   main path's at F = 4096) keeps its registers: the keys' pointer and
+//   hash cost the KDM = 2 instantiation a few spilled words.
 
 // Model steps. Each is a transcription of the reference model's `step_jax`
 // (not of its `step_scalar`: the two differ on opcodes outside the model's
@@ -609,7 +648,7 @@ __device__ __forceinline__ void warp_store_words(u32* dst, const u32* src, int n
   if (lane < n - done) dst[done + lane] = src[done + lane];
 }
 
-template <int KDM>
+template <int KDM, bool KEYS>
 __global__ void __launch_bounds__(EX_WARPS * 32, KDM == 2 ? EX_MIN_BLOCKS : 1)
 k_expand(const int* __restrict__ tabD, const int* __restrict__ sufret,
          const int* __restrict__ invO, const int* __restrict__ opO,
@@ -617,7 +656,7 @@ k_expand(const int* __restrict__ tabD, const int* __restrict__ sufret,
          const int* __restrict__ p, const u32* __restrict__ mD,
          const u32* __restrict__ mO, const int* __restrict__ st,
          const unsigned char* __restrict__ valid, int* ctl,
-         u32* __restrict__ rows, unsigned char* __restrict__ nvalid,
+         u32* __restrict__ rows, unsigned char* __restrict__ nvalid, u32* __restrict__ fkey,
          int F, int W, int KO, int ND, int NO, int B, int S, int step, int prm) {
   extern __shared__ __align__(16) u32 ex_buf[];
   __shared__ int s_nok[EX_WARPS], s_flags[EX_WARPS];
@@ -639,8 +678,10 @@ k_expand(const int* __restrict__ tabD, const int* __restrict__ sufret,
   a1O += (size_t)b * NO;
   a2O += (size_t)b * NO;
   const size_t bf = (size_t)b * F + f;
+  const int NID = 1 + KD + S;
   rows += bf * R * NC;
   nvalid += bf * R;
+  if (KEYS) fkey += bf * R;
   u32* stage = ex_buf + (size_t)wid * ex_warp_words(NC, KO1, S, SEL ? (B + 3) / 4 : 0);
   u32* sMO = stage + 32 * NC;
   int* sST = reinterpret_cast<int*>(sMO + KO1);
@@ -795,10 +836,15 @@ k_expand(const int* __restrict__ tabD, const int* __restrict__ sufret,
           }
           n_ok += 1;
           acc = acc || (pf + s >= nD);
-          if (SEL) reinterpret_cast<unsigned char*>(sNV)[k] = 1;
+          if (SEL) {
+            reinterpret_cast<unsigned char*>(sNV)[k] = 1;
+            // the row's fused key, from the identity words it just staged
+            if (KEYS) fkey[k] = fnv_row(r, NID) >> 1;
+          }
         }
       }
       if (!SEL) {
+        if (KEYS) fkey[(size_t)c * 32 + lane] = nv ? fnv_row(r, NID) >> 1 : KEY_INVALID;
         const u32 nvb = __ballot_sync(FULL, nv);
         if (lane < 8)
           reinterpret_cast<u32*>(nvalid + (size_t)c * 32)[lane] =
@@ -818,19 +864,25 @@ k_expand(const int* __restrict__ tabD, const int* __restrict__ sufret,
       // The configuration's B nvalid bytes, as words (bytes where B is not
       // a multiple of 4).
       __syncwarp();
+      const unsigned char* nb8 = reinterpret_cast<const unsigned char*>(sNV);
       if ((B & 3) == 0 && (reinterpret_cast<uintptr_t>(nvalid) & 3u) == 0) {
         for (int k = lane; k < B / 4; k += 32) reinterpret_cast<u32*>(nvalid)[k] = sNV[k];
       } else {
-        const unsigned char* nb8 = reinterpret_cast<const unsigned char*>(sNV);
         for (int k = lane; k < B; k += 32) nvalid[k] = nb8[k];
       }
+      // the invalid slots' keys (the valid ones were written with their rows)
+      if (KEYS)
+        for (int k = lane; k < B; k += 32)
+          if (!nb8[k]) fkey[k] = KEY_INVALID;
     }
   } else if (live) {
     // No candidate: every row's nvalid byte is zero (as words where the
-    // row count allows).
+    // row count allows), and every key invalid.
     const int R4 = (R & 3) == 0 && (reinterpret_cast<uintptr_t>(nvalid) & 3u) == 0 ? R / 4 : 0;
     for (int k = lane; k < R4; k += 32) reinterpret_cast<u32*>(nvalid)[k] = 0u;
     for (int k = 4 * R4 + lane; k < R; k += 32) nvalid[k] = 0;
+    if (KEYS)
+      for (int k = lane; k < R; k += 32) fkey[k] = KEY_INVALID;
   }
   for (int o = 16; o; o >>= 1) n_ok += __shfl_xor_sync(FULL, n_ok, o);
   const bool any_acc = __any_sync(FULL, acc);
@@ -889,7 +941,10 @@ k_expand(const int* __restrict__ tabD, const int* __restrict__ sufret,
 //   on, so an earlier call's words read as unpublished and neither a
 //   memset launch nor a zeroing pass is needed.
 //
-// With fkey null (a sharded level's stage 1) the rows are compacted only.
+// With fkey null (an alltoall level's stage 1: the route writes the
+// received rows' keys) the rows are compacted only; with `tail` 0 (an
+// allgather level's: the exchange gives the rows past n_cand the zero
+// row's key) the keys of the survivors only are written.
 
 #define S1_THREADS 512
 #define S1_STAGE_WORDS 8192  // the staging buffer: 32 KB of rows
@@ -924,22 +979,6 @@ __device__ __forceinline__ u32 tile_flags(const unsigned char* nvalid, int i0, i
   for (int k = 0; k < IPT; ++k)
     if (i0 + k < M && nvalid[i0 + k]) fl |= 1u << k;
   return fl;
-}
-
-// The FNV group hash of a row's NID identity words: they are loaded eight
-// at a time before they are combined, so a row in device memory costs one
-// round trip, not NID.
-__device__ __forceinline__ u32 fnv_row(const u32* r, int NID) {
-  u32 gh = 2166136261u;
-  for (int k0 = 0; k0 < NID; k0 += 8) {
-    u32 w[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) w[k] = k0 + k < NID ? r[k0 + k] : 0u;
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      if (k0 + k < NID) gh = (gh ^ w[k]) * 16777619u;
-  }
-  return gh;
 }
 
 __device__ __forceinline__ void cp_async4(u32* smem, const u32* gmem) {
@@ -1037,7 +1076,7 @@ template <int IPT>
 __global__ void __launch_bounds__(S1_THREADS)
 k_stage1(const u32* __restrict__ rows, const unsigned char* __restrict__ nvalid,
          const int* __restrict__ ctl, u32* __restrict__ drows, u32* __restrict__ fkey,
-         u32* state, int M, int NC, int NID, int P) {
+         u32* state, int M, int NC, int NID, int P, int tail) {
   constexpr int T = IPT * S1_THREADS;
   const int tid = threadIdx.x, lane = tid & 31;
   extern __shared__ __align__(16) u32 s1_buf[];
@@ -1118,10 +1157,10 @@ k_stage1(const u32* __restrict__ rows, const unsigned char* __restrict__ nvalid,
       // now and read at the end, so the atomic's round trip is not waited on.
       done_ticket = atomicAdd(&hdr[S1_DONE], 1u);
     }
-  } else if (fkey) {
+  } else if (fkey && tail) {
     const int per = S1_THREADS - 32;
     for (int r = n_cand + tile * per + tid - 32; r < P; r += tiles * per)
-      fkey[r] = (fnv_row(drows + (size_t)r * NC, NID) >> 1) | 0x80000000u;
+      fkey[r] = (fnv_row(drows + (size_t)r * NC, NID) >> 1) | KEY_INVALID;
   }
   cp_async_wait_all();
   __syncthreads();
@@ -1142,24 +1181,12 @@ k_stage1(const u32* __restrict__ rows, const unsigned char* __restrict__ nvalid,
     if (fkey) {
       for (int r = tid; r < n; r += S1_THREADS) {
         const int rank = off + r0 + r;
-        fkey[rank] = (fnv_row(stage + r * NC, NID) >> 1) | (rank < n_cand ? 0u : 0x80000000u);
+        fkey[rank] = (fnv_row(stage + r * NC, NID) >> 1) | (rank < n_cand ? 0u : KEY_INVALID);
       }
     }
     if (r0 + chunk < n_out) __syncthreads();  // the stage is loaded again
   }
   if (tid == 0) s1_last(hdr, done_ticket, blocks);
-}
-
-// The single-stage arm (and a sharded level's received rows): the hash and
-// fused key of all L rows of `drows` in place, validity from `nvalid`.
-__global__ void k_hash(const u32* __restrict__ drows, const unsigned char* __restrict__ nvalid,
-                       u32* __restrict__ fkey, int L, int NC, int NID, const int* ctl) {
-  const int b = blockIdx.y;
-  if (stopped(member_ctl(ctl, b))) return;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= L) return;
-  const size_t r = (size_t)b * L + i;
-  fkey[r] = (fnv_row(drows + r * NC, NID) >> 1) | (nvalid[r] ? 0u : 0x80000000u);
 }
 
 // ---------------------------------------------------------------------------
@@ -2093,7 +2120,10 @@ k_gather_finalize(const u32* __restrict__ drows, const int* __restrict__ perm, i
 // once, straight to its place in its owner's receive rows, so there is no
 // send buffer and no second copy (on several cards a send layout comes
 // back). A destination that is stopped is not written; a source that is
-// stopped sends nothing (its buckets are empty).
+// stopped sends nothing (its buckets are empty). Each slot's key is
+// written too (the received rows' hash, reference lines 612-645): a routed
+// row's is the hash its owner test took, shifted right by one; an empty
+// slot's the zero row's key. So no launch hashes the received rows again.
 //
 // What bounds it: each routed row is read and written once and each bucket
 // slot written once: about 0.14 us of HBM time at sharded_10k's 8 x 2048
@@ -2120,7 +2150,11 @@ k_gather_finalize(const u32* __restrict__ drows, const int* __restrict__ perm, i
 //   threads storing consecutive words, four loads in flight a thread.
 //   Staging the whole tile in shared memory first, as the expand and the
 //   gather-finalize stage theirs, was slower on the H100 (PERF.md §6):
-//   only 1/D of the tile is stored;
+//   only 1/D of the tile is stored. A selected row's key goes out with it:
+//   hashed again from the row's registers at the store (keeping the owner
+//   test's hashes live across the look-back cost the 4-row tile 80
+//   registers a thread, one block an SM instead of two); wide rows list
+//   the hash beside the position;
 // - the bucket's end: the last tile of (s, d) knows its count, sets the
 //   overflow flag and zeroes the slots [count, min(PBK, RT_FILL)); the
 //   slots past RT_FILL (a bucket of the largest rungs) are zeroed by fill
@@ -2132,23 +2166,29 @@ k_gather_finalize(const u32* __restrict__ drows, const int* __restrict__ perm, i
 #define RT_FILL 2048  // bucket slots a fill block zeroes
 #define RT_REG_WORDS 8  // rows at most this wide are kept in registers
 
-// Zeros with rvalid 0 in rows [a, b) of the run that starts at row r0.
+// Zeros with rvalid 0 (and the zero row's key zk) in rows [a, b) of the
+// run that starts at row r0.
 __device__ __forceinline__ void rt_zero(u32* __restrict__ drows, unsigned char* __restrict__ rvalid,
-                                        size_t r0, int a, int b, int NC) {
+                                        u32* __restrict__ fkey, u32 zk, size_t r0, int a, int b,
+                                        int NC) {
   if (a >= b) return;
   u32* dst = drows + (r0 + a) * NC;
   for (int j = threadIdx.x; j < (b - a) * NC; j += RT_THREADS) dst[j] = 0u;
-  for (int r = a + threadIdx.x; r < b; r += RT_THREADS) rvalid[r0 + r] = 0;
+  for (int r = a + threadIdx.x; r < b; r += RT_THREADS) {
+    rvalid[r0 + r] = 0;
+    fkey[r0 + r] = zk;
+  }
 }
 
 template <int IPT, int RW>
 __global__ void __launch_bounds__(RT_THREADS)
 k_route(const u32* __restrict__ crows, int* ctl, u32* __restrict__ drows,
-        unsigned char* __restrict__ rvalid, u32* state, int P, int NC, int NID, int D, int PBK,
-        int tiles, int nfill) {
+        unsigned char* __restrict__ rvalid, u32* __restrict__ fkey, u32* state, int P, int NC,
+        int NID, int D, int PBK, int tiles, int nfill) {
   constexpr int T = IPT * RT_THREADS, NW = RT_THREADS / 32, E = IPT * NW;
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   __shared__ unsigned short s_list[T];
+  __shared__ u32 s_hash[RW == 0 ? T : 1];  // the listed rows' hashes (wide rows)
   __shared__ int s_cnt[E];
   __shared__ int s_ticket, s_count, s_off;
   __shared__ u32 s_epoch;
@@ -2179,7 +2219,7 @@ k_route(const u32* __restrict__ crows, int* ctl, u32* __restrict__ drows,
   // n_s are hashed too (whatever they hold) and masked: their loads need
   // not wait for n_s.
   int n = 0, go_d = 0, live = 0;
-  u32 ball[IPT];
+  u32 ball[IPT], h[IPT];  // the owner ballots, the thread's rows' hashes (wide rows keep them)
   u32 rw[IPT][RW > 0 ? RW : 1];  // RW: the thread's rows
   const u32* src = nullptr;  // the tile's rows
   auto load = [&]() {
@@ -2190,7 +2230,6 @@ k_route(const u32* __restrict__ crows, int* ctl, u32* __restrict__ drows,
     live = go_s || go_d;
     if (z > 0) return;
     src = crows + ((size_t)s * P + (size_t)tile * T) * NC;
-    u32 h[IPT];
 #pragma unroll
     for (int k = 0; k < IPT; ++k) {
       const int i = tile * T + k * RT_THREADS + tid;
@@ -2242,7 +2281,9 @@ k_route(const u32* __restrict__ crows, int* ctl, u32* __restrict__ drows,
       done_ticket = atomicAdd(&hdr[S1_DONE], 1u);
     }
     __syncthreads();
-    if (go_d) rt_zero(drows, rvalid, r0, max(s_count, z * RT_FILL), min(PBK, (z + 1) * RT_FILL), NC);
+    if (go_d)
+      rt_zero(drows, rvalid, fkey, zero_row_key(NID), r0, max(s_count, z * RT_FILL),
+              min(PBK, (z + 1) * RT_FILL), NC);
     if (tid == 0) s1_last(hdr, done_ticket, blocks);
     return;
   }
@@ -2275,9 +2316,11 @@ k_route(const u32* __restrict__ crows, int* ctl, u32* __restrict__ drows,
   if constexpr (RW == 0) {
 #pragma unroll
     for (int k = 0; k < IPT; ++k)
-      if ((ball[k] >> lane) & 1u)
-        s_list[s_cnt[k * NW + wid] + __popc(ball[k] & lane_lt_mask(lane))] =
-            (unsigned short)(k * RT_THREADS + tid);
+      if ((ball[k] >> lane) & 1u) {
+        const int j = s_cnt[k * NW + wid] + __popc(ball[k] & lane_lt_mask(lane));
+        s_list[j] = (unsigned short)(k * RT_THREADS + tid);
+        s_hash[j] = h[k];
+      }
   }
   if (wid == 0) {
     const int pre = lb_sum_before(lb, tile, epoch, lane);
@@ -2299,6 +2342,11 @@ k_route(const u32* __restrict__ crows, int* ctl, u32* __restrict__ drows,
         for (int c = 0; c < (RW > 0 ? RW : 1); ++c)
           if (c < NC) dst[(size_t)j * NC + c] = rw[k][c];
         rvalid[r0 + off + j] = 1;
+        u32 gh = 2166136261u;  // the hash again from the row's registers: h[] is not kept live
+#pragma unroll
+        for (int c = 0; c < (RW > 0 ? RW : 1); ++c)
+          if (c < NID) gh = (gh ^ rw[k][c]) * 16777619u;
+        fkey[r0 + off + j] = gh >> 1;
       }
     }
   } else if (go_d) {
@@ -2320,12 +2368,15 @@ k_route(const u32* __restrict__ crows, int* ctl, u32* __restrict__ drows,
         if (j < nw) dst[j] = w[u];
       }
     }
-    for (int r = tid; r * NC < nw; r += RT_THREADS) rvalid[r0 + off + r] = 1;
+    for (int r = tid; r * NC < nw; r += RT_THREADS) {
+      rvalid[r0 + off + r] = 1;
+      fkey[r0 + off + r] = s_hash[r] >> 1;
+    }
   }
   if (tile == tiles - 1) {  // the bucket's end
     const int total = off + count;
     if (tid == 0 && total > PBK) ctl[(size_t)s * CTL_SIZE + CTL_ROWOVF] = 1;
-    if (go_d) rt_zero(drows, rvalid, r0, total, min(PBK, RT_FILL), NC);
+    if (go_d) rt_zero(drows, rvalid, fkey, zero_row_key(NID), r0, total, min(PBK, RT_FILL), NC);
   }
   if (tid == 0) s1_last(hdr, done_ticket, blocks);
 }
@@ -2345,7 +2396,10 @@ k_route(const u32* __restrict__ crows, int* ctl, u32* __restrict__ drows,
 // row is read once (from L2 after the first destination) and written once;
 // at the main path's sizes a call is a few microseconds of latency, so a
 // thread issues its row and the stop test at once and waits a single
-// round trip.
+// round trip. Each row's key goes with it (skey [D, P] stage 1's, fkey [D,
+// D * P]): a valid row's from skey, the zero row's key past the valid
+// prefix; a block's rows are at most one a thread, and the key's load goes
+// out with the row's.
 #define EX_THREADS 256
 #define EX_WORDS (EX_THREADS * 4)  // a 16-byte group a thread
 
@@ -2367,7 +2421,8 @@ __device__ __forceinline__ int ld_now(const int* p) {
 
 __global__ void __launch_bounds__(EX_THREADS)
 k_exchange(const u32* __restrict__ send, const int* ctl, u32* __restrict__ recv,
-           unsigned char* __restrict__ rvalid, int P, int NC) {
+           unsigned char* __restrict__ rvalid, const u32* __restrict__ skey,
+           u32* __restrict__ fkey, int P, int NC, int NID) {
   const int s = blockIdx.y, d = blockIdx.z;
   const int RW = P * NC;  // words of the run
   const int c0 = blockIdx.x * EX_WORDS;
@@ -2386,6 +2441,9 @@ k_exchange(const u32* __restrict__ send, const int* ctl, u32* __restrict__ recv,
   // not hold up the row's (a stopped destination's are just not stored).
   const bool stop = ctl != nullptr && ld_now(ctl + (size_t)d * CTL_SIZE + CTL_GO) == 0;
   const int ncand = ld_now(ctl + (size_t)s * CTL_SIZE + CTL_NEXP);
+  // the first row whose first word is in [c0, c1) for this thread, its key
+  const int rk = (c0 + NC - 1) / NC + t;
+  const u32 key0 = rk * NC < c1 ? (u32)ld_now((const int*)skey + (size_t)s * P + rk) : 0u;
   uint4 x = make_uint4(0u, 0u, 0u, 0u);
   if (t < ng) {
     if ((((uintptr_t)(a + g0)) & 15) == 0) {
@@ -2409,44 +2467,107 @@ k_exchange(const u32* __restrict__ send, const int* ctl, u32* __restrict__ recv,
     x.w = w + 3 < vw ? x.w : 0u;
     *reinterpret_cast<uint4*>(o + w) = x;
   }
-  // The validity bytes of the rows whose first word is in [c0, c1).
-  for (int r = (c0 + NC - 1) / NC + t; r * NC < c1; r += EX_THREADS)
-    rvalid[drow + r] = r * NC < vw ? 1 : 0;
+  // The validity bytes and keys of the rows whose first word is in [c0, c1).
+  const u32 zk = zero_row_key(NID);
+  for (int r = rk; r * NC < c1; r += EX_THREADS) {
+    const bool v = r * NC < vw;
+    rvalid[drow + r] = v ? 1 : 0;
+    fkey[drow + r] = !v ? zk : r == rk ? key0 : skey[(size_t)s * P + r];
+  }
 }
 
 // ---------------------------------------------------------------------------
 // Re-batch of stacked frontiers. Replaces the reference's
 // jepsen_tpu/parallel/batch.py `_regroup_program` (line 95) and, with one
 // member and idx = [0], the single-history frontier grow
-// jepsen_tpu/ops/wgl.py `_pad_program` (line 1074):
-// dst[j, f, c] = src[idx[j], f, c] for f < F_old, else 0, for each of the
-// five frontier arrays. One pass per array, a thread per output element;
-// an index may repeat (one member regrouped twice). Bound by bytes: each
-// selected row is read once and each output element written once.
+// jepsen_tpu/ops/wgl.py `_pad_program` (line 1074) and the sharded
+// escalation's grow of the global frontier (jepsen_tpu/parallel/
+// frontier.py lines 375, 401): dst[j, f, c] = src[idx[j], f, c] for f <
+// F_old, else 0, for each of the five frontier arrays; an index may repeat
+// (one member regrouped twice).
+//
+// What bounds it: bytes, each selected member's rows read once and each
+// output byte written once (about 6.9 MB at the sharded grow from 65536
+// to 262144 rows, 2 us of HBM time). A selected member's rows in one array
+// are one contiguous byte run of F_old * R * size bytes, so the whole
+// regroup is n_new * 5 run copies, each followed by a zero fill up to
+// F_new * R * size bytes. The design: one launch for all five arrays; a
+// block takes RG_CHUNK bytes of one destination run (its (array, member,
+// chunk) from blockIdx.x through the arrays' block counts), copies the
+// part below the source run's end and zeroes the rest. Up to RG_INLINE
+// member indices travel in the launch's parameters, so the call needs no
+// copy of them to the card. A thread moves
+// RG_UNROLL 16-byte groups aligned to the destination, their loads all in
+// flight before the first store: one 16-byte load a group where the source
+// shares the destination's alignment, four words where it shares a word's
+// (the u32 arrays at any F), bytes otherwise (valid at an F that is not a
+// multiple of 16); a scalar head and tail where the run does not start or
+// end on 16 bytes.
 
-template <typename T>
-__global__ void k_regroup(const T* __restrict__ src, T* __restrict__ dst,
-                          const int* __restrict__ idx, long n_out, int F_old, int F_new,
-                          int R) {
-  long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_out) return;
-  long row = (long)F_new * R;
-  int j = (int)(i / row);
-  long rem = i - (long)j * row;
-  int f = (int)(rem / R);
-  int c = (int)(rem - (long)f * R);
-  dst[i] = f < F_old ? src[((long)idx[j] * F_old + f) * R + c] : (T)0;
+#define RG_THREADS 256
+#define RG_UNROLL 4
+#define RG_CHUNK (RG_THREADS * RG_UNROLL * 16)  // destination bytes a block
+#define RG_ARRAYS 5
+#define RG_INLINE 256  // member indices passed in the launch's parameters
+
+struct RgArray {
+  const unsigned char* src;
+  unsigned char* dst;
+  long old_bytes, new_bytes;  // a member's run in src and in dst
+  int chunks;                 // blocks a member's destination run
+};
+
+struct RgArgs {
+  RgArray a[RG_ARRAYS];
+  int blocks[RG_ARRAYS];  // blocks of each array: n_new * chunks
+  int idx[RG_INLINE];     // the member indices, when there are at most RG_INLINE
+};
+
+__device__ __forceinline__ unsigned char rg_byte(const unsigned char* src, long x, long ncp) {
+  return x < ncp ? src[x] : (unsigned char)0;
 }
 
-template <typename T>
-static void regroup_launch(const void* src, void* dst, const int* idx, int n_new, int F_old,
-                           int F_new, int R, cudaStream_t s) {
-  long n_out = (long)n_new * F_new * R;
-  if (n_out == 0) return;
-  const int threads = 256;
-  long blocks = (n_out + threads - 1) / threads;
-  k_regroup<T><<<(unsigned)blocks, threads, 0, s>>>((const T*)src, (T*)dst, idx, n_out, F_old,
-                                                    F_new, R);
+__global__ void __launch_bounds__(RG_THREADS)
+k_regroup(const __grid_constant__ RgArgs args, const int* __restrict__ idx) {
+  int r = blockIdx.x, k = 0;
+  while (k < RG_ARRAYS - 1 && r >= args.blocks[k]) r -= args.blocks[k++];
+  const RgArray& A = args.a[k];
+  const int j = r / A.chunks, chunk = r - j * A.chunks;
+  const long lo = (long)chunk * RG_CHUNK;
+  const long hi = lo + RG_CHUNK < A.new_bytes ? lo + RG_CHUNK : A.new_bytes;
+  const unsigned char* src = A.src + (long)(idx ? idx[j] : args.idx[j]) * A.old_bytes;
+  unsigned char* dst = A.dst + (long)j * A.new_bytes;
+  const long ncp = A.old_bytes;  // bytes [0, ncp) of the run are copied
+  // [g0, g1): the destination's 16-byte groups inside [lo, hi)
+  const long h0 = lo + (long)((16 - ((uintptr_t)(dst + lo) & 15)) & 15);
+  const long g0 = h0 < hi ? h0 : hi;
+  const long g1 = g0 + ((hi - g0) & ~15L);
+  const int t = threadIdx.x;
+  if (t < g0 - lo) dst[lo + t] = rg_byte(src, lo + t, ncp);
+  if (t < hi - g1) dst[g1 + t] = rg_byte(src, g1 + t, ncp);
+  const uintptr_t mis = ((uintptr_t)src ^ (uintptr_t)dst) & 15;
+  uint4 v[RG_UNROLL];
+#pragma unroll
+  for (int u = 0; u < RG_UNROLL; ++u) {
+    const long x = g0 + 16L * (u * RG_THREADS + t);
+    v[u] = make_uint4(0u, 0u, 0u, 0u);
+    if (x >= g1 || x >= ncp) continue;
+    if (x + 16 <= ncp && mis == 0) {
+      v[u] = *reinterpret_cast<const uint4*>(src + x);
+    } else if (x + 16 <= ncp && (mis & 3) == 0) {
+      const u32* w = reinterpret_cast<const u32*>(src + x);
+      v[u] = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+      unsigned char* b = reinterpret_cast<unsigned char*>(&v[u]);
+#pragma unroll
+      for (int q = 0; q < 16; ++q) b[q] = rg_byte(src, x + q, ncp);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < RG_UNROLL; ++u) {
+    const long x = g0 + 16L * (u * RG_THREADS + t);
+    if (x < g1) *reinterpret_cast<uint4*>(dst + x) = v[u];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -2458,7 +2579,7 @@ static inline int nblk(long n, int per) { return (int)((n + per - 1) / per); }
 template <int IPT>
 static int stage1_launch(dim3 grid, cudaStream_t s, const u32* rows, const unsigned char* nvalid,
                          const int* ctl, void* drows, void* fkey, void* state, int M, int NC,
-                         int NID, int P) {
+                         int NID, int P, int tail) {
   static bool sized = false;
   if (!sized) {
     cudaError_t e = cudaFuncSetAttribute(k_stage1<IPT>,
@@ -2468,29 +2589,30 @@ static int stage1_launch(dim3 grid, cudaStream_t s, const u32* rows, const unsig
     sized = true;
   }
   k_stage1<IPT><<<grid, S1_THREADS, s1_smem(IPT), s>>>(rows, nvalid, ctl, (u32*)drows,
-                                                       (u32*)fkey, (u32*)state, M, NC, NID, P);
+                                                       (u32*)fkey, (u32*)state, M, NC, NID, P,
+                                                       tail);
   return (int)cudaGetLastError();
 }
 
-// One k_expand<KDM> launch, its dynamic shared memory allowed past 48 KB
+// One k_expand<KDM, KEYS> launch, its dynamic shared memory allowed past 48 KB
 // when a wide row needs it.
-template <int KDM>
+template <int KDM, bool KEYS>
 static int expand_launch(dim3 grid, size_t smem, cudaStream_t s, void* tabD, void* sufret,
                          void* invO, void* opO, void* a1O, void* a2O, void* p, void* mD, void* mO,
-                         void* st, void* valid, void* ctl, void* rows, void* nvalid, int F, int W,
-                         int KO, int ND, int NO, int B, int S, int step, int prm) {
+                         void* st, void* valid, void* ctl, void* rows, void* nvalid, void* fkey,
+                         int F, int W, int KO, int ND, int NO, int B, int S, int step, int prm) {
   static size_t sized = 48 * 1024;
   if (smem > sized) {
-    cudaError_t e = cudaFuncSetAttribute(k_expand<KDM>,
+    cudaError_t e = cudaFuncSetAttribute(k_expand<KDM, KEYS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     sized = smem;
   }
-  k_expand<KDM><<<grid, EX_WARPS * 32, smem, s>>>(
+  k_expand<KDM, KEYS><<<grid, EX_WARPS * 32, smem, s>>>(
       (const int*)tabD, (const int*)sufret, (const int*)invO, (const int*)opO, (const int*)a1O,
       (const int*)a2O, (const int*)p, (const u32*)mD, (const u32*)mO, (const int*)st,
-      (const unsigned char*)valid, (int*)ctl, (u32*)rows, (unsigned char*)nvalid, F, W, KO, ND,
-      NO, B, S, step, prm);
+      (const unsigned char*)valid, (int*)ctl, (u32*)rows, (unsigned char*)nvalid, (u32*)fkey, F, W,
+      KO, ND, NO, B, S, step, prm);
   return (int)cudaGetLastError();
 }
 
@@ -2567,54 +2689,56 @@ int wgl_chunk_init(void* ctl, void* valid, void* ticket, int F, int nb, void* st
   return (int)cudaGetLastError();
 }
 
-// tabD 16-byte aligned; W a multiple of 32, at most 1024.
+// tabD 16-byte aligned; W a multiple of 32, at most 1024. fkey: null, or
+// (a single-stage level) [nb, F * R] the rows' keys.
 int wgl_expand(void* tabD, void* sufret, void* invO, void* opO, void* a1O, void* a2O,
                void* p, void* mD, void* mO, void* st, void* valid, void* ctl, void* rows,
-               void* nvalid, int F, int W, int KO, int ND, int NO, int B, int S, int step,
-               int prm, int nb, void* stream) {
+               void* nvalid, void* fkey, int F, int W, int KO, int ND, int NO, int B, int S,
+               int step, int prm, int nb, void* stream) {
   const int KD = W >> 5;
   if (W <= 0 || (W & 31) || KD > 32 || ((uintptr_t)tabD & 15)) return (int)cudaErrorInvalidValue;
   const int NC = 1 + KD + S + (KO > 0 ? KO : 1);
   const size_t smem = ex_smem(NC, KO, S, B);
   const dim3 grid(nblk(F, EX_WARPS), nb);
   cudaStream_t s = (cudaStream_t)stream;
+#define EXPAND_CASE(KDM)                                                                      \
+  case KDM:                                                                                   \
+    return fkey ? expand_launch<KDM, true>(grid, smem, s, tabD, sufret, invO, opO, a1O, a2O, p, \
+                                           mD, mO, st, valid, ctl, rows, nvalid, fkey, F, W,  \
+                                           KO, ND, NO, B, S, step, prm)                       \
+                : expand_launch<KDM, false>(grid, smem, s, tabD, sufret, invO, opO, a1O, a2O, \
+                                            p, mD, mO, st, valid, ctl, rows, nvalid, fkey, F, \
+                                            W, KO, ND, NO, B, S, step, prm);
   switch (KD <= 2 ? 2 : KD <= 8 ? 8 : 32) {
-    case 2: return expand_launch<2>(grid, smem, s, tabD, sufret, invO, opO, a1O, a2O, p, mD, mO,
-                                    st, valid, ctl, rows, nvalid, F, W, KO, ND, NO, B, S, step,
-                                    prm);
-    case 8: return expand_launch<8>(grid, smem, s, tabD, sufret, invO, opO, a1O, a2O, p, mD, mO,
-                                    st, valid, ctl, rows, nvalid, F, W, KO, ND, NO, B, S, step,
-                                    prm);
-    default: return expand_launch<32>(grid, smem, s, tabD, sufret, invO, opO, a1O, a2O, p, mD,
-                                      mO, st, valid, ctl, rows, nvalid, F, W, KO, ND, NO, B, S,
-                                      step, prm);
+    EXPAND_CASE(2)
+    EXPAND_CASE(8)
+    EXPAND_CASE(32)
   }
+#undef EXPAND_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
-// P > 0: two-stage, in one launch: compact the valid rows of `rows` into
-// `drows` and hash P rows, unless `fkey` is null (compaction only). `state`:
-// 4 + 2 * nb * ceil(M / tile) words, zero before its first call; tile is
-// 2048, 4096 or 8192 rows, M below 2^30. P == 0: hash the M rows of `rows`
-// (== drows) in place, validity from `nvalid`.
+// Two-stage, in one launch: compact the valid rows of `rows` into `drows`
+// (P rows) and write their keys, unless `fkey` is null (compaction only);
+// with `tail` the keys of rows [n_cand, P) too, as invalid. `state`: 4 + 2 *
+// nb * ceil(M / tile) words, zero before its first call; tile is 2048, 4096
+// or 8192 rows, M below 2^30. (A single-stage level's keys come from the
+// expand.)
 int wgl_stage1_hash(void* rows, void* nvalid, void* ctl, void* drows, void* fkey, void* state,
-                    int M, int NC, int NID, int P, int nb, int tile, void* stream) {
+                    int M, int NC, int NID, int P, int tail, int nb, int tile, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int* c = (const int*)ctl;
-  if (M <= 0 || M >= (1 << 30) || nb <= 0) return (int)cudaErrorInvalidValue;
-  if (P == 0) {
-    k_hash<<<dim3(nblk(M, 256), nb), 256, 0, s>>>((const u32*)rows, (const unsigned char*)nvalid,
-                                                  (u32*)fkey, M, NC, NID, c);
-    return (int)cudaGetLastError();
-  }
+  if (M <= 0 || M >= (1 << 30) || nb <= 0 || P <= 0) return (int)cudaErrorInvalidValue;
   if (state == nullptr) return (int)cudaErrorInvalidValue;
   if (tile <= 0 || (long)nb * nblk(M, tile) >= (1L << 31)) return (int)cudaErrorInvalidValue;
   const dim3 grid(nblk(M, tile), nb);
   const u32* r = (const u32*)rows;
   const unsigned char* v = (const unsigned char*)nvalid;
+  void* d = drows;
   switch (tile) {
-    case 2048: return stage1_launch<4>(grid, s, r, v, c, drows, fkey, state, M, NC, NID, P);
-    case 4096: return stage1_launch<8>(grid, s, r, v, c, drows, fkey, state, M, NC, NID, P);
-    case 8192: return stage1_launch<16>(grid, s, r, v, c, drows, fkey, state, M, NC, NID, P);
+    case 2048: return stage1_launch<4>(grid, s, r, v, c, d, fkey, state, M, NC, NID, P, tail);
+    case 4096: return stage1_launch<8>(grid, s, r, v, c, d, fkey, state, M, NC, NID, P, tail);
+    case 8192: return stage1_launch<16>(grid, s, r, v, c, d, fkey, state, M, NC, NID, P, tail);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -2688,12 +2812,14 @@ int wgl_gather_finalize(void* drows, void* perm, void* ctl, void* stats, void* p
 }
 
 // crows [D, P, NC] stage-1 rows; drows [D, D * PBK, NC] and rvalid [D, D *
-// PBK] the received rows; state: 4 + 2 * D * D * ceil(P / tile) words,
-// zero before its first call (each call leaves its counters zero and its
-// epoch one higher); tile: RT_THREADS times 1, 2 or 4 rows.
-int wgl_route(void* crows, void* ctl, void* drows, void* rvalid, void* state, int P, int NC,
-              int NID, int D, int PBK, int tile, void* stream) {
-  if (D < 1 || D > MAX_SHARDS || P <= 0 || P >= (1 << 30) || PBK <= 0 || state == nullptr)
+// PBK] the received rows, fkey [D, D * PBK] their keys; state: 4 + 2 * D *
+// D * ceil(P / tile) words, zero before its first call (each call leaves
+// its counters zero and its epoch one higher); tile: RT_THREADS times 1, 2
+// or 4 rows.
+int wgl_route(void* crows, void* ctl, void* drows, void* rvalid, void* fkey, void* state, int P,
+              int NC, int NID, int D, int PBK, int tile, void* stream) {
+  if (D < 1 || D > MAX_SHARDS || P <= 0 || P >= (1 << 30) || PBK <= 0 || state == nullptr ||
+      fkey == nullptr)
     return (int)cudaErrorInvalidValue;
   const int tiles = nblk(P, tile), nfill = (PBK - 1) / RT_FILL;
   const long blocks = (long)D * D * (tiles + nfill);
@@ -2704,8 +2830,8 @@ int wgl_route(void* crows, void* ctl, void* drows, void* rvalid, void* state, in
 #define RT_LAUNCH(IPT, RW)                                                                  \
   k_route<IPT, RW><<<(unsigned)blocks, RT_THREADS, 0, s>>>(c, (int*)ctl, (u32*)drows,       \
                                                            (unsigned char*)rvalid,          \
-                                                           (u32*)state, P, NC, NID, D, PBK, \
-                                                           tiles, nfill)
+                                                           (u32*)fkey, (u32*)state, P, NC,  \
+                                                           NID, D, PBK, tiles, nfill)
 #define RT_CASE(IPT)                    \
   case IPT * RT_THREADS:                \
     if (NC <= RT_REG_WORDS)             \
@@ -2724,27 +2850,49 @@ int wgl_route(void* crows, void* ctl, void* drows, void* rvalid, void* state, in
 }
 
 // The allgather: send [D, P, NC] the stage-1 rows, valid below each
-// source's n_cand and P; recv [D, D * P, NC], rvalid [D, D * P].
-int wgl_exchange(void* send, void* ctl, void* recv, void* rvalid, int P, int NC, int D,
-                 void* stream) {
-  if (D < 1 || D > MAX_SHARDS || P <= 0) return (int)cudaErrorInvalidValue;
+// source's n_cand and P; recv [D, D * P, NC], rvalid [D, D * P]; skey [D,
+// P] stage 1's keys of the rows, fkey [D, D * P] the received keys.
+int wgl_exchange(void* send, void* ctl, void* recv, void* rvalid, void* skey, void* fkey, int P,
+                 int NC, int NID, int D, void* stream) {
+  if (D < 1 || D > MAX_SHARDS || P <= 0 || skey == nullptr || fkey == nullptr)
+    return (int)cudaErrorInvalidValue;
   k_exchange<<<dim3(nblk((long)P * NC, EX_WORDS), D, D), EX_THREADS, 0, (cudaStream_t)stream>>>(
-      (const u32*)send, (const int*)ctl, (u32*)recv, (unsigned char*)rvalid, P, NC);
+      (const u32*)send, (const int*)ctl, (u32*)recv, (unsigned char*)rvalid, (const u32*)skey,
+      (u32*)fkey, P, NC, NID);
   return (int)cudaGetLastError();
 }
 
 // Five arrays: p [nb, F] i32, mD [nb, F, KD] u32, mO [nb, F, KO1] u32,
-// st [nb, F, S] i32, valid [nb, F] u8; idx [n_new] i32 on the device.
+// st [nb, F, S] i32, valid [nb, F] u8; idx_host [n_new] i32 in host
+// memory, read during the call when n_new <= RG_INLINE; above that idx
+// [n_new] i32 on the device. One launch.
 int wgl_regroup(void* p, void* mD, void* mO, void* st, void* valid, void* p2, void* mD2,
-                void* mO2, void* st2, void* valid2, void* idx, int n_new, int F_old, int F_new,
-                int KD, int KO1, int S, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int* ix = (const int*)idx;
-  regroup_launch<uint32_t>(p, p2, ix, n_new, F_old, F_new, 1, s);
-  regroup_launch<uint32_t>(mD, mD2, ix, n_new, F_old, F_new, KD, s);
-  regroup_launch<uint32_t>(mO, mO2, ix, n_new, F_old, F_new, KO1, s);
-  regroup_launch<uint32_t>(st, st2, ix, n_new, F_old, F_new, S, s);
-  regroup_launch<uint8_t>(valid, valid2, ix, n_new, F_old, F_new, 1, s);
+                void* mO2, void* st2, void* valid2, void* idx, void* idx_host, int n_new,
+                int F_old, int F_new, int KD, int KO1, int S, void* stream) {
+  if (n_new < 0 || F_old < 0 || F_new < F_old || KD < 0 || KO1 < 0 || S < 0 ||
+      (n_new <= RG_INLINE ? idx_host == nullptr : idx == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const void* src[RG_ARRAYS] = {p, mD, mO, st, valid};
+  void* dst[RG_ARRAYS] = {p2, mD2, mO2, st2, valid2};
+  const long row[RG_ARRAYS] = {4, 4L * KD, 4L * KO1, 4L * S, 1};  // bytes a frontier row
+  RgArgs args;
+  long blocks = 0;
+  for (int k = 0; k < RG_ARRAYS; ++k) {
+    const long nb = row[k] * F_new;
+    const long chunks = (nb + RG_CHUNK - 1) / RG_CHUNK;
+    if (chunks >= (1L << 31)) return (int)cudaErrorInvalidValue;
+    args.a[k] = {(const unsigned char*)src[k], (unsigned char*)dst[k], row[k] * F_old, nb,
+                 chunks > 0 ? (int)chunks : 1};
+    args.blocks[k] = (int)(n_new * chunks);
+    blocks += (long)n_new * chunks;
+  }
+  if (blocks >= (1L << 31)) return (int)cudaErrorInvalidValue;
+  const bool inline_idx = n_new <= RG_INLINE;
+  for (int j = 0; j < RG_INLINE; ++j)
+    args.idx[j] = inline_idx && j < n_new ? ((const int*)idx_host)[j] : 0;
+  if (blocks > 0)
+    k_regroup<<<(unsigned)blocks, RG_THREADS, 0, (cudaStream_t)stream>>>(
+        args, inline_idx ? nullptr : (const int*)idx);
   return (int)cudaGetLastError();
 }
 

@@ -14,11 +14,13 @@ stage                   what it computes
 ``expand``              window read, two-min real-time candidacy, row-wise
                         ≤B selection, model step (any device model, see
                         :func:`step_spec`), bit set + renormalise; packed
-                        candidate rows ``[M, NC]``
+                        candidate rows ``[M, NC]``; a single-stage level's
+                        (``M <= BIG_M_THRESHOLD``) fused keys with them
 ``stage1_hash``         stable compaction of valid rows into P rows (when
-                        ``M > BIG_M_THRESHOLD``) fused with the FNV group
-                        hash and fused key: one single-pass launch with
-                        decoupled look-back (see :func:`stage1_scratch`)
+                        ``M > BIG_M_THRESHOLD``, and in a sharded level)
+                        fused with the FNV group hash and fused key: one
+                        single-pass launch with decoupled look-back (see
+                        :func:`stage1_scratch`)
 ``take_col_sort``       the radix sort of ``(src[v, col], v)`` with ``v``
                         the identity or the values: the sort-key gather
                         folded into the sort's key load (one launch on
@@ -40,19 +42,20 @@ stage                   what it computes
                         larger capacity
 ``route``               sharded level (alltoall): owner hash and one
                         scatter of each shard's stage-1 rows straight into
-                        their owners' receive rows (the all_to_all folded
-                        in; see :func:`route_scratch`)
+                        their owners' receive rows with their fused keys
+                        (the all_to_all folded in; see
+                        :func:`route_scratch`)
 ``exchange``            sharded level (allgather): the all_gather of the
-                        stage-1 rows between the shards' buffers
-``hash_rows``           sharded level: FNV group hash and fused key of the
-                        exchanged rows
+                        stage-1 rows and their keys between the shards'
+                        buffers
 ======================  ====================================================
 
 A frontier-sharded search (the reference's ``parallel/frontier.py``) is a
 batch whose members are the D shards of one search on one device: the
 buffers are shard-major, every stage above runs unchanged at the
-exchanged row count ``L``, the route or the exchange and the hash stand
-where the reference's collectives were, and its cross-shard reductions
+exchanged row count ``L``, the route or the exchange stands where the
+reference's collectives and its hash of the received rows were (each
+writes the received rows' keys), and its cross-shard reductions
 (pmax / psum / pmin) run in the last block of the prune and of the chunk
 start (see :func:`_sharded_level_stages`).
 
@@ -92,6 +95,8 @@ from ..models import (Bank, CasRegister, Counter, FencedMutex, LwSet, Model, Mul
 
 INT32_MAX = 2**31 - 1
 M32 = 0xFFFFFFFF
+# The sign bit of a fused key: the row is invalid (csrc ``KEY_INVALID``).
+KEY_INVALID = 0x80000000
 LEVEL_STAT_ROWS = 512
 
 (CTL_LVL, CTL_ACC, CTL_OVF, CTL_FMAX, CTL_STUCK, CTL_MAXLVL, CTL_LOSSY,
@@ -376,6 +381,9 @@ class BatchWorkspace:
             self.drows = torch.zeros((nb, L, g.NC), dtype=i32, device=device)
             self.rvalid = torch.zeros((nb, L), dtype=u8, device=device)
             self.rt = route_scratch(g, device) if g.exchange == "alltoall" else None
+            # the allgather's stage-1 keys, which the exchange copies
+            self.ckey = (torch.zeros((nb, g.P), dtype=i32, device=device)
+                         if g.exchange == "allgather" else None)
         else:
             self.drows = (torch.zeros((nb, g.P, g.NC), dtype=i32, device=device)
                           if g.two_stage else self.rows)
@@ -440,9 +448,14 @@ def chunk_init_reference(ctl: torch.Tensor, valid: torch.Tensor) -> None:
 
 
 def expand_reference(g: Geometry, tabs: dict, fr: tuple, ctl: torch.Tensor,
-                     rows: torch.Tensor, nvalid: torch.Tensor, model: Model) -> None:
+                     rows: torch.Tensor, nvalid: torch.Tensor, model: Model,
+                     fkey: Optional[torch.Tensor] = None) -> None:
     """Plain version of ``k_expand`` (reference ``ops/wgl.py:363-490``) for
-    one member; the model step is ``model.step_torch``."""
+    one member; the model step is ``model.step_torch``. With ``fkey`` (a
+    single-stage level: no stage 1) each row's fused key too (``:628-645``):
+    a valid row's FNV group hash shifted right by one, an invalid slot's
+    :data:`KEY_INVALID` (the kernel does not write such a row, so its key
+    does not hash it; no stage reads it)."""
     if not _go(ctl):
         return
     p, mD, mO, st, valid = fr
@@ -545,6 +558,8 @@ def expand_reference(g: Geometry, tabs: dict, fr: tuple, ctl: torch.Tensor,
     cols = [np_] + shifted + [st2[:, i].to(i64) for i in range(g.S)] + owords
     rows.copy_(_i32(torch.stack(cols, dim=1)))
     nvalid.copy_(cand.to(torch.uint8))
+    if fkey is not None:
+        fkey.copy_(_i32(torch.where(cand, _fnv(rows[:, :g.NID]) >> 1, KEY_INVALID)))
     n_exp = int(cand.sum())
     acc_now = bool((cand & (np_ >= nD)).any())
     ctl[CTL_NEXP] += n_exp
@@ -564,55 +579,77 @@ def _fnv(idcols: torch.Tensor) -> torch.Tensor:
 
 def _fnv_fkey(idcols: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     gh = _fnv(idcols)
-    return _i32(torch.where(valid, gh >> 1, (gh >> 1) | 0x80000000))
+    return _i32(torch.where(valid, gh >> 1, (gh >> 1) | KEY_INVALID))
+
+
+def zero_row_key(NID: int) -> int:
+    """The fused key of an invalid row of ``NID`` zero words (int32 bit
+    pattern): the key of a received buffer's empty slot."""
+    gh = 2166136261
+    for _ in range(NID):
+        gh = (gh * 16777619) & M32
+    return ((gh >> 1) | KEY_INVALID) - (1 << 32)
 
 
 def stage1_hash_reference(g: Geometry, rows: torch.Tensor, nvalid: torch.Tensor,
                           ctl: torch.Tensor, drows: torch.Tensor,
                           fkey: torch.Tensor, scratch: Optional[torch.Tensor] = None) -> None:
     """Plain version of ``wgl_stage1_hash`` (reference ``ops/wgl.py:523-549``
-    and ``:628-645``). ``scratch`` is the kernel's, unused here. With
-    ``fkey`` None (a sharded level) only the compaction runs. The rows
-    after the valid ones get the invalid rows here and stay as they were
-    in the kernel; only the valid prefix and the keys' sign bits are the
-    contract there."""
+    and ``:628-645``) for a two-stage level (a single-stage level's keys
+    come from the expand). ``scratch`` is the kernel's, unused here. With
+    ``fkey`` None (an alltoall level) only the compaction runs; in an
+    allgather level only the survivors' keys are written (the exchange
+    gives the other received rows the zero row's key). The rows after the
+    valid ones get the invalid rows here and stay as they were in the
+    kernel; only the valid prefix and the keys' sign bits are the contract
+    there."""
+    if not g.two_stage:
+        raise ValueError("stage1_hash: a single-stage level has no stage 1 (the expand "
+                         "writes its keys)")
     if not _go(ctl):
         return
     nv = nvalid.bool()
-    if g.two_stage:
-        idx = torch.argsort((~nv).to(torch.int8), stable=True)[:g.P]
-        drows.copy_(rows[idx])
-        n_cand = int(ctl[CTL_NEXP])
-        valid = torch.arange(g.P, device=rows.device) < min(n_cand, g.P)
-    else:
-        valid = nv
+    idx = torch.argsort((~nv).to(torch.int8), stable=True)[:g.P]
+    drows.copy_(rows[idx])
+    n = min(int(ctl[CTL_NEXP]), g.P)
+    valid = torch.arange(g.P, device=rows.device) < n
     if fkey is not None:
-        fkey.copy_(_fnv_fkey(drows[:, :g.NID], valid))
+        keys = _fnv_fkey(drows[:, :g.NID], valid)
+        if g.exchange:
+            fkey[:n] = keys[:n]
+        else:
+            fkey.copy_(keys)
 
 
 def hash_rows_reference(g: Geometry, drows: torch.Tensor, rvalid: torch.Tensor,
                         ctl: torch.Tensor, fkey: torch.Tensor) -> None:
-    """Group hash and fused key of a sharded level's exchanged rows, validity
-    from ``rvalid`` (reference ``ops/wgl.py:612-645``)."""
+    """Group hash and fused key of a level's rows in place, validity from
+    ``rvalid`` (reference ``ops/wgl.py:612-645``): the keys the route and
+    the exchange write with a sharded level's received rows, and the keys
+    the expand writes with a single-stage level's valid rows. No stage runs
+    it: the yardstick the tests hold those keys against."""
     if not _go(ctl):
         return
     fkey.copy_(_fnv_fkey(drows[:, :g.NID], rvalid.bool()))
 
 
 def route_reference(g: Geometry, crows: torch.Tensor, ctl: torch.Tensor,
-                    send: torch.Tensor, svalid: torch.Tensor) -> None:
+                    send: torch.Tensor, svalid: torch.Tensor, skey: torch.Tensor) -> None:
     """One shard's owner routing into send buckets, a restatement of the
     reference's (``ops/wgl.py:551-590``): owner = FNV of the identity
     columns mod D, a stable (owner, position) order, fixed buckets of
     ``PBK`` rows, the bucket overflow into the row-overflow flag. Empty
-    slots are zeros. The first half of :func:`route_plain`."""
+    slots are zeros. ``skey``: each slot's fused key, a routed row's owner
+    hash shifted right by one, an empty slot's the zero row's key. The
+    first half of :func:`route_plain`."""
     if not _go(ctl):
         return
     D, P, PBK = g.D, g.P, g.PBK
     dev = crows.device
     n = min(int(ctl[CTL_NEXP]), P)
     nv = torch.arange(P, device=dev) < n
-    owner = _fnv(crows[:, :g.NID]) % D
+    gh = _fnv(crows[:, :g.NID])
+    owner = gh % D
     okey = torch.where(nv, owner, torch.full_like(owner, D))
     sidx = torch.argsort(okey, stable=True)
     cnt = torch.bincount(owner[nv], minlength=D)
@@ -625,17 +662,20 @@ def route_reference(g: Geometry, crows: torch.Tensor, ctl: torch.Tensor,
     bsrc = sidx[(off[d_of] + j_of).clamp(max=P - 1)]
     send.copy_(crows[bsrc] * bvalid[:, None].to(torch.int32))
     svalid.copy_(bvalid)
+    skey.copy_(torch.where(bvalid, _i32(gh[bsrc] >> 1), zero_row_key(g.NID)))
 
 
 def collective_plain(g: Geometry, send: torch.Tensor, svalid: Optional[torch.Tensor],
-                     ctl: torch.Tensor, recv: torch.Tensor, rvalid: torch.Tensor) -> None:
+                     ctl: torch.Tensor, recv: torch.Tensor, rvalid: torch.Tensor,
+                     skey: torch.Tensor, fkey: torch.Tensor) -> None:
     """The reference's tiled collectives between the D shards' buffers
     (``ops/wgl.py:592-611``): alltoall (``svalid``: the send buckets'
     validity) ``recv[d][s*PBK + j] = send[s][d*PBK + j]``, allgather
     (``svalid`` None) ``recv[d][s*P + j] = send[s][j]`` (the stage-1 rows,
     valid below each source's ``min(n_cand, P)``). Invalid rows are zeros;
-    a stopped destination is not written. The second half of
-    :func:`route_plain`, and :func:`exchange_plain`."""
+    a stopped destination is not written. The send side's keys ``skey`` go
+    along into ``fkey``, an invalid row's the zero row's key. The second
+    half of :func:`route_plain`, and :func:`exchange_plain`."""
     D = g.D
     a2a = g.exchange == "alltoall"
     Bk = g.PBK if a2a else g.P
@@ -651,6 +691,8 @@ def collective_plain(g: Geometry, send: torch.Tensor, svalid: Optional[torch.Ten
                 v = torch.arange(Bk, device=send.device) < n
             recv[d, s_ * Bk:(s_ + 1) * Bk] = send[s_, lo:lo + Bk] * v[:, None].to(torch.int32)
             rvalid[d, s_ * Bk:(s_ + 1) * Bk] = v
+            fkey[d, s_ * Bk:(s_ + 1) * Bk] = torch.where(v, skey[s_, lo:lo + Bk],
+                                                        zero_row_key(g.NID))
 
 
 def _shard_kept(g: Geometry, count_local: int, count: int, s: int) -> int:
@@ -930,25 +972,25 @@ def prune_plain(g: Geometry, drows, skey, perm, ctl, fprio, scratch=None) -> Non
         shard_reduce_plain(g, ctl, 1)
 
 
-def route_plain(g: Geometry, crows, ctl, drows, rvalid, scratch=None) -> None:
+def route_plain(g: Geometry, crows, ctl, drows, rvalid, scratch, fkey) -> None:
     """Plain version of ``wgl_route`` over all D shards: each shard's
-    :func:`route_reference` into send buckets of its own (zeros), then the
-    tiled all_to_all of the buckets into the receive rows
-    (:func:`collective_plain`). The kernel's scratch is not used."""
+    :func:`route_reference` into send buckets of its own (zeros, and the
+    zero row's keys), then the tiled all_to_all of the buckets and their
+    keys into the receive rows and ``fkey`` (:func:`collective_plain`).
+    The kernel's scratch is not used."""
     sr = g.D * g.PBK
     send = torch.zeros((g.D, sr, g.NC), dtype=torch.int32, device=crows.device)
     svalid = torch.zeros((g.D, sr), dtype=torch.uint8, device=crows.device)
-    vmap_members(route_reference)(g, crows, ctl, send, svalid)
-    collective_plain(g, send, svalid, ctl, drows, rvalid)
+    skey = torch.full((g.D, sr), zero_row_key(g.NID), dtype=torch.int32, device=crows.device)
+    vmap_members(route_reference)(g, crows, ctl, send, svalid, skey)
+    collective_plain(g, send, svalid, ctl, drows, rvalid, skey, fkey)
 
 
-def exchange_plain(g: Geometry, crows, ctl, recv, rvalid) -> None:
+def exchange_plain(g: Geometry, crows, ctl, recv, rvalid, skey, fkey) -> None:
     """Plain version of ``wgl_exchange``: the tiled all_gather of the
-    stage-1 rows (:func:`collective_plain`)."""
-    collective_plain(g, crows, None, ctl, recv, rvalid)
-
-
-hash_rows_plain = vmap_members(hash_rows_reference)
+    stage-1 rows and of their keys ``skey`` (stage 1's) into ``fkey``
+    (:func:`collective_plain`)."""
+    collective_plain(g, crows, None, ctl, recv, rvalid, skey, fkey)
 
 
 def gather_finalize_plain(g: Geometry, drows, perm, ctl, stats, fr, scratch=None) -> None:
@@ -1070,15 +1112,17 @@ def step_spec(model: Model) -> tuple:
 
 
 def expand(g: Geometry, tabs: dict, fr: tuple, ctl: torch.Tensor,
-           rows: torch.Tensor, nvalid: torch.Tensor, model: Model) -> None:
+           rows: torch.Tensor, nvalid: torch.Tensor, model: Model,
+           fkey: Optional[torch.Tensor] = None) -> None:
     """Stage K1 (see module docstring). The kernel inlines ``model``'s
-    step (:func:`step_spec`)."""
+    step (:func:`step_spec`). ``fkey [nb, M]``: a single-stage level's
+    keys, written with the rows (see :func:`expand_reference`)."""
     if ctl.device.type == "cpu":
-        return expand_plain(g, tabs, fr, ctl, rows, nvalid, model)
-    _launch("wgl_expand", *_expand_args(g, tabs, fr, ctl, rows, nvalid, model))
+        return expand_plain(g, tabs, fr, ctl, rows, nvalid, model, fkey)
+    _launch("wgl_expand", *_expand_args(g, tabs, fr, ctl, rows, nvalid, model, fkey))
 
 
-def _expand_args(g, tabs, fr, ctl, rows, nvalid, model) -> tuple:
+def _expand_args(g, tabs, fr, ctl, rows, nvalid, model, fkey=None) -> tuple:
     sid, prm = step_spec(model)
     if g.S != model.state_width:
         raise ValueError(f"expand: state width {g.S}, but model {model.name!r} has "
@@ -1086,7 +1130,7 @@ def _expand_args(g, tabs, fr, ctl, rows, nvalid, model) -> tuple:
     p, mD, mO, st, valid = fr
     t = tabs
     _check_cuda(t["tabD"], t["sufret"], t["invO"], t["opO"], t["a1O"], t["a2O"],
-                p, mD, mO, st, valid, ctl, rows, nvalid)
+                p, mD, mO, st, valid, ctl, rows, nvalid, fkey)
     if g.W % 32 or not 32 <= g.W <= EXPAND_MAX_W or t["tabD"].data_ptr() % 16:
         raise ValueError(f"expand: W {g.W} must be a multiple of 32 up to {EXPAND_MAX_W}, "
                          "tabD 16-byte aligned")
@@ -1099,11 +1143,15 @@ def _expand_args(g, tabs, fr, ctl, rows, nvalid, model) -> tuple:
                   (p, (nb, F)), (mD, (nb, F, g.KD)), (mO, (nb, F, g.KO1)),
                   (st, (nb, F, g.S)), (valid, (nb, F)), (rows, (nb, g.M, g.NC)),
                   (nvalid, (nb, g.M)))
+    if fkey is not None:
+        if g.two_stage:
+            raise ValueError("expand: a two-stage level's keys come from stage 1")
+        _check_shapes("expand", (fkey, (nb, g.M)))
     ci = ctypes.c_int
     return (_ptr(t["tabD"]), _ptr(t["sufret"]), _ptr(t["invO"]),
             _ptr(t["opO"]), _ptr(t["a1O"]), _ptr(t["a2O"]),
             _ptr(p), _ptr(mD), _ptr(mO), _ptr(st), _ptr(valid),
-            _ptr(ctl), _ptr(rows), _ptr(nvalid),
+            _ptr(ctl), _ptr(rows), _ptr(nvalid), _ptr(fkey),
             ci(F), ci(g.W), ci(g.KO), ci(g.ND), ci(g.NO), ci(g.B if g.SEL else 0),
             ci(g.S), ci(sid), ci(prm), ci(nb), _stream())
 
@@ -1111,11 +1159,12 @@ def _expand_args(g, tabs, fr, ctl, rows, nvalid, model) -> tuple:
 def stage1_hash(g: Geometry, rows: torch.Tensor, nvalid: torch.Tensor,
                 ctl: torch.Tensor, drows: torch.Tensor, fkey: Optional[torch.Tensor],
                 scratch: Optional[torch.Tensor]) -> None:
-    """Stage K2 (see module docstring). ``scratch``: ``BatchWorkspace.s1``
-    (:func:`stage1_scratch`), the two-stage compaction's look-back state;
-    None for a single-stage level. ``fkey`` None: the compaction alone (a
-    sharded level hashes the exchanged rows). A member's ``ctl[CTL_NEXP]``
-    must be its count of valid rows, as the expand leaves it."""
+    """Stage K2 (see module docstring) of a two-stage level. ``scratch``:
+    ``BatchWorkspace.s1`` (:func:`stage1_scratch`), the compaction's
+    look-back state. ``fkey`` None: the compaction alone (an alltoall
+    level: the route writes the received rows' keys); in an allgather level
+    the survivors' keys only. A member's ``ctl[CTL_NEXP]`` must be its count
+    of valid rows, as the expand leaves it."""
     if ctl.device.type == "cpu":
         return stage1_hash_plain(g, rows, nvalid, ctl, drows, fkey, scratch)
     _launch("wgl_stage1_hash", *_stage1_hash_args(g, rows, nvalid, ctl, drows, fkey, scratch))
@@ -1130,22 +1179,21 @@ def _stage1_hash_args(g, rows, nvalid, ctl, drows, fkey, scratch) -> tuple:
     if g.M > STAGE1_MAX_M:
         raise ValueError(f"stage1_hash: {g.M} rows a member; the kernel takes at most "
                          f"{STAGE1_MAX_M}")
+    if not g.two_stage:
+        raise ValueError("stage1_hash: a single-stage level has no stage 1 (the expand "
+                         "writes its keys)")
     if fkey is not None:
         _check_shapes("stage1_hash", (fkey, (nb, g.P)))
-    elif not g.two_stage:
-        raise ValueError("stage1_hash: a single-stage level must hash its rows")
-    tile = 0  # the single-stage arm takes no tile
-    if g.two_stage:
-        tile = stage1_tile(g.M, nb, rows.device)
-        if tile not in STAGE1_TILES:
-            raise ValueError(f"stage1_hash: tile {tile}; the kernel takes {STAGE1_TILES}")
-        if (scratch is None or scratch.dtype != torch.int32
-                or scratch.numel() < _stage1_words(g.M, nb, tile)):
-            raise ValueError("stage1_hash: look-back scratch too small (see stage1_scratch)")
+    tile = stage1_tile(g.M, nb, rows.device)
+    if tile not in STAGE1_TILES:
+        raise ValueError(f"stage1_hash: tile {tile}; the kernel takes {STAGE1_TILES}")
+    if (scratch is None or scratch.dtype != torch.int32
+            or scratch.numel() < _stage1_words(g.M, nb, tile)):
+        raise ValueError("stage1_hash: look-back scratch too small (see stage1_scratch)")
     ci = ctypes.c_int
-    return (_ptr(rows), _ptr(nvalid), _ptr(ctl), _ptr(drows), _ptr(fkey),
-            _ptr(scratch if g.two_stage else None), ci(g.M), ci(g.NC), ci(g.NID),
-            ci(g.P if g.two_stage else 0), ci(nb), ci(tile), _stream())
+    return (_ptr(rows), _ptr(nvalid), _ptr(ctl), _ptr(drows), _ptr(fkey), _ptr(scratch),
+            ci(g.M), ci(g.NC), ci(g.NID), ci(g.P), ci(int(not g.exchange)), ci(nb), ci(tile),
+            _stream())
 
 
 def radix_sort_pairs(keys: torch.Tensor, vals: torch.Tensor, scratch: tuple,
@@ -1296,49 +1344,29 @@ def _check_sharded(name: str, g: Geometry, nb: int) -> None:
         raise ValueError(f"{name}: {g.D} shards; the kernels take 1..{MAX_SHARDS}")
 
 
-def hash_rows(g: Geometry, drows: torch.Tensor, rvalid: torch.Tensor, ctl: torch.Tensor,
-              fkey: torch.Tensor) -> None:
-    """The group hash and fused key of a sharded level's ``L`` exchanged
-    rows (``drows [D, L, NC]``, validity ``rvalid [D, L]``): the stage-1
-    kernel's hash over its received rows (``wgl_stage1_hash`` with no
-    compaction)."""
-    if ctl.device.type == "cpu":
-        return hash_rows_plain(g, drows, rvalid, ctl, fkey)
-    _launch("wgl_stage1_hash", *_hash_rows_args(g, drows, rvalid, ctl, fkey))
-
-
-def _hash_rows_args(g, drows, rvalid, ctl, fkey) -> tuple:
-    _check_cuda(drows, rvalid, ctl, fkey)
-    nb = ctl.shape[0]
-    _check_sharded("hash_rows", g, nb)
-    _check_shapes("hash_rows", (ctl, (nb, CTL_SIZE)), (drows, (nb, g.L, g.NC)),
-                  (rvalid, (nb, g.L)), (fkey, (nb, g.L)))
-    ci = ctypes.c_int
-    return (_ptr(drows), _ptr(rvalid), _ptr(ctl), _ptr(drows), _ptr(fkey), _ptr(None),
-            ci(g.L), ci(g.NC), ci(g.NID), ci(0), ci(nb), ci(0), _stream())
-
-
 def route(g: Geometry, crows: torch.Tensor, ctl: torch.Tensor, drows: torch.Tensor,
-          rvalid: torch.Tensor, scratch: Optional[torch.Tensor]) -> None:
+          rvalid: torch.Tensor, scratch: Optional[torch.Tensor], fkey: torch.Tensor) -> None:
     """Sharded stage (alltoall): each shard's stage-1 rows ``crows [D, P,
     NC]`` routed to their owners and written straight into the owners'
     receive rows ``drows [D, D*PBK, NC]`` (source s's bucket at rows
-    ``[s*PBK, (s+1)*PBK)``), validity ``rvalid [D, D*PBK]``; a bucket
-    overflow sets the source's row-overflow flag. One launch. ``scratch``:
-    ``BatchWorkspace.rt`` (:func:`route_scratch`), the look-back state."""
+    ``[s*PBK, (s+1)*PBK)``), validity ``rvalid [D, D*PBK]`` and fused keys
+    ``fkey [D, D*PBK]`` (an empty slot's the zero row's);
+    a bucket overflow sets the source's row-overflow flag. One launch.
+    ``scratch``: ``BatchWorkspace.rt`` (:func:`route_scratch`), the
+    look-back state."""
     if ctl.device.type == "cpu":
-        return route_plain(g, crows, ctl, drows, rvalid, scratch)
-    _launch("wgl_route", *_route_args(g, crows, ctl, drows, rvalid, scratch))
+        return route_plain(g, crows, ctl, drows, rvalid, scratch, fkey)
+    _launch("wgl_route", *_route_args(g, crows, ctl, drows, rvalid, scratch, fkey))
 
 
-def _route_args(g, crows, ctl, drows, rvalid, scratch) -> tuple:
-    _check_cuda(crows, ctl, drows, rvalid, scratch)
+def _route_args(g, crows, ctl, drows, rvalid, scratch, fkey) -> tuple:
+    _check_cuda(crows, ctl, drows, rvalid, scratch, fkey)
     D = g.D
     _check_sharded("route", g, ctl.shape[0])
     if g.exchange != "alltoall":
         raise ValueError("route: only the alltoall exchange routes rows")
     _check_shapes("route", (ctl, (D, CTL_SIZE)), (crows, (D, g.P, g.NC)),
-                  (drows, (D, g.L, g.NC)), (rvalid, (D, g.L)))
+                  (drows, (D, g.L, g.NC)), (rvalid, (D, g.L)), (fkey, (D, g.L)))
     if g.P > STAGE1_MAX_M:
         raise ValueError(f"route: {g.P} rows a shard; the kernel takes at most {STAGE1_MAX_M}")
     tile = route_tile(g.P, D, crows.device)
@@ -1348,34 +1376,37 @@ def _route_args(g, crows, ctl, drows, rvalid, scratch) -> tuple:
             or scratch.numel() < _route_words(g.P, D, tile)):
         raise ValueError("route: look-back scratch too small (see route_scratch)")
     ci = ctypes.c_int
-    return (_ptr(crows), _ptr(ctl), _ptr(drows), _ptr(rvalid), _ptr(scratch), ci(g.P),
-            ci(g.NC), ci(g.NID), ci(D), ci(g.PBK), ci(tile), _stream())
+    return (_ptr(crows), _ptr(ctl), _ptr(drows), _ptr(rvalid), _ptr(fkey), _ptr(scratch),
+            ci(g.P), ci(g.NC), ci(g.NID), ci(D), ci(g.PBK), ci(tile), _stream())
 
 
 def exchange(g: Geometry, crows: torch.Tensor, ctl: torch.Tensor, recv: torch.Tensor,
-             rvalid: torch.Tensor) -> None:
+             rvalid: torch.Tensor, skey: torch.Tensor, fkey: torch.Tensor) -> None:
     """Sharded stage (allgather): the all_gather of the stage-1 rows
     ``crows [D, P, NC]`` between the D shards' buffers on one device, into
-    ``recv [D, D*P, NC]`` and ``rvalid [D, D*P]``. (The alltoall's
-    exchange is part of :func:`route`.)"""
+    ``recv [D, D*P, NC]`` and ``rvalid [D, D*P]``, and of stage 1's keys
+    ``skey [D, P]`` of the rows into ``fkey [D, D*P]`` (an invalid row's
+    the zero row's key). (The alltoall's exchange is part of
+    :func:`route`.)"""
     if g.exchange != "allgather":
         raise ValueError("exchange: the allgather's stage (the alltoall's is route)")
     if ctl.device.type == "cpu":
-        return exchange_plain(g, crows, ctl, recv, rvalid)
-    _launch("wgl_exchange", *_exchange_args(g, crows, ctl, recv, rvalid))
+        return exchange_plain(g, crows, ctl, recv, rvalid, skey, fkey)
+    _launch("wgl_exchange", *_exchange_args(g, crows, ctl, recv, rvalid, skey, fkey))
 
 
-def _exchange_args(g, crows, ctl, recv, rvalid) -> tuple:
-    _check_cuda(crows, ctl, recv, rvalid)
+def _exchange_args(g, crows, ctl, recv, rvalid, skey, fkey) -> tuple:
+    _check_cuda(crows, ctl, recv, rvalid, skey, fkey)
     D = g.D
     _check_sharded("exchange", g, ctl.shape[0])
     if g.exchange != "allgather":
         raise ValueError("exchange: the allgather's stage (the alltoall's is route)")
     _check_shapes("exchange", (ctl, (D, CTL_SIZE)), (crows, (D, g.P, g.NC)),
-                  (recv, (D, g.L, g.NC)), (rvalid, (D, g.L)))
+                  (recv, (D, g.L, g.NC)), (rvalid, (D, g.L)), (skey, (D, g.P)),
+                  (fkey, (D, g.L)))
     ci = ctypes.c_int
-    return (_ptr(crows), _ptr(ctl), _ptr(recv), _ptr(rvalid), ci(g.P), ci(g.NC), ci(D),
-            _stream())
+    return (_ptr(crows), _ptr(ctl), _ptr(recv), _ptr(rvalid), _ptr(skey), _ptr(fkey), ci(g.P),
+            ci(g.NC), ci(g.NID), ci(D), _stream())
 
 
 def regroup(fr: tuple, idx, F_new: int) -> tuple:
@@ -1392,21 +1423,38 @@ def regroup(fr: tuple, idx, F_new: int) -> tuple:
         raise ValueError(f"regroup: member index out of range 0..{nb - 1}")
     if p.device.type == "cpu":
         return regroup_reference(fr, idx, F_new)
-    _check_cuda(p, mD, mO, st, valid)
-    n_new = len(idx)
-    _check_shapes("regroup", (mD, (nb, F_old, mD.shape[2])), (mO, (nb, F_old, mO.shape[2])),
-                  (st, (nb, F_old, st.shape[2])), (valid, (nb, F_old)))
-    out = tuple(torch.empty((n_new, F_new) + tuple(a.shape[2:]), dtype=a.dtype,
+    out = tuple(torch.empty((len(idx), F_new) + tuple(a.shape[2:]), dtype=a.dtype,
                             device=a.device) for a in fr)
-    if n_new == 0:
+    if not idx:
         return out
-    # A copy from pinned memory does not wait for the stream's queued work.
-    ix = torch.tensor(idx, dtype=torch.int32).pin_memory().to(p.device, non_blocking=True)
-    ci = ctypes.c_int
-    _launch("wgl_regroup", *(_ptr(a) for a in fr), *(_ptr(a) for a in out), _ptr(ix),
-            ci(n_new), ci(F_old), ci(F_new), ci(mD.shape[2]), ci(mO.shape[2]),
-            ci(st.shape[2]), _stream())
+    ix = None
+    if len(idx) > _build.RG_INLINE:
+        # A copy from pinned memory does not wait for the stream's queued work.
+        ix = torch.tensor(idx, dtype=torch.int32).pin_memory().to(p.device, non_blocking=True)
+    _launch("wgl_regroup", *_regroup_args(fr, out, idx, ix))
     return out
+
+
+def _regroup_args(fr: tuple, out: tuple, idx: list, ix: Optional[torch.Tensor] = None) -> tuple:
+    """The one launch of :func:`regroup`: ``out`` the new buffers ``[n_new,
+    F_new, ...]``, ``idx`` the member indices (host integers, passed in
+    the launch's parameters up to ``_build.RG_INLINE``), ``ix`` the same
+    indices on the device (int32), needed only above that."""
+    p, mD, mO, st, valid = fr
+    nb, F_old = p.shape
+    n_new, F_new = out[0].shape
+    if len(idx) != n_new or (n_new > _build.RG_INLINE and ix is None):
+        raise ValueError("regroup: the indices do not match the new buffers")
+    _check_cuda(*fr, *out, ix)
+    _check_shapes("regroup", (mD, (nb, F_old, mD.shape[2])), (mO, (nb, F_old, mO.shape[2])),
+                  (st, (nb, F_old, st.shape[2])), (valid, (nb, F_old)),
+                  *((o, (n_new, F_new) + tuple(a.shape[2:])) for a, o in zip(fr, out)),
+                  *(((ix, (n_new,)),) if ix is not None else ()))
+    ci = ctypes.c_int
+    # the host array is an argument itself, so it lives through the call
+    host = (ctypes.c_int * n_new)(*idx)
+    return (*(_ptr(a) for a in fr), *(_ptr(a) for a in out), _ptr(ix), host, ci(n_new),
+            ci(F_old), ci(F_new), ci(mD.shape[2]), ci(mO.shape[2]), ci(st.shape[2]), _stream())
 
 
 class _Stages:
@@ -1419,24 +1467,28 @@ class _Stages:
 KERNELS = _Stages(chunk_init=chunk_init, expand=expand, stage1_hash=stage1_hash,
                   take_col_sort=take_col_sort, radix_sort_pairs=radix_sort_pairs,
                   prune=prune, gather_finalize=gather_finalize, regroup=regroup,
-                  route=route, exchange=exchange, hash_rows=hash_rows)
+                  route=route, exchange=exchange)
 PLAIN = _Stages(chunk_init=chunk_init_plain, expand=expand_plain,
                 stage1_hash=stage1_hash_plain, take_col_sort=take_col_sort_plain,
                 radix_sort_pairs=radix_sort_pairs_plain, prune=prune_plain,
                 gather_finalize=gather_finalize_plain, regroup=regroup_reference,
-                route=route_plain, exchange=exchange_plain, hash_rows=hash_rows_plain)
+                route=route_plain, exchange=exchange_plain)
 
 
 def _level_stages(g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace,
                   model: Model) -> list:
     """One BFS level for every member, in order, as ``(stage, arguments)``
     pairs: one call per stage for the whole batch (each stage returns at
-    once for a member whose control block says stop)."""
+    once for a member whose control block says stop). A single-stage
+    level's expand writes the keys; a two-stage level's stage 1 does."""
     if g.exchange:
         return _sharded_level_stages(g, tabs, fr, ws, model)
     ctl = ws.ctl
-    out = [("expand", (g, tabs, fr, ctl, ws.rows, ws.nvalid, model)),
-           ("stage1_hash", (g, ws.rows, ws.nvalid, ctl, ws.drows, ws.fkey, ws.s1))]
+    if not g.two_stage:
+        out = [("expand", (g, tabs, fr, ctl, ws.rows, ws.nvalid, model, ws.fkey))]
+    else:
+        out = [("expand", (g, tabs, fr, ctl, ws.rows, ws.nvalid, model, None)),
+               ("stage1_hash", (g, ws.rows, ws.nvalid, ctl, ws.drows, ws.fkey, ws.s1))]
     return out + _dedup_stages(g, fr, ws)
 
 
@@ -1467,20 +1519,19 @@ def _sharded_level_stages(g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace
     """One level of a frontier-sharded search, its D shards the members
     (the reference's ``_build_kernel(axis_name=...)``): each shard expands
     and compacts its stage-1 rows (two-stage at every M, reference
-    ``ops/wgl.py:525``); the alltoall's route writes them straight into
-    their owners' receive rows, the allgather's exchange copies them to
-    every shard; the received rows are hashed and deduplicated as in a
-    single level at ``L`` rows, the prune's last block replicates the
-    cross-shard values, and the finalize keeps each shard's rows
-    (``ops/wgl.py:743-757``)."""
+    ``ops/wgl.py:525``); the alltoall's route writes them and their keys
+    (the owner test's hash) straight into their owners' receive rows, the
+    allgather's exchange copies them and stage 1's keys to every shard; the
+    received rows are deduplicated as in a single level at ``L`` rows, the
+    prune's last block replicates the cross-shard values, and the finalize
+    keeps each shard's rows (``ops/wgl.py:743-757``)."""
     ctl = ws.ctl
-    out = [("expand", (g, tabs, fr, ctl, ws.rows, ws.nvalid, model)),
-           ("stage1_hash", (g, ws.rows, ws.nvalid, ctl, ws.crows, None, ws.s1))]
+    out = [("expand", (g, tabs, fr, ctl, ws.rows, ws.nvalid, model, None)),
+           ("stage1_hash", (g, ws.rows, ws.nvalid, ctl, ws.crows, ws.ckey, ws.s1))]
     if g.exchange == "alltoall":
-        out.append(("route", (g, ws.crows, ctl, ws.drows, ws.rvalid, ws.rt)))
+        out.append(("route", (g, ws.crows, ctl, ws.drows, ws.rvalid, ws.rt, ws.fkey)))
     else:
-        out.append(("exchange", (g, ws.crows, ctl, ws.drows, ws.rvalid)))
-    out.append(("hash_rows", (g, ws.drows, ws.rvalid, ctl, ws.fkey)))
+        out.append(("exchange", (g, ws.crows, ctl, ws.drows, ws.rvalid, ws.ckey, ws.fkey)))
     return out + _dedup_stages(g, fr, ws)
 
 
@@ -1499,8 +1550,7 @@ _PACKERS = {"expand": ("wgl_expand", _expand_args),
             "prune": ("wgl_prune", _prune_args),
             "gather_finalize": ("wgl_gather_finalize", _gather_finalize_args),
             "route": ("wgl_route", _route_args),
-            "exchange": ("wgl_exchange", _exchange_args),
-            "hash_rows": ("wgl_stage1_hash", _hash_rows_args)}
+            "exchange": ("wgl_exchange", _exchange_args)}
 
 
 class _LevelProgram:

@@ -24,14 +24,17 @@ line of walls. The paths:
   ``_level_stages``; a stage that runs more than once a level is summed,
   and a parent's index-reset copies are timed as ``reset``), at
   ``chip_smoke.py``'s frontiers: the north star's at F 4096 (800 beam
-  levels), the eight 10k-op members' at F 8192, and each other device
-  model family's at F 4096 (200 levels). Device ms a call as
+  levels) and at F 1024 (a single-stage level: M = 32768), the eight
+  10k-op members' at F 8192, each other device model family's at F 4096
+  (200 levels) and the mutex_5k history's at F 16 (its capacity, 200
+  levels, single-stage). Device ms a call as
   ``chip_smoke.py`` times them (``batch_ms``, from the checkout's own
   script), with the sums over the dedup stages (``dedup_ms``: from stage
   1 to the prune), over the stages after the prune
   (``compaction_gather_ms``) and over the level (``level_ms``); the
   result is each case's checksums (per member the expand's NEXP and
-  valid rows, the prune's keep count and the sum of its priorities, and
+  valid rows, the prune's keep count and the sum of its valid rows'
+  priorities, and
   after the gather-finalize the control block's level, frontier count,
   go flag and frontier peak and the sums of the new frontier's p and
   valid), which must agree between the two checkouts; then the sharded
@@ -213,18 +216,24 @@ def _level_cases(cs, lv, wgl):
 
     from jepsen_tpu_torch.models import CasRegister
     from jepsen_tpu_torch.ops.encode import encode_history
-    from jepsen_tpu_torch.testing import history_model, random_register_history
+    from jepsen_tpu_torch.testing import (history_model, random_lock_history,
+                                          random_register_history)
 
     cas = CasRegister(init=0)
     hist = random_register_history(random.Random(NORTH_STAR_SEED), **NORTH_STAR)
     north = encode_history(cas, hist)
+    mutex = history_model("owner-aware-mutex")
+    lock = random_lock_history(random.Random(cs.MUTEX_5K["seed"]), n_ops=cs.MUTEX_5K["n_ops"],
+                               n_procs=cs.MUTEX_5K["n_procs"])
     cases = [("north_star", cas, [north], 4096, cs.WARM_LEVELS),
+             ("north_star_F1024", cas, [north], 1024, cs.WARM_LEVELS),
              ("batch_8x8192", cas, [encode_history(cas, h)
                                     for h in cs.big_histories(random_register_history)],
               8192, cs.WARM_LEVELS)]
     for name, (good, _bad) in cs.model_histories().items():
         model = history_model(name)
         cases.append((name, model, [encode_history(model, good)], 4096, cs.MODEL_WARM_LEVELS))
+    cases.append(("mutex_5k", mutex, [encode_history(mutex, lock)], 16, cs.MODEL_WARM_LEVELS))
     for label, model, encs, F, warm in cases:
         plan = cs.batch_plan(encs, wgl)
         g = wgl.level_geometry(plan, F)
@@ -281,7 +290,10 @@ def level_kernels(root: str) -> dict:
                 sums.append((ws.nvalid != 0).sum(dim=1).tolist())
             if stage == "prune":
                 sums.append(ws.ctl[:, lv.CTL_COUNT].tolist())
-                sums.append(ws.fprio.to(torch.int64).sum(dim=1).tolist())
+                # the valid rows' priorities (sorted keys without the sign
+                # bit): an invalid slot's row is not written by the expand
+                # and its priority is read by no stage
+                sums.append((ws.fprio.to(torch.int64) * (ws.keys >= 0)).sum(dim=1).tolist())
                 part = "tail"
             if stage == "gather_finalize":
                 sums.append(ws.ctl[:, [lv.CTL_LVL, lv.CTL_FCOUNT, lv.CTL_GO, lv.CTL_FMAX]]

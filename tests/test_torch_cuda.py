@@ -695,25 +695,38 @@ def _expand_case(cuda, name, nb, F=64, crash_p=0.1, B=None, sel=True, seed=3, le
 def _expand_batch_both(g, tabs, fr, ctl, model):
     """wgl_expand and the plain expand on the same batch: control blocks,
     nvalid and the valid rows equal; ctl[CTL_NEXP] each member's count of
-    valid rows; a stopped member's buffers untouched. Returns (ctl,
-    nvalid)."""
+    valid rows; a stopped member's buffers untouched. A single-stage
+    level's keys too, bit for bit on every slot: a valid row's equal to
+    ``hash_rows_reference`` of the row, an invalid slot's the sign bit
+    alone. Returns (ctl, nvalid)."""
     out = []
     nb = ctl.shape[0]
+    keyed = not g.two_stage
     for fn in (lv.expand, lv.expand_plain):
         c = ctl.clone()
         rows = torch.full((nb, g.M, g.NC), -7, dtype=torch.int32, device=ctl.device)
         nval = torch.full((nb, g.M), 9, dtype=torch.uint8, device=ctl.device)
-        fn(g, tabs, tuple(a.clone() for a in fr), c, rows, nval, model)
+        key = torch.full((nb, g.M), 5, dtype=torch.int32, device=ctl.device) if keyed else None
+        fn(g, tabs, tuple(a.clone() for a in fr), c, rows, nval, model, key)
         torch.cuda.synchronize()
-        out.append((c, nval, rows))
-    (kc, kn, kr), (pc, pn, pr) = out
+        out.append((c, nval, rows, key))
+    (kc, kn, kr, kk), (pc, pn, pr, pk) = out
     assert torch.equal(kc, pc) and torch.equal(kn, pn)
     assert torch.equal(kr[kn.bool()], pr[pn.bool()])
+    if keyed:
+        assert torch.equal(kk, pk)
+        want = kk.clone()
+        lv.vmap_members(lv.hash_rows_reference)(g, kr, kn, kc, want)
+        vm = kn.bool()
+        go = kc[:, lv.CTL_GO].bool()[:, None].expand_as(vm)
+        assert torch.equal(kk[vm], want[vm])
+        assert (kk[~vm & go] == lv.KEY_INVALID - 2**32).all()
     for b in range(nb):
         if int(ctl[b, lv.CTL_GO]):
             assert int(kc[b, lv.CTL_NEXP]) == int((kn[b] != 0).sum())
         else:
             assert (kn[b] == 9).all() and (kr[b] == -7).all()
+            assert not keyed or (kk[b] == 5).all()
     return kc, kn
 
 
@@ -856,6 +869,36 @@ def test_regroup_matches_plain_with_repeated_index(cuda):
     torch.cuda.synchronize()
     assert lv.LAUNCHES["wgl_regroup"] == before + 1
     assert all(torch.equal(a, b) for a, b in zip(k, p))
+    # the indices travel in the launch's parameters: no copy
+    work = device_work(lambda: lv._launch("wgl_regroup", *lv._regroup_args(fr, k, [2, 0, 2])))
+    assert work == _launches_only(1), work
+
+
+@pytest.mark.parametrize("idx,F,F_new,widths", [
+    ([1, 1, 0], 13, 40, (3, 2, 5)), ([0], 5, 7, (1, 1, 1)), ([2, 1], 24, 24, (2, 1, 3)),
+    ([], 16, 64, (2, 1, 1)), ([0, 0], 4096, 8192, (2, 1, 1)), ([1], 1000, 4093, (7, 3, 9)),
+    ([2, 0, 1] * 100, 13, 17, (2, 1, 1))])
+def test_regroup_at_unaligned_widths(cuda, idx, F, F_new, widths):
+    """The one-launch regroup bit for bit against regroup_reference where
+    no run starts on 16 bytes (F 13, 5, 1000: valid's runs and the one-word
+    arrays' at odd offsets), with a repeated index, no member, the same
+    capacity, and 300 members (above RG_INLINE: the indices go to the
+    card first); one device launch."""
+    KD, KO1, S = widths
+    gen = torch.Generator(device=cuda).manual_seed(F * 31 + F_new)
+    r = lambda *shape: torch.randint(-2**31, 2**31 - 1, shape, generator=gen,  # noqa: E731
+                                     device=cuda, dtype=torch.int64).to(torch.int32)
+    fr = (r(3, F), r(3, F, KD), r(3, F, KO1), r(3, F, S),
+          torch.randint(0, 2, (3, F), generator=gen, device=cuda).bool())
+    k = lv.regroup(fr, idx, F_new)
+    p = lv.regroup_reference(fr, idx, F_new)
+    torch.cuda.synchronize()
+    assert all(a.shape == b.shape and torch.equal(a, b) for a, b in zip(k, p))
+    if idx:
+        ix = torch.tensor(idx, dtype=torch.int32, device=cuda)
+        ix = ix if len(idx) > lv._build.RG_INLINE else None
+        work = device_work(lambda: lv._launch("wgl_regroup", *lv._regroup_args(fr, k, idx, ix)))
+        assert work == _launches_only(1), work
 
 
 def test_batch_verdicts_match_single_searches(cuda):
@@ -1305,15 +1348,26 @@ def test_exchange_matches_plain(cuda, D, NC, P):
     """The block-copy all_gather bit for bit against exchange_plain: runs
     that start off 16 bytes (P * NC odd), several blocks a run at P = 4108,
     sources with n_cand 0, below P and above P, invalid rows zeroed and a
-    stopped destination left as it was. (The all_to_all is wgl_route's.)"""
+    stopped destination left as it was; with stage 1's keys (the hash of
+    each source's rows below its n_cand): the received keys equal
+    exchange_plain's and the plain hash of the received rows on every slot
+    of every going shard. (The all_to_all is wgl_route's.)"""
     g, send, ctl, recv, rvalid = _exchange_case(D, NC, P, cuda)
+    skey = torch.full((D, P), 3, dtype=torch.int32, device=cuda)
+    below = torch.arange(P, device=cuda)[None] < ctl[:, lv.CTL_NEXP, None]
+    going = ctl.clone()  # every source's stage 1 ran (the shards stop together)
+    going[:, lv.CTL_GO] = 1
+    lv.vmap_members(lv.hash_rows_reference)(g, send, below, going, skey)
+    fkey = torch.full((D, g.L), 11, dtype=torch.int32, device=cuda)
     rk, vk, rp, vp = recv.clone(), rvalid.clone(), recv.clone(), rvalid.clone()
-    lv.exchange(g, send, ctl, rk, vk)
-    lv.exchange_plain(g, send, ctl, rp, vp)
+    kk, pk = fkey.clone(), fkey.clone()
+    lv.exchange(g, send, ctl, rk, vk, skey, kk)
+    lv.exchange_plain(g, send, ctl, rp, vp, skey, pk)
     torch.cuda.synchronize()
-    assert torch.equal(rk, rp) and torch.equal(vk, vp)
+    assert torch.equal(rk, rp) and torch.equal(vk, vp) and torch.equal(kk, pk)
     if D == 3:
-        assert torch.equal(rk[2], recv[2])
+        assert torch.equal(rk[2], recv[2]) and torch.equal(kk[2], fkey[2])
+    _assert_received_keys(g, ctl, rk, vk, kk)
 
 
 def _route_case(D, NC, P, cuda, seed=0):
@@ -1339,19 +1393,37 @@ def _route_case(D, NC, P, cuda, seed=0):
     return g, *(t.to(cuda) for t in (torch.from_numpy(crows), ctl, drows, rvalid))
 
 
+def _assert_received_keys(g, ctl, drows, rvalid, fkey):
+    """The received keys are the plain hash of the received rows
+    (``hash_rows_reference``: a valid row's FNV hash shifted right by one,
+    an empty slot's the zero row's key) on every slot of every going
+    shard, bit for bit."""
+    want = fkey.clone()
+    lv.vmap_members(lv.hash_rows_reference)(g, drows, rvalid, ctl, want)
+    assert torch.equal(fkey, want)
+    empty = (rvalid == 0) & ctl[:, lv.CTL_GO].bool()[:, None]
+    assert (fkey[empty] == lv.zero_row_key(g.NID)).all()
+
+
 def _route_both(g, crows, ctl, drows, rvalid, scratch):
     """The route kernel and its plain version on the same inputs: the
-    received rows, their validity and every control block equal. Returns
-    the kernel's (ctl, drows, rvalid)."""
-    kc, kd, kv = ctl.clone(), drows.clone(), rvalid.clone()
-    pc, pd, pv = ctl.clone(), drows.clone(), rvalid.clone()
-    lv.route(g, crows, kc, kd, kv, scratch)
-    lv.route_plain(g, crows, pc, pd, pv)
+    received rows, their validity, their keys (also against the plain hash
+    of the received rows) and every control block equal; a stopped
+    destination's buffers untouched. Returns the kernel's (ctl, drows,
+    rvalid)."""
+    fkey = torch.full(rvalid.shape, 11, dtype=torch.int32, device=rvalid.device)
+    kc, kd, kv, kk = ctl.clone(), drows.clone(), rvalid.clone(), fkey.clone()
+    pc, pd, pv, pk = ctl.clone(), drows.clone(), rvalid.clone(), fkey.clone()
+    lv.route(g, crows, kc, kd, kv, scratch, kk)
+    lv.route_plain(g, crows, pc, pd, pv, None, pk)
     torch.cuda.synchronize()
     assert torch.equal(kd, pd) and torch.equal(kv, pv) and torch.equal(kc, pc)
+    assert torch.equal(kk, pk)
+    _assert_received_keys(g, ctl, kd, kv, kk)
     for d in range(g.D):
         if not int(ctl[d, lv.CTL_GO]):
             assert torch.equal(kd[d], drows[d]) and torch.equal(kv[d], rvalid[d])
+            assert torch.equal(kk[d], fkey[d])
     return kc, kd, kv
 
 
@@ -1419,8 +1491,9 @@ def test_route_scratch_cleans_itself(cuda, monkeypatch):
 def test_route_is_one_device_launch(cuda, D):
     g, crows, ctl, drows, rvalid = _route_case(D, 5, 20000, cuda)
     scratch = lv.route_scratch(g, cuda)
-    lv.route(g, crows, ctl, drows, rvalid, scratch)
-    work = device_work(lambda: lv.route(g, crows, ctl, drows, rvalid, scratch))
+    fkey = torch.zeros(rvalid.shape, dtype=torch.int32, device=cuda)
+    lv.route(g, crows, ctl, drows, rvalid, scratch, fkey)
+    work = device_work(lambda: lv.route(g, crows, ctl, drows, rvalid, scratch, fkey))
     assert work == _launches_only(1), work
 
 
@@ -1460,7 +1533,8 @@ def test_sharded_prune_matches_plain(cuda, D, mode, family):
 def test_single_level_prune_runs_no_reduce(cuda):
     """The single level's prune is the unsharded instantiation: the fields
     only a sharded level's reduce writes keep what they held, the call is
-    one device launch, and a single level is still 7 launches."""
+    one device launch, and a single-stage level is 6 launches at KO = 1
+    (its expand writes the keys: no stage 1)."""
     L, nb = 16384, 3
     g = _prune_geometry(L)
     case = prune_case(9, nb, L, g.NC, g.NID, "straddle")
@@ -1480,7 +1554,8 @@ def test_single_level_prune_runs_no_reduce(cuda):
     lv._LevelProgram(gl, plan.tabs, fr, ws, model)()
     # packed inside the capture, so that the launches go to its stream
     work = device_work(lambda: lv._LevelProgram(gl, plan.tabs, fr, ws, model)())
-    assert work == _launches_only(6 + gl.KO1), work
+    assert not gl.two_stage and gl.KO1 == 1
+    assert work == _launches_only(5 + gl.KO1), work
 
 
 @pytest.mark.parametrize("D", [1, 2, 3, 8, 40, 256])
@@ -1512,10 +1587,11 @@ def test_sharded_chunk_init_matches_plain(cuda, D):
 
 @pytest.mark.parametrize("mode", ["alltoall", "allgather"])
 def test_sharded_level_device_launches(cuda, mode):
-    """A sharded level at KO = 1 is 9 device launches in both modes (the
-    expand, stage 1, the route or the exchange, the hash, two take-col
-    sorts, the prune with the reduce, the compaction sort and the
-    gather-finalize), counted from a stream capture; no reduce launch."""
+    """A sharded level at KO = 1 is 8 device launches in both modes (the
+    expand, stage 1, the route or the exchange with the received rows'
+    keys, two take-col sorts, the prune with the reduce, the compaction
+    sort and the gather-finalize), counted from a stream capture; no
+    reduce launch and no hash launch."""
     import chip_smoke
 
     model, enc = _sharded_history(1)
@@ -1529,8 +1605,9 @@ def test_sharded_level_device_launches(cuda, mode):
     prog()
     # packed inside the capture, so that the launches go to its stream
     work = device_work(lambda: lv._LevelProgram(g, tabs, fr, ws, model)())
-    assert work == _launches_only(9), work
-    assert [name for name, _fn, _a in prog.steps].count("wgl_route") == (mode == "alltoall")
+    assert work == _launches_only(8), work
+    names = [name for name, _fn, _a in prog.steps]
+    assert names.count("wgl_route") == (mode == "alltoall") and names.count("wgl_stage1_hash") == 1
 
 
 def test_sharded_wrappers_refuse_bad_meshes(cuda):
@@ -1541,8 +1618,9 @@ def test_sharded_wrappers_refuse_bad_meshes(cuda):
     crows = torch.zeros((3, g.P, g.NC), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="members"):
         lv.route(g, crows, ctl, torch.zeros((3, g.L, g.NC), dtype=torch.int32, device=cuda),
-                 torch.zeros((3, g.L), dtype=torch.uint8, device=cuda), lv.route_scratch(g, cuda))
+                 torch.zeros((3, g.L), dtype=torch.uint8, device=cuda), lv.route_scratch(g, cuda),
+                 torch.zeros((3, g.L), dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError, match="allgather"):
-        lv.exchange(g, crows, ctl, crows, crows)
+        lv.exchange(g, crows, ctl, crows, crows, crows, crows)
     with pytest.raises(ValueError):
         wgl.sharded_geometry(plan, 16, lv.MAX_SHARDS + 1, "alltoall")

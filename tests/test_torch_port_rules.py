@@ -95,7 +95,8 @@ def test_every_kernel_entry_point_has_a_signature_and_a_source():
 
 
 @pytest.mark.parametrize("name,define", [("SORT_CTA_MAX", "RS_CTA_MAX"),
-                                         ("SORT_HDR", "RS_HDR"), ("GF_ROWS", "GF_ROWS")])
+                                         ("SORT_HDR", "RS_HDR"), ("GF_ROWS", "GF_ROWS"),
+                                         ("RG_INLINE", "RG_INLINE")])
 def test_build_sizes_match_the_cuda_source(name, define):
     """The sizes the wrappers read from ``_build`` are the ones the CUDA
     source defines."""

@@ -270,7 +270,8 @@ def test_route_plain_matches_numpy(D, S):
     ctl[:, lv.CTL_NEXP] = torch.tensor(n_cand)
     drows = torch.full((D, g.L, g.NC), 0x5A5A5A5A, dtype=torch.int32)
     rvalid = torch.full((D, g.L), 7, dtype=torch.uint8)
-    lv.route(g, torch.from_numpy(crows), ctl, drows, rvalid, None)
+    lv.route(g, torch.from_numpy(crows), ctl, drows, rvalid, None,
+             torch.zeros((D, g.L), dtype=torch.int32))
     routed = [_np_route(crows[s], n_cand[s] if go[s] else 0, D, g.NID) for s in range(D)]
     for s, (_owner, _bvalid, _bmat, over) in enumerate(routed):
         assert int(ctl[s, lv.CTL_ROWOVF]) == int(over)
@@ -308,13 +309,15 @@ def test_exchange_plain_matches_numpy(D, mode):
     ctl[:, lv.CTL_NEXP] = torch.from_numpy(n_cand.astype(np.int32))
     recv = torch.zeros((D, g.L, g.NC), dtype=torch.int32)
     rvalid = torch.zeros((D, g.L), dtype=torch.uint8)
+    skey = torch.zeros((D, SR), dtype=torch.int32)
+    fkey = torch.zeros((D, g.L), dtype=torch.int32)
     if a2a:
         lv.collective_plain(g, torch.from_numpy(send), torch.from_numpy(sval.astype(np.uint8)),
-                            ctl, recv, rvalid)
+                            ctl, recv, rvalid, skey, fkey)
         with pytest.raises(ValueError, match="allgather"):
-            lv.exchange(g, torch.from_numpy(send), ctl, recv, rvalid)
+            lv.exchange(g, torch.from_numpy(send), ctl, recv, rvalid, skey, fkey)
     else:
-        lv.exchange(g, torch.from_numpy(send), ctl, recv, rvalid)
+        lv.exchange(g, torch.from_numpy(send), ctl, recv, rvalid, skey, fkey)
     if a2a:
         mat = np.concatenate([(~sval).astype(np.uint32)[..., None],
                               send.view(np.uint32)], axis=2)
@@ -501,11 +504,12 @@ class _FakeLib:
 @pytest.mark.parametrize("mode", MODES)
 def test_sharded_level_program_launches(mode, monkeypatch):
     """The kernel path packs a sharded level once per chunk: the stages in
-    order (the route under alltoall, the exchange under allgather, the
-    received rows hashed by the stage-1 entry point, one take-col sort a
-    dedup key, the prune with the cross-shard reduce in its launch), one
-    count per launch: 9 launches a level at KO = 1 in both modes, and one
-    launch at a chunk's start (the chunk init with its ticket)."""
+    order (the route under alltoall, the exchange under allgather, each
+    writing the received rows' keys: no stage hashes them again; one
+    take-col sort a dedup key, the prune with the cross-shard reduce in its
+    launch), one count per launch: 8 launches a level at KO = 1 in both
+    modes, and one launch at a chunk's start (the chunk init with its
+    ticket)."""
     lib = _FakeLib()
     monkeypatch.setattr(lv._build, "load", lambda: lib)
     monkeypatch.setattr(lv, "_check_cuda", lambda *ts: None)
@@ -519,12 +523,16 @@ def test_sharded_level_program_launches(mode, monkeypatch):
     prog()
     a2a = mode == "alltoall"
     sorts = ["wgl_take_col_sort"] * (pair.g.KO1 + 1)
-    want = (["wgl_expand", "wgl_stage1_hash", "wgl_route" if a2a else "wgl_exchange",
-             "wgl_stage1_hash"] + sorts
+    want = (["wgl_expand", "wgl_stage1_hash", "wgl_route" if a2a else "wgl_exchange"] + sorts
             + ["wgl_prune", "radix_sort_pairs", "wgl_gather_finalize"])
-    assert lib.calls == want and (pair.g.KO1 > 1 or len(want) == 9)
+    assert lib.calls == want and (pair.g.KO1 > 1 or len(want) == 8)
     assert lv.LAUNCHES["wgl_route"] == a2a and lv.LAUNCHES["wgl_exchange"] == (not a2a)
-    assert lv.LAUNCHES["wgl_stage1_hash"] == 2 and "wgl_shard_reduce" not in lv.LAUNCHES
+    assert lv.LAUNCHES["wgl_stage1_hash"] == 1 and "wgl_shard_reduce" not in lv.LAUNCHES
+    # the route or the exchange writes the received rows' keys
+    keyed = lv._route_args(pair.g, ws.crows, ws.ctl, ws.drows, ws.rvalid, ws.rt, ws.fkey) \
+        if a2a else lv._exchange_args(pair.g, ws.crows, ws.ctl, ws.drows, ws.rvalid, ws.ckey,
+                                      ws.fkey)
+    assert keyed[4 if a2a else 5].value == ws.fkey.data_ptr()
     # the prune is told it runs the shards' reduce; the chunk start its ticket
     prune = lv._prune_args(pair.g, ws.drows, ws.keys, ws.perm, ws.ctl, ws.fprio, ws.pr)
     assert prune[13].value == lv._EX_MODE[mode] and prune[11].value == pair.g.F
@@ -535,6 +543,8 @@ def test_sharded_level_program_launches(mode, monkeypatch):
         lv._prune_args(pair.g, ws.drows[:2], ws.keys[:2], ws.perm[:2], bad, ws.fprio[:2], ws.pr)
     with pytest.raises(ValueError, match="members"):
         if a2a:
-            lv._route_args(pair.g, ws.crows[:2], bad, ws.drows[:2], ws.rvalid[:2], ws.rt)
+            lv._route_args(pair.g, ws.crows[:2], bad, ws.drows[:2], ws.rvalid[:2], ws.rt,
+                           ws.fkey[:2])
         else:
-            lv._exchange_args(pair.g, ws.crows[:2], bad, ws.drows[:2], ws.rvalid[:2])
+            lv._exchange_args(pair.g, ws.crows[:2], bad, ws.drows[:2], ws.rvalid[:2],
+                              ws.ckey[:2], ws.fkey[:2])

@@ -230,17 +230,22 @@ def test_stage1_compaction_only_leaves_the_keys(density):
 
 
 def test_stage1_single_stage_hashes_every_row():
-    """The single-stage arm (no compaction): every row hashed in place,
-    validity from nvalid (``ops/wgl.py:628-645`` at ``L = M``)."""
+    """A single-stage level (no compaction) has no stage 1: its expand
+    writes the keys, held against ``hash_rows_reference``, the hash of
+    every row in place with validity from nvalid (``ops/wgl.py:628-645``
+    at ``L = M``), which is checked here against the reference's."""
     M, NC = 300, 5
     g = _geometry(M, M, NC, two_stage=False)
     case = stage1_case(9, 2, M, M, NC, "p50")
-    rows, fkey = _port(g, *case)
-    np.testing.assert_array_equal(rows, case[0].view(np.uint32))
+    t = [torch.from_numpy(a.copy()) for a in case]
+    with pytest.raises(ValueError, match="no stage 1"):
+        lv.stage1_hash_plain(g, t[0], t[1], t[2], t[0], t[4], None)
+    lv.vmap_members(lv.hash_rows_reference)(g, t[0], t[1], t[2], t[4])
+    np.testing.assert_array_equal(t[0].numpy(), case[0])
     for b in range(2):
         want = ref_fkey(jnp.asarray(case[0][b].view(np.uint32)), jnp.asarray(case[1][b] != 0),
                         g.NID)
-        np.testing.assert_array_equal(fkey[b], want)
+        np.testing.assert_array_equal(t[4][b].numpy().view(np.uint32), want)
 
 
 def test_stage1_plain_leaves_a_stopped_member_untouched():

@@ -13,9 +13,18 @@
 //   block a shard, ranks by __match_any_sync), then the alltoall exchange
 //   of the buckets into the receive rows: two launches where wgl_route is
 //   one;
+// - the allgather's exchange without the keys (the same block copies'
+//   allgather arm), whose received rows the hash below then keys;
 // - the cross-shard reduce on one thread in a launch of its own, after the
 //   prune (stage 1) or the chunk start (stage 0): the parent's sharded
-//   prune is the single level's (wgl_prune with mode 0) and then this.
+//   prune is the single level's (wgl_prune with mode 0) and then this;
+// - the fused-key hash in a launch of its own, one thread a row (NID
+//   words a row, strided by NC), validity from a byte a row: a
+//   single-stage level's rows after the expand, a sharded level's
+//   received rows after the route or the exchange (the kernels that write
+//   those rows now write their keys);
+// - the re-batch of stacked frontiers as five launches, one an array, a
+//   thread an output element (two 64-bit divisions each).
 //
 // The control-block layout and the level's outcome and finalize are the
 // library's own, so the source includes it whole; this file's shared
@@ -279,6 +288,40 @@ __global__ void k_yard_shard_reduce(int* ctl, int D, int F, int P, int mode, int
   }
 }
 
+__global__ void k_yard_hash(const u32* __restrict__ drows, const unsigned char* __restrict__ nvalid,
+                            u32* __restrict__ fkey, int L, int NC, int NID, const int* ctl) {
+  const int b = blockIdx.y;
+  if (stopped(member_ctl(ctl, b))) return;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= L) return;
+  const size_t r = (size_t)b * L + i;
+  fkey[r] = (fnv_row(drows + r * NC, NID) >> 1) | (nvalid[r] ? 0u : KEY_INVALID);
+}
+
+template <typename T>
+__global__ void k_yard_regroup(const T* __restrict__ src, T* __restrict__ dst,
+                               const int* __restrict__ idx, long n_out, int F_old, int F_new,
+                               int R) {
+  long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_out) return;
+  long row = (long)F_new * R;
+  int j = (int)(i / row);
+  long rem = i - (long)j * row;
+  int f = (int)(rem / R);
+  int c = (int)(rem - (long)f * R);
+  dst[i] = f < F_old ? src[((long)idx[j] * F_old + f) * R + c] : (T)0;
+}
+
+template <typename T>
+static void yard_regroup_launch(const void* src, void* dst, const int* idx, int n_new, int F_old,
+                                int F_new, int R, cudaStream_t s) {
+  long n_out = (long)n_new * F_new * R;
+  if (n_out == 0) return;
+  const int threads = 256;
+  long blocks = (n_out + threads - 1) / threads;
+  k_yard_regroup<T><<<(unsigned)blocks, threads, 0, s>>>((const T*)src, (T*)dst, idx, n_out,
+                                                         F_old, F_new, R);
+}
 
 extern "C" {
 
@@ -316,6 +359,18 @@ int yardstick_route_exchange(void* crows, void* ctl, void* send, void* svalid, v
   return (int)cudaGetLastError();
 }
 
+// The parent's allgather exchange, rows only: send [D, P, NC] the stage-1
+// rows, valid below each source's n_cand and P; recv [D, D * P, NC],
+// rvalid [D, D * P].
+int yardstick_gather(void* send, void* ctl, void* recv, void* rvalid, int P, int NC, int D,
+                     void* stream) {
+  if (D < 1 || D > MAX_SHARDS || P <= 0) return (int)cudaErrorInvalidValue;
+  k_yard_exchange<<<dim3(nblk((long)P * NC, EX_WORDS), D, D), EX_THREADS, 0,
+                    (cudaStream_t)stream>>>((const u32*)send, nullptr, (const int*)ctl,
+                                            (u32*)recv, (unsigned char*)rvalid, P, P, 0, NC, P);
+  return (int)cudaGetLastError();
+}
+
 // The parent's sharded prune: the single level's prune, then the reduce.
 int yardstick_prune_reduce(void* drows, void* skey, void* perm, void* ctl, void* fprio,
                            void* state, int L, int NC, int NID, int KO1, int PB, int F, int P,
@@ -332,6 +387,29 @@ int yardstick_chunk_init_reduce(void* ctl, void* valid, int F, int nb, void* str
   const int rc = wgl_chunk_init(ctl, valid, nullptr, F, nb, stream);
   if (rc) return rc;
   k_yard_shard_reduce<<<1, 32, 0, (cudaStream_t)stream>>>((int*)ctl, nb, F, 0, 0, 0);
+  return (int)cudaGetLastError();
+}
+
+// The parent's hash of a level's rows: drows [nb, L, NC], nvalid [nb, L],
+// fkey [nb, L].
+int yardstick_hash(void* drows, void* nvalid, void* ctl, void* fkey, int L, int NC, int NID,
+                   int nb, void* stream) {
+  k_yard_hash<<<dim3(nblk(L, 256), nb), 256, 0, (cudaStream_t)stream>>>(
+      (const u32*)drows, (const unsigned char*)nvalid, (u32*)fkey, L, NC, NID, (const int*)ctl);
+  return (int)cudaGetLastError();
+}
+
+// The parent's re-batch: wgl_regroup's arguments, five launches.
+int yardstick_regroup(void* p, void* mD, void* mO, void* st, void* valid, void* p2, void* mD2,
+                      void* mO2, void* st2, void* valid2, void* idx, int n_new, int F_old,
+                      int F_new, int KD, int KO1, int S, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int* ix = (const int*)idx;
+  yard_regroup_launch<uint32_t>(p, p2, ix, n_new, F_old, F_new, 1, s);
+  yard_regroup_launch<uint32_t>(mD, mD2, ix, n_new, F_old, F_new, KD, s);
+  yard_regroup_launch<uint32_t>(mO, mO2, ix, n_new, F_old, F_new, KO1, s);
+  yard_regroup_launch<uint32_t>(st, st2, ix, n_new, F_old, F_new, S, s);
+  yard_regroup_launch<uint8_t>(valid, valid2, ix, n_new, F_old, F_new, 1, s);
   return (int)cudaGetLastError();
 }
 
