@@ -45,6 +45,14 @@ and then runs these phases, each printing JSON lines:
   ``check_history(..., backend="device")`` with every kernel's launch
   count checked, then the same search through the plain versions on the
   card (same verdict, levels, rungs and per-level rows);
+- ``telemetry``: the drivers' telemetry, chunk callbacks and checkpoints:
+  the north star with a ``Registry``, a callback and a checkpoint,
+  interrupted by the callback after its first chunk at the beam's top
+  capacity and resumed (``True`` at the main path's level, its per-level
+  rows, the file deleted); sharded_10k's first chunk saved under
+  alltoall and resumed under allgather (the uninterrupted allgather
+  search's verdict, rungs and cause, the saved level's levels not run
+  again); the north star's wall with and without ``metrics``, in turns;
 - ``refutation`` and ``driver_paths``: a perturbed history refuted in
   agreement with the host oracle, and a small search that takes every
   driver path, each against the plain path;
@@ -65,6 +73,20 @@ and then runs these phases, each printing JSON lines:
   with the device launches of one call; and the take-col sort alone at
   1 to 1,048,576 pairs (1 and 8 members, both ``ident`` settings, random
   and all-equal keys), with the same yardsticks;
+- ``chunk_start``: the chunk start (``wgl_chunk_init``, one launch: the
+  control blocks from values in its parameters, the stats rings zeroed,
+  the count, the stop test, the sharded reduce) at the north star's F
+  1024 and 4096, the batch's 8 x 8192, batch_replay_100's 100 x 64 and
+  the sharded start (8 x 512), each with stopped members, bit for bit
+  against its plain version and beside the parent's whole start (the
+  control blocks built on the host and copied in, a memset, the count
+  launch from the yardsticks and the host's read of the control blocks
+  before the first level), which must agree: the kernel's device ms
+  beside the parent's count launch alone, both starts' spans as the
+  device sees them, both host walls to the first level's enqueue, the
+  device operations of a start by stream capture; a 200-member batch's
+  ladder table over three chunks; and what a chunk that starts stopped
+  costs;
 - ``batch_replay_100``: 100 histories decided by ``check_batch``, by the
   keyed ``independent.checker(linearizable(...))``, by the plain path and
   by the host oracle, in agreement; every keyed result comes from the
@@ -141,8 +163,8 @@ and then runs these phases, each printing JSON lines:
   timed, the route and the prune beside their parent designs (the route
   and the alltoall exchange, the prune and the reduce: two launches each,
   built from ``yardsticks/wgl_parent.cu`` and checked against the plain
-  versions too); the sharded chunk start (the reduce in its last block)
-  the same way; the allgather's stage 1 also without its keys (the
+  versions too; the sharded chunk start on the same frontier is
+  ``chunk_start``'s); the allgather's stage 1 also without its keys (the
   alltoall's compaction), the parent's exchange without them, and the
   parent's hash of the received rows (the yardstick: the route and the
   exchange now write the keys with the rows); the device
@@ -399,6 +421,12 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
+def chunk_start_bytes(lv, nb, F) -> int:
+    """A chunk start's bytes: the valid flags read, the control blocks and
+    the stats rings written."""
+    return nb * F + 4 * nb * (lv.CTL_SIZE + 4 * lv.LEVEL_STAT_ROWS)
+
+
 def bound_fields(ms, nbytes, ops=0, library_ms=None) -> dict:
     """bound_ms (the larger of the bytes over HBM_BYTES_PER_S and the bf16
     operations over BF16_TFLOPS), what bounds it, the kernel's share of the
@@ -468,6 +496,20 @@ def warm_frontier(plan, F, lv, wgl, model, levels=WARM_LEVELS):
     flags = lv.run_chunk_batch(lv.KERNELS, g, plan.tabs, fr, ws, [0] * plan.nb, budgets,
                                [1] * plan.nb, plan.nD.tolist(), plan.nO.tolist(), model)
     return fr, ws, [f[3] for f in flags]
+
+
+def start_rows(lv, lvls, plan, lossy=1) -> list:
+    """The chunk-start rows of one level from each member's level ``lvls``
+    (a budget of one level, the beam flag ``lossy``)."""
+    nb = len(lvls)
+    return lv.chunk_rows(lvls, [x + 1 for x in lvls], [lossy] * nb, plan.nD.tolist(),
+                         plan.nO.tolist())
+
+
+def start_ctl(lv, ctl, fr, lvls, plan) -> None:
+    """Control blocks ``ctl`` at the start of one level on ``fr`` (the plain
+    chunk start of :func:`start_rows`)."""
+    lv.chunk_init_plain(ctl, fr[4], None, start_rows(lv, lvls, plan))
 
 
 class LevelShapes:
@@ -650,13 +692,9 @@ class StageCheck:
         fr, self.ws, lvls = warm_frontier(plan, F, lv, wgl, model, warm)
         self.fr = fr
         self.valid_configs = [int(x) for x in fr[4].sum(dim=1)]
-        ctl = torch.zeros((nb, lv.CTL_SIZE), dtype=torch.int32)
-        ctl[:, lv.CTL_LVL] = torch.tensor(lvls)
-        ctl[:, lv.CTL_MAXLVL] = torch.tensor(lvls) + 1
-        ctl[:, lv.CTL_FMAX], ctl[:, lv.CTL_LOSSY] = 1, 1
-        ctl[:, lv.CTL_ND], ctl[:, lv.CTL_NO] = plan.nD, plan.nO
-        ctl = ctl.to(dev)
-        lv.chunk_init_plain(ctl, fr[4])
+        self.rows = start_rows(lv, lvls, plan)
+        ctl = torch.zeros((nb, lv.CTL_SIZE), dtype=torch.int32, device=dev)
+        lv.chunk_init_plain(ctl, fr[4], None, self.rows)
         self.ctl0 = ctl
         self.results = {}  # name -> dict(err, ms, plain_ms, call_ms, bytes, library_ms)
 
@@ -690,10 +728,14 @@ class StageCheck:
         e4 = lambda *a: 4 * int(sum(a))
         dev = self.ctl0.device
         z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)
-        # chunk_init
-        ins = (self.ctl0, self.fr[4])
-        k, p, t = measure(lambda t: lv.chunk_init(*t), lambda t: lv.chunk_init_plain(*t), ins)
-        self.record("wgl_chunk_init", max_abs_err(k[0], p[0]), t, nb * g.F)
+        # chunk_init: the whole chunk start (control blocks, stats rings)
+        rows = self.rows
+        ins = (torch.ones_like(self.ctl0), self.fr[4], torch.ones_like(ws.stats))
+        k, p, t = measure(lambda t: lv.chunk_init(t[0], t[1], t[2], rows),
+                          lambda t: lv.chunk_init_plain(t[0], t[1], t[2], rows), ins)
+        err = max(max_abs_err(k[0], p[0]), max_abs_err(k[2], p[2]),
+                  max_abs_err(p[0], self.ctl0))
+        self.record("wgl_chunk_init", err, t, chunk_start_bytes(lv, nb, g.F))
         ctl = p[0]
         # expand (a single-stage level's writes the keys: it has no stage 1)
         single = not g.two_stage
@@ -1164,13 +1206,8 @@ def expand_scale(lv, wgl, model, plan, bplan, families):
         g = wgl.level_geometry(p, F)
         fr, _ws, lvls = warm_frontier(p, F, lv, wgl, model)
         nb = p.nb
-        ctl = torch.zeros((nb, lv.CTL_SIZE), dtype=torch.int32)
-        ctl[:, lv.CTL_LVL] = torch.tensor(lvls)
-        ctl[:, lv.CTL_MAXLVL] = torch.tensor(lvls) + 1
-        ctl[:, lv.CTL_FMAX], ctl[:, lv.CTL_LOSSY] = 1, 1
-        ctl[:, lv.CTL_ND], ctl[:, lv.CTL_NO] = p.nD, p.nO
-        ctl = ctl.to("cuda")
-        lv.chunk_init_plain(ctl, fr[4])
+        ctl = torch.zeros((nb, lv.CTL_SIZE), dtype=torch.int32, device="cuda")
+        start_ctl(lv, ctl, fr, lvls, p)
         rows = torch.zeros((nb, g.M, g.NC), dtype=torch.int32, device="cuda")
         nval = torch.zeros((nb, g.M), dtype=torch.uint8, device="cuda")
         kernel = lambda t: lv.expand(g, p.tabs, fr, t[0], t[1], t[2], model)  # noqa: E731
@@ -1262,6 +1299,7 @@ YARDSTICKS = {"yardstick_take_col": "PLIIPPIIPP",
               "yardstick_gather": "PPPPIIIP",
               "yardstick_prune_reduce": "P" * 6 + "I" * 10 + "P",
               "yardstick_chunk_init_reduce": "PPIIP",
+              "yardstick_chunk_init": "PPPIIP",
               "yardstick_hash": "PPPPIIIIP",
               "yardstick_regroup": "P" * 11 + "I" * 6 + "P"}
 _YARD = {}  # the yardsticks' build: "proc", "lib", "log", "t0"; then "cdll"
@@ -1365,6 +1403,48 @@ def yard_prune_reduce(lv, g, drows, skey, perm, ctl, fprio, scratch) -> None:
     arguments."""
     _yard_call("yardstick_prune_reduce", *lv._prune_args(g, drows, skey, perm, ctl, fprio,
                                                          scratch))
+
+
+def yard_chunk_init(lv, ctl, valid, ticket=None) -> None:
+    """The parent's count launch of the chunk start on control blocks
+    already on the card (the yardstick); with ``ticket`` its last block
+    runs the chunk-start reduce."""
+    import ctypes
+
+    nb, F = valid.shape
+    _yard_call("yardstick_chunk_init", lv._ptr(ctl), lv._ptr(valid), lv._ptr(ticket),
+               ctypes.c_int(F), ctypes.c_int(nb), lv._stream())
+
+
+def parent_init(lv, nb, rows):
+    """The control blocks the parent built on the host at a chunk's start
+    (``_run_levels`` before this design): zeros, then each member's level,
+    fmax 1, budget, beam flag and op counts, a column at a time."""
+    import torch
+
+    rows = rows if len(rows) == nb else rows * nb
+    cols = list(zip(*rows))
+    init = torch.zeros((nb, lv.CTL_SIZE), dtype=torch.int32)
+    init[:, lv.CTL_LVL] = torch.as_tensor(list(cols[0]), dtype=torch.int32)
+    init[:, lv.CTL_FMAX] = 1
+    init[:, lv.CTL_MAXLVL] = torch.as_tensor(list(cols[1]), dtype=torch.int32)
+    init[:, lv.CTL_LOSSY] = torch.as_tensor([int(x) for x in cols[2]], dtype=torch.int32)
+    init[:, lv.CTL_ND] = torch.as_tensor(list(cols[3]), dtype=torch.int32)
+    init[:, lv.CTL_NO] = torch.as_tensor(list(cols[4]), dtype=torch.int32)
+    return init
+
+
+def parent_chunk_start(lv, ctl, valid, stats, ticket, lists):
+    """The parent's whole chunk start, from the host's lists
+    ``(lvl0, max_levels, lossy, nD, nO)`` to the host's read of the control
+    blocks before the first level: the control blocks built on the host and
+    copied from pageable memory (a copy that holds the host), a memset of
+    the stats rings, the count launch (the yardstick) and the read."""
+    rows = list(zip(*lists))
+    ctl.copy_(parent_init(lv, ctl.shape[0], rows))
+    stats.zero_()
+    yard_chunk_init(lv, ctl, valid, ticket)
+    return ctl.cpu()
 
 
 def yard_chunk_init_reduce(lv, ctl, valid) -> None:
@@ -2081,12 +2161,8 @@ def sharded_ctl(lv, g, plan, fr, lvl, lossy):
     stage-0 reduce), for a one-level comparison."""
     import torch
 
-    ctl = torch.zeros((g.D, lv.CTL_SIZE), dtype=torch.int32)
-    ctl[:, lv.CTL_LVL], ctl[:, lv.CTL_MAXLVL] = lvl, lvl + 1
-    ctl[:, lv.CTL_FMAX], ctl[:, lv.CTL_LOSSY] = 1, int(lossy)
-    ctl[:, lv.CTL_ND], ctl[:, lv.CTL_NO] = plan.nD, plan.nO
-    ctl = ctl.to("cuda")
-    lv.chunk_init_plain(ctl, fr[4])
+    ctl = torch.zeros((g.D, lv.CTL_SIZE), dtype=torch.int32, device="cuda")
+    lv.chunk_init_plain(ctl, fr[4], None, [(lvl, lvl + 1, int(lossy), plan.nD, plan.nO)])
     lv.shard_reduce_plain(g, ctl, 0)
     return ctl
 
@@ -2372,7 +2448,8 @@ def sharded_device_launches(lv, wgl, enc, model) -> dict:
         # packed inside the capture, so that the launches go to its stream
         out[mode] = device_work(lambda: lv._LevelProgram(g, tabs, fr, ws, model)())
         if mode == "alltoall":
-            out["chunk_start"] = device_work(lambda: lv.chunk_init(ws.ctl, fr[4], ws.gf))
+            out["chunk_start"] = device_work(lambda: lv.chunk_init(
+                ws.ctl, fr[4], ws.stats, [(0, 9, 0, plan.nD, plan.nO)], ws.gf))
         want = 7 + g.KO1
         if out[mode] != {"kernel": want, "memcpy": 0, "memset": 0, "other": 0}:
             raise AssertionError(f"a sharded level ({mode}) is not {want} launches: {out[mode]}")
@@ -2381,34 +2458,346 @@ def sharded_device_launches(lv, wgl, enc, model) -> dict:
     return out
 
 
-def sharded_chunk_start(lv, fr) -> dict:
-    """The sharded chunk start (one launch: the reduce in its last block) on
-    the warmed frontier's SHARD_D shards, bit for bit against its plain
-    version (the chunk init, then shard_reduce_plain stage 0) and timed
-    beside the parent's two launches (the yardstick, checked too)."""
+CHUNK_START_REPS = 200  # host-wall samples of each design, the two in turns
+CHUNK_START_LADDER = 200  # members of the ladder-table case (above CS_INLINE)
+
+
+def _median_wall_ms(fns, reps) -> list:
+    """Median host ms of each of ``fns`` (each call after a synchronize, so
+    the stream is idle as at a chunk's start), the calls in turns with the
+    order flipped every sample."""
     import torch
 
-    D, F = fr[4].shape
-    ctl = torch.zeros((D, lv.CTL_SIZE), dtype=torch.int32, device="cuda")
-    ctl[:, lv.CTL_MAXLVL] = 1 << 20  # the search goes on
-    ticket = torch.zeros(1, dtype=torch.int32, device="cuda")
-    kernel = lambda t: lv.chunk_init(t[0], fr[4], ticket)  # noqa: E731
-    plain = lambda t: lv.chunk_init_plain(t[0], fr[4], ticket)  # noqa: E731
-    parent = lambda t: yard_chunk_init_reduce(lv, t[0], fr[4])  # noqa: E731
-    outs = []
-    for fn in (kernel, plain, parent):
-        c = (ctl.clone(),)
-        fn(c)
-        outs.append(c[0])
+    samples = [[] for _ in fns]
+    for r in range(reps):
+        order = range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))
+        for i in order:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fns[i]()
+            samples[i].append(1e3 * (time.perf_counter() - t))
     torch.cuda.synchronize()
-    err = max_abs_err(outs[0], outs[1])
-    if err or max_abs_err(outs[2], outs[1]) or int(ticket[0]):
-        raise AssertionError("the sharded chunk start (or its parent) disagrees with plain")
-    ms, call_ms = batch_ms(kernel, (ctl,))
-    plain_ms, _ = batch_ms(plain, (ctl,), hold=False, batch=3, batches=3)
-    parent_ms, _ = batch_ms(parent, (ctl,))
-    nbytes = D * F + 2 * 4 * D * lv.CTL_SIZE
-    return _timed_summary(err, ms, call_ms, plain_ms, nbytes, None, parent_ms)
+    return [statistics.median(x) for x in samples]
+
+
+def _span_ms(fn, reps=20) -> float:
+    """Median device ms from an event before ``fn``'s work to one after it,
+    with no holding sleep: the parent's pageable copy waits for the host,
+    so its start is timed as the device sees it, host gaps included."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        out.append(ev[0].elapsed_time(ev[1]))
+    return statistics.median(out)
+
+
+def chunk_start_case(lv, label, valid, sharded, seed) -> dict:
+    """One chunk start of ``valid [nb, F]``'s members: the one launch bit
+    for bit against its plain version (control blocks, stats rings, the
+    ticket left zero) and the parent's whole start (which must agree;
+    sharded, the earlier design's two launches too, the yardsticks),
+    with some members stopped (a start with no budget, an empty frontier);
+    the kernel's device ms beside the parent's count launch alone and the
+    parent's whole start as the device sees it; the host wall from the
+    first call to the point where the first level is enqueued (the parent
+    read the control blocks there, the new start does not); the device
+    operations of one start by stream capture."""
+    import numpy as np
+    import torch
+
+    from jepsen_tpu_torch.testing import device_work
+
+    nb, F = valid.shape
+    rng = np.random.default_rng(seed)
+    n = 1 if sharded else nb
+    lvl0 = rng.integers(0, 7000, n)
+    budget = lvl0 + rng.integers(1, 64, n)
+    if n > 2:
+        budget[::5] = lvl0[::5]  # no budget: stopped at the start
+    lists = [x.tolist() * (nb // n) for x in (lvl0, budget, rng.integers(0, 2, n),
+                                              rng.integers(1, 10001, n), rng.integers(0, 9, n))]
+    valid = valid.clone()
+    if nb > 2:
+        valid[1::7] = 0  # empty frontiers
+    ticket = torch.zeros(1, dtype=torch.int32, device="cuda") if sharded else None
+    ctl = torch.ones((nb, lv.CTL_SIZE), dtype=torch.int32, device="cuda")
+    stats = torch.ones((nb, lv.LEVEL_STAT_ROWS, 4), dtype=torch.int32, device="cuda")
+    rows = lv.chunk_rows(*lists)
+    outs = []
+    for fn in (lambda c, st: lv.chunk_init(c, valid, st, rows, ticket),
+               lambda c, st: lv.chunk_init_plain(c, valid, st, rows, ticket),
+               lambda c, st: parent_chunk_start(lv, c, valid, st, ticket, lists)):
+        c, st = ctl.clone(), stats.clone()
+        fn(c, st)
+        outs.append((c, st))
+    torch.cuda.synchronize()
+    err = max(max_abs_err(outs[0][0], outs[1][0]), max_abs_err(outs[0][1], outs[1][1]))
+    parent_err = max(max_abs_err(outs[2][0], outs[1][0]), max_abs_err(outs[2][1], outs[1][1]))
+    go = outs[0][0][:, lv.CTL_GO]
+    if err or parent_err or int(outs[0][1].abs().sum()) or (ticket is not None and int(ticket)):
+        raise AssertionError(f"chunk start {label}: kernel {err}, parent {parent_err}")
+    kernel = lambda t: lv.chunk_init(t[0], valid, t[1], rows, ticket)  # noqa: E731
+    ms, call_ms = batch_ms(kernel, (ctl, stats))
+    plain_ms, _ = batch_ms(lambda t: lv.chunk_init_plain(t[0], valid, t[1], rows, ticket),
+                           (ctl, stats), hold=False, batch=3, batches=3)
+    copied = parent_init(lv, nb, rows).to("cuda")
+    parent_kernel_ms, _ = batch_ms(lambda t: yard_chunk_init(lv, t[0], valid, ticket),
+                                   (copied,))
+
+    def parent_device():
+        ctl.copy_(parent_init(lv, nb, list(zip(*lists))))
+        stats.zero_()
+        yard_chunk_init(lv, ctl, valid, ticket)
+
+    span_new = _span_ms(lambda: lv.chunk_init(ctl, valid, stats, lv.chunk_rows(*lists), ticket))
+    span_parent = _span_ms(parent_device)
+    wall_new, wall_parent = _median_wall_ms(
+        [lambda: lv.chunk_init(ctl, valid, stats, lv.chunk_rows(*lists), ticket),
+         lambda: parent_chunk_start(lv, ctl, valid, stats, ticket, lists)], CHUNK_START_REPS)
+    work = device_work(lambda: lv.chunk_init(ctl, valid, stats, rows, ticket))
+    if work != {"kernel": 1, "memcpy": 0, "memset": 0, "other": 0}:
+        raise AssertionError(f"chunk start {label} is not one launch: {work}")
+    out = _timed_summary(err, ms, call_ms, plain_ms, chunk_start_bytes(lv, nb, F), None,
+                         parent_kernel_ms)
+    if sharded:  # the earlier design: the count launch, then a one-thread reduce
+        pair = lambda t: yard_chunk_init_reduce(lv, t[0], valid)  # noqa: E731
+        c = (copied.clone(),)
+        pair(c)
+        if max_abs_err(c[0], outs[1][0]):
+            raise AssertionError(f"chunk start {label}: the two-launch parent disagrees")
+        out["parent_two_launch_ms"] = batch_ms(pair, (copied,))[0]
+    out.update(label=label, nb=nb, F=F, sharded=sharded, rows=len(rows),
+               stopped=int((go == 0).sum()), parent_max_abs_err=parent_err,
+               device_span_ms=span_new, parent_device_span_ms=span_parent,
+               host_wall_ms=wall_new, parent_host_wall_ms=wall_parent, device_work=work)
+    return out
+
+
+def chunk_start_ladder(lv, F=64, chunks=3, lpc=7) -> dict:
+    """A batch above CS_INLINE members: the chunk start reads the ladder
+    table on the card. Three chunks of the ladder's rule (the rung's first,
+    then from control blocks that levels left accepted, overflowed,
+    stuck, emptied or at their total), bit for bit against the plain
+    version, table included; one launch by capture."""
+    import numpy as np
+    import torch
+
+    from jepsen_tpu_torch.testing import device_work
+
+    nb = CHUNK_START_LADDER
+    rng = np.random.default_rng(15)
+    totals = rng.integers(1, 40, nb)
+    kt = lv.ladder_table(np.minimum(rng.integers(0, 30, nb), totals), totals,
+                         rng.integers(0, 2, nb), rng.integers(1, 99, nb), rng.integers(0, 9, nb),
+                         "cuda")
+    pt = kt.clone()
+    kc = torch.zeros((nb, lv.CTL_SIZE), dtype=torch.int32, device="cuda")
+    pc = kc.clone()
+    ks = torch.ones((nb, lv.LEVEL_STAT_ROWS, 4), dtype=torch.int32, device="cuda")
+    ps = ks.clone()
+    err, active = 0, []
+    for _ in range(chunks):
+        valid = torch.from_numpy((rng.random((nb, F)) < 0.5).astype(np.uint8)).to("cuda")
+        lv.chunk_init(kc, valid, ks, None, table=kt, lpc=lpc)
+        lv.chunk_init_plain(pc, valid, ps, None, table=pt, lpc=lpc)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(kc, pc), max_abs_err(ks, ps), max_abs_err(kt, pt))
+        active.append(int(kt[:, lv.CS_ACTIVE].sum()))
+        step = torch.from_numpy(rng.integers(0, lpc + 1, nb).astype(np.int32)).to("cuda")
+        kc[:, lv.CTL_LVL] = torch.minimum(kc[:, lv.CTL_LVL] + step, kc[:, lv.CTL_MAXLVL])
+        for col in (lv.CTL_ACC, lv.CTL_OVF, lv.CTL_STUCK):
+            kc[:, col] = torch.from_numpy((rng.random(nb) < 0.1).astype(np.int32)).to("cuda")
+        pc.copy_(kc)
+    work = device_work(lambda: lv.chunk_init(kc, valid, ks, None, table=kt, lpc=lpc))
+    ms, _ = batch_ms(lambda t: lv.chunk_init(t[0], valid, t[1], None, None, t[2], lpc),
+                     (kc, ks, kt))
+    if err or work != {"kernel": 1, "memcpy": 0, "memset": 0, "other": 0}:
+        raise AssertionError(f"the ladder-table chunk start disagrees: {err}, {work}")
+    return {"label": f"ladder_table_nb{nb}", "nb": nb, "F": F, "max_abs_err": err,
+            "active_after_each_chunk": active, "ms": ms, "device_work": work}
+
+
+def stopped_chunk_cost(lv, g, tabs, fr, ws, model) -> dict:
+    """What a chunk that starts stopped (an empty frontier with levels left:
+    a resumed finished search) costs now that the first run of levels is
+    enqueued without reading the control blocks first: the whole chunk
+    (the start, the first run's launches, which return at once, and the
+    read), beside the start and a read alone (what reading first would
+    cost), median host ms of 20 in turns."""
+    fr0 = tuple(a.clone() for a in fr)
+    fr0[4].zero_()
+    nb = fr0[0].shape[0]
+    lists = ([0] * nb, [100] * nb, [1] * nb, [9000] * nb, [0] * nb)
+    whole, read_first = _median_wall_ms(
+        [lambda: lv.run_chunk_batch(lv.KERNELS, g, tabs, fr0, ws, *lists, model),
+         lambda: (lv.chunk_init(ws.ctl, fr0[4], ws.stats, lv.chunk_rows(*lists)),
+                  ws.ctl.cpu())], 20)
+    return {"stopped_chunk_ms": whole, "start_and_read_ms": read_first,
+            "first_run_levels": 4}
+
+
+def chunk_start_phase(lv, wgl, model, north_chk, batch_chk, replay_plan):
+    """The chunk start at the main path's shapes (the north star at F 1024
+    and 4096, nb 1; batch_8x10k's 8 x 8192; batch_replay_100's 100 x 64;
+    sharded_10k's 8 shards of 512), the ladder table at 200 members, and
+    what a chunk that starts stopped costs."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rand = lambda nb, F: (torch.rand((nb, F), generator=gen, device="cuda")  # noqa: E731
+                          < 0.3).to(torch.uint8)
+    cases = [("north_star_F1024", rand(1, 1024), False),
+             ("north_star_F4096", north_chk.fr[4], False),
+             ("batch_8x8192", batch_chk.fr[4], False),
+             ("replay_100x64", rand(replay_plan.nb, 64), False),
+             ("sharded_D8", north_chk.fr[4].reshape(SHARD_D, -1), True)]
+    out = {}
+    for i, (label, valid, sharded) in enumerate(cases):
+        out[label] = chunk_start_case(lv, label, valid.contiguous(), sharded, 100 + i)
+        emit({"phase": "chunk_start", **out[label]})
+    out["ladder"] = chunk_start_ladder(lv)
+    emit({"phase": "chunk_start", **out["ladder"]})
+    out["stopped"] = stopped_chunk_cost(lv, north_chk.g, north_chk.tabs, north_chk.fr,
+                                        north_chk.ws, model)
+    emit({"phase": "chunk_start", **out["stopped"]})
+    return out
+
+
+# The callbacks interrupt the north star after its first chunk at the
+# beam's top capacity, and sharded_10k's alltoall search after its first
+# chunk (at f_total SHARD_F_TOTAL). A resume starts a new rung at the
+# saved level (both packages' checkpoints keep the frontier, not the
+# driver's escalation state), so only a resume with no escalation or
+# de-escalation ahead of it retraces the uninterrupted search row for
+# row: at the top capacity, or before the first escalation.
+TELEMETRY_TOP_F = 4096  # OPTIMISTIC_BEAM_F
+TELEMETRY_TURNS = 3  # north-star runs with and without metrics, in turns
+
+
+class Interrupted(Exception):
+    """Raised by the telemetry phase's chunk callback to stop a search."""
+
+
+def telemetry_phase(lv, wgl, model, hist, whole, frontier, make_mesh, encode_history,
+                    random_register_history) -> dict:
+    """The drivers' telemetry, chunk callbacks and checkpoints on the card.
+    The north star with a Registry, a chunk callback and a checkpoint under
+    a temporary directory, interrupted by the callback after its first
+    chunk at TELEMETRY_TOP_F, then resumed: ``True`` at the main path's
+    level with its per-level stats rows (the interrupted run's wgl_level
+    events, then the resumed run's rows), the file gone. sharded_10k's
+    first chunk saved under alltoall and resumed under allgather: the
+    verdict and levels of an uninterrupted allgather search. The north
+    star's wall with metrics and without, in turns."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from jepsen_tpu_torch.telemetry import Registry
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "north_star.npz")
+        first, infos = Registry(), []
+
+        def interrupt(info):
+            infos.append(info)
+            if info.get("F") == TELEMETRY_TOP_F or "global_capacity" in info:
+                raise Interrupted
+
+        try:
+            wgl.check_history(model, hist, backend="device", metrics=first,
+                              chunk_callback=interrupt, checkpoint_path=path)
+            raise AssertionError("the north star was not interrupted")
+        except Interrupted:
+            pass
+        saved = os.path.exists(path)
+        reg = Registry()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = wgl.check_history(model, hist, backend="device", metrics=reg,
+                                checkpoint_path=path, collect_stats=True)
+        torch.cuda.synchronize()
+        resumed_wall = time.perf_counter() - t
+        rows = [[e["level"], e["frontier"], e["expanded"], int(e["overflow"])]
+                for e in first.events("wgl_level")]
+        same_rows = rows + res["level_stats"] == whole["level_stats"]
+        out["north_star"] = {
+            "valid": res["valid"], "levels": res["levels"], "saved": saved,
+            "interrupted_at_level": infos[-1]["level"], "callback_keys": sorted(infos[-1]),
+            "file_left": os.path.exists(path), "same_level_stats": same_rows,
+            "resumed_wall_s": resumed_wall,
+            "events": {k: len(first.events(k)) + len(reg.events(k))
+                       for k in ("wgl_chunk", "wgl_level", "wgl_escalation")},
+            "stages": sorted({e["stage"] for e in reg.events("wgl_chunk")}),
+            "summary": {k: v for k, v in reg.summary().items()
+                        if not k.startswith("wgl_kernel_seconds")}}
+        first_chunk = reg.events("wgl_chunk")[0]["level0"] if reg.events("wgl_chunk") else None
+        out["north_star"]["resumed_at_level"] = first_chunk
+        if not (saved and res["valid"] is True and res["levels"] == whole["levels"]
+                and same_rows and not out["north_star"]["file_left"]
+                and first_chunk == infos[-1]["level"] > 0):
+            raise AssertionError(f"the interrupted north star did not resume: {out}")
+
+        h = random_register_history(random.Random(SHARD_10K["seed"]),
+                                    **{k: v for k, v in SHARD_10K.items() if k != "seed"})
+        enc = encode_history(model, h)
+        kw = dict(mesh=make_mesh(SHARD_D), f_total=SHARD_F_TOTAL, max_escalations=2,
+                  levels_per_call=SHARD_CHUNK_LEVELS)
+        spath = os.path.join(tmp, "sharded_10k.npz")
+        infos.clear()
+        sreg = Registry()
+        try:
+            frontier.check_encoded_sharded(enc, exchange="alltoall", metrics=sreg,
+                                           chunk_callback=interrupt, checkpoint_path=spath, **kw)
+            raise AssertionError("sharded_10k was not interrupted")
+        except Interrupted:
+            pass
+        saved_level = int(np.load(spath)["lvl"])
+        wreg, rreg = Registry(), Registry()
+        whole_ag = frontier.check_encoded_sharded(enc, exchange="allgather", metrics=wreg, **kw)
+        resumed = frontier.check_encoded_sharded(enc, exchange="allgather", metrics=rreg,
+                                                 checkpoint_path=spath, **kw)
+        ran = lambda r: r.summary()["wgl_sharded_levels_total"]  # noqa: E731
+        # an escalation_budget result has no levels: its attempts say where
+        outcome = lambda r: (r["valid"], r.get("levels"),  # noqa: E731
+                             [(a["F"], a["levels"]) for a in r["attempts"]],
+                             [c["code"] for c in r.get("causes") or []])
+        out["sharded_10k"] = {
+            "saved_under": "alltoall", "resumed_under": "allgather",
+            "resumed": outcome(resumed), "uninterrupted": outcome(whole_ag),
+            "saved_level": saved_level, "levels_run": [ran(rreg), ran(wreg)],
+            "chunk_events": len(sreg.events("wgl_sharded_chunk")),
+            "imbalance": {k: v for k, v in sreg.summary().items() if "imbalance" in k}}
+        # a resume runs the levels after the saved one, and no others
+        if (outcome(resumed) != outcome(whole_ag) or saved_level <= 0
+                or ran(rreg) + saved_level != ran(wreg)):
+            raise AssertionError(f"sharded_10k did not resume across modes: {out}")
+
+    walls = {"without": [], "with": []}
+    for i in range(2 * TELEMETRY_TURNS):
+        label = ("without", "with", "with", "without")[i % 4]
+        reg = Registry() if label == "with" else None
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = wgl.check_history(model, hist, backend="device", metrics=reg)
+        torch.cuda.synchronize()
+        walls[label].append(time.perf_counter() - t)
+        if r["valid"] is not True or r["levels"] != whole["levels"]:
+            raise AssertionError("the north star changed under telemetry")
+    out["north_star_wall_s"] = {k: sorted(v) for k, v in walls.items()}
+    out["metrics_overhead"] = (statistics.median(walls["with"])
+                               / statistics.median(walls["without"]) - 1)
+    return out
 
 
 def sharded_kernels_phase(lv, wgl, enc, model):
@@ -2417,10 +2806,11 @@ def sharded_kernels_phase(lv, wgl, enc, model):
     every stage kernel against plain bit for bit, the route, the
     exchange, the sharded prune and the sharded finalize timed (the route
     and the prune beside their parent designs, the yardsticks); the
-    sharded chunk start on the same frontier; the device launches of a
-    level and of a chunk start. The level runs as a beam (lossy) so that
-    the gather runs. Returns ({mode: {kernel: summary}, "chunk_start":
-    summary, "device_launches": counts}, {kernel: max_abs_err})."""
+    device launches of a level and of a chunk start (the sharded chunk
+    start on the same frontier is ``chunk_start``'s ``sharded_D8``). The
+    level runs as a beam (lossy) so that the gather runs. Returns ({mode:
+    {kernel: summary}, "device_launches": counts}, {kernel:
+    max_abs_err})."""
     import torch
 
     single = wgl.stack_plans([wgl.plan_device(enc, device="cpu")], "cuda")
@@ -2496,11 +2886,8 @@ def sharded_kernels_phase(lv, wgl, enc, model):
         if bad:
             raise AssertionError(f"sharded stages disagree with their plain versions ({mode}): "
                                  f"{bad}")
-    out["chunk_start"] = sharded_chunk_start(lv, fr)
-    errs["wgl_chunk_init_sharded"] = out["chunk_start"]["max_abs_err"]
     out["device_launches"] = sharded_device_launches(lv, wgl, enc, model)
-    emit({"phase": "sharded_kernels", "chunk_start": out["chunk_start"],
-          "device_launches": out["device_launches"]})
+    emit({"phase": "sharded_kernels", "device_launches": out["device_launches"]})
     return out, errs
 
 
@@ -3332,6 +3719,11 @@ def main() -> int:
     if not same:
         raise AssertionError("plain search on the card differs from the kernel search")
 
+    # -- telemetry, chunk callbacks and checkpoints ---------------------------
+    telem = telemetry_phase(lv, wgl, model, hist, res, frontier, make_mesh, encode_history,
+                            random_register_history)
+    emit({"phase": "telemetry", **telem})
+
     # -- a refutation (exhaustive search, lossless escalation) ----------------
     rng = random.Random(REFUTE["seed"])
     bad = perturb_history(rng, random_register_history(
@@ -3404,6 +3796,8 @@ def main() -> int:
             batch_stages, batch_chk = dict(stages, _nb=bplan.nb, _F=F), chk
             regroups["batch_8x8192"] = dict(chk.regroup, F=F, to=2 * F, members=bplan.nb + 1)
     scale = gather_sort_scale(lv, {"north_star": north_chk, "batch_8x8192": batch_chk})
+    starts = chunk_start_phase(lv, wgl, model, north_chk, batch_chk,
+                               batch_plan([encode_history(model, h) for h in replay], wgl))
     del north_chk, batch_chk
 
     # -- batch replay: 100 histories, four ways -------------------------------
@@ -3534,6 +3928,9 @@ def main() -> int:
 
     # -- the frontier-sharded search on SHARD_D shards of the card ------------
     shard_stats, shard_errs = sharded_kernels_phase(lv, wgl, enc, model)
+    # the sharded chunk start on the same warmed frontier (chunk_start)
+    shard_stats["chunk_start"] = starts["sharded_D8"]
+    shard_errs["wgl_chunk_init_sharded"] = starts["sharded_D8"]["max_abs_err"]
     exchange_big = exchange_scale_phase(lv, wgl, enc, model)
     regroups["sharded_grows"] = regroup_scale(lv, plan)
     shard_launches = sharded_10k_phase(lv, wgl, model, frontier, make_mesh, encode_history,
@@ -3610,6 +4007,8 @@ def main() -> int:
                 k: v["wgl_expand"] - v["wgl_stage1_hash"] for k, v in paths.items()
                 if not k.startswith("sharded")}
             entry["k_hash_parent"] = hash_parent
+        if kname == "wgl_chunk_init":  # the whole start beside the parent's (chunk_start)
+            entry["chunk_start"] = starts
         if kname == "wgl_regroup":  # beside its parent design, and the sharded grows
             entry["parent"] = regroups
         if kname in scale:  # beside the parent design (gather_sort_scale)

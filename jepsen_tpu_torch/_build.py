@@ -41,11 +41,15 @@ GF_ROWS = 128
 # Member indices a regroup passes in its launch's parameters (RG_INLINE); a
 # longer index goes to the card first.
 RG_INLINE = 256
+# Members whose initial control-block values a chunk start passes in its
+# launch's parameters (CS_INLINE); a larger batch of the ladder keeps them in
+# a table on the card.
+CS_INLINE = 128
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 # entry point -> argument types, in order (the C signatures).
 SIGNATURES = {
-    "wgl_chunk_init": [_P, _P, _P, _I, _I, _P],
+    "wgl_chunk_init": [_P] * 6 + [_I] * 5 + [_P],
     "wgl_expand": [_P] * 15 + [_I] * 10 + [_P],
     "wgl_stage1_hash": [_P] * 6 + [_I] * 7 + [_P],
     "wgl_take_col_sort": [_P, _L, _I, _I, _I] + [_P] * 5 + [_I, _I, _P, _P],
@@ -130,6 +134,20 @@ def build() -> dict:
     return {"built": True, "seconds": time.perf_counter() - t0,
             "compile_seconds": {src.name: s for src, (_out, s) in zip(srcs, done)},
             "log": log}
+
+
+def loaded() -> bool:
+    """Whether this process has loaded the kernel library."""
+    return _lib is not None
+
+
+def chunk_stage(was_loaded: bool) -> str:
+    """A driver chunk's telemetry ``stage``: ``"compile"`` for the chunk
+    that paid the process's first load of the kernel library (its ``nvcc``
+    build or its load: the port's counterpart of the reference's first
+    chunk after a fresh JIT build), ``"execute"`` after it and on the CPU.
+    ``was_loaded`` is :func:`loaded` before the chunk."""
+    return "compile" if not was_loaded and loaded() else "execute"
 
 
 def load() -> ctypes.CDLL:

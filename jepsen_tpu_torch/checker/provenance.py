@@ -84,3 +84,27 @@ def of(result: Optional[dict]) -> list[dict]:
 def ensure(causes: list[dict], **params: Any) -> list[dict]:
     """Backstop: an unknown with no structured cause gets ``unattributed``."""
     return causes if causes else [cause("unattributed", **params)]
+
+
+_METRIC_HELP = ("Degraded-verdict causes by taxonomy code (see "
+                "docs/verdicts.md); tenant=\"\" for non-service paths, "
+                "unlabeled = all codes and tenants")
+
+
+def count_metric(metrics, causes, tenant: str = "") -> None:
+    """Increment ``verdict_causes_total{code,tenant}`` (and the aggregate
+    unlabeled total) for each cause. No-op without a registry; never raises
+    into a fold."""
+    if metrics is None:
+        return
+    try:
+        c = metrics.counter("verdict_causes_total", _METRIC_HELP,
+                            labelnames=("code", "tenant"), aggregate=True)
+        for item in causes:
+            code = item.get("code") if isinstance(item, dict) else item
+            if not isinstance(code, str):
+                continue
+            c.inc()  # the unlabeled total
+            c.labels(code=code, tenant=str(tenant)).inc()
+    except Exception:  # noqa: BLE001 - observability never sinks a fold
+        pass

@@ -291,27 +291,114 @@ __device__ void level_reduce(int* ctl, int D, int F, int P, int mode) {
 }
 
 // ---------------------------------------------------------------------------
-// Chunk start: frontier count and the stop test (reference lines 830-843),
-// one block per member. With `ticket` (one zero word, left zero) the
-// members are the D shards of one sharded search, and the last block by
-// the ticket, taken after thread 0 wrote the block's count, runs the
-// chunk-start reduce (chunk_reduce): one launch where the parent design
-// took two.
+// Chunk start (reference lines 830-843 and the loop carry the reference's
+// while_loop starts from): the whole start of a chunk in one launch, one
+// block a member. Each member's control block gets its initial values (the
+// level it starts at, its level budget, the beam flag and its true op
+// counts; every other field zero), its stats ring is zeroed, and its
+// frontier count and stop test are computed. With `ticket` (one zero word,
+// left zero) the members are the D shards of one sharded search, and the
+// last block by the ticket, taken after thread 0 wrote the block's control
+// block, runs the chunk-start reduce (chunk_reduce).
+//
+// What bounds it: the valid flags read (F bytes a member) and the stats
+// ring written (8 KB a member) are a few microseconds of HBM time at most;
+// the launch and one dependent chain (count, stop test, ticket, reduce)
+// set its time. The parent design paid more than the kernel: the host
+// built the control blocks in pageable memory, copied them to the card (a
+// copy that holds the host and that no stream capture can take) and
+// enqueued a memset of the stats rings before the count. Here the initial
+// values ride in the launch's parameters (CsArgs): one row for every
+// member (a sharded search's shards, a single search), or a row a member
+// up to CS_INLINE members. A larger batch keeps its values in a small
+// table on the card (CS_TW words a member), written once per rung by the
+// host: there each chunk after the rung's first starts where the member's
+// last chunk ended (its control block's level) with the rung's budget of
+// `lpc` levels while the member is active (the batch ladder's rule, the
+// active flag kept in the table by this kernel), else with none.
 
-__global__ void k_chunk_init(int* ctl, const unsigned char* valid, int F, u32* ticket) {
+#define CS_THREADS 256
+#define CS_INLINE 128  // members whose initial values ride in the parameters
+#define CS_TW 8        // words a member of the ladder table
+#define CS_ENTRY 0     // the level the member enters the rung at
+#define CS_TOTAL 1     // the levels it may run in all (nD + nO + 1)
+#define CS_LOSSY 2
+#define CS_ND 3
+#define CS_NO 4
+#define CS_ACTIVE 5  // 1 active, 0 not; CS_FRESH before the rung's first chunk
+#define CS_FRESH 2
+
+struct CsArgs {
+  int n;    // rows below: 1 (every member takes row 0), nb, or 0 (the ladder table)
+  int lpc;  // the ladder's level budget a chunk (n == 0)
+  int lvl0[CS_INLINE], maxlvl[CS_INLINE], nd[CS_INLINE], no[CS_INLINE];
+  unsigned char lossy[CS_INLINE];
+};
+// 2184 bytes: under the 4 KB that every toolkit and driver takes for a
+// launch's parameters (CUDA 12.1 and later take up to 32764 on sm_70+).
+static_assert(sizeof(CsArgs) <= 4096, "the chunk start's parameters exceed 4 KB");
+
+__global__ void __launch_bounds__(CS_THREADS)
+k_chunk_init(const __grid_constant__ CsArgs a, int* ctl, const unsigned char* valid, int* stats,
+             int stat_words, int* table, int F, u32* ticket) {
   const int b = blockIdx.x;
   int* c = ctl + (size_t)b * CTL_SIZE;
+  int* st = stats + (size_t)b * stat_words;
+  for (int i = threadIdx.x; i < stat_words; i += CS_THREADS) st[i] = 0;
   valid += (size_t)b * F;
   int n = 0;
-  for (int i = threadIdx.x; i < F; i += blockDim.x) n += valid[i] ? 1 : 0;
+  if ((F & 15) == 0 && ((uintptr_t)valid & 15) == 0) {
+    // 16 flags a load; a flag is one byte, 0 or 1
+    const uint4* v4 = (const uint4*)valid;
+    for (int i = threadIdx.x; i < (F >> 4); i += CS_THREADS) {
+      const uint4 w = v4[i];
+      n += __popc(w.x) + __popc(w.y) + __popc(w.z) + __popc(w.w);
+    }
+  } else {
+    for (int i = threadIdx.x; i < F; i += CS_THREADS) n += valid[i] ? 1 : 0;
+  }
   int total;
   block_excl_sum(n, &total);
   __shared__ bool s_last;
   if (threadIdx.x == 0) {
+    int lvl0, maxlvl, lossy, nd, no;
+    if (a.n == 0) {
+      // the ladder: the previous chunk's control block, read before it is
+      // overwritten below
+      int* t = table + (size_t)b * CS_TW;
+      const int total_lv = t[CS_TOTAL];
+      lossy = t[CS_LOSSY];
+      nd = t[CS_ND];
+      no = t[CS_NO];
+      int act;
+      if (t[CS_ACTIVE] == CS_FRESH) {
+        lvl0 = t[CS_ENTRY];
+        act = 1;
+      } else {
+        lvl0 = c[CTL_LVL];
+        act = t[CS_ACTIVE] && !c[CTL_ACC] && (lossy || !c[CTL_OVF]) && c[CTL_FCOUNT] > 0 &&
+              !c[CTL_STUCK] && lvl0 < total_lv;
+      }
+      t[CS_ACTIVE] = act;
+      maxlvl = act ? min(total_lv, lvl0 + a.lpc) : lvl0;
+    } else {
+      const int r = a.n == 1 ? 0 : b;
+      lvl0 = a.lvl0[r];
+      maxlvl = a.maxlvl[r];
+      lossy = a.lossy[r];
+      nd = a.nd[r];
+      no = a.no[r];
+    }
+    for (int k = 0; k < CTL_SIZE; ++k) c[k] = 0;
+    c[CTL_LVL] = lvl0;
+    c[CTL_FMAX] = 1;
+    c[CTL_MAXLVL] = maxlvl;
+    c[CTL_LOSSY] = lossy;
+    c[CTL_ND] = nd;
+    c[CTL_NO] = no;
     c[CTL_FCOUNT] = total;
-    bool go = !c[CTL_ACC] && (c[CTL_LOSSY] || !c[CTL_OVF]) && !c[CTL_STUCK] &&
-              total > 0 && c[CTL_LVL] < c[CTL_MAXLVL];
-    c[CTL_GO] = go ? 1 : 0;
+    // acc, ovf and stuck start clear (reference lines 830-843)
+    c[CTL_GO] = (total > 0 && lvl0 < maxlvl) ? 1 : 0;
     if (ticket) s_last = ticket_acq_rel(ticket) == gridDim.x - 1;
   }
   if (ticket == nullptr) return;
@@ -2681,11 +2768,33 @@ extern "C" {
 
 const char* wgl_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// ticket: null, or for the nb shards of one sharded search one word,
-// zero before the call (each call leaves it so).
-int wgl_chunk_init(void* ctl, void* valid, void* ticket, int F, int nb, void* stream) {
-  k_chunk_init<<<nb, 1024, 0, (cudaStream_t)stream>>>((int*)ctl, (const unsigned char*)valid, F,
-                                                       (u32*)ticket);
+// ctl [nb, CTL_SIZE], valid [nb, F] u8, stats [nb, stat_words]; ticket:
+// null, or for the nb shards of one sharded search one word, zero before
+// the call (each call leaves it so). rows_host: n_rows rows of (lvl0,
+// max_levels, lossy, nD, nO) in host memory, read during the call: one row
+// for every member, or a row a member up to CS_INLINE; n_rows 0 reads the
+// ladder table [nb, CS_TW] on the card instead, with lpc levels a chunk.
+int wgl_chunk_init(void* ctl, void* valid, void* stats, void* ticket, void* table,
+                   void* rows_host, int n_rows, int lpc, int stat_words, int F, int nb,
+                   void* stream) {
+  if (nb <= 0 || F < 0 || stat_words < 0 || n_rows < 0 || n_rows > CS_INLINE ||
+      (n_rows > 1 && n_rows != nb) || (n_rows == 0 ? table == nullptr : rows_host == nullptr))
+    return (int)cudaErrorInvalidValue;
+  CsArgs args;
+  args.n = n_rows;
+  args.lpc = lpc;
+  const int* rows = (const int*)rows_host;
+  for (int r = 0; r < CS_INLINE; ++r) {
+    const bool in = r < n_rows;
+    args.lvl0[r] = in ? rows[5 * r] : 0;
+    args.maxlvl[r] = in ? rows[5 * r + 1] : 0;
+    args.lossy[r] = in ? (unsigned char)(rows[5 * r + 2] != 0) : 0;
+    args.nd[r] = in ? rows[5 * r + 3] : 0;
+    args.no[r] = in ? rows[5 * r + 4] : 0;
+  }
+  k_chunk_init<<<nb, CS_THREADS, 0, (cudaStream_t)stream>>>(
+      args, (int*)ctl, (const unsigned char*)valid, (int*)stats, stat_words, (int*)table, F,
+      (u32*)ticket);
   return (int)cudaGetLastError();
 }
 

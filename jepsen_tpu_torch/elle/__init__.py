@@ -131,8 +131,9 @@ def cycle_anomalies(g: DepGraph, device: Optional[bool] = None,
     ``causes``); ``min_bucket`` pins a floor bucket (bucket-padding
     equality tests). ``mesh`` (a :class:`jepsen_tpu_torch.parallel.Mesh`)
     sends every closure to the block-row sharded closure on the mesh's
-    device, with no bucket ceiling. ``metrics`` (the engine's telemetry)
-    comes with a later slice and raises ``ValueError``.
+    device, with no bucket ceiling. ``metrics`` (a
+    :class:`jepsen_tpu_torch.telemetry.Registry`) records the engine's
+    ``elle_batch_chunk`` events and counters (:mod:`.engine`).
     ``torch_device``: see the module docstring.
 
     ``extra`` composes additional precedence graphs already present as
@@ -145,7 +146,6 @@ def cycle_anomalies(g: DepGraph, device: Optional[bool] = None,
     suffixed witness genuinely uses an extra edge. ``n_txns`` marks the
     boundary between txn nodes and the realtime timeline's aux chain
     nodes; witnesses splice aux nodes back out."""
-    _engine.check_unported(metrics)
     n = g.n
     if n == 0 or not g.edges:
         return {}
@@ -156,7 +156,7 @@ def cycle_anomalies(g: DepGraph, device: Optional[bool] = None,
     views = None
     if use_device and (forced or n >= DEVICE_MIN_TXNS):
         views = _engine.graph_closures(
-            g, _pass_masks(passes), report=report, mesh=mesh,
+            g, _pass_masks(passes), metrics=metrics, report=report, mesh=mesh,
             min_bucket=min_bucket, torch_device=torch_device)
     if report is not None:
         report["engine"] = "device" if views is not None else "host"
@@ -185,7 +185,6 @@ def cycle_anomalies_batch(graphs: Sequence[DepGraph],
     ceiling, a CPU-tensor out-of-memory past the escalation budget) fold
     to the host path one-sidedly — the returned anomaly dicts are identical
     to per-graph :func:`cycle_anomalies` either way."""
-    _engine.check_unported(metrics)
     use_device, forced = _ops.resolve_device(device)
     results: list = [None] * len(graphs)
     jobs = []
@@ -200,7 +199,7 @@ def cycle_anomalies_batch(graphs: Sequence[DepGraph],
             jmeta.append((i, passes))
     if jobs:
         views_list = _engine.batch_closures(
-            jobs, report=report, min_bucket=min_bucket,
+            jobs, metrics=metrics, report=report, min_bucket=min_bucket,
             torch_device=torch_device)
         for (i, passes), views in zip(jmeta, views_list):
             if views is None:

@@ -34,7 +34,6 @@ from . import DEFAULT_ANOMALIES, DepGraph, _check_extra, \
     compose_additional_graphs, cycle_anomalies, expand_anomalies, \
     op_f as _f, op_type as _type, op_value as _value, paired_intervals, \
     result_map, suffixed_requests
-from .engine import check_unported
 from .graphs import add_read_edges, add_version_chain
 from ..history import FAIL, INFO, OK
 
@@ -65,9 +64,8 @@ def check(history, anomalies: Iterable[str] = DEFAULT_ANOMALIES,
     by default; ``"cpu"`` runs the plain versions). ``mesh`` (a
     :class:`jepsen_tpu_torch.parallel.Mesh`) sends every closure to the
     block-row sharded closure on the mesh's device, with no bucket
-    ceiling. ``metrics`` comes with a later slice of the port and raises
-    ``ValueError``."""
-    check_unported(metrics)
+    ceiling. ``metrics`` (a :class:`jepsen_tpu_torch.telemetry.Registry`)
+    records the engine's ``elle_batch_chunk`` events and counters."""
     requested = expand_anomalies(anomalies)
     extra = _check_extra(additional_graphs)
     requested = suffixed_requests(requested, extra)
@@ -205,7 +203,7 @@ def check(history, anomalies: Iterable[str] = DEFAULT_ANOMALIES,
         rt_unavailable = compose_additional_graphs(
             g, extra, history, nodes, paired_intervals(history))
 
-    problems.update(cycle_anomalies(g, device=device, extra=extra,
+    problems.update(cycle_anomalies(g, device=device, extra=extra, metrics=metrics,
                                     n_txns=n, report=report,
                                     mesh=mesh, torch_device=torch_device))
 

@@ -33,17 +33,28 @@ fold is the same: an out-of-memory on CPU tensors becomes
 a power of two included) propagates.
 
 ``report`` carries ``engine``, ``chunks`` and ``causes`` as in the
-reference. The telemetry events (``metrics=``) come with a later slice of
-the port and raise ``ValueError``.
+reference. ``metrics`` (a :class:`jepsen_tpu_torch.telemetry.Registry`)
+records the reference's events and counters: an ``elle_batch_chunk``
+event a chunk (bucket, members, walls, ``stage``, ``t0``/``t1``),
+``elle_batch_occupancy{bucket}``, ``elle_closure_bytes_total`` and, on a
+fold, ``elle_device_fallback_total{cause}`` and
+``verdict_causes_total``. A chunk's ``stage`` is ``"compile"`` when it
+paid the process's first load of the kernel library (its ``nvcc`` build
+or load: the port's counterpart of the reference's first chunk after a
+JIT build), else ``"execute"``. As in the reference, errors in this
+observability code are swallowed; nothing of it wraps a launch.
 """
 
 from __future__ import annotations
 
+import time as _time
 from typing import Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import _build
+from .. import trace as _trace
 from ..checker import provenance as _prov
 from ..devices import mesh_device
 from ..devices import resolve_device as _torch_device
@@ -52,8 +63,16 @@ from . import ops
 MAX_ESCALATIONS = 4
 MEMBER_BYTE_BUDGET = 1 << 31
 
-METRICS_SLICE = ("metrics= (the Elle engine's telemetry events) comes with a later "
-                 "slice of the port")
+_FALLBACK_HELP = ("Batched Elle engine degradations to the host "
+                  "Tarjan/BFS path, by provenance cause "
+                  "(docs/verdicts.md); the verdict is unchanged — the "
+                  "fallback is one-sided")
+_BYTES_HELP = ("Bit-packed closure bytes transferred device->host by "
+               "the batched Elle engine (uint32 row blocks, 16x under "
+               "bf16 dense)")
+_OCC_HELP = ("Real nodes / padded node slots of the last Elle closure "
+             "chunk at this bucket (how much of the padded batch was "
+             "live work)")
 
 
 class ClosureView:
@@ -122,17 +141,40 @@ def _mask_edges(edges: dict, mask: int):
     return srcs, dsts
 
 
-def _fallback(ji: int, code: str, failed: dict, report, **params) -> None:
+def _fallback(ji: int, code: str, failed: dict, metrics, report, **params) -> None:
     cause = _prov.cause(code, **params)
     failed.setdefault(ji, []).append(cause)
+    if metrics is not None:
+        try:
+            c = metrics.counter("elle_device_fallback_total", _FALLBACK_HELP,
+                                labelnames=("cause",), aggregate=True)
+            c.inc()  # the unlabeled total
+            c.labels(cause=code).inc()
+        except Exception:  # noqa: BLE001 - observability never degrades
+            pass
+        _prov.count_metric(metrics, [cause])
     if report is not None:
         report.setdefault("causes", []).append(cause)
 
 
-def check_unported(metrics=None) -> None:
-    """Refuse the options a later slice of the port brings."""
-    if metrics is not None:
-        raise ValueError(METRICS_SLICE)
+def _note_chunk(metrics, report, *, bucket, members, chunk_wall, t_start, stage, occupancy,
+                out_bytes, **extra) -> None:
+    if report is not None:
+        report["chunks"] = report.get("chunks", 0) + 1
+    if metrics is None:
+        return
+    try:
+        t1e = round(_time.time(), 6)
+        metrics.event(
+            "elle_batch_chunk", bucket=bucket, members=members,
+            wall_s=round(_time.perf_counter() - t_start, 4),
+            chunk_wall_s=round(chunk_wall, 6), stage=stage,
+            t0=round(t1e - chunk_wall, 6), t1=t1e, **extra, **_trace.event_tags())
+        metrics.gauge("elle_batch_occupancy", _OCC_HELP,
+                      labelnames=("bucket",)).labels(bucket=bucket).set(round(occupancy, 4))
+        metrics.counter("elle_closure_bytes_total", _BYTES_HELP).inc(out_bytes)
+    except Exception:  # noqa: BLE001 - observability never degrades
+        pass
 
 
 def batch_closures(jobs: Sequence[Tuple[object, Iterable[int]]], metrics=None,
@@ -148,8 +190,9 @@ def batch_closures(jobs: Sequence[Tuple[object, Iterable[int]]], metrics=None,
     ``report["causes"]``). ``mesh`` sends every closure to the sharded
     closure on the mesh's device; ``min_bucket`` pins a floor bucket.
     ``torch_device`` is the torch device (the GPU by default; with a mesh,
-    the mesh's, and another raises ``ValueError``)."""
-    check_unported(metrics)
+    the mesh's, and another raises ``ValueError``). ``metrics``: see the
+    module docstring."""
+    t_start = _time.perf_counter()
     if mesh is not None:
         torch_device = mesh_device(mesh, torch_device)
     views: list = [dict() for _ in jobs]
@@ -163,22 +206,25 @@ def batch_closures(jobs: Sequence[Tuple[object, Iterable[int]]], metrics=None,
             else:
                 requests.append((ji, mask, srcs, dsts, g.n))
     if mesh is not None:
-        _sharded_requests(requests, views, failed, report, mesh, torch_device)
+        _sharded_requests(requests, views, failed, metrics, report, mesh, torch_device,
+                          t_start)
     else:
-        _bucketed_requests(requests, views, failed, report, min_bucket, torch_device)
+        _bucketed_requests(requests, views, failed, metrics, report, min_bucket,
+                           torch_device, t_start)
     if report is not None and failed and "engine" not in report:
         report["engine"] = "host"
     return [None if ji in failed else views[ji] for ji in range(len(jobs))]
 
 
-def _bucketed_requests(requests, views, failed, report, min_bucket,
-                       torch_device) -> None:
+def _bucketed_requests(requests, views, failed, metrics, report, min_bucket,
+                       torch_device, t_start) -> None:
     by_bucket: dict = {}
     for req in requests:
         ji, mask, srcs, dsts, n = req
         bucket = ops.bucket_for(max(n, min_bucket or 0))
         if bucket is None:
-            _fallback(ji, "elle_bucket_ceiling", failed, report, n=n, ceiling=ops.CEILING)
+            _fallback(ji, "elle_bucket_ceiling", failed, metrics, report, n=n,
+                      ceiling=ops.CEILING)
             continue
         by_bucket.setdefault(bucket, []).append(req)
 
@@ -197,6 +243,8 @@ def _bucketed_requests(requests, views, failed, report, min_bucket,
         i = 0
         while i < B:
             m = min(chunk, B - i)
+            was_loaded = _build.loaded()
+            t0p = _time.perf_counter()
             try:
                 pk, lb = ops.batched_closure(S[i:i + m], D[i:i + m], bucket, dev)
                 pk = pk.cpu().numpy().view(np.uint32)
@@ -210,36 +258,45 @@ def _bucketed_requests(requests, views, failed, report, min_bucket,
                             f"{B} member(s) is out of memory on {dev} after "
                             f"{esc - 1} halving(s): {e}") from e
                     for ji, _mask, *_rest in members[i:]:
-                        _fallback(ji, "elle_device_oom", failed, report, bucket=bucket,
-                                  members=m, error=f"{type(e).__name__}: {e}")
+                        _fallback(ji, "elle_device_oom", failed, metrics, report,
+                                  bucket=bucket, members=m, error=f"{type(e).__name__}: {e}")
                     break
                 chunk = max(1, chunk // 2)
                 continue
-            if report is not None:
-                report["chunks"] = report.get("chunks", 0) + 1
+            live = sum(r[4] for r in members[i:i + m])
+            _note_chunk(metrics, report, bucket=bucket, members=m,
+                        chunk_wall=_time.perf_counter() - t0p, t_start=t_start,
+                        stage=_build.chunk_stage(was_loaded), occupancy=live / (m * bucket),
+                        out_bytes=m * bucket * ops.packed_words(bucket) * 4, epad=epad)
             for j, (ji, mask, *_rest) in enumerate(members[i:i + m]):
                 views[ji][mask] = ClosureView(pk[j], lb[j], members[i + j][4])
             i += m
 
 
-def _sharded_requests(requests, views, failed, report, mesh, dev) -> None:
+def _sharded_requests(requests, views, failed, metrics, report, mesh, dev, t_start) -> None:
     exchange = ops.resolve_exchange(None)
     n_dev = int(mesh.shape[mesh.axis_names[0]])
     for ji, mask, srcs, dsts, n in requests:
         if ji in failed:
             continue
+        pad = ops.sharded_pad(n, n_dev)
+        was_loaded = _build.loaded()
+        t0p = _time.perf_counter()
         try:
             packed = ops.sharded_closure(srcs, dsts, n, mesh, exchange=exchange)
         except torch.OutOfMemoryError as e:
             if dev.type != "cpu":
                 raise torch.OutOfMemoryError(
-                    f"elle sharded closure of n={n} at pad {ops.sharded_pad(n, n_dev)} on "
+                    f"elle sharded closure of n={n} at pad {pad} on "
                     f"{n_dev} shard(s) is out of memory on {dev}: {e}") from e
-            _fallback(ji, "elle_device_oom", failed, report, n=n, n_devices=n_dev,
+            _fallback(ji, "elle_device_oom", failed, metrics, report, n=n, n_devices=n_dev,
                       sharded=True, error=f"{type(e).__name__}: {e}")
             continue
-        if report is not None:
-            report["chunks"] = report.get("chunks", 0) + 1
+        _note_chunk(metrics, report, bucket=pad, members=1,
+                    chunk_wall=_time.perf_counter() - t0p, t_start=t_start,
+                    stage=_build.chunk_stage(was_loaded), occupancy=n / pad,
+                    out_bytes=2 * pad * ops.packed_words(pad) * 4, mode="sharded",
+                    n_devices=n_dev, exchange=exchange)
         views[ji][mask] = ClosureView(packed, None, n)
 
 

@@ -30,7 +30,6 @@ from . import DEFAULT_ANOMALIES, DepGraph, _check_extra, \
     compose_additional_graphs, cycle_anomalies, expand_anomalies, \
     op_f as _f, op_proc as _proc, op_type as _type, op_value as _value, \
     paired_intervals, result_map, suffixed_requests
-from .engine import check_unported
 from .graphs import add_read_edges, add_write_chains
 from ..history import FAIL, INFO, OK
 from ..txn import ext_reads, ext_writes
@@ -64,9 +63,7 @@ def check(history, anomalies: Iterable[str] = DEFAULT_ANOMALIES,
     ("G-single-realtime", …).
 
     ``report``, ``mesh`` and ``torch_device`` as in
-    :func:`jepsen_tpu_torch.elle.append.check`; ``metrics`` comes with a
-    later slice of the port and raises ``ValueError``."""
-    check_unported(metrics)
+    :func:`jepsen_tpu_torch.elle.append.check`, and ``metrics`` too."""
     requested = expand_anomalies(anomalies)
     extra = _check_extra(additional_graphs)
     requested = suffixed_requests(requested, extra)
@@ -185,7 +182,7 @@ def check(history, anomalies: Iterable[str] = DEFAULT_ANOMALIES,
             g, extra, history,
             [(i, op, True) for i, op in enumerate(oks)], intervals)
 
-    problems.update(cycle_anomalies(g, device=device, extra=extra,
+    problems.update(cycle_anomalies(g, device=device, extra=extra, metrics=metrics,
                                     n_txns=n_txns, report=report,
                                     mesh=mesh, torch_device=torch_device))
     res = result_map(

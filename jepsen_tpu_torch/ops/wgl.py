@@ -21,6 +21,8 @@ the refutation witness.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
 import time as _time
 from typing import Optional
 
@@ -29,6 +31,8 @@ import torch
 
 from . import wgl_level as _lv
 from .encode import EncodedHistory, encode_history
+from .. import _build
+from .. import trace as _trace
 from ..checker import provenance as _prov
 from ..devices import resolve_device
 from ..history import History
@@ -66,14 +70,18 @@ class DevicePlan:
     ``dims = (W, KO, S, ND, NO)``; ``tabs`` holds the device tensors the
     expand stage reads (``tabD`` widened to int32 ``[ND, 8]``,
     ``sufret [ND+1]``, ``invO/opO/a1O/a2O [NO]``); ``B`` is the
-    per-config candidate cap (None: no row-wise selection)."""
+    per-config candidate cap (None: no row-wise selection). ``args`` keeps
+    the reference's ``DevicePlan.args`` on the host, in its dtypes and
+    order (``tabD`` int16 or int32): what a search checkpoint's
+    fingerprint hashes."""
 
     __slots__ = ("dims", "tabs", "nD", "nO", "init_state", "reason", "tab16",
-                 "B", "device")
+                 "B", "device", "args")
 
     def __init__(self, dims, tabs, nD, nO, init_state=None, reason=None,
-                 tab16=False, B=None, device=None):
+                 tab16=False, B=None, device=None, args=None):
         self.dims = dims
+        self.args = args
         self.tabs = tabs
         self.nD = nD
         self.nO = nO
@@ -138,7 +146,7 @@ def plan_from_arrays(dims, args, nD: int, nO: int, init_state, B,
     return DevicePlan((W, KO, S, ND, NO), tabs, int(nD), int(nO),
                       init_state=np.asarray(init_state, np.int32),
                       tab16=tabD.dtype == np.int16,
-                      B=None if B is None else int(B), device=dev)
+                      B=None if B is None else int(B), device=dev, args=tuple(args))
 
 
 def plan_device(enc: EncodedHistory, max_open: int = 128, window_cap: int = 1024,
@@ -176,8 +184,9 @@ def plan_device(enc: EncodedHistory, max_open: int = 128, window_cap: int = 1024
     tabD = np.zeros((ND, 8), dtype=np.int16 if tab16 else np.int32)
     for i, col in enumerate(cols):
         tabD[:, i] = col
-    args = (nD, nO, nD + nO + 1, tabD, sufret, padO(t["invO"]), padO(t["opO"]),
-            padO(t["a1O"]), padO(t["a2O"]))
+    # the reference's DevicePlan.args, its scalars int32
+    args = (np.int32(nD), np.int32(nO), np.int32(nD + nO + 1), tabD, sufret, padO(t["invO"]),
+            padO(t["opO"]), padO(t["a1O"]), padO(t["a2O"]))
     # Per-config candidate cap: determinate candidates form a clique of the
     # op-interval overlap graph, so their count is bounded by the max
     # point-overlap of determinate intervals; opens add at most nO.
@@ -505,19 +514,143 @@ def _chunk_level_rows(stats: np.ndarray, lvl0: int, lvl: int) -> list:
             if lvl0 < r[0] <= lvl + 1]
 
 
+def _note_chunk_metrics(metrics, lvl_stats, lvl0: int, lvl: int, F: int,
+                        chunk_wall: float, stage: str) -> None:
+    """Fold one chunk's stats ring and wall time into a telemetry registry
+    (reference ``ops/wgl.py:996-1040``): the chunk and level counters, the
+    kernel seconds by stage, the capacity gauge, one ``wgl_chunk`` event
+    (``t1`` now, ``t0`` from the chunk's wall) and a ``wgl_level`` event for
+    each of the chunk's levels, with the frontier peak. Host side only;
+    never called when telemetry is off."""
+    c = metrics.counter
+    c("wgl_chunks_total", "Device kernel chunk invocations").inc()
+    c("wgl_levels_total", "Completed BFS levels").inc(max(lvl - lvl0, 0))
+    c("wgl_kernel_seconds_total",
+      "Chunk wall seconds by stage (the chunk that first loads the kernel "
+      "library carries its build or load)",
+      labelnames=("stage",)).labels(stage=stage).inc(chunk_wall)
+    metrics.gauge("wgl_capacity", "Current frontier capacity F").set(F)
+    t1 = round(_time.time(), 6)
+    metrics.event("wgl_chunk", level0=int(lvl0), level=int(lvl), F=int(F),
+                  wall_s=round(chunk_wall, 6), stage=stage,
+                  t0=round(t1 - chunk_wall, 6), t1=t1, **_trace.event_tags())
+    if lvl_stats is None:
+        return
+    rows = lvl_stats[np.argsort(lvl_stats[:, 0], kind="stable")]
+    for level_n, frontier, expanded, ovf_f in rows.tolist():
+        if level_n <= lvl0 or level_n > lvl + 1:
+            continue  # stale ring slots (zeros or a resumed prefix)
+        # level_n == lvl + 1: the attempt that ended the chunk
+        metrics.event("wgl_level", level=int(level_n), frontier=int(frontier),
+                      expanded=int(expanded), overflow=bool(ovf_f), F=int(F),
+                      completed=bool(level_n <= lvl))
+        metrics.gauge("wgl_frontier_max", "Peak post-dedup frontier size").max(int(frontier))
+
+
+def _enc_fingerprint(enc: EncodedHistory, plan: DevicePlan) -> str:
+    """Content hash tying a search checkpoint to one (history, model,
+    shape plan), so a stale file never resumes the wrong search: the
+    model's identity (its class included, so a file does not cross
+    packages), the dims and the reference's plan arrays in its dtypes and
+    order (``plan.args``), as the reference hashes them."""
+    h = hashlib.sha256()
+    h.update(repr(_model_cache_key(enc.model)).encode())
+    h.update(repr(plan.dims).encode())
+    for a in plan.args:
+        h.update(np.asarray(a).tobytes())
+    return h.hexdigest()[:32]
+
+
+def _checkpoint_arrays(fr: tuple, sharded: bool = False) -> tuple:
+    """A frontier as the checkpoint stores it: the reference's host arrays
+    (masks uint32) and its level as int32; a sharded frontier as the
+    global ``[D*F]`` order."""
+    host = frontier_to_arrays(fr, sharded=sharded)
+    return host[:5] + (np.int32(host[5]),)
+
+
+def _save_search_checkpoint(path, fingerprint: str, phase: str, truncated: bool, fr: tuple,
+                            lossless_fr: Optional[tuple] = None) -> None:
+    """Atomic npz snapshot of a resumable frontier (tmp file, then
+    ``os.replace``), in the reference's format. ``fr`` and ``lossless_fr``
+    are :func:`_checkpoint_arrays`; ``lossless_fr`` also keeps the last
+    lossless frontier of a truncating beam (``ll_*``), so an interrupted
+    beam's exhaustive fallback still skips the exact prefix."""
+    p, mD, mO, st, valid, lvl = fr
+    extra = {}
+    if lossless_fr is not None:
+        lp, lmD, lmO, lst, lvalid, llvl = lossless_fr
+        extra = {"ll_p": lp, "ll_mD": lmD, "ll_mO": lmO, "ll_st": lst, "ll_valid": lvalid,
+                 "ll_lvl": np.asarray(llvl)}
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as fh:
+        np.savez_compressed(fh, fingerprint=fingerprint, phase=phase, truncated=truncated,
+                            p=p, mD=mD, mO=mO, st=st, valid=valid, lvl=np.asarray(lvl),
+                            **extra)
+    os.replace(tmp, path)
+
+
+def _clear_search_checkpoint(path) -> None:
+    """Remove a checkpoint once its search reached a definite verdict."""
+    try:
+        os.remove(path)
+    except OSError:
+        pass
+
+
+def _load_search_checkpoint(path, fingerprint: str) -> Optional[dict]:
+    """The checkpoint at ``path`` as host arrays (``fr``, and
+    ``lossless_fr`` where it has one), its ``phase`` and ``truncated``
+    flag; None when there is none, or when the file is corrupt or foreign
+    or its fingerprint is another search's."""
+    if not path or not os.path.exists(path):
+        return None
+    try:
+        z = np.load(path, allow_pickle=False)
+        if str(z["fingerprint"]) != fingerprint:
+            return None
+        out = {"phase": str(z["phase"]), "truncated": bool(z["truncated"]),
+               "fr": (z["p"], z["mD"], z["mO"], z["st"], z["valid"], np.int32(z["lvl"]))}
+        if "ll_p" in z:
+            out["lossless_fr"] = (z["ll_p"], z["ll_mD"], z["ll_mO"], z["ll_st"],
+                                  z["ll_valid"], np.int32(z["ll_lvl"]))
+        return out
+    except Exception:  # noqa: BLE001 - a corrupt or foreign file: search from scratch
+        return None
+
+
 def check_encoded_device(enc: EncodedHistory, f_schedule=F_SCHEDULE,
                          max_open: int = 128, window_cap: int = 1024,
                          levels_per_call: Optional[int] = None,
                          pad_to: Optional[tuple] = None,
                          optimistic: Optional[bool] = None,
+                         checkpoint_path: Optional[str] = None,
+                         chunk_callback=None, metrics=None,
                          collect_stats: bool = False, device=None,
                          plain: bool = False, plan: Optional[DevicePlan] = None) -> dict:
     """Decide linearizability of an encoded history on ``device`` (the GPU
     unless ``device="cpu"``). The result map mirrors the reference's:
     ``valid``, ``op_count``, ``device``, ``levels``, ``frontier_max``,
     ``window``, ``attempts``, ``wall_s`` and, where they apply, ``phase``,
-    ``beam``, ``info``, ``causes``, ``max_linearized`` and
-    ``stuck_configs``.
+    ``beam``, ``info``, ``causes``, ``max_linearized``,
+    ``stuck_configs`` and ``resumed_from_level``.
+
+    ``checkpoint_path``: save the resumable frontier after every chunk
+    (an atomic npz in the reference's format, fingerprinted to this
+    history, model and plan) and resume from it on the next call with the
+    same history; the file is deleted on a definite verdict and kept on
+    ``unknown``. ``chunk_callback(info)`` is called after every chunk with
+    the reference's keys (``level``, ``F``, ``frontier_max``, ``wall_s``,
+    ``total_levels``, ``count``); its exceptions propagate, which also
+    makes an interruption testable. ``metrics``: a
+    :class:`jepsen_tpu_torch.telemetry.Registry` that receives the
+    reference's events and counters (``wgl_chunk`` and ``wgl_level``
+    events, ``wgl_escalation``, ``wgl_chunks_total``, ``wgl_levels_total``,
+    ``wgl_kernel_seconds_total{stage}``, ``wgl_capacity``,
+    ``wgl_frontier_max``, ``wgl_window``, ``wgl_total_levels`` and the
+    escalation and truncation counters; ``stage`` as
+    ``_build.chunk_stage`` gives it): one read of the stats ring a chunk,
+    none without it.
 
     ``collect_stats``: also return ``level_stats``, the per-level
     ``[level, frontier, expanded, overflow]`` rows of every chunk.
@@ -549,18 +682,59 @@ def check_encoded_device(enc: EncodedHistory, f_schedule=F_SCHEDULE,
         beam_cap = schedule[-2]
     else:
         beam_cap = None
+    fingerprint = _enc_fingerprint(enc, plan) if checkpoint_path else None
+    disk = _load_search_checkpoint(checkpoint_path, fingerprint) if checkpoint_path else None
+    if disk is not None and disk["fr"][0].shape[0] > max(schedule):
+        # wider than this run's top capacity: slicing would drop configs
+        disk = None
+    if (disk is not None and disk.get("lossless_fr") is not None
+            and disk["lossless_fr"][0].shape[0] > max(schedule)):
+        disk = {k: v for k, v in disk.items() if k != "lossless_fr"}
+    if disk is not None:
+        # the host arrays as the port's frontiers, on the search's device
+        disk = dict(disk, fr=frontier_from_arrays(*disk["fr"], device=dev))
+        if disk.get("lossless_fr") is not None:
+            disk["lossless_fr"] = frontier_from_arrays(*disk["lossless_fr"], device=dev)
+    common = dict(stats_out=stats_out, chunk_callback=chunk_callback, metrics=metrics)
+
+    def dck(phase):
+        return (checkpoint_path, fingerprint, phase) if checkpoint_path else None
 
     def finish(res):
+        if checkpoint_path and res.get("valid") != "unknown":
+            _clear_search_checkpoint(checkpoint_path)
         res["torch_device"] = str(dev)
         if stats_out is not None:
             res["level_stats"] = stats_out
         return res
 
+    beam_sched = ([f for f in schedule if f <= beam_cap] or [beam_cap]) \
+        if beam_cap is not None else []
+    sharded_disk = (disk is not None and disk["phase"] == "sharded"
+                    and not disk["truncated"])
+    if disk is not None and (
+            disk["phase"] == "full"
+            or (sharded_disk and (not optimistic or beam_cap is None
+                                  or disk["fr"][0].shape[0] > max(beam_sched)))):
+        # A checkpointed exhaustive phase (or a lossless sharded frontier
+        # the beam cannot take) resumes the exhaustive phase directly.
+        res = _device_search(enc, search, schedule, levels_per_call, t0, resume_from=disk,
+                             disk_checkpoint=dck("full"), **common)
+        res["resumed_from_level"] = int(disk["fr"][-1])
+        return finish(res)
     if optimistic and beam_cap is not None:
-        beam_sched = [f for f in schedule if f <= beam_cap] or [beam_cap]
         checkpoint: dict = {}
+        if disk is not None and disk.get("lossless_fr") is not None:
+            # interrupted after the beam first truncated: its persisted
+            # last lossless frontier still seeds the exhaustive fallback
+            checkpoint["fr"] = disk["lossless_fr"]
+        elif sharded_disk:
+            checkpoint["fr"] = disk["fr"]
+        beam_resume = (disk if disk and (disk["phase"] == "beam" or sharded_disk)
+                       and disk["fr"][0].shape[0] <= max(beam_sched) else None)
         res = _device_search(enc, search, beam_sched, levels_per_call, t0,
-                             checkpoint=checkpoint, stats_out=stats_out)
+                             checkpoint=checkpoint, resume_from=beam_resume,
+                             disk_checkpoint=dck("beam"), **common)
         if res["valid"] is True:
             res["phase"] = "optimistic-beam"
             return finish(res)
@@ -570,30 +744,48 @@ def check_encoded_device(enc: EncodedHistory, f_schedule=F_SCHEDULE,
         # the beam's last lossless frontier.
         full = _device_search(enc, search, schedule, levels_per_call,
                               _time.perf_counter(), resume_from=checkpoint or None,
-                              stats_out=stats_out)
+                              disk_checkpoint=dck("full"), **common)
         full["wall_s"] = _time.perf_counter() - t0
         full["optimistic_attempts"] = res.get("attempts")
         return finish(full)
+    # Not optimistic: a truncated beam checkpoint must not seed the
+    # exhaustive search; its lossless companion can.
+    resume = None
+    if disk is not None:
+        if not disk["truncated"]:
+            resume = disk
+        elif disk.get("lossless_fr") is not None:
+            resume = {"fr": disk["lossless_fr"]}
     return finish(_device_search(enc, search, schedule, levels_per_call, t0,
-                                 stats_out=stats_out))
+                                 resume_from=resume, disk_checkpoint=dck("full"), **common))
 
 
 def _device_search(enc: EncodedHistory, search: _Search, schedule: list,
                    levels_per_call: Optional[int], t0: float,
                    checkpoint: Optional[dict] = None,
                    resume_from: Optional[dict] = None,
-                   stats_out: Optional[list] = None) -> dict:
+                   stats_out: Optional[list] = None,
+                   disk_checkpoint: Optional[tuple] = None,
+                   chunk_callback=None, metrics=None) -> dict:
     """One escalating/de-escalating frontier search over ``schedule``;
     the top capacity continues past overflow as a greedy beam.
 
     ``checkpoint`` (out): receives {"fr"} — the entry frontier of the
     first chunk that truncated (the last lossless state).
-    ``resume_from``: such a dict to start from instead of level 0."""
+    ``resume_from``: such a dict (``truncated`` too, for a disk
+    checkpoint) to start from instead of level 0. ``disk_checkpoint``:
+    ``(path, fingerprint, phase)``, save the resumable frontier after
+    every chunk. ``chunk_callback`` and ``metrics``: see
+    :func:`check_encoded_device`."""
     plan = search.plan
     dev = plan.device
     n = enc.n
     W, KO, S, ND, NO = plan.dims
     total_levels = plan.total_levels
+    if metrics is not None:
+        metrics.gauge("wgl_window", "Required real-time window width (slots)").set(W)
+        metrics.gauge("wgl_total_levels",
+                      "BFS levels required for acceptance").set(total_levels)
     attempts: list = []
     fmax_all = 1
 
@@ -626,7 +818,7 @@ def _device_search(enc: EncodedHistory, search: _Search, schedule: list,
     else:
         F = schedule[0]
         fr = initial_frontier(F, W, KO, S, plan.init_state, dev)
-    truncated = False
+    truncated = bool(resume_from.get("truncated")) if resume_from else False
     rung_entry = int(fr[-1])
     deesc_from = None  # capacity last de-escalated FROM (known adequate)
     while True:
@@ -645,21 +837,45 @@ def _device_search(enc: EncodedHistory, search: _Search, schedule: list,
         entry_fr = None
         if lossy and not truncated and checkpoint is not None:
             entry_fr = _snapshot_frontier(fr)
+        was_loaded = _build.loaded()
         flags, stats = search.chunk(fr, F, lvl0, budget, lossy)
         acc, ovf, nonempty, lvl, fmax, count = flags
         fr = fr[:5] + (lvl,)
         fmax_all = max(fmax_all, fmax)
         attempt["levels"] = lvl
         attempt["calls"] += 1
-        attempt["wall_s"] = round(attempt["wall_s"] + _time.perf_counter() - t_call, 3)
+        chunk_wall = _time.perf_counter() - t_call
+        attempt["wall_s"] = round(attempt["wall_s"] + chunk_wall, 3)
+        ring = (stats.cpu().numpy() if stats_out is not None or metrics is not None
+                else None)
         if stats_out is not None:
-            stats_out.extend(_chunk_level_rows(stats.cpu().numpy(), lvl0, lvl))
+            stats_out.extend(_chunk_level_rows(ring, lvl0, lvl))
+        if metrics is not None:
+            metrics.counter(
+                "wgl_donated_frontier_bytes_total",
+                "Frontier bytes the chunk updated in place (no carry copy)").inc(
+                    sum(int(a.nbytes) for a in fr[:5]))
+            _note_chunk_metrics(metrics, ring, lvl0, lvl, F, chunk_wall,
+                                _build.chunk_stage(was_loaded))
         if lossy and bool(ovf):
             if not truncated and checkpoint is not None and (
                     checkpoint.get("fr") is None
                     or int(entry_fr[-1]) > int(checkpoint["fr"][-1])):
                 checkpoint["fr"] = entry_fr
             truncated = True
+        if disk_checkpoint is not None:
+            path, fingerprint, phase = disk_checkpoint
+            lossless = checkpoint.get("fr") if checkpoint is not None else None
+            _save_search_checkpoint(
+                path, fingerprint, phase, truncated, _checkpoint_arrays(fr),
+                lossless_fr=None if lossless is None else _checkpoint_arrays(lossless))
+        if metrics is not None and lossy and bool(ovf):
+            metrics.counter("wgl_beam_truncations_total",
+                            "Chunks in which the lossy beam dropped configs").inc()
+        if chunk_callback is not None:
+            chunk_callback({"level": lvl, "F": F, "frontier_max": fmax_all,
+                            "wall_s": _time.perf_counter() - t0,
+                            "total_levels": total_levels, "count": count})
         if acc:
             # Sound even after truncation: dropping configs only removes
             # accepting paths, never invents one.
@@ -689,6 +905,10 @@ def _device_search(enc: EncodedHistory, search: _Search, schedule: list,
                 nxt = min(nxt, deesc_from)
                 if nxt >= deesc_from:
                     deesc_from = None
+            if metrics is not None:
+                metrics.counter("wgl_capacity_escalations_total",
+                                "Lossless frontier-capacity escalations").inc()
+                metrics.event("wgl_escalation", level=lvl, from_F=F, to_F=nxt)
             F = nxt
             rung_entry = lvl
         else:

@@ -35,9 +35,12 @@ stage                   what it computes
 ``gather_finalize``     top-F gather into the frontier (in place), the
                         lossless restore, flags, stats row, stop test: one
                         launch (see :func:`gather_scratch`)
-``chunk_init``          frontier count and stop test at a chunk's start
-                        (sharded: and the cross-shard reduce, in its last
-                        block)
+``chunk_init``          the whole start of a chunk: each member's control
+                        block from its initial values (in the launch's
+                        parameters, or a ladder table on the card), its
+                        stats ring zeroed, its frontier count and stop
+                        test (sharded: and the cross-shard reduce, in its
+                        last block); one launch (see :func:`chunk_rows`)
 ``regroup``             row-gather of members' frontiers, zero-padded to a
                         larger capacity
 ``route``               sharded level (alltoall): owner hash and one
@@ -110,6 +113,15 @@ CTL_GCOUNT, CTL_GOVF, CTL_NSUM, CTL_NMAX, CTL_NMIN = range(15, 20)
 CTL_SIZE = 20
 # A member is a grid coordinate (blockIdx.y) of the batched launches.
 MAX_MEMBERS = 65535
+# Members whose initial control-block values ride in the chunk start's
+# launch parameters (csrc ``CS_INLINE``); a larger batch of the ladder
+# keeps them in a table on the card (:func:`ladder_table`), and one row
+# serves any number of members that share it.
+CS_INLINE = _build.CS_INLINE
+# The ladder table: words a member and their meaning (csrc ``CS_*``).
+CS_TW = 8
+CS_ENTRY, CS_TOTAL, CS_LOSSY, CS_ND, CS_NO, CS_ACTIVE = range(6)
+CS_FRESH = 2  # CS_ACTIVE before the rung's first chunk
 # The widest window the expand kernel holds (the planner's window cap).
 EXPAND_MAX_W = 1024
 # Shards of one mesh.
@@ -400,6 +412,9 @@ class BatchWorkspace:
         self.pr = prune_scratch(L, nb, device)
         # the gather-finalize's tickets (zero between calls)
         self.gf = gather_scratch(nb, device)
+        # the ladder table of a batch above CS_INLINE members, made at the
+        # workspace's first chunk (a workspace serves one rung)
+        self.ladder: Optional[torch.Tensor] = None
 
 
 # ---------------------------------------------------------------------------
@@ -437,14 +452,65 @@ def _go(ctl: torch.Tensor) -> bool:
 # Plain versions, one member each (a member's views of the batched buffers)
 
 
-def chunk_init_reference(ctl: torch.Tensor, valid: torch.Tensor) -> None:
-    c = ctl.tolist()
+def chunk_init_reference(ctl: torch.Tensor, valid: torch.Tensor,
+                         stats: Optional[torch.Tensor], row: tuple) -> None:
+    """One member's chunk start: its control block from ``row = (lvl0,
+    max_levels, lossy, nD, nO)`` (every other field zero), its stats ring
+    zeroed, its frontier count and stop test (reference ``ops/wgl.py:830-
+    843``; acc, ovf and stuck start clear)."""
+    lvl0, maxlvl, lossy, nD, nO = (int(x) for x in row)
+    c = [0] * CTL_SIZE
+    c[CTL_LVL], c[CTL_FMAX], c[CTL_MAXLVL], c[CTL_LOSSY] = lvl0, 1, maxlvl, int(bool(lossy))
+    c[CTL_ND], c[CTL_NO] = nD, nO
     fcount = int(valid.sum())
-    go = (not c[CTL_ACC] and (c[CTL_LOSSY] or not c[CTL_OVF])
-          and not c[CTL_STUCK] and fcount > 0
-          and c[CTL_LVL] < c[CTL_MAXLVL])
-    ctl[CTL_FCOUNT] = fcount
-    ctl[CTL_GO] = int(go)
+    go = (not c[CTL_ACC] and (c[CTL_LOSSY] or not c[CTL_OVF]) and not c[CTL_STUCK]
+          and fcount > 0 and c[CTL_LVL] < c[CTL_MAXLVL])
+    c[CTL_FCOUNT], c[CTL_GO] = fcount, int(go)
+    ctl.copy_(torch.tensor(c, dtype=torch.int32))
+    if stats is not None:
+        stats.zero_()
+
+
+def ladder_row(ctl: torch.Tensor, trow: torch.Tensor, lpc: int) -> tuple:
+    """One member's ``(lvl0, max_levels, lossy, nD, nO)`` from its ladder
+    table row ``trow`` (updating its active flag) and its control block as
+    the previous chunk left it: the batch ladder's rule. Before the rung's
+    first chunk the member starts at its entry level; after it, where its
+    last chunk ended, with ``lpc`` more levels (at most its total) while it
+    is active (not accepted, not overflowed unless the rung is lossy,
+    nonempty, not stuck, below its total), else with none."""
+    t = [int(x) for x in trow.tolist()]
+    total, lossy = t[CS_TOTAL], t[CS_LOSSY]
+    if t[CS_ACTIVE] == CS_FRESH:
+        lvl0, act = t[CS_ENTRY], 1
+    else:
+        c = ctl.tolist()
+        lvl0 = c[CTL_LVL]
+        act = int(bool(t[CS_ACTIVE]) and not c[CTL_ACC] and (lossy or not c[CTL_OVF])
+                  and c[CTL_FCOUNT] > 0 and not c[CTL_STUCK] and lvl0 < total)
+    trow[CS_ACTIVE] = act
+    return lvl0, min(total, lvl0 + lpc) if act else lvl0, lossy, t[CS_ND], t[CS_NO]
+
+
+def chunk_rows(lvl0, max_levels, lossy, nD, nO) -> list:
+    """The chunk start's initial values, one ``(lvl0, max_levels, lossy, nD,
+    nO)`` row a member (integers), or a single row when every member's is
+    the same (a sharded search's shards, a single search)."""
+    rows = [(int(a), int(b), int(bool(c)), int(d), int(e))
+            for a, b, c, d, e in zip(lvl0, max_levels, lossy, nD, nO)]
+    return rows if len(set(rows)) > 1 else rows[:1]
+
+
+def ladder_table(lvl0, totals, lossy, nD, nO, device) -> torch.Tensor:
+    """The ladder table of a rung (int32 ``[nb, CS_TW]``): each member's
+    entry level, total levels, beam flag and op counts, every member not
+    yet started (:func:`ladder_row`)."""
+    t = torch.zeros((len(totals), CS_TW), dtype=torch.int32)
+    for k, col in ((CS_ENTRY, lvl0), (CS_TOTAL, totals), (CS_ND, nD), (CS_NO, nO)):
+        t[:, k] = torch.as_tensor([int(x) for x in col], dtype=torch.int32)
+    t[:, CS_LOSSY] = torch.as_tensor([int(bool(x)) for x in lossy], dtype=torch.int32)
+    t[:, CS_ACTIVE] = CS_FRESH
+    return t.to(device)
 
 
 def expand_reference(g: Geometry, tabs: dict, fr: tuple, ctl: torch.Tensor,
@@ -938,13 +1004,21 @@ def vmap_members(ref):
     return run
 
 
-def chunk_init_plain(ctl: torch.Tensor, valid: torch.Tensor,
-                     ticket: Optional[torch.Tensor] = None) -> None:
-    """Per-member loop of :func:`chunk_init_reference`; with ``ticket`` (a
+def chunk_init_plain(ctl: torch.Tensor, valid: torch.Tensor, stats: Optional[torch.Tensor],
+                     rows: Optional[list], ticket: Optional[torch.Tensor] = None,
+                     table: Optional[torch.Tensor] = None, lpc: int = 0) -> None:
+    """Per-member loop of :func:`chunk_init_reference`: member ``b`` takes
+    ``rows[b]`` (``rows[0]`` when there is one row), or with ``rows=None``
+    its :func:`ladder_row` from ``table`` and ``lpc``. With ``ticket`` (a
     sharded search, its members the shards; the kernel's ticket word, not
     used here) then the chunk-start reduce (:func:`shard_reduce_plain`,
     stage 0)."""
-    vmap_members(chunk_init_reference)(ctl, valid)
+    nb = ctl.shape[0]
+    if rows is None:
+        rows = [ladder_row(ctl[b], table[b], lpc) for b in range(nb)]
+    for b in range(nb):
+        chunk_init_reference(ctl[b], valid[b], None if stats is None else stats[b],
+                             rows[0 if len(rows) == 1 else b])
     if ticket is not None:
         shard_reduce_plain(None, ctl, 0)
 
@@ -1060,26 +1134,51 @@ def _launch(name: str, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def chunk_init(ctl: torch.Tensor, valid: torch.Tensor,
-               ticket: Optional[torch.Tensor] = None) -> None:
-    """Each member's frontier count and stop test (``ctl [nb, CTL_SIZE]``,
-    ``valid [nb, F]``). With ``ticket`` (a sharded search: its members are
-    the shards; ``BatchWorkspace.gf``, whose first word must be zero and is
-    left zero) the same launch's last block also runs the chunk-start
-    reduce over the shards."""
+def chunk_init(ctl: torch.Tensor, valid: torch.Tensor, stats: Optional[torch.Tensor],
+               rows: Optional[list], ticket: Optional[torch.Tensor] = None,
+               table: Optional[torch.Tensor] = None, lpc: int = 0) -> None:
+    """The whole start of a chunk, one launch (``ctl [nb, CTL_SIZE]``,
+    ``valid [nb, F]``, ``stats [nb, ...]`` each member's stats ring): each
+    member's control block from ``rows`` (:func:`chunk_rows`: one row for
+    every member, or a row a member up to :data:`CS_INLINE`; they ride in
+    the launch's parameters, so nothing is copied to the card), or with
+    ``rows=None`` from the ladder ``table`` (:func:`ladder_table`, on the
+    card) and ``lpc``; its stats ring zeroed; its frontier count and stop
+    test. With ``ticket`` (a sharded search: its members are the shards;
+    ``BatchWorkspace.gf``, whose first word must be zero and is left zero)
+    the same launch's last block also runs the chunk-start reduce over the
+    shards."""
     if ctl.device.type == "cpu":
-        return chunk_init_plain(ctl, valid, ticket)
-    _launch("wgl_chunk_init", *_chunk_init_args(ctl, valid, ticket))
+        return chunk_init_plain(ctl, valid, stats, rows, ticket, table, lpc)
+    _launch("wgl_chunk_init", *_chunk_init_args(ctl, valid, stats, rows, ticket, table, lpc))
 
 
-def _chunk_init_args(ctl, valid, ticket=None) -> tuple:
-    _check_cuda(ctl, valid, ticket)
+def _chunk_init_args(ctl, valid, stats, rows, ticket=None, table=None, lpc=0) -> tuple:
     nb, F = valid.shape
+    if rows is not None and (len(rows) not in (1, nb) or len(rows) > CS_INLINE):
+        raise ValueError(f"chunk_init: {len(rows)} rows for {nb} members; the launch "
+                         f"takes one row or a row a member up to {CS_INLINE} (a larger "
+                         "batch of the ladder reads its ladder table)")
+    _check_cuda(ctl, valid, stats, ticket, table)
     _check_members(nb)
-    _check_shapes("chunk_init", (ctl, (nb, CTL_SIZE)))
+    _check_shapes("chunk_init", (ctl, (nb, CTL_SIZE)),
+                  *(((table, (nb, CS_TW)),) if table is not None else ()))
+    if stats is not None and (stats.dtype != torch.int32 or stats.shape[0] != nb):
+        raise ValueError("chunk_init: the stats rings are int32 [nb, ...]")
+    stat_words = 0 if stats is None else stats.numel() // nb
     if ticket is not None and (ticket.dtype != torch.int32 or ticket.numel() < 1):
         raise ValueError("chunk_init: the ticket is one int32 word (see gather_scratch)")
-    return (_ptr(ctl), _ptr(valid), _ptr(ticket), ctypes.c_int(F), ctypes.c_int(nb),
+    if rows is None:
+        if table is None:
+            raise ValueError("chunk_init: no rows and no ladder table")
+        host = (ctypes.c_int * 1)()
+    else:
+        flat = [v for r in rows for v in r]
+        host = (ctypes.c_int * len(flat))(*flat)
+    ci = ctypes.c_int
+    # the host array is an argument itself, so it lives through the call
+    return (_ptr(ctl), _ptr(valid), _ptr(stats), _ptr(ticket), _ptr(table), host,
+            ci(0 if rows is None else len(rows)), ci(lpc), ci(stat_words), ci(F), ci(nb),
             _stream())
 
 
@@ -1574,28 +1673,31 @@ class _LevelProgram:
 
 
 def _run_levels(ops: _Stages, g: Geometry, tabs: dict, fr: tuple, ws: BatchWorkspace,
-                lvl0, max_levels, lossy, nD, nO, model: Model) -> torch.Tensor:
+                lvl0, max_levels, lossy, nD, nO, model: Model,
+                ladder: Optional[tuple] = None) -> torch.Tensor:
     """Run every member's levels from its ``lvl0`` until its stop condition
     or its ``max_levels``; returns the host copy of the control blocks.
 
-    On the GPU the host enqueues levels for the whole batch in growing
-    runs and reads the ``[nb, CTL_SIZE]`` control blocks once per run,
-    going on while any member may go on; levels enqueued past a member's
-    stop return at once. The buffers are checked once per chunk
-    (:class:`_LevelProgram`), not once per level."""
+    The chunk starts with one :func:`chunk_init` (no copy to the card, no
+    memset): the initial values ride in its parameters, or, for a batch
+    above :data:`CS_INLINE` members, in the workspace's ladder table, made
+    from ``ladder = (totals, lpc)`` at its first chunk. On the GPU the host
+    then enqueues levels for the whole batch in growing runs without
+    reading the control blocks first (levels enqueued past a member's stop
+    return at once, so a chunk that starts stopped costs the first run's
+    launches), and reads the ``[nb, CTL_SIZE]`` control blocks once per
+    run, going on while any member may go on. The buffers are checked once
+    per chunk (:class:`_LevelProgram`), not once per level."""
     ctl = ws.ctl
-    nb = ws.nb
-    init = torch.zeros((nb, CTL_SIZE), dtype=torch.int32)
-    init[:, CTL_LVL] = torch.as_tensor(list(lvl0), dtype=torch.int32)
-    init[:, CTL_FMAX] = 1
-    init[:, CTL_MAXLVL] = torch.as_tensor(list(max_levels), dtype=torch.int32)
-    init[:, CTL_LOSSY] = torch.as_tensor([int(x) for x in lossy], dtype=torch.int32)
-    init[:, CTL_ND] = torch.as_tensor(list(nD), dtype=torch.int32)
-    init[:, CTL_NO] = torch.as_tensor(list(nO), dtype=torch.int32)
-    ctl.copy_(init)
-    ws.stats.zero_()
-    ops.chunk_init(ctl, fr[4], ws.gf if g.exchange else None)
-    remaining = max(0, int((init[:, CTL_MAXLVL] - init[:, CTL_LVL]).max()))
+    rows = chunk_rows(lvl0, max_levels, lossy, nD, nO)
+    table, lpc = None, 0
+    if ws.nb > CS_INLINE and ladder is not None:
+        totals, lpc = ladder
+        if ws.ladder is None:
+            ws.ladder = ladder_table(lvl0, totals, lossy, nD, nO, ctl.device)
+        table, rows = ws.ladder, None
+    ops.chunk_init(ctl, fr[4], ws.stats, rows, ws.gf if g.exchange else None, table, lpc)
+    remaining = max(0, max(int(m) - int(a) for m, a in zip(max_levels, lvl0)))
     pipelined = ops is KERNELS and ctl.device.type == "cuda"
     batch = 4 if pipelined else 1
     if pipelined:
@@ -1603,8 +1705,8 @@ def _run_levels(ops: _Stages, g: Geometry, tabs: dict, fr: tuple, ws: BatchWorks
     else:
         def level():
             run_level_batch(ops, g, tabs, fr, ws, model)
-    c = ctl.cpu()
-    while remaining > 0 and bool(c[:, CTL_GO].any()):
+    c = None if pipelined else ctl.cpu()
+    while remaining > 0 and (c is None or bool(c[:, CTL_GO].any())):
         n = min(batch, remaining)
         for _ in range(n):
             level()
@@ -1612,21 +1714,30 @@ def _run_levels(ops: _Stages, g: Geometry, tabs: dict, fr: tuple, ws: BatchWorks
         if pipelined:
             batch = min(2 * batch, 256)
         c = ctl.cpu()
+    if c is None:
+        c = ctl.cpu()
+    if c[:, CTL_MAXLVL].tolist() != [int(m) for m in max_levels]:
+        raise RuntimeError("chunk start: the control blocks' level budgets "
+                           f"{c[:, CTL_MAXLVL].tolist()} are not the host's {list(max_levels)}")
     return c
 
 
 def run_chunk_batch(ops: _Stages, g: Geometry, tabs: dict, fr: tuple,
                     ws: BatchWorkspace, lvl0, max_levels, lossy, nD, nO,
-                    model: Model) -> list:
+                    model: Model, ladder: Optional[tuple] = None) -> list:
     """Run every member's levels from its ``lvl0`` until its stop
     condition or its ``max_levels`` (the reference's vmapped
     ``while_loop``). ``lvl0``, ``max_levels``, ``lossy``, ``nD`` and
     ``nO`` hold one integer per member; every member steps ``model``.
-    Returns each member's packed flags ``[acc, ovf, nonempty, lvl, fmax,
-    count]`` (the reference's ``[nb, 6]``); the frontier ``fr`` is updated
-    in place and ``ws.stats`` holds each member's per-level ring. See
-    :func:`_run_levels` for how the GPU path enqueues levels."""
-    c = _run_levels(ops, g, tabs, fr, ws, lvl0, max_levels, lossy, nD, nO, model)
+    ``ladder = (totals, lpc)``: the batch ladder's rule (each member's
+    total levels and the rung's levels a chunk), which a batch above
+    :data:`CS_INLINE` members needs for its chunk start (``ws`` then
+    serves one rung). Returns each member's packed flags ``[acc, ovf,
+    nonempty, lvl, fmax, count]`` (the reference's ``[nb, 6]``); the
+    frontier ``fr`` is updated in place and ``ws.stats`` holds each
+    member's per-level ring. See :func:`_run_levels` for how the GPU path
+    enqueues levels."""
+    c = _run_levels(ops, g, tabs, fr, ws, lvl0, max_levels, lossy, nD, nO, model, ladder)
     out = []
     for r in c.tolist():
         nonempty = int(r[CTL_FCOUNT] > 0 and not r[CTL_STUCK])

@@ -40,6 +40,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from .. import _build
+from .. import trace as _trace
 from ..checker import provenance as _prov
 from ..devices import mesh_device, resolve_device
 from ..history import History
@@ -48,7 +50,6 @@ from ..ops import wgl
 from ..ops import wgl_level as _lv
 from ..ops.encode import EncodedHistory, encode_history
 
-_TELEMETRY_SLICE = "comes with a later slice of the port (the WGL driver's telemetry)"
 _RESILIENCE_SLICE = "retries= (the batch's retry and circuit breaker) comes with a " \
     "later slice of the port (the checking pipeline's resilience)"
 
@@ -88,17 +89,24 @@ def check_encoded_batch(
     named ``batch_axis`` (see the module docstring); the batch runs on the
     mesh's device, and a ``device`` that differs raises ``ValueError``.
 
+    ``chunk_callback(info)`` is called after every device chunk with the
+    reference's keys (``F``, ``rung``, ``chunk``, ``active``, ``batch``,
+    ``level_max``, ``wall_s``); its exceptions propagate. ``metrics``: a
+    :class:`jepsen_tpu_torch.telemetry.Registry` that receives the
+    reference's ``wgl_host_stack``, ``wgl_rebatch``, ``wgl_batch_chunk``
+    and ``wgl_batch_rung`` events and its counters and gauges (re-batches,
+    chunks, occupancy by rung, frontier bytes, serial fallbacks, members by
+    outcome); the serial last resort gets both. A chunk's ``stage`` is
+    ``"compile"`` when it paid the process's first load of the kernel
+    library (``_build.chunk_stage``).
+
     ``plain``: run the plain PyTorch version of every stage (a loop over
-    members) even on the GPU. ``metrics``, ``chunk_callback`` and
-    ``retries`` come with later slices and raise ``ValueError``."""
+    members) even on the GPU. ``retries`` comes with a later slice and
+    raises ``ValueError``."""
     dp = 1
     if mesh is not None:
         device = mesh_device(mesh, device)
         dp = math.prod(mesh.shape[a] for a in mesh.axis_names if a == batch_axis) or 1
-    if metrics is not None:
-        raise ValueError(f"metrics= {_TELEMETRY_SLICE}")
-    if chunk_callback is not None:
-        raise ValueError(f"chunk_callback= {_TELEMETRY_SLICE}")
     if retries:
         raise ValueError(_RESILIENCE_SLICE)
     if not encs:
@@ -106,11 +114,23 @@ def check_encoded_batch(
     return _check_encoded_batch_once(
         encs, f=f, dp=dp, max_open=max_open, window_cap=window_cap, escalate=escalate,
         f_schedule=f_schedule, levels_per_call=levels_per_call,
-        device=resolve_device(device), plain=plain)
+        device=resolve_device(device), plain=plain, metrics=metrics,
+        chunk_callback=chunk_callback)
+
+
+def _note_host_stack(metrics, F, members: int, wall: float) -> None:
+    """One ``wgl_host_stack`` event: a rung's tables made ready for the
+    card while the device waits (``overlap=False``; the port stacks no
+    tables while a chunk runs)."""
+    t1 = round(_time.time(), 6)
+    metrics.event("wgl_host_stack", F=int(F), members=int(members), wall_s=round(wall, 6),
+                  overlap=False, t0=round(t1 - wall, 6), t1=t1)
 
 
 def _check_encoded_batch_once(encs, f, dp, max_open, window_cap, escalate, f_schedule,
-                              levels_per_call, device, plain) -> list[dict]:
+                              levels_per_call, device, plain, metrics=None,
+                              chunk_callback=None) -> list[dict]:
+    t0 = _time.perf_counter()
     mk = wgl._model_cache_key(encs[0].model)
     if any(wgl._model_cache_key(e.model) != mk for e in encs):
         raise ValueError(
@@ -146,6 +166,7 @@ def _check_encoded_batch_once(encs, f, dp, max_open, window_cap, escalate, f_sch
     while len(padded) % dp:
         padded.append(padded[0])
         orig.append(None)
+    t_hs = _time.perf_counter()
     stack = wgl.stack_plans(padded, device)
     CC = stack.B or (W + KO * 32)
 
@@ -177,14 +198,28 @@ def _check_encoded_batch_once(encs, f, dp, max_open, window_cap, escalate, f_sch
         lossy_rung = batched_esc and len(rungs) > 1 and F == rungs[-1]
         for r in set(live):
             status[r] = "run"
-        plan = stack if ri == 0 else stack.select(live)
         if ri == 0:
+            plan = stack
             fr5 = wgl.initial_frontier_batch(F, W, KO, plan.init_state)
+            if metrics is not None:
+                _note_host_stack(metrics, F, len(live), _time.perf_counter() - t_hs)
         else:
-            # Re-batch: the overflowed members' kept frontiers, regrouped on
-            # the device at the new capacity.
+            # Re-batch: the overflowed members' tables row-selected and
+            # their kept frontiers regrouped on the device at the new
+            # capacity.
+            t_hs = _time.perf_counter()
+            plan = stack.select(live)
             rowsel = [prev_live.index(r) for r in live]
             fr5 = ops.regroup(fr5, rowsel, F)
+            if metrics is not None:
+                _note_host_stack(metrics, F, len(live), _time.perf_counter() - t_hs)
+                metrics.counter("wgl_rebatch_total",
+                                "Overflowed members regrouped into a higher-capacity "
+                                "re-batch").inc()
+                metrics.event("wgl_rebatch", from_F=rungs[ri - 1], to_F=F,
+                              members=sum(1 for r in live if orig[r] is not None),
+                              level_min=int(lvls[live].min()),
+                              level_max=int(lvls[live].max()))
         g = wgl.level_geometry(plan, F)
         ws = _lv.BatchWorkspace(g, Bk, device)
         nD, nO = plan.nD.tolist(), plan.nO.tolist()
@@ -200,13 +235,16 @@ def _check_encoded_batch_once(encs, f, dp, max_open, window_cap, escalate, f_sch
         stuck_s = np.zeros(Bk, bool)
         calls = 0
         t_rung = _time.perf_counter()
+        t_last = t_rung  # the previous chunk's end
         prev_live = live
         next_F = rungs[ri + 1] if ri + 1 < len(rungs) else None
         while active.any():
             budgets = np.where(active, np.minimum(totals, lsub + lpc), lsub)
+            was_loaded = _build.loaded()
             flags = np.asarray(_lv.run_chunk_batch(
                 ops, g, plan.tabs, fr5, ws, lsub.tolist(), budgets.tolist(),
-                [lossy_rung] * Bk, nD, nO, model), dtype=np.int64)
+                [lossy_rung] * Bk, nD, nO, model, ladder=(totals.tolist(), lpc)),
+                dtype=np.int64)
             calls += 1
             acc = flags[:, 0].astype(bool)
             ovf = flags[:, 1].astype(bool)
@@ -223,11 +261,42 @@ def _check_encoded_batch_once(encs, f, dp, max_open, window_cap, escalate, f_sch
                 active = active & ~acc & nonempty & (lsub < totals)
             else:
                 active = active & ~acc & ~ovf & nonempty & (lsub < totals)
+            if metrics is not None:
+                metrics.counter(
+                    "wgl_donated_frontier_bytes_total",
+                    "Frontier bytes the chunk updated in place (no carry copy)").inc(
+                        sum(int(a.nbytes) for a in fr5))
+                metrics.counter("wgl_batch_chunks_total",
+                                "Batched-escalation kernel chunk invocations").inc()
+                metrics.gauge("wgl_batch_occupancy",
+                              "Members still searching / batch rows, after the last chunk",
+                              labelnames=("F",)).labels(F=F).set(float(active.sum()) / Bk)
+                now_pc = _time.perf_counter()
+                chunk_wall = now_pc - t_last
+                t_last = now_pc
+                t1e = round(_time.time(), 6)
+                metrics.event(
+                    "wgl_batch_chunk", F=F, chunk=calls, active=int(active.sum()), batch=Bk,
+                    level_max=int(lsub.max()), wall_s=round(now_pc - t_rung, 4),
+                    chunk_wall_s=round(chunk_wall, 6), n_devices=dp,
+                    stage=_build.chunk_stage(was_loaded), t0=round(t1e - chunk_wall, 6),
+                    t1=t1e, **_trace.event_tags())
+            if chunk_callback is not None:
+                chunk_callback({"F": F, "rung": ri, "chunk": calls,
+                                "active": int(active.sum()), "batch": Bk,
+                                "level_max": int(lsub.max()),
+                                "wall_s": _time.perf_counter() - t0})
         lvls[live] = lsub
         fmax_all[live] = fsub
         rung_stats.append({"F": F, "members": sum(orig[r] is not None for r in live),
                            "calls": calls,
                            "wall_s": round(_time.perf_counter() - t_rung, 3)})
+        if metrics is not None:
+            metrics.event(
+                "wgl_batch_rung", F=F, members=rung_stats[-1]["members"], calls=calls,
+                wall_s=rung_stats[-1]["wall_s"], decided=int(np.sum(acc_s | stuck_s)),
+                overflowed=int(np.sum(ovf_s & ~acc_s & ~stuck_s)) if not lossy_rung else 0,
+                lossy=bool(lossy_rung), **_trace.event_tags())
         # Classify this rung's members; decided members get results now.
         overflowed = []
         fr_host = None
@@ -303,12 +372,22 @@ def _check_encoded_batch_once(encs, f, dp, max_open, window_cap, escalate, f_sch
             serial_sched = tuple(x for x in sched if x > f) or (f,)
         else:
             serial_sched = tuple(rungs)
+        if metrics is not None:
+            metrics.counter("wgl_batch_serial_fallback_total",
+                            "Members handed to the serial single-history driver after the "
+                            "batched rungs overflowed").inc()
         results[i] = wgl.check_encoded_device(
             encs[i], f_schedule=serial_sched, max_open=max_open, window_cap=window_cap,
-            device=device, plain=plain)
+            device=device, plain=plain, metrics=metrics, chunk_callback=chunk_callback)
         results[i]["escalated"] = "serial"
         if len(rungs) > 1:
             results[i]["rungs"] = rung_stats
+    if metrics is not None:
+        c = metrics.counter("wgl_batch_members_total",
+                            "Members decided through the batched checker by outcome",
+                            labelnames=("result",))
+        for i in idx:
+            c.labels(result=str(results[i].get("valid"))).inc()
     return results  # type: ignore[return-value]
 
 

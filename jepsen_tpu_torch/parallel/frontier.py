@@ -29,6 +29,8 @@ import os as _os
 import time as _time
 from typing import Optional
 
+from .. import _build
+from .. import trace as _trace
 from ..checker import provenance as _prov
 from ..ops import wgl
 from ..ops import wgl_level as _lv
@@ -46,11 +48,6 @@ def _resolve_exchange(exchange: Optional[str]) -> str:
     return mode
 
 
-def _later(name: str):
-    return ValueError(f"{name}= (telemetry, checkpoints and chunk callbacks) comes with a "
-                      "later slice of the port")
-
-
 def check_encoded_sharded(enc: EncodedHistory, mesh=None, axis: str = "dp",
                           f_total: int = 1024, max_open: int = 128, window_cap: int = 1024,
                           levels_per_call: Optional[int] = None, max_escalations: int = 2,
@@ -63,18 +60,30 @@ def check_encoded_sharded(enc: EncodedHistory, mesh=None, axis: str = "dp",
     the reference's: ``valid``, ``op_count``, ``device``, ``sharded``,
     ``n_shards``, ``exchange``, ``levels``, ``frontier_total`` (the global
     capacity used), ``frontier_max``, ``window``, ``attempts``, ``wall_s``
-    and, on a refutation, ``max_linearized`` and ``stuck_configs``.
+    and, where they apply, ``max_linearized``, ``stuck_configs`` and
+    ``resumed_from_level``.
 
     ``f_total`` is the global capacity, rounded up to ``D * max(ceil(f_total
     / D), 16)``; an overflow escalates x4 losslessly up to
     ``max_escalations`` times, after which the verdict is ``unknown``.
     ``plain``: the plain PyTorch version of every stage, even on the GPU.
-    ``checkpoint_path``, ``chunk_callback`` and ``metrics`` come with a
-    later slice and raise ``ValueError``."""
-    for name, val in (("checkpoint_path", checkpoint_path),
-                      ("chunk_callback", chunk_callback), ("metrics", metrics)):
-        if val is not None:
-            raise _later(name)
+
+    ``checkpoint_path``: save the resumable global frontier after every
+    chunk, in the single driver's format (``ops.wgl``; phase
+    ``"sharded"``, never truncated), and resume from it; deleted on a
+    definite verdict. The file holds the global row order, so it is
+    portable across exchange modes and mesh sizes: it resumes exactly
+    under the other mode or on another D, the width re-rounded to the new
+    mesh's multiple. ``chunk_callback(info)`` is called after every chunk
+    with the reference's keys (``level``, ``F``, ``global_capacity``,
+    ``n_shards``, ``frontier_max``, ``total_levels``, ``count``,
+    ``wall_s``); its exceptions propagate. ``metrics``: a
+    :class:`jepsen_tpu_torch.telemetry.Registry` that receives the
+    reference's ``wgl_sharded_chunk`` events, ``wgl_sharded_chunks_total``,
+    ``wgl_sharded_levels_total``, ``wgl_exchange_bytes_total{exchange}``
+    (and ``wgl_allgather_bytes_total`` under allgather) from
+    ``wgl.exchange_bytes_per_level``, the per-shard config gauges,
+    ``wgl_shard_imbalance`` (alltoall) and the escalation counter."""
     t0 = _time.perf_counter()
     exchange = _resolve_exchange(exchange)
     if mesh is None:
@@ -102,6 +111,43 @@ def check_encoded_sharded(enc: EncodedHistory, mesh=None, axis: str = "dp",
     def capacity(f_req: int) -> int:
         return max(-(-f_req // D), 16) * D
 
+    def note_chunk(F, FT, lvl0, lvl, count, cmax, cmin, chunk_wall, stage) -> None:
+        c = metrics.counter
+        levels_run = max(int(lvl) - lvl0, 0)
+        ex_bytes = wgl.exchange_bytes_per_level(plan, F, D, exchange) * levels_run
+        c("wgl_sharded_chunks_total", "Frontier-sharded kernel chunk invocations").inc()
+        c("wgl_sharded_levels_total", "BFS levels run by the sharded search").inc(levels_run)
+        c("wgl_exchange_bytes_total",
+          "Analytic bytes moved by the per-level candidate exchange, by mode",
+          labelnames=("exchange",)).labels(exchange=exchange).inc(ex_bytes)
+        if exchange == "allgather":
+            c("wgl_allgather_bytes_total",
+              "Analytic bytes moved by the per-level candidate all_gather (legacy "
+              "replicated mode only)").inc(ex_bytes)
+        g = metrics.gauge(
+            "wgl_sharded_configs_per_device",
+            "TRUE per-shard live configs after the last chunk (max/min across shards "
+            "— not a count/D mean). In allgather mode the skew is the slice LAYOUT "
+            "(contiguous global order), not hash imbalance",
+            labelnames=("n_shards", "stat"))
+        g.labels(n_shards=D, stat="max").set(cmax)
+        g.labels(n_shards=D, stat="min").set(cmin)
+        if exchange == "alltoall":
+            metrics.gauge(
+                "wgl_shard_imbalance",
+                "Max-shard occupancy / ideal (global count / n_shards) after the last "
+                "chunk; 1.0 = perfectly balanced (alltoall mode only)",
+                labelnames=("n_shards",)).labels(n_shards=D).set(
+                    round(cmax * D / max(int(count), 1), 4))
+        ev_extra = {"allgather_bytes": ex_bytes} if exchange == "allgather" else {}
+        t1s = round(_time.time(), 6)
+        metrics.event(
+            "wgl_sharded_chunk", level=int(lvl), F=F, n_shards=D, global_capacity=FT,
+            count=int(count), count_max=cmax, count_min=cmin, frontier_max=fmax_all,
+            wall_s=round(chunk_wall, 4), stage=stage, t0=round(t1s - chunk_wall, 6),
+            t1=t1s, exchange=exchange, exchange_bytes=ex_bytes, **ev_extra,
+            **_trace.event_tags())
+
     def run_capacity(FT: int, fr: tuple, attempt: dict) -> tuple:
         """Chunks at one global capacity: (result, frontier); a None result
         is a lossless overflow (escalate)."""
@@ -116,13 +162,21 @@ def check_encoded_sharded(enc: EncodedHistory, mesh=None, axis: str = "dp",
             t_call = _time.perf_counter()
             lvl0 = int(fr[-1])
             budget = min(total_levels, lvl0 + lpc)
-            acc, ovf, nonempty, lvl, fmax, _count, _cmax, _cmin = _lv.run_chunk_sharded(
+            was_loaded = _build.loaded()
+            acc, ovf, nonempty, lvl, fmax, count, cmax, cmin = _lv.run_chunk_sharded(
                 ops, g, tabs, fr[:5], ws, lvl0, budget, False, plan.nD, plan.nO, enc.model)
             fmax_all = max(fmax_all, fmax)
             fr = fr[:5] + (lvl,)
+            if checkpoint_path:
+                wgl._save_search_checkpoint(checkpoint_path, fingerprint, "sharded", False,
+                                            wgl._checkpoint_arrays(fr, sharded=True))
             attempt["levels"] = int(lvl)
             attempt["calls"] += 1
-            attempt["wall_s"] = round(attempt["wall_s"] + _time.perf_counter() - t_call, 3)
+            chunk_wall = _time.perf_counter() - t_call
+            attempt["wall_s"] = round(attempt["wall_s"] + chunk_wall, 3)
+            if metrics is not None:
+                note_chunk(F, FT, lvl0, lvl, count, cmax, cmin, chunk_wall,
+                           _build.chunk_stage(was_loaded))
 
             def result(valid, **extra):
                 r = {"valid": valid, "op_count": n, "device": True, **head,
@@ -132,6 +186,11 @@ def check_encoded_sharded(enc: EncodedHistory, mesh=None, axis: str = "dp",
                 r.update(extra)
                 return r
 
+            if chunk_callback is not None:
+                chunk_callback({"level": int(lvl), "F": F, "global_capacity": FT,
+                                "n_shards": D, "frontier_max": fmax_all,
+                                "total_levels": total_levels, "count": int(count),
+                                "wall_s": _time.perf_counter() - t0})
             if acc:
                 return result(True), fr
             if ovf:
@@ -146,9 +205,29 @@ def check_encoded_sharded(enc: EncodedHistory, mesh=None, axis: str = "dp",
                 return _prov.attach(result("unknown", info="level budget exhausted"),
                                     "level_budget", levels=int(lvl), F=F), fr
 
-    FT = capacity(f_total)
-    fr0 = wgl.initial_frontier(FT, W, KO, S, plan.init_state, dev)
-    fr = tuple(a.reshape((D, FT // D) + tuple(a.shape[1:])) for a in fr0[:5]) + (0,)
+    fingerprint = wgl._enc_fingerprint(enc, plan) if checkpoint_path else None
+    disk = wgl._load_search_checkpoint(checkpoint_path, fingerprint) \
+        if checkpoint_path else None
+    resume_fr = None
+    if disk is not None:
+        # Only an exact (never truncated) frontier may seed this search: the
+        # single driver's beam writes lossy ones; its lossless companion is
+        # fine.
+        if not disk["truncated"]:
+            resume_fr = disk["fr"]
+        elif disk.get("lossless_fr") is not None:
+            resume_fr = disk["lossless_fr"]
+    resumed_level = 0
+    if resume_fr is not None:
+        # the global order, padded at its end to this mesh's multiple
+        FT = capacity(max(f_total, resume_fr[0].shape[0]))
+        flat = wgl._pad_frontier(wgl.frontier_from_arrays(*resume_fr, device=dev), FT, dev,
+                                 ops)
+        resumed_level = int(resume_fr[-1])
+    else:
+        FT = capacity(f_total)
+        flat = wgl.initial_frontier(FT, W, KO, S, plan.init_state, dev)
+    fr = tuple(a.reshape((D, FT // D) + tuple(a.shape[1:])) for a in flat[:5]) + (flat[5],)
     attempts: list = []
     for _esc in range(max_escalations + 1):
         attempt = {"F": FT, "levels": 0, "calls": 0, "wall_s": 0.0}
@@ -156,8 +235,15 @@ def check_encoded_sharded(enc: EncodedHistory, mesh=None, axis: str = "dp",
         res, fr = run_capacity(FT, fr, attempt)
         if res is not None:
             res["attempts"] = attempts
+            if resumed_level:
+                res["resumed_from_level"] = resumed_level
+            if checkpoint_path and res.get("valid") != "unknown":
+                wgl._clear_search_checkpoint(checkpoint_path)
             return res
         attempt["overflowed"] = True
+        if metrics is not None and _esc < max_escalations:
+            metrics.counter("wgl_capacity_escalations_total",
+                            "Lossless frontier-capacity escalations").inc()
         FT = capacity(FT * 4)
         fr = wgl.pad_sharded_frontier(fr, FT // D, ops)
     return _prov.attach(

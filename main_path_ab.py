@@ -239,13 +239,8 @@ def _level_cases(cs, lv, wgl):
         g = wgl.level_geometry(plan, F)
         fr, ws, lvls = cs.warm_frontier(plan, F, lv, wgl, model, warm)
         nb = plan.nb
-        ctl = torch.zeros((nb, lv.CTL_SIZE), dtype=torch.int32)
-        ctl[:, lv.CTL_LVL] = torch.tensor(lvls)
-        ctl[:, lv.CTL_MAXLVL] = torch.tensor(lvls) + 1
-        ctl[:, lv.CTL_FMAX], ctl[:, lv.CTL_LOSSY] = 1, 1
-        ctl[:, lv.CTL_ND], ctl[:, lv.CTL_NO] = plan.nD, plan.nO
-        ctl = ctl.to("cuda")
-        lv.chunk_init_plain(ctl, fr[4])
+        ctl = torch.zeros((nb, lv.CTL_SIZE), dtype=torch.int32, device="cuda")
+        cs.start_ctl(lv, ctl, fr, lvls, plan)
         ws.ctl.copy_(ctl)
         yield label, g, plan.tabs, fr, ws, model
     # the sharded level of chip_smoke's sharded_kernels, each mode

@@ -178,11 +178,11 @@ def test_mixed_model_families_refused():
 
 
 @pytest.mark.parametrize("kw", [dict(mesh=Mesh((2, 1), ("dp", "mp"), "cuda")),
-                                dict(metrics=object()), dict(chunk_callback=print),
                                 dict(retries=2)])
 def test_later_slice_options_raise(kw):
-    """The options a later slice brings raise; a mesh is ported, and one
-    on another device than ``device=`` raises."""
+    """``retries`` (the batch's resilience) comes with a later slice and
+    raises; a mesh is ported, and one on another device than ``device=``
+    raises."""
     _, h2 = _seed77()
     match = "not the mesh's device" if "mesh" in kw else "later slice"
     with pytest.raises(ValueError, match=match):

@@ -682,13 +682,9 @@ def _expand_case(cuda, name, nb, F=64, crash_p=0.1, B=None, sel=True, seed=3, le
     g = wgl.level_geometry(plan, F)
     assert g.SEL == sel
     fr, _ws, lvls = chip_smoke.warm_frontier(plan, F, lv, wgl, model, levels)
-    ctl = torch.zeros((nb, lv.CTL_SIZE), dtype=torch.int32)
-    ctl[:, lv.CTL_LVL] = torch.tensor(lvls)
-    ctl[:, lv.CTL_MAXLVL] = torch.tensor(lvls) + 1
-    ctl[:, lv.CTL_LOSSY] = 1
-    ctl[:, lv.CTL_ND], ctl[:, lv.CTL_NO] = plan.nD, plan.nO
-    ctl = ctl.to(cuda)
-    lv.chunk_init_plain(ctl, fr[4])
+    ctl = torch.zeros((nb, lv.CTL_SIZE), dtype=torch.int32, device=cuda)
+    lv.chunk_init_plain(ctl, fr[4], None, lv.chunk_rows(
+        lvls, [x + 1 for x in lvls], [1] * nb, plan.nD.tolist(), plan.nO.tolist()))
     return g, plan.tabs, fr, ctl, model
 
 
@@ -773,11 +769,9 @@ def test_expand_at_every_window_width(cuda, W):
     g = wgl.level_geometry(plan, 64)
     assert g.W == W
     fr, _ws, lvls = chip_smoke.warm_frontier(plan, 64, lv, wgl, model, 8)
-    ctl = torch.zeros((1, lv.CTL_SIZE), dtype=torch.int32)
-    ctl[0, lv.CTL_LVL], ctl[0, lv.CTL_MAXLVL], ctl[0, lv.CTL_LOSSY] = lvls[0], lvls[0] + 1, 1
-    ctl[0, lv.CTL_ND], ctl[0, lv.CTL_NO] = int(plan.nD[0]), int(plan.nO[0])
-    ctl = ctl.to(cuda)
-    lv.chunk_init_plain(ctl, fr[4])
+    ctl = torch.zeros((1, lv.CTL_SIZE), dtype=torch.int32, device=cuda)
+    lv.chunk_init_plain(ctl, fr[4], None, [(lvls[0], lvls[0] + 1, 1, int(plan.nD[0]),
+                                            int(plan.nO[0]))])
     _kc, kn = _expand_batch_both(g, plan.tabs, fr, ctl, model)
     assert int(kn.sum()) > 0
 
@@ -959,12 +953,9 @@ def test_model_step_kernels_match_plain(cuda, name, monkeypatch):
         flags = lv.run_chunk(lv.KERNELS, g, plan.tabs, fr, ws, 0, min(8, plan.nD // 2), True,
                              plan.nD, plan.nO, model)
         lvl = flags[3]
-        ctl = torch.zeros((1, lv.CTL_SIZE), dtype=torch.int32)
-        ctl[0, lv.CTL_LVL], ctl[0, lv.CTL_MAXLVL] = lvl, lvl + 1
-        ctl[0, lv.CTL_LOSSY], ctl[0, lv.CTL_ND], ctl[0, lv.CTL_NO] = 1, plan.nD, plan.nO
-        ctl = ctl.to(cuda)
+        ctl = torch.zeros((1, lv.CTL_SIZE), dtype=torch.int32, device=cuda)
         fr1 = tuple(a[None] for a in fr)
-        lv.chunk_init(ctl, fr1[4])
+        lv.chunk_init(ctl, fr1[4], None, [(lvl, lvl + 1, 1, plan.nD, plan.nO)])
         tabs = {k: t[None] for k, t in plan.tabs.items()}
         before = lv.LAUNCHES["wgl_expand"]
         (kc, kn, kr), (pc, pn, pr) = _expand_both(g, tabs, fr1, ctl, model)
@@ -1560,10 +1551,12 @@ def test_single_level_prune_runs_no_reduce(cuda):
 
 @pytest.mark.parametrize("D", [1, 2, 3, 8, 40, 256])
 def test_sharded_chunk_init_matches_plain(cuda, D):
-    """The sharded chunk start (one launch: the reduce in its last block)
-    bit for bit against chunk_init_plain with the ticket (every shard's
-    count, then shard_reduce_plain stage 0): random frontiers, some empty,
-    each stop condition; the ticket is left zero; one device launch."""
+    """The sharded chunk start (one launch: the control blocks from the
+    shared initial values, the stats rings zeroed, the counts, the reduce
+    in its last block) bit for bit against chunk_init_plain with the
+    ticket: random frontiers, some empty, a start with no budget, stale
+    control blocks and rings; the ticket is left zero; one device launch
+    (no copy, no memset)."""
     rng = np.random.default_rng(D)
     ticket = lv.gather_scratch(D, cuda)
     for trial in range(6):
@@ -1571,18 +1564,73 @@ def test_sharded_chunk_init_matches_plain(cuda, D):
                                  .astype(np.uint8)).to(cuda)
         if trial == 1:
             valid.zero_()
-        ctl = torch.zeros((D, lv.CTL_SIZE), dtype=torch.int32)
-        ctl[:, lv.CTL_LVL] = int(rng.integers(0, 10))
-        ctl[:, lv.CTL_MAXLVL] = 9
-        ctl[:, lv.CTL_OVF] = int(trial == 3)
-        ctl[:, lv.CTL_LOSSY] = trial % 2
-        ctl[:, lv.CTL_STUCK] = int(trial == 4)
-        kc, pc = ctl.to(cuda), ctl.to(cuda)
-        lv.chunk_init(kc, valid, ticket)
-        lv.chunk_init_plain(pc, valid, ticket)
+        lvl0 = int(rng.integers(0, 10))
+        row = (lvl0, 9 if trial != 4 else lvl0, trial % 2, 7, 2)
+        stale = torch.from_numpy(rng.integers(-5, 5, (D, lv.CTL_SIZE)).astype(np.int32))
+        kc, pc = stale.to(cuda), stale.to(cuda)
+        ks = torch.ones((D, lv.LEVEL_STAT_ROWS, 4), dtype=torch.int32, device=cuda)
+        ps = ks.clone()
+        lv.chunk_init(kc, valid, ks, [row], ticket)
+        lv.chunk_init_plain(pc, valid, ps, [row], ticket)
         torch.cuda.synchronize()
-        assert torch.equal(kc, pc) and int(ticket.abs().sum()) == 0
-    assert device_work(lambda: lv.chunk_init(kc, valid, ticket)) == _launches_only(1)
+        assert torch.equal(kc, pc) and torch.equal(ks, ps) and int(ticket.abs().sum()) == 0
+    assert device_work(lambda: lv.chunk_init(kc, valid, ks, [row], ticket)) == _launches_only(1)
+
+
+@pytest.mark.parametrize("nb", [1, 3, 100, 128])
+def test_chunk_init_rows_match_plain(cuda, nb):
+    """The chunk start with a row a member in its parameters (up to
+    CS_INLINE) and with one shared row, bit for bit against the plain
+    version: control blocks, stats rings; one device launch."""
+    rng = np.random.default_rng(nb)
+    F = 64
+    for shared in (False, True):
+        valid = torch.from_numpy((rng.random((nb, F)) < 0.3).astype(np.uint8)).to(cuda)
+        lvl0 = rng.integers(0, 50, nb)
+        rows = lv.chunk_rows(lvl0, lvl0 + rng.integers(0, 3, nb), rng.integers(0, 2, nb),
+                             rng.integers(1, 99, nb), rng.integers(0, 9, nb))
+        if shared:
+            rows = rows[:1]
+        kc = torch.full((nb, lv.CTL_SIZE), 3, dtype=torch.int32, device=cuda)
+        pc = kc.clone()
+        ks = torch.ones((nb, lv.LEVEL_STAT_ROWS, 4), dtype=torch.int32, device=cuda)
+        ps = ks.clone()
+        lv.chunk_init(kc, valid, ks, rows)
+        lv.chunk_init_plain(pc, valid, ps, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(kc, pc) and torch.equal(ks, ps)
+    assert device_work(lambda: lv.chunk_init(kc, valid, ks, rows)) == _launches_only(1)
+
+
+def test_chunk_init_ladder_table_matches_plain(cuda):
+    """A batch above CS_INLINE members reads the ladder table on the card:
+    three chunks of the ladder's rule (fresh, then the control blocks the
+    previous chunk left: accepted, overflowed, emptied, stuck, at its
+    total), bit for bit against the plain version, table included."""
+    nb, F, lpc = 200, 32, 7
+    rng = np.random.default_rng(7)
+    totals = rng.integers(1, 40, nb)
+    lossy = rng.integers(0, 2, nb)
+    lvl0 = np.minimum(rng.integers(0, 30, nb), totals)
+    kt = lv.ladder_table(lvl0, totals, lossy, rng.integers(1, 99, nb), rng.integers(0, 9, nb),
+                         cuda)
+    pt = kt.clone()
+    kc = torch.zeros((nb, lv.CTL_SIZE), dtype=torch.int32, device=cuda)
+    pc = kc.clone()
+    for chunk in range(3):
+        valid = torch.from_numpy((rng.random((nb, F)) < 0.5).astype(np.uint8)).to(cuda)
+        lv.chunk_init(kc, valid, None, None, table=kt, lpc=lpc)
+        lv.chunk_init_plain(pc, valid, None, None, table=pt, lpc=lpc)
+        torch.cuda.synchronize()
+        assert torch.equal(kc, pc) and torch.equal(kt, pt), chunk
+        # what a chunk's levels leave: some members on, some stopped
+        step = torch.from_numpy(rng.integers(0, lpc + 1, nb).astype(np.int32)).to(cuda)
+        kc[:, lv.CTL_LVL] = torch.minimum(kc[:, lv.CTL_LVL] + step, kc[:, lv.CTL_MAXLVL])
+        for col in (lv.CTL_ACC, lv.CTL_OVF, lv.CTL_STUCK):
+            kc[:, col] = torch.from_numpy((rng.random(nb) < 0.1).astype(np.int32)).to(cuda)
+        pc.copy_(kc)
+    assert device_work(lambda: lv.chunk_init(kc, valid, None, None, table=kt, lpc=lpc)) \
+        == _launches_only(1)
 
 
 @pytest.mark.parametrize("mode", ["alltoall", "allgather"])

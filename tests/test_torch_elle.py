@@ -423,12 +423,6 @@ def test_what_later_slices_bring_raises():
         with pytest.raises(ValueError, match="later slice"):
             chk.check(store_test, h, {})
     with pytest.raises(ValueError, match="later slice"):
-        p_append.check(h, metrics=object(), **CPU)
-    with pytest.raises(ValueError, match="later slice"):
-        P.cycle_anomalies(P.DepGraph(2), metrics=object(), **CPU)
-    with pytest.raises(ValueError, match="later slice"):
-        P.cycle_anomalies_batch([], metrics=object())
-    with pytest.raises(ValueError, match="later slice"):
         P.monotonic_key_check(h)
     for fn in (p_txn.append_txns, p_txn.wr_txns, p_wl_append.gen, p_wl_wr.test):
         with pytest.raises(ValueError, match="later slice"):

@@ -182,10 +182,8 @@ def _single_stage_level(crash_p, sel, seed=5, F=32, warm=4):
     flags = lv.run_chunk_batch(lv.PLAIN, g, port.tabs, fr, ws, [0], [warm], [1],
                                port.nD.tolist(), port.nO.tolist(), CasRegister(init=0))
     ctl = torch.zeros((1, lv.CTL_SIZE), dtype=torch.int32)
-    ctl[0, lv.CTL_LVL], ctl[0, lv.CTL_MAXLVL] = flags[0][3], flags[0][3] + 1
-    ctl[0, lv.CTL_LOSSY], ctl[0, lv.CTL_FMAX] = 1, 1
-    ctl[0, lv.CTL_ND], ctl[0, lv.CTL_NO] = int(port.nD[0]), int(port.nO[0])
-    lv.chunk_init_plain(ctl, fr[4])
+    lv.chunk_init_plain(ctl, fr[4], None, [(flags[0][3], flags[0][3] + 1, 1, int(port.nD[0]),
+                                            int(port.nO[0]))])
     assert int(ctl[0, lv.CTL_GO]) == 1
     return g, port, fr, ctl
 

@@ -96,7 +96,8 @@ def test_every_kernel_entry_point_has_a_signature_and_a_source():
 
 @pytest.mark.parametrize("name,define", [("SORT_CTA_MAX", "RS_CTA_MAX"),
                                          ("SORT_HDR", "RS_HDR"), ("GF_ROWS", "GF_ROWS"),
-                                         ("RG_INLINE", "RG_INLINE")])
+                                         ("RG_INLINE", "RG_INLINE"),
+                                         ("CS_INLINE", "CS_INLINE")])
 def test_build_sizes_match_the_cuda_source(name, define):
     """The sizes the wrappers read from ``_build`` are the ones the CUDA
     source defines."""

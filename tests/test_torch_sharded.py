@@ -246,14 +246,6 @@ def test_sharded_backend_via_checker():
     assert res["sharded"] is True and res["n_shards"] == 1
 
 
-@pytest.mark.parametrize("kw", [dict(checkpoint_path="x.npz"), dict(metrics=object()),
-                                dict(chunk_callback=print)])
-def test_later_slice_options_raise(kw):
-    with pytest.raises(ValueError, match="later slice"):
-        frontier.check_history_sharded(CasRegister(init=0), _checker_history(History),
-                                       mesh=make_mesh(2, device="cpu"), **kw)
-
-
 def test_multi_device_mesh_raises():
     with pytest.raises(ValueError, match="later slice"):
         make_mesh(2, devices=["cuda:0", "cuda:1"])

@@ -175,13 +175,8 @@ def _partial_level(pair, fr, upto):
     reference frontier ``fr``; returns the workspace."""
     ws = lv.BatchWorkspace(pair.g, pair.D, "cpu")
     pfr = wgl.frontier_from_arrays(*fr, device="cpu", n_shards=pair.D)[:5]
-    ctl = torch.zeros((pair.D, lv.CTL_SIZE), dtype=torch.int32)
-    ctl[:, lv.CTL_LVL] = int(fr[5])
-    ctl[:, lv.CTL_MAXLVL] = pair.total
-    ctl[:, lv.CTL_FMAX] = 1
-    ctl[:, lv.CTL_ND], ctl[:, lv.CTL_NO] = pair.plan.nD, pair.plan.nO
-    ws.ctl.copy_(ctl)
-    lv.chunk_init_plain(ws.ctl, pfr[4])
+    lv.chunk_init_plain(ws.ctl, pfr[4], ws.stats,
+                        [(int(fr[5]), pair.total, 0, pair.plan.nD, pair.plan.nO)])
     lv.shard_reduce_plain(pair.g, ws.ctl, 0)
     for stage, args in lv._sharded_level_stages(pair.g, pair.tabs, pfr, ws, pair.model):
         getattr(lv.PLAIN, stage)(*args)
@@ -407,36 +402,38 @@ def test_sharded_prune_plain_runs_the_reduce(mode, D, S):
 
 @pytest.mark.parametrize("D", [1, 2, 3, 8])
 def test_sharded_chunk_init_plain_runs_the_reduce(D):
-    """A sharded chunk start (a ticket given) is each shard's frontier
-    count and then the chunk-start reduce (``ops/wgl.py:830-836``): the
-    sum, max and min of the counts and one global stop test from shard 0's
-    loop carry, on every shard; without the ticket each shard's own."""
+    """A sharded chunk start (a ticket given) is each shard's control block
+    from the shared initial values, its frontier count and then the
+    chunk-start reduce (``ops/wgl.py:830-836``): the sum, max and min of
+    the counts and one global stop test on every shard; without the ticket
+    each shard's own. A stale control block and stats ring are
+    overwritten."""
     rng = np.random.default_rng(50 + D)
     F = 16
     for trial in range(6):
         valid = torch.from_numpy((rng.random((D, F)) < rng.random((D, 1))).astype(np.uint8))
         if trial == 1:
             valid.zero_()  # an empty frontier stops the search
-        ctl = torch.zeros((D, lv.CTL_SIZE), dtype=torch.int32)
-        ctl[:, lv.CTL_LVL] = int(rng.integers(0, 10))
-        ctl[:, lv.CTL_MAXLVL] = 9
-        ctl[:, lv.CTL_OVF] = int(trial == 3)
-        ctl[:, lv.CTL_LOSSY] = int(trial % 2)
-        ctl[:, lv.CTL_STUCK] = int(trial == 4)
-        alone = ctl.clone()
-        lv.chunk_init(ctl, valid, lv.gather_scratch(D, "cpu"))
-        lv.chunk_init(alone, valid)
+        lvl0 = int(rng.integers(0, 10))
+        row = (lvl0, 9 if trial != 4 else lvl0, trial % 2, 7, 2)  # trial 4: no budget
+        stale = torch.from_numpy(rng.integers(-5, 5, (D, lv.CTL_SIZE)).astype(np.int32))
+        ctl, alone = stale.clone(), stale.clone()
+        stats = torch.ones((D, lv.LEVEL_STAT_ROWS, 4), dtype=torch.int32)
+        lv.chunk_init(ctl, valid, stats, [row], lv.gather_scratch(D, "cpu"))
+        lv.chunk_init(alone, valid, None, [row])
         fc = valid.sum(dim=1).numpy()
-        c0 = alone[0].tolist()
-        go = (not c0[lv.CTL_ACC] and (c0[lv.CTL_LOSSY] or not c0[lv.CTL_OVF])
-              and not c0[lv.CTL_STUCK] and fc.sum() > 0 and c0[lv.CTL_LVL] < c0[lv.CTL_MAXLVL])
+        go = fc.sum() > 0 and row[0] < row[1]
         c = ctl.numpy()
         assert (c[:, lv.CTL_FCOUNT] == fc).all() and (c[:, lv.CTL_GO] == int(go)).all()
         assert (c[:, lv.CTL_NSUM] == fc.sum()).all() and (c[:, lv.CTL_NMAX] == fc.max()).all()
-        assert (c[:, lv.CTL_NMIN] == fc.min()).all()
+        assert (c[:, lv.CTL_NMIN] == fc.min()).all() and not stats.any()
+        for k, v in zip((lv.CTL_LVL, lv.CTL_MAXLVL, lv.CTL_LOSSY, lv.CTL_ND, lv.CTL_NO,
+                         lv.CTL_FMAX, lv.CTL_ACC, lv.CTL_OVF, lv.CTL_STUCK),
+                        row + (1, 0, 0, 0)):
+            assert (c[:, k] == v).all() and (alone.numpy()[:, k] == v).all()
         a = alone.numpy()
         assert (a[:, lv.CTL_FCOUNT] == fc).all() and not a[:, lv.CTL_NSUM:].any()
-        assert (a[:, lv.CTL_GO] == [int(go and f > 0) for f in fc]).all()
+        assert (a[:, lv.CTL_GO] == [int(row[0] < row[1] and f > 0) for f in fc]).all()
 
 
 @pytest.mark.parametrize("D", [1, 2, 3, 8])
@@ -536,8 +533,8 @@ def test_sharded_level_program_launches(mode, monkeypatch):
     # the prune is told it runs the shards' reduce; the chunk start its ticket
     prune = lv._prune_args(pair.g, ws.drows, ws.keys, ws.perm, ws.ctl, ws.fprio, ws.pr)
     assert prune[13].value == lv._EX_MODE[mode] and prune[11].value == pair.g.F
-    init = lv._chunk_init_args(ws.ctl, fr[4], ws.gf)
-    assert init[2].value == ws.gf.data_ptr()
+    init = lv._chunk_init_args(ws.ctl, fr[4], ws.stats, [(0, 9, 0, 1, 0)], ws.gf)
+    assert init[3].value == ws.gf.data_ptr() and init[2].value == ws.stats.data_ptr()
     bad = torch.zeros((2, lv.CTL_SIZE), dtype=torch.int32)
     with pytest.raises(ValueError, match="members"):
         lv._prune_args(pair.g, ws.drows[:2], ws.keys[:2], ws.perm[:2], bad, ws.fprio[:2], ws.pr)

@@ -24,7 +24,13 @@
 //   received rows after the route or the exchange (the kernels that write
 //   those rows now write their keys);
 // - the re-batch of stacked frontiers as five launches, one an array, a
-//   thread an output element (two 64-bit divisions each).
+//   thread an output element (two 64-bit divisions each);
+// - the chunk start's count and stop test (one 1024-thread block a member,
+//   a byte a load; with a ticket word its last block runs the chunk-start
+//   reduce) over control blocks the host copied to the card and stats
+//   rings a memset zeroed first (chip_smoke.py times that whole start:
+//   the host's copy, the memset, this launch and the host's read before
+//   the first level).
 //
 // The control-block layout and the level's outcome and finalize are the
 // library's own, so the source includes it whole; this file's shared
@@ -323,7 +329,40 @@ static void yard_regroup_launch(const void* src, void* dst, const int* idx, int 
                                                          F_old, F_new, R);
 }
 
+__global__ void k_yard_chunk_init(int* ctl, const unsigned char* valid, int F, u32* ticket) {
+  const int b = blockIdx.x;
+  int* c = ctl + (size_t)b * CTL_SIZE;
+  valid += (size_t)b * F;
+  int n = 0;
+  for (int i = threadIdx.x; i < F; i += blockDim.x) n += valid[i] ? 1 : 0;
+  int total;
+  block_excl_sum(n, &total);
+  __shared__ bool s_last;
+  if (threadIdx.x == 0) {
+    c[CTL_FCOUNT] = total;
+    bool go = !c[CTL_ACC] && (c[CTL_LOSSY] || !c[CTL_OVF]) && !c[CTL_STUCK] &&
+              total > 0 && c[CTL_LVL] < c[CTL_MAXLVL];
+    c[CTL_GO] = go ? 1 : 0;
+    if (ticket) s_last = ticket_acq_rel(ticket) == gridDim.x - 1;
+  }
+  if (ticket == nullptr) return;
+  __syncthreads();
+  if (s_last && threadIdx.x < 32) {
+    if (threadIdx.x == 0) *ticket = 0u;
+    chunk_reduce(ctl, gridDim.x);
+  }
+}
+
 extern "C" {
+
+// The parent's chunk start on the card: the count and stop test
+// over control blocks already copied in; with ticket (one zero word, left
+// zero) the last block runs the chunk-start reduce.
+int yardstick_chunk_init(void* ctl, void* valid, void* ticket, int F, int nb, void* stream) {
+  k_yard_chunk_init<<<nb, 1024, 0, (cudaStream_t)stream>>>(
+      (int*)ctl, (const unsigned char*)valid, F, (u32*)ticket);
+  return (int)cudaGetLastError();
+}
 
 int yardstick_take_col(void* src, long src_member, int stride, int col, void* idx, void* out,
                        int n, int nb, void* ctl, void* stream) {
@@ -382,9 +421,9 @@ int yardstick_prune_reduce(void* drows, void* skey, void* perm, void* ctl, void*
   return (int)cudaGetLastError();
 }
 
-// The parent's sharded chunk start: the chunk init, then the reduce.
+// The earlier sharded chunk start: the chunk init, then the reduce.
 int yardstick_chunk_init_reduce(void* ctl, void* valid, int F, int nb, void* stream) {
-  const int rc = wgl_chunk_init(ctl, valid, nullptr, F, nb, stream);
+  const int rc = yardstick_chunk_init(ctl, valid, nullptr, F, nb, stream);
   if (rc) return rc;
   k_yard_shard_reduce<<<1, 32, 0, (cudaStream_t)stream>>>((int*)ctl, nb, F, 0, 0, 0);
   return (int)cudaGetLastError();
