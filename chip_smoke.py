@@ -122,6 +122,38 @@ and then runs these phases, each printing JSON lines:
   keyed checker (the batch at ``S = 3``), agreeing with ``check_batch``,
   the plain path and the host oracle, and the ``compose`` wiring checked
   key by key with the same results;
+- ``native``: the native C search (``jepsen_tpu_torch/native/wgl_native.c``,
+  built with ``cc`` into ``jepsen_tpu_torch/_build/``; the phase fails
+  without a compiler): the north star through
+  ``check_history(..., backend="native")`` ``True``, its perturbed twin
+  (``perturb_history(Random(7), ...)``, as ``bench.py:268``) decided with
+  its witness and in agreement with the device search wherever that is
+  definite; 3 timed runs of each (minimum and median) with
+  ``configs_explored``, the C call's own wall and the seconds spent in
+  Python's garbage collector, the host CPU and ``os.cpu_count()``;
+- ``auto``: ``backend="auto"`` decides the north star (3 timed runs, as
+  under ``native``) and mutex_5k's history on the C search, and runs the 2000-op valid history of each
+  family with no step in it (multi-register, counter, set, bank) on the
+  card: ``device`` and ``torch_device`` ``cuda``, every level kernel
+  launched, one level of that search's own level program counted from a
+  stream capture (``testing.device_work``), and the verdict of
+  ``backend="device"`` (the oracle those unknowns fall back to is held to
+  ``AUTO_HOST_CONFIGS``, and must end unknown on that budget); a history
+  whose device search ends unknown is decided by the host oracle, with
+  ``device_attempt``;
+- ``competition``: ``backend="competition"`` on the north star: with
+  ``native_max_configs=1`` the device side decides (final level 7256 and
+  the main path's per-level rows, every kernel launched), at the default
+  budgets a definite ``True`` (the winning engine and the race's wall
+  beside the C side alone and the device search alone, in turns, with
+  the device side's chunks and levels in each race: at least one chunk
+  launched, and no error from either side), the first case again
+  straight after the races, and the perturbed twin in agreement with the
+  native verdict (no error from either side, at least one device chunk);
+  then the device search alone and with the race's C side searching the
+  twin beside it, in ``CONTENTION_TURNS`` pairs (walls, each pair's
+  ratio, and the device's idle
+  share under the profiler in the last pair);
 - ``elle_append_8k``: an 8000-txn list-append history (reads lag up to
   16 txns) through ``elle.append.check`` with the process graph: one
   chunk of 6 masks at bucket 8192 on the closure kernels, the result map
@@ -194,11 +226,12 @@ and then runs these phases, each printing JSON lines:
   through the test map's mesh.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
-the per-kernel JSON line, and ``{"ok": true, "device": {...}}``. Any failed
-phase raises: the script then exits non-zero and prints no result.
+the per-kernel JSON line, and ``{"ok": true, "device": {...}}``.
+Any failed phase raises: the script then exits non-zero and prints no result.
 Without CUDA it exits 2.
 """
 
+import contextlib
 import dataclasses
 import json
 import random
@@ -347,6 +380,20 @@ MODEL_PLAIN_REPS = dict(batch=3, batches=3)
 MUTEX_5K = dict(seed=5, n_ops=5000, n_procs=8)
 KEYED = dict(seed=3000, keys=100, n_ops=200, n_procs=4, crash_p=0.01, perturb_every=8,
              plain_keys=16, compose_keys=10)
+# The host engines (native, auto, competition): timed runs of each case,
+# the bench's perturbed twin of the north star (bench.py:268), the families
+# with no step in the C engine, and the host oracle's budget when the auto
+# path asks it about one of their 2000-op histories (held low to keep the
+# phase short; the phase checks that the oracle ends unknown on it).
+ENGINE_TURNS = 3
+TWIN_SEED = 7
+AUTO_FAMILIES = ("multi-register", "counter", "set", "bank")
+AUTO_HOST_CONFIGS = 2000
+# A history that a one-rung schedule of 16 leaves unknown and the oracle
+# decides at once: auto's fallback to the oracle, on the card.
+AUTO_FALLBACK = dict(model="counter", seed=2, n_ops=60, n_procs=8, crash_p=0.2,
+                     f_schedule=(16,))
+CONTENTION_TURNS = 7
 # The frontier-sharded search: D = 8 shards of one card at a global
 # capacity of 4096 (512 rows a shard), on the reference bench leg's
 # history (bench.py:1847-1849), a perturbed copy refuted early, and the
@@ -3602,6 +3649,413 @@ def elle_sharded_phases(ctx):
     return main, results, paths, errs
 
 
+def host_cpu() -> str:
+    """The host CPU's model name from ``/proc/cpuinfo``; where the machine
+    reports none, its vendor, family and model numbers."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+                if not line.strip():
+                    break
+    except OSError:
+        return "not read"
+    name = fields.get("model name", "unknown")
+    if name and name != "unknown":
+        return name
+    return (f"{fields.get('vendor_id', 'unknown')} family {fields.get('cpu family', '?')} "
+            f"model {fields.get('model', '?')} (no model name reported)")
+
+
+def host_line() -> dict:
+    import os
+
+    return {"host_cpu": host_cpu(), "cpu_count": os.cpu_count()}
+
+
+def min_median(xs) -> dict:
+    return {"min_s": min(xs), "median_s": statistics.median(xs), "n": len(xs),
+            "runs_s": list(xs)}
+
+
+class GcClock:
+    """Seconds spent in Python's cyclic garbage collector inside the block."""
+
+    def __enter__(self):
+        import gc
+
+        self.s, self._t = 0.0, None
+        gc.callbacks.append(self._note)
+        return self
+
+    def _note(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            self.s += time.perf_counter() - self._t
+            self._t = None
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._note)
+
+
+def timed_engine_runs(wgl, model, h, backend) -> dict:
+    """ENGINE_TURNS runs of check_history(backend=...) on the host engines:
+    wall min/median, and for each run the C call's own wall (``wall_s`` of
+    the result) and the seconds in the garbage collector, which together
+    say where a slow run's time went."""
+    walls, c_walls, gcs, res = [], [], [], None
+    for _ in range(ENGINE_TURNS):
+        with GcClock() as gc_clock:
+            t = time.perf_counter()
+            res = wgl.check_history(model, h, backend=backend)
+            walls.append(time.perf_counter() - t)
+        c_walls.append(res.get("wall_s"))
+        gcs.append(gc_clock.s)
+    return dict(min_median(walls), c_wall_s=c_walls, gc_s=gcs, valid=res["valid"],
+                backend=res.get("backend"), configs_explored=res.get("configs_explored"),
+                frontier_max=res.get("frontier_max"),
+                max_linearized=res.get("max_linearized"),
+                stuck_configs=len(res.get("stuck_configs") or []), result=res)
+
+
+def profiled_busy_ms(prof) -> float:
+    """Device busy ms in a ``torch.profiler`` trace, summed from the raw
+    Kineto events with the filters ``events()`` applies (its FunctionEvent
+    list, which ``key_averages`` needs too, takes 8-10 s to build for a
+    north-star search's tens of thousands of kernels)."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name
+
+    total = 0
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA or e.is_async() or _filter_name(e.name())
+                or getattr(e, "is_hidden_event", lambda: False)()):
+            continue
+        total += e.end_ns() - e.start_ns()
+    return total / 1e6
+
+
+class FirstChunk:
+    """While installed, records the first chunk a single device search runs
+    (its ``_Search`` and capacity), so that its level program can be
+    captured afterwards: :meth:`level_work` counts the device work of one
+    level of that program, on the search's own plan, tables and model, at
+    that capacity, from a stream capture on a fresh workspace."""
+
+    def __init__(self, wgl):
+        self.wgl = wgl
+        self.seen = None
+
+    def __enter__(self):
+        self.orig = orig = self.wgl._Search.chunk
+
+        def chunk(search, fr, F, *a, **kw):
+            if self.seen is None:
+                self.seen = (search, F)
+            return orig(search, fr, F, *a, **kw)
+
+        self.wgl._Search.chunk = chunk
+        return self
+
+    def __exit__(self, *exc):
+        self.wgl._Search.chunk = self.orig
+
+    def level_work(self, lv) -> dict:
+        from jepsen_tpu_torch.testing import device_work
+
+        search, F = self.seen
+        plan, wgl = search.plan, self.wgl
+        g = wgl.level_geometry(plan, F)
+        fr = tuple(a[None] for a in wgl.initial_frontier(F, g.W, g.KO, g.S, plan.init_state,
+                                                         plan.device)[:5])
+        tabs = {k: t[None] for k, t in plan.tabs.items()}
+        ws = lv.BatchWorkspace(g, 1, plan.device)
+        lv._LevelProgram(g, tabs, fr, ws, search.model)()
+        # packed inside the capture, so that the launches go to its stream
+        return dict(device_work(lambda: lv._LevelProgram(g, tabs, fr, ws, search.model)()),
+                    F=F, two_stage=g.two_stage)
+
+
+def native_phase(wgl, model, hist, twin):
+    """The native C search built from the port's copy and the north star
+    and its perturbed twin through check_history(backend="native"), timed
+    (ENGINE_TURNS runs each); the twin's verdict held against the device
+    search's wherever that is definite. Returns (the twin's native result,
+    the twin's device result, the device search's wall on the twin)."""
+    import torch
+
+    from jepsen_tpu_torch import native
+
+    t = time.perf_counter()
+    lib = native.load()
+    build_s = time.perf_counter() - t
+    if lib is None:
+        raise AssertionError("native: no C compiler on the PATH; load() gave None")
+    rows = {label: timed_engine_runs(wgl, model, h, "native")
+            for label, h in (("north_star", hist), ("twin", twin))}
+    north, twin_res = rows["north_star"]["result"], rows["twin"]["result"]
+    t = time.perf_counter()
+    twin_dev = wgl.check_history(model, twin, backend="device")
+    torch.cuda.synchronize()
+    twin_dev_wall = time.perf_counter() - t
+    agree = twin_dev["valid"] == "unknown" or twin_dev["valid"] == twin_res["valid"]
+    emit({"phase": "native", "library": str(native.library_path()), "build_s": build_s,
+          **host_line(), **{k: {x: y for x, y in v.items() if x != "result"}
+                            for k, v in rows.items()},
+          "twin_device": {"valid": twin_dev["valid"], "levels": twin_dev.get("levels"),
+                          "wall_s": twin_dev_wall, "causes": twin_dev.get("causes")},
+          "twin_agrees_with_device": agree})
+    if not (north["valid"] is True and north["backend"] == "native"
+            and twin_res["valid"] in (True, False) and twin_res["backend"] == "native"
+            and (twin_res["valid"] is True or twin_res.get("stuck_configs")) and agree):
+        raise AssertionError("native phase failed")
+    return twin_res, twin_dev, twin_dev_wall
+
+
+def auto_phase(lv, wgl, model, hist, hists):
+    """backend="auto": the north star (ENGINE_TURNS timed runs) and
+    mutex_5k's history on the C search; each family with no step in it (AUTO_FAMILIES, the 2000-op
+    valid history of models_2k) on the card, with its kernels' launch
+    counts, a stream capture of one level of its own level program, and
+    the verdict of backend="device"; a history the device search leaves
+    unknown decided by the host oracle, with device_attempt; for a family
+    left unknown, the oracle held to AUTO_HOST_CONFIGS ending unknown on
+    that budget (why auto has no oracle verdict there)."""
+    import torch
+
+    from jepsen_tpu_torch.ops import wgl_host
+    from jepsen_tpu_torch.ops.encode import encode_history
+    from jepsen_tpu_torch.testing import history_model, random_lock_history, \
+        random_model_history
+
+    out = {}
+    mutex_h = random_lock_history(random.Random(MUTEX_5K["seed"]), n_ops=MUTEX_5K["n_ops"],
+                                  n_procs=MUTEX_5K["n_procs"])
+    for label, m, h in (("north_star", model, hist),
+                        ("mutex_5k", history_model("owner-aware-mutex"), mutex_h)):
+        row = timed_engine_runs(wgl, m, h, "auto")
+        del row["result"]
+        out[label] = row
+        if not (row["valid"] is True and row["backend"] == "native"):
+            raise AssertionError(f"auto: {label} was not decided by the C search: {row}")
+    for name in AUTO_FAMILIES:
+        good = hists[name][0]
+        m = history_model(name)
+        reset_counts(lv)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with FirstChunk(wgl) as first:
+            r = wgl.check_history(m, good, backend="auto", host_max_configs=AUTO_HOST_CONFIGS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = launch_counts(lv, f"auto {name}", LEVEL_KERNELS)
+        work = first.level_work(lv)
+        dev = wgl.check_history(m, good, backend="device")
+        ran = r.get("device_attempt") or r
+        out[name] = {"valid": r["valid"], "device_valid": dev["valid"], "wall_s": wall,
+                     "device": ran.get("device"), "torch_device": ran.get("torch_device"),
+                     "levels": ran.get("levels"), "oracle": "device_attempt" in r,
+                     "level_device_work": work, "launches": launches}
+        if not (ran.get("device") is True and ran.get("torch_device") == "cuda"
+                and work["kernel"] > 0 and r["valid"] == dev["valid"]):
+            raise AssertionError(f"auto {name} did not run on the card: {out[name]}")
+        if r["valid"] == "unknown":
+            # no oracle verdict: the oracle, asked the same, ends on its budget
+            host = wgl_host.check_encoded(encode_history(m, good),
+                                          max_configs=AUTO_HOST_CONFIGS)
+            codes = [c.get("code") for c in host.get("causes") or []]
+            out[name]["oracle_alone"] = {"valid": host["valid"], "causes": codes}
+            if out[name]["oracle"] or host["valid"] != "unknown" or "max_configs" not in codes:
+                raise AssertionError(f"auto {name}: the oracle's unknown is not its "
+                                     f"budget's: {out[name]}")
+    fb = dict(AUTO_FALLBACK)
+    name = fb.pop("model")
+    m = history_model(name)
+    h = random_model_history(random.Random(fb.pop("seed")), name, n_ops=fb.pop("n_ops"),
+                             n_procs=fb.pop("n_procs"), crash_p=fb.pop("crash_p"))
+    reset_counts(lv)
+    r = wgl.check_history(m, h, backend="auto", **fb)
+    launches = launch_counts(lv, "auto's oracle fallback", LEVEL_KERNELS)
+    att = r.get("device_attempt") or {}
+    out["oracle_fallback"] = {"model": name, "valid": r["valid"],
+                              "device_attempt": {k: att.get(k) for k in
+                                                 ("valid", "levels", "torch_device", "causes")},
+                              "launches": launches}
+    if not (r["valid"] is True and "device" not in r and att.get("valid") == "unknown"
+            and att.get("torch_device") == "cuda"):
+        raise AssertionError(f"auto's oracle fallback failed: {out['oracle_fallback']}")
+    emit({"phase": "auto", **out})
+    return out
+
+
+def clean_race(row) -> bool:
+    """A race in which neither engine raised and the device side launched
+    at least one chunk (it runs its first chunk before it can see a win)."""
+    return (row["device_error"] is None and row["native_error"] is None
+            and row["device_chunks"] >= 1)
+
+
+def competition_phase(lv, wgl, model, hist, twin, main_res, twin_native, twin_dev_wall):
+    """backend="competition" on the north star: (2) with native_max_configs=1
+    the device side decides, the main path's final level and per-level rows,
+    every level kernel launched; (1) at the default budgets a definite True,
+    the race's wall beside the C side alone and the device search alone, in
+    turns; (3) case 2 again straight after the last race; (4) the perturbed
+    twin, agreeing with the native verdict. In cases 1 and 4 neither side
+    may have raised (``device_error``, ``native_error``) and the device
+    side must have launched at least one chunk. Then the device search
+    alone and with the race's C side searching the twin on the host's
+    cores beside it, in CONTENTION_TURNS pairs: walls, each pair's ratio,
+    and the device's idle share in the last pair."""
+    import ctypes
+    import os
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from jepsen_tpu_torch.ops import wgl_c
+    from jepsen_tpu_torch.ops.encode import encode_history
+
+    enc = encode_history(model, hist)
+    budget = 1_000_000 + 2_000 * enc.n
+    strategy, n_thr = wgl_c.parallel_policy()
+
+    def forced():
+        reset_counts(lv)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = wgl.check_history(model, hist, backend="competition", native_max_configs=1,
+                              collect_stats=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        ok = (r.get("engine") == "device" and r["valid"] is True
+              and r["levels"] == main_res["levels"]
+              and r["level_stats"] == main_res["level_stats"])
+        return r, {"engine": r.get("engine"), "valid": r["valid"], "levels": r.get("levels"),
+                   "wall_s": wall, "same_as_main_path": ok,
+                   "device_error": r.get("device_error"),
+                   "native_error": r.get("native_error"),
+                   "launches": launch_counts(lv, "competition with native_max_configs=1")}
+
+    r2a, case2 = forced()
+    races, natives, devices = [], [], []
+    for _ in range(ENGINE_TURNS):
+        t = time.perf_counter()
+        nat = wgl_c.check_encoded_native(enc, max_configs=budget, strategy=strategy,
+                                         n_threads=n_thr)
+        natives.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        dev = wgl.check_history(model, hist, backend="device")
+        torch.cuda.synchronize()
+        devices.append(time.perf_counter() - t)
+        reset_counts(lv)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        race = wgl.check_history(model, hist, backend="competition")
+        torch.cuda.synchronize()
+        races.append(dict(wall_s=time.perf_counter() - t, engine=race.get("engine"),
+                          valid=race["valid"],
+                          device_chunks=lv.LAUNCHES["wgl_chunk_init"],
+                          device_levels_enqueued=lv.LAUNCHES["wgl_expand"],
+                          device_error=race.get("device_error"),
+                          native_error=race.get("native_error")))
+        if not (race["valid"] is True and nat["valid"] is True and dev["valid"] is True
+                and clean_race(races[-1])):
+            raise AssertionError(f"competition case 1 failed: {races[-1]}")
+    r2b, case3 = forced()
+    reset_counts(lv)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tw = wgl.check_history(model, twin, backend="competition")
+    torch.cuda.synchronize()
+    case4 = {"valid": tw["valid"], "engine": tw.get("engine"),
+             "wall_s": time.perf_counter() - t, "native_valid": twin_native["valid"],
+             "native_wall_s": twin_native["wall_s"], "device_alone_wall_s": twin_dev_wall,
+             "device_chunks": lv.LAUNCHES["wgl_chunk_init"],
+             "device_levels_enqueued": lv.LAUNCHES["wgl_expand"],
+             "device_error": tw.get("device_error"), "native_error": tw.get("native_error")}
+    # The device search alone, and with the race's C side searching the
+    # twin on the host beside it (the search restarts until the device
+    # search ends), in turns; the last pair under the profiler, for the
+    # device's idle share.
+    twin_enc = encode_history(model, twin)
+    load = []
+    for turn in range(CONTENTION_TURNS):
+        profiled = turn == CONTENTION_TURNS - 1
+        for loaded in (False, True):
+            stop = ctypes.c_int32(0)
+            searches = [0]
+
+            def c_side():
+                while not stop.value:
+                    wgl_c.check_encoded_native(twin_enc, max_configs=budget, cancel=stop,
+                                               strategy=strategy, n_threads=n_thr)
+                    searches[0] += 1
+
+            th = threading.Thread(target=c_side, daemon=True) if loaded else None
+            if th is not None:
+                th.start()
+            ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                   if profiled else contextlib.nullcontext())
+            with ctx as prof:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                r = wgl.check_history(model, hist, backend="device")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                stop.value = 1
+                t_stop = time.perf_counter()
+            if th is not None:
+                th.join()
+            row = {"loaded": loaded, "wall_s": wall, "c_searches": searches[0],
+                   "valid": r["valid"]}
+            if profiled:
+                t = time.perf_counter()
+                busy = profiled_busy_ms(prof)
+                row.update(busy_ms=busy, idle_share=1 - busy / (1e3 * wall) if busy else None,
+                           profiler_stop_s=t - t_stop, busy_sum_s=time.perf_counter() - t)
+            load.append(row)
+    alone = [x for x in load if not x["loaded"]]
+    loaded_rows = [x for x in load if x["loaded"]]
+    ratios = [b["wall_s"] / a["wall_s"] for a, b in zip(alone, loaded_rows)]
+    same_forced = (r2b["levels"] == r2a["levels"] and r2b["level_stats"] == r2a["level_stats"]
+                   and r2b["valid"] == r2a["valid"])
+    out = {"strategy": strategy, "n_threads": n_thr, **host_line(),
+           "case2_native_max_configs_1": case2, "case3_after_aborted_race": case3,
+           "case3_same_as_case2": same_forced,
+           "case1_races": races, "race": min_median([x["wall_s"] for x in races]),
+           "native_alone": min_median(natives), "device_alone": min_median(devices),
+           "engines": [x["engine"] for x in races], "case4_twin": case4,
+           "contention": load,
+           "device_alone_median_s": statistics.median(x["wall_s"] for x in alone),
+           "device_loaded_median_s": statistics.median(x["wall_s"] for x in loaded_rows),
+           "loaded_over_alone": ratios, "loaded_over_alone_median": statistics.median(ratios),
+           "pairs_loaded_slower": sum(x > 1 for x in ratios)}
+    emit({"phase": "competition", **out})
+    if not (case2["same_as_main_path"] and case3["same_as_main_path"] and same_forced
+            and case2["native_error"] is None and case3["native_error"] is None
+            and tw["valid"] in (True, False) and tw["valid"] == twin_native["valid"]
+            and clean_race(case4) and all(x["valid"] is True for x in load)):
+        raise AssertionError("competition phase failed")
+    return out
+
+
+def engine_phases(lv, wgl, model, hist, main_res, hists) -> None:
+    """The host engines: the native C search, auto, the competition."""
+    from jepsen_tpu_torch.testing import perturb_history
+
+    twin = perturb_history(random.Random(TWIN_SEED), hist)
+    twin_native, _twin_dev, twin_dev_wall = native_phase(wgl, model, hist, twin)
+    auto_phase(lv, wgl, model, hist, hists)
+    competition_phase(lv, wgl, model, hist, twin, main_res, twin_native, twin_dev_wall)
+
+
 def main() -> int:
     import torch
 
@@ -3925,6 +4379,7 @@ def main() -> int:
     errs["wgl_expand"] = max(errs["wgl_expand"], mutex_expand["max_abs_err"])
     family_launches = models_2k_phase(lv, wgl, wgl_host, hists)
     keyed_mr_launches = keyed_multi_register_phase(lv, wgl_host, jchecker, independent, History)
+    engine_phases(lv, wgl, model, hist, res, hists)
 
     # -- the frontier-sharded search on SHARD_D shards of the card ------------
     shard_stats, shard_errs = sharded_kernels_phase(lv, wgl, enc, model)

@@ -5,10 +5,12 @@ The port of the reference's ``jepsen_tpu/checker/__init__.py``: the
 ``True < "unknown" < False``, ``check_safe``, ``compose``, ``stats``, and
 ``linearizable``, which
 dispatches on the ``backend`` option (overridden by the test map's
-``checker_backend``) onto the GPU search (``ops.wgl``), the
-frontier-sharded search (``parallel.frontier``) or the port's host oracle,
-and decides many keyed subhistories at once through ``batch_check``
-(``parallel.check_batch``).
+``checker_backend``) onto the GPU search (``ops.wgl``), the native C search
+(``ops.wgl_c``), the two raced, the frontier-sharded search
+(``parallel.frontier``) or the port's host oracle, and decides many keyed
+subhistories at once through ``batch_check`` (``parallel.check_batch``).
+On a test map with ``"telemetry?": True`` it records into the test's
+registry (``telemetry.of_test``).
 
 Result maps use the key ``"valid"`` with values True / False / "unknown".
 """
@@ -16,10 +18,12 @@ Result maps use the key ``"valid"`` with values True / False / "unknown".
 from __future__ import annotations
 
 import logging
+import time as _time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Optional
 
+from .. import telemetry
 from ..devices import resolve_device
 from ..history import History
 
@@ -30,13 +34,12 @@ _VALID_PRIORITY = {True: 0, "unknown": 0.5, False: 1}
 
 # Backend names the device search answers to; "tpu" is the reference's.
 DEVICE_BACKENDS = ("device", "tpu", "gpu", "cuda")
+# check_history's engines besides the device search (ops.wgl.check_history).
+HISTORY_BACKENDS = ("auto", "native", "competition")
 # The reference's other engines, and the slice of the port that brings each.
-_LATER_BACKENDS = {
-    "auto": "the native engine",
-    "native": "the native engine",
-    "competition": "the native engine",
-    "segmented": "the offline segmented checker",
-}
+_LATER_BACKENDS = {"segmented": "the offline segmented checker"}
+# Bounds of the checker_seconds histogram (the reference's).
+_CHECKER_SECONDS_BUCKETS = (0.01, 0.05, 0.25, 1.0, 5.0, 30.0, 120.0, 600.0)
 
 
 class Checker:
@@ -151,12 +154,12 @@ def stats() -> Checker:
 
 
 def resolve_backend(name: str) -> str:
-    """``"device"``, ``"sharded"`` or ``"host"`` for a backend name; the
-    reference's other engines raise ``ValueError`` naming the slice that
-    brings them."""
+    """``"device"``, ``"auto"``, ``"native"``, ``"competition"``,
+    ``"sharded"`` or ``"host"`` for a backend name; ``"segmented"`` raises
+    ``ValueError`` naming the slice that brings it."""
     if name in DEVICE_BACKENDS:
         return "device"
-    if name in ("host", "sharded"):
+    if name in ("host", "sharded") or name in HISTORY_BACKENDS:
         return name
     if name in _LATER_BACKENDS:
         raise ValueError(f"backend {name!r} comes with a later slice of the port "
@@ -176,16 +179,27 @@ def linearizable(options: Optional[dict] = None, **kw) -> Checker:
 
     - ``model``: a ``jepsen_tpu_torch.models.Model`` (required).
     - ``backend``: ``"device"`` (default; ``"tpu"``, ``"gpu"`` and
-      ``"cuda"`` are aliases), ``"sharded"`` (the frontier-sharded search
-      over the test map's ``"mesh"``, else a mesh of one shard on
-      ``device``) or ``"host"`` (the port's oracle), overridden by the test
-      map's ``checker_backend``.
+      ``"cuda"`` are aliases), ``"auto"``, ``"native"`` or
+      ``"competition"`` (``ops.wgl.check_history``'s engines: the C search
+      first, the C search alone, or the two raced), ``"sharded"`` (the
+      frontier-sharded search over the test map's ``"mesh"``, else a mesh
+      of one shard on ``device``) or ``"host"`` (the port's oracle),
+      overridden by the test map's ``checker_backend``. The default stays
+      ``"device"`` (the reference's is ``"auto"``): the port's entry points
+      run the GPU unless asked otherwise, and ``"auto"`` is one keyword
+      away.
     - ``device``: the torch device of the device backends (default the GPU;
       ``"cpu"`` runs the plain PyTorch version, as the tests do).
 
     The returned checker's ``batch_check(test, keyed_histories, opts)``
     decides many subhistories as one batched search and re-checks each
-    key it leaves ``unknown`` on its own. The witness files of a stored
+    key it leaves ``unknown`` on its own, through the resolved backend
+    (under ``"auto"`` the C search first). With telemetry on, both record
+    ``checker_seconds{checker,backend}``; a single check also records the
+    ``checker_op_count`` gauge and passes the registry (``metrics``) and a
+    :class:`~jepsen_tpu_torch.telemetry.Heartbeat` (``chunk_callback``) to
+    the engines, the batch ``metrics`` and
+    ``checker_batch_keys_total{result}``. The witness files of a stored
     test (``linear.txt``/``linear.svg``) come with a later slice: a test
     map that asks for stored output raises ``ValueError``."""
     o = dict(options or {})
@@ -201,9 +215,11 @@ def linearizable(options: Optional[dict] = None, **kw) -> Checker:
     def _resolve(test):
         return resolve_backend((test or {}).get("checker_backend", default_backend))
 
-    def _check_one(test, ops, backend):
+    def _check_one(test, ops, backend, **kw):
         """The single-history dispatch, shared by ``chk`` and the keyed
-        batch's recheck of unknown keys."""
+        batch's recheck of unknown keys. ``kw`` carries the telemetry
+        (``metrics``, a heartbeat ``chunk_callback``); the sharded search
+        takes only ``metrics``, the host oracle neither."""
         from ..ops import wgl
 
         if backend == "host":
@@ -212,9 +228,16 @@ def linearizable(options: Optional[dict] = None, **kw) -> Checker:
             from ..parallel.frontier import check_history_sharded
 
             return check_history_sharded(model, ops, mesh=(test or {}).get("mesh"),
-                                         device=resolve_device(device))
-        return wgl.check_history(model, ops, backend="device",
-                                 device=resolve_device(device))
+                                         device=resolve_device(device),
+                                         metrics=kw.get("metrics"))
+        # The device legs resolve the device; the C search never does.
+        return wgl.check_history(model, ops, backend=backend, device=device, **kw)
+
+    def _observe_seconds(reg, backend, t0):
+        reg.histogram("checker_seconds", "Checker wall seconds by checker and engine",
+                      labelnames=("checker", "backend"),
+                      buckets=_CHECKER_SECONDS_BUCKETS).labels(
+            checker="linearizable", backend=backend).observe(_time.perf_counter() - t0)
 
     def chk(test, history, opts):
         backend = _resolve(test)
@@ -222,7 +245,21 @@ def linearizable(options: Optional[dict] = None, **kw) -> Checker:
             raise ValueError("the test map asks for stored output; the linear.txt/"
                              "linear.svg witness files come with a later slice of the "
                              "port (the checker's store writes)")
-        res = _check_one(test, history.client_ops(), backend)
+        ops = history.client_ops()
+        reg = telemetry.of_test(test)
+        kw = {}
+        if reg is not None:
+            # The registry, and a heartbeat fed by the drivers' per-chunk
+            # callback (progress gauges and a periodic log line).
+            kw["metrics"] = reg
+            kw["chunk_callback"] = telemetry.Heartbeat(total=len(ops), registry=reg)
+        t0 = _time.perf_counter()
+        res = _check_one(test, ops, backend, **kw)
+        if reg is not None:
+            _observe_seconds(reg, str(res.get("backend")
+                                      or ("device" if res.get("device") else backend)), t0)
+            reg.gauge("checker_op_count", "Ops seen by the linearizable checker").set(
+                res.get("op_count") or len(ops))
         # Keep the search diagnostics bounded, as the reference does.
         if isinstance(res.get("attempts"), list):
             res["attempts"] = res["attempts"][:10]
@@ -239,14 +276,25 @@ def linearizable(options: Optional[dict] = None, **kw) -> Checker:
             raise RuntimeError("batch check requires the device backend")
         from ..parallel import check_batch
 
+        reg = telemetry.of_test(test)
+        kw = {"metrics": reg} if reg is not None else {}
+        t0 = _time.perf_counter()
         ks = list(keyed_histories)
         results = check_batch(model, [keyed_histories[k].client_ops() for k in ks],
-                              device=resolve_device(device))
+                              device=resolve_device(device), **kw)
         out_map = dict(zip(ks, results))
-        # Keys the shared batch could not decide get the single-history path.
+        # Keys the shared batch could not decide get the single-history
+        # path of the resolved backend (under auto, the C search first).
         for k, r in out_map.items():
             if r.get("valid") == "unknown":
-                out_map[k] = _check_one(test, keyed_histories[k].client_ops(), backend)
+                out_map[k] = _check_one(test, keyed_histories[k].client_ops(), backend, **kw)
+        if reg is not None:
+            _observe_seconds(reg, "batch", t0)
+            kc = reg.counter("checker_batch_keys_total",
+                             "Keys decided through the batched device check",
+                             labelnames=("result",))
+            for r in out_map.values():
+                kc.labels(result=str(r.get("valid"))).inc()
         return out_map
 
     out.batch_check = batch_check

@@ -3,9 +3,9 @@
 Every site that degrades a verdict to ``unknown`` attaches
 ``cause(code, **params)`` — a dict with ``code`` from the closed
 :data:`TAXONOMY`, the owning ``layer`` and optional ``params``. This copy
-carries the codes the device searches (single and batched) and the Elle
-cycle engine emit; the codes and their layers are the reference package's,
-so results from either package fold the same way.
+carries the codes the device searches (single and batched), the native C
+search and the Elle cycle engine emit; the codes and their layers are the
+reference package's, so results from either package fold the same way.
 """
 
 from __future__ import annotations
@@ -32,6 +32,9 @@ TAXONOMY: dict[str, tuple[str, str]] = {
     "max_configs": (
         "host",
         "host/native enumeration config budget exhausted"),
+    "oom": (
+        "host",
+        "native engine out of memory"),
     "encoding_unsupported": (
         "encode",
         "history/model does not fit the device encoding (plan "

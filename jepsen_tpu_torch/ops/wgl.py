@@ -56,8 +56,8 @@ LEVEL_STAT_ROWS = _lv.LEVEL_STAT_ROWS
 OPTIMISTIC_MIN_OPS = 1500
 OPTIMISTIC_BEAM_F = 4096
 
-# Engines of the reference's check_history that later slices bring.
-_LATER_BACKENDS = ("auto", "native", "competition")
+# The backends of check_history.
+BACKENDS = ("device", "host", "auto", "native", "competition")
 
 
 def _next_pow2(x: int, lo: int = 32) -> int:
@@ -924,6 +924,11 @@ def _device_search(enc: EncodedHistory, search: _Search, schedule: list,
                 rung_entry = lvl
 
 
+# Open-set words of the native engine's witness encoding (wgl_native.c's
+# NO_WORDS).
+NO_WORDS_OPEN = 4
+
+
 def decode_stuck_config(enc: EncodedHistory, det_rows, open_rows, p: int,
                         win: int, open_words: list, st: tuple) -> dict:
     """Decode one (p, window-bitset, open-set, state) search config into
@@ -1005,26 +1010,182 @@ def check_history_device(model: Model, history: History, **kw) -> dict:
     return check_encoded_device(encode_history(model, history), **kw)
 
 
+def check_encoded_competition(enc: EncodedHistory, native_max_configs: Optional[int] = None,
+                              **kw) -> dict:
+    """Race the native C search against the device search; the first
+    definite verdict wins (knossos's ``:competition`` strategy, the
+    reference's ``check_encoded_competition``). The C search runs on a
+    host thread and releases the GIL inside the library call, so both
+    engines run at once. The loser is cancelled: the device search raises
+    out of its next chunk callback, the C search polls a cancel flag.
+
+    Sound by construction: each engine is sound on its own, and the race
+    only picks which sound verdict comes back. ``native_max_configs``
+    bounds the C side (default ``1_000_000 + 2000 * n``); the other
+    keyword arguments go to :func:`check_encoded_device` (a caller's
+    ``chunk_callback`` is still called after every chunk), and
+    ``metrics`` to the C side too. The result carries ``backend =
+    "competition"`` and the winning ``engine``; a device search that
+    raised (other than by losing) leaves its error in ``device_error``, a
+    C search that raised in ``native_error``. The C library is loaded
+    before the race starts, so a failed build raises here."""
+    import ctypes
+    import threading
+
+    from .. import native
+    from . import wgl_c
+
+    native.load()
+    if native_max_configs is None:
+        native_max_configs = 1_000_000 + 2_000 * enc.n
+    done = threading.Event()
+    native_res: dict = {}
+    cancel = ctypes.c_int32(0)
+
+    def native_side():
+        try:
+            strategy, n_thr = wgl_c.parallel_policy()
+            nat = wgl_c.check_encoded_native(
+                enc, max_configs=native_max_configs, cancel=cancel, strategy=strategy,
+                n_threads=n_thr, metrics=kw.get("metrics"))
+        except Exception as e:  # noqa: BLE001 - the race must survive a loser
+            nat = None
+            native_res["native_error"] = f"{type(e).__name__}: {e}"
+        if nat is not None:
+            native_res.update(nat)
+        if nat is not None and nat["valid"] != "unknown":
+            done.set()
+
+    t = threading.Thread(target=native_side, daemon=True)
+    t.start()
+
+    class _Lost(Exception):
+        pass
+
+    outer_cb = kw.pop("chunk_callback", None)
+
+    def cb(info):
+        if done.is_set():
+            raise _Lost()
+        if outer_cb is not None:
+            outer_cb(info)
+
+    dev: Optional[dict] = None
+    device_error = None
+    try:
+        dev = check_encoded_device(enc, chunk_callback=cb, **kw)
+    except _Lost:
+        pass
+    except Exception as e:  # noqa: BLE001 - a device failure keeps a native verdict
+        device_error = f"{type(e).__name__}: {e}"
+    if dev is not None and dev["valid"] != "unknown":
+        # The device won: cancel the C search, which would otherwise run
+        # on to its whole budget.
+        done.set()
+        cancel.value = 1
+        t.join(timeout=30)
+        out = dev
+        out["engine"] = "device"
+    else:
+        # The device lost, failed or ended unknown: take the native
+        # verdict, waiting for it if it is still searching.
+        t.join()
+        if "valid" in native_res and native_res["valid"] != "unknown":
+            out = native_res
+            out["engine"] = "native"
+        else:
+            # Neither engine decided.
+            out = dev or native_res or {}
+            out.setdefault("valid", "unknown")
+            out.setdefault("op_count", enc.n)
+            out.setdefault("info", "neither engine reached a definite verdict")
+            # Each engine's own causes ride along; a bare fallback gets the
+            # backstop, so no unknown leaves here without a cause.
+            out["causes"] = _prov.ensure(_prov.of(out), stage="competition")
+    out["backend"] = "competition"
+    if device_error is not None:
+        out["device_error"] = device_error
+    if "native_error" in native_res:
+        out["native_error"] = native_res["native_error"]
+    return out
+
+
 def check_history(model: Model, history: History, backend: str = "device",
                   host_max_configs: int = 500_000, parallel: Optional[str] = None,
                   **kw) -> dict:
-    """Unified entry. ``backend="device"`` (the default) runs the frontier
-    search on the GPU (or ``device="cpu"``); ``backend="host"`` runs the
-    pure-Python oracle, as does a model with no device step
-    (``device_capable = False``: the queues), whose result's ``info`` then
-    says so. The reference's other engines come with later slices of the
-    port and raise here."""
+    """Unified entry over the three engines: the device search (this
+    module), the native C search (``ops.wgl_c``) and the host oracle
+    (``ops.wgl_host``).
+
+    ``backend``:
+
+    - ``"device"`` (the default): the frontier search on the GPU (or on
+      ``device="cpu"``);
+    - ``"auto"``: the C search first (a sequential probe of ``50_000 + 5
+      n`` configurations, then the parallel search under
+      :func:`wgl_c.parallel_policy` up to ``1_000_000 + 2000 n``), then,
+      for a model or shape it does not take or leaves ``unknown``, the
+      device search, and after a device ``unknown`` the host oracle (its
+      result keeps the device's under ``device_attempt``);
+    - ``"native"``: the C search as under ``auto``, and the host oracle
+      where it does not take the model or shape;
+    - ``"competition"``: the C search raced against the device search
+      (:func:`check_encoded_competition`), the host oracle after a shared
+      ``unknown`` (with ``competition_attempt``); ``auto`` for a model
+      with no device step;
+    - ``"host"``: the host oracle only.
+
+    A model with no device step (``device_capable = False``: the queues)
+    runs on the host oracle under ``device``, and its result's ``info``
+    says so. The device legs take every other keyword argument
+    (``device``, ``metrics``, ``chunk_callback``, ...); the C search takes
+    only ``metrics``. ``parallel=`` (the offline segmented checker) comes
+    with a later slice of the port and raises."""
     if parallel is not None:
         raise ValueError("parallel= (the offline segmented checker) comes "
                          "with a later slice of the port")
-    if backend in _LATER_BACKENDS:
-        raise ValueError(f"backend {backend!r} comes with a later slice of the "
-                         "port (the native engine); use 'device' or 'host'")
-    if backend not in ("device", "host"):
-        raise ValueError(f"unknown backend {backend!r}")
-    from . import wgl_host
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; use one of {BACKENDS}")
+    from . import wgl_c, wgl_host
 
     enc = encode_history(model, history)
+    if backend == "competition" and model.device_capable:
+        res = check_encoded_competition(enc, **kw)
+        if res["valid"] != "unknown":
+            return res
+        host = wgl_host.check_encoded(enc, max_configs=host_max_configs)
+        if host["valid"] != "unknown":
+            host["backend"] = "host"
+            host["competition_attempt"] = {k: res.get(k) for k in ("valid", "info")}
+            return host
+        return res
+    if backend == "competition":
+        backend = "auto"  # no device step: the same fallback chain
+    if backend in ("auto", "native"):
+        # Budgeted: the C memo costs about 57 B a slot at <= 75% load, plus
+        # a transient doubling while it grows.
+        budget = 1_000_000 + 2_000 * enc.n
+        # Two phases: a valid history decides in about n configurations,
+        # so a cheap sequential probe catches it at full speed; a probe
+        # that trips its budget suggests a refutation, which must cover
+        # the reachable space, so it reruns on the shared-stack engine.
+        quick = min(budget, 50_000 + 5 * enc.n)
+        nat = wgl_c.check_encoded_native(enc, max_configs=quick, metrics=kw.get("metrics"))
+        if nat is not None and nat["valid"] == "unknown":
+            strategy, n_thr = wgl_c.parallel_policy()
+            nat = wgl_c.check_encoded_native(enc, max_configs=budget, strategy=strategy,
+                                             n_threads=n_thr, metrics=kw.get("metrics"))
+        if nat is not None and nat["valid"] != "unknown":
+            nat["backend"] = "native"
+            return nat
+        if backend == "native":
+            if nat is not None:
+                nat["backend"] = "native"
+                return nat
+            res = wgl_host.check_encoded(enc, max_configs=host_max_configs)
+            res["backend"] = "host"
+            res["info"] = res.get("info") or "native engine unavailable; ran python oracle"
+            return res
     if backend == "host" or not model.device_capable:
         res = wgl_host.check_encoded(enc, max_configs=host_max_configs)
         if backend == "device":
@@ -1034,4 +1195,10 @@ def check_history(model: Model, history: History, backend: str = "device",
             res["info"] = f"{res['info']}; {note}" if res.get("info") else note
         res["backend"] = "host"
         return res
-    return check_encoded_device(enc, **kw)
+    res = check_encoded_device(enc, **kw)
+    if backend == "auto" and res["valid"] == "unknown":
+        host = wgl_host.check_encoded(enc, max_configs=host_max_configs)
+        if host["valid"] != "unknown":
+            host["device_attempt"] = res
+            return host
+    return res

@@ -37,10 +37,12 @@ GENERATORS_SLICE = ("the lock generators run tests rather than check them; they 
 
 
 def _linearizable(model, o: dict) -> jchecker.Checker:
-    """``{"linear": linearizable, "stats": stats}``. ``backend`` defaults
-    to ``"device"`` (the reference's ``"auto"`` is its native engine,
-    which the port does not have yet); ``device`` is the torch device (the
-    GPU by default)."""
+    """``{"linear": linearizable, "stats": stats}``. ``backend`` is any of
+    ``checker.linearizable``'s (``"device"``, ``"auto"``, ``"native"``,
+    ``"competition"``, ``"sharded"``, ``"host"``) and defaults to
+    ``"device"``, where the reference's defaults to ``"auto"``: the port's
+    entry points run the GPU unless asked otherwise. ``device`` is the
+    torch device (the GPU by default)."""
     return jchecker.compose({
         "linear": jchecker.linearizable(model=model, backend=o.get("backend", "device"),
                                         device=o.get("device")),

@@ -143,12 +143,30 @@ def test_device_backend_aliases(name):
 
 @pytest.mark.parametrize("name", ["auto", "native", "competition", "segmented"])
 def test_later_slice_backends_raise(name):
-    with pytest.raises(ValueError, match="later slice"):
-        jc.linearizable(model=CasRegister(init=0), backend=name, device="cpu")
-    lin = jc.linearizable(model=CasRegister(init=0), device="cpu")
-    h = random_register_history(random.Random(5), n_ops=6)
-    with pytest.raises(ValueError, match="later slice"):
-        lin.check({"checker_backend": name}, h, {})
+    """``segmented`` still comes with a later slice and raises, as an
+    option and as the test map's override; ``auto``, ``native`` and
+    ``competition`` run, as an option and as the override, with the
+    reference checker's verdict and backend."""
+    r1, r2 = random.Random(5), random.Random(5)
+    good = (ref_random(r1, n_ops=6), random_register_history(r2, n_ops=6))
+    bad = (ref_perturb(r1, ref_random(r1, n_ops=30, n_procs=3, crash_p=0.0)),
+           perturb_history(r2, random_register_history(r2, n_ops=30, n_procs=3, crash_p=0.0)))
+    if name == "segmented":
+        with pytest.raises(ValueError, match="later slice"):
+            jc.linearizable(model=CasRegister(init=0), backend=name, device="cpu")
+        lin = jc.linearizable(model=CasRegister(init=0), device="cpu")
+        with pytest.raises(ValueError, match="later slice"):
+            lin.check({"checker_backend": name}, good[1], {})
+        return
+    by_option = jc.linearizable(model=CasRegister(init=0), backend=name, device="cpu")
+    by_map = jc.linearizable(model=CasRegister(init=0), device="cpu")
+    ref = ref_checker.linearizable(model=RefCas(init=0), backend=name)
+    for ref_h, h in (good, bad):
+        want = ref.check({"no-store?": True}, ref_h, {})
+        for port in (by_option.check({}, h, {}), by_map.check({"checker_backend": name}, h, {})):
+            assert port["valid"] == want["valid"]
+            assert port["backend"] == want["backend"]
+    assert want["valid"] is False
 
 
 def test_stored_witness_files_raise():
@@ -178,3 +196,23 @@ def test_check_safe_turns_errors_into_unknown():
 
     res = jc.check_safe(jc.checker_fn(boom), {}, History([]))
     assert res["valid"] == "unknown" and "boom" in res["error"]
+
+
+@pytest.mark.parametrize("backend", ["auto", "native", "competition"])
+def test_lock_checker_takes_the_new_backends(backend):
+    """The lock workload's checker with each new backend, against the
+    reference's (``lock_test(...)["checker"]``) on the same lock history:
+    the same composed verdict and the same ``linear`` backend."""
+    from jepsen_tpu.workloads import lock as ref_lock
+    from jepsen_tpu_torch.testing import random_lock_history
+    from jepsen_tpu_torch.workloads import lock
+
+    h = random_lock_history(random.Random(17), n_ops=60, n_procs=4)
+    ref_h = RefHistory([RefOp(o.type, o.process, o.f, o.value, time=o.time, index=o.index)
+                        for o in h], reindex=False)
+    opts = {"model": "owner-aware-mutex", "backend": backend}
+    ref = ref_lock.lock_test(opts)["checker"].check({"no-store?": True}, ref_h, {})
+    port = lock.checker(dict(opts, device="cpu")).check({}, h, {})
+    assert port["valid"] == ref["valid"] is True
+    assert port["linear"]["valid"] == ref["linear"]["valid"]
+    assert port["linear"]["backend"] == ref["linear"]["backend"]

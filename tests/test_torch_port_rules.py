@@ -1,6 +1,8 @@
 """Rules the port keeps: it imports neither JAX nor the reference package,
-its entry points refuse to fall back to the CPU silently, and the chip
-smoke script fails where there is no GPU or no package beside it."""
+its native build reads its own source and writes only into its build
+directory, its entry points refuse to fall back to the CPU silently, and
+the chip smoke script fails where there is no GPU or no package beside
+it."""
 
 import os
 import pkgutil
@@ -61,8 +63,63 @@ def test_port_imports_without_jax_or_reference():
 def test_port_sources_name_no_jax_or_reference():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|jepsen_tpu)(\s|\.|$)", re.M)
     files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert PORT / "native" / "__init__.py" in files
     for f in files:
         assert not pat.search(f.read_text()), f
+    # The native C source includes system headers only.
+    csrc = list((PORT / "native").glob("*.c"))
+    assert [p.name for p in csrc] == ["wgl_native.c"]
+    for f in csrc:
+        for inc in re.findall(r'^\s*#\s*include\s+(\S+)', f.read_text(), re.M):
+            assert inc.startswith("<"), (f, inc)
+
+
+_AUDITED_BUILD = r"""
+import os, sys
+REF = os.path.realpath(sys.argv[1])
+events = []
+def hook(event, args):
+    if event == "open" and isinstance(args[0], (str, bytes, os.PathLike)):
+        events.append(("open", os.path.realpath(os.fsdecode(args[0]))))
+    elif event == "subprocess.Popen":
+        events.append(("exec", " ".join(map(os.fsdecode, args[1]))))
+sys.addaudithook(hook)
+from jepsen_tpu_torch import native
+lib = native.load()
+assert lib is not None and lib.wgl_max_open() == 256
+ref_opens = [p for kind, p in events if kind == "open" and p.startswith(REF)]
+execs = [c for kind, c in events if kind == "exec"]
+assert not ref_opens, ref_opens
+assert len(execs) == 1 and execs[0].split()[-1] == str(native.SRC), execs
+print("BUILT", native.library_path())
+"""
+
+
+@pytest.mark.skipif(shutil.which("cc") is None, reason="no C compiler (cc)")
+def test_native_build_writes_only_into_its_build_dir(tmp_path):
+    """A fresh build, from a copy of the port in an empty tree: every file
+    it leaves is under ``jepsen_tpu_torch/_build/`` (``HOME`` and
+    ``TMPDIR`` stay empty), its one compiler run compiles the port's
+    source, and nothing under the reference's ``native/`` is opened."""
+    tree = tmp_path / "tree"
+    shutil.copytree(PORT, tree / "jepsen_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    home, tmpdir = tmp_path / "home", tmp_path / "tmp"
+    home.mkdir()
+    tmpdir.mkdir()
+    before = {p for p in tree.rglob("*")}
+    env = dict(os.environ, PYTHONPATH=str(tree), HOME=str(home), TMPDIR=str(tmpdir),
+               PYTHONDONTWRITEBYTECODE="1")
+    out = subprocess.run([sys.executable, "-c", _AUDITED_BUILD,
+                          str(ROOT / "jepsen_tpu" / "native")],
+                         cwd=tree, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BUILT" in out.stdout
+    new = {p for p in tree.rglob("*")} - before
+    build = tree / "jepsen_tpu_torch" / "_build"
+    assert new and all(p == build or build in p.parents for p in new), sorted(new)
+    assert [p.suffix for p in build.iterdir()] == [".so"]
+    assert not list(home.iterdir()) and not list(tmpdir.iterdir())
 
 
 def test_every_port_module_is_walkable():
@@ -77,7 +134,9 @@ def test_every_port_module_is_walkable():
             "jepsen_tpu_torch.workloads.append", "jepsen_tpu_torch.workloads.wr",
             "jepsen_tpu_torch.workloads.lock", "jepsen_tpu_torch.models.mutex",
             "jepsen_tpu_torch.models.bank", "jepsen_tpu_torch.models.counter",
-            "jepsen_tpu_torch.models.sets", "jepsen_tpu_torch.models.queue"} <= mods
+            "jepsen_tpu_torch.models.sets", "jepsen_tpu_torch.models.queue",
+            "jepsen_tpu_torch.native", "jepsen_tpu_torch.ops.wgl_c",
+            "jepsen_tpu_torch.telemetry.heartbeat"} <= mods
 
 
 def test_every_kernel_entry_point_has_a_signature_and_a_source():
@@ -143,8 +202,17 @@ def test_entry_point_runs_on_cpu_when_asked():
                                 dict(backend="competition"),
                                 dict(parallel="segmented")])
 def test_later_slice_backends_raise(kw):
-    with pytest.raises(ValueError, match="later slice|slice of the port"):
-        wgl.check_history(CasRegister(init=0), _history(), device="cpu", **kw)
+    """``parallel="segmented"`` still comes with a later slice and raises;
+    the ``auto``, ``native`` and ``competition`` backends run, with the
+    host oracle's verdict (``auto`` and ``native`` on the C search)."""
+    if "parallel" in kw:
+        with pytest.raises(ValueError, match="later slice|slice of the port"):
+            wgl.check_history(CasRegister(init=0), _history(), device="cpu", **kw)
+        return
+    host = wgl.check_history(CasRegister(init=0), _history(), backend="host")
+    res = wgl.check_history(CasRegister(init=0), _history(), device="cpu", **kw)
+    assert res["valid"] == host["valid"] is True
+    assert res["backend"] == ("competition" if kw["backend"] == "competition" else "native")
 
 
 def test_host_backend_runs():

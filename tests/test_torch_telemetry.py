@@ -399,3 +399,155 @@ def test_reference_readers_take_port_registry(driver):
     if driver == "single":
         assert [c["levels"] for c in port_prof["device"]["chunks"]] == \
             [c["levels"] for c in ref_prof["device"]["chunks"]]
+
+
+def test_histogram_matches_reference():
+    """The port's ``Histogram`` against the reference's: the same bucket
+    counts, sums, samples, summary and quantiles for the same
+    observations, labelled and unlabelled, default and given buckets."""
+    import jepsen_tpu.telemetry as ref_telemetry
+
+    rng = random.Random(5)
+    values = [rng.expovariate(3.0) for _ in range(200)] + [0.0005, 10.0, 99.0]
+    regs = (telemetry.Registry(), ref_telemetry.Registry())
+    for reg in regs:
+        plain = reg.histogram("h_plain", "default buckets")
+        lab = reg.histogram("h_lab", "given buckets", labelnames=("k",),
+                            buckets=(0.01, 0.05, 0.25, 1.0, 5.0, 30.0))
+        agg = reg.histogram("h_agg", "aggregate", labelnames=("k",), aggregate=True)
+        for i, v in enumerate(values):
+            plain.observe(v)
+            lab.labels(k=str(i % 3)).observe(v)
+            agg.observe(v)
+            agg.labels(k="x").observe(v)
+        assert reg.histogram("h_lab", labelnames=("k",),
+                             buckets=(0.01, 0.05, 0.25, 1.0, 5.0, 30.0)) is lab
+        with pytest.raises(ValueError, match="buckets"):
+            reg.histogram("h_lab", labelnames=("k",), buckets=(1.0,))
+    port, ref = regs
+    assert port.collect() == ref.collect()
+    assert port.summary() == ref.summary()
+    for name in ("h_plain", "h_agg"):
+        p, r = port.histogram(name, labelnames=() if name == "h_plain" else ("k",)), \
+            ref.histogram(name, labelnames=() if name == "h_plain" else ("k",))
+        assert [p.quantile(q) for q in (0.1, 0.5, 0.99, 1.0)] == \
+            [r.quantile(q) for q in (0.1, 0.5, 0.99, 1.0)]
+        assert p.stats() == r.stats()
+    assert telemetry.DEFAULT_BUCKETS == ref_telemetry.DEFAULT_BUCKETS
+    assert telemetry.bucket_quantile((1.0, 2.0), [0, 0], 0.5) is None
+
+
+def test_of_test_gates_on_the_test_map():
+    assert telemetry.of_test({}) is None and telemetry.of_test(None) is None
+    assert not telemetry.enabled({"telemetry?": False})
+    test = {"telemetry?": True}
+    reg = telemetry.of_test(test)
+    assert isinstance(reg, telemetry.Registry) and telemetry.of_test(test) is reg
+    assert test["telemetry-registry"] is reg
+
+
+def test_heartbeat_matches_reference():
+    """The port's Heartbeat is the reference's: the same gauges from the
+    same callback dicts, and the same rate limit."""
+    import jepsen_tpu.telemetry as ref_telemetry
+
+    infos = [{"level": 10, "total_levels": 40, "wall_s": 2.0, "count": 7, "F": 16},
+             {"level": 20, "total_levels": 40, "wall_s": 4.0, "count": 9, "F": 64},
+             {"level": 0}]
+    out = []
+    for mod in (telemetry, ref_telemetry):
+        reg = mod.Registry()
+        hb = mod.Heartbeat(total=40, interval_s=0, registry=reg)
+        limited = mod.Heartbeat(total=40, interval_s=3600)
+        for info in infos:
+            hb(info)
+            limited(info)
+        out.append((reg.collect(), hb.beats, limited.beats))
+    assert out[0] == out[1]
+    assert out[0][1] == 3 and out[0][2] == 1
+
+
+# Checker metrics the comparisons read (the engines' own are compared
+# elsewhere); walls are compared by count, not value.
+CHECKER_METRICS = ("checker_seconds", "checker_op_count", "checker_batch_keys_total",
+                   "wgl_progress_level", "wgl_progress_percent")
+
+
+def _checker_samples(reg, drop_labels=()):
+    out = []
+    for s in reg.collect():
+        if s["name"] not in CHECKER_METRICS:
+            continue
+        labels = tuple(sorted((k, v) for k, v in s["labels"].items() if k not in drop_labels))
+        value = s["count"] if s["type"] == "histogram" else s["value"]
+        out.append((s["name"], labels, value))
+    return sorted(out)
+
+
+@pytest.mark.parametrize("backend", ["device", "auto", "native", "competition", "host"])
+def test_checker_telemetry_matches_reference(backend):
+    """``linearizable`` on a test map with ``"telemetry?": True``: the
+    ``checker_seconds`` histogram by backend, ``checker_op_count`` and the
+    heartbeat's progress gauges, against the reference checker's, with the
+    same verdict and backend. The raced backend's winner may differ, so
+    there the heartbeat and the label are not compared."""
+    from jepsen_tpu import checker as ref_checker
+
+    from jepsen_tpu_torch import checker as jc
+
+    h1, h2 = _histories(41, 60, 4, 0.0, False)
+    ref_test, test = {"telemetry?": True}, {"telemetry?": True}
+    ref = ref_checker.linearizable(model=RefCas(init=0), backend=backend).check(
+        ref_test, h1, {})
+    port = jc.linearizable(model=CasRegister(init=0), backend=backend, device="cpu").check(
+        test, h2, {})
+    assert port["valid"] == ref["valid"] is True
+    assert port.get("backend") == ref.get("backend")
+    reg, ref_reg = test["telemetry-registry"], ref_test["telemetry-registry"]
+    assert isinstance(reg, telemetry.Registry)
+    if backend == "competition":
+        keep = lambda s: [x for x in s if not x[0].startswith("wgl_progress")]  # noqa: E731
+        assert keep(_checker_samples(reg, ("backend",))) == \
+            keep(_checker_samples(ref_reg, ("backend",)))
+    else:
+        assert _checker_samples(reg) == _checker_samples(ref_reg)
+    label = "device" if backend == "device" else port["backend"]
+    assert [s["labels"] for s in reg.collect() if s["name"] == "checker_seconds"] == \
+        [{"checker": "linearizable", "backend": label}]
+    if backend in ("auto", "native"):
+        assert reg.counter("wgl_native_searches_total",
+                           labelnames=("verdict",)).labels(verdict="valid").value >= 1
+
+
+def test_batch_check_telemetry_matches_reference():
+    """The keyed batch: ``checker_seconds{backend="batch"}`` and
+    ``checker_batch_keys_total{result}``, against the reference's."""
+    from jepsen_tpu import checker as ref_checker
+    from jepsen_tpu import independent as ref_ind
+
+    from jepsen_tpu_torch import checker as jc
+    from jepsen_tpu_torch import independent as ind
+
+    o1, o2 = [], []
+    for k in range(6):
+        h1, h2 = _histories(60 + k, 10, 2, 0.0, k % 3 == 0)
+        for o in h1:
+            o1.append(o.with_(value=ref_ind.KV(k, o.value), index=len(o1)))
+        for o in h2:
+            o2.append(o.with_(value=ind.KV(k, o.value), index=len(o2)))
+    from jepsen_tpu.history import History as RefHistory
+
+    from jepsen_tpu_torch.history import History
+
+    ref_test, test = {"telemetry?": True}, {"telemetry?": True}
+    ref = ref_ind.checker(ref_checker.linearizable(model=RefCas(init=0))).check(
+        ref_test, RefHistory(o1, reindex=False), {})
+    port = ind.checker(jc.linearizable(model=CasRegister(init=0), device="cpu")).check(
+        test, History(o2, reindex=False), {})
+    assert port["valid"] == ref["valid"] is False
+    reg, ref_reg = test["telemetry-registry"], ref_test["telemetry-registry"]
+    assert _checker_samples(reg) == _checker_samples(ref_reg)
+    assert ("checker_seconds", (("backend", "batch"), ("checker", "linearizable")), 1) in \
+        _checker_samples(reg)
+    assert sum(v for n, _l, v in _checker_samples(reg) if n == "checker_batch_keys_total") == 6
+    assert reg.events("wgl_batch_chunk")
