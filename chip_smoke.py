@@ -223,7 +223,44 @@ and then runs these phases, each printing JSON lines:
 - ``sharded_refutation``: a perturbed copy refuted on the shards with the
   single search's ``max_linearized`` and the plain sharded path's witness;
 - ``checker_sharded``: ``checker.linearizable`` with the sharded backend
-  through the test map's mesh.
+  through the test map's mesh;
+- ``offline_segmented`` (after the engine phases): the reference bench's
+  offline leg (``bench.py:911-1000``: 8 keys of
+  ``concurrent_register_history(n_writers=5)`` merged by time, a valid
+  history and its twin with key 0 perturbed, 4 streams), cut from
+  1,000,000 to 100,000 ops, each key's last round cut after its third
+  write completes (an open terminal segment of every key), through ``offline.plan`` and ``drive`` under ``device`` (launches
+  counted) and ``auto``, and the twin under ``auto``: ``True``, ``True``,
+  ``False``, the valid history's result map the same under both engines,
+  a round on the card with more than one oracle member, no retry and no
+  failover; plan and decide walls, rounds on the card and their members,
+  the oracle calls' wall; then the scheduler's budget-tripped rescue (256
+  keys, about 10,000 ops, ``max_configs=64``: every key's first segment
+  trips the enumerator and its members go to the card, 256 in one round
+  or a few), its result map equal to the host engine's at the same budget,
+  the members of each device round printed; then the three runs at 20,032
+  ops against the host engine (equal result maps);
+- ``segmented_entry``: ``check_history(parallel="segmented",
+  backend="device")`` (launches counted), ``linearizable(
+  backend="segmented")`` and ``python -m jepsen_tpu_torch.offline`` in a
+  subprocess on the 20,032-op history: one verdict;
+- ``resilience``: (a) one ``device.dispatch`` or ``host.stack`` fault in
+  ``check_encoded_batch`` of batch_replay_100's histories (each member's
+  result unchanged, one retry); (b) the sharded north star (8 shards,
+  500-level chunks) with ``device.dispatch`` at its third chunk (the
+  uninjected verdict and per-chunk rows, one retry), its walls with the
+  chunk-start copy and under ``JEPSEN_NO_FAILOVER=1`` (no copy), in
+  turns, and the copy alone; (c) three faults in a row open the
+  ``"batch"`` breaker and the next ``drive`` under ``device`` is demoted
+  to the host (the host's verdict, and the result's ``failover`` says so,
+  cause ``circuit_open``); (d) a real ``torch.OutOfMemoryError``
+  from capping this process's memory at what it holds, with batches at a
+  capacity of 65536 that need new memory (transient, two retries, the
+  drive failed over with cause ``OutOfMemoryError`` in its ``failover``;
+  the same call decides on the card once the cap is lifted);
+  (e) ``JEPSEN_NO_FAILOVER=1`` propagates the injected error; (f) Elle:
+  one injected fault halves the 8k history's chunk, and a fault at every
+  dispatch folds the 2k history to the host, typed ``elle_device_oom``.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the per-kernel JSON line, and ``{"ok": true, "device": {...}}``.
@@ -4056,6 +4093,533 @@ def engine_phases(lv, wgl, model, hist, main_res, hists) -> None:
     competition_phase(lv, wgl, model, hist, twin, main_res, twin_native, twin_dev_wall)
 
 
+# -- the offline segmented checker and the resilience layer -------------------
+
+# bench.py's offline_segmented leg (bench.py:911-1000): OFFLINE["keys"] keys
+# of concurrent_register_history(n_writers=5) merged by time as [k v]
+# values, a valid history and its twin with key 0 perturbed, planned on 4
+# streams. Cut from the leg's 1,000,000 ops to about OFFLINE["ops"] for the
+# script's time limit, and each key's last round cut after its third write
+# completes (the last 4 x keys ops: two write completions and the read of
+# every key), so the history ends in an open terminal segment of every key
+# with definite ops in it: the segments the engine's oracle decides (a
+# history that ends quiescent is decided whole by the host enumerator, as
+# the leg's is).
+OFFLINE = dict(keys=8, n_writers=5, streams=4, seed=9200, twin_seed=9300,
+               leg_ops=1_000_000, ops=100_000, host_ops=20_000)
+SEGMENTED_ENTRY_OPS = 20_000
+# The scheduler's budget-tripped rescue: RESCUE["keys"] keys of the same
+# generator, about RESCUE["ops"] ops, and a stage-1 budget (max_configs) so
+# small that the enumerator trips on every key's first segment: those
+# non-terminal members of all four streams go to the device oracle, in one
+# round or a few (as the submits and the worker interleave), while the
+# host oracle still decides each of them within the same budget. The trip
+# loses the carry, so both engines fold the later segments unknown
+# (carry_lost): the run compares the rescue's verdicts, not a definite one.
+RESCUE = dict(keys=256, ops=10_240, max_configs=64)
+# The sharded north star of the resilience phase: levels a chunk (at least
+# three chunks, so that the fault at the third lands inside the search),
+# and the runs with and without the start copy, in turns.
+RESILIENCE_SHARD_LPC = 500
+RESILIENCE_COPY_TURNS = 2
+# The capacity of the capped batch and of the capped drive's batches: the
+# cap stops new segments of the caching allocator, so the batch must need
+# more than the free space of the segments it already holds (tens of MB).
+OOM_F = 65536
+
+
+def offline_history(seed, n, invalid=False, keys=OFFLINE["keys"]):
+    """bench.py's ``_keyed_rec`` of ``n`` ops over ``keys`` keys, its last
+    round cut (see OFFLINE)."""
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.testing import concurrent_register_history, perturb_history
+
+    ops = []
+    for i in range(keys):
+        rng = random.Random(seed + i)
+        hk = concurrent_register_history(rng, n_ops=n // keys,
+                                         n_writers=OFFLINE["n_writers"])
+        if invalid and i == 0:
+            hk = perturb_history(rng, hk)
+        ops.extend(op.with_(process=op.process + 1000 * i,
+                            value=independent.KV(f"k{i}", op.value), index=-1) for op in hk)
+    ops.sort(key=lambda o: o.time)
+    return History(ops[:-4 * keys], reindex=True)
+
+
+def offline_map(r) -> dict:
+    """An offline result map's verdict, segments_decided, per-stream folds,
+    provenance and violation, without walls and engine names (at any
+    depth: a stream's fold carries its violation's segment row)."""
+    def strip(x):
+        if isinstance(x, dict):
+            return {k: strip(v) for k, v in x.items()
+                    if k not in ("wall_s", "decide_s", "busy_pct", "engine")}
+        if isinstance(x, (list, tuple)):
+            return [strip(v) for v in x]
+        return x
+
+    return strip({k: r.get(k) for k in ("valid", "segments_decided", "streams",
+                                        "provenance", "violation", "failover")})
+
+
+def resilience_counts(reg) -> dict:
+    """The containment layer's counters in one registry."""
+    return {"wgl_retry_total_batch": reg.counter(
+                "wgl_retry_total", labelnames=("reason",)).labels(reason="batch").value,
+            "wgl_retry_total_sharded": reg.counter(
+                "wgl_retry_total", labelnames=("reason",)).labels(reason="sharded").value,
+            "service_failovers_total": reg.counter(
+                "service_failovers_total", labelnames=("engine",), aggregate=True).value}
+
+
+def round_summary(reg) -> dict:
+    """The scheduler's rounds: how many, which reached the card and with how
+    many oracle members, and which failed over."""
+    ev = [e for e in reg.events() if e["name"] == "online_round"]
+    dev = [e for e in ev if e["engine"] == "device" and e["oracle_members"]]
+    return {"rounds": len(ev), "oracle_rounds": sum(1 for e in ev if e["oracle_members"]),
+            "device_rounds": len(dev), "device_round_members": [e["oracle_members"] for e in dev],
+            "failover_rounds": sum(1 for e in ev if e["failover"])}
+
+
+@contextlib.contextmanager
+def oracle_timer():
+    """The walls of the scheduler's device oracle calls (one batched search,
+    and its single re-checks), each to the end of its device work."""
+    import torch
+
+    from jepsen_tpu_torch.online.scheduler import SegmentScheduler
+
+    real = SegmentScheduler._decide_device
+    walls = []
+
+    def timed(self, encs):
+        t = time.perf_counter()
+        try:
+            return real(self, encs)
+        finally:
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+
+    SegmentScheduler._decide_device = timed
+    try:
+        yield walls
+    finally:
+        SegmentScheduler._decide_device = real
+
+
+def offline_segmented_phase(lv, model) -> dict:
+    """The offline leg: ``drive`` under ``device`` (counted) and ``auto`` on
+    the valid history and ``auto`` on its twin at OFFLINE["ops"], then the
+    same three runs at OFFLINE["host_ops"] against the host engine."""
+    import torch
+
+    from jepsen_tpu_torch import offline
+    from jepsen_tpu_torch.parallel import resilience
+    from jepsen_tpu_torch.telemetry import Registry
+
+    resilience.reset_breakers()
+    t = time.perf_counter()
+    hv = offline_history(OFFLINE["seed"], OFFLINE["ops"])
+    hi = offline_history(OFFLINE["twin_seed"], OFFLINE["ops"], invalid=True)
+    gen_s = time.perf_counter() - t
+    pv = offline.plan(hv, streams=OFFLINE["streams"])
+    pi = offline.plan(hi, streams=OFFLINE["streams"])
+    if not (pv.items[-1].segment.terminal and pi.items[-1].segment.terminal):
+        raise AssertionError("the cut left no open tail: no segment reaches the oracle")
+    emit({"phase": "offline_segmented", "cut": f"{OFFLINE['leg_ops']} -> {len(hv)} ops "
+          "(the script's time limit); each key's last round cut after its third write "
+          "completes: an open terminal segment of every key",
+          "ops": len(hv), "twin_ops": len(hi), "generate_s": gen_s,
+          "plan": pv.stats(), "twin_plan_seconds": pi.plan_seconds})
+    runs, out = {}, {}
+    for label, p, engine in (("device", pv, "device"), ("auto", pv, "auto"),
+                             ("twin_auto", pi, "auto")):
+        reg = Registry()
+        if label == "device":
+            reset_counts(lv)
+        with oracle_timer() as walls:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = offline.drive(p, model, engine=engine, metrics=reg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        row = {"run": label, "valid": r["valid"], "segments_decided": r["segments_decided"],
+               "plan_seconds": p.plan_seconds, "decide_seconds": wall,
+               "scheduler_decide_s": r.get("decide_s"), **round_summary(reg),
+               "oracle_calls": len(walls), "oracle_wall_s": sum(walls),
+               **resilience_counts(reg)}
+        if label == "device":
+            row["launches"] = launch_counts(lv, "offline_segmented", LEVEL_KERNELS)
+        runs[label] = r
+        out[label] = row
+        emit({"phase": "offline_segmented", **row})
+    dev = out["device"]
+    ok = (runs["device"]["valid"] is True and runs["auto"]["valid"] is True
+          and runs["twin_auto"]["valid"] is False
+          and offline_map(runs["device"]) == offline_map(runs["auto"])
+          and dev["device_rounds"] >= 1 and max(dev["device_round_members"]) > 1
+          and dev["service_failovers_total"] == 0 and dev["wgl_retry_total_batch"] == 0
+          and dev["failover_rounds"] == 0
+          and not any("failover" in r for r in runs.values()))
+    if not ok:
+        raise AssertionError(f"offline_segmented failed: {out}")
+
+    # the budget-tripped rescue: many non-terminal members in a device round
+    hr = offline_history(OFFLINE["seed"], RESCUE["ops"], keys=RESCUE["keys"])
+    pr = offline.plan(hr, streams=OFFLINE["streams"])
+    rescue = {}
+    for engine in ("device", "host"):
+        reg = Registry()
+        with oracle_timer() as walls:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = offline.drive(pr, model, engine=engine, metrics=reg,
+                              max_configs=RESCUE["max_configs"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        rescue[engine] = (r, {"valid": r["valid"], "segments_decided": r["segments_decided"],
+                              "decide_seconds": wall, **round_summary(reg),
+                              "oracle_calls": len(walls), "oracle_wall_s": sum(walls),
+                              "causes": (r.get("provenance") or {}).get("causes"),
+                              **resilience_counts(reg)})
+    rd = rescue["device"][1]
+    row = {"phase": "offline_segmented", "run": "rescue", "ops": len(hr),
+           "keys": RESCUE["keys"], "max_configs": RESCUE["max_configs"],
+           "plan_seconds": pr.plan_seconds, "device": rd, "host": rescue["host"][1],
+           "same_as_host": offline_map(rescue["device"][0]) == offline_map(rescue["host"][0])}
+    emit(row)
+    if not (row["same_as_host"] and sum(rd["device_round_members"]) >= RESCUE["keys"]
+            and max(rd["device_round_members"]) >= RESCUE["keys"] // OFFLINE["streams"]
+            and rd["service_failovers_total"] == 0 and rd["failover_rounds"] == 0
+            and rd["wgl_retry_total_batch"] == 0):
+        raise AssertionError(f"offline_segmented rescue failed: {row}")
+    out["rescue"] = row
+
+    # the same three runs at OFFLINE["host_ops"], each beside the host engine
+    h20 = offline_history(OFFLINE["seed"], OFFLINE["host_ops"])
+    t20 = offline_history(OFFLINE["twin_seed"], OFFLINE["host_ops"], invalid=True)
+    p20 = offline.plan(h20, streams=OFFLINE["streams"])
+    q20 = offline.plan(t20, streams=OFFLINE["streams"])
+    if not (p20.items[-1].segment.terminal and q20.items[-1].segment.terminal):
+        raise AssertionError("the cut left no open tail: no segment reaches the oracle")
+    small = {}
+    for label, p, engine in (("device", p20, "device"), ("auto", p20, "auto"),
+                             ("twin_auto", q20, "auto"), ("host", p20, "host"),
+                             ("twin_host", q20, "host")):
+        t = time.perf_counter()
+        small[label] = offline.drive(p, model, engine=engine)
+        small[label]["_wall"] = time.perf_counter() - t
+    same = {"device_vs_host": offline_map(small["device"]) == offline_map(small["host"]),
+            "auto_vs_host": offline_map(small["auto"]) == offline_map(small["host"]),
+            "twin_auto_vs_host": offline_map(small["twin_auto"]) == offline_map(
+                small["twin_host"])}
+    emit({"phase": "offline_segmented", "run": "host_20k", "ops": len(h20),
+          "valid": {k: v["valid"] for k, v in small.items()},
+          "wall_s": {k: v["_wall"] for k, v in small.items()}, "same": same})
+    if not (all(same.values()) and small["host"]["valid"] is True
+            and small["twin_host"]["valid"] is False):
+        raise AssertionError(f"offline_segmented at {OFFLINE['host_ops']} ops failed: {same}")
+    return {"runs": out, "plan_20k": p20, "history_20k": h20}
+
+
+def segmented_entry_phase(lv, model, wgl, jchecker, h) -> dict:
+    """``check_history(parallel="segmented", backend="device")`` (counted),
+    ``linearizable(backend="segmented")`` and the CLI in a subprocess on one
+    keyed history: one verdict."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from jepsen_tpu_torch import _build
+    from jepsen_tpu_torch import independent
+
+    reset_counts(lv)
+    t = time.perf_counter()
+    r1 = wgl.check_history(model, h, parallel="segmented", backend="device")
+    torch.cuda.synchronize()
+    w1 = time.perf_counter() - t
+    launches = launch_counts(lv, "segmented_entry", LEVEL_KERNELS)
+    t = time.perf_counter()
+    r2 = jchecker.linearizable(model=model, backend="segmented").check({}, h, {})
+    w2 = time.perf_counter() - t
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(dir=_build.BUILD) as tmp:
+        path, out = Path(tmp) / "history.ndjson", Path(tmp) / "result.json"
+        with open(path, "w") as f:
+            for op in h:
+                v = list(op.value) if isinstance(op.value, independent.KV) else op.value
+                f.write(json.dumps({"type": op.type, "process": op.process, "f": op.f,
+                                    "value": v, "time": op.time, "index": op.index}) + "\n")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(root), os.environ.get("PYTHONPATH", "")]))
+        t = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "jepsen_tpu_torch.offline", str(path),
+                              "--keyed", "--engine", "device", "--streams",
+                              str(OFFLINE["streams"]), "-o", str(out)],
+                             cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        w3 = time.perf_counter() - t
+        if run.returncode not in (0, 1, 2) or not out.exists():
+            raise AssertionError(f"the offline CLI failed ({run.returncode}): "
+                                 f"{run.stderr[-2000:]}")
+        r3 = json.loads(out.read_text())
+    row = {"phase": "segmented_entry", "ops": len(h),
+           "check_history": {"valid": r1["valid"], "engine": r1["engine"], "wall_s": w1,
+                             "segments_decided": r1["segments_decided"]},
+           "linearizable": {"valid": r2["valid"], "wall_s": w2},
+           "cli": {"valid": r3["valid"], "rc": run.returncode, "wall_s": w3},
+           "launches": launches}
+    emit(row)
+    if not (r1["valid"] is True and r2["valid"] is True and r3["valid"] is True
+            and run.returncode == 0 and r1["segments_decided"] == r2["segments_decided"]
+            == r3["segments_decided"]):
+        raise AssertionError(f"segmented_entry failed: {row}")
+    return row
+
+
+def _sharded_run(frontier, enc, mesh, **kw):
+    import torch
+
+    from jepsen_tpu_torch.telemetry import Registry
+
+    rows, reg = [], Registry()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = frontier.check_encoded_sharded(
+        enc, mesh=mesh, f_total=SHARD_F_TOTAL, levels_per_call=RESILIENCE_SHARD_LPC,
+        metrics=reg, chunk_callback=lambda i: rows.append((i["level"], i["F"], i["count"])),
+        **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    key = {k: res.get(k) for k in ("valid", "levels", "frontier_max", "frontier_total",
+                                   "stuck_configs", "causes", "max_linearized")}
+    key["attempts"] = [(a["F"], a["levels"], a["calls"]) for a in res.get("attempts") or []]
+    return key, rows, wall, reg
+
+
+def frontier_copy_ms(wgl, enc, FT, dev="cuda") -> dict:
+    """The sharded chunk's start copy at global capacity ``FT``: the
+    frontier's five arrays copied on the card (CUDA events, 50 copies)."""
+    import torch
+
+    plan = wgl.plan_device(enc, device=dev)
+    W, KO, S, _nd, _no = plan.dims
+    src = wgl.initial_frontier(FT, W, KO, S, plan.init_state, dev)[:5]
+    dst = [torch.empty_like(a) for a in src]
+    for _ in range(3):
+        for d, s in zip(dst, src):
+            d.copy_(s)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(50):
+        for d, s in zip(dst, src):
+            d.copy_(s)
+    end.record()
+    torch.cuda.synchronize()
+    nbytes = sum(a.numel() * a.element_size() for a in src)
+    ms = start.elapsed_time(end) / 50
+    return {"F_total": FT, "bytes": nbytes, "ms": ms,
+            "bound_ms": 1e3 * 2 * nbytes / HBM_BYTES_PER_S}
+
+
+def resilience_phase(lv, model, wgl, frontier, make_mesh, encode_history, enc, replay,
+                     p20, h20) -> dict:
+    """The containment layer on the card: (a) one injected fault in the batch
+    (``device.dispatch``, ``host.stack``): the batch's retry gives the
+    results without it; (b) the sharded north star with ``device.dispatch``
+    at its third chunk: the uninjected verdict and per-chunk rows, and the
+    start copy's price; (c) three faults in a row: the ``"batch"`` breaker
+    opens and the next device round is demoted to the host; (d) a real
+    out-of-memory from capping this process's memory: transient, retried,
+    failed over, and the same call decides on the card once the cap is
+    lifted; (e) ``JEPSEN_NO_FAILOVER=1`` propagates; (f) Elle folds an
+    injected dispatch fault."""
+    import os
+
+    import torch
+
+    from jepsen_tpu_torch import offline
+    from jepsen_tpu_torch.elle import append as ea
+    from jepsen_tpu_torch.parallel import check_encoded_batch, resilience
+    from jepsen_tpu_torch.telemetry import Registry
+    from jepsen_tpu_torch.testing import chaos, lagged_append_history
+
+    if os.environ.get("JEPSEN_NO_FAILOVER"):
+        raise AssertionError("JEPSEN_NO_FAILOVER is set; the resilience phase needs the "
+                             "retries armed")
+    out = {}
+    resilience.reset_breakers()
+    chaos.reset()
+    encs = [encode_history(model, h) for h in replay]
+    clean = check_encoded_batch(encs, f=REPLAY["f"])
+
+    # (a) one fault in the batch
+    for point in ("device.dispatch", "host.stack"):
+        reg = Registry()
+        reset_counts(lv)
+        with chaos.inject(point, on_call=1):
+            got = check_encoded_batch(encs, f=REPLAY["f"], metrics=reg)
+            fired = chaos.fired(point)
+        launches = launch_counts(lv, f"resilience batch retry ({point})", LEVEL_KERNELS)
+        row = {"fired": fired, "same_results": all(same_member(a, b)
+                                                   for a, b in zip(got, clean)),
+               **resilience_counts(reg), "breaker": resilience.breaker("batch").state,
+               "launches": launches}
+        out[f"a_batch_{point}"] = row
+        if not (fired == 1 and row["same_results"] and row["wgl_retry_total_batch"] == 1
+                and row["breaker"] == "closed"):
+            raise AssertionError(f"resilience (a) {point} failed: {row}")
+
+    # (b) the sharded north star, device.dispatch at its third chunk
+    mesh = make_mesh(SHARD_D)
+    base, base_rows, base_wall, _ = _sharded_run(frontier, enc, mesh)
+    with chaos.inject("device.dispatch", on_call=3):
+        got, rows, wall, reg = _sharded_run(frontier, enc, mesh)
+        fired = chaos.fired("device.dispatch")
+    walls = {"armed": [base_wall], "kill_switch": []}
+    for turn in range(RESILIENCE_COPY_TURNS):
+        for mode in (("kill_switch", "armed") if turn % 2 == 0 else ("armed", "kill_switch")):
+            if mode == "kill_switch":
+                os.environ["JEPSEN_NO_FAILOVER"] = "1"
+            try:
+                k, r, w, _ = _sharded_run(frontier, enc, mesh)
+            finally:
+                os.environ.pop("JEPSEN_NO_FAILOVER", None)
+            if (k, r) != (base, base_rows):
+                raise AssertionError("the sharded north star differs between runs")
+            walls[mode].append(w)
+    copy = frontier_copy_ms(wgl, enc, base["attempts"][-1][0])
+    row = {"fired": fired, "chunks": len(base_rows), "valid": got["valid"],
+           "levels": got["levels"], "attempts": got["attempts"],
+           "same_verdict_and_rows": (got, rows) == (base, base_rows),
+           **resilience_counts(reg), "wall_s": wall, "uninjected_wall_s": base_wall,
+           "walls_armed_s": walls["armed"], "walls_kill_switch_s": walls["kill_switch"],
+           "start_copy_at_final_capacity": copy,
+           "start_copies_ms_est": copy["ms"] * len(base_rows)}
+    out["b_sharded_north_star"] = row
+    if not (fired == 1 and len(base_rows) >= 3 and row["same_verdict_and_rows"]
+            and row["wgl_retry_total_sharded"] == 1):
+        raise AssertionError(f"resilience (b) failed: {row}")
+
+    # (c) three faults: the breaker opens, the next device round is demoted
+    resilience.reset_breakers()
+    reg = Registry()
+    with chaos.inject("device.dispatch", times=3):
+        try:
+            check_encoded_batch(encs[:10], f=REPLAY["f"], metrics=reg)
+            raised = None
+        except chaos.ChaosError as e:
+            raised = type(e).__name__
+    state = resilience.breaker("batch").state
+    gauge = reg.gauge("circuit_state", labelnames=("device",)).labels(device="batch").value
+    reg2 = Registry()
+    demoted = offline.drive(p20, model, engine="device", metrics=reg2)
+    host = offline.drive(p20, model, engine="host")
+    rs = round_summary(reg2)
+    causes = set((demoted.get("provenance") or {}).get("causes") or {})
+    row = {"raised": raised, "breaker": state, "circuit_state": gauge, **resilience_counts(reg),
+           "next_drive": {"valid": demoted["valid"], "host_valid": host["valid"], **rs,
+                          **resilience_counts(reg2), "causes": sorted(causes),
+                          "failover": demoted.get("failover")}}
+    out["c_breaker_open"] = row
+    one_sided = (demoted["valid"] == host["valid"]
+                 or (demoted["valid"] == "unknown"
+                     and causes <= chaos.EXPECTED_UNKNOWN_CAUSES["device.dispatch"]))
+    if not (raised == "ChaosError" and state == "open" and gauge == 2 and one_sided
+            and rs["oracle_rounds"] >= 1 and rs["failover_rounds"] == rs["oracle_rounds"]
+            and rs["device_rounds"] == 0
+            and (demoted.get("failover") or {}).get("causes")
+            == {"circuit_open": rs["failover_rounds"]}):
+        raise AssertionError(f"resilience (c) failed: {row}")
+    resilience.reset_breakers()
+
+    # (d) a real out-of-memory: this process's memory capped at what it holds
+    sub = encs[:10]
+    before = check_encoded_batch(sub, f=OOM_F)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    fraction = torch.cuda.memory_reserved() / total
+    reg, reg2 = Registry(), Registry()
+    torch.cuda.set_per_process_memory_fraction(fraction)
+    try:
+        try:
+            check_encoded_batch(sub, f=OOM_F, metrics=reg)
+            oom = None
+        except torch.OutOfMemoryError as e:
+            oom = e
+        resilience.reset_breakers()
+        failed_over = offline.drive(p20, model, engine="device", metrics=reg2,
+                                    batch_f=OOM_F)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    resilience.reset_breakers()
+    after = check_encoded_batch(sub, f=OOM_F)
+    rs = round_summary(reg2)
+    row = {"cap_fraction": fraction, "f": OOM_F, "raised": type(oom).__name__ if oom else None,
+           "error": str(oom).splitlines()[0][:200] if oom else None,
+           "transient": bool(oom) and resilience.is_transient(oom), **resilience_counts(reg),
+           "failover_drive": {"valid": failed_over["valid"], **rs, **resilience_counts(reg2),
+                              "failover": failed_over.get("failover")},
+           "after_cap_same_results": all(same_member(a, b) for a, b in zip(after, before))}
+    out["d_real_oom"] = row
+    if not (oom is not None and row["transient"] and row["wgl_retry_total_batch"] == 2
+            and failed_over["valid"] == host["valid"] and rs["failover_rounds"] >= 1
+            and "OutOfMemoryError" in (failed_over.get("failover") or {}).get("causes", {})
+            and row["after_cap_same_results"]):
+        raise AssertionError(f"resilience (d) failed: {row}")
+
+    # (e) the kill switch propagates the injected error
+    os.environ["JEPSEN_NO_FAILOVER"] = "1"
+    try:
+        with chaos.inject("device.dispatch", on_call=1):
+            try:
+                check_encoded_batch(sub, f=REPLAY["f"])
+                propagated = False
+            except chaos.ChaosError:
+                propagated = True
+    finally:
+        os.environ.pop("JEPSEN_NO_FAILOVER", None)
+    out["e_kill_switch"] = {"propagated": propagated,
+                            "breaker": resilience.breaker("batch").state}
+    if not (propagated and out["e_kill_switch"]["breaker"] == "closed"):
+        raise AssertionError(f"resilience (e) failed: {out['e_kill_switch']}")
+
+    # (f) Elle: one fault halves the chunk; every dispatch failing folds
+    strip = lambda r: {k: v for k, v in r.items() if k != "engine"}  # noqa: E731
+    h8 = lagged_append_history(**APPEND_8K)
+    rep0, rep1 = {}, {}
+    clean8 = ea.check(h8, device=True, report=rep0)
+    with chaos.inject("device.dispatch", on_call=1):
+        once = ea.check(h8, device=True, report=rep1)
+    h2 = lagged_append_history(**LAG_2K)
+    rep2, rep3 = {}, {}
+    clean2 = ea.check(h2, device=True, report=rep2)
+    with chaos.inject("device.dispatch", times=100):
+        folded = ea.check(h2, device=True, report=rep3)
+    row = {"once": {"same_result": strip(once) == strip(clean8), "report": rep1,
+                    "uninjected_report": rep0},
+           "every_dispatch": {"same_verdict": strip(folded) == strip(clean2),
+                              "engine": rep3.get("engine"),
+                              "causes": sorted({c["code"] for c in rep3.get("causes") or []})}}
+    out["f_elle"] = row
+    if not (row["once"]["same_result"] and rep1.get("engine") == "device"
+            and not rep1.get("causes") and rep1.get("chunks", 0) > rep0.get("chunks", 0)
+            and row["every_dispatch"]["same_verdict"]
+            and row["every_dispatch"]["causes"] == ["elle_device_oom"]):
+        raise AssertionError(f"resilience (f) failed: {row}")
+    chaos.reset()
+    resilience.reset_breakers()
+    for k, v in out.items():
+        emit({"phase": "resilience", "case": k, **v})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4381,6 +4945,20 @@ def main() -> int:
     keyed_mr_launches = keyed_multi_register_phase(lv, wgl_host, jchecker, independent, History)
     engine_phases(lv, wgl, model, hist, res, hists)
 
+    # -- the offline segmented checker and the device-fault containment ------
+    new_walls = {}
+    t = time.perf_counter()
+    offline_run = offline_segmented_phase(lv, model)
+    new_walls["offline_segmented"] = time.perf_counter() - t
+    t = time.perf_counter()
+    segmented_entry_phase(lv, model, wgl, jchecker, offline_run["history_20k"])
+    new_walls["segmented_entry"] = time.perf_counter() - t
+    t = time.perf_counter()
+    resilience_phase(lv, model, wgl, frontier, make_mesh, encode_history, enc, replay,
+                     offline_run["plan_20k"], offline_run["history_20k"])
+    new_walls["resilience"] = time.perf_counter() - t
+    del offline_run
+
     # -- the frontier-sharded search on SHARD_D shards of the card ------------
     shard_stats, shard_errs = sharded_kernels_phase(lv, wgl, enc, model)
     # the sharded chunk start on the same warmed frontier (chunk_start)
@@ -4539,7 +5117,9 @@ def main() -> int:
             **({"all_ones": sweep[f"block_square_all_ones_pad{ELLE_SHARD_20K_PAD}"]}
                if kname == "elle_block_square" else {}),
             **({"gather_scale": gathers} if kname == "elle_gather" else {})})
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    done_s = time.perf_counter() - t_start
+    emit({"phase": "done", "seconds": done_s, "new_phases_s": new_walls,
+          "new_phases_share": sum(new_walls.values()) / done_s})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

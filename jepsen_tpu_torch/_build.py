@@ -72,6 +72,12 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
+class BuildError(RuntimeError):
+    """The kernel library could not be built (no ``nvcc``, or a failed
+    compile or link): deterministic, so the resilience layer never
+    retries it."""
+
+
 def nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -79,7 +85,7 @@ def nvcc() -> str:
     cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+    raise BuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
                        "the CUDA kernels are built on the machine with the GPU")
 
 
@@ -121,13 +127,13 @@ def build() -> dict:
             done = list(pool.map(lambda so: _compile(exe, *so), zip(srcs, objs)))
         log = "".join(f"== {src.name}\n{out.stdout}" for src, (out, _s) in zip(srcs, done))
         if any(out.returncode != 0 for out, _s in done):
-            raise RuntimeError(f"nvcc failed:\n{log}")
+            raise BuildError(f"nvcc failed:\n{log}")
         tmp_lib = Path(tmp) / LIB.name
         out = subprocess.run([exe, *ARCH, "-shared", *map(str, objs), "-o", str(tmp_lib)],
                              capture_output=True, text=True)
         log += out.stdout + out.stderr
         if out.returncode != 0:
-            raise RuntimeError(f"nvcc link failed:\n{log}")
+            raise BuildError(f"nvcc link failed:\n{log}")
         os.replace(tmp_lib, LIB)
     stamp.write_text(digest)
     (BUILD / "build.log").write_text(log)

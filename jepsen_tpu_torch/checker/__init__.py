@@ -7,7 +7,8 @@ The port of the reference's ``jepsen_tpu/checker/__init__.py``: the
 dispatches on the ``backend`` option (overridden by the test map's
 ``checker_backend``) onto the GPU search (``ops.wgl``), the native C search
 (``ops.wgl_c``), the two raced, the frontier-sharded search
-(``parallel.frontier``) or the port's host oracle, and decides many keyed
+(``parallel.frontier``), the offline segmented checker
+(``jepsen_tpu_torch.offline``) or the port's host oracle, and decides many keyed
 subhistories at once through ``batch_check`` (``parallel.check_batch``).
 On a test map with ``"telemetry?": True`` it records into the test's
 registry (``telemetry.of_test``).
@@ -36,8 +37,6 @@ _VALID_PRIORITY = {True: 0, "unknown": 0.5, False: 1}
 DEVICE_BACKENDS = ("device", "tpu", "gpu", "cuda")
 # check_history's engines besides the device search (ops.wgl.check_history).
 HISTORY_BACKENDS = ("auto", "native", "competition")
-# The reference's other engines, and the slice of the port that brings each.
-_LATER_BACKENDS = {"segmented": "the offline segmented checker"}
 # Bounds of the checker_seconds histogram (the reference's).
 _CHECKER_SECONDS_BUCKETS = (0.01, 0.05, 0.25, 1.0, 5.0, 30.0, 120.0, 600.0)
 
@@ -155,15 +154,11 @@ def stats() -> Checker:
 
 def resolve_backend(name: str) -> str:
     """``"device"``, ``"auto"``, ``"native"``, ``"competition"``,
-    ``"sharded"`` or ``"host"`` for a backend name; ``"segmented"`` raises
-    ``ValueError`` naming the slice that brings it."""
+    ``"sharded"``, ``"segmented"`` or ``"host"`` for a backend name."""
     if name in DEVICE_BACKENDS:
         return "device"
-    if name in ("host", "sharded") or name in HISTORY_BACKENDS:
+    if name in ("host", "sharded", "segmented") or name in HISTORY_BACKENDS:
         return name
-    if name in _LATER_BACKENDS:
-        raise ValueError(f"backend {name!r} comes with a later slice of the port "
-                         f"({_LATER_BACKENDS[name]}); use 'device' or 'host'")
     raise ValueError(f"unknown backend {name!r}")
 
 
@@ -183,7 +178,9 @@ def linearizable(options: Optional[dict] = None, **kw) -> Checker:
       ``"competition"`` (``ops.wgl.check_history``'s engines: the C search
       first, the C search alone, or the two raced), ``"sharded"`` (the
       frontier-sharded search over the test map's ``"mesh"``, else a mesh
-      of one shard on ``device``) or ``"host"`` (the port's oracle),
+      of one shard on ``device``), ``"segmented"`` (the offline planner and
+      the multi-stream scheduler, ``offline.check_offline``, its oracle
+      engine ``auto`` on ``device``) or ``"host"`` (the port's oracle),
       overridden by the test map's ``checker_backend``. The default stays
       ``"device"`` (the reference's is ``"auto"``): the port's entry points
       run the GPU unless asked otherwise, and ``"auto"`` is one keyword
@@ -230,6 +227,11 @@ def linearizable(options: Optional[dict] = None, **kw) -> Checker:
             return check_history_sharded(model, ops, mesh=(test or {}).get("mesh"),
                                          device=resolve_device(device),
                                          metrics=kw.get("metrics"))
+        if backend == "segmented":
+            from .. import offline
+
+            return offline.check_offline(model, ops, metrics=kw.get("metrics"),
+                                         device=device)
         # The device legs resolve the device; the C search never does.
         return wgl.check_history(model, ops, backend=backend, device=device, **kw)
 

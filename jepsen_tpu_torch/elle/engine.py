@@ -14,23 +14,30 @@ Escalation ladder (one-sided, typed):
 
 1. members co-batch at their bucket, chunked under a per-dispatch byte
    budget (``MEMBER_BYTE_BUDGET // (bucket² · 2)`` members);
-2. a chunk that runs out of memory (``torch.OutOfMemoryError``) halves
-   and retries, up to :data:`MAX_ESCALATIONS` rungs. Any other exception
-   (a build failure, a launch error) propagates: no kernel fault turns
-   into a quiet host fallback;
+2. a chunk that runs out of memory (``torch.OutOfMemoryError``) or meets
+   an injected ``device.dispatch`` fault (``testing.chaos.ChaosError``,
+   fired before each closure dispatch) halves and retries, up to
+   :data:`MAX_ESCALATIONS` rungs. Any other exception (a build failure, a
+   launch error) propagates: no kernel fault turns into a quiet host
+   fallback;
 3. a graph above :data:`ops.CEILING` degrades to the host Tarjan/BFS
    path with the typed cause ``elle_bucket_ceiling``. Past the rung
-   budget, a chunk on the GPU raises ``torch.OutOfMemoryError`` naming
-   its bucket and members, so the card's work never moves to the host
-   unseen; only CPU tensors fold to the host, typed ``elle_device_oom``.
+   budget, a chunk on the GPU that ran out of memory raises
+   ``torch.OutOfMemoryError`` naming its bucket and members, so the
+   card's work never moves to the host unseen; CPU tensors fold to the
+   host, typed ``elle_device_oom``. An injected fault folds the same way
+   on every device, as the reference folds any dispatch failure: it says
+   nothing about the card's size, which is why a real out-of-memory
+   raises there.
 
 ``mesh=`` sends every closure, one request at a time, to the block-row
 sharded closure (:func:`ops.sharded_closure`) on the mesh's device, at
 ``pad = max(closure_pad(n), 32 D)`` and with no bucket ceiling. Its only
-fold is the same: an out-of-memory on CPU tensors becomes
-``elle_device_oom`` with ``sharded=True``; on the GPU it raises naming
-``n``, the pad and ``D``, and any other exception (a mesh axis that is not
-a power of two included) propagates.
+fold is the same: an out-of-memory on CPU tensors, or an injected fault on
+any device, becomes ``elle_device_oom`` with ``sharded=True``; a real
+out-of-memory on the GPU raises naming ``n``, the pad and ``D``, and any
+other exception (a mesh axis that is not a power of two included)
+propagates.
 
 ``report`` carries ``engine``, ``chunks`` and ``causes`` as in the
 reference. ``metrics`` (a :class:`jepsen_tpu_torch.telemetry.Registry`)
@@ -58,6 +65,7 @@ from .. import trace as _trace
 from ..checker import provenance as _prov
 from ..devices import mesh_device
 from ..devices import resolve_device as _torch_device
+from ..testing import chaos as _chaos
 from . import ops
 
 MAX_ESCALATIONS = 4
@@ -246,13 +254,14 @@ def _bucketed_requests(requests, views, failed, metrics, report, min_bucket,
             was_loaded = _build.loaded()
             t0p = _time.perf_counter()
             try:
+                _chaos.fire("device.dispatch")
                 pk, lb = ops.batched_closure(S[i:i + m], D[i:i + m], bucket, dev)
                 pk = pk.cpu().numpy().view(np.uint32)
                 lb = lb.cpu().numpy()
-            except torch.OutOfMemoryError as e:
+            except (torch.OutOfMemoryError, _chaos.ChaosError) as e:
                 esc += 1
                 if esc > MAX_ESCALATIONS or chunk <= 1:
-                    if dev.type != "cpu":
+                    if dev.type != "cpu" and isinstance(e, torch.OutOfMemoryError):
                         raise torch.OutOfMemoryError(
                             f"elle closure at bucket {bucket}: a chunk of {m} of "
                             f"{B} member(s) is out of memory on {dev} after "
@@ -283,9 +292,10 @@ def _sharded_requests(requests, views, failed, metrics, report, mesh, dev, t_sta
         was_loaded = _build.loaded()
         t0p = _time.perf_counter()
         try:
+            _chaos.fire("device.dispatch")
             packed = ops.sharded_closure(srcs, dsts, n, mesh, exchange=exchange)
-        except torch.OutOfMemoryError as e:
-            if dev.type != "cpu":
+        except (torch.OutOfMemoryError, _chaos.ChaosError) as e:
+            if dev.type != "cpu" and isinstance(e, torch.OutOfMemoryError):
                 raise torch.OutOfMemoryError(
                     f"elle sharded closure of n={n} at pad {pad} on "
                     f"{n_dev} shard(s) is out of memory on {dev}: {e}") from e

@@ -67,6 +67,16 @@ class Op:
     def with_(self, **kw: Any) -> "Op":
         return replace(self, **kw)
 
+    @classmethod
+    def from_dict(cls, m: dict) -> "Op":
+        """An Op from a plain scheduler op map (string keys); keys other
+        than the standard fields go to ``extra``, sorted."""
+        std = {"type", "process", "f", "value", "time", "index", "error"}
+        extra = tuple(sorted(((k, v) for k, v in m.items() if k not in std), key=repr))
+        return cls(type=m.get("type"), process=m.get("process"), f=m.get("f"),
+                   value=m.get("value"), time=m.get("time", -1), index=m.get("index", -1),
+                   error=m.get("error"), extra=extra)
+
     def get(self, key: Any, default: Any = None) -> Any:
         """Look up an extra field; a string key also matches the keyword
         with that name."""

@@ -1139,11 +1139,26 @@ def check_history(model: Model, history: History, backend: str = "device",
     runs on the host oracle under ``device``, and its result's ``info``
     says so. The device legs take every other keyword argument
     (``device``, ``metrics``, ``chunk_callback``, ...); the C search takes
-    only ``metrics``. ``parallel=`` (the offline segmented checker) comes
-    with a later slice of the port and raises."""
+    only ``metrics``.
+
+    ``parallel="segmented"`` routes the call through the offline
+    decrease-and-conquer checker (``jepsen_tpu_torch.offline``): the
+    history is planned into a (stream x key x segment) DAG and decided
+    through the multi-stream scheduler, with ``backend`` as its oracle
+    engine (``auto``, ``device``, ``host`` or ``sharded``; any other
+    backend runs as ``auto``). It is the one entry that takes keyed
+    ([k v]) histories directly; the keyword arguments go to
+    ``offline.check_offline`` (``device``, ``metrics``, ``streams``, ...).
+    Its verdict may degrade to a typed ``unknown`` against the single
+    search's, never flip."""
     if parallel is not None:
-        raise ValueError("parallel= (the offline segmented checker) comes "
-                         "with a later slice of the port")
+        if parallel != "segmented":
+            raise ValueError(f"unknown parallel mode {parallel!r}")
+        from .. import offline
+
+        engine = backend if backend in offline.ENGINES else "auto"
+        return offline.check_offline(model, history, engine=engine,
+                                     max_configs=host_max_configs, **kw)
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; use one of {BACKENDS}")
     from . import wgl_c, wgl_host

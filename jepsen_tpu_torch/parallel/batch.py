@@ -49,9 +49,8 @@ from ..models import Model
 from ..ops import wgl
 from ..ops import wgl_level as _lv
 from ..ops.encode import EncodedHistory, encode_history
-
-_RESILIENCE_SLICE = "retries= (the batch's retry and circuit breaker) comes with a " \
-    "later slice of the port (the checking pipeline's resilience)"
+from ..testing import chaos as _chaos
+from . import resilience as _resilience
 
 
 def check_encoded_batch(
@@ -66,7 +65,7 @@ def check_encoded_batch(
     levels_per_call: Optional[int] = None,
     metrics=None,
     chunk_callback=None,
-    retries: int = 0,
+    retries: int = 2,
     device=None,
     plain: bool = False,
 ) -> list[dict]:
@@ -101,21 +100,30 @@ def check_encoded_batch(
     library (``_build.chunk_stage``).
 
     ``plain``: run the plain PyTorch version of every stage (a loop over
-    members) even on the GPU. ``retries`` comes with a later slice and
-    raises ``ValueError``."""
+    members) even on the GPU.
+
+    ``retries``: a transient failure (``parallel.resilience.is_transient``:
+    a CUDA runtime error, an out-of-memory, an injected fault) restarts
+    the WHOLE batch up to this many times, as in the reference: each chunk
+    rewrites the frontiers and workspaces in place, so a failed chunk's
+    inputs may be gone, and the sound retry unit is the whole
+    deterministic search (each attempt makes its tables, frontiers and
+    workspaces anew). Failures feed the shared ``"batch"`` circuit
+    breaker; ``JEPSEN_NO_FAILOVER=1`` turns both off."""
     dp = 1
     if mesh is not None:
         device = mesh_device(mesh, device)
         dp = math.prod(mesh.shape[a] for a in mesh.axis_names if a == batch_axis) or 1
-    if retries:
-        raise ValueError(_RESILIENCE_SLICE)
     if not encs:
         return []
-    return _check_encoded_batch_once(
-        encs, f=f, dp=dp, max_open=max_open, window_cap=window_cap, escalate=escalate,
-        f_schedule=f_schedule, levels_per_call=levels_per_call,
-        device=resolve_device(device), plain=plain, metrics=metrics,
-        chunk_callback=chunk_callback)
+    device = resolve_device(device)
+    return _resilience.call(
+        lambda: _check_encoded_batch_once(
+            encs, f=f, dp=dp, max_open=max_open, window_cap=window_cap, escalate=escalate,
+            f_schedule=f_schedule, levels_per_call=levels_per_call, device=device,
+            plain=plain, metrics=metrics, chunk_callback=chunk_callback),
+        retries=retries, reason="batch", metrics=metrics,
+        breaker=_resilience.breaker("batch", metrics=metrics))
 
 
 def _note_host_stack(metrics, F, members: int, wall: float) -> None:
@@ -167,6 +175,7 @@ def _check_encoded_batch_once(encs, f, dp, max_open, window_cap, escalate, f_sch
         padded.append(padded[0])
         orig.append(None)
     t_hs = _time.perf_counter()
+    _chaos.fire("host.stack")
     stack = wgl.stack_plans(padded, device)
     CC = stack.B or (W + KO * 32)
 
@@ -241,6 +250,7 @@ def _check_encoded_batch_once(encs, f, dp, max_open, window_cap, escalate, f_sch
         while active.any():
             budgets = np.where(active, np.minimum(totals, lsub + lpc), lsub)
             was_loaded = _build.loaded()
+            _chaos.fire("device.dispatch")
             flags = np.asarray(_lv.run_chunk_batch(
                 ops, g, plan.tabs, fr5, ws, lsub.tolist(), budgets.tolist(),
                 [lossy_rung] * Bk, nD, nO, model, ladder=(totals.tolist(), lpc)),

@@ -29,13 +29,17 @@ import os as _os
 import time as _time
 from typing import Optional
 
+import torch
+
 from .. import _build
 from .. import trace as _trace
 from ..checker import provenance as _prov
 from ..ops import wgl
 from ..ops import wgl_level as _lv
 from ..ops.encode import EncodedHistory, encode_history
+from ..testing import chaos as _chaos
 from . import make_mesh
+from . import resilience as _resilience
 
 
 def _resolve_exchange(exchange: Optional[str]) -> str:
@@ -83,7 +87,17 @@ def check_encoded_sharded(enc: EncodedHistory, mesh=None, axis: str = "dp",
     ``wgl_sharded_levels_total``, ``wgl_exchange_bytes_total{exchange}``
     (and ``wgl_allgather_bytes_total`` under allgather) from
     ``wgl.exchange_bytes_per_level``, the per-shard config gauges,
-    ``wgl_shard_imbalance`` (alltoall) and the escalation counter."""
+    ``wgl_shard_imbalance`` (alltoall) and the escalation counter.
+
+    A transient failure of a chunk (``parallel.resilience``: a CUDA
+    runtime error, an out-of-memory, an injected ``device.dispatch``
+    fault) retries THAT chunk, as the reference does, through the shared
+    ``"sharded"`` circuit breaker. A chunk rewrites the frontier in place,
+    so while retries are armed (not under ``JEPSEN_NO_FAILOVER=1``) the
+    chunk's starting frontier is copied on the device before it runs (one
+    copy, of the current capacity rung only), and a retry restores it and
+    a fresh workspace first: the retried search gives the rows and verdict
+    of one without the fault."""
     t0 = _time.perf_counter()
     exchange = _resolve_exchange(exchange)
     if mesh is None:
@@ -154,17 +168,38 @@ def check_encoded_sharded(enc: EncodedHistory, mesh=None, axis: str = "dp",
         nonlocal fmax_all
         F = FT // D
         g = wgl.sharded_geometry(plan, F, D, exchange)
-        ws = workspaces.get(F)
-        if ws is None:
-            ws = workspaces[F] = _lv.BatchWorkspace(g, D, dev)
+        if F not in workspaces:
+            workspaces[F] = _lv.BatchWorkspace(g, D, dev)
         lpc = levels_per_call or wgl._levels_per_call(F * (plan.B or (W + KO * 32)))
+        start = None  # this rung's copy of a chunk's starting frontier
         while True:
             t_call = _time.perf_counter()
             lvl0 = int(fr[-1])
             budget = min(total_levels, lvl0 + lpc)
             was_loaded = _build.loaded()
-            acc, ovf, nonempty, lvl, fmax, count, cmax, cmin = _lv.run_chunk_sharded(
-                ops, g, tabs, fr[:5], ws, lvl0, budget, False, plan.nD, plan.nO, enc.model)
+            if not _resilience.failover_disabled():
+                if start is None:
+                    start = tuple(torch.empty_like(a) for a in fr[:5])
+                for dst, src in zip(start, fr[:5]):
+                    dst.copy_(src)
+            tried = False
+
+            def chunk():
+                nonlocal tried
+                if tried:
+                    # a failed attempt may have rewritten the frontier and
+                    # left scratch state behind: start again from the copy
+                    for dst, src in zip(fr[:5], start):
+                        dst.copy_(src)
+                    workspaces[F] = _lv.BatchWorkspace(g, D, dev)
+                tried = True
+                _chaos.fire("device.dispatch")
+                return _lv.run_chunk_sharded(ops, g, tabs, fr[:5], workspaces[F], lvl0,
+                                             budget, False, plan.nD, plan.nO, enc.model)
+
+            acc, ovf, nonempty, lvl, fmax, count, cmax, cmin = _resilience.call(
+                chunk, reason="sharded", metrics=metrics,
+                breaker=_resilience.breaker("sharded", metrics=metrics))
             fmax_all = max(fmax_all, fmax)
             fr = fr[:5] + (lvl,)
             if checkpoint_path:

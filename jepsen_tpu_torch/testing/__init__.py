@@ -1,8 +1,9 @@
 """Seeded history generators for tests and the chip smoke run.
 
-``random_register_history``, ``perturb_history`` and
-``random_lock_history`` draw from a ``random.Random`` in the same order as
-the reference package's generators, so one seed gives op-for-op the same
+``random_register_history``, ``perturb_history``, ``random_lock_history``,
+``chunked_register_history`` and ``concurrent_register_history`` draw from
+a ``random.Random`` in the same order as the reference package's
+generators, so one seed gives op-for-op the same
 history in either package. ``random_model_history`` simulates an atomic
 service of any device model, and ``lagged_append_history`` and
 ``lagged_wr_history`` simulate transactional stores for the Elle checkers
@@ -17,8 +18,8 @@ from __future__ import annotations
 import random
 from typing import Any, NamedTuple, Optional
 
-from .history import History, Op
-from .models import Model, ValueTable, model_by_name
+from ..history import History, Op
+from ..models import Model, ValueTable, model_by_name
 
 
 def random_register_history(
@@ -116,11 +117,71 @@ def perturb_history(rng: random.Random, history: History,
     def mut(v):
         return (v if v is None else v + 17) or 23
 
-    from .independent import KV
+    from ..independent import KV
 
     v = op.value
     ops[i] = op.with_(value=KV(v.key, mut(v.value)) if isinstance(v, KV) else mut(v))
     return History(ops, reindex=False)
+
+
+def chunked_register_history(rng: random.Random, n_ops: int = 10_000, n_procs: int = 4,
+                             chunk_ops: int = 120, cas: bool = True, fail_p: float = 0.02,
+                             values: int = 5) -> History:
+    """A linearizable register history with quiescent cut points: chunks of
+    :func:`random_register_history` (no :info ops), each drained before it
+    ends and each opened by a sequential ``write 0`` pair that resets the
+    register, so the concatenation stays linearizable. Times and indexes
+    are rewritten globally monotone; whole chunks only, so the history
+    holds about ``n_ops`` invocations."""
+    ops: list[Op] = []
+    t = 0
+    while len(ops) < 2 * n_ops:
+        chunk = random_register_history(rng, n_ops=min(chunk_ops, n_ops), n_procs=n_procs,
+                                        cas=cas, crash_p=0.0, fail_p=fail_p, values=values)
+        t += 10
+        ops.append(Op("invoke", 0, "write", 0, time=t))
+        t += 10
+        ops.append(Op("ok", 0, "write", 0, time=t))
+        for op in chunk:
+            t += 1
+            ops.append(op.with_(time=t))
+    return History(ops, reindex=True)
+
+
+def concurrent_register_history(rng: random.Random, n_ops: int = 10_000,
+                                n_writers: int = 8, read_every: int = 1) -> History:
+    """A linearizable register history that is concurrent inside every
+    segment: each round invokes ``n_writers`` writes of fresh values before
+    any completes, completes them in shuffled order and, after every
+    ``read_every``-th round's quiescent point, reads one of the round's
+    values. A round's feasible end states are all its values, so the read
+    segment after it fans into ``n_writers`` carried-state members."""
+    if n_writers < 1:
+        raise ValueError("n_writers must be >= 1")
+    ops: list[Op] = []
+    t = 0
+    val = 0
+    rounds = 0
+    while len(ops) < n_ops:
+        vals = [val + i for i in range(n_writers)]
+        val += n_writers
+        order = list(range(n_writers))
+        rng.shuffle(order)
+        for p in order:
+            t += 1
+            ops.append(Op("invoke", p, "write", vals[p], time=t))
+        rng.shuffle(order)
+        for p in order:
+            t += 1
+            ops.append(Op("ok", p, "write", vals[p], time=t))
+        rounds += 1
+        if read_every and rounds % read_every == 0:
+            seen = rng.choice(vals)
+            t += 1
+            ops.append(Op("invoke", 0, "read", None, time=t))
+            t += 1
+            ops.append(Op("ok", 0, "read", seen, time=t))
+    return History(ops, reindex=True)
 
 
 def random_lock_history(
@@ -496,7 +557,7 @@ def stage1_case(seed: int, nb: int, M: int, P: int, NC: int, density: str) -> tu
     P, NC] and fkey [nb, P] int32: what the outputs held before)``."""
     import numpy as np
 
-    from .ops import wgl_level as lv
+    from ..ops import wgl_level as lv
 
     if density not in STAGE1_DENSITIES:
         raise ValueError(f"unknown density {density!r} (expected one of {STAGE1_DENSITIES})")
@@ -533,7 +594,7 @@ def prune_case(seed: int, nb: int, L: int, NC: int, NID: int, family: str) -> tu
     subset rules fire; a key's sign bit marks an invalid row."""
     import numpy as np
 
-    from .ops import wgl_level as lv
+    from ..ops import wgl_level as lv
 
     if family not in PRUNE_FAMILIES:
         raise ValueError(f"unknown family {family!r} (expected one of {PRUNE_FAMILIES})")
@@ -615,7 +676,7 @@ def gather_case(seed: int, case: str, nb: int, F: int, P: int) -> tuple:
     fields the prune's cross-shard reduce would have written."""
     import numpy as np
 
-    from .ops import wgl_level as lv
+    from ..ops import wgl_level as lv
 
     if case not in GATHER_CASES:
         raise ValueError(f"unknown case {case!r} (expected one of {GATHER_CASES})")

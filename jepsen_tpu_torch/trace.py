@@ -1,15 +1,109 @@
-"""Trace-context tags that the drivers' telemetry events carry.
+"""Spans and trace-context tags.
 
-A trimmed copy of the reference's ``jepsen_tpu/trace.py``: only the
-thread-local tags a caller pushes around a check (``span_tags``) and that
-every chunk event carries (``event_tags``); the span collector and the
-client wrapper stay in the reference."""
+A trimmed copy of the reference's ``jepsen_tpu/trace.py``: the thread-safe
+span :class:`Collector` (``mint_id``, ``record``, ``span``) with its
+process-wide :func:`default_collector`, and the
+thread-local tags a caller pushes around a check (``span_tags``) that
+every chunk event carries (``event_tags``). The online scheduler's
+``collector=`` records its ``online.oracle``, ``online.segment`` and
+``online.member`` spans in a collector, and pushes the oracle span's id as
+the ``trace_span`` tag of the chunk events its device calls emit. The
+client wrapper and the cross-process headers stay in the reference."""
 
 from __future__ import annotations
 
+import itertools
 import threading
+import time
 from contextlib import contextmanager
-from typing import Any
+from typing import Any, Optional
+
+
+class Collector:
+    """Thread-safe span sink."""
+
+    def __init__(self):
+        self.spans: list[dict] = []
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        # next() on itertools.count is atomic under the GIL: concurrent
+        # spans never mint the same id.
+        self._ids = itertools.count()
+
+    def _stack(self) -> list:
+        st = getattr(self._local, "stack", None)
+        if st is None:
+            st = self._local.stack = []
+        return st
+
+    def mint_id(self) -> str:
+        """A fresh span id, which a caller may hand to children before the
+        parent span is recorded."""
+        return f"{threading.get_ident():x}-{next(self._ids)}"
+
+    def record(self, name: str, *, start_ns: int, end_ns: int,
+               span_id: Optional[str] = None, trace_id: Optional[str] = None,
+               parent_id: Optional[str] = None, stage: Optional[str] = None,
+               **attrs: Any) -> dict:
+        """Log an already-timed span with explicit linkage (the cross-thread
+        seam of the online scheduler's segment -> member -> oracle chain)."""
+        rec: dict = {
+            "name": name,
+            "span_id": span_id or self.mint_id(),
+            "parent_id": parent_id,
+            "thread": threading.current_thread().name,
+            "start_ns": int(start_ns),
+            "end_ns": int(end_ns),
+            "duration_us": (int(end_ns) - int(start_ns)) // 1000,
+        }
+        if trace_id is not None:
+            rec["trace_id"] = trace_id
+        if stage is not None:
+            rec["stage"] = stage
+        if attrs:
+            rec["attrs"] = attrs
+        with self._lock:
+            self.spans.append(rec)
+        return rec
+
+    @contextmanager
+    def span(self, name: str, **attrs: Any):
+        """Record a span around the body; spans nest per thread."""
+        stack = self._stack()
+        sid = self.mint_id()
+        parent = stack[-1] if stack else None
+        rec = {
+            "name": name,
+            "span_id": sid,
+            "parent_id": parent,
+            "thread": threading.current_thread().name,
+            "start_ns": time.monotonic_ns(),
+            **({"attrs": attrs} if attrs else {}),
+        }
+        stack.append(sid)
+        try:
+            yield rec
+        except Exception as e:
+            rec["error"] = f"{type(e).__name__}: {e}"
+            raise
+        finally:
+            stack.pop()
+            rec["end_ns"] = time.monotonic_ns()
+            rec["duration_us"] = (rec["end_ns"] - rec["start_ns"]) // 1000
+            with self._lock:
+                self.spans.append(rec)
+
+
+_default = Collector()
+
+
+def default_collector() -> Collector:
+    return _default
+
+
+def span(name: str, **attrs):
+    return _default.span(name, **attrs)
+
 
 _tags_local = threading.local()
 _EMPTY_TAGS: dict = {}

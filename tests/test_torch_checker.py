@@ -143,21 +143,14 @@ def test_device_backend_aliases(name):
 
 @pytest.mark.parametrize("name", ["auto", "native", "competition", "segmented"])
 def test_later_slice_backends_raise(name):
-    """``segmented`` still comes with a later slice and raises, as an
-    option and as the test map's override; ``auto``, ``native`` and
-    ``competition`` run, as an option and as the override, with the
-    reference checker's verdict and backend."""
+    """``auto``, ``native``, ``competition`` and ``segmented`` run, as an
+    option and as the test map's override, with the reference checker's
+    verdict and backend (``segmented``: the verdict and the offline
+    result's ``parallel`` and ``segments_decided``)."""
     r1, r2 = random.Random(5), random.Random(5)
     good = (ref_random(r1, n_ops=6), random_register_history(r2, n_ops=6))
     bad = (ref_perturb(r1, ref_random(r1, n_ops=30, n_procs=3, crash_p=0.0)),
            perturb_history(r2, random_register_history(r2, n_ops=30, n_procs=3, crash_p=0.0)))
-    if name == "segmented":
-        with pytest.raises(ValueError, match="later slice"):
-            jc.linearizable(model=CasRegister(init=0), backend=name, device="cpu")
-        lin = jc.linearizable(model=CasRegister(init=0), device="cpu")
-        with pytest.raises(ValueError, match="later slice"):
-            lin.check({"checker_backend": name}, good[1], {})
-        return
     by_option = jc.linearizable(model=CasRegister(init=0), backend=name, device="cpu")
     by_map = jc.linearizable(model=CasRegister(init=0), device="cpu")
     ref = ref_checker.linearizable(model=RefCas(init=0), backend=name)
@@ -165,7 +158,11 @@ def test_later_slice_backends_raise(name):
         want = ref.check({"no-store?": True}, ref_h, {})
         for port in (by_option.check({}, h, {}), by_map.check({"checker_backend": name}, h, {})):
             assert port["valid"] == want["valid"]
-            assert port["backend"] == want["backend"]
+            if name == "segmented":
+                assert port["parallel"] == want["parallel"] == "segmented"
+                assert port["segments_decided"] == want["segments_decided"]
+            else:
+                assert port["backend"] == want["backend"]
     assert want["valid"] is False
 
 

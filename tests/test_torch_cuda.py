@@ -1672,3 +1672,161 @@ def test_sharded_wrappers_refuse_bad_meshes(cuda):
         lv.exchange(g, crows, ctl, crows, crows, crows, crows)
     with pytest.raises(ValueError):
         wgl.sharded_geometry(plan, 16, lv.MAX_SHARDS + 1, "alltoall")
+
+
+# ---------------------------------------------------------------------------
+# The resilience layer and the segmented checker on the card
+
+
+def _resilience_clean(monkeypatch):
+    from jepsen_tpu_torch.parallel import resilience
+    from jepsen_tpu_torch.testing import chaos
+
+    monkeypatch.delenv("JEPSEN_NO_FAILOVER", raising=False)
+    resilience.reset_breakers()
+    chaos.reset()
+
+
+def _batch_rows(results):
+    return [(r["valid"], r.get("levels"), r.get("frontier_max"), r.get("stuck_configs"))
+            for r in results]
+
+
+@pytest.mark.parametrize("point,on_call", [("device.dispatch", 1), ("device.dispatch", 2),
+                                           ("host.stack", 1)])
+def test_batch_retry_on_the_card(cuda, monkeypatch, point, on_call):
+    """An injected fault in a batch on the card: the batch runs again and
+    every member's result is the plain path's."""
+    from jepsen_tpu_torch.parallel import check_batch
+    from jepsen_tpu_torch.telemetry import Registry
+    from jepsen_tpu_torch.testing import chaos
+
+    _resilience_clean(monkeypatch)
+    rng = random.Random(5)
+    hs = [random_register_history(rng, n_ops=60, n_procs=4) for _ in range(6)]
+    plain = check_batch(CasRegister(init=0), hs, f=16, device="cuda", plain=True)
+    reg = Registry()
+    with chaos.inject(point, on_call=on_call):
+        got = check_batch(CasRegister(init=0), hs, f=16, device="cuda", metrics=reg)
+    assert _batch_rows(got) == _batch_rows(plain)
+    assert reg.counter("wgl_retry_total", labelnames=("reason",)).labels(
+        reason="batch").value == 1
+
+
+@pytest.mark.parametrize("mode", ["alltoall", "allgather"])
+def test_sharded_chunk_retry_on_the_card(cuda, monkeypatch, mode):
+    """``device.dispatch`` at the third chunk, and a fault after a chunk's
+    levels ran: the retried search gives the plain search's verdict and
+    per-chunk rows."""
+    from jepsen_tpu_torch.parallel import frontier, make_mesh
+    from jepsen_tpu_torch.testing import chaos
+
+    _resilience_clean(monkeypatch)
+    monkeypatch.delenv("JEPSEN_WGL_EXCHANGE", raising=False)
+    enc = encode_history(CasRegister(init=0),
+                         random_register_history(random.Random(91), n_ops=80, n_procs=4,
+                                                 crash_p=0.0))
+
+    def run(**kw):
+        rows = []
+        res = frontier.check_encoded_sharded(enc, mesh=make_mesh(4), f_total=64,
+                                             levels_per_call=4, exchange=mode,
+                                             chunk_callback=lambda i: rows.append(
+                                                 (i["level"], i["count"])), **kw)
+        return (res["valid"], res.get("levels"), res.get("stuck_configs")), rows
+
+    plain = run(plain=True)
+    assert len(plain[1]) >= 3
+    with chaos.inject("device.dispatch", on_call=3):
+        assert run() == plain
+    real = lv.run_chunk_sharded
+    n = {"calls": 0}
+
+    def run_then_fail(*a, **kw):
+        out = real(*a, **kw)
+        n["calls"] += 1
+        if n["calls"] == 2:
+            raise torch.OutOfMemoryError("CUDA out of memory (after the chunk's levels)")
+        return out
+
+    monkeypatch.setattr(lv, "run_chunk_sharded", run_then_fail)
+    assert run() == plain
+
+
+@pytest.mark.parametrize("invalid", [False, True])
+def test_segmented_device_engine_on_the_card(cuda, monkeypatch, invalid):
+    """The offline checker's device engine on the card: the result map is
+    the plain path's (the same engine on CPU tensors) and the host
+    engine's (the engine name aside), and a round reached the batched
+    search with more than one member."""
+    from jepsen_tpu_torch import independent as ind
+    from jepsen_tpu_torch import offline
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.telemetry import Registry
+    from jepsen_tpu_torch.testing import concurrent_register_history
+
+    _resilience_clean(monkeypatch)
+    ops = []
+    for i in range(4):
+        rng = random.Random(30 + i)
+        hk = concurrent_register_history(rng, n_ops=240, n_writers=4)
+        if invalid and i == 0:
+            hk = perturb_history(rng, hk)
+        ops.extend(op.with_(process=op.process + 1000 * i, value=ind.KV(f"k{i}", op.value),
+                            index=-1) for op in hk)
+    ops.sort(key=lambda o: o.time)
+    h = History(ops[:-9], reindex=True)
+    def strip(x):
+        if isinstance(x, dict):
+            return {k: strip(v) for k, v in x.items()
+                    if k not in ("wall_s", "decide_s", "busy_pct", "plan", "engine")}
+        return [strip(v) for v in x] if isinstance(x, (list, tuple)) else x
+
+    reg = Registry()
+    dev = offline.check_offline(CasRegister(init=0), h, engine="device", streams=2,
+                                metrics=reg)
+    plain = offline.check_offline(CasRegister(init=0), h, engine="device", streams=2,
+                                  device="cpu")
+    host = offline.check_offline(CasRegister(init=0), h, engine="host", streams=2)
+    assert strip(dev) == strip(plain) == strip(host) and dev["valid"] is (not invalid)
+    rounds = [e for e in reg.events() if e["name"] == "online_round"]
+    assert any(e["engine"] == "device" and e["oracle_members"] > 1 for e in rounds)
+    assert not any(e["failover"] for e in rounds) and "failover" not in dev
+
+
+def test_segmented_rescue_on_the_card(cuda, monkeypatch):
+    """The scheduler's budget-tripped rescue on the card: at a stage-1
+    budget that trips every key's first segment, those non-terminal members
+    of every stream go to the batched search, and the result map is the
+    plain path's and the host engine's at the same budget."""
+    from jepsen_tpu_torch import independent as ind
+    from jepsen_tpu_torch import offline
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.telemetry import Registry
+    from jepsen_tpu_torch.testing import concurrent_register_history
+
+    _resilience_clean(monkeypatch)
+    keys = 64
+    ops = []
+    for i in range(keys):
+        hk = concurrent_register_history(random.Random(300 + i), n_ops=40, n_writers=5)
+        ops.extend(op.with_(process=op.process + 1000 * i, value=ind.KV(f"k{i}", op.value),
+                            index=-1) for op in hk)
+    ops.sort(key=lambda o: o.time)
+    h = History(ops, reindex=True)
+
+    def strip(x):
+        if isinstance(x, dict):
+            return {k: strip(v) for k, v in x.items()
+                    if k not in ("wall_s", "decide_s", "busy_pct", "plan", "engine")}
+        return [strip(v) for v in x] if isinstance(x, (list, tuple)) else x
+
+    reg = Registry()
+    kw = dict(streams=4, max_configs=64)
+    dev = offline.check_offline(CasRegister(init=0), h, engine="device", metrics=reg, **kw)
+    plain = offline.check_offline(CasRegister(init=0), h, engine="device", device="cpu", **kw)
+    host = offline.check_offline(CasRegister(init=0), h, engine="host", **kw)
+    assert strip(dev) == strip(plain) == strip(host)
+    rounds = [e for e in reg.events() if e["name"] == "online_round"]
+    members = [e["oracle_members"] for e in rounds if e["engine"] == "device"]
+    assert sum(members) >= keys and not any(e["failover"] for e in rounds)

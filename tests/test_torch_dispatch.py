@@ -265,5 +265,5 @@ def test_unknown_backend_and_parallel_raise():
     h = _north_star_small(n_ops=20)
     with pytest.raises(ValueError, match="unknown backend"):
         wgl.check_history(models.CasRegister(init=0), h, backend="knossos")
-    with pytest.raises(ValueError, match="later slice"):
-        wgl.check_history(models.CasRegister(init=0), h, backend="auto", parallel="segmented")
+    with pytest.raises(ValueError, match="unknown parallel mode"):
+        wgl.check_history(models.CasRegister(init=0), h, backend="auto", parallel="bisect")

@@ -136,7 +136,13 @@ def test_every_port_module_is_walkable():
             "jepsen_tpu_torch.models.bank", "jepsen_tpu_torch.models.counter",
             "jepsen_tpu_torch.models.sets", "jepsen_tpu_torch.models.queue",
             "jepsen_tpu_torch.native", "jepsen_tpu_torch.ops.wgl_c",
-            "jepsen_tpu_torch.telemetry.heartbeat"} <= mods
+            "jepsen_tpu_torch.telemetry.heartbeat", "jepsen_tpu_torch.testing",
+            "jepsen_tpu_torch.testing.chaos", "jepsen_tpu_torch.parallel.resilience",
+            "jepsen_tpu_torch.telemetry.flight", "jepsen_tpu_torch.online",
+            "jepsen_tpu_torch.online.segmenter", "jepsen_tpu_torch.online.scheduler",
+            "jepsen_tpu_torch.offline", "jepsen_tpu_torch.offline.planner",
+            "jepsen_tpu_torch.offline.driver",
+            "jepsen_tpu_torch.offline.__main__"} <= mods
 
 
 def test_every_kernel_entry_point_has_a_signature_and_a_source():
@@ -202,12 +208,17 @@ def test_entry_point_runs_on_cpu_when_asked():
                                 dict(backend="competition"),
                                 dict(parallel="segmented")])
 def test_later_slice_backends_raise(kw):
-    """``parallel="segmented"`` still comes with a later slice and raises;
-    the ``auto``, ``native`` and ``competition`` backends run, with the
-    host oracle's verdict (``auto`` and ``native`` on the C search)."""
+    """The ``auto``, ``native`` and ``competition`` backends and
+    ``parallel="segmented"`` run, with the host oracle's verdict (``auto``
+    and ``native`` on the C search); without ``device="cpu"`` the
+    segmented checker's device oracle raises where there is no GPU."""
     if "parallel" in kw:
-        with pytest.raises(ValueError, match="later slice|slice of the port"):
-            wgl.check_history(CasRegister(init=0), _history(), device="cpu", **kw)
+        host = wgl.check_history(CasRegister(init=0), _history(), backend="host")
+        res = wgl.check_history(CasRegister(init=0), _history(), device="cpu", **kw)
+        assert res["valid"] == host["valid"] is True and res["parallel"] == "segmented"
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                wgl.check_history(CasRegister(init=0), _history(), **kw)
         return
     host = wgl.check_history(CasRegister(init=0), _history(), backend="host")
     res = wgl.check_history(CasRegister(init=0), _history(), device="cpu", **kw)
