@@ -99,6 +99,23 @@ and then runs these phases, each printing JSON lines:
   escalation ladder (256 -> 2048 -> 8192): never False, definite
   verdicts agreeing with each member's own single search, and each
   member's result the same with the batch in reverse order;
+- ``store_replay``: BASELINE config 5 through its own entry point, in a
+  temporary store, the C EDN reader built first and its seconds printed
+  apart: (a) batch_replay_100's histories saved as 100 runs
+  (``store.save_1``) and replayed by ``cli.run(cli.replay_cmd(...),
+  ["replay", "--store-root", root])`` (the exit code the in-memory verdicts
+  imply, a ``rechecked.edn`` for every run agreeing with the host oracle
+  wherever definite, and ``parallel.replay.replay`` at ``f`` 64 giving the
+  in-memory batch's keys); (b) the eight 10k histories saved and replayed
+  (each member's keys equal to an in-memory ``check_encoded_batch`` with
+  replay's arguments), with the save, load-and-parse (and which EDN reader
+  ran: ``edn_fast`` or the Python reader, and why), encode, decide and
+  write walls (the replay's ``replay.*`` trace spans, as for (a)); (c) the refutation's ``linear.txt``/``linear.svg`` from the
+  card equal to those the checker writes with ``device="cpu"``; (d) an
+  anomalous append history's ``elle/<anomaly>.txt`` files from the card
+  equal to the CPU's; (e) ``keyed_multi_register``'s history through
+  ``independent.checker(linearizable)``: ``independent/<k>/`` for every
+  key; each path's launch counts;
 - ``model_kernels``: every other device model family's step in
   ``wgl_expand`` against the plain expand (the model's ``step_torch``) bit
   for bit, at the selected and unselected layouts, from a frontier warmed
@@ -660,6 +677,19 @@ def same_member(a, b) -> bool:
                          for c in r.get("stuck_configs") or []]
     return (all(a.get(k) == b.get(k) for k in ("valid", "levels", "frontier_max"))
             and rungs(a) == rungs(b) and witness(a) == witness(b))
+
+
+# The keys of a batch member's result that tests/test_torch_batch.py holds
+# against the reference's.
+MEMBER_KEYS = ("valid", "levels", "frontier_max", "escalated", "decided_at_F", "beam",
+               "max_linearized", "stuck_configs", "batched", "op_count")
+
+
+def same_keys(a, b) -> bool:
+    """Two results of one member agree on :data:`MEMBER_KEYS` and their
+    rungs (by F, members, calls)."""
+    rungs = lambda r: [(x["F"], x["members"], x["calls"]) for x in r.get("rungs") or []]
+    return all(a.get(k) == b.get(k) for k in MEMBER_KEYS) and rungs(a) == rungs(b)
 
 
 def same_ladder(a, b) -> bool:
@@ -2152,16 +2182,10 @@ def models_2k_phase(lv, wgl, wgl_host, hists):
     return launches
 
 
-def keyed_multi_register_phase(lv, wgl_host, jchecker, independent, History):
-    """100 keys of single-register ops over registers (0, 1, 2) through the
-    keyed checker: every key batched (S = 3), the same launches as
-    check_batch, agreeing with the plain path (a prefix of keys) and the
-    host oracle; and the compose wiring on a few keys, key by key, with
-    the batch's results. Returns the keyed checker's launch counts."""
-    import torch
-
+def keyed_mr_histories(independent, History):
+    """KEYED's model, its per-key histories (every ``perturb_every``-th
+    perturbed) and the keyed history of ``[k v]`` values."""
     from jepsen_tpu_torch.models import MultiRegister
-    from jepsen_tpu_torch.parallel import check_batch
     from jepsen_tpu_torch.testing import random_model_history
 
     model = MultiRegister({0: None, 1: None, 2: None})
@@ -2174,7 +2198,21 @@ def keyed_multi_register_phase(lv, wgl_host, jchecker, independent, History):
     for k, h in enumerate(hists):
         for o in h:
             keyed_ops.append(o.with_(value=independent.KV(k, o.value), index=len(keyed_ops)))
-    keyed_h = History(keyed_ops, reindex=False)
+    return model, hists, History(keyed_ops, reindex=False)
+
+
+def keyed_multi_register_phase(lv, wgl_host, jchecker, independent, History):
+    """100 keys of single-register ops over registers (0, 1, 2) through the
+    keyed checker: every key batched (S = 3), the same launches as
+    check_batch, agreeing with the plain path (a prefix of keys) and the
+    host oracle; and the compose wiring on a few keys, key by key, with
+    the batch's results. Returns the keyed checker's launch counts."""
+    import torch
+
+    from jepsen_tpu_torch.parallel import check_batch
+
+    model, hists, keyed_h = keyed_mr_histories(independent, History)
+    keyed_ops = keyed_h.ops
     check_batch(model, hists)  # workspaces and first-call costs
     reset_counts(lv)
     rb = check_batch(model, hists)
@@ -4126,6 +4164,13 @@ RESILIENCE_COPY_TURNS = 2
 # cap stops new segments of the caching allocator, so the batch must need
 # more than the free space of the segments it already holds (tens of MB).
 OOM_F = 65536
+# store_replay: runs saved with store.save_1 under these test names, their
+# start-times a second apart from STORE_T0 (2026-07-31T00:00:00Z), so the
+# store's newest-first order is the reverse of the save order.
+STORE_T0 = 1785456000.0
+STORE_NAMES = {"replay": "batch-replay-100", "big": "batch-8x10k",
+               "witness": "refutation", "elle": "elle-append", "keyed": "keyed-multi-register"}
+ELLE_STORE = dict(seed=3, n_txns=600, lag=(100, 400), depth=8)  # anomalous: G-single, G2
 
 
 def offline_history(seed, n, invalid=False, keys=OFFLINE["keys"]):
@@ -4620,6 +4665,251 @@ def resilience_phase(lv, model, wgl, frontier, make_mesh, encode_history, enc, r
     return out
 
 
+# -- the store and the batch replay of stored histories ----------------------
+
+
+def stored_test(root, kind, i=0, **more) -> dict:
+    """The test map of run ``i`` of ``kind`` in the store at ``root``."""
+    from jepsen_tpu_torch import store
+
+    return {"name": STORE_NAMES[kind], "start-time": store.time_str(STORE_T0 + i),
+            "store-root": str(root), **more}
+
+
+def save_runs(root, kind, hists) -> tuple:
+    """Each history saved as its own run (``store.save_1``); returns the
+    ``history.edn`` paths in the order of ``hists``, the seconds and the
+    bytes written."""
+    from jepsen_tpu_torch import store
+
+    t = time.perf_counter()
+    paths = []
+    for i, h in enumerate(hists):
+        test = stored_test(root, kind, i, history=h)
+        store.save_1(test)
+        paths.append(store.path(test, "history.edn"))
+    return paths, time.perf_counter() - t, sum(p.stat().st_size for p in paths)
+
+
+def stored_verdict(path):
+    """The ``:valid?`` of an EDN results file, as a result map holds it."""
+    from jepsen_tpu_torch import edn
+
+    v = edn.read_string(path.read_text())[edn.K("valid?")]
+    return v.name if isinstance(v, edn.Keyword) else v
+
+
+def replay_steps(before: int) -> dict:
+    """The seconds of each step of the replays since the default trace
+    collector held ``before`` spans (``replay.load`` -> ``load_s``, ...),
+    summed over the replays."""
+    from jepsen_tpu_torch import trace
+
+    out: dict = {}
+    for sp in trace.default_collector().spans[before:]:
+        if sp["name"].startswith("replay."):
+            key = sp["name"].split(".", 1)[1] + "_s"
+            out[key] = out.get(key, 0.0) + (sp["end_ns"] - sp["start_ns"]) / 1e9
+    return out
+
+
+def edn_reader(path) -> str:
+    """Which EDN reader parses ``path``: ``edn_fast``, or ``python`` and why."""
+    from jepsen_tpu_torch import native
+
+    fast = native.load_edn_fast()
+    if fast is None:
+        return f"python ({native.edn_fast_missing})"
+    try:
+        fast.parse_all(path.read_text())
+    except fast.FastParseError as e:
+        return f"python (edn_fast refused the text: {e})"
+    return "edn_fast"
+
+
+def expected_exit(verdicts) -> int:
+    """The replay command's exit code for these verdicts."""
+    return 1 if False in verdicts else 2 if "unknown" in verdicts else 0
+
+
+def store_replay_phase(lv, model, replay, rk, rk_default, host, big, bad, independent,
+                       History) -> dict:
+    """BASELINE config 5 through its own entry point, in a temporary store:
+    (a) batch_replay_100's histories saved with ``store.save_1`` and
+    replayed by ``cli.run(cli.replay_cmd(...), ["replay", ...])`` (the exit
+    code the in-memory verdicts imply, every ``rechecked.edn`` the host
+    oracle's definite verdict; ``parallel.replay.replay`` at ``f`` 64 the
+    in-memory batch's keys); (b) the eight 10k histories replayed, against
+    an in-memory ``check_encoded_batch`` with replay's arguments, the
+    save, parse, encode, decide and write walls printed with the reader;
+    (c) the refutation's ``linear.txt``/``linear.svg`` from the card equal
+    to the CPU's; (d) an anomalous append history's ``elle/<anomaly>.txt``
+    from the card equal to the CPU's; (e) the keyed multi-register history
+    through ``independent.checker(linearizable)``, a store directory for
+    every key. Returns each path's launch counts."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from jepsen_tpu_torch import cli, native, store, trace
+    from jepsen_tpu_torch import checker as jchecker
+    from jepsen_tpu_torch.elle import ops as eo
+    from jepsen_tpu_torch.ops.encode import encode_history
+    from jepsen_tpu_torch.parallel import check_encoded_batch
+    from jepsen_tpu_torch.parallel import replay as pr
+    from jepsen_tpu_torch.testing import lagged_append_history
+    from jepsen_tpu_torch.workloads import append as wl_append
+
+    launches, out = {}, {}
+    with tempfile.TemporaryDirectory(prefix="store_replay_") as tmp:
+        root = Path(tmp)
+        # The C reader is built (or found built) before any timer starts:
+        # nothing earlier in the script reads EDN.
+        t = time.perf_counter()
+        native.load_edn_fast()
+        build_s = time.perf_counter() - t
+        # (a) the 100-run store through the replay command
+        paths, save_s, nbytes = save_runs(root, "replay", replay)
+        code_want = expected_exit([r["valid"] for r in rk_default])
+        reset_counts(lv)
+        torch.cuda.synchronize()
+        before = len(trace.default_collector().spans)
+        t = time.perf_counter()
+        code = cli.run(cli.replay_cmd(model_args={"init": 0}),
+                       ["replay", "--store-root", str(root)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        steps = replay_steps(before)
+        launches["store_replay_100"] = launch_counts(lv, "store_replay (a)", LEVEL_KERNELS)
+        stored = [stored_verdict(p.parent / "rechecked.edn") for p in paths]
+        again = pr.replay(model, paths, f=REPLAY["f"], write_results=False)
+        agree = {
+            "exit_code": code == code_want,
+            "every_run_rechecked": len(list(root.rglob("rechecked.edn"))) == len(paths),
+            "as_in_memory": stored == [r["valid"] for r in rk_default],
+            "host": all(v == h for v, h in zip(stored, host) if v != "unknown"),
+            "replay_f64_keys": all(same_keys(a, b) for a, b in zip(again, rk)),
+        }
+        out["a"] = {"runs": len(paths), "exit_code": code, "expected_exit_code": code_want,
+                    "wall_s": wall, **steps, "edn_fast_build_s": build_s,
+                    "reader": edn_reader(paths[0]), "save_s": save_s, "bytes": nbytes,
+                    "valid": stored.count(True), "invalid": stored.count(False),
+                    "unknown": stored.count("unknown"), "agree": agree}
+        emit({"phase": "store_replay", "case": "a_replay_100", **out["a"],
+              "launches": launches["store_replay_100"]})
+        if not all(agree.values()):
+            raise AssertionError(f"store_replay (a) disagrees: {agree}")
+
+        # (b) the north star's width: eight 10k-op histories
+        paths, save_s, nbytes = save_runs(root, "big", big)
+        reader = edn_reader(paths[0])
+        reset_counts(lv)
+        torch.cuda.synchronize()
+        before = len(trace.default_collector().spans)
+        rb = pr.replay(model, paths)
+        steps = replay_steps(before)
+        launches["store_replay_8x10k"] = launch_counts(
+            lv, "store_replay (b)", LEVEL_KERNELS + ("wgl_regroup",))
+        t = time.perf_counter()
+        mem = check_encoded_batch([encode_history(model, h.client_ops()) for h in big])
+        torch.cuda.synchronize()
+        mem_wall = time.perf_counter() - t
+        stored = [stored_verdict(p.parent / "rechecked.edn") for p in paths]
+        agree = {"keys": all(same_keys(a, b) for a, b in zip(rb, mem)),
+                 "rechecked": stored == [r["valid"] for r in rb],
+                 "never_false": False not in stored}
+        out["b"] = {"members": len(paths), "save_s": save_s, "bytes": nbytes,
+                    "reader": reader, **steps,
+                    "parse_mb_per_s": nbytes / 1e6 / steps["load_s"],
+                    "valid": [r["valid"] for r in rb], "levels": [r.get("levels") for r in rb],
+                    "rungs": [(x["F"], x["members"], x["calls"], x["wall_s"])
+                              for x in max((r.get("rungs") or [] for r in rb), key=len)],
+                    "in_memory_decide_s": mem_wall, "agree": agree}
+        emit({"phase": "store_replay", "case": "b_8x10k", **out["b"],
+              "launches": launches["store_replay_8x10k"]})
+        if not all(agree.values()):
+            raise AssertionError(f"store_replay (b) disagrees: {agree}")
+
+        # (c) the witness files of a refutation on the card and on the CPU
+        files, res, walls = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            test = stored_test(root / dev, "witness")
+            reset_counts(lv)
+            t = time.perf_counter()
+            res[dev] = jchecker.linearizable(model=model, device=dev).check(test, bad, {})
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches["store_witness"] = launch_counts(lv, "store_replay (c)")
+            walls[dev] = time.perf_counter() - t
+            files[dev] = {f: store.path(test, f).read_bytes()
+                          for f in res[dev].get("witness_files") or []}
+        agree = {"refuted": res["cuda"]["valid"] is False and res["cpu"]["valid"] is False,
+                 "no_witness_error": not any("witness_error" in r for r in res.values()),
+                 "files": sorted(files["cuda"]) == ["linear.svg", "linear.txt"],
+                 "same_files": files["cuda"] == files["cpu"]}
+        out["c"] = {"bytes": {f: len(b) for f, b in files["cuda"].items()},
+                    "wall_s": walls["cuda"], "cpu_wall_s": walls["cpu"], "agree": agree}
+        emit({"phase": "store_replay", "case": "c_witness", **out["c"],
+              "launches": launches["store_witness"]})
+        if not all(agree.values()):
+            raise AssertionError(f"store_replay (c) disagrees: {agree}")
+
+        # (d) Elle's explanation files on the card and on the CPU
+        h = lagged_append_history(**ELLE_STORE)
+        files, res, walls = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            test = stored_test(root / dev, "elle")
+            eo.reset_launches()
+            t = time.perf_counter()
+            res[dev] = wl_append.checker({"device": True, "torch_device": dev}).check(
+                test, h, {})
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches["store_explain"] = elle_launches(eo, "store_replay (d)")
+            walls[dev] = time.perf_counter() - t
+            d = store.path(test, "elle")
+            files[dev] = {p.name: p.read_bytes() for p in sorted(d.iterdir())} \
+                if d.exists() else {}
+        agree = {"anomalous": res["cuda"]["valid"] is False,
+                 "files": sorted(files["cuda"]) == sorted(
+                     f"{a}.txt" for a in res["cuda"].get("anomalies") or {}),
+                 "same_files": files["cuda"] == files["cpu"] != {},
+                 "no_directory_error": not any("directory_error" in r for r in res.values())}
+        out["d"] = {"txns": res["cuda"].get("txn_count"), "files": sorted(files["cuda"]),
+                    "wall_s": walls["cuda"], "cpu_wall_s": walls["cpu"], "agree": agree}
+        emit({"phase": "store_replay", "case": "d_explain", **out["d"],
+              "launches": launches["store_explain"]})
+        if not all(agree.values()):
+            raise AssertionError(f"store_replay (d) disagrees: {agree}")
+
+        # (e) the keyed checker's per-key store directories
+        kmodel, khists, keyed_h = keyed_mr_histories(independent, History)
+        test = stored_test(root, "keyed")
+        reset_counts(lv)
+        t = time.perf_counter()
+        keyed = independent.checker(jchecker.linearizable(model=kmodel)).check(
+            test, keyed_h, {})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches["store_keyed"] = launch_counts(lv, "store_replay (e)", LEVEL_KERNELS)
+        d = store.path(test, "independent")
+        keys = sorted(int(p.name) for p in d.iterdir()) if d.exists() else []
+        agree = {"every_key": keys == list(range(len(khists))),
+                 "both_files": all((d / str(k) / f).exists() for k in keys
+                                   for f in ("history.edn", "results.edn")),
+                 "verdicts": all(stored_verdict(d / str(k) / "results.edn")
+                                 == keyed["results"][k]["valid"] for k in keys),
+                 "batched": all(r.get("batched") is True for r in keyed["results"].values())}
+        out["e"] = {"keys": len(keys), "wall_s": wall, "valid": keyed["valid"],
+                    "failures": len(keyed["failures"]), "agree": agree}
+        emit({"phase": "store_replay", "case": "e_independent", **out["e"],
+              "launches": launches["store_keyed"]})
+        if not all(agree.values()):
+            raise AssertionError(f"store_replay (e) disagrees: {agree}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4835,8 +5125,10 @@ def main() -> int:
     # the reference's does; its launches and rungs are compared against
     # check_batch's there. Its per-key fallback must not have run.
     reset_counts(lv)
+    t = time.perf_counter()
     rk_default = check_batch(model, replay)
     torch.cuda.synchronize()
+    default_wall = time.perf_counter() - t
     default_launches = launch_counts(lv, "check_batch at the default f", LEVEL_KERNELS)
     reset_counts(lv)
     t = time.perf_counter()
@@ -4869,7 +5161,8 @@ def main() -> int:
     verdicts = [r["valid"] for r in rk]
     emit({"phase": "batch_replay_100", "valid": verdicts.count(True),
           "invalid": verdicts.count(False), "unknown": verdicts.count("unknown"),
-          "wall_s": replay_wall, "keyed_checker_wall_s": keyed_wall,
+          "wall_s": replay_wall, "default_f_wall_s": default_wall,
+          "keyed_checker_wall_s": keyed_wall,
           "keyed_valid": keyed["valid"], "keyed_failures": len(keyed["failures"]),
           "plain_members": len(prefix), "plain_wall_s": plain_wall,
           "levels_max": max(r.get("levels", 0) for r in rk),
@@ -4933,6 +5226,13 @@ def main() -> int:
             and any(r["valid"] is True for r in rb) and big_launches["wgl_regroup"] > 1):
         raise AssertionError("batch_8x10k failed")
 
+    # -- the store and the batch replay of stored histories -------------------
+    t = time.perf_counter()
+    store_launches = store_replay_phase(lv, model, replay, rk, rk_default, host, big, bad,
+                                        independent, History)
+    store_wall = time.perf_counter() - t
+    emit({"phase": "store_replay", "case": "done", "wall_s": store_wall})
+
     # -- every other device model -------------------------------------------
     hists = model_histories()
     families, widths, model_errs = model_kernel_phase(lv, wgl, hists)
@@ -4946,7 +5246,7 @@ def main() -> int:
     engine_phases(lv, wgl, model, hist, res, hists)
 
     # -- the offline segmented checker and the device-fault containment ------
-    new_walls = {}
+    new_walls = {"store_replay": store_wall}
     t = time.perf_counter()
     offline_run = offline_segmented_phase(lv, model)
     new_walls["offline_segmented"] = time.perf_counter() - t
@@ -4986,7 +5286,8 @@ def main() -> int:
              "keyed_multi_register": keyed_mr_launches,
              "batch_mesh_D8": mesh_launches["D8"], "batch_mesh_D3": mesh_launches["D3"],
              "sharded_10k_alltoall": shard_launches["alltoall"],
-             "sharded_10k_allgather": shard_launches["allgather"]}
+             "sharded_10k_allgather": shard_launches["allgather"],
+             **{k: v for k, v in store_launches.items() if k != "store_explain"}}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     summary = lambda r: {k: r[k] for k in keys}  # noqa: E731
     for kname in REPLACES:
@@ -5094,6 +5395,8 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": ELLE_SOURCE,
             "replaces": ELLE_REPLACES[kname], "launches": elle_launch[kname],
+            "launches_by_path": {"elle_append_8k": elle_launch[kname],
+                                 "store_explain": store_launches["store_explain"][kname]},
             "max_abs_err": max(elle_errs[kname], sweep_err if kname == "elle_square" else 0),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -5118,8 +5421,8 @@ def main() -> int:
                if kname == "elle_block_square" else {}),
             **({"gather_scale": gathers} if kname == "elle_gather" else {})})
     done_s = time.perf_counter() - t_start
-    emit({"phase": "done", "seconds": done_s, "new_phases_s": new_walls,
-          "new_phases_share": sum(new_walls.values()) / done_s})
+    emit({"phase": "done", "seconds": done_s, "new_phases_s": {"store_replay": store_wall},
+          "new_phases_share": store_wall / done_s, "phase_walls_s": new_walls})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

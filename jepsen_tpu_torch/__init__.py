@@ -17,6 +17,14 @@ It also holds Elle's transactional cycle checker (``elle.append.check``,
 closures run as the kernels of ``csrc/elle_closure.cu`` (plain versions
 in ``elle.ops``).
 
+It reads and writes a Jepsen store (``store``, with the EDN codec
+``edn`` and its C reader ``native/edn_fast.c``): the checkers write their
+witness and explanation files into a stored test's directory
+(``checker.linear_viz``, ``elle.explain``, ``checker.timeline``, the keyed
+checker's ``independent/<k>/``), and ``parallel.replay`` (``python -m
+jepsen_tpu_torch replay``) decides every stored ``history.edn`` of a store
+in one batch on the card and writes ``rechecked.edn`` beside each.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``torch_device="cpu"`` for the Elle entry points, whose ``device`` is the
 engine flag).

@@ -11,7 +11,8 @@ dispatches on the ``backend`` option (overridden by the test map's
 (``jepsen_tpu_torch.offline``) or the port's host oracle, and decides many keyed
 subhistories at once through ``batch_check`` (``parallel.check_batch``).
 On a test map with ``"telemetry?": True`` it records into the test's
-registry (``telemetry.of_test``).
+registry (``telemetry.of_test``); a refutation of a stored test writes its
+witness files into the store (``checker.linear_viz``).
 
 Result maps use the key ``"valid"`` with values True / False / "unknown".
 """
@@ -24,7 +25,7 @@ import traceback
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Optional
 
-from .. import telemetry
+from .. import store, telemetry
 from ..devices import resolve_device
 from ..history import History
 
@@ -162,9 +163,26 @@ def resolve_backend(name: str) -> str:
     raise ValueError(f"unknown backend {name!r}")
 
 
-def _asks_for_store(test) -> bool:
-    test = test or {}
-    return bool(test.get("name") and test.get("start-time") and not test.get("no-store?"))
+def _write_witness(model, ops, res: dict, test: dict, opts) -> None:
+    """The refutation's witness files in the test's store directory (under
+    ``opts["subdirectory"]`` when given): ``linear.txt`` always,
+    ``linear.svg`` when the result carries ``stuck_configs``; their names
+    go to ``res["witness_files"]``. A failed write is recorded as
+    ``res["witness_error"]``: diagnostics never mask the verdict."""
+    try:
+        from .linear_viz import failure_report, render_linear_svg
+
+        sub = (opts or {}).get("subdirectory")
+        parts = [str(sub)] if sub else []
+        with open(store.path_mk(test, *parts, "linear.txt"), "w") as f:
+            f.write(failure_report(model, ops, res))
+        if res.get("stuck_configs"):
+            render_linear_svg(model, ops, res, store.path_mk(test, *parts, "linear.svg"))
+            res["witness_files"] = ["linear.txt", "linear.svg"]
+        else:
+            res["witness_files"] = ["linear.txt"]
+    except Exception as e:
+        res["witness_error"] = f"{type(e).__name__}: {e}"
 
 
 def linearizable(options: Optional[dict] = None, **kw) -> Checker:
@@ -196,9 +214,11 @@ def linearizable(options: Optional[dict] = None, **kw) -> Checker:
     ``checker_op_count`` gauge and passes the registry (``metrics``) and a
     :class:`~jepsen_tpu_torch.telemetry.Heartbeat` (``chunk_callback``) to
     the engines, the batch ``metrics`` and
-    ``checker_batch_keys_total{result}``. The witness files of a stored
-    test (``linear.txt``/``linear.svg``) come with a later slice: a test
-    map that asks for stored output raises ``ValueError``."""
+    ``checker_batch_keys_total{result}``. A refutation of a test with a
+    store (``name`` and ``start-time``, and not ``no-store?``) writes its
+    witness into the store: ``linear.txt`` and, with ``stuck_configs``,
+    ``linear.svg`` (``checker.linear_viz``; ``witness_files``, or
+    ``witness_error`` when the write fails)."""
     o = dict(options or {})
     o.update(kw)
     model = o.get("model")
@@ -243,10 +263,6 @@ def linearizable(options: Optional[dict] = None, **kw) -> Checker:
 
     def chk(test, history, opts):
         backend = _resolve(test)
-        if _asks_for_store(test):
-            raise ValueError("the test map asks for stored output; the linear.txt/"
-                             "linear.svg witness files come with a later slice of the "
-                             "port (the checker's store writes)")
         ops = history.client_ops()
         reg = telemetry.of_test(test)
         kw = {}
@@ -265,6 +281,8 @@ def linearizable(options: Optional[dict] = None, **kw) -> Checker:
         # Keep the search diagnostics bounded, as the reference does.
         if isinstance(res.get("attempts"), list):
             res["attempts"] = res["attempts"][:10]
+        if res.get("valid") is False and store.wanted(test):
+            _write_witness(model, ops, res, test, opts)
         return res
 
     out = checker_fn(chk, "linearizable")

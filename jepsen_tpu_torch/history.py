@@ -3,15 +3,19 @@
 Histories are sequences of op maps ``{:type :invoke|:ok|:fail|:info,
 :process p, :f f, :value v, :time t, :index i}``; invocations are paired
 with completions by process. Process ids: clients are ints; anything else
-(the nemesis) is not a client.
+(the nemesis) is not a client. ``History.load``/``save`` read and write
+the store's ``history.edn`` (one op map a line), as the reference's
+``jepsen_tpu/history.py`` does.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Iterable, Iterator, Optional
 
-from .edn import Keyword
+from . import edn
+from .edn import K, Keyword
 
 INVOKE = "invoke"
 OK = "ok"
@@ -19,6 +23,10 @@ FAIL = "fail"
 INFO = "info"
 
 NEMESIS = "nemesis"
+
+_TYPE_KWS = {INVOKE: K(INVOKE), OK: K(OK), FAIL: K(FAIL), INFO: K(INFO)}
+_STD_KEYS = frozenset(
+    (K("type"), K("f"), K("process"), K("value"), K("time"), K("index"), K("error")))
 
 
 @dataclass(frozen=True)
@@ -85,6 +93,42 @@ class Op:
                 return v
         return default
 
+    @classmethod
+    def from_edn(cls, m: dict) -> "Op":
+        """An Op from a parsed EDN op map: keyword ``type`` and ``f`` become
+        strings (``f_is_kw`` remembers a keyword ``f``), the ``:nemesis``
+        process becomes ``"nemesis"`` (other keyword processes stay
+        Keywords), and keys other than the standard fields go to
+        ``extra``, sorted."""
+        typ = m.get(K("type"))
+        f = m.get(K("f"))
+        proc = m.get(K("process"))
+        if proc is K(NEMESIS):
+            proc = NEMESIS
+        extra = tuple(sorted(((k, v) for k, v in m.items() if k not in _STD_KEYS), key=repr))
+        return cls(type=typ.name if isinstance(typ, Keyword) else typ, process=proc,
+                   f=f.name if isinstance(f, Keyword) else f, value=m.get(K("value")),
+                   time=m.get(K("time"), -1), index=m.get(K("index"), -1),
+                   error=m.get(K("error")), extra=extra,
+                   f_is_kw=isinstance(f, Keyword) or not isinstance(f, str))
+
+    def to_edn(self) -> dict:
+        """The op as an EDN map, keys in the reference's order."""
+        m: dict = {
+            K("type"): _TYPE_KWS.get(self.type, K(str(self.type))),
+            K("f"): K(self.f) if isinstance(self.f, str) and self.f_is_kw else self.f,
+            K("value"): self.value,
+            K("time"): self.time,
+            K("process"): K(self.process) if self.process == NEMESIS else self.process,
+        }
+        if self.index >= 0:
+            m[K("index")] = self.index
+        if self.error is not None:
+            m[K("error")] = self.error
+        for k, v in self.extra:
+            m[k] = v
+        return m
+
     def __repr__(self) -> str:
         e = f" :error {self.error!r}" if self.error is not None else ""
         return f"<{self.index} {self.process} {self.type} :{self.f} {self.value!r}{e}>"
@@ -121,6 +165,16 @@ class Interval:
     @property
     def value_out(self) -> Any:
         return self.completion.value if self.completion is not None else None
+
+    @property
+    def inv_time(self) -> int:
+        return self.invoke.time
+
+    @property
+    def ret_time(self) -> float:
+        if self.completion is None or self.completion.type == INFO:
+            return math.inf
+        return self.completion.time
 
 
 class History:
@@ -178,3 +232,22 @@ class History:
                 if pos is not None:
                     out[pos] = Interval(out[pos].invoke, op)
         return out
+
+    @classmethod
+    def from_edn_string(cls, s: str, reindex: bool = False) -> "History":
+        """The ops of an EDN text (one op map a form); indexes are assigned
+        when ``reindex`` is set or any op lacks one."""
+        ops = [Op.from_edn(m) for m in edn.read_all(s)]
+        return cls(ops, reindex=reindex or any(op.index < 0 for op in ops))
+
+    def to_edn_string(self) -> str:
+        return "\n".join(edn.write_string(op.to_edn()) for op in self.ops) + "\n"
+
+    @classmethod
+    def load(cls, path) -> "History":
+        with open(path, "r") as fh:
+            return cls.from_edn_string(fh.read())
+
+    def save(self, path) -> None:
+        with open(path, "w") as fh:
+            fh.write(self.to_edn_string())

@@ -9,9 +9,11 @@ valid iff every key is. When the inner checker has ``batch_check`` (the
 search (``parallel.check_batch``); otherwise, or when the batch refuses,
 the keys are checked one after another.
 
-The generators that run keyed tests (``tuple_gen``, ``sequential_generator``,
-``concurrent_generator``) and the per-key store writes come with later
-slices.
+On a test with a store, each key's subhistory and result go to
+``independent/<k>/history.edn`` and ``results.edn`` in the run's
+directory. The generators that run keyed tests (``tuple_gen``,
+``sequential_generator``, ``concurrent_generator``) come with a later
+slice.
 """
 
 from __future__ import annotations
@@ -19,10 +21,13 @@ from __future__ import annotations
 import logging
 from typing import Any
 
+from . import store
 from .checker import Checker, check_safe, merge_valid
 from .history import History, Op
 
 LOG = logging.getLogger("jepsen.independent")
+
+DIR = "independent"  # the per-key results' directory in the store
 
 
 class KV(tuple):
@@ -97,12 +102,36 @@ class _IndependentChecker(Checker):
                             "per-key checking", exc_info=True)
         if results is None:
             results = {k: check_safe(self.checker, test, subs[k], opts) for k in ks}
+        self._store_subresults(test, subs, results, opts)
         failures = [k for k in ks if results[k].get("valid") is not True]
         return {
             "valid": merge_valid(r.get("valid") for r in results.values()),
             "results": results,
             "failures": failures,
         }
+
+    def _store_subresults(self, test, subs, results, opts):
+        """Each key's ``history.edn`` and ``results.edn`` under
+        ``store/<name>/<time>/independent/<k>/`` (independent.clj:288-301),
+        on a test with a store; a failed key is logged."""
+        if not store.wanted(test):
+            return
+        from . import edn
+
+        for k, res in results.items():
+            sub = subs[k]
+            d = store.path_mk(test, DIR, str(k), "x").parent
+            d.mkdir(parents=True, exist_ok=True)
+            try:
+                h = sub if isinstance(sub, History) else History(
+                    [Op.from_dict(o) if isinstance(o, dict) else o for o in sub],
+                    reindex=False)
+                h.save(d / "history.edn")
+                with open(d / "results.edn", "w") as f:
+                    f.write(edn.write_string(store.to_edn_value(res)))
+                    f.write("\n")
+            except Exception:
+                LOG.warning("could not store independent results for %r", k, exc_info=True)
 
 
 def checker(inner: Checker) -> Checker:

@@ -1,4 +1,4 @@
-"""The native (C) host search, built at first use.
+"""The native (C) host search and the C EDN reader, built at first use.
 
 ``wgl_native.c`` is the port's copy of the reference's C WGL search
 (``jepsen_tpu/native/wgl_native.c``): a memoized depth-first search, its
@@ -15,51 +15,73 @@ Without a compiler (``shutil.which("cc")`` finds none) :func:`load`
 returns None and the callers fall back to the host oracle. With one, a
 failed build raises with the compiler's output: it never quietly turns
 the native backend into another engine.
+
+``edn_fast.c`` is the port's copy of the reference's C EDN reader, a
+CPython extension: :func:`load_edn_fast` builds it the same way, with the
+running interpreter's headers (``sysconfig.get_paths()["include"]``), and
+binds it to the port's ``Keyword``, ``Symbol``, ``EdnList`` and
+``_hashable``. Without ``cc`` or without ``Python.h`` it returns None and
+:data:`edn_fast_missing` says which was missing; ``edn.read_string`` and
+``edn.read_all`` then run the Python reader alone. With both, a failed
+build raises :class:`NativeBuildError`, and so does every later call in
+the process, without running the compiler again.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 from pathlib import Path
 from typing import Optional
 
 SRC = Path(__file__).resolve().parent / "wgl_native.c"
+EDN_SRC = Path(__file__).resolve().parent / "edn_fast.c"
 BUILD = Path(__file__).resolve().parent.parent / "_build"
 CFLAGS = ("-O2", "-shared", "-fPIC", "-pthread")
+EDN_CFLAGS = ("-O2", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_edn_mod = None
+# The failed edn_fast build, raised again by every later load_edn_fast().
+_edn_error: Optional[BaseException] = None
+# Why load_edn_fast() returned None (no cc, or no Python.h), else None.
+edn_fast_missing: Optional[str] = None
 
 
 class NativeBuildError(RuntimeError):
     """The C compiler is present but refused the source."""
 
 
-def library_path(src: Path = SRC) -> Path:
-    """Where the build of ``src`` lives: ``_build/<stem>-<sha256[:16]>.so``."""
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+def library_path(src: Path = SRC, salt: bytes = b"") -> Path:
+    """Where the build of ``src`` lives: ``_build/<stem>-<sha256[:16]>.so``,
+    the hash taken over the source and ``salt`` (what else the build
+    depends on)."""
+    digest = hashlib.sha256(src.read_bytes() + salt).hexdigest()[:16]
     return BUILD / f"{src.stem}-{digest}.so"
 
 
-def compile_library(src: Path = SRC) -> Optional[Path]:
-    """Compile ``src`` into :func:`library_path` unless that build exists;
-    returns its path, or None when there is no ``cc``. Raises
-    :class:`NativeBuildError` with the compiler's stderr when the build
-    fails."""
+def compile_library(src: Path = SRC, flags: tuple = CFLAGS,
+                    salt: bytes = b"") -> Optional[Path]:
+    """Compile ``src`` with ``flags`` into :func:`library_path` unless that
+    build exists; returns its path, or None when there is no ``cc``.
+    Raises :class:`NativeBuildError` with the compiler's stderr when the
+    build fails."""
     cc = shutil.which("cc")
     if cc is None:
         return None
-    so = library_path(src)
+    so = library_path(src, salt)
     if so.exists():
         return so
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    proc = subprocess.run([cc, *CFLAGS, "-o", str(tmp), str(src)], capture_output=True)
+    proc = subprocess.run([cc, *flags, "-o", str(tmp), str(src)], capture_output=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise NativeBuildError(f"cc failed to build {src.name} "
@@ -116,3 +138,46 @@ def load() -> Optional[ctypes.CDLL]:
                 return None
             _lib = _bind(so)
     return _lib
+
+
+def _edn_missing() -> Optional[str]:
+    if shutil.which("cc") is None:
+        return "no C compiler (cc) on the PATH"
+    inc = sysconfig.get_paths()["include"]
+    if not (Path(inc) / "Python.h").exists():
+        return f"no Python.h under {inc}"
+    return None
+
+
+def load_edn_fast():
+    """The ``edn_fast`` extension module, built on first use and bound to
+    the port's EDN classes; None when ``cc`` or ``Python.h`` is missing
+    (:data:`edn_fast_missing` says which). A failed build raises, and
+    every later call raises the same error without building again."""
+    global _edn_mod, _edn_error, edn_fast_missing
+    if _edn_mod is not None or edn_fast_missing is not None:
+        return _edn_mod
+    with _lock:
+        if _edn_error is not None:
+            raise _edn_error
+        if _edn_mod is None and edn_fast_missing is None:
+            missing = _edn_missing()
+            if missing is not None:
+                edn_fast_missing = missing
+                return None
+            inc = sysconfig.get_paths()["include"]
+            # An extension module is bound to its interpreter's ABI.
+            salt = f"{inc}\0{sysconfig.get_config_var('EXT_SUFFIX')}".encode()
+            try:
+                so = compile_library(EDN_SRC, (*EDN_CFLAGS, f"-I{inc}"), salt)
+            except NativeBuildError as e:
+                _edn_error = e
+                raise
+            spec = importlib.util.spec_from_file_location("edn_fast", str(so))
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            from .. import edn
+
+            mod.configure(edn.K, edn.Symbol, edn.EdnList, edn._hashable)
+            _edn_mod = mod
+    return _edn_mod

@@ -18,9 +18,8 @@ single search decides, with a typed cause (a mixed keyed/keyless stream,
 a lost carry), never the opposite verdict.
 
 The reference's :class:`OnlineMonitor` (the live monitor wired into a test
-run), ``of_test`` and ``store_online`` need the test runner and the test
-store, which come with later slices of the port: here they raise
-``ValueError``.
+run), ``of_test`` and ``store_online`` need the test runner, which comes
+with a later slice of the port: here they raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -36,7 +35,7 @@ from .segmenter import (  # noqa: F401
 )
 
 _MONITOR_SLICE = ("the online monitor of a running test comes with a later slice of "
-                  "the port (the test runner and the test store)")
+                  "the port (the test runner)")
 
 
 class OnlineMonitor:

@@ -209,12 +209,11 @@ class FlightRecorder:
 def store_flight_record(test: dict, recorder: FlightRecorder,
                         reason: Optional[str] = None,
                         registry=None) -> Optional[str]:
-    """Flush ``flightrecord.json`` into the test's store directory; None
-    when the test has no store. The store comes with a later slice of the
-    port (the test store), so a test map that asks for one raises
-    ``ValueError``."""
-    if not (test.get("name") and test.get("start-time")) or test.get(
-            "no-store?"):
+    """Flush ``flightrecord.json`` into the test's store directory (next
+    to metrics.jsonl); None when the test has no store."""
+    from .. import store
+
+    if not store.wanted(test):
         return None
-    raise ValueError("flightrecord.json in a test's store comes with a later "
-                     "slice of the port (the test store)")
+    p = store.path_mk(test, "flightrecord.json")
+    return recorder.flush(p, reason=reason, registry=registry)

@@ -13,37 +13,28 @@ from typing import Optional
 
 from ..checker import Checker, checker_fn
 from ..elle import append as elle_append
+from ..elle import explain
 from ..txn import GENERATORS_SLICE
-
-
-STORE_SLICE = ("the test map asks for stored output; the elle/<anomaly>.txt "
-               "explanation files come with a later slice of the port (the "
-               "checker's store writes)")
-
-
-def _asks_for_store(test) -> bool:
-    test = test or {}
-    return bool(test.get("name") and test.get("start-time") and not test.get("no-store?"))
 
 
 def checker(opts: Optional[dict] = None) -> Checker:
     """Full checker for append/read histories; default anomalies [G1, G2]
     like the reference. ``opts`` also takes ``torch_device`` (the GPU by
-    default). A test map with a store (``name`` and ``start-time``, and
-    not ``no-store?``) raises ``ValueError`` before checking: the
-    explanation files come with a later slice."""
+    default). On a test with a store, a non-clean result leaves
+    ``elle/<anomaly>.txt`` explanation files in it (``elle.explain``,
+    cycle/append.clj:19-21) and names their directory in ``directory``."""
     o = dict(opts or {})
     anomalies = o.get("anomalies", ["G1", "G2"])
 
     def chk(test, history, copts):
-        if _asks_for_store(test):
-            raise ValueError(STORE_SLICE)
-        return elle_append.check(
+        res = elle_append.check(
             history, anomalies=anomalies,
             device=o.get("device"),
             additional_graphs=o.get("additional_graphs", ()),
             torch_device=o.get("torch_device"),
         )
+        explain.write_anomalies(test, res, subdirectory=(copts or {}).get("subdirectory"))
+        return res
 
     return checker_fn(chk, "append")
 

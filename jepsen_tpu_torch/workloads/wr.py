@@ -9,22 +9,20 @@ from __future__ import annotations
 from typing import Optional
 
 from ..checker import Checker, checker_fn
+from ..elle import explain
 from ..elle import wr as elle_wr
 from ..txn import GENERATORS_SLICE
-from .append import STORE_SLICE, _asks_for_store
 
 
 def checker(opts: Optional[dict] = None) -> Checker:
     """Default anomalies [G2, G1a, G1b, internal], as the reference's.
-    ``opts`` also takes ``torch_device``; a test map with a store raises
-    ``ValueError`` before checking, as in :mod:`.append`."""
+    ``opts`` also takes ``torch_device``; a test with a store gets the
+    explanation files, as in :mod:`.append`."""
     o = dict(opts or {})
     anomalies = o.get("anomalies", ["G2", "G1a", "G1b", "internal"])
 
     def chk(test, history, copts):
-        if _asks_for_store(test):
-            raise ValueError(STORE_SLICE)
-        return elle_wr.check(
+        res = elle_wr.check(
             history,
             anomalies=anomalies,
             linearizable_keys=o.get("linearizable_keys", False),
@@ -34,6 +32,8 @@ def checker(opts: Optional[dict] = None) -> Checker:
             additional_graphs=o.get("additional_graphs", ()),
             torch_device=o.get("torch_device"),
         )
+        explain.write_anomalies(test, res, subdirectory=(copts or {}).get("subdirectory"))
+        return res
 
     return checker_fn(chk, "wr")
 

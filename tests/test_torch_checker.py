@@ -166,12 +166,28 @@ def test_later_slice_backends_raise(name):
     assert want["valid"] is False
 
 
-def test_stored_witness_files_raise():
+def test_stored_witness_files_raise(tmp_path):
+    """A stored test map no longer raises: a refutation writes the
+    reference's witness files (``linear.txt``, ``linear.svg``) into the
+    store, byte for byte, and a valid history or ``no-store?`` writes
+    none."""
     lin = jc.linearizable(model=CasRegister(init=0), device="cpu")
     h = random_register_history(random.Random(5), n_ops=6)
-    with pytest.raises(ValueError, match="later slice"):
-        lin.check({"name": "t", "start-time": 1}, h, {})
-    assert lin.check({"name": "t", "start-time": 1, "no-store?": True}, h, {})["valid"] is True
+    stored = {"name": "t", "start-time": "1", "store-root": str(tmp_path / "port")}
+    assert lin.check(dict(stored), h, {})["valid"] is True
+    assert lin.check(dict(stored, **{"no-store?": True}), h, {})["valid"] is True
+    assert not (tmp_path / "port").exists()
+    r1, r2 = random.Random(5), random.Random(5)
+    bad_r = ref_perturb(r1, ref_random(r1, n_ops=30, n_procs=3, crash_p=0.0))
+    bad_p = perturb_history(r2, random_register_history(r2, n_ops=30, n_procs=3, crash_p=0.0))
+    want = ref_checker.linearizable(model=RefCas(init=0), backend="device").check(
+        {"name": "t", "start-time": "1", "store-root": str(tmp_path / "ref")}, bad_r, {})
+    got = lin.check(dict(stored), bad_p, {})
+    assert got["valid"] is want["valid"] is False
+    assert got["witness_files"] == want["witness_files"] == ["linear.txt", "linear.svg"]
+    for f in got["witness_files"]:
+        assert (tmp_path / "port" / "t" / "1" / f).read_bytes() == \
+            (tmp_path / "ref" / "t" / "1" / f).read_bytes()
 
 
 def test_linearizable_requires_model_and_a_gpu_by_default():

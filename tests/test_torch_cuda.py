@@ -1830,3 +1830,45 @@ def test_segmented_rescue_on_the_card(cuda, monkeypatch):
     rounds = [e for e in reg.events() if e["name"] == "online_round"]
     members = [e["oracle_members"] for e in rounds if e["engine"] == "device"]
     assert sum(members) >= keys and not any(e["failover"] for e in rounds)
+
+
+def test_replay_store_on_the_card(cuda, tmp_path):
+    """A stored run replayed on the card writes the ``rechecked.edn`` that
+    the same replay writes on the CPU, but for the wall times, and the
+    command's exit code says invalid for a perturbed run."""
+    import re
+    import shutil
+
+    from jepsen_tpu_torch import cli, store
+    from jepsen_tpu_torch.parallel import replay
+
+    rng = random.Random(41)
+    hists = [random_register_history(rng, n_ops=40, n_procs=4, crash_p=0.05)
+             for _ in range(5)]
+    hists[2] = perturb_history(rng, hists[2])
+    for i, h in enumerate(hists):
+        store.save_1({"name": "card", "start-time": store.time_str(1785456000 + i),
+                      "store-root": str(tmp_path / "gpu"), "history": h})
+    shutil.copytree(tmp_path / "gpu", tmp_path / "cpu", symlinks=True)
+    code = cli.run(cli.replay_cmd(model_args={"init": 0}),
+                   ["replay", "--store-root", str(tmp_path / "gpu")])
+    summary = replay.replay_store(root=tmp_path / "cpu", model_args={"init": 0},
+                                  device="cpu")
+    assert code == cli.EXIT_INVALID and summary["invalid"] == 1
+    no_walls = lambda p: re.sub(r":wall_s [0-9.e+-]+", "", p.read_text())  # noqa: E731
+    files = sorted((tmp_path / "gpu").rglob("rechecked.edn"))
+    assert len(files) == 5
+    for f in files:
+        assert no_walls(f) == no_walls(tmp_path / "cpu" / f.relative_to(tmp_path / "gpu"))
+
+
+def test_edn_fast_builds_on_the_cards_machine(cuda):
+    """The C EDN reader builds where the card is (a machine without
+    ``Python.h`` reads with Python alone and says so)."""
+    from jepsen_tpu_torch import edn, native
+
+    fast = native.load_edn_fast()
+    if fast is None:
+        pytest.skip(f"edn_fast not built: {native.edn_fast_missing}")
+    assert fast.parse_all("{:f :cas, :value [1 2]}") == [
+        {edn.K("f"): edn.K("cas"), edn.K("value"): [1, 2]}]

@@ -418,10 +418,6 @@ def test_workload_checkers_match_reference():
 
 def test_what_later_slices_bring_raises():
     h = [T([["append", "x", 1]])]
-    store_test = {"name": "elle", "start-time": "20260731T000000.000Z"}
-    for chk in (p_wl_append.checker(), p_wl_wr.checker()):
-        with pytest.raises(ValueError, match="later slice"):
-            chk.check(store_test, h, {})
     with pytest.raises(ValueError, match="later slice"):
         P.monotonic_key_check(h)
     for fn in (p_txn.append_txns, p_txn.wr_txns, p_wl_append.gen, p_wl_wr.test):

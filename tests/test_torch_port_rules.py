@@ -66,9 +66,9 @@ def test_port_sources_name_no_jax_or_reference():
     assert PORT / "native" / "__init__.py" in files
     for f in files:
         assert not pat.search(f.read_text()), f
-    # The native C source includes system headers only.
-    csrc = list((PORT / "native").glob("*.c"))
-    assert [p.name for p in csrc] == ["wgl_native.c"]
+    # The native C sources include system headers only.
+    csrc = sorted((PORT / "native").glob("*.c"))
+    assert [p.name for p in csrc] == ["edn_fast.c", "wgl_native.c"]
     for f in csrc:
         for inc in re.findall(r'^\s*#\s*include\s+(\S+)', f.read_text(), re.M):
             assert inc.startswith("<"), (f, inc)
@@ -122,6 +122,76 @@ def test_native_build_writes_only_into_its_build_dir(tmp_path):
     assert not list(home.iterdir()) and not list(tmpdir.iterdir())
 
 
+_AUDITED_EDN_BUILD = r"""
+import os, sys
+REF = os.path.realpath(sys.argv[1])
+events = []
+def hook(event, args):
+    if event == "open" and isinstance(args[0], (str, bytes, os.PathLike)):
+        events.append(("open", os.path.realpath(os.fsdecode(args[0]))))
+    elif event == "subprocess.Popen":
+        events.append(("exec", " ".join(map(os.fsdecode, args[1]))))
+sys.addaudithook(hook)
+from jepsen_tpu_torch import edn, native
+fast = native.load_edn_fast()
+assert fast is not None, native.edn_fast_missing
+assert edn.read_string("{:f :cas}") == {edn.K("f"): edn.K("cas")}
+ref_opens = [p for kind, p in events if kind == "open" and p.startswith(REF)]
+execs = [c for kind, c in events if kind == "exec"]
+assert not ref_opens, ref_opens
+assert len(execs) == 1 and execs[0].split()[-1] == str(native.EDN_SRC), execs
+print("BUILT", fast.__file__)
+"""
+
+
+def _python_h() -> bool:
+    import sysconfig
+
+    return (Path(sysconfig.get_paths()["include"]) / "Python.h").exists()
+
+
+@pytest.mark.skipif(shutil.which("cc") is None or not _python_h(),
+                    reason="no C compiler (cc) or no Python.h")
+def test_edn_fast_build_writes_only_into_its_build_dir(tmp_path):
+    """A fresh build of the C EDN reader, from a copy of the port in an
+    empty tree: every file it leaves is under ``jepsen_tpu_torch/_build/``
+    (``HOME`` and ``TMPDIR`` stay empty), its one compiler run compiles the
+    port's source, and nothing under the reference's ``native/`` is
+    opened."""
+    tree = tmp_path / "tree"
+    shutil.copytree(PORT, tree / "jepsen_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    home, tmpdir = tmp_path / "home", tmp_path / "tmp"
+    home.mkdir()
+    tmpdir.mkdir()
+    before = {p for p in tree.rglob("*")}
+    env = dict(os.environ, PYTHONPATH=str(tree), HOME=str(home), TMPDIR=str(tmpdir),
+               PYTHONDONTWRITEBYTECODE="1")
+    out = subprocess.run([sys.executable, "-c", _AUDITED_EDN_BUILD,
+                          str(ROOT / "jepsen_tpu" / "native")],
+                         cwd=tree, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BUILT" in out.stdout
+    new = {p for p in tree.rglob("*")} - before
+    build = tree / "jepsen_tpu_torch" / "_build"
+    assert new and all(p == build or build in p.parents for p in new), sorted(new)
+    assert [p.name.split("-")[0] for p in build.iterdir()] == ["edn_fast"]
+    assert not list(home.iterdir()) and not list(tmpdir.iterdir())
+
+
+def test_edn_fast_missing_toolchain_reads_with_python(monkeypatch):
+    """Without ``cc`` the loader returns None and says why; the readers
+    then parse with the Python reader alone."""
+    from jepsen_tpu_torch import edn, native
+
+    monkeypatch.setattr(native, "_edn_mod", None)
+    monkeypatch.setattr(native, "edn_fast_missing", None)
+    monkeypatch.setattr(native.shutil, "which", lambda name: None)
+    assert native.load_edn_fast() is None
+    assert native.edn_fast_missing == "no C compiler (cc) on the PATH"
+    assert list(edn.read_all("{:a 1}\n[1 2]")) == [{edn.K("a"): 1}, [1, 2]]
+
+
 def test_every_port_module_is_walkable():
     mods = {m.name for m in pkgutil.walk_packages(jepsen_tpu_torch.__path__,
                                                   "jepsen_tpu_torch.")}
@@ -142,7 +212,10 @@ def test_every_port_module_is_walkable():
             "jepsen_tpu_torch.online.segmenter", "jepsen_tpu_torch.online.scheduler",
             "jepsen_tpu_torch.offline", "jepsen_tpu_torch.offline.planner",
             "jepsen_tpu_torch.offline.driver",
-            "jepsen_tpu_torch.offline.__main__"} <= mods
+            "jepsen_tpu_torch.offline.__main__", "jepsen_tpu_torch.store",
+            "jepsen_tpu_torch.cli", "jepsen_tpu_torch.__main__",
+            "jepsen_tpu_torch.parallel.replay", "jepsen_tpu_torch.checker.linear_viz",
+            "jepsen_tpu_torch.checker.timeline", "jepsen_tpu_torch.elle.explain"} <= mods
 
 
 def test_every_kernel_entry_point_has_a_signature_and_a_source():
