@@ -277,7 +277,28 @@ and then runs these phases, each printing JSON lines:
   the same call decides on the card once the cap is lifted);
   (e) ``JEPSEN_NO_FAILOVER=1`` propagates the injected error; (f) Elle:
   one injected fault halves the 8k history's chunk, and a fault at every
-  dispatch folds the 2k history to the host, typed ``elle_device_oom``.
+  dispatch folds the 2k history to the host, typed ``elle_device_oom``;
+- ``front_door`` (after ``keyed_multi_register``): a suite-shaped composed
+  checker, ``independent.checker(compose({"linear": linearizable, "stats",
+  "exceptions": unhandled_exceptions, "limited": concurrency_limit(1,
+  linearizable(backend="host"))}))``, over the first two keys of that
+  phase's history, the linear part on the card (launches counted) and
+  with ``device="cpu"``: the same result maps; then ``set_full`` and
+  ``counter`` timed on seeded 100,000-op histories;
+- ``ingest`` (after the Elle phases): (a) bench.py's ingest_etcd_10k leg
+  (``bench.py:1479-1543``, 10,000 etcd lines, ``--check segmented``):
+  ``True``, 0 unmapped; (b) the offline leg's 100,000-op history and its
+  twin as etcd proxy ndjson (connection = process, the cut tail left as
+  unanswered requests) under ``--engine device`` and ``auto``: each map
+  equal to ``check_offline`` on the same parsed ops (run in this process,
+  the level kernels' launches counted, its device rounds and their
+  members printed), the offline phase's verdicts (``True`` / ``False``,
+  exit 0 / 2); (c) APPEND_8K's history as generic jsonl txns, ``--check
+  elle``: elle_append_8k's map (txns compared by index, type, f and
+  value), the closure kernels launched. Each CLI run is ``python -m
+  jepsen_tpu_torch.ingest`` in a process of its own, all started together
+  while this process parses and checks the same recordings (parse and
+  check walls).
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the per-kernel JSON line, and ``{"ok": true, "device": {...}}``.
@@ -285,13 +306,16 @@ Any failed phase raises: the script then exits non-zero and prints no result.
 Without CUDA it exits 2.
 """
 
+import ast
 import contextlib
 import dataclasses
 import json
 import random
+import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -2182,9 +2206,10 @@ def models_2k_phase(lv, wgl, wgl_host, hists):
     return launches
 
 
-def keyed_mr_histories(independent, History):
+def keyed_mr_histories(independent, History, keys=KEYED["keys"]):
     """KEYED's model, its per-key histories (every ``perturb_every``-th
-    perturbed) and the keyed history of ``[k v]`` values."""
+    perturbed) and the keyed history of ``[k v]`` values; the first
+    ``keys`` keys."""
     from jepsen_tpu_torch.models import MultiRegister
     from jepsen_tpu_torch.testing import random_model_history
 
@@ -2193,7 +2218,7 @@ def keyed_mr_histories(independent, History):
                                   n_ops=KEYED["n_ops"], n_procs=KEYED["n_procs"],
                                   crash_p=KEYED["crash_p"],
                                   perturb=k % KEYED["perturb_every"] == 0)
-             for k in range(KEYED["keys"])]
+             for k in range(keys)]
     keyed_ops = []
     for k, h in enumerate(hists):
         for o in h:
@@ -4193,20 +4218,22 @@ def offline_history(seed, n, invalid=False, keys=OFFLINE["keys"]):
     return History(ops[:-4 * keys], reindex=True)
 
 
+def without_keys(x, keys):
+    """``x`` with every dict's ``keys`` left out, at any depth."""
+    if isinstance(x, dict):
+        return {k: without_keys(v, keys) for k, v in x.items() if k not in keys}
+    if isinstance(x, (list, tuple)):
+        return [without_keys(v, keys) for v in x]
+    return x
+
+
 def offline_map(r) -> dict:
     """An offline result map's verdict, segments_decided, per-stream folds,
     provenance and violation, without walls and engine names (at any
     depth: a stream's fold carries its violation's segment row)."""
-    def strip(x):
-        if isinstance(x, dict):
-            return {k: strip(v) for k, v in x.items()
-                    if k not in ("wall_s", "decide_s", "busy_pct", "engine")}
-        if isinstance(x, (list, tuple)):
-            return [strip(v) for v in x]
-        return x
-
-    return strip({k: r.get(k) for k in ("valid", "segments_decided", "streams",
-                                        "provenance", "violation", "failover")})
+    return without_keys({k: r.get(k) for k in ("valid", "segments_decided", "streams",
+                                               "provenance", "violation", "failover")},
+                        ("wall_s", "decide_s", "busy_pct", "engine"))
 
 
 def resilience_counts(reg) -> dict:
@@ -4367,7 +4394,7 @@ def offline_segmented_phase(lv, model) -> dict:
     if not (all(same.values()) and small["host"]["valid"] is True
             and small["twin_host"]["valid"] is False):
         raise AssertionError(f"offline_segmented at {OFFLINE['host_ops']} ops failed: {same}")
-    return {"runs": out, "plan_20k": p20, "history_20k": h20}
+    return {"runs": out, "plan_20k": p20, "history_20k": h20, "history": hv, "twin": hi}
 
 
 def segmented_entry_phase(lv, model, wgl, jchecker, h) -> dict:
@@ -4910,6 +4937,402 @@ def store_replay_phase(lv, model, replay, rk, rk_default, host, big, bad, indepe
     return launches
 
 
+# -- the checker front door and trace ingestion ------------------------------
+
+# front_door: the first FRONT_DOOR_KEYS keys of keyed_multi_register's
+# history (key 0 perturbed, key 1 valid) through a suite-shaped composed
+# checker, on the card and with ``device="cpu"`` (on one CPU thread: the
+# plain search's small tensors run twice as fast so); then the invariant
+# checkers set_full and counter on seeded histories of INVARIANTS_OPS ops
+# (a set-full read every SET_FULL_READ_EVERY-th invocation, a counter read
+# every third).
+FRONT_DOOR_KEYS = 2
+INVARIANTS_OPS = 100_000
+SET_FULL_READ_EVERY = 250
+# ingest: bench.py's ingest_etcd_10k leg (:1479-1543; INGEST_10K_ROUNDS
+# rounds of a put and a range, 10,000 lines), the offline phase's history
+# and twin as etcd proxy ndjson, and APPEND_8K's history as generic jsonl
+# txns, each through ``python -m jepsen_tpu_torch.ingest`` in a process of
+# its own, all started together (INGEST_CLI_TIMEOUT seconds each at most).
+INGEST_10K_ROUNDS = 2500
+INGEST_CLI_TIMEOUT = 300
+
+
+def invariant_histories(seed, n_ops):
+    """Seeded op maps of ``n_ops`` ops for set-full (adds of fresh elements,
+    reads of the acknowledged set) and for a counter (adds, reads of the
+    count), four processes, one op in flight a process."""
+    rng = random.Random(seed)
+    out = {}
+    for kind in ("set", "counter"):
+        rows, busy, state, t, nxt = [], {}, (set() if kind == "set" else [0]), 0, 0
+        while len(rows) < n_ops:
+            t += rng.randrange(1, 3_000_000)
+            free = [p for p in range(4) if p not in busy]
+            if free and (not busy or rng.random() < 0.5) and len(rows) + len(busy) < n_ops:
+                p = rng.choice(free)
+                nxt += 1
+                if kind == "set":
+                    f, v = ("read", None) if nxt % SET_FULL_READ_EVERY == 0 else ("add", nxt)
+                else:
+                    f, v = ("read", None) if nxt % 3 == 0 else ("add", rng.randrange(5))
+                busy[p] = (f, v)
+                rows.append({"type": "invoke", "process": p, "f": f, "value": v, "time": t})
+                continue
+            p = rng.choice(sorted(busy))
+            f, v = busy.pop(p)
+            if f == "add":
+                if kind == "set":
+                    state.add(v)
+                else:
+                    state[0] += v
+            else:
+                v = sorted(state) if kind == "set" else state[0]
+            rows.append({"type": "ok", "process": p, "f": f, "value": v, "time": t})
+        out[kind] = rows
+    return out
+
+
+def front_door_phase(lv, jchecker, independent, History) -> dict:
+    """A suite-shaped composed checker, keyed: ``independent.checker(compose(
+    {linear, stats, exceptions, limited}))``, the linear part on the card
+    (launches counted) and with ``device="cpu"``: the same result maps. Then
+    ``set_full`` and ``counter`` on INVARIANTS_OPS-op histories, timed on
+    the card's host. Returns the composed check's launch counts."""
+    import torch
+
+    from jepsen_tpu_torch.history import Op
+
+    model, _, h = keyed_mr_histories(independent, History, FRONT_DOOR_KEYS)
+
+    def composed(device):
+        return independent.checker(jchecker.compose({
+            "linear": jchecker.linearizable(model=model, device=device),
+            "stats": jchecker.stats(),
+            "exceptions": jchecker.unhandled_exceptions(),
+            "limited": jchecker.concurrency_limit(1, jchecker.linearizable(
+                model=model, backend="host"))}))
+
+    reset_counts(lv)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    card = composed(None).check({}, h, {})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = launch_counts(lv, "front_door", LEVEL_KERNELS)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        t = time.perf_counter()
+        cpu = composed("cpu").check({}, h, {})
+        cpu_wall = time.perf_counter() - t
+    finally:
+        torch.set_num_threads(threads)
+    results = card["results"]
+    row = {"phase": "front_door", "keys": FRONT_DOOR_KEYS, "ops": len(h),
+           "valid": card["valid"], "failures": card["failures"], "wall_s": wall,
+           "cpu_wall_s": cpu_wall, "launches": launches,
+           # what differs between the card's run and the CPU's: walls, device
+           "same_as_cpu": (without_keys(card, ("wall_s", "torch_device"))
+                           == without_keys(cpu, ("wall_s", "torch_device"))),
+           "linear_on_card": all(r["linear"].get("torch_device") == "cuda"
+                                 for r in results.values()),
+           "linear_as_limited_host": all(r["linear"]["valid"] == r["limited"]["valid"]
+                                         for r in results.values())}
+    emit(row)
+    if not (row["same_as_cpu"] and row["linear_on_card"] and row["linear_as_limited_host"]
+            and card["valid"] is False and card["failures"] == [0]):
+        raise AssertionError(f"front_door failed: {row}")
+
+    hists = invariant_histories(KEYED["seed"], INVARIANTS_OPS)
+    timed = {}
+    for name, chk, rows in (("set_full", jchecker.set_full(), hists["set"]),
+                            ("counter", jchecker.counter(), hists["counter"])):
+        hh = History([Op.from_dict(r) for r in rows])
+        t = time.perf_counter()
+        r = chk.check({}, hh, {})
+        timed[name] = {"ops": len(hh), "valid": r["valid"], "wall_s": time.perf_counter() - t}
+    emit({"phase": "front_door", "invariants": timed, "host": host_line()})
+    if not all(v["valid"] is True for v in timed.values()):
+        raise AssertionError(f"front_door invariants failed: {timed}")
+    return launches
+
+
+def etcd_10k_lines() -> list:
+    """bench.py's ingest_etcd_10k recording (:1493-1516): a put on one
+    connection and a range of the value on another, each round, over four
+    keys (valid by construction)."""
+    lines, ts, iv = [], 1_000, 0
+    for i in range(INGEST_10K_ROUNDS):
+        key = f"r{i % 4}"
+        for rec in ({"conn": "c-w", "id": i, "phase": "request", "op": "put", "key": key,
+                     "value": iv},
+                    {"conn": "c-w", "id": i, "phase": "response", "ok": True},
+                    {"conn": "c-r", "id": 10_000 + i, "phase": "request", "op": "range",
+                     "key": key},
+                    {"conn": "c-r", "id": 10_000 + i, "phase": "response", "ok": True,
+                     "value": iv}):
+            lines.append(json.dumps({"ts": ts, **rec}))
+            ts += 7
+        if key == "r3":
+            iv += 1
+    return lines
+
+
+def etcd_lines(h) -> list:
+    """A keyed register history as etcd client-proxy ndjson: a request for
+    each invoke (``put`` a write, ``range`` a read; the connection is the
+    process), a response for each ok or fail, nothing for an info, and
+    the invokes the cut left open stay unanswered requests."""
+    lines, open_id = [], {}
+    for i, op in enumerate(h):
+        k, v = op.value.key, op.value.value
+        if op.f not in ("write", "read"):
+            raise AssertionError(f"etcd_lines: no etcd request for f {op.f!r}")
+        if op.type == "invoke":
+            open_id[op.process] = i
+            rec = {"phase": "request", "op": "put" if op.f == "write" else "range", "key": k}
+            if op.f == "write":
+                rec["value"] = v
+        elif op.type in ("ok", "fail"):
+            rec = {"phase": "response", "ok": op.type == "ok"}
+            if op.f == "read":
+                rec["value"] = v
+        else:
+            open_id.pop(op.process, None)
+            continue
+        rid = i if op.type == "invoke" else open_id.pop(op.process)
+        lines.append(json.dumps({"ts": op.time, "conn": f"c{op.process}", "id": rid, **rec}))
+    return lines
+
+
+def txn_jsonl_lines(h) -> list:
+    """A txn history as generic jsonl: a request for each invoke, a
+    response (``ok``) for each completion, paired by ``corr``, the
+    connection the process."""
+    lines, open_corr = [], {}
+    for i, op in enumerate(h):
+        rec = {"time": op.time, "conn": op.process, "f": op.f, "value": op.value}
+        if op.type == "invoke":
+            open_corr[op.process] = i
+            rec.update(phase="request", corr=i)
+        else:
+            rec.update(phase="response", corr=open_corr.pop(op.process), ok=op.type == "ok")
+        lines.append(json.dumps(rec))
+    return lines
+
+
+def jnorm(x):
+    """A map as its JSON text reads back (what the CLI writes)."""
+    return json.loads(json.dumps(x, sort_keys=True, default=str))
+
+
+_OP_REPR = re.compile(r"^<(-?\d+) (\S+) (\S+) :(\S+) (.*)>$")
+
+
+def txn_norm(x):
+    """An Elle result map with each txn's text (an ``Op`` repr or an op
+    map's) as (index, type, f, value text): the ingested ops are op maps
+    whose process ids the adapter numbered by first appearance."""
+    if isinstance(x, dict):
+        return {k: txn_norm(v) for k, v in x.items() if k not in ("engine", "engine_name")}
+    if isinstance(x, (list, tuple)):
+        return [txn_norm(v) for v in x]
+    if isinstance(x, str):
+        m = _OP_REPR.match(x)
+        if m:
+            return [int(m.group(1)), m.group(3), m.group(4), m.group(5)]
+        if x.startswith("{'type'"):
+            d = ast.literal_eval(x)
+            return [d["index"], d["type"], d["f"], repr(d["value"])]
+    return x
+
+
+def _wait_end(p, ends, run) -> None:
+    p.wait()
+    ends[run] = time.perf_counter()
+
+
+def ingest_phase(lv, off, h8_result) -> dict:
+    """Trace ingestion on the card. (a) ingest_etcd_10k, ``--check
+    segmented``: True, 0 unmapped. (b) the offline phase's history and its
+    twin (``off``: both, and the verdicts of that phase's drives) as etcd
+    ndjson under ``--engine device`` and ``auto``: the maps
+    ``check_offline``'s on the same parsed ops (run here, launches counted,
+    the device rounds and their members), the verdicts the offline phase's
+    own (True / False, exit 0 / 2). (c) APPEND_8K's history as jsonl txns,
+    ``--check elle``: elle_append_8k's map, the closure kernels launched.
+    The CLI runs are processes of their own, started together while this
+    process parses and checks the same recordings."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from jepsen_tpu_torch import _build, offline
+    from jepsen_tpu_torch.elle import ops as eo
+    from jepsen_tpu_torch.ingest import adapters as ad
+    from jepsen_tpu_torch.ingest import mapper
+    from jepsen_tpu_torch.models import model_by_name
+    from jepsen_tpu_torch.parallel import resilience
+    from jepsen_tpu_torch.telemetry import Registry
+    from jepsen_tpu_torch.testing import lagged_append_history
+
+    resilience.reset_breakers()
+    model = model_by_name(mapper.WORKLOADS["register"][0])  # the mapper's model
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root), os.environ.get("PYTHONPATH", "")]))
+    out, procs, waiters, ends = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD) as tmp:
+        tmp = Path(tmp)
+        runs = {"etcd_10k": ["--check", "segmented"],
+                "etcd_100k": ["--check", "segmented", "--engine"],
+                "etcd_100k_twin": ["--check", "segmented", "--engine"],
+                "elle_8k": ["--check", "elle"]}
+        recordings, write_s = {}, 0.0
+        try:
+            # each recording written, then its CLI runs started (both engines
+            # for the 100k histories), while the next is made
+            for name, make in (("etcd_10k", lambda: ("etcd", etcd_10k_lines())),
+                               ("etcd_100k", lambda: ("etcd", etcd_lines(off["history"]))),
+                               ("etcd_100k_twin", lambda: ("etcd", etcd_lines(off["twin"]))),
+                               ("elle_8k", lambda: ("jsonl", txn_jsonl_lines(
+                                   lagged_append_history(**APPEND_8K))))):
+                t = time.perf_counter()
+                recordings[name] = make()
+                (tmp / f"{name}.trace").write_text("\n".join(recordings[name][1]) + "\n")
+                write_s += time.perf_counter() - t
+                args = runs[name]
+                for run, a in ([(f"{name}_{e}", args + [e]) for e in ("device", "auto")]
+                               if args[-1] == "--engine" else [(name, args)]):
+                    err = open(tmp / f"{run}.err", "w")
+                    cmd = [sys.executable, "-m", "jepsen_tpu_torch.ingest",
+                           str(tmp / f"{name}.trace"), "--adapter", recordings[name][0], *a,
+                           "-o", str(tmp / f"{run}.json")]
+                    procs[run] = (subprocess.Popen(cmd, cwd=root, env=env,
+                                                   stdout=subprocess.DEVNULL, stderr=err),
+                                  time.perf_counter(), err)
+                    # each run's own wall: a thread waits for it while this
+                    # process works
+                    waiters[run] = threading.Thread(target=_wait_end,
+                                                    args=(procs[run][0], ends, run), daemon=True)
+                    waiters[run].start()
+
+            # -- in this process: parse and check, timed and counted --------
+            def parse(name):
+                adapter, lines = recordings[name]
+                t = time.perf_counter()
+                parsed = ad.parse_trace(lines, ad.by_name(adapter))
+                return parsed, time.perf_counter() - t
+
+            parsed, parse_s = parse("etcd_10k")
+            t = time.perf_counter()
+            r = mapper.check_ingested(parsed, check="segmented")
+            torch.cuda.synchronize()
+            check_s = time.perf_counter() - t
+            out["a"] = {"lines": len(recordings["etcd_10k"][1]), "ops": r["n_ops"],
+                        "valid": r["valid"], "unmapped": r["unmapped"],
+                        "workload": r["workload"], "parse_s": parse_s, "check_s": check_s,
+                        "ingest_ops_per_s": r["n_ops"] / (parse_s + check_s)}
+            lib = {}
+            for name in ("etcd_100k", "etcd_100k_twin"):
+                parsed, parse_s = parse(name)
+                reg = Registry()
+                reset_counts(lv)
+                with oracle_timer() as walls:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    r = offline.check_offline(model, parsed["ops"], engine="device",
+                                              metrics=reg)
+                    torch.cuda.synchronize()
+                    check_s = time.perf_counter() - t
+                lib[name] = r
+                out[name] = {"lines": len(recordings[name][1]), "ops": len(parsed["ops"]),
+                             "unmapped": parsed["unmapped"], "stats": parsed["stats"],
+                             "valid": r["valid"], "parse_s": parse_s, "check_s": check_s,
+                             "segments_decided": r["segments_decided"], **round_summary(reg),
+                             "oracle_calls": len(walls), "oracle_wall_s": sum(walls),
+                             **resilience_counts(reg),
+                             "launches": launch_counts(lv, f"ingest {name}", LEVEL_KERNELS)}
+            parsed, parse_s = parse("elle_8k")
+            eo.reset_launches()
+            rep = {}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = mapper.check_ingested(parsed, check="elle", report=rep)
+            torch.cuda.synchronize()
+            check_s = time.perf_counter() - t
+            lib["elle_8k"] = r
+            out["c"] = {"lines": len(recordings["elle_8k"][1]), "txns": r["result"]["txn_count"],
+                        "valid": r["valid"], "unmapped": r["unmapped"], "engine": rep,
+                        "parse_s": parse_s, "check_s": check_s,
+                        "launches": elle_launches(eo, "ingest (c)"),
+                        "same_as_elle_append_8k": txn_norm(r["result"]) == txn_norm(h8_result)}
+
+            # -- the CLI processes ------------------------------------------
+            cli = {}
+            for run, (p, t0, err) in procs.items():
+                try:
+                    rc = p.wait(timeout=max(1.0, INGEST_CLI_TIMEOUT - (time.perf_counter() - t0)))
+                except subprocess.TimeoutExpired:
+                    rc = None
+                waiters[run].join(timeout=5)
+                err.close()
+                doc = tmp / f"{run}.json"
+                end = ends.get(run)
+                cli[run] = {"rc": rc, "wall_s": None if end is None else end - t0,
+                            "doc": json.loads(doc.read_text()) if doc.exists() else None,
+                            "stderr": (tmp / f"{run}.err").read_text()[-2000:]}
+        finally:
+            for p, _, err in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                err.close()
+    bad = {run: c["stderr"] for run, c in cli.items() if c["rc"] not in (0, 1, 2) or not c["doc"]}
+    if bad:
+        raise AssertionError(f"ingest CLI runs failed: {bad}")
+    doc = lambda run: cli[run]["doc"]  # noqa: E731
+    walls = {run: c["wall_s"] for run, c in cli.items()}
+    a = out["a"]
+    a.update(cli_rc=cli["etcd_10k"]["rc"], cli_valid=doc("etcd_10k")["valid"],
+             cli_unmapped=doc("etcd_10k")["unmapped"], cli_wall_s=walls["etcd_10k"])
+    emit({"phase": "ingest", "case": "a_etcd_10k", **a})
+    b_ok = True
+    for name, want, rc in (("etcd_100k", True, 0), ("etcd_100k_twin", False, 2)):
+        row = out[name]
+        ref_map = offline_map(jnorm(lib[name]))
+        row["cli"] = {e: {"rc": cli[f"{name}_{e}"]["rc"], "valid": doc(f"{name}_{e}")["valid"],
+                          "unmapped": doc(f"{name}_{e}")["unmapped"],
+                          "wall_s": walls[f"{name}_{e}"],
+                          "same_map": offline_map(doc(f"{name}_{e}")["result"]) == ref_map}
+                      for e in ("device", "auto")}
+        row["offline_segmented_valid"] = want
+        emit({"phase": "ingest", "case": f"b_{name}", **row})
+        b_ok &= (row["valid"] is want and row["unmapped"] == 0 and row["device_rounds"] >= 1
+                 and row["failover_rounds"] == 0 and row["service_failovers_total"] == 0
+                 and all(c["rc"] == rc and c["valid"] is want and c["same_map"]
+                         and c["unmapped"] == 0 for c in row["cli"].values()))
+    c = out["c"]
+    c.update(cli_rc=cli["elle_8k"]["rc"], cli_valid=doc("elle_8k")["valid"],
+             cli_wall_s=walls["elle_8k"],
+             cli_same_map=txn_norm(doc("elle_8k")["result"]) == txn_norm(jnorm(
+                 lib["elle_8k"]["result"])))
+    emit({"phase": "ingest", "case": "c_elle_8k", **c})
+    ok = (a["valid"] is True and a["unmapped"] == 0 and a["cli_rc"] == 0
+          and a["cli_valid"] is True and a["cli_unmapped"] == 0
+          and off["verdicts"] == {"device": True, "auto": True, "twin_auto": False} and b_ok
+          and c["same_as_elle_append_8k"] and c["cli_same_map"] and c["unmapped"] == 0
+          and c["valid"] is h8_result["valid"] is False and c["cli_rc"] == 2
+          and c["engine"].get("engine") == "device" and c["launches"]["elle_square"] > 0)
+    emit({"phase": "ingest", "case": "done", "write_s": write_s, "ok": ok})
+    if not ok:
+        raise AssertionError("ingest failed")
+    return {"launches": out["etcd_100k"]["launches"], "elle_launches": c["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -5243,10 +5666,13 @@ def main() -> int:
     errs["wgl_expand"] = max(errs["wgl_expand"], mutex_expand["max_abs_err"])
     family_launches = models_2k_phase(lv, wgl, wgl_host, hists)
     keyed_mr_launches = keyed_multi_register_phase(lv, wgl_host, jchecker, independent, History)
+    t = time.perf_counter()
+    front_launches = front_door_phase(lv, jchecker, independent, History)
+    front_wall = time.perf_counter() - t
     engine_phases(lv, wgl, model, hist, res, hists)
 
     # -- the offline segmented checker and the device-fault containment ------
-    new_walls = {"store_replay": store_wall}
+    new_walls = {"store_replay": store_wall, "front_door": front_wall}
     t = time.perf_counter()
     offline_run = offline_segmented_phase(lv, model)
     new_walls["offline_segmented"] = time.perf_counter() - t
@@ -5257,6 +5683,9 @@ def main() -> int:
     resilience_phase(lv, model, wgl, frontier, make_mesh, encode_history, enc, replay,
                      offline_run["plan_20k"], offline_run["history_20k"])
     new_walls["resilience"] = time.perf_counter() - t
+    offline_for_ingest = {
+        "verdicts": {k: offline_run["runs"][k]["valid"] for k in ("device", "auto", "twin_auto")},
+        "history": offline_run["history"], "twin": offline_run["twin"]}
     del offline_run
 
     # -- the frontier-sharded search on SHARD_D shards of the card ------------
@@ -5276,6 +5705,10 @@ def main() -> int:
 
     elle_main, elle_launch, elle_errs, elle_ctx = elle_phases()
     closure_main, closure_shapes, closure_paths, closure_errs = elle_sharded_phases(elle_ctx)
+    t = time.perf_counter()
+    ingest = ingest_phase(lv, offline_for_ingest, elle_ctx["h8_result"])
+    del offline_for_ingest
+    new_walls["ingest"] = time.perf_counter() - t
     del elle_ctx
     sweep = elle_square_sweep()
     sweep_err = max(v["max_abs_err"] for v in sweep.values())
@@ -5287,7 +5720,8 @@ def main() -> int:
              "batch_mesh_D8": mesh_launches["D8"], "batch_mesh_D3": mesh_launches["D3"],
              "sharded_10k_alltoall": shard_launches["alltoall"],
              "sharded_10k_allgather": shard_launches["allgather"],
-             **{k: v for k, v in store_launches.items() if k != "store_explain"}}
+             **{k: v for k, v in store_launches.items() if k != "store_explain"},
+             "front_door": front_launches, "ingest_etcd_100k": ingest["launches"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     summary = lambda r: {k: r[k] for k in keys}  # noqa: E731
     for kname in REPLACES:
@@ -5396,7 +5830,8 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": ELLE_SOURCE,
             "replaces": ELLE_REPLACES[kname], "launches": elle_launch[kname],
             "launches_by_path": {"elle_append_8k": elle_launch[kname],
-                                 "store_explain": store_launches["store_explain"][kname]},
+                                 "store_explain": store_launches["store_explain"][kname],
+                                 "ingest_elle_8k": ingest["elle_launches"][kname]},
             "max_abs_err": max(elle_errs[kname], sweep_err if kname == "elle_square" else 0),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -5421,8 +5856,9 @@ def main() -> int:
                if kname == "elle_block_square" else {}),
             **({"gather_scale": gathers} if kname == "elle_gather" else {})})
     done_s = time.perf_counter() - t_start
-    emit({"phase": "done", "seconds": done_s, "new_phases_s": {"store_replay": store_wall},
-          "new_phases_share": store_wall / done_s, "phase_walls_s": new_walls})
+    new_s = {k: new_walls[k] for k in ("front_door", "ingest")}
+    emit({"phase": "done", "seconds": done_s, "new_phases_s": new_s,
+          "new_phases_share": sum(new_s.values()) / done_s, "phase_walls_s": new_walls})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

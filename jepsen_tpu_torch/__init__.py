@@ -25,6 +25,15 @@ checker's ``independent/<k>/``), and ``parallel.replay`` (``python -m
 jepsen_tpu_torch replay``) decides every stored ``history.edn`` of a store
 in one batch on the card and writes ``rechecked.edn`` beside each.
 
+It checks recordings of real, unmodified systems (``ingest``: etcd,
+redis, zookeeper, mongodb and generic jsonl traces; ``python -m
+jepsen_tpu_torch.ingest``) through the offline segmented checker, whose
+device oracle runs on the card, or Elle's cycle engine, and holds the
+rest of the reference's checker front door: the invariant checkers
+(``checker.invariants``), ``concurrency_limit``,
+``unhandled_exceptions``, the bank, causal, long-fork and G2 workload
+checkers and ``elle.monotonic_key_check``.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``torch_device="cpu"`` for the Elle entry points, whose ``device`` is the
 engine flag).

@@ -2,8 +2,11 @@
 
 The port of the reference's ``jepsen_tpu/checker/__init__.py``: the
 ``Checker.check(test, history, opts)`` seam, the valid-merge lattice
-``True < "unknown" < False``, ``check_safe``, ``compose``, ``stats``, and
-``linearizable``, which
+``True < "unknown" < False``, ``check_safe``, ``compose``,
+``concurrency_limit``, ``noop``, ``unbridled_optimism``,
+``unhandled_exceptions``, ``stats``, the invariant checkers of
+:mod:`.invariants` (``queue``, ``set_checker``, ``set_full``,
+``total_queue``, ``unique_ids``, ``counter``), and ``linearizable``, which
 dispatches on the ``backend`` option (overridden by the test map's
 ``checker_backend``) onto the GPU search (``ops.wgl``), the native C search
 (``ops.wgl_c``), the two raced, the frontier-sharded search
@@ -20,6 +23,7 @@ Result maps use the key ``"valid"`` with values True / False / "unknown".
 from __future__ import annotations
 
 import logging
+import threading
 import time as _time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
@@ -83,6 +87,16 @@ def merge_valid(valids) -> Any:
     return out
 
 
+def noop() -> Checker:
+    """Returns None from check (checker.clj:65-69)."""
+    return checker_fn(lambda test, history, opts: None, "noop")
+
+
+def unbridled_optimism() -> Checker:
+    """Everything is awesoooommmmme! (checker.clj:115-119)"""
+    return checker_fn(lambda test, history, opts: {"valid": True}, "unbridled-optimism")
+
+
 def check_safe(checker: Checker, test: dict, history: History,
                opts: Optional[dict] = None) -> dict:
     """Like check, but exceptions become ``{"valid": "unknown", "error":
@@ -116,6 +130,43 @@ def compose(checker_map: dict) -> Checker:
     ``independent.checker`` over it checks key by key, as the reference's
     does."""
     return _Compose(checker_map)
+
+
+class _ConcurrencyLimit(Checker):
+    def __init__(self, limit: int, checker: Checker):
+        self.sem = threading.Semaphore(limit)
+        self.checker = checker
+
+    def check(self, test, history, opts=None):
+        with self.sem:
+            return self.checker.check(test, history, opts)
+
+
+def concurrency_limit(limit: int, checker: Checker) -> Checker:
+    """Bound the concurrent executions of a memory-hungry checker
+    (checker.clj:98-113): at most ``limit`` threads run it at once, among
+    them the threads of :func:`compose`."""
+    return _ConcurrencyLimit(limit, checker)
+
+
+def unhandled_exceptions() -> Checker:
+    """Surface client exceptions recorded on :info ops, grouped by class,
+    most frequent first (checker.clj:120-147)."""
+
+    def chk(test, history, opts):
+        groups: dict[Any, list] = {}
+        for op in history:
+            exc = op.get("exception")
+            if exc is None or not op.is_info:
+                continue
+            cls = exc.get("type") if isinstance(exc, dict) else type(exc).__name__
+            groups.setdefault(cls, []).append(op)
+        exes = [{"count": len(ops), "class": cls, "example": ops[0]}
+                for cls, ops in sorted(groups.items(), key=lambda kv: len(kv[1]),
+                                       reverse=True)]
+        return {"valid": True, "exceptions": exes} if exes else {"valid": True}
+
+    return checker_fn(chk, "unhandled-exceptions")
 
 
 def _stats_counts(ops) -> dict:
@@ -321,5 +372,18 @@ def linearizable(options: Optional[dict] = None, **kw) -> Checker:
     return out
 
 
-__all__ = ["Checker", "check_safe", "checker_fn", "compose", "linearizable",
-           "merge_valid", "resolve_backend", "stats"]
+# The invariant checkers live in their own module; re-export them, as the
+# reference does.
+from .invariants import (  # noqa: E402
+    counter,
+    queue,
+    set_checker,
+    set_full,
+    total_queue,
+    unique_ids,
+)
+
+__all__ = ["Checker", "check_safe", "checker_fn", "compose", "concurrency_limit",
+           "counter", "linearizable", "merge_valid", "noop", "queue", "resolve_backend",
+           "set_checker", "set_full", "stats", "total_queue", "unbridled_optimism",
+           "unhandled_exceptions", "unique_ids"]

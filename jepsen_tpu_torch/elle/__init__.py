@@ -548,10 +548,54 @@ KIND_LOOKUP = {WW: "ww", WR: "wr", RW: "rw", RT: "realtime",
 
 
 def monotonic_key_check(history, realtime: bool = True) -> dict:
-    """The monotonic-key analyzer (the reference's, for the tidb monotonic
-    workload) comes with a later slice of the port."""
-    raise ValueError("monotonic_key_check (the monotonic-key workloads) comes with a "
-                     "later slice of the port")
+    """elle.core's monotonic-key analyzer composed with the realtime
+    graph (Jepsen consumes it via jepsen.tests.cycle/checker +
+    cycle/combine, e.g. tidb/monotonic.clj:104-110).
+
+    Ok ops carry ``{key: observed-value}`` maps; for each key, an op
+    observing value v precedes every op observing the next larger value
+    — values must never decrease. A cycle in that order (composed with
+    realtime precedence when the history is paired) is a monotonicity
+    violation; the witness cycle is returned."""
+    oks = [op for op in history
+           if op_type(op) == "ok" and isinstance(op_value(op), dict)]
+    n = len(oks)
+    g = DepGraph(n)
+    by_key: dict = {}
+    for i, op in enumerate(oks):
+        for k, v in (op_value(op) or {}).items():
+            if v is not None:
+                by_key.setdefault(k, {}).setdefault(v, []).append(i)
+    for groups in by_key.values():
+        vals = sorted(groups)
+        for a, b in zip(vals, vals[1:]):
+            for i in groups[a]:
+                for j in groups[b]:
+                    if i != j:
+                        g.add(i, j, WW)
+    rt_unavailable = False
+    if realtime:
+        intervals = paired_intervals(history)
+        if intervals is None:
+            rt_unavailable = True
+        else:
+            add_realtime_edges(g, [
+                (i, intervals[id(op)][0], intervals[id(op)][1])
+                for i, op in enumerate(oks) if id(op) in intervals
+            ])
+    succ = succ_lists(g.edges, g.n, 0xFF)
+    sccs = sccs_lists(succ)
+    cycles = []
+    if sccs:
+        cyc = find_cycle_lists(succ, sccs[0])
+        if cyc:
+            w = _witness(g, cyc, n)
+            w["ops"] = [repr(oks[i]) for i in w["cycle"]]
+            cycles.append(w)
+    out = {"valid": not sccs, "cycles": cycles}
+    if rt_unavailable:
+        out["realtime_unavailable"] = True
+    return out
 
 
 # Shared op accessors: checker layers accept both Op records and plain

@@ -233,6 +233,24 @@ class History:
                     out[pos] = Interval(out[pos].invoke, op)
         return out
 
+    def complete(self) -> "History":
+        """Knossos ``history/complete``: any invoke with no completion gets a
+        synthetic trailing :info op, so every interval is closed-or-info."""
+        pending: dict[Any, Op] = {}
+        for op in self.ops:
+            if not op.is_client:
+                continue
+            if op.is_invoke:
+                pending[op.process] = op
+            else:
+                pending.pop(op.process, None)
+        if not pending:
+            return self
+        tail = [inv.with_(type=INFO, index=len(self.ops) + i,
+                          error="indeterminate: no completion in history")
+                for i, inv in enumerate(pending.values())]
+        return History(self.ops + tail, reindex=False)
+
     @classmethod
     def from_edn_string(cls, s: str, reindex: bool = False) -> "History":
         """The ops of an EDN text (one op map a form); indexes are assigned

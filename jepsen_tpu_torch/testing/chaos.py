@@ -24,13 +24,17 @@ The port's seams:
   and the point in each rung's first chunk where the next rung's tables
   are made ready). A raise rides the batch's retry and failover path.
 
+- ``ingest.parse``: each raw trace line the ingestion parses
+  (``ingest/adapters.py`` ``parse_trace``). A raise costs exactly that
+  line, counted unmapped, and folds the verdict one-sidedly to unknown
+  (``ingest_unmapped_op``).
+
 ``service.pump``, ``journal.fsync``, ``router.probe``,
-``backend.process``, ``router.crash`` and ``ingest.parse`` are the
-reference package's seams in the multi-tenant service, its journal, its
-router and its trace ingestion, which this package does not have yet.
-They stay registered, with their blast radius in
-:data:`EXPECTED_UNKNOWN_CAUSES`, so that the map of causes is the
-reference's.
+``backend.process`` and ``router.crash`` are the reference package's
+seams in the multi-tenant service, its journal and its router, which
+this package does not have yet. They stay registered, with their blast
+radius in :data:`EXPECTED_UNKNOWN_CAUSES`, so that the map of causes is
+the reference's.
 
 Modes: ``raise`` (raise ``exc`` on the Nth crossing, ``times`` times),
 ``delay`` (sleep ``delay_s``: a slow device or disk) and ``crash``

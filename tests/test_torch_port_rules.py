@@ -215,7 +215,12 @@ def test_every_port_module_is_walkable():
             "jepsen_tpu_torch.offline.__main__", "jepsen_tpu_torch.store",
             "jepsen_tpu_torch.cli", "jepsen_tpu_torch.__main__",
             "jepsen_tpu_torch.parallel.replay", "jepsen_tpu_torch.checker.linear_viz",
-            "jepsen_tpu_torch.checker.timeline", "jepsen_tpu_torch.elle.explain"} <= mods
+            "jepsen_tpu_torch.checker.timeline", "jepsen_tpu_torch.elle.explain",
+            "jepsen_tpu_torch.util", "jepsen_tpu_torch.checker.invariants",
+            "jepsen_tpu_torch.workloads.bank", "jepsen_tpu_torch.workloads.causal",
+            "jepsen_tpu_torch.workloads.long_fork", "jepsen_tpu_torch.workloads.adya",
+            "jepsen_tpu_torch.ingest", "jepsen_tpu_torch.ingest.adapters",
+            "jepsen_tpu_torch.ingest.mapper", "jepsen_tpu_torch.ingest.__main__"} <= mods
 
 
 def test_every_kernel_entry_point_has_a_signature_and_a_source():
