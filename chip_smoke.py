@@ -298,7 +298,17 @@ and then runs these phases, each printing JSON lines:
   value), the closure kernels launched. Each CLI run is ``python -m
   jepsen_tpu_torch.ingest`` in a process of its own, all started together
   while this process parses and checks the same recordings (parse and
-  check walls).
+  check walls);
+- ``runner`` (after ``ingest``): the test runner. (a) ``core.run`` of the
+  demo's cas register, 10,000 ops over 10 workers at 1 ms a call, the
+  20th reply lost, the monitor's device oracle and telemetry on: online,
+  post-hoc and the C engine's verdicts ``True``, the launches of the
+  monitor's rounds and of the analysis counted apart; (a') the same
+  traffic with every reply, in a process of its own, the run and the
+  monitor's drain bounded in time: the ops the run completed, the
+  segments the host enumerator decided and left; (b) the
+  lying client that the monitor aborts; (c) ``python -m jepsen_tpu_torch
+  test`` then ``analyze`` as processes, exit 0 and 0, both on the card.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the per-kernel JSON line, and ``{"ok": true, "device": {...}}``.
@@ -5333,6 +5343,381 @@ def ingest_phase(lv, off, h8_result) -> dict:
     return {"launches": out["etcd_100k"]["launches"], "elle_launches": c["launches"]}
 
 
+# The test runner on the card (runner phase): (a) an in-process core.run
+# of the demo's cas-register test at the north star's size with the
+# online monitor's device oracle and telemetry on, one reply lost; (a')
+# the same traffic with every reply, in a process of its own, the run and
+# the monitor's drain bounded in time; (b) the lying client that the monitor aborts
+# (tests/test_online.py's case); (c) the CLI's test and analyze as
+# processes.
+RUNNER = {"ops": 10_000, "concurrency": 10, "lost_reply_at": 20, "lie_at": 40,
+          "lie_ops": 1500, "cli_time_limit": 5, "cli_rate": 200, "busy_run_s": 10,
+          "busy_finish_s": 5}
+RUNNER_FILES = ("history.edn", "results.edn", "online.json", "metrics.jsonl", "spans.jsonl")
+
+
+class FirstBatchRound:
+    """While installed, records the first batched chunk a path runs (its
+    geometry, tables, a copy of its starting frontier, members and model),
+    so that one level of it can be captured afterwards (:meth:`level_work`),
+    as :class:`FirstChunk` does for a single search."""
+
+    def __init__(self, lv):
+        self.lv = lv
+        self.seen = None
+
+    def __enter__(self):
+        self.orig = orig = self.lv.run_chunk_batch
+
+        def run_chunk_batch(ops, g, tabs, fr, ws, lvl0, *a, **kw):
+            if self.seen is None:
+                self.seen = (g, tabs, tuple(x.clone() for x in fr), len(lvl0), a[-1])
+            return orig(ops, g, tabs, fr, ws, lvl0, *a, **kw)
+
+        self.lv.run_chunk_batch = run_chunk_batch
+        return self
+
+    def __exit__(self, *exc):
+        self.lv.run_chunk_batch = self.orig
+
+    def level_work(self) -> dict:
+        from jepsen_tpu_torch.testing import device_work
+
+        lv = self.lv
+        g, tabs, fr, nb, model = self.seen
+        ws = lv.BatchWorkspace(g, nb, fr[0].device)
+        before = dict(lv.LAUNCHES)
+        lv._LevelProgram(g, tabs, fr, ws, model)()
+        work = device_work(lambda: lv._LevelProgram(g, tabs, fr, ws, model)())
+        lv.LAUNCHES.update(before)
+        return dict(work, F=g.F, members=nb, two_stage=g.two_stage)
+
+
+def runner_generator(gen, n):
+    """The demo suite's cas-register mix (write, cas, read over 5 values),
+    n ops across the clients."""
+    return gen.clients(gen.limit(n, gen.mix([
+        lambda: {"f": "write", "value": gen.rand_int(5)},
+        lambda: {"f": "cas", "value": [gen.rand_int(5), gen.rand_int(5)]},
+        lambda: {"f": "read"}])))
+
+
+def runner_busy_child(store_root: str) -> None:
+    """Case (a') of the runner phase, in a process of its own: the
+    ``core.run`` of case (a) with every reply delivered. Ten workers with no
+    think time rarely quiesce, so a closed segment can run to thousands of
+    ops, decided by the host enumerator on the monitor's worker thread.
+    While it enumerates it holds the GIL for the interpreter's 20 ms switch
+    interval each time a client thread lets go of it, so the run is cut at
+    ``busy_run_s`` (``time_limit`` around case (a)'s generator), and
+    ``online.finish`` waits at most ``busy_finish_s`` (its own default is
+    300 s); what is undecided then folds ``unknown``. The worker thread
+    goes on enumerating after that, so the run's checker here is ``stats``
+    alone and the caller decides the stored history on the card; the
+    process ends without joining the thread, which is why it is a
+    process. Prints one JSON line: the phase walls, the segments submitted
+    (ops, terminal), those decided by engine and those left undecided at
+    the bound, the online verdict, the run's directory and peak RSS."""
+    import collections
+    import faulthandler
+    import json
+    import os
+    import resource
+
+    from jepsen_tpu_torch import core, store
+    from jepsen_tpu_torch import checker as jchecker
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch import online as jonline
+    from jepsen_tpu_torch.models import CasRegister
+    from jepsen_tpu_torch.workloads import AtomClient, AtomDB, AtomState, noop_test
+
+    finish, of_test = jonline.OnlineMonitor.finish, jonline.of_test
+    submitted: list = []
+
+    def bounded_finish(self, timeout=None):
+        return finish(self, timeout=RUNNER["busy_finish_s"])
+
+    def recording_of_test(t):
+        mon = of_test(t)
+        submit = mon.scheduler.submit
+
+        def record(segments, *a, **kw):
+            submitted.extend((seg.n_ops, seg.terminal) for seg in segments)
+            return submit(segments, *a, **kw)
+
+        mon.scheduler.submit = record
+        return mon
+
+    jonline.OnlineMonitor.finish = bounded_finish
+    jonline.of_test = recording_of_test
+    # a hang shows as every thread's stack on stderr, not as the caller's timeout
+    faulthandler.dump_traceback_later(
+        RUNNER["busy_run_s"] + RUNNER["busy_finish_s"] + 90, exit=True)
+    model = CasRegister(init=0)
+    state = AtomState()
+    test = dict(noop_test())
+    test.update(
+        name="cas-register-busy", db=AtomDB(state), model=model, client=AtomClient(state),
+        concurrency=RUNNER["concurrency"], checker=jchecker.stats(),
+        generator=gen.time_limit(RUNNER["busy_run_s"], runner_generator(gen, RUNNER["ops"])),
+        **{"online?": True, "online-engine": "device", "telemetry?": True,
+           "store-root": store_root})
+    res = core.run(test)
+    fin, reg = res["online-results"], res["telemetry-registry"]
+    print(json.dumps({
+        "history": len(res["history"]),
+        "phase_walls_s": {s["labels"]["phase"]: s["value"] for s in reg.collect()
+                          if s["name"] == "run_phase_seconds"},
+        "submitted": [n for n, terminal in submitted if not terminal],
+        "terminal": [n for n, terminal in submitted if terminal],
+        "decided_by_engine": dict(collections.Counter(
+            row["engine"] for row in fin["segments"])),
+        "undecided_at_bound": len(submitted) - len(fin["segments"]),
+        "device_rounds": len([e for e in reg.events("online_round")
+                              if e.get("engine") == "device" and e.get("oracle_members")]),
+        "online_valid": fin["valid"], "decided_through_index": fin["decided_through_index"],
+        "run_dir": store.path(res).name,
+        "max_rss_mib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024},
+        default=str), flush=True)
+    # the monitor's worker may still be enumerating: end here, not at its join
+    os._exit(0)
+
+
+def runner_phase(lv, wgl) -> dict:
+    """(a) ``core.run`` of 10,000 cas-register ops over 10 workers against
+    the atom register (1 ms a call), ``online-engine device``, telemetry on,
+    the composed checker on the card. One client reply, the 20th, is lost
+    (the write took effect; the worker sees an exception and the op stays
+    ``:info``), as a real client's timeout is: the :info poisons quiescence,
+    so the rest of the run is one open tail that the monitor's device
+    oracle decides, where a run that ends quiescent is decided by the host
+    enumerator alone. Launches counted for the monitor's rounds and for the
+    analysis, each path from counts set to 0 just before it, and one level
+    of each captured. Both verdicts True and equal to the C engine's on the
+    stored history. (a') the same run with every reply delivered
+    (:func:`runner_busy_child`, a process of its own): the run bounded at
+    ``busy_run_s`` and the monitor's drain at ``busy_finish_s``, its online verdict True or unknown, never
+    False, the stored history decided on the card here True and equal to
+    the C engine's; the segments the host enumerator decided, and those
+    it left.
+    (b) the lying client aborted by the monitor (device engine): aborted,
+    False, detected, the generator not drained, the post-hoc analysis on
+    the card False. (c) ``python -m jepsen_tpu_torch test`` then
+    ``analyze`` as processes: exit 0 and 0, one verdict, decided on the
+    card by both."""
+    import json
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from jepsen_tpu_torch import _build, core, store
+    from jepsen_tpu_torch import checker as jchecker
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch.edn import K, read_string
+    from jepsen_tpu_torch.models import CasRegister
+    from jepsen_tpu_torch.parallel import resilience
+    from jepsen_tpu_torch.workloads import AtomClient, AtomDB, AtomState, noop_test
+
+    resilience.reset_breakers()
+    model = CasRegister(init=0)
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD) as tmp:
+        tmp = Path(tmp)
+
+        # -- (a) ------------------------------------------------------------
+        class LostReply(AtomClient):
+            """The atom register's client, one reply of which is lost."""
+
+            def __init__(self, state, calls):
+                super().__init__(state)
+                self.calls = calls
+
+            def invoke(self, test, op):
+                res = super().invoke(test, op)
+                with self.calls["lock"]:
+                    self.calls["n"] += 1
+                    lost = self.calls["n"] == RUNNER["lost_reply_at"]
+                if lost:
+                    raise TimeoutError("reply lost")
+                return res
+
+        counted: dict = {}
+        firsts = {"online": FirstBatchRound(lv), "analyze": FirstChunk(wgl)}
+        composed = jchecker.compose({"linear": jchecker.linearizable(model=model),
+                                     "stats": jchecker.stats()})
+
+        def analysis(test, history, opts):
+            # the monitor is finished: its rounds' counts, then the analysis's
+            firsts["online"].__exit__(None, None, None)
+            counted["online"] = launch_counts(lv, "runner_online", LEVEL_KERNELS)
+            reset_counts(lv)
+            with firsts["analyze"]:
+                res = composed.check(test, history, opts)
+            torch.cuda.synchronize()
+            counted["analyze"] = launch_counts(lv, "runner_analyze")
+            return res
+
+        state = AtomState()
+        test = dict(noop_test())
+        test.update(
+            name="cas-register", db=AtomDB(state), model=model,
+            client=LostReply(state, {"n": 0, "lock": threading.Lock()}),
+            concurrency=RUNNER["concurrency"], checker=jchecker.checker_fn(analysis),
+            generator=runner_generator(gen, RUNNER["ops"]),
+            **{"online?": True, "online-engine": "device", "telemetry?": True,
+               "store-root": str(tmp / "a")})
+        reset_counts(lv)
+        t = time.perf_counter()
+        with firsts["online"]:
+            res = core.run(test)
+        wall = time.perf_counter() - t
+        reg, fin = res["telemetry-registry"], res["online-results"]
+        phases = {s["labels"]["phase"]: s["value"] for s in reg.collect()
+                  if s["name"] == "run_phase_seconds"}
+        rounds = [e for e in reg.events("online_round")
+                  if e.get("engine") == "device" and e.get("oracle_members")]
+        run_dir = store.path(res)
+        stored = store.load_history(res["name"], res["start-time"], root=tmp / "a")
+        native = wgl.check_history(model, stored, backend="native")
+        files = sorted(p.name for p in run_dir.iterdir())
+        ledger = (tmp / "a" / "ledger.jsonl").exists()
+        row = {"phase": "runner", "case": "core_run", "ops": RUNNER["ops"],
+               "concurrency": RUNNER["concurrency"], "history": len(res["history"]),
+               "wall_s": wall, "phase_walls_s": phases,
+               "valid": res["results"]["valid"], "online_valid": fin["valid"],
+               "native_valid": native["valid"], "linear_device": res["results"]["linear"].get(
+                   "torch_device"),
+               "segments_decided": fin["segments_decided"],
+               "decided_through_index": fin["decided_through_index"],
+               "p99_decision_latency_s": fin["decision_latency"].get("p99_s"),
+               "device_rounds": [{"members": e["members"], "oracle_members": e["oracle_members"],
+                                  "segments": e.get("segments")} for e in rounds],
+               "launches_online": counted["online"], "launches_analyze": counted["analyze"],
+               "online_level_work": firsts["online"].level_work(),
+               "analyze_level_work": firsts["analyze"].level_work(lv),
+               "store_files": files, "ledger": ledger}
+        emit(row)
+        if not (row["valid"] is True and row["online_valid"] is True
+                and row["native_valid"] is True and rounds and ledger
+                and row["history"] == 2 * RUNNER["ops"]
+                and set(RUNNER_FILES) <= set(files) and row["linear_device"] == "cuda"):
+            raise AssertionError(f"runner core_run failed: {row}")
+        out["core_run"] = {"online": counted["online"], "analyze": counted["analyze"]}
+
+        # -- (a') -----------------------------------------------------------
+        root = Path(__file__).resolve().parent
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(root), os.environ.get("PYTHONPATH", "")]))
+        t = time.perf_counter()
+        with open(tmp / "busy.err", "w") as err:
+            p = subprocess.run(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "chip_smoke.runner_busy_child(sys.argv[1])", str(tmp / "busy")],
+                cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=err, text=True,
+                timeout=RUNNER["busy_run_s"] + RUNNER["busy_finish_s"] + 120)
+        wall = time.perf_counter() - t
+        if p.returncode != 0:
+            raise AssertionError(f"runner busy exited {p.returncode}: "
+                                 f"{(tmp / 'busy.err').read_text()[-6000:]}")
+        busy = json.loads(p.stdout.strip().splitlines()[-1])
+        stored = store.load_history("cas-register-busy", busy["run_dir"], root=tmp / "busy")
+        t = time.perf_counter()
+        linear = jchecker.linearizable(model=model).check({}, stored, {})
+        torch.cuda.synchronize()
+        analyze_s = time.perf_counter() - t
+        closed = busy["submitted"]
+        row = {"phase": "runner", "case": "busy", "ops": RUNNER["ops"],
+               "run_bound_s": RUNNER["busy_run_s"], "finish_bound_s": RUNNER["busy_finish_s"],
+               "process_wall_s": wall, "ops_completed": busy["history"] // 2,
+               **busy, "submitted": len(closed), "submitted_ops": sum(closed),
+               "largest_closed": max(closed, default=0),
+               "enumerator_share": busy["decided_by_engine"].get("host", 0)
+               / max(1, len(closed)),
+               "valid": linear["valid"], "analyze_s": analyze_s,
+               "linear_device": linear.get("torch_device"),
+               "native_valid": wgl.check_history(model, stored, backend="native")["valid"]}
+        emit(row)
+        if not (row["valid"] is True and row["native_valid"] is True
+                and row["online_valid"] in (True, "unknown")
+                and 0 < row["history"] <= 2 * RUNNER["ops"] and row["history"] % 2 == 0
+                and row["linear_device"] == "cuda"):
+            raise AssertionError(f"runner busy failed: {row}")
+
+        # -- (b) ------------------------------------------------------------
+        lie_state, seen = AtomState(), {"n": 0}
+
+        class LyingClient(AtomClient):
+            """tests/test_online.py's liar: from the 40th call on, a read
+            answers 93, a value nobody wrote."""
+
+            def invoke(self, test, op):
+                res = super().invoke(test, op)
+                seen["n"] += 1
+                if op.get("f") == "read" and seen["n"] >= RUNNER["lie_at"] \
+                        and res.get("value") != 93:
+                    return {**res, "value": 93}
+                return res
+
+        lie = dict(noop_test())
+        lie.update(
+            name="online-abort", model=model, db=AtomDB(lie_state),
+            client=LyingClient(lie_state, latency=0.001), concurrency=2,
+            checker=jchecker.linearizable(model=model),
+            generator=gen.clients(gen.stagger(0.008, gen.limit(RUNNER["lie_ops"], gen.mix([
+                lambda: {"f": "read"},
+                lambda: {"f": "write", "value": gen.rand_int(5)}])))),
+            **{"no-store?": True, "online?": True, "online-abort?": True,
+               "online-engine": "device"})
+        t = time.perf_counter()
+        lres = core.run(lie)
+        lfin = lres["online-results"]
+        row = {"phase": "runner", "case": "lying_client", "wall_s": time.perf_counter() - t,
+               "aborted": lfin["aborted"], "online_valid": lfin["valid"],
+               "ops_to_detection": lfin.get("ops_to_detection"),
+               "seconds_to_detection": lfin.get("seconds_to_detection"),
+               "history": len(lres["history"]), "generator_ops": RUNNER["lie_ops"],
+               "valid": lres["results"]["valid"],
+               "linear_device": lres["results"].get("torch_device")}
+        emit(row)
+        if not (row["aborted"] is True and row["online_valid"] is False
+                and (row["ops_to_detection"] or 0) > 0
+                and row["history"] < RUNNER["lie_ops"] and row["valid"] is False
+                and row["linear_device"] == "cuda"):
+            raise AssertionError(f"runner lying_client failed: {row}")
+
+        # -- (c) ------------------------------------------------------------
+        cmd = [sys.executable, "-m", "jepsen_tpu_torch"]
+        common = ["--workload", "cas-register", "--store-root", str(tmp / "c")]
+        runs = {"test": [*cmd, "test", *common, "--time-limit", str(RUNNER["cli_time_limit"]),
+                         "--rate", str(RUNNER["cli_rate"]), "--no-ssh", "--online",
+                         "--online-engine", "device", "--telemetry"],
+                "analyze": [*cmd, "analyze", *common]}
+        cli: dict = {}
+        for name, argv in runs.items():
+            t = time.perf_counter()
+            p = subprocess.run(argv, cwd=tmp, env=env, capture_output=True, text=True,
+                               timeout=300)
+            cli[name] = {"rc": p.returncode, "wall_s": time.perf_counter() - t}
+            if p.returncode != 0:
+                raise AssertionError(f"runner cli {name} exited {p.returncode}: "
+                                     f"{p.stderr[-3000:]}")
+            (results,) = (tmp / "c").glob("cas-register/2*/results.edn")
+            results = read_string(results.read_text())
+            cli[name]["valid"] = results[K("valid?")]
+            cli[name]["linear_device"] = results[K("linear")][K("torch_device")]
+        online = json.loads(next((tmp / "c").glob("cas-register/2*/online.json")).read_text())
+        row = {"phase": "runner", "case": "cli", **cli, "online_valid": online["valid"]}
+        emit(row)
+        if not (cli["test"]["rc"] == 0 and cli["analyze"]["rc"] == 0
+                and cli["test"]["valid"] is cli["analyze"]["valid"] is True
+                and cli["test"]["linear_device"] == cli["analyze"]["linear_device"] == "cuda"
+                and online["valid"] is True):
+            raise AssertionError(f"runner cli failed: {row}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5710,6 +6095,9 @@ def main() -> int:
     del offline_for_ingest
     new_walls["ingest"] = time.perf_counter() - t
     del elle_ctx
+    t = time.perf_counter()
+    runner = runner_phase(lv, wgl)
+    new_walls["runner"] = time.perf_counter() - t
     sweep = elle_square_sweep()
     sweep_err = max(v["max_abs_err"] for v in sweep.values())
     gathers = gather_scale()
@@ -5721,7 +6109,9 @@ def main() -> int:
              "sharded_10k_alltoall": shard_launches["alltoall"],
              "sharded_10k_allgather": shard_launches["allgather"],
              **{k: v for k, v in store_launches.items() if k != "store_explain"},
-             "front_door": front_launches, "ingest_etcd_100k": ingest["launches"]}
+             "front_door": front_launches, "ingest_etcd_100k": ingest["launches"],
+             "runner_online": runner["core_run"]["online"],
+             "runner_analyze": runner["core_run"]["analyze"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     summary = lambda r: {k: r[k] for k in keys}  # noqa: E731
     for kname in REPLACES:
@@ -5856,7 +6246,7 @@ def main() -> int:
                if kname == "elle_block_square" else {}),
             **({"gather_scale": gathers} if kname == "elle_gather" else {})})
     done_s = time.perf_counter() - t_start
-    new_s = {k: new_walls[k] for k in ("front_door", "ingest")}
+    new_s = {k: new_walls[k] for k in ("front_door", "ingest", "runner")}
     emit({"phase": "done", "seconds": done_s, "new_phases_s": new_s,
           "new_phases_share": sum(new_s.values()) / done_s, "phase_walls_s": new_walls})
     print(smi, flush=True)

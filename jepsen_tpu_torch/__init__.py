@@ -34,6 +34,14 @@ rest of the reference's checker front door: the invariant checkers
 ``unhandled_exceptions``, the bank, causal, long-fork and G2 workload
 checkers and ``elle.monotonic_key_check``.
 
+It runs tests, too: the generator DSL (``generator``, its seeded
+simulator ``generator.sim`` and threaded interpreter), clients, nemeses,
+control sessions, DB and OS protocols and ``core.run`` on the in-process
+fake cluster of ``workloads``, with the live online monitor
+(``online.OnlineMonitor``) deciding a run's segments while it executes
+and the analysis on the card; ``python -m jepsen_tpu_torch
+test|analyze|test-all`` is the reference's demo suite.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``torch_device="cpu"`` for the Elle entry points, whose ``device`` is the
 engine flag).

@@ -134,6 +134,10 @@ class Op:
         return f"<{self.index} {self.process} {self.type} :{self.f} {self.value!r}{e}>"
 
 
+def invoke_op(process: Any, f: Any, value: Any = None, time: int = -1, **extra: Any) -> Op:
+    return Op(INVOKE, process, f, value, time=time, extra=tuple(sorted(extra.items())))
+
+
 @dataclass(frozen=True)
 class Interval:
     """A paired operation: invocation + (possibly missing) completion.
@@ -176,6 +180,16 @@ class Interval:
             return math.inf
         return self.completion.time
 
+    @property
+    def inv_index(self) -> int:
+        return self.invoke.index
+
+    @property
+    def ret_index(self) -> float:
+        if self.completion is None or self.completion.type == INFO:
+            return math.inf
+        return self.completion.index
+
 
 class History:
     """An ordered, optionally indexed, sequence of :class:`Op`.
@@ -214,6 +228,21 @@ class History:
 
     def client_ops(self) -> "History":
         return self.filter(lambda op: op.is_client)
+
+    def nemesis_ops(self) -> "History":
+        return self.filter(lambda op: op.is_nemesis)
+
+    def oks(self) -> "History":
+        return self.filter(lambda op: op.is_ok)
+
+    def invokes(self) -> "History":
+        return self.filter(lambda op: op.is_invoke)
+
+    def processes(self) -> set:
+        return {op.process for op in self.ops}
+
+    def reindex(self) -> "History":
+        return History(self.ops, reindex=True)
 
     def pairs(self) -> list[Interval]:
         """Pair each client invocation with its completion, preserving

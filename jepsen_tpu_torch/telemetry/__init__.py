@@ -4,8 +4,12 @@
 ``parallel.batch.check_encoded_batch``, the Elle engine and its front
 doors), the :class:`Heartbeat` progress callback, and the test map's
 gate. A trimmed copy of the reference's ``jepsen_tpu/telemetry``: the
-registry, the heartbeat and :func:`of_test`; the sinks and readers stay in
-the reference, and its readers take a port run's registry unchanged.
+registry with ``timed_phase`` (``core.run``'s ``run_phase_seconds``), the
+heartbeat, the flight recorder, the metric sinks ``store_metrics`` writes
+(``metrics.jsonl``, ``metrics.prom``), the run records of :mod:`.ledger`,
+and :func:`of_test`. The readers (utilization, profile, alerts, fleet,
+the ledger's trend and gate) stay in the reference, and take a port run's
+registry and files unchanged.
 
 Everything hangs off ``test["telemetry?"]``: :func:`of_test` returns the
 test's registry, made on first ask and kept under
@@ -17,9 +21,13 @@ from __future__ import annotations
 import threading as _threading
 from typing import Optional
 
+from . import flight  # noqa: F401
+from .export import (export_jsonl, export_prometheus, jsonl_lines,  # noqa: F401
+                     prometheus_text, store_metrics)
+from .flight import FlightRecorder, store_flight_record  # noqa: F401
 from .heartbeat import Heartbeat  # noqa: F401
-from .registry import (DEFAULT_BUCKETS, Counter, Gauge, Histogram,  # noqa: F401
-                       Registry, bucket_quantile)
+from .registry import (DECISION_LATENCY_BUCKETS, DEFAULT_BUCKETS, Counter,  # noqa: F401
+                       Gauge, Histogram, Registry, bucket_quantile, timed_phase)
 
 _of_test_lock = _threading.Lock()
 
@@ -44,5 +52,7 @@ def of_test(test: Optional[dict]) -> Optional[Registry]:
     return reg
 
 
-__all__ = ["Counter", "DEFAULT_BUCKETS", "Gauge", "Heartbeat", "Histogram", "Registry",
-           "bucket_quantile", "enabled", "of_test"]
+__all__ = ["Counter", "DECISION_LATENCY_BUCKETS", "DEFAULT_BUCKETS", "FlightRecorder",
+           "Gauge", "Heartbeat", "Histogram", "Registry", "bucket_quantile", "enabled",
+           "export_jsonl", "export_prometheus", "flight", "jsonl_lines", "of_test",
+           "prometheus_text", "store_flight_record", "store_metrics", "timed_phase"]

@@ -27,6 +27,14 @@ DEFAULT_BUCKETS = (
     0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
 )
 
+# Decision-latency buckets (seconds) of the online monitor's invoke ->
+# watermark-covered lag: past DEFAULT_BUCKETS' 10 s, so a backlogged
+# scheduler's 30 s stall does not read like a 30 min one.
+DECISION_LATENCY_BUCKETS = (
+    0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+    10.0, 30.0, 60.0, 120.0, 300.0,
+)
+
 
 def bucket_quantile(bounds: Sequence[float], counts: Sequence[int],
                     q: float) -> Optional[float]:
@@ -335,3 +343,30 @@ class Registry:
                 v = s["value"]
                 out[key] = int(v) if float(v).is_integer() else round(v, 6)
         return out
+
+
+def timed_phase(registry: Optional[Registry], phase: str, recorder=None):
+    """Context manager recording the wall seconds of a run phase into
+    ``run_phase_seconds{phase=...}`` (no-op when registry is None).
+    ``recorder``: an optional ``flight.FlightRecorder``, which enters the
+    same phase in its ledger, so a crashed run's flightrecord.json names
+    the lifecycle phase that died."""
+    from contextlib import contextmanager
+
+    from . import flight as _flight
+
+    @contextmanager
+    def _cm():
+        t0 = _time.perf_counter()
+        try:
+            with _flight.phase(recorder, phase):
+                yield
+        finally:
+            if registry is not None:
+                registry.gauge(
+                    "run_phase_seconds",
+                    "Wall seconds per test-lifecycle phase",
+                    labelnames=("phase",),
+                ).labels(phase=phase).set(_time.perf_counter() - t0)
+
+    return _cm()

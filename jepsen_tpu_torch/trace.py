@@ -1,22 +1,28 @@
 """Spans and trace-context tags.
 
-A trimmed copy of the reference's ``jepsen_tpu/trace.py``: the thread-safe
-span :class:`Collector` (``mint_id``, ``record``, ``span``) with its
-process-wide :func:`default_collector`, and the
-thread-local tags a caller pushes around a check (``span_tags``) that
-every chunk event carries (``event_tags``). The online scheduler's
-``collector=`` records its ``online.oracle``, ``online.segment`` and
-``online.member`` spans in a collector, and pushes the oracle span's id as
-the ``trace_span`` tag of the chunk events its device calls emit. The
-client wrapper and the cross-process headers stay in the reference."""
+The port of the reference's ``jepsen_tpu/trace.py`` but for its
+cross-process headers: the thread-safe span :class:`Collector`
+(``mint_id``, ``record``, ``span``, ``export_jsonl``) with its
+process-wide :func:`default_collector`, the thread-local tags a caller
+pushes around a check (``span_tags``) that every chunk event carries
+(``event_tags``), and the client wrapper (:func:`tracing`) whose spans
+``core.run`` writes into the store as ``spans.jsonl``
+(:func:`store_spans`). The online scheduler's ``collector=`` records its
+``online.oracle``, ``online.segment`` and ``online.member`` spans in a
+collector, and pushes the oracle span's id as the ``trace_span`` tag of
+the chunk events its device calls emit."""
 
 from __future__ import annotations
 
 import itertools
+import json
+import os
 import threading
 import time
 from contextlib import contextmanager
 from typing import Any, Optional
+
+from . import client as jclient
 
 
 class Collector:
@@ -93,6 +99,18 @@ class Collector:
             with self._lock:
                 self.spans.append(rec)
 
+    def export_jsonl(self, path) -> int:
+        """Write every span as one JSON line: a full snapshot into a tmp
+        file and an atomic rename, so an export is complete or absent."""
+        with self._lock:
+            spans = list(self.spans)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            for s in spans:
+                f.write(json.dumps(s) + "\n")
+        os.replace(tmp, path)
+        return len(spans)
+
 
 _default = Collector()
 
@@ -126,3 +144,58 @@ def event_tags() -> dict:
     """The current thread's trace-context tags: ``{}`` (one shared
     instance) when none are pushed."""
     return getattr(_tags_local, "d", None) or _EMPTY_TAGS
+
+
+class TracingClient(jclient.Client):
+    """Wraps a client so every lifecycle call records a span (the dgraph
+    suite's with-trace around client bodies, trace.clj:32-74)."""
+
+    def __init__(self, client: jclient.Client, collector: Optional[Collector] = None):
+        self.client = client
+        self.collector = collector or _default
+
+    def open(self, test, node):
+        with self.collector.span("client.open", node=str(node)):
+            return TracingClient(self.client.open(test, node), self.collector)
+
+    def setup(self, test):
+        with self.collector.span("client.setup"):
+            self.client.setup(test)
+
+    def invoke(self, test, op):
+        with self.collector.span("client.invoke", f=str(op.get("f")),
+                                 process=str(op.get("process"))) as rec:
+            res = self.client.invoke(test, op)
+            rec["type"] = res.get("type")
+            return res
+
+    def teardown(self, test):
+        with self.collector.span("client.teardown"):
+            self.client.teardown(test)
+
+    def close(self, test):
+        with self.collector.span("client.close"):
+            self.client.close(test)
+
+
+def tracing(client: jclient.Client, collector: Optional[Collector] = None) -> jclient.Client:
+    """The client wrapped in a :class:`TracingClient` (reusable when the
+    client is)."""
+    out = TracingClient(client, collector)
+    if isinstance(client, jclient.Reusable):
+        class _R(TracingClient, jclient.Reusable):
+            pass
+
+        return _R(client, collector or _default)
+    return out
+
+
+def store_spans(test: dict, collector: Optional[Collector] = None) -> Optional[str]:
+    """Write spans.jsonl into the test's store directory."""
+    if not (test.get("name") and test.get("start-time")) or test.get("no-store?"):
+        return None
+    from . import store
+
+    path = store.path_mk(test, "spans.jsonl")
+    (collector or _default).export_jsonl(path)
+    return str(path)

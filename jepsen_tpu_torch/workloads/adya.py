@@ -1,27 +1,45 @@
 """Adya G2 predicate-based anti-dependency workload.
 
-The port of the checker half of the reference's
-``jepsen_tpu/workloads/adya.py``, which mirrors jepsen.tests.adya
+The port of the reference's ``jepsen_tpu/workloads/adya.py``, which
+mirrors jepsen.tests.adya
 (jepsen/src/jepsen/tests/adya.clj): per key, two concurrent txns each try
 a predicate read + insert; under serializability at most one insert per
 key may succeed (adya.clj:12-59 documents the client contract). The checker counts ok inserts per key
 (adya.clj:61-87).
-
-``g2_gen`` and ``g2`` run tests rather than check them; they raise
-``ValueError`` naming the slice that brings them (the test runner).
 """
 
 from __future__ import annotations
 
+import itertools
+import threading
 from typing import Optional
 
+from .. import generator as gen
 from .. import independent
 from ..checker import Checker, checker_fn
-from . import RUNNER_SLICE
 
 
 def g2_gen():
-    raise ValueError(RUNNER_SLICE)
+    """Pairs of insert ops [key [a-id b-id]] with globally unique ids,
+    two per key (adya.clj:12-59)."""
+    ids = itertools.count(1)
+    lock = threading.Lock()
+
+    def next_id():
+        with lock:
+            return next(ids)
+
+    def fgen(k):
+        return [
+            gen.once(lambda _t=None, _c=None: {
+                "type": "invoke", "f": "insert",
+                "value": [None, next_id()]}),
+            gen.once(lambda _t=None, _c=None: {
+                "type": "invoke", "f": "insert",
+                "value": [next_id(), None]}),
+        ]
+
+    return independent.concurrent_generator(2, itertools.count(), fgen)
 
 
 def g2_checker() -> Checker:
@@ -57,4 +75,4 @@ def g2_checker() -> Checker:
 
 
 def g2(opts: Optional[dict] = None) -> dict:
-    raise ValueError(RUNNER_SLICE)
+    return {"generator": g2_gen(), "checker": g2_checker()}

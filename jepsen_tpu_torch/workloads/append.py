@@ -1,6 +1,6 @@
 """List-append txn workload (jepsen.tests.cycle.append equivalent).
 
-The port of the checker of the reference's ``jepsen_tpu/workloads/append.py``.
+The port of the reference's ``jepsen_tpu/workloads/append.py``.
 Op shapes::
 
     invoke {"f": "txn", "value": [["r", 3, None], ["append", 3, 2]]}
@@ -11,10 +11,10 @@ from __future__ import annotations
 
 from typing import Optional
 
+from .. import txn as jtxn
 from ..checker import Checker, checker_fn
 from ..elle import append as elle_append
 from ..elle import explain
-from ..txn import GENERATORS_SLICE
 
 
 def checker(opts: Optional[dict] = None) -> Checker:
@@ -40,8 +40,16 @@ def checker(opts: Optional[dict] = None) -> Checker:
 
 
 def gen(opts: Optional[dict] = None):
-    raise ValueError(GENERATORS_SLICE)
+    """Append-txn generator (cycle/append.clj:23-27)."""
+    o = dict(opts or {})
+    return jtxn.append_txns(
+        key_count=o.get("key_count", 3),
+        min_txn_length=o.get("min_txn_length", 1),
+        max_txn_length=o.get("max_txn_length", 4),
+        max_writes_per_key=o.get("max_writes_per_key", 32),
+    )
 
 
 def test(opts: Optional[dict] = None) -> dict:
-    raise ValueError(GENERATORS_SLICE)
+    """Partial test: generator + checker (cycle/append.clj:28-55)."""
+    return {"generator": gen(opts), "checker": checker(opts)}

@@ -1,20 +1,18 @@
 """Bank workload: transfers between accounts, total-balance invariant
-(snapshot-isolation probe). The port of the checker half of the
-reference's ``jepsen_tpu/workloads/bank.py`` (jepsen.tests.bank,
+(snapshot-isolation probe). The port of the reference's
+``jepsen_tpu/workloads/bank.py`` (jepsen.tests.bank,
 jepsen/src/jepsen/tests/bank.clj).
 
-Test-map options the checker reads: ``accounts`` (ids), ``total-amount``,
-``negative-balances?``. The generators (``transfer``, ``diff_transfer``,
-``generator``) and ``test`` run tests rather than check them; they raise
-``ValueError`` naming the slice that brings them (the test runner).
+Test-map options: ``accounts`` (ids), ``total-amount``, ``max-transfer``,
+``negative-balances?``.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+from .. import generator as gen
 from ..checker import Checker, checker_fn
-from . import RUNNER_SLICE
 
 
 def initial_balances(test: dict) -> list:
@@ -34,16 +32,30 @@ def read_op(test=None, ctx=None):
     return {"type": "invoke", "f": "read"}
 
 
-def transfer(test=None, ctx=None):
-    raise ValueError(RUNNER_SLICE)
+def transfer(test, ctx):
+    """Random transfer between two random accounts (bank.clj:25-33)."""
+    accounts = test["accounts"]
+    return {
+        "type": "invoke",
+        "f": "transfer",
+        "value": {
+            "from": accounts[gen.rand_int(len(accounts))],
+            "to": accounts[gen.rand_int(len(accounts))],
+            "amount": 1 + gen.rand_int(test["max-transfer"]),
+        },
+    }
 
 
 def diff_transfer(test=None, ctx=None):
-    raise ValueError(RUNNER_SLICE)
+    """Transfers only between different accounts (bank.clj:35-39)."""
+    return gen.filter_(
+        lambda op: op["value"]["from"] != op["value"]["to"], transfer
+    )
 
 
 def generator():
-    raise ValueError(RUNNER_SLICE)
+    """Mix of reads and transfers (bank.clj:41-44)."""
+    return gen.mix([diff_transfer(), read_op])
 
 
 def _err_badness(test: dict, err: dict) -> float:
@@ -123,4 +135,13 @@ def checker(checker_opts: Optional[dict] = None) -> Checker:
 
 
 def test(opts: Optional[dict] = None) -> dict:
-    raise ValueError(RUNNER_SLICE)
+    """Partial test map (bank.clj:179-193 defaults: 8 accounts, total 100,
+    max transfer 5)."""
+    o = dict(opts or {})
+    return {
+        "max-transfer": o.get("max-transfer", 5),
+        "total-amount": o.get("total-amount", 100),
+        "accounts": o.get("accounts", list(range(8))),
+        "checker": checker(o),
+        "generator": generator(),
+    }

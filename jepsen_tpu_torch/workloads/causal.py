@@ -1,8 +1,8 @@
 """Causal-consistency register workload + sequential (causal-reverse)
 probe.
 
-The port of the checker half of the reference's
-``jepsen_tpu/workloads/causal.py``, which mirrors jepsen.tests.causal
+The port of the reference's ``jepsen_tpu/workloads/causal.py``, which
+mirrors jepsen.tests.causal
 (jepsen/src/jepsen/tests/causal.clj): a CausalRegister model with its own step protocol — ops carry ``link``
 (the position this op causally follows) and ``position`` fields; a fixed
 causal order ``[read-init, w1, read, w2, read]`` is issued per key and
@@ -11,17 +11,17 @@ must appear to execute in issue order (causal.clj:33-82,104-131).
 And jepsen.tests.causal-reverse (causal_reverse.clj): a strict
 serializability probe — if write w_i is visible, every write acknowledged
 before w_i's invocation must be visible too (:1-113).
-
-``test`` and ``reverse_workload`` run tests rather than check them; they
-raise ``ValueError`` naming the slice that brings them (the test runner).
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional
 
+from .. import checker as jchecker
+from .. import generator as gen
+from .. import independent
 from ..checker import Checker, checker_fn
-from . import RUNNER_SLICE
 
 
 class Inconsistent:
@@ -114,7 +114,23 @@ def cw2(test=None, ctx=None):
 
 
 def test(opts: Optional[dict] = None) -> dict:
-    raise ValueError(RUNNER_SLICE)
+    """causal.clj:113-131: one process per key issues the causal order
+    [read-init w1 r w2 r]."""
+    o = dict(opts or {})
+    return {
+        "checker": independent.checker(check()),
+        "generator": gen.time_limit(
+            o.get("time-limit", 60),
+            gen.nemesis(
+                gen.cycle_([gen.sleep(10),
+                             {"type": "info", "f": "start"},
+                             gen.sleep(10),
+                             {"type": "info", "f": "stop"}]),
+                gen.stagger(1, independent.concurrent_generator(
+                    1, itertools.count(), lambda k: [ri, cw1, r, cw2, r])),
+            ),
+        ),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -172,4 +188,24 @@ def reverse_checker() -> Checker:
 
 
 def reverse_workload(opts: Optional[dict] = None) -> dict:
-    raise ValueError(RUNNER_SLICE)
+    """causal_reverse.clj:86-113."""
+    o = dict(opts or {})
+    n = len(o.get("nodes") or [1])
+    per_key = o.get("per-key-limit", 500)
+    counter = itertools.count()
+
+    def writes(test=None, ctx=None):
+        return {"type": "invoke", "f": "write", "value": next(counter)}
+
+    def reads(test=None, ctx=None):
+        return {"type": "invoke", "f": "read", "value": None}
+
+    return {
+        "checker": jchecker.compose({
+            "sequential": independent.checker(reverse_checker()),
+        }),
+        "generator": independent.concurrent_generator(
+            n, itertools.count(),
+            lambda k: gen.limit(per_key, gen.stagger(
+                0.01, gen.mix([reads, writes])))),
+    }

@@ -1,10 +1,11 @@
 """Distributed lock / semaphore workloads over the mutex model family.
 
-The port of the checker halves of the reference's
-``jepsen_tpu/workloads/lock.py``: the hazelcast suite's CP-subsystem locks
-and semaphores (hazelcast.clj:515-733), checked for linearizability
-against one of the mutex-family models (``models.mutex``) on the GPU
-search, composed with the op statistics. Clients record::
+The port of the reference's ``jepsen_tpu/workloads/lock.py``: the
+hazelcast suite's CP-subsystem locks and semaphores
+(hazelcast.clj:515-733), the acquire/release generators per client, and
+the checkers, linearizability against one of the mutex-family models
+(``models.mutex``) on the GPU search composed with the op statistics.
+Clients record::
 
     {"f": "acquire", "value": None}   -> ok value = fence token (or None)
     {"f": "release", "value": None}
@@ -17,6 +18,7 @@ from __future__ import annotations
 from typing import Optional
 
 from .. import checker as jchecker
+from .. import generator as gen
 from ..models import (FencedMutex, Mutex, OwnerAwareMutex, ReentrantFencedMutex,
                       ReentrantMutex, Semaphore)
 
@@ -32,8 +34,13 @@ MODELS = {
 # node side's CP-semaphore must agree.
 DEFAULT_CAPACITY = 2
 
-GENERATORS_SLICE = ("the lock generators run tests rather than check them; they come "
-                    "with a later slice of the port (the test runner)")
+
+def acquire(test=None, ctx=None):
+    return {"type": "invoke", "f": "acquire", "value": None}
+
+
+def release(test=None, ctx=None):
+    return {"type": "invoke", "f": "release", "value": None}
 
 
 def _linearizable(model, o: dict) -> jchecker.Checker:
@@ -66,12 +73,27 @@ def semaphore_checker(opts: Optional[dict] = None) -> jchecker.Checker:
 
 
 def lock_generator():
-    raise ValueError(GENERATORS_SLICE)
+    """Each thread alternates acquire/release (the hazelcast workloads'
+    per-client discipline, hazelcast.clj:652-733); threads may still race
+    and double-release, which is what the model checks."""
+    return gen.each_thread(gen.flip_flop(acquire, release))
 
 
 def lock_test(opts: Optional[dict] = None) -> dict:
-    raise ValueError(GENERATORS_SLICE)
+    """A lock workload checked against one of the mutex-family models.
+    opts: ``model`` (a name from :data:`MODELS`), ``backend``, ``device``."""
+    return {"checker": checker(opts), "generator": lock_generator()}
 
 
 def semaphore_test(opts: Optional[dict] = None) -> dict:
-    raise ValueError(GENERATORS_SLICE)
+    """Counting-semaphore workload (AcquiredPermitsModel,
+    hazelcast.clj:630-649); op values carry permit counts."""
+
+    def acq(test=None, ctx=None):
+        return {"type": "invoke", "f": "acquire", "value": 1}
+
+    def rel(test=None, ctx=None):
+        return {"type": "invoke", "f": "release", "value": 1}
+
+    return {"checker": semaphore_checker(opts),
+            "generator": gen.each_thread(gen.flip_flop(acq, rel))}

@@ -1,7 +1,7 @@
 """Long-fork anomaly workload (parallel snapshot isolation probe).
 
-The port of the checker half of the reference's
-``jepsen_tpu/workloads/long_fork.py``, which mirrors jepsen.tests.long-fork
+The port of the reference's ``jepsen_tpu/workloads/long_fork.py``, which
+mirrors jepsen.tests.long-fork
 (jepsen/src/jepsen/tests/long_fork.clj): single-key write txns (each key
 written exactly once, value 1) and group-read txns; the checker looks for
 mutually incomparable reads — one read observed x but not y, another y but
@@ -9,26 +9,16 @@ not x (long_fork.clj:1-88's contiguity argument). The pairwise comparison is vec
 group's reads become a bitmask matrix and incomparability is a matrix
 test (a ``A·~Bᵀ`` style AND-reduction over key columns) instead of
 long_fork.clj's per-pair reduce.
-
-``generator`` and ``workload`` run tests rather than check them; they
-raise ``ValueError`` naming the slice that brings them (the test runner).
 """
 
 from __future__ import annotations
 
-import random
-
 import numpy as np
 
+from .. import generator as gen
 from ..checker import Checker, checker_fn
-from . import RUNNER_SLICE
 
 ILLEGAL = "illegal-history"
-
-# The key order of a group read: any order does, so the port draws it from
-# a module generator of its own where the reference draws from its test
-# runner's.
-_RNG = random.Random()
 
 
 def group_for(n: int, k: int) -> list[int]:
@@ -38,17 +28,55 @@ def group_for(n: int, k: int) -> list[int]:
 
 
 def read_txn_for(n: int, k: int) -> list:
-    """A read txn of k's whole group, its keys in a random order."""
+    """A read txn of k's whole group, its keys in a random order drawn
+    from the generator RNG (long_fork.clj:106-111)."""
     ks = group_for(n, k)
     shuffled = []
     pool = list(ks)
     while pool:
-        shuffled.append(pool.pop(_RNG.randrange(len(pool))))
+        shuffled.append(pool.pop(gen.rand_int(len(pool))))
     return [["r", kk, None] for kk in shuffled]
 
 
+class _LongForkGen(gen.Generator):
+    """Single inserts followed by group reads, mixed with reads of other
+    in-flight groups (long_fork.clj:113-154)."""
+
+    __slots__ = ("n", "next_key", "workers")
+
+    def __init__(self, n: int, next_key: int = 0, workers=None):
+        self.n = n
+        self.next_key = next_key
+        self.workers = dict(workers or {})
+
+    def op(self, test, ctx):
+        process = gen.some_free_process(ctx)
+        if process is None:
+            return (gen.PENDING, self)
+        worker = gen.process_to_thread(ctx, process)
+        k = self.workers.get(worker)
+        if k is not None:
+            op = gen.fill_in_op(
+                {"process": process, "f": "read",
+                 "value": read_txn_for(self.n, k)}, ctx)
+            return (op, _LongForkGen(self.n, self.next_key,
+                                     {**self.workers, worker: None}))
+        active = [v for v in self.workers.values() if v is not None]
+        if active and gen.rand_int(2):
+            k = active[gen.rand_int(len(active))]
+            op = gen.fill_in_op(
+                {"process": process, "f": "read",
+                 "value": read_txn_for(self.n, k)}, ctx)
+            return (op, self)
+        op = gen.fill_in_op(
+            {"process": process, "f": "write",
+             "value": [["w", self.next_key, 1]]}, ctx)
+        return (op, _LongForkGen(self.n, self.next_key + 1,
+                                 {**self.workers, worker: self.next_key}))
+
+
 def generator(n: int = 2):
-    raise ValueError(RUNNER_SLICE)
+    return _LongForkGen(n)
 
 
 def _is_read_txn(txn) -> bool:
@@ -149,4 +177,5 @@ def checker(n: int = 2) -> Checker:
 
 
 def workload(n: int = 2) -> dict:
-    raise ValueError(RUNNER_SLICE)
+    """long_fork.clj:320-326."""
+    return {"checker": checker(n), "generator": generator(n)}

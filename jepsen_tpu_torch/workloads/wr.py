@@ -1,6 +1,6 @@
 """Write/read register txn workload (jepsen.tests.cycle.wr equivalent).
 
-The port of the checker of the reference's ``jepsen_tpu/workloads/wr.py``;
+The port of the reference's ``jepsen_tpu/workloads/wr.py``;
 writes are globally unique.
 """
 
@@ -8,10 +8,10 @@ from __future__ import annotations
 
 from typing import Optional
 
+from .. import txn as jtxn
 from ..checker import Checker, checker_fn
 from ..elle import explain
 from ..elle import wr as elle_wr
-from ..txn import GENERATORS_SLICE
 
 
 def checker(opts: Optional[dict] = None) -> Checker:
@@ -39,8 +39,16 @@ def checker(opts: Optional[dict] = None) -> Checker:
 
 
 def gen(opts: Optional[dict] = None):
-    raise ValueError(GENERATORS_SLICE)
+    """Write/read txn generator (cycle/wr.clj:9-12)."""
+    o = dict(opts or {})
+    return jtxn.wr_txns(
+        key_count=o.get("key_count", 2),
+        min_txn_length=o.get("min_txn_length", 1),
+        max_txn_length=o.get("max_txn_length", 2),
+        max_writes_per_key=o.get("max_writes_per_key", 32),
+    )
 
 
 def test(opts: Optional[dict] = None) -> dict:
-    raise ValueError(GENERATORS_SLICE)
+    """Partial test: generator + checker (cycle/append.clj:28-55)."""
+    return {"generator": gen(opts), "checker": checker(opts)}

@@ -1872,3 +1872,114 @@ def test_edn_fast_builds_on_the_cards_machine(cuda):
         pytest.skip(f"edn_fast not built: {native.edn_fast_missing}")
     assert fast.parse_all("{:f :cas, :value [1 2]}") == [
         {edn.K("f"): edn.K("cas"), edn.K("value"): [1, 2]}]
+
+
+def _runner_test(tmp_path, n_ops=300, lose_at=None, **extra):
+    """A short cas-register run through ``core.run`` on the card: the atom
+    register (1 ms a call) over 4 workers, the linearizable checker on the
+    card; ``lose_at`` loses that call's reply (the op stays ``:info``), so
+    the rest of the run is an open tail for the monitor's device oracle."""
+    import threading
+
+    from jepsen_tpu_torch import checker as jchecker
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch.workloads import AtomClient, AtomDB, AtomState, noop_test
+
+    calls, lock = [0], threading.Lock()
+
+    class Client(AtomClient):
+        def invoke(self, test, op):
+            res = super().invoke(test, op)
+            with lock:
+                calls[0] += 1
+                lost = calls[0] == lose_at
+            if lost:
+                raise TimeoutError("reply lost")
+            return res
+
+    state = AtomState()
+    test = dict(noop_test())
+    test.update(
+        name="runner", db=AtomDB(state), client=Client(state), model=CasRegister(init=0),
+        concurrency=4, checker=jchecker.linearizable(model=CasRegister(init=0)),
+        generator=gen.clients(gen.limit(n_ops, gen.mix([
+            lambda: {"f": "write", "value": gen.rand_int(5)},
+            lambda: {"f": "cas", "value": [gen.rand_int(5), gen.rand_int(5)]},
+            lambda: {"f": "read"}]))),
+        **{"store-root": str(tmp_path)})
+    test.update(extra)
+    return test
+
+
+def test_runner_analysis_and_monitor_launch_the_level_kernels(cuda, tmp_path):
+    """``core.run`` with the online monitor's device oracle: the monitor's
+    rounds and then the analysis each launch every level kernel, and both
+    verdicts are the C engine's on the stored history."""
+    from jepsen_tpu_torch import core, store
+    from jepsen_tpu_torch.checker import checker_fn
+
+    test = _runner_test(tmp_path, lose_at=10, **{"online?": True, "online-engine": "device",
+                                                 "telemetry?": True})
+    inner, counted = test["checker"], {}
+
+    def analysis(t, h, o):
+        counted["online"] = dict(lv.LAUNCHES)
+        lv.reset_launches()
+        res = inner.check(t, h, o)
+        counted["analyze"] = dict(lv.LAUNCHES)
+        return res
+
+    test["checker"] = checker_fn(analysis)
+    lv.reset_launches()
+    res = core.run(test)
+    level = ("wgl_chunk_init", "wgl_expand", "wgl_take_col_sort", "radix_sort_pairs",
+             "wgl_prune", "wgl_gather_finalize")
+    for path in ("online", "analyze"):
+        assert all(counted[path][k] > 0 for k in level), (path, counted[path])
+    assert res["results"]["valid"] is res["online-results"]["valid"] is True
+    assert res["results"]["torch_device"] == "cuda"
+    stored = store.load_history("runner", res["start-time"], root=tmp_path)
+    native = wgl.check_history(CasRegister(init=0), stored, backend="native")
+    assert native["valid"] is True
+    rounds = [e for e in res["telemetry-registry"].events("online_round")
+              if e.get("engine") == "device" and e.get("oracle_members")]
+    assert rounds
+
+
+def test_runner_device_error_in_the_monitor_is_raised(cuda, tmp_path, monkeypatch):
+    """A deterministic device error of the monitor's oracle is raised out of
+    the run, not answered by the host; online.json keeps the partial fold."""
+    from jepsen_tpu_torch import core
+    from jepsen_tpu_torch.online import scheduler as sched_mod
+
+    def broken(self, encs):
+        raise ValueError("plan refused on the card")
+
+    monkeypatch.setattr(sched_mod.SegmentScheduler, "_decide_device", broken)
+    test = _runner_test(tmp_path, n_ops=60, lose_at=5,
+                        **{"online?": True, "online-engine": "device"})
+    with pytest.raises(ValueError, match="plan refused on the card"):
+        core.run(test)
+    assert list(tmp_path.rglob("online.json"))
+
+
+def test_runner_cli_defaults_to_the_card(cuda, tmp_path):
+    """``python -m jepsen_tpu_torch test`` with no ``--device`` decides on
+    the card, and ``analyze`` re-checks the stored run there."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(root),
+                                                        os.environ.get("PYTHONPATH", "")]))
+    common = ["--workload", "cas-register", "--store-root", str(tmp_path)]
+    a = subprocess.run([sys.executable, "-m", "jepsen_tpu_torch", "test", *common,
+                        "--time-limit", "2", "--rate", "200", "--no-ssh"],
+                       cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert a.returncode == 0, a.stderr[-2000:]
+    b = subprocess.run([sys.executable, "-m", "jepsen_tpu_torch", "analyze", *common],
+                       cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert b.returncode == 0, b.stderr[-2000:]
+    assert ':torch_device "cuda"' in next(tmp_path.rglob("results.edn")).read_text()

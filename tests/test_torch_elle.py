@@ -417,13 +417,29 @@ def test_workload_checkers_match_reference():
 
 
 def test_what_later_slices_bring_raises():
-    """The txn generators still raise; ``monotonic_key_check`` is ported and
+    """The txn generators draw the reference's txns under the pinned
+    generator RNG, as do the append and wr workloads' ``gen``, and their
+    ``test`` maps hold a generator and a checker; ``monotonic_key_check``
     gives the reference's result."""
+    import jepsen_tpu.generator as r_gen
+    import jepsen_tpu_torch.generator as p_gen
+    from jepsen_tpu import txn as r_txn
+    from jepsen_tpu.workloads import append as r_wl_append
+    from jepsen_tpu.workloads import wr as r_wl_wr
+
     h = [T([["append", "x", 1]])]
     assert P.monotonic_key_check(h) == R.monotonic_key_check(h)
-    for fn in (p_txn.append_txns, p_txn.wr_txns, p_wl_append.gen, p_wl_wr.test):
-        with pytest.raises(ValueError, match="later slice"):
-            fn()
+    for name, p_mk, r_mk in (("append_txns", p_txn.append_txns, r_txn.append_txns),
+                             ("wr_txns", p_txn.wr_txns, r_txn.wr_txns),
+                             ("append.gen", p_wl_append.gen, r_wl_append.gen),
+                             ("wr.gen", p_wl_wr.gen, r_wl_wr.gen)):
+        with p_gen.fixed_rand(5):
+            got = p_txn.take(p_mk(), 60)
+        with r_gen.fixed_rand(5):
+            want = r_txn.take(r_mk(), 60)
+        assert got == want and len(got) == 60, name
+    t = p_wl_wr.test({"torch_device": "cpu"})
+    assert set(t) == {"generator", "checker"}
 
 
 def test_engine_needs_a_gpu_unless_asked_for_the_cpu():

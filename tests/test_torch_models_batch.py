@@ -184,9 +184,22 @@ def test_semaphore_checker_matches_reference(perturb):
 
 
 def test_lock_workload_parts_of_later_slices_raise():
-    for fn in (lock.lock_generator, lock.lock_test, lock.semaphore_test):
-        with pytest.raises(ValueError, match="later slice"):
-            fn()
+    """The lock workload's generators and test maps simulate as the
+    reference's (the simulator's pinned RNG, exact ops)."""
+    import jepsen_tpu.generator as r_gen
+    import jepsen_tpu_torch.generator as p_gen
+    from jepsen_tpu.generator import sim as r_sim
+    from jepsen_tpu_torch.generator import sim as p_sim
+
+    pairs = ((lock.lock_generator(), ref_lock.lock_generator()),
+             (lock.lock_test({"device": "cpu"})["generator"],
+              ref_lock.lock_test()["generator"]),
+             (lock.semaphore_test({"device": "cpu"})["generator"],
+              ref_lock.semaphore_test()["generator"]))
+    for p, r in pairs:
+        got = p_sim.imperfect(p_gen.limit(30, p), p_sim.n_plus_nemesis_context(3))
+        want = r_sim.imperfect(r_gen.limit(30, r), r_sim.n_plus_nemesis_context(3))
+        assert got == want and len(got) == 60
     assert lock.MODELS.keys() == ref_lock.MODELS.keys()
     assert all(lock.MODELS[k].__name__ == ref_lock.MODELS[k].__name__ for k in lock.MODELS)
 

@@ -343,9 +343,20 @@ def test_scheduler_device_defaults_to_the_gpu():
 
 
 def test_monitor_entry_points_raise():
-    for fn in (online.OnlineMonitor, online.of_test, online.store_online):
-        with pytest.raises(ValueError, match="later slice"):
-            fn({})
+    """The monitor's entry points: no monitor off the online path, a
+    refused armed abort without a model, no online.json without a store,
+    and a monitor that needs a card (or ``"cpu"``) for its device
+    oracle."""
+    assert online.of_test({}) is None
+    assert online.of_test({"online?": True}) is None
+    with pytest.raises(ValueError, match="online-abort"):
+        online.of_test({"online?": True, "online-abort?": True})
+    assert online.store_online({"no-store?": True}, {"valid": True}) is None
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            online.OnlineMonitor(CasRegister(init=0), engine="device")
+    mon = online.OnlineMonitor(CasRegister(init=0), engine="device", device="cpu")
+    assert mon.finish()["valid"] is True
 
 
 def test_device_oracle_from_the_worker_and_the_caller_at_once():

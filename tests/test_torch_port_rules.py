@@ -220,7 +220,14 @@ def test_every_port_module_is_walkable():
             "jepsen_tpu_torch.workloads.bank", "jepsen_tpu_torch.workloads.causal",
             "jepsen_tpu_torch.workloads.long_fork", "jepsen_tpu_torch.workloads.adya",
             "jepsen_tpu_torch.ingest", "jepsen_tpu_torch.ingest.adapters",
-            "jepsen_tpu_torch.ingest.mapper", "jepsen_tpu_torch.ingest.__main__"} <= mods
+            "jepsen_tpu_torch.ingest.mapper", "jepsen_tpu_torch.ingest.__main__",
+            "jepsen_tpu_torch.generator", "jepsen_tpu_torch.generator.sim",
+            "jepsen_tpu_torch.generator.interpreter", "jepsen_tpu_torch.client",
+            "jepsen_tpu_torch.nemesis", "jepsen_tpu_torch.control", "jepsen_tpu_torch.os_",
+            "jepsen_tpu_torch.db", "jepsen_tpu_torch.core", "jepsen_tpu_torch.trace",
+            "jepsen_tpu_torch.telemetry.export", "jepsen_tpu_torch.telemetry.ledger",
+            "jepsen_tpu_torch.online.monitor", "jepsen_tpu_torch.workloads",
+            "jepsen_tpu_torch.workloads.linearizable_register"} <= mods
 
 
 def test_every_kernel_entry_point_has_a_signature_and_a_source():
