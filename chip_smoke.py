@@ -308,7 +308,13 @@ and then runs these phases, each printing JSON lines:
   monitor's drain bounded in time: the ops the run completed, the
   segments the host enumerator decided and left; (b) the
   lying client that the monitor aborts; (c) ``python -m jepsen_tpu_torch
-  test`` then ``analyze`` as processes, exit 0 and 0, both on the card.
+  test`` then ``analyze`` as processes, exit 0 and 0, both on the card;
+  (d) case (a) at 2,000 ops with ``profile?`` and ``live-port``: ``/live``
+  shows the monitor's line while the run executes, ``profile.json`` has
+  the device chunks, the utilization and one memory watermark a card, the
+  ``torch.profiler`` trace holds every level kernel both paths launched,
+  the ledger's gate exits 0 and the pages answer 200; the trace's size,
+  its top kernels and the analysis wall with and without the profiler.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the per-kernel JSON line, and ``{"ok": true, "device": {...}}``.
@@ -5349,11 +5355,26 @@ def ingest_phase(lv, off, h8_result) -> dict:
 # the same traffic with every reply, in a process of its own, the run and
 # the monitor's drain bounded in time; (b) the lying client that the monitor aborts
 # (tests/test_online.py's case); (c) the CLI's test and analyze as
-# processes.
+# processes; (d) the profiled run (:func:`runner_profiled`).
 RUNNER = {"ops": 10_000, "concurrency": 10, "lost_reply_at": 20, "lie_at": 40,
           "lie_ops": 1500, "cli_time_limit": 5, "cli_rate": 200, "busy_run_s": 10,
           "busy_finish_s": 5}
 RUNNER_FILES = ("history.edn", "results.edn", "online.json", "metrics.jsonl", "spans.jsonl")
+# (d) the profiled run: its size, the pages it reads, and the kernels of each
+# level wrapper as a trace names them (csrc/wgl_level.cu).
+RUNNER_PROFILED = {"ops": 2_000, "top_kernels": 8}
+PROFILED_PAGES = ("/profile", "/utilization", "/runs", "/online")
+KERNEL_SYMBOLS = {"wgl_chunk_init": ("k_chunk_init",), "wgl_expand": ("k_expand",),
+                  "wgl_stage1_hash": ("k_stage1",),
+                  "wgl_take_col_sort": ("k_sort_cta", "k_sort_upsweep"),
+                  "radix_sort_pairs": ("k_sort_cta", "k_sort_upsweep"),
+                  "wgl_prune": ("k_prune",), "wgl_gather_finalize": ("k_gather_finalize",),
+                  "wgl_regroup": ("k_regroup",)}
+# The wrappers that launch exactly one kernel a call: the trace's count of
+# that kernel against the launches made while the profiler ran, the
+# monitor's worker thread's and the analysis's.
+ONE_KERNEL = ("wgl_chunk_init", "wgl_expand", "wgl_stage1_hash", "wgl_prune",
+              "wgl_gather_finalize", "wgl_regroup")
 
 
 class FirstBatchRound:
@@ -5391,6 +5412,28 @@ class FirstBatchRound:
         work = device_work(lambda: lv._LevelProgram(g, tabs, fr, ws, model)())
         lv.LAUNCHES.update(before)
         return dict(work, F=g.F, members=nb, two_stage=g.two_stage)
+
+
+def lost_reply_client(AtomClient, state):
+    """The atom register's client (1 ms a call), the ``lost_reply_at``-th
+    reply of which is lost: the write took effect, the worker sees an
+    exception and the op stays ``:info``, as a real client's timeout."""
+
+    class LostReply(AtomClient):
+        def __init__(self):
+            super().__init__(state)
+            self.n, self.lock = 0, threading.Lock()
+
+        def invoke(self, test, op):
+            res = super().invoke(test, op)
+            with self.lock:
+                self.n += 1
+                lost = self.n == RUNNER["lost_reply_at"]
+            if lost:
+                raise TimeoutError("reply lost")
+            return res
+
+    return LostReply()
 
 
 def runner_generator(gen, n):
@@ -5504,7 +5547,7 @@ def runner_phase(lv, wgl) -> dict:
     False, detected, the generator not drained, the post-hoc analysis on
     the card False. (c) ``python -m jepsen_tpu_torch test`` then
     ``analyze`` as processes: exit 0 and 0, one verdict, decided on the
-    card by both."""
+    card by both. (d) the profiled run (:func:`runner_profiled`)."""
     import json
     import os
     import tempfile
@@ -5527,22 +5570,6 @@ def runner_phase(lv, wgl) -> dict:
         tmp = Path(tmp)
 
         # -- (a) ------------------------------------------------------------
-        class LostReply(AtomClient):
-            """The atom register's client, one reply of which is lost."""
-
-            def __init__(self, state, calls):
-                super().__init__(state)
-                self.calls = calls
-
-            def invoke(self, test, op):
-                res = super().invoke(test, op)
-                with self.calls["lock"]:
-                    self.calls["n"] += 1
-                    lost = self.calls["n"] == RUNNER["lost_reply_at"]
-                if lost:
-                    raise TimeoutError("reply lost")
-                return res
-
         counted: dict = {}
         firsts = {"online": FirstBatchRound(lv), "analyze": FirstChunk(wgl)}
         composed = jchecker.compose({"linear": jchecker.linearizable(model=model),
@@ -5563,7 +5590,7 @@ def runner_phase(lv, wgl) -> dict:
         test = dict(noop_test())
         test.update(
             name="cas-register", db=AtomDB(state), model=model,
-            client=LostReply(state, {"n": 0, "lock": threading.Lock()}),
+            client=lost_reply_client(AtomClient, state),
             concurrency=RUNNER["concurrency"], checker=jchecker.checker_fn(analysis),
             generator=runner_generator(gen, RUNNER["ops"]),
             **{"online?": True, "online-engine": "device", "telemetry?": True,
@@ -5715,7 +5742,223 @@ def runner_phase(lv, wgl) -> dict:
                 and cli["test"]["linear_device"] == cli["analyze"]["linear_device"] == "cuda"
                 and online["valid"] is True):
             raise AssertionError(f"runner cli failed: {row}")
+
+        # -- (d) ------------------------------------------------------------
+        out["profiled"] = runner_profiled(lv, tmp / "d", env)
     return out
+
+
+def trace_kernels(path) -> dict:
+    """The kernels a Chrome trace of ``torch.profiler`` holds: device ms and
+    launches by kernel name (the name up to its template or argument
+    list), the runtime calls, and the torch ops of the CPU side."""
+    import collections
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ms, count = collections.Counter(), collections.Counter()
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        name = re.sub(r"^void ", "", e["name"]).split("(")[0].split("<")[0]
+        ms[name] += e.get("dur", 0) / 1000
+        count[name] += 1
+    cats = collections.Counter(e.get("cat") for e in events)
+    return {"ms": dict(ms), "count": dict(count), "runtime_calls": cats["cuda_runtime"],
+            "cpu_ops": cats["cpu_op"], "events": len(events)}
+
+
+def runner_profiled(lv, root, env) -> dict:
+    """Case (d) of the runner phase: case (a)'s ``core.run`` at 2,000 ops
+    (10 workers, 1 ms a call, the 20th reply lost, so both the monitor's
+    device oracle and the analysis reach the card) with ``telemetry?``,
+    ``profile?`` and ``live-port`` on a free port. While the run executes a
+    thread GETs ``/live`` until the monitor's line is there; afterwards a
+    server over the store answers ``/profile``, ``/utilization``, ``/runs``
+    and ``/online``. Fails unless both verdicts are True on the card,
+    ``profile.json`` has executing device chunks, a mean utilization in
+    (0, 100] and one watermark per card with a positive peak, the trace
+    names the level kernels the analysis launched and holds the monitor's
+    worker thread's beside them (a wrapper that launches one kernel a
+    call is counted against the trace; launches CUPTI did not record are
+    emitted as ``untraced_launches``), the ledger record has
+    ``utilization_pct``, ``python -m jepsen_tpu_torch.ledger --check`` over
+    the store exits 0 and every page answers 200. Emits the trace's size,
+    its top kernels by device ms, and the analysis wall with the profiler
+    beside ``core.analyze`` of the same stored history without it (twice),
+    and with a trace around it."""
+    import socket
+    import urllib.request
+
+    import torch
+
+    from jepsen_tpu_torch import checker as jchecker
+    from jepsen_tpu_torch import core, store, telemetry, web
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch.models import CasRegister
+    from jepsen_tpu_torch.telemetry import ledger, trace_capture
+    from jepsen_tpu_torch.workloads import AtomClient, AtomDB, AtomState, noop_test
+
+    t_case = time.perf_counter()
+    model = CasRegister(init=0)
+    composed = jchecker.compose({"linear": jchecker.linearizable(model=model),
+                                 "stats": jchecker.stats()})
+    counted: dict = {}
+
+    def analysis(test, history, opts):
+        # the monitor is finished: its rounds' counts, then the analysis's
+        counted["online"] = dict(lv.LAUNCHES)
+        res = composed.check(test, history, opts)
+        torch.cuda.synchronize()
+        counted["analyze"] = {k: v - counted["online"][k] for k, v in lv.LAUNCHES.items()}
+        return res
+
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    name = "cas-register-profiled"
+    state = AtomState()
+    test = dict(noop_test())
+    test.update(
+        name=name, db=AtomDB(state), model=model, client=lost_reply_client(AtomClient, state),
+        concurrency=RUNNER["concurrency"], checker=jchecker.checker_fn(analysis),
+        generator=runner_generator(gen, RUNNER_PROFILED["ops"]),
+        **{"online?": True, "online-engine": "device", "telemetry?": True, "profile?": True,
+           "live-port": port, "store-root": str(root)})
+    live: dict = {}
+    stop = threading.Event()
+
+    def poll():
+        t0 = time.perf_counter()
+        while not stop.is_set():
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/live", timeout=5) as r:
+                    lines = [json.loads(x) for x in r.read().decode().splitlines()]
+                mine = [x for x in lines if x.get("run") == name and x.get("ops_observed")]
+                if mine:
+                    live.update(mine[0], seen_after_s=time.perf_counter() - t0)
+                    return
+            except OSError:
+                pass
+            stop.wait(0.02)
+
+    window: dict = {}
+
+    @contextlib.contextmanager
+    def counted_capture(outdir):
+        # the launch counts while the profiler runs, whatever thread launches
+        with trace_capture(outdir) as d:
+            window["start"] = dict(lv.LAUNCHES)
+            try:
+                yield d
+            finally:
+                window["stop"] = dict(lv.LAUNCHES)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(lv)
+    poller = threading.Thread(target=poll, name="live-poll")
+    poller.start()
+    telemetry.trace_capture = counted_capture
+    t = time.perf_counter()
+    try:
+        res = core.run(test)
+    finally:
+        telemetry.trace_capture = trace_capture
+        stop.set()
+        poller.join(timeout=30)
+    run_wall = time.perf_counter() - t
+    reg, run_dir = res["telemetry-registry"], store.path(res)
+    phases = {s["labels"]["phase"]: s["value"] for s in reg.collect()
+              if s["name"] == "run_phase_seconds"}
+    doc = json.loads((run_dir / "profile.json").read_text())
+    trace_path = run_dir / "profile_trace" / "trace.json"
+    kern = trace_kernels(trace_path)
+    util = doc["attribution"]["utilization"]["summary"]
+    executing = [c for c in doc["attribution"].get("device", {}).get("chunks", [])
+                 if c.get("stage") == "execute" and c.get("levels", 0) > 0]
+    launched = {k: v for k, v in counted["analyze"].items() if v and k in KERNEL_SYMBOLS}
+    missing = [k for k in launched if not any(sym in kern["count"] for sym in KERNEL_SYMBOLS[k])]
+    # the trace against the launches made while the profiler ran: the
+    # monitor's worker's kernels are there beside the analysis's, and a
+    # launch CUPTI did not record shows as untraced
+    both = {k: [kern["count"].get(KERNEL_SYMBOLS[k][0], 0),
+                window["stop"][k] - window["start"][k]] for k in ONE_KERNEL}
+    untraced = {k: b - a for k, (a, b) in both.items() if a != b}
+    monitor_traced = all(a > counted["analyze"][k] for k, (a, _b) in both.items()
+                         if counted["online"][k])
+    record = ledger.load(root / "ledger.jsonl")[-1]
+    gate = subprocess.run([sys.executable, "-m", "jepsen_tpu_torch.ledger", "--check",
+                           str(root / "ledger.jsonl")], cwd=root, env=env, capture_output=True,
+                          text=True, timeout=120)
+
+    # the pages, from a server over the store
+    srv = web.server(root=root, port=0, host="127.0.0.1")
+    threading.Thread(target=lambda: srv.serve_forever(poll_interval=0.05), daemon=True).start()
+    pages = {}
+    try:
+        for path in PROFILED_PAGES:
+            with urllib.request.urlopen(f"http://127.0.0.1:{srv.server_address[1]}{path}",
+                                        timeout=30) as r:
+                pages[path] = r.status
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+    # the same stored history analysed again: without the profiler (twice),
+    # and inside a trace with profile.json written
+    stored = store.load_test(name, res["start-time"], root=root)
+    walls = {}
+    for label in ("plain_1", "profiled", "plain_2"):
+        again = {k: v for k, v in stored.items() if k != "results"}
+        again.update(name=f"{name}-{label}", checker=composed, **{
+            "telemetry?": True, "profile?": label == "profiled", "store-root": str(root)})
+        cm = trace_capture(root / f"trace_{label}") if label == "profiled" \
+            else contextlib.nullcontext()
+        t = time.perf_counter()
+        with cm:
+            out_a = core.analyze(again)
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t
+        if out_a["results"]["valid"] is not True:
+            raise AssertionError(f"runner profiled re-analysis {label}: {out_a['results']}")
+
+    top = sorted(kern["ms"], key=kern["ms"].get, reverse=True)[:RUNNER_PROFILED["top_kernels"]]
+    marks = doc["memory_watermarks"]
+    row = {"phase": "runner", "case": "profiled", "ops": RUNNER_PROFILED["ops"],
+           "concurrency": RUNNER["concurrency"], "history": len(res["history"]),
+           "run_wall_s": run_wall, "phase_walls_s": phases,
+           "valid": res["results"]["valid"], "online_valid": res["online-results"]["valid"],
+           "linear_device": res["results"]["linear"].get("torch_device"),
+           "live_line": {k: live.get(k) for k in ("run", "ops_observed", "decided_through_index",
+                                                  "seen_after_s")},
+           "trace_bytes": trace_path.stat().st_size, "trace_events": kern["events"],
+           "trace_cpu_ops": kern["cpu_ops"], "trace_runtime_calls": kern["runtime_calls"],
+           "trace_kernels": sum(kern["count"].values()),
+           "top_kernels": [{"name": k, "ms": kern["ms"][k], "count": kern["count"][k]}
+                           for k in top],
+           "trace_against_launches": both, "untraced_launches": untraced,
+           "monitor_kernels_traced": monitor_traced,
+           "launches_online": counted["online"], "launches_analyze": counted["analyze"],
+           "kernels_missing_from_trace": missing,
+           "analyze_wall_s": {"in_run_profiled": phases.get("analyze"), **walls},
+           "profile_json_bytes": (run_dir / "profile.json").stat().st_size,
+           "executing_chunks": len(executing),
+           "utilization": {k: util.get(k) for k in ("mean_utilization_pct", "makespan_s",
+                                                    "busy_any_s", "gap_attribution_share")},
+           "memory_watermarks": marks, "ledger_record": record, "ledger_check_rc": gate.returncode,
+           "pages": pages, "case_wall_s": time.perf_counter() - t_case}
+    emit(row)
+    if not (row["valid"] is True and row["online_valid"] is True
+            and row["linear_device"] == "cuda" and executing
+            and 0 < util["mean_utilization_pct"] <= 100
+            and len(marks) == torch.cuda.device_count()
+            and all(m["peak_bytes_in_use"] > 0 for m in marks)
+            and launched and not missing and counted["online"]["wgl_expand"] > 0
+            and monitor_traced and "utilization_pct" in record
+            and gate.returncode == 0 and live.get("ops_observed") is not None
+            and all(v == 200 for v in pages.values()) and len(pages) == len(PROFILED_PAGES)):
+        raise AssertionError(f"runner profiled failed: {row} {gate.stdout[-2000:]}")
+    return {"trace_bytes": row["trace_bytes"], "analyze_wall_s": row["analyze_wall_s"]}
 
 
 def main() -> int:

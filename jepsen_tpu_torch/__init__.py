@@ -40,7 +40,14 @@ control sessions, DB and OS protocols and ``core.run`` on the in-process
 fake cluster of ``workloads``, with the live online monitor
 (``online.OnlineMonitor``) deciding a run's segments while it executes
 and the analysis on the card; ``python -m jepsen_tpu_torch
-test|analyze|test-all`` is the reference's demo suite.
+test|analyze|test-all|serve`` is the reference's demo suite.
+
+A run's observability plane: ``--profile`` traces the card with
+``torch.profiler`` and writes ``profile.json`` (the roofline attribution
+of ``telemetry.profile`` and the busy timelines of
+``telemetry.utilization``), ``web`` serves the store's pages in-process
+(``--live-port``) or from ``serve``, and the cross-run ledger's trend and
+gate run as ``python -m jepsen_tpu_torch.ledger`` (over ``benchcmp``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``torch_device="cpu"`` for the Elle entry points, whose ``device`` is the

@@ -1,4 +1,4 @@
-"""Built-in demo suite: ``python -m jepsen_tpu_torch test|analyze|test-all|replay``.
+"""Built-in demo suite: ``python -m jepsen_tpu_torch test|analyze|test-all|replay|serve``.
 
 The port of the reference's ``jepsen_tpu/__main__.py``. It runs the
 in-process fake cluster (the atom register of ``workloads``, the
@@ -9,13 +9,15 @@ usage)::
 
     python -m jepsen_tpu_torch test --workload cas-register --time-limit 5 --no-ssh
     python -m jepsen_tpu_torch test --workload cas-register --online --online-engine device
+    python -m jepsen_tpu_torch test --workload cas-register --online --telemetry --profile --live-port 8081
     python -m jepsen_tpu_torch analyze --workload cas-register
     python -m jepsen_tpu_torch test-all --time-limit 2
     python -m jepsen_tpu_torch replay --store-root store
+    python -m jepsen_tpu_torch serve --store-root store --port 8080
 
 The checkers and the online monitor run on the GPU; ``--device cpu`` runs
 the plain PyTorch version, and without a GPU and without it the commands
-exit 255. ``serve`` waits for the port's web pages.
+exit 255. ``serve`` needs no card.
 """
 
 from __future__ import annotations
@@ -95,6 +97,7 @@ COMMANDS = {
     # The demo DB resets the register to 0 in setup, so replay must
     # check against an init=0 model (the generic default is nil-init).
     **cli.replay_cmd(model_args={"init": 0}),
+    **cli.serve_cmd(),
 }
 
 if __name__ == "__main__":

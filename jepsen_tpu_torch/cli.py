@@ -1,5 +1,5 @@
-"""CLI framework: build ``test`` / ``analyze`` / ``test-all`` / ``replay``
-runners.
+"""CLI framework: build ``test`` / ``analyze`` / ``test-all`` / ``replay`` /
+``serve`` runners.
 
 The port of the reference's ``jepsen_tpu/cli.py`` (jepsen.cli,
 jepsen/src/jepsen/cli.clj): a suite supplies a ``test_fn(options) ->
@@ -20,9 +20,10 @@ The commands that run or analyze tests (:func:`single_test_cmd`,
 ``--device``, the torch device of the run's checkers and online monitor
 (the card by default; ``cpu`` runs the plain PyTorch version). Where the
 reference adds the test options to every command, the port adds them to
-these: ``replay`` takes only the options it reads. ``--profile`` and
-``--live-port`` are accepted and refused by ``core`` (ROADMAP items A8
-and A16), and ``serve`` waits for the web pages.
+these: ``replay`` and ``serve`` take only the options they read.
+``--profile`` writes a device trace and ``profile.json`` into the run's
+store directory, ``--live-port`` serves the results pages while the run
+executes, and ``serve`` serves them over a store (:mod:`.web`).
 """
 
 from __future__ import annotations
@@ -80,9 +81,12 @@ def add_test_opts(p: argparse.ArgumentParser) -> None:
                         "timings) + client spans into the run's store "
                         "directory (metrics.jsonl/.prom, spans.jsonl)")
     p.add_argument("--profile", action="store_true",
-                   help="performance attribution (implies --telemetry); "
-                        "the port refuses it until its profile module "
-                        "lands")
+                   help="performance attribution (implies --telemetry): "
+                        "roofline classification of the device search "
+                        "and busy timelines (profile.json), device memory "
+                        "watermarks, and a torch.profiler trace captured "
+                        "into the run's store directory "
+                        "(profile_trace/trace.json)")
     p.add_argument("--online", action="store_true",
                    help="decide linearizability WHILE the run executes: "
                         "stream ops through the online monitor "
@@ -102,9 +106,13 @@ def add_test_opts(p: argparse.ArgumentParser) -> None:
                         "and a round batches >1 member); a non-auto "
                         "choice implies --online")
     p.add_argument("--live-port", type=int, default=None,
-                   help="serve the results browser in-process for the "
-                        "run's duration; the port refuses it until its "
-                        "web pages land")
+                   help="serve the results browser IN-PROCESS for the "
+                        "run's duration on this port: /live streams "
+                        "the online monitor's operational snapshot "
+                        "(watermark, queue depths, backlog, decision-"
+                        "latency p50/p99, stall detector) as ndjson, "
+                        "/live.html renders it as a self-refreshing "
+                        "dashboard")
     p.add_argument("--store-root", default=None,
                    help="directory for the store/ tree")
     p.add_argument("--device", default=None,
@@ -331,6 +339,25 @@ def replay_cmd(model_args: Optional[dict] = None) -> dict:
     return {"replay": {"run": run_replay, "add_opts": add_opts,
                        "help": "Batch-recheck every stored history on "
                                "the device."}}
+
+
+def serve_cmd() -> dict:
+    """Command ``serve``: the results web server (cli.clj:323-340)."""
+
+    def run_serve(opts) -> int:
+        from . import web
+
+        web.serve(root=opts.get("store_root"),
+                  port=int(opts.get("port") or 8080))
+        return EXIT_OK
+
+    def add_opts(p):
+        p.add_argument("--port", default="8080")
+        p.add_argument("--store-root", default=None,
+                       help="directory of the store/ tree to serve")
+
+    return {"serve": {"run": run_serve, "add_opts": add_opts,
+                      "help": "Serve the store/ browser."}}
 
 
 def run(commands: dict, argv: Optional[list] = None) -> int:

@@ -33,15 +33,18 @@ cannot reach, a failed kernel build) leaves ``{"valid": "unknown",
 never a verdict decided on the host; a deterministic device error of the
 monitor's oracle is raised out of the run.
 
-Two of the reference's options need parts the port does not hold yet and
-raise ``ValueError`` before the run starts: ``live-port`` (the in-process
-results server, ``web.py``) and ``profile?`` (the device trace and the
-roofline attribution, ``telemetry.profile``). Without a web server the
-port registers no live source for the monitor either.
+Observability: with ``online?`` the monitor's ``live_snapshot`` is a
+``/live`` line of :mod:`.web` while the run executes, and ``live-port``
+serves the results pages in-process for the run's duration (0 takes a
+free port). ``profile?`` wraps the run from ``db.cycle`` to the analysis
+in a ``torch.profiler`` trace written to ``profile_trace/`` in the run's
+store directory, and writes ``profile.json`` (the roofline attribution,
+the busy timelines, the memory watermarks) beside ``metrics.jsonl``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 from typing import Any, Optional
@@ -58,22 +61,6 @@ from .history import History, Op
 from .util import real_pmap, with_relative_time
 
 LOG = logging.getLogger("jepsen.core")
-
-# What the unported options raise.
-LIVE_PORT_SLICE = ("live-port serves the results pages in-process, and the port has no "
-                   "web server yet (ROADMAP item A16's web.py)")
-PROFILE_SLICE = ("profile? captures a device trace and writes profile.json, which the "
-                 "port does not hold yet (ROADMAP item A8: trace_capture, store_profile)")
-
-
-def _refuse_unported(test: dict) -> None:
-    """Raise ``ValueError`` for an option whose machinery the port lacks,
-    rather than running without it."""
-    if test.get("live-port") is not None:
-        raise ValueError(LIVE_PORT_SLICE)
-    if test.get("profile?"):
-        raise ValueError(PROFILE_SLICE)
-
 
 def synchronize(test: dict, timeout_s: Optional[float] = None) -> None:
     """Block until all nodes reach this barrier (core.clj:44-57). The
@@ -152,7 +139,6 @@ def run_case(test: dict) -> list[dict]:
 def analyze(test: dict) -> dict:
     """Index the history, run the checker, persist results
     (core.clj:222-237)."""
-    _refuse_unported(test)
     LOG.info("Analyzing...")
     h = test.get("history")
     if not isinstance(h, History):
@@ -185,6 +171,11 @@ def analyze(test: dict) -> dict:
             # get their metrics persisted; core.run re-exports a more
             # complete snapshot at the end (atomic replace, last wins).
             jtelemetry.store_metrics(test)
+            if test.get("profile?"):
+                try:
+                    jtelemetry.store_profile(test)
+                except Exception:  # diagnostics never sink the run
+                    LOG.warning("profile export failed", exc_info=True)
     return test
 
 
@@ -254,7 +245,6 @@ def prepare_test(test: dict) -> dict:
 def run(test: dict) -> dict:
     """Run a complete test; returns the test map with :history and
     :results. See module docstring for the phase diagram."""
-    _refuse_unported(test)
     test = prepare_test(test)
     persist = bool(test.get("name")) and not test.get("no-store?")
     reg = jtelemetry.of_test(test)
@@ -275,18 +265,22 @@ def run(test: dict) -> dict:
         test["trace-collector"] = collector
         test["client"] = jtrace.tracing(test["client"], collector)
     if persist:
-        # Store setup BEFORE the monitor: a raising path_mk (unwritable
-        # store root) aborts the run before any thread starts; the
-        # finally below only covers failures past this point, so
-        # nothing started here may outlive an exception it can't see.
+        # Store setup BEFORE the monitor/live-source/server blocks: a
+        # raising path_mk (unwritable store root) aborts the run before
+        # anything is registered process-globally; the finally below
+        # only covers failures past this point, so nothing started here
+        # may outlive an exception it can't see.
         store.path_mk(test)
         store.start_logging(test)
     monitor = None
+    live_key = None
+    live_srv = None
     try:
-        # The online setup sits INSIDE the try: a raising of_test (bad
-        # engine opt, no card) after start_logging above must still
-        # reach the finally, which stops the run's log handler (its
-        # monitor guard is None-safe).
+        # The online/live setup sits INSIDE the try: a raising of_test
+        # (bad engine opt, no card) after start_logging above must still
+        # reach the finally, which stops the run's log handler and tears
+        # down whatever of the monitor / live source / server did come
+        # up (all its guards are None-safe).
         if test.get("online?"):
             # Online linearizability monitor (--online): tee ops from
             # the interpreter as they land, decide closed segments on a
@@ -303,39 +297,72 @@ def run(test: dict) -> dict:
                 test["online-monitor"] = monitor
                 test["op-observer"] = monitor.observe
                 test["stop-event"] = monitor.stop_event
+        if monitor is not None:
+            # Live operational view: the monitor's snapshot is one /live
+            # line for the lifetime of the run (in-process servers only;
+            # `serve` in another process reads the stored artifacts).
+            from . import web as jweb
+
+            live_key = f"{test.get('name') or 'run'}/{test['start-time']}"
+            jweb.register_live_source(live_key, monitor.live_snapshot)
+        if test.get("live-port") is not None:  # 0 = ephemeral port
+            # live-port: an in-process results server for the run's
+            # duration, so /live (and /metrics etc.) are reachable while
+            # the workload executes. Best-effort: a taken port logs and
+            # moves on; a dashboard must never sink the run.
+            from . import web as jweb
+
+            try:
+                live_srv = jweb.server(root=test.get("store-root"),
+                                       port=int(test["live-port"]))
+                threading.Thread(target=live_srv.serve_forever,
+                                 name="jepsen-live-web",
+                                 daemon=True).start()
+                LOG.info("Live dashboard on http://0.0.0.0:%d/live.html",
+                         live_srv.server_address[1])
+            except Exception:  # noqa: BLE001
+                LOG.warning("could not start live web server",
+                            exc_info=True)
+                live_srv = None
         LOG.info("Running test: %s/%s", test.get("name"), test["start-time"])
         sessions = _with_sessions(test)
         osys: jos.OS = test.get("os") or jos.noop()
         nodes = test.get("nodes") or []
+        # profile?: a torch.profiler trace of the run from db.cycle to
+        # the analysis, into the store directory's profile_trace/.
+        prof_cm = (
+            jtelemetry.trace_capture(store.path_mk(test, "profile_trace"))
+            if persist and test.get("profile?") else contextlib.nullcontext())
         try:
             jdb._on_nodes(test, osys.setup, nodes)
             try:
-                with jtelemetry.timed_phase(reg, "db.cycle",
-                                            recorder=frec):
-                    jdb.cycle(test)
-                with with_relative_time():
-                    with jtelemetry.timed_phase(reg, "run_case",
+                with prof_cm:
+                    with jtelemetry.timed_phase(reg, "db.cycle",
                                                 recorder=frec):
-                        history = run_case(test)
-                test["history"] = history
-                if persist:
-                    store.save_1(test)
-                if monitor is not None:
-                    with jtelemetry.timed_phase(reg, "online.finish",
-                                                recorder=frec):
-                        test["online-results"] = monitor.finish()
-                    LOG.info("Online monitor: valid=%r decided "
-                             "through index %s%s",
-                             test["online-results"].get("valid"),
-                             test["online-results"].get(
-                                 "decided_through_index"),
-                             " (run aborted on violation)"
-                             if test["online-results"].get("aborted")
-                             else "")
+                        jdb.cycle(test)
+                    with with_relative_time():
+                        with jtelemetry.timed_phase(reg, "run_case",
+                                                    recorder=frec):
+                            history = run_case(test)
+                    test["history"] = history
                     if persist:
-                        jonline.store_online(test,
-                                             test["online-results"])
-                test = analyze(test)
+                        store.save_1(test)
+                    if monitor is not None:
+                        with jtelemetry.timed_phase(reg, "online.finish",
+                                                    recorder=frec):
+                            test["online-results"] = monitor.finish()
+                        LOG.info("Online monitor: valid=%r decided "
+                                 "through index %s%s",
+                                 test["online-results"].get("valid"),
+                                 test["online-results"].get(
+                                     "decided_through_index"),
+                                 " (run aborted on violation)"
+                                 if test["online-results"].get("aborted")
+                                 else "")
+                        if persist:
+                            jonline.store_online(test,
+                                                 test["online-results"])
+                    test = analyze(test)
                 return log_results(test)
             finally:
                 snarf_logs(test)
@@ -362,6 +389,16 @@ def run(test: dict) -> dict:
                                            registry=reg)
         raise
     finally:
+        if live_key is not None:
+            from . import web as jweb
+
+            jweb.unregister_live_source(live_key)
+        if live_srv is not None:
+            try:
+                live_srv.shutdown()
+                live_srv.server_close()
+            except Exception:  # noqa: BLE001
+                pass
         if monitor is not None and test.get("online-results") is None:
             # The run died before the success-path finish: shut the
             # scheduler worker down (bounded drain) so a failed run
@@ -383,13 +420,18 @@ def run(test: dict) -> dict:
                 if test.get("trace-collector") is not None:
                     jtrace.store_spans(test, test["trace-collector"])
                 jtelemetry.store_metrics(test)
+                if test.get("profile?"):
+                    # profile.json: roofline attribution, busy timelines
+                    # and memory watermarks, rendered by /profile and
+                    # /utilization.
+                    jtelemetry.store_profile(test)
             except Exception:
                 LOG.warning("telemetry export failed", exc_info=True)
         if persist:
             # Cross-run perf ledger: one compact record per run (even a
             # crashed one — verdict None is itself a data point) into
-            # <store root>/ledger.jsonl, whose trend and gate the
-            # reference's ledger reader renders.
+            # <store root>/ledger.jsonl; `python -m jepsen_tpu_torch.ledger`
+            # renders the trend and gates regressions between runs.
             try:
                 from .telemetry import ledger as jledger
 

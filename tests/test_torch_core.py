@@ -336,18 +336,26 @@ def test_tracing_client_spans_land_in_the_store(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# what the port refuses rather than hides
+# the options the port refused while it lacked web.py and the profile layer
 
 
-@pytest.mark.parametrize("opt,match", [({"live-port": 0}, "web.py"),
-                                       ({"profile?": True}, "A8")])
-def test_unported_options_raise_before_the_run(tmp_path, opt, match):
-    t = _sequential_test(PORT, tmp_path, **opt)
-    with pytest.raises(ValueError, match=match):
-        p_core.run(t)
-    assert not list(tmp_path.rglob("*"))
-    with pytest.raises(ValueError, match=match):
-        p_core.analyze({**t, "history": []})
+@pytest.mark.parametrize("opt,artifact", [({"live-port": 0}, None),
+                                          ({"profile?": True}, "profile.json")])
+def test_unported_options_raise_before_the_run(tmp_path, opt, artifact):
+    """``live-port`` and ``profile?`` were refused with ``ValueError``
+    before the run started; both now run, in ``core.run`` and in a
+    standalone ``core.analyze``, and leave what the reference leaves."""
+    t = _sequential_test(PORT, tmp_path, **{"telemetry?": True, **opt})
+    res = p_core.run(t)
+    assert res["results"]["valid"] is True
+    run_dir = p_store.path(res)
+    if artifact is not None:
+        assert (run_dir / artifact).exists()
+        assert (run_dir / "profile_trace" / "trace.json").exists()
+        (run_dir / artifact).unlink()
+    out = p_core.analyze({**t, "history": res["history"], "start-time": res["start-time"]})
+    assert out["results"]["valid"] is True
+    assert (run_dir / "profile.json").exists() is (artifact is not None)
 
 
 def test_no_card_without_cpu_raises():

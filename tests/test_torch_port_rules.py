@@ -60,6 +60,23 @@ def test_port_imports_without_jax_or_reference():
     assert "IMPORTED" in out.stdout
 
 
+OBSERVABILITY = ("jepsen_tpu_torch.telemetry.utilization", "jepsen_tpu_torch.telemetry.profile",
+                 "jepsen_tpu_torch.telemetry.ledger", "jepsen_tpu_torch.benchcmp",
+                 "jepsen_tpu_torch.ledger", "jepsen_tpu_torch.web")
+
+
+def test_observability_modules_are_scanned():
+    """The observability plane's modules are among those the import and
+    source scans above walk, and none names JAX or the reference."""
+    walked = {m.name for m in pkgutil.walk_packages(jepsen_tpu_torch.__path__,
+                                                     "jepsen_tpu_torch.")}
+    assert set(OBSERVABILITY) <= walked
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|jepsen_tpu)(\s|\.|$)", re.M)
+    for mod in OBSERVABILITY:
+        src = ROOT / (mod.replace(".", "/") + ".py")
+        assert src.exists() and not pat.search(src.read_text()), mod
+
+
 def test_port_sources_name_no_jax_or_reference():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|jepsen_tpu)(\s|\.|$)", re.M)
     files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]

@@ -216,10 +216,32 @@ def test_no_card_without_cpu_exits_255(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--profile"], ["--live-port", "0"]])
 def test_unported_flags_are_refused(flag, tmp_path):
+    """``--profile`` and ``--live-port`` exited 254 while the port lacked
+    their machinery; both now run the test to its verdict (exit 0), and
+    ``--profile`` leaves ``profile.json`` and the trace."""
     cmds = p_cli.single_test_cmd(_suite(PORT))
     assert p_cli.run(cmds, ["test", "--store-root", str(tmp_path), "--device", "cpu",
-                            *flag]) == 254
-    assert not list(tmp_path.rglob("*"))
+                            *flag]) == 0
+    (results,) = tmp_path.rglob("results.edn")
+    profiled = flag == ["--profile"]
+    assert (results.parent / "profile.json").exists() is profiled
+    assert (results.parent / "profile_trace" / "trace.json").exists() is profiled
+
+
+def test_serve_command_serves_the_store_root(tmp_path, monkeypatch):
+    """``serve`` hands its ``--store-root`` and ``--port`` to ``web.serve``,
+    as the reference's command does; it takes no test options."""
+    from jepsen_tpu_torch import __main__ as demo
+    from jepsen_tpu_torch import web
+
+    calls = []
+    monkeypatch.setattr(web, "serve", lambda root=None, port=8080: calls.append((root, port)))
+    assert "serve" in demo.COMMANDS
+    assert p_cli.run(demo.COMMANDS, ["serve", "--store-root", str(tmp_path),
+                                     "--port", "8123"]) == 0
+    assert p_cli.run(p_cli.serve_cmd(), ["serve"]) == 0
+    assert calls == [(str(tmp_path), 8123), (None, 8080)]
+    assert p_cli.run(p_cli.serve_cmd(), ["serve", "--nodes", "n1"]) == 254
 
 
 def test_replay_still_refuses_test_flags(tmp_path):
