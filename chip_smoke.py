@@ -314,7 +314,23 @@ and then runs these phases, each printing JSON lines:
   the device chunks, the utilization and one memory watermark a card, the
   ``torch.profiler`` trace holds every level kernel both paths launched,
   the ledger's gate exits 0 and the pages answer 200; the trace's size,
-  its top kernels and the analysis wall with and without the profiler.
+  its top kernels and the analysis wall with and without the profiler;
+- ``service`` (after ``runner``): the multi-tenant checking service. (a)
+  In process: four tenants of 2,500 ops (bench.py's service leg: the
+  quiescence of each poisoned near its end, so its tail is a terminal
+  segment for the device oracle; one tenant perturbed) through
+  ``Service(engine="device", abort_on_violation=True, alerts=True)`` on
+  the card, one ``InProcessServiceClient`` thread a tenant: each tenant's
+  verdict that of the single device search of its history, the perturbed
+  tenant aborted, a device round with members of two tenants or more,
+  the rounds' launches counted (path ``service``), the wall, ops/s, p99
+  decision latency, peak allocated memory and any failover. (b) As a
+  process: ``python -m jepsen_tpu_torch.service --port 0 --port-file F
+  --journal-dir D --engine device``, one tenant over HTTP with
+  ``HttpServiceClient`` and one as an etcd recording through
+  ``?adapter=etcd`` (its verdict ``ingest_check``'s), ``GET /tenants``,
+  ``POST /drain`` and an interrupt: exit 0; then a restart on ``D``
+  resumes every tenant from its journal with its watermark kept.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the per-kernel JSON line, and ``{"ok": true, "device": {...}}``.
@@ -5748,6 +5764,243 @@ def runner_phase(lv, wgl) -> dict:
     return out
 
 
+# The multi-tenant service phase: (a) bench.py's service leg (four tenants,
+# seeds 3100 + i, quiescence poisoned from 90% of the stream on) on the card,
+# the last tenant perturbed in its first half; (b) the daemon as a process,
+# two tenants of ``http_ops`` over HTTP (one as an etcd recording).
+SERVICE = {"tenants": 4, "ops": 2500, "seed": 3100, "procs": 4, "chunk_ops": 60,
+           "poison_at": 0.9, "perturbed": 3, "http_ops": 600, "wait_s": 120}
+
+
+def service_history(History, chunked, i, n_ops, seed=SERVICE["seed"], **kw):
+    """Tenant ``i``'s stream: a chunked register history whose first ok
+    write from ``poison_at`` of the stream on turns ``:info`` (a write that
+    took effect with its reply lost): no quiescent cut follows it, so the
+    rest is one terminal segment, which the device oracle decides. ``kw``
+    goes to the generator (``cas=False`` for an etcd recording: its adapter
+    maps puts and ranges)."""
+    base = list(chunked(random.Random(seed + i), n_ops=n_ops, n_procs=SERVICE["procs"],
+                        chunk_ops=SERVICE["chunk_ops"], **kw))
+    k = next(j for j in range(int(len(base) * SERVICE["poison_at"]), len(base))
+             if base[j].is_ok and base[j].f == "write")
+    base[k] = base[k].with_(type="info")
+    return History(base, reindex=True)
+
+
+def _wait_port(proc, port_file, err_path, timeout) -> int:
+    """The daemon's bound port, once it has written it."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"service daemon exited {proc.returncode}: "
+                                 f"{err_path.read_text()[-4000:]}")
+        try:
+            return int(port_file.read_text())
+        except (OSError, ValueError):
+            time.sleep(0.05)
+    raise AssertionError(f"service daemon wrote no port in {timeout} s")
+
+
+def _http(url, data=None):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, method="POST" if data is not None else "GET")
+    with urllib.request.urlopen(req, timeout=SERVICE["wait_s"]) as r:
+        return json.loads(r.read().decode())
+
+
+def _interrupt(proc, out_path, timeout) -> tuple:
+    """SIGINT the daemon (it drains and prints its results document) and
+    read that document back."""
+    import signal
+
+    proc.send_signal(signal.SIGINT)
+    rc = proc.wait(timeout=timeout)
+    text = out_path.read_text()
+    return rc, json.loads(text[text.index("\n{") + 1:]) if "\n{" in text else None
+
+
+def service_phase(lv, wgl, dev="cuda") -> dict:
+    """(a) The service in process on the card, (b) the daemon as two
+    processes over one journal directory (see the module docstring)."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from jepsen_tpu_torch import _build, independent
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.ingest import ingest_check
+    from jepsen_tpu_torch.models import CasRegister
+    from jepsen_tpu_torch.parallel import resilience
+    from jepsen_tpu_torch.service import Service
+    from jepsen_tpu_torch.service.client import HttpServiceClient, InProcessServiceClient
+    from jepsen_tpu_torch.telemetry import Registry
+    from jepsen_tpu_torch.testing import chunked_register_history, perturb_history
+
+    resilience.reset_breakers()
+    model = CasRegister(init=0)
+    wait = SERVICE["wait_s"]
+    hs = {}
+    for i in range(SERVICE["tenants"]):
+        h = service_history(History, chunked_register_history, i, SERVICE["ops"])
+        if i == SERVICE["perturbed"]:
+            h = perturb_history(random.Random(SERVICE["seed"] + 1000 + i), h, within=0.5)
+        hs[f"tenant-{i}"] = h
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD) as tmp:
+        tmp = Path(tmp)
+
+        # -- (a) ------------------------------------------------------------
+        reg = Registry()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts(lv)
+        t = time.perf_counter()
+        svc = Service(model, engine="device", abort_on_violation=True, alerts=True,
+                      metrics=reg, device=dev, store_root=str(tmp / "a"),
+                      name="smoke-service")
+        reports: dict = {}
+
+        def feed(name):
+            reports[name] = InProcessServiceClient(svc, name).feed(hs[name])
+
+        feeders = [threading.Thread(target=feed, args=(n,)) for n in hs]
+        for th in feeders:
+            th.start()
+        for th in feeders:
+            th.join(wait)
+        if any(th.is_alive() for th in feeders) or not svc.flush(wait):
+            raise AssertionError("service: the feeds did not settle")
+        fin = svc.drain(timeout=wait)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = launch_counts(lv, "service", LEVEL_KERNELS)
+        peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
+        rounds = [e for e in reg.events("online_round")
+                  if e.get("engine") == "device" and e.get("oracle_members")]
+        chunks = reg.events("wgl_batch_chunk")
+        single = {n: wgl.check_history(model, h, backend="device", device=dev)["valid"]
+                  for n, h in hs.items()}
+        fired = sorted(svc.alert_engine.fired_rules())
+        ops = sum(r["ops_observed"] for r in fin["tenants"].values())
+        row = {"phase": "service", "case": "in_process", "tenants": len(hs),
+               "ops_per_tenant": SERVICE["ops"], "wall_s": wall, "ops_observed": ops,
+               "ops_per_s": ops / wall, "valid": fin["valid"],
+               "tenant_valid": {n: r["valid"] for n, r in fin["tenants"].items()},
+               "single_device_valid": single,
+               "aborted": {n: r["aborted"] for n, r in fin["tenants"].items()},
+               "decided_through_index": {n: r["decided_through_index"]
+                                         for n, r in fin["tenants"].items()},
+               "p99_decision_latency_s": fin["decision_latency"].get("p99_s"),
+               "p50_decision_latency_s": fin["decision_latency"].get("p50_s"),
+               "peak_allocated_bytes": peak,
+               "failover": {n: r["failover"] for n, r in fin["tenants"].items()
+                            if r.get("failover")},
+               "device_rounds": [{"oracle_members": e["oracle_members"],
+                                  "oracle_streams": e["oracle_streams"]} for e in rounds],
+               "batch_chunks": len(chunks), "max_chunk_batch": max(
+                   (e["batch"] for e in chunks), default=0),
+               # the batched search's chunks (host clock around each, ending
+               # in its control-block read): the rest of the wall is host work
+               "batch_chunk_wall_s": sum(e["chunk_wall_s"] for e in chunks),
+               "alerts_fired": fired, "client_errors": {n: r["error"]
+                                                        for n, r in reports.items()},
+               "launches": counts}
+        emit(row)
+        bad = f"tenant-{SERVICE['perturbed']}"
+        if not (row["tenant_valid"] == single and single[bad] is False
+                and all(v is True for n, v in single.items() if n != bad)
+                and row["aborted"] == {n: n == bad for n in hs}
+                and any(len(e["oracle_streams"]) >= 2 for e in rounds)
+                and row["max_chunk_batch"] >= 2
+                and "unattributed_causes" not in fired
+                and all(row["decided_through_index"][n] == hs[n][-1].index
+                        for n in hs if n != bad)):
+            raise AssertionError(f"service in_process failed: {row}")
+        out["launches"] = counts
+
+        # -- (b) ------------------------------------------------------------
+        root = Path(__file__).resolve().parent
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(root), os.environ.get("PYTHONPATH", "")]))
+        jdir = tmp / "journal"
+        n_http = SERVICE["http_ops"]
+        ha = service_history(History, chunked_register_history, 10, n_http)
+        hb = service_history(History, chunked_register_history, 11, n_http, cas=False)
+        hb = History([op.with_(value=independent.KV("r0", op.value)) for op in hb],
+                     reindex=True)
+        lines = etcd_lines(hb)
+        want_b = ingest_check(lines, "etcd", device=dev)["valid"]
+        want_a = wgl.check_history(model, ha, backend="device", device=dev)["valid"]
+
+        def start(tag):
+            port_file = tmp / f"{tag}.port"
+            cmd = [sys.executable, "-m", "jepsen_tpu_torch.service", "--port", "0",
+                   "--port-file", str(port_file), "--journal-dir", str(jdir),
+                   "--engine", "device", "--store-root", str(tmp / "b"), "--name", "smoke-daemon",
+                   *(["--device", dev] if dev != "cuda" else [])]
+            o, e = tmp / f"{tag}.out", tmp / f"{tag}.err"
+            with open(o, "w") as fo, open(e, "w") as fe:
+                proc = subprocess.Popen(cmd, cwd=tmp, env=env, stdout=fo, stderr=fe)
+            return proc, o, e, port_file
+
+        procs = []
+        try:
+            t = time.perf_counter()
+            proc, o, e, pf = start("first")
+            procs.append(proc)
+            url = f"http://127.0.0.1:{_wait_port(proc, pf, e, wait)}"
+            ready_s = time.perf_counter() - t
+            rep = HttpServiceClient(url, "http-a", timeout_s=wait).feed(ha)
+            ing = _http(f"{url}/submit/http-b?adapter=etcd", ("\n".join(lines) + "\n").encode())
+            tenants = _http(f"{url}/tenants")["tenants"]
+            drained = _http(f"{url}/drain", b"")
+            rc, printed = _interrupt(proc, o, wait)
+            first_s = time.perf_counter() - t
+            t = time.perf_counter()
+            proc2, o2, e2, pf2 = start("restart")
+            procs.append(proc2)
+            url2 = f"http://127.0.0.1:{_wait_port(proc2, pf2, e2, wait)}"
+            resumed = _http(f"{url2}/tenants")["tenants"]
+            rc2, printed2 = _interrupt(proc2, o2, wait)
+            restart_s = time.perf_counter() - t
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(30)
+        dt = drained["tenants"]
+        row = {"phase": "service", "case": "daemon", "ready_s": ready_s, "first_s": first_s,
+               "restart_s": restart_s, "client": rep, "adapter": {
+                   k: ing.get(k) for k in ("accepted", "unmapped", "hint")},
+               "tenants_rows": sorted(tenants), "drain_valid": {
+                   n: r["valid"] for n, r in dt.items()},
+               "want": {"http-a": want_a, "http-b": want_b}, "rc": rc, "rc_restart": rc2,
+               "printed_valid": (printed or {}).get("valid"),
+               "watermarks": {n: r["decided_through_index"] for n, r in dt.items()},
+               "resumed": {n: {"watermark": r.get("watermark"),
+                               "resumed_from_journal": r.get("resumed_from_journal")}
+                           for n, r in resumed.items()},
+               "restart_valid": (printed2 or {}).get("valid")}
+        emit(row)
+        if not (rc == 0 and rep["error"] is None and rep["sent"] == len(ha)
+                and ing.get("unmapped") == 0 and sorted(tenants) == ["http-a", "http-b"]
+                and row["drain_valid"] == row["want"] and want_a is True and want_b is True
+                and row["printed_valid"] is True
+                and row["watermarks"]["http-a"] == ha[-1].index
+                and all(row["resumed"][n]["resumed_from_journal"] is not None
+                        and row["resumed"][n]["watermark"] == row["watermarks"][n]
+                        and row["resumed"][n]["resumed_from_journal"]["watermark"]
+                        == row["watermarks"][n] for n in dt)
+                and rc2 in (0, 2)):
+            raise AssertionError(f"service daemon failed: {row}")
+    return out
+
+
 def trace_kernels(path) -> dict:
     """The kernels a Chrome trace of ``torch.profiler`` holds: device ms and
     launches by kernel name (the name up to its template or argument
@@ -6341,6 +6594,9 @@ def main() -> int:
     t = time.perf_counter()
     runner = runner_phase(lv, wgl)
     new_walls["runner"] = time.perf_counter() - t
+    t = time.perf_counter()
+    service = service_phase(lv, wgl)
+    new_walls["service"] = time.perf_counter() - t
     sweep = elle_square_sweep()
     sweep_err = max(v["max_abs_err"] for v in sweep.values())
     gathers = gather_scale()
@@ -6354,7 +6610,7 @@ def main() -> int:
              **{k: v for k, v in store_launches.items() if k != "store_explain"},
              "front_door": front_launches, "ingest_etcd_100k": ingest["launches"],
              "runner_online": runner["core_run"]["online"],
-             "runner_analyze": runner["core_run"]["analyze"]}
+             "runner_analyze": runner["core_run"]["analyze"], "service": service["launches"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     summary = lambda r: {k: r[k] for k in keys}  # noqa: E731
     for kname in REPLACES:
@@ -6489,7 +6745,7 @@ def main() -> int:
                if kname == "elle_block_square" else {}),
             **({"gather_scale": gathers} if kname == "elle_gather" else {})})
     done_s = time.perf_counter() - t_start
-    new_s = {k: new_walls[k] for k in ("front_door", "ingest", "runner")}
+    new_s = {k: new_walls[k] for k in ("front_door", "ingest", "runner", "service")}
     emit({"phase": "done", "seconds": done_s, "new_phases_s": new_s,
           "new_phases_share": sum(new_s.values()) / done_s, "phase_walls_s": new_walls})
     print(smi, flush=True)

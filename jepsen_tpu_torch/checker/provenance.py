@@ -6,10 +6,11 @@ Every site that degrades a verdict to ``unknown`` attaches
 scheduler's folds union the causes into per-segment, per-stream and
 per-run *provenance* blocks (``{"causes": {code: count}, "dominant":
 code, "total": n}``, :func:`block`). The codes and their layers are the
-reference package's (including those of its service, journal and router,
-which this package does not have yet; the trace ingestion's
-``ingest_unmapped_op`` is set by :mod:`jepsen_tpu_torch.ingest`), so
-results from either package fold the same way.
+reference package's (including those of its scale-out router, which this
+package does not have yet; the service's and journal's are set by
+:mod:`jepsen_tpu_torch.service`, the trace ingestion's
+``ingest_unmapped_op`` by :mod:`jepsen_tpu_torch.ingest`), so results from
+either package fold the same way.
 """
 
 from __future__ import annotations

@@ -29,9 +29,10 @@ emits. Three stages:
 
 Front door: ``python -m jepsen_tpu_torch.ingest TRACE --adapter etcd``
 (exit codes 0 valid / 2 invalid / 1 unknown, matching
-``jepsen_tpu_torch.offline``). The reference's second front door, ``POST
-/submit/<tenant>?adapter=etcd`` on its checking service, comes with the
-port of that service.
+``jepsen_tpu_torch.offline``). The second front door is ``POST
+/submit/<tenant>?adapter=etcd`` on the checking service
+(:mod:`jepsen_tpu_torch.service.http`): the recording's ops feed the
+tenant's stream, and its unexplained lines taint the tenant's verdict.
 """
 
 from __future__ import annotations

@@ -1097,17 +1097,25 @@ class SegmentScheduler:
         """One batched search over all members on the scheduler's device
         (``parallel.batch``); members it leaves unknown are checked again
         one by one with the single device search, like the lifted
-        checker's batch seam."""
+        checker's batch seam. The current CUDA device is per thread, so
+        the worker makes the scheduler's device current for the round."""
+        import torch
+
         from ..ops import wgl
         from ..parallel.batch import check_encoded_batch
 
-        results = check_encoded_batch(
-            encs, f=self.batch_f, mesh=self.mesh, metrics=self.metrics,
-            device=self.device)
-        for i, r in enumerate(results):
-            if r.get("valid") == "unknown":
-                results[i] = wgl.check_encoded_device(
-                    encs[i], metrics=self.metrics, device=self.device)
+        dev = torch.device(self.device) if self.device is not None else None
+        on_card = (torch.cuda.device(dev)
+                   if dev is not None and dev.type == "cuda"
+                   else _contextlib.nullcontext())
+        with on_card:
+            results = check_encoded_batch(
+                encs, f=self.batch_f, mesh=self.mesh,
+                metrics=self.metrics, device=self.device)
+            for i, r in enumerate(results):
+                if r.get("valid") == "unknown":
+                    results[i] = wgl.check_encoded_device(
+                        encs[i], metrics=self.metrics, device=self.device)
         return results
 
     def _fold_segment(self, stream: Any, seg: KeySegment, encs,

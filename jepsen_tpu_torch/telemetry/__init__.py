@@ -9,8 +9,10 @@ heartbeat, the flight recorder, the metric sinks ``store_metrics`` writes
 (``metrics.jsonl``, ``metrics.prom``), the roofline attribution, device
 trace and memory watermarks of :mod:`.profile` (``profile.json``), the
 busy timelines of :mod:`.utilization`, the run records and the trend and
-gate of :mod:`.ledger`, and :func:`of_test`. The alerting plane and the
-fleet's federation come with the multi-tenant service.
+gate of :mod:`.ledger`, the alerting plane of :mod:`.alerts` (imported
+only where an alert option is set), the backend's scrape payload of
+:mod:`.fleet`, and :func:`of_test`. The rest of the fleet's federation
+comes with the scale-out router.
 
 Everything hangs off ``test["telemetry?"]``: :func:`of_test` returns the
 test's registry, made on first ask and kept under

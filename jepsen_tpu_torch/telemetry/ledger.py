@@ -22,9 +22,10 @@ direction-aware arrows), and ``--check`` runs ``benchcmp.deltas`` on each
 group's newest record against the one before it, exiting 1 past the
 threshold.
 
-``--alerts`` appends the flagged groups to the alerting plane's
-``alerts.jsonl``; that plane comes with the multi-tenant service
-(ROADMAP item A7), and until then the option is refused with exit 254.
+With ``--check``, ``--alerts FILE`` appends each flagged group as a
+``perf_regression`` record to the alerting plane's ``alerts.jsonl``
+(:func:`.alerts.append_finding`), so offline gating and the live
+sentinel share one alert stream.
 
 Appends are best-effort (a ledger write never sinks a run) and one line
 each, so concurrent writers interleave whole records; unparseable lines
@@ -83,12 +84,6 @@ LEDGER_METRICS: list[tuple[str, str, str]] = [
 ]
 
 DEFAULT_THRESHOLD = 0.10
-
-# What --alerts answers until the alerting plane is ported, and its exit
-# code (the CLI's code for invalid arguments).
-ALERTS_SLICE = ("--alerts appends to the alerting plane's alerts.jsonl, which comes "
-                "with the multi-tenant service (ROADMAP item A7: telemetry/alerts.py)")
-EXIT_BAD_ARGS = 254
 
 
 def default_path(root: Optional[Any] = None) -> Path:
@@ -470,19 +465,31 @@ def main(argv: Optional[list] = None) -> int:
                    help="table columns per group (default 8)")
     p.add_argument("--json", action="store_true", dest="as_json")
     p.add_argument("--alerts", default=None, metavar="ALERTS_JSONL",
-                   help="append each flagged group to an alerts.jsonl; "
-                        "refused (exit 254) until the alerting plane "
-                        "lands with the multi-tenant service")
+                   help="with --check: append each flagged group as a "
+                        "`perf_regression` alert record to this "
+                        "alerts.jsonl (the alerting plane's durable "
+                        "format — `python -m jepsen_tpu_torch.alerts` "
+                        "tails it), so offline ledger gating and the "
+                        "live sentinel share one alert stream")
     ns = p.parse_args(argv)
 
-    if ns.alerts is not None:
-        print(ALERTS_SLICE, file=sys.stderr)
-        return EXIT_BAD_ARGS
     records = load(ns.path)
     if ns.workload:
         records = [r for r in records
                    if str(r.get("workload")) == ns.workload]
     flagged = check(records, threshold=ns.threshold) if records else []
+    if ns.alerts and ns.check:
+        from . import alerts as _alerts
+        for b in flagged:
+            _alerts.append_finding(ns.alerts, {
+                "key": b["key"],
+                "regressions": b["regressions"],
+                "deltas": {m: b["deltas"][m]
+                           for m in b["regressions"]
+                           if m in (b.get("deltas") or {})},
+                "threshold": ns.threshold,
+            }, rule="perf_regression", severity="medium",
+                source="ledger")
     if ns.as_json:
         print(json.dumps({
             "groups": trend(records, threshold=ns.threshold,

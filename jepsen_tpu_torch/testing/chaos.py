@@ -29,12 +29,19 @@ The port's seams:
   line, counted unmapped, and folds the verdict one-sidedly to unknown
   (``ingest_unmapped_op``).
 
-``service.pump``, ``journal.fsync``, ``router.probe``,
-``backend.process`` and ``router.crash`` are the reference package's
-seams in the multi-tenant service, its journal and its router, which
-this package does not have yet. They stay registered, with their blast
-radius in :data:`EXPECTED_UNKNOWN_CAUSES`, so that the map of causes is
-the reference's.
+- ``service.pump``: the multi-tenant service's pump sweep, before an op
+  is popped from a tenant queue (``service/service.py`` ``_pump_once``).
+  A raise kills the pump; the bounded queues turn that into backpressure
+  and drain's synchronous flush still feeds every accepted op.
+- ``journal.fsync``: the verdict journal's append (``service/journal.py``).
+  A raise loses durability, never a verdict (the append failure is
+  counted and swallowed).
+
+``router.probe``, ``backend.process`` and ``router.crash`` are the
+reference package's seams in its scale-out router, which this package
+does not have yet. They stay registered, with their blast radius in
+:data:`EXPECTED_UNKNOWN_CAUSES`, so that the map of causes (and the
+alerting plane's ``EXPECTED_ALERTS``) is the reference's.
 
 Modes: ``raise`` (raise ``exc`` on the Nth crossing, ``times`` times),
 ``delay`` (sleep ``delay_s``: a slow device or disk) and ``crash``

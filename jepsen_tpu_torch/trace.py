@@ -1,7 +1,9 @@
 """Spans and trace-context tags.
 
-The port of the reference's ``jepsen_tpu/trace.py`` but for its
-cross-process headers: the thread-safe span :class:`Collector`
+The port of the reference's ``jepsen_tpu/trace.py``: the cross-process
+propagation headers the service's client stamps and its HTTP layer
+reads (:data:`TRACE_HEADER`, :data:`PARENT_HEADER`,
+:func:`trace_headers`), the thread-safe span :class:`Collector`
 (``mint_id``, ``record``, ``span``, ``export_jsonl``) with its
 process-wide :func:`default_collector`, the thread-local tags a caller
 pushes around a check (``span_tags``) that every chunk event carries
@@ -23,6 +25,25 @@ from contextlib import contextmanager
 from typing import Any, Optional
 
 from . import client as jclient
+
+# Cross-process trace propagation: the service client stamps these
+# headers on every POST, and the service's HTTP layer threads them into
+# ``Service.submit``, so one tenant's life across a restart and a resume
+# is one trace id.
+TRACE_HEADER = "X-Trace-Id"
+PARENT_HEADER = "X-Parent-Span"
+
+
+def trace_headers(trace_id: Optional[str],
+                  parent_id: Optional[str] = None) -> dict:
+    """Propagation headers for one outbound request ({} when no trace
+    context is active — callers can always ``update`` with this)."""
+    if not trace_id:
+        return {}
+    out = {TRACE_HEADER: str(trace_id)}
+    if parent_id:
+        out[PARENT_HEADER] = str(parent_id)
+    return out
 
 
 class Collector:

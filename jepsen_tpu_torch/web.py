@@ -20,10 +20,13 @@ watermark-stall seconds, per-shard utilization). ``core.run`` registers a
 source while a monitored run executes (and an in-process server with
 ``live-port``); ``/live.html`` is a self-refreshing dashboard over the
 same feed. With no live run the endpoint still answers one well-formed
-``{"live_runs": 0}`` line. The fleet and alert sources are registered by
-the multi-tenant service, which the port does not hold yet: until then
-``/fleet``, ``/alerts``, ``/fleet.json`` and ``/alerts.json`` answer with
-their empty forms.
+``{"live_runs": 0}`` line. The multi-tenant service
+(:mod:`jepsen_tpu_torch.service`) registers its ``live_snapshot`` as a live
+source, with one row per tenant and, when its alerting plane is on, the
+rules firing; ``/alerts`` and ``/alerts.json`` render those. The fleet
+sources are registered by the scale-out router, which the port does not
+hold yet: until then ``/fleet`` and ``/fleet.json`` answer with their
+empty forms.
 """
 
 from __future__ import annotations

@@ -3,9 +3,9 @@
 (with the utilization and gap shares, read back from ``profile.json`` or
 reconstructed from the registry) and ``main``, over synthetic ledgers and
 bench lines written under ``tmp_path``; equal output, with only the
-package's name normalised. ``--alerts`` is refused until the alerting
-plane lands, and ``python -m jepsen_tpu_torch.ledger`` gates as a
-process."""
+package's name normalised. ``--alerts`` appends the reference's
+``perf_regression`` records under ``--check`` (and nothing without it),
+and ``python -m jepsen_tpu_torch.ledger`` gates as a process."""
 
 from __future__ import annotations
 
@@ -166,16 +166,25 @@ def test_main_matches_reference(tmp_path, capsys, args):
 
 
 def test_alerts_is_refused(tmp_path, capsys):
-    """``--alerts`` needs the alerting plane of the multi-tenant service:
-    exit 254 with a message naming it, and nothing written."""
+    """``--alerts`` without ``--check`` writes nothing; with it, each
+    flagged group is appended as the reference's ``perf_regression``
+    record (the wall stamp aside), with the reference's exit code and
+    output."""
     path = _write(tmp_path / "ledger.jsonl", _records(3))
-    alerts = tmp_path / "alerts.jsonl"
-    for argv in (["--check", "--alerts", str(alerts), str(path)],
-                 ["--alerts", str(alerts), str(path)]):
-        assert p_ledger.main(argv) == 254
-        err = capsys.readouterr().err
-        assert "A7" in err and "alerts" in err
-    assert not alerts.exists()
+    outs = []
+    for ledger in (r_ledger, p_ledger):
+        alerts = tmp_path / f"{ledger.__name__}.alerts.jsonl"
+        codes = [ledger.main(["--alerts", str(alerts), str(path)])]
+        assert not alerts.exists()
+        codes.append(ledger.main(["--check", "--alerts", str(alerts), str(path)]))
+        cap = capsys.readouterr()
+        lines = [{k: v for k, v in json.loads(x).items() if k != "t"}
+                 for x in alerts.read_text().splitlines()] if alerts.exists() else []
+        outs.append((codes, cap.out.replace("jepsen_tpu_torch", "jepsen_tpu"), lines))
+    assert outs[1] == outs[0]
+    assert outs[1][0] == [0, 1] and len(outs[1][2]) == 2
+    assert all(r["rule"] == "perf_regression" and r["source"] == "ledger"
+               for r in outs[1][2])
 
 
 def test_python_m_ledger_gates(tmp_path):

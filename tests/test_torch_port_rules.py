@@ -247,6 +247,68 @@ def test_every_port_module_is_walkable():
             "jepsen_tpu_torch.workloads.linearizable_register"} <= mods
 
 
+SERVICE_SLICE = ("jepsen_tpu_torch.service", "jepsen_tpu_torch.service.journal",
+                 "jepsen_tpu_torch.service.service", "jepsen_tpu_torch.service.http",
+                 "jepsen_tpu_torch.service.client", "jepsen_tpu_torch.service.__main__",
+                 "jepsen_tpu_torch.checker.perf", "jepsen_tpu_torch.checker.clock",
+                 "jepsen_tpu_torch.telemetry.alerts", "jepsen_tpu_torch.telemetry.fleet",
+                 "jepsen_tpu_torch.alerts", "jepsen_tpu_torch.advisor")
+
+
+def test_service_slice_modules_are_scanned():
+    """The service, its journal, HTTP front door, client and CLI, the
+    plots, the alerting plane, the fleet's scrape payload and the advisor
+    are among the modules the import and source scans walk, and none names
+    JAX or the reference."""
+    walked = {m.name for m in pkgutil.walk_packages(jepsen_tpu_torch.__path__,
+                                                     "jepsen_tpu_torch.")}
+    assert set(SERVICE_SLICE) <= walked
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|jepsen_tpu)(\s|\.|$)", re.M)
+    for mod in SERVICE_SLICE:
+        path = ROOT / (mod.replace(".", "/") + ".py")
+        if not path.exists():
+            path = ROOT / mod.replace(".", "/") / "__init__.py"
+        assert path.exists() and not pat.search(path.read_text()), mod
+
+
+_POISONED_ALERTS = r"""
+import importlib.abc, random, sys
+class Poison(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "jepsen_tpu_torch.telemetry.alerts":
+            raise ImportError("telemetry.alerts imported without an alert option")
+        return None
+sys.meta_path.insert(0, Poison())
+from jepsen_tpu_torch.models import CasRegister
+from jepsen_tpu_torch.service import Service, http, client, __main__
+from jepsen_tpu_torch.telemetry import Registry, ledger
+from jepsen_tpu_torch.testing import chunked_register_history
+svc = Service(CasRegister(init=0), engine="host", device="cpu", metrics=Registry(),
+              register_live=False, ledger=False)
+for op in chunked_register_history(random.Random(1), n_ops=60, n_procs=2, chunk_ops=30):
+    svc.submit("t", op)
+assert svc.flush(30.0)
+assert svc.alerts_snapshot()["enabled"] is False
+assert svc.drain(timeout=30)["valid"] is True
+assert "jepsen_tpu_torch.telemetry.alerts" not in sys.modules
+try:
+    Service(CasRegister(init=0), engine="host", device="cpu", register_live=False,
+            ledger=False, alerts=True)
+except ImportError as e:
+    print("CONFIGURED", e)
+"""
+
+
+def test_alerts_not_imported_unless_configured():
+    """With ``telemetry.alerts`` poisoned, a service without an alert
+    option builds, decides and drains; one with ``alerts=True`` is the
+    first to reach the module."""
+    out = subprocess.run([sys.executable, "-c", _POISONED_ALERTS], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "CONFIGURED telemetry.alerts imported without an alert option" in out.stdout
+
+
 def test_every_kernel_entry_point_has_a_signature_and_a_source():
     """Each C entry point the wrappers launch is declared for ctypes and
     defined in a source that the build compiles."""
