@@ -331,6 +331,30 @@ and then runs these phases, each printing JSON lines:
   ``?adapter=etcd`` (its verdict ``ingest_check``'s), ``GET /tenants``,
   ``POST /drain`` and an interrupt: exit 0; then a restart on ``D``
   resumes every tenant from its journal with its watermark kept.
+- ``router`` (after ``service``): the scale-out tenant router. (a)
+  bench.py's ``service_router`` leg with ``engine="device"``, in a router
+  process of its own: ``spawn_backends`` starts two backend processes on
+  the card, four tenants of 1,250 ops (``Random(4200 + i)``, 4 processes,
+  chunks of 60, each tail poisoned as the service phase's so that it
+  reaches the card) go through ``HttpServiceClient(chunk_ops=64)``; the
+  ``backend.process`` seam SIGKILLs one backend at 25% of the rows; once
+  the respawn and re-adoption settle, each backend is drained (its tails
+  decided on its card) and scraped again, then the router drains: each
+  verdict the single device search's (or ``unknown`` with the seam's
+  causes only), covered ops dropped on resume, the migration and respawn
+  seconds, ops/s, p99 decision latency, the backends' device rounds and
+  chunks from the router's federation, the card's used memory before and
+  after (a CUDA context a backend), the alerts fired, and
+  ``torch.cuda.is_initialized()`` false in the router process. (b)
+  ``check_offline`` of the offline leg's history cut to 20,000 ops with
+  ``backends=2`` (two backend processes behind the router) beside
+  ``backends=0``: the same verdict and causes; its tenant rows equal
+  ``fanout_services``'s (two services in process, launches counted as path
+  ``fanout``). (c) The CLI as processes: ``python -m jepsen_tpu_torch.service
+  --router --router-backends 2 --engine device``, one tenant over HTTP,
+  ``--roll`` (exit 0, both backends rolled, zero unknown verdicts), an
+  interrupt (exit 0, the tenant's verdict the single search's). No
+  backend builds the kernel library again.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the per-kernel JSON line, and ``{"ok": true, "device": {...}}``.
@@ -6001,6 +6025,376 @@ def service_phase(lv, wgl, dev="cuda") -> dict:
     return out
 
 
+ROUTER = {"backends": 2, "tenants": 4, "ops": 1250, "seed": 4200, "client_chunk": 64,
+          "kill_at": 0.25, "probe_s": 0.1, "cli_ops": 600, "cli_seed": 4300, "wait_s": 180,
+          "context_mib": 256}
+
+
+def _smi_used_mib():
+    """The card's used memory (MiB) as ``nvidia-smi`` reads it: every
+    process's CUDA context and allocations, this process creating none."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) if out.returncode == 0 else None
+
+
+def router_histories(History, chunked):
+    """bench.py's ``service_router`` tenants (``Random(4200 + i)``, 1,250
+    ops, 4 processes, chunks of 60), each tail poisoned as the service
+    phase's (``service_history``): without it every segment ends at a cut
+    and the host enumerator decides them all, so no round would reach a
+    backend's card."""
+    return {f"tenant-{i}": service_history(History, chunked, i, ROUTER["ops"],
+                                           seed=ROUTER["seed"])
+            for i in range(ROUTER["tenants"])}
+
+
+def router_fleet(out_path: str, dev: str) -> None:
+    """Case (a) of the ``router`` phase, in a process of its own (the
+    router's): bench.py's ``service_router`` leg with ``engine="device"``.
+    Two spawned backends, four tenants over HTTP, one backend SIGKILLed by
+    the ``backend.process`` seam at 25% of the rows; once the respawn and
+    the re-adoption settle, each backend is drained (its tails decided on
+    its card) and scraped once more, then the router drains. Writes its
+    result to ``out_path``: nothing here touches the card."""
+    import os
+    import tempfile
+    import urllib.request
+
+    import torch
+
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.service import router as jrouter
+    from jepsen_tpu_torch.service.client import HttpServiceClient
+    from jepsen_tpu_torch.telemetry import Registry
+    from jepsen_tpu_torch.telemetry import alerts as jalerts
+    from jepsen_tpu_torch.testing import chaos, chunked_register_history
+
+    wait = ROUTER["wait_s"]
+    hs = router_histories(History, chunked_register_history)
+    total = sum(len(h) for h in hs.values())
+    used0 = _smi_used_mib() if dev == "cuda" else None
+    rreg = Registry()
+    tmpd = tempfile.mkdtemp(prefix="router-fleet-", dir=os.path.dirname(out_path))
+    t_spawn = time.perf_counter()
+    backends = jrouter.spawn_backends(ROUTER["backends"], journal_root=tmpd, engine="device",
+                                      metrics=rreg, failure_threshold=2, cooldown_s=60.0,
+                                      device=None if dev == "cuda" else dev)
+    spawn_s = time.perf_counter() - t_spawn
+    cmdlines = [list(b.respawner.cmd) for b in backends]
+    router = jrouter.Router(backends, metrics=rreg, name="smoke-router", register_live=False,
+                            probe_interval_s=ROUTER["probe_s"], failure_threshold=2,
+                            migrate_retry_after_s=0.1, rebalance=False, alerts=True)
+    rsrv = jrouter.server(router, port=0)
+    threading.Thread(target=rsrv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{rsrv.server_address[1]}"
+    reports: dict = {}
+
+    def feed(name):
+        reports[name] = HttpServiceClient(url, name, chunk_ops=ROUTER["client_chunk"],
+                                          max_retries=200, max_backoff_s=0.25).feed(hs[name])
+
+    try:
+        t0 = time.perf_counter()
+        feeders = [threading.Thread(target=feed, args=(n,)) for n in hs]
+        for th in feeders:
+            th.start()
+        arm_by = time.monotonic() + wait
+        while time.monotonic() < arm_by:
+            snap = router.tenants_snapshot()
+            if sum((r or {}).get("ops_observed") or 0
+                   for r in snap["tenants"].values()) >= total * ROUTER["kill_at"]:
+                break
+            time.sleep(0.05)
+        with chaos.inject("backend.process", on_call=1):
+            kill_by = time.monotonic() + 30
+            while chaos.fired("backend.process") == 0 and time.monotonic() < kill_by:
+                time.sleep(0.05)
+        for th in feeders:
+            th.join(wait)
+
+        def settled():
+            st = router.stats()
+            fl = st["fleet"]
+            down = {b.name for b in backends if b.down}
+            return (fl["respawns"] >= 1 and fl["live_backends"] == fl["configured_backends"]
+                    and all(b not in down or t in st["orphaned"]
+                            for t, b in st["placement"].items()))
+
+        settle_by = time.monotonic() + wait
+        while time.monotonic() < settle_by and not settled():
+            time.sleep(0.05)
+        feed_s = time.perf_counter() - t0
+        # The resume contract: a migration (lost, then re-adopted) hands
+        # over the journal through its last cut, and the ops above it come
+        # back only from the client. Every client resumes from its
+        # tenant's journaled watermark, inclusive; the backends drop what
+        # they already cover (resubmitted_ops_dropped).
+        resumed: dict = {}
+
+        def resume(name):
+            rows = list(hs[name])
+            wm = (router.tenants_snapshot()["tenants"].get(name) or {}).get("watermark")
+            start = (next((k for k, op in enumerate(rows) if op.index >= wm), len(rows))
+                     if isinstance(wm, int) and wm >= 0 else 0)
+            resumed[name] = HttpServiceClient(url, name, chunk_ops=ROUTER["client_chunk"],
+                                              max_retries=200,
+                                              max_backoff_s=0.25).feed(rows[start:])
+
+        resumers = [threading.Thread(target=resume, args=(n,)) for n in hs]
+        for th in resumers:
+            th.start()
+        for th in resumers:
+            th.join(wait)
+        # Each backend decides its tenants' tails on its card now; the
+        # router's next scrape carries the rounds into the federation.
+        fed = router.federation
+        t1 = time.perf_counter()
+        for b in backends:
+            req = urllib.request.Request(b.url + "/drain", data=b"", method="POST")
+            with urllib.request.urlopen(req, timeout=wait) as r:
+                r.read()
+        # two scrapes after the last drain: the first may have started before it
+        before = {b.name: (fed.meta().get(b.name) or {}).get("scrapes", 0) for b in backends}
+        scrape_by = time.monotonic() + 30
+        while time.monotonic() < scrape_by and not all(
+                (fed.meta().get(n) or {}).get("scrapes", 0) >= k + 2 for n, k in before.items()):
+            time.sleep(0.05)
+        tails_s = time.perf_counter() - t1
+        used1 = _smi_used_mib() if dev == "cuda" else None
+        events = {b.name: fed.events(b.name) for b in backends}
+        fin = router.drain(timeout=wait)
+        wall = time.perf_counter() - t0
+    finally:
+        router.close()
+        rsrv.shutdown()
+        rsrv.server_close()
+    st = router.stats()
+    mig = [m for m in st["migrations"] if m.get("ok")]
+    rounds = {n: [e for e in ev if e.get("name") == "online_round"] for n, ev in events.items()}
+    chunks = {n: [e for e in ev if e.get("name") == "wgl_batch_chunk"] for n, ev in events.items()}
+    fired = sorted(router.alert_engine.fired_rules())
+    out = {
+        "backends": ROUTER["backends"], "tenants": len(hs), "n_ops_total": total,
+        "spawn_s": spawn_s, "feed_and_settle_s": feed_s, "tails_s": tails_s, "wall_s": wall,
+        "ops_per_s": total / wall, "p99_decision_latency_s": fin.get("p99_decision_latency_s"),
+        "fleet_p99_decision_latency_s": fin.get("fleet_p99_decision_latency_s"),
+        "verdicts": {n: (fin["tenants"].get(n) or {}).get("valid") for n in hs},
+        "causes": {n: sorted((((fin["tenants"].get(n) or {}).get("provenance") or {})
+                              .get("causes") or {})) for n in hs},
+        "resubmitted_ops_dropped": sum((fin["tenants"].get(n) or {}).get(
+            "resubmitted_ops_dropped") or 0 for n in hs),
+        "client_errors": {n: r.get("error") for n, r in reports.items()},
+        "resume_errors": {n: r.get("error") for n, r in resumed.items()},
+        "resumed_ops": {n: r.get("ops") for n, r in resumed.items()},
+        "client_retries": sum(r.get("retries", 0) for r in reports.values()),
+        "chaos_kills": chaos.fired("backend.process"),
+        "migrations": [(m["tenant"], m["reason"]) for m in mig],
+        "router_migration_seconds": max((m["seconds"] for m in mig), default=None),
+        "router_respawn_seconds": st["fleet"]["respawn_seconds"],
+        "respawns": st["fleet"]["respawns"], "orphaned": sorted(st["orphaned"]),
+        "device_rounds": {n: [{"oracle_members": e["oracle_members"],
+                               "oracle_streams": e["oracle_streams"], "engine": e["engine"]}
+                              for e in r if e.get("oracle_members")]
+                          for n, r in rounds.items()},
+        "rounds": {n: len(r) for n, r in rounds.items()},
+        "batch_chunks": {n: [{"F": e["F"], "batch": e["batch"], "level_max": e["level_max"],
+                              "chunk_wall_s": e["chunk_wall_s"], "stage": e["stage"]}
+                             for e in c] for n, c in chunks.items()},
+        "backend_cmdlines": cmdlines,
+        "card_used_mib": [used0, used1],
+        "alerts_fired": fired,
+        "alerts_unexpected": sorted(set(fired) - jalerts.EXPECTED_ALERTS["backend.process"]),
+        "router_cuda_initialized": torch.cuda.is_initialized(),
+    }
+    with open(out_path, "w") as f:
+        json.dump(out, f, default=str)
+
+
+def router_phase(lv, wgl, dev="cuda") -> dict:
+    """The scale-out router on the card: (a) bench.py's ``service_router``
+    leg in a router process of its own, (b) ``check_offline(backends=2)``
+    beside ``backends=0`` and ``fanout_services``, (c) the CLI as
+    processes (see the module docstring)."""
+    import os
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from jepsen_tpu_torch import _build, offline
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.models import CasRegister
+    from jepsen_tpu_torch.parallel import resilience
+    from jepsen_tpu_torch.service.client import HttpServiceClient
+    from jepsen_tpu_torch.testing import chaos, chunked_register_history
+
+    resilience.reset_breakers()
+    model = CasRegister(init=0)
+    wait = ROUTER["wait_s"]
+    allowed = set(chaos.EXPECTED_UNKNOWN_CAUSES["backend.process"])
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(root),
+                                                       os.environ.get("PYTHONPATH", "")]))
+    out: dict = {}
+    lib_mtime = _build.LIB.stat().st_mtime_ns if _build.LIB.exists() else None
+    with tempfile.TemporaryDirectory(dir=_build.BUILD) as tmp:
+        tmp = Path(tmp)
+        env["JEPSEN_LEDGER_PATH"] = str(tmp / "ledger.jsonl")
+
+        # -- (a) ------------------------------------------------------------
+        hs = router_histories(History, chunked_register_history)
+        single = {n: wgl.check_history(model, h, backend="device", device=dev)["valid"]
+                  for n, h in hs.items()}
+        res_path = tmp / "fleet.json"
+        t = time.perf_counter()
+        run = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
+                              "chip_smoke.router_fleet(sys.argv[1], sys.argv[2])",
+                              str(res_path), dev], cwd=tmp, env=env, capture_output=True,
+                             text=True, timeout=4 * wait)
+        case_s = time.perf_counter() - t
+        if run.returncode != 0 or not res_path.exists():
+            raise AssertionError(f"router fleet process failed ({run.returncode}): "
+                                 f"{run.stderr[-4000:]}")
+        a = json.loads(res_path.read_text())
+        dev_rounds = [r for rs in a["device_rounds"].values() for r in rs]
+        chunks = [c for cs in a["batch_chunks"].values() for c in cs]
+        used = a["card_used_mib"]
+        row = {"phase": "router", "case": "fleet", "case_s": case_s, **a,
+               "single_device_valid": single,
+               "context_mib_each": (None if used[0] is None or used[1] is None
+                                    else (used[1] - used[0]) / ROUTER["backends"])}
+        emit(row)
+        ok_verdicts = all(a["verdicts"][n] == single[n] or (
+            a["verdicts"][n] == "unknown" and a["causes"][n] and set(a["causes"][n]) <= allowed)
+            for n in hs)
+        if not (ok_verdicts and all(v is True for v in single.values())
+                and not any(a["client_errors"].values()) and not any(a["resume_errors"].values())
+                and a["resubmitted_ops_dropped"] > 0 and a["chaos_kills"] == 1
+                and a["respawns"] >= 1 and a["router_migration_seconds"] is not None
+                and a["router_respawn_seconds"] is not None
+                and all(any(r["engine"] == "device" for r in rs)
+                        for rs in a["device_rounds"].values()) and chunks
+                and not a["router_cuda_initialized"] and not a["alerts_unexpected"]
+                and all(c[c.index("--device") + 1] == ("cuda" if dev == "cuda" else dev)
+                        for c in a["backend_cmdlines"])
+                and (dev != "cuda" or (row["context_mib_each"] or 0) >= ROUTER["context_mib"])):
+            raise AssertionError(f"router fleet failed: {row}")
+
+        # -- (b) ------------------------------------------------------------
+        h20 = offline_history(OFFLINE["seed"], OFFLINE["host_ops"])
+        t = time.perf_counter()
+        inproc = offline.check_offline(model, h20, streams=OFFLINE["streams"], engine="device",
+                                       device=dev)
+        inproc_s = time.perf_counter() - t
+        t = time.perf_counter()
+        fleet = offline.check_offline(model, h20, streams=OFFLINE["streams"], engine="device",
+                                      backends=ROUTER["backends"],
+                                      device=None if dev == "cuda" else dev, env=env,
+                                      journal_root=str(tmp / "offline-fleet"))
+        fleet_s = time.perf_counter() - t
+        p = offline.plan(h20, streams=OFFLINE["streams"])
+        reset_counts(lv)
+        t = time.perf_counter()
+        svcs = offline.fanout_services(p, model, backends=ROUTER["backends"], engine="device",
+                                       device=None if dev == "cuda" else dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        svcs_s = time.perf_counter() - t
+        counts = launch_counts(lv, "fanout", LEVEL_KERNELS)
+        # what a tenant's row decides (its latencies, backpressure
+        # rejections and detection point move with the feeder's speed)
+        decides = ("valid", "aborted", "decided_through_index", "segments_decided",
+                   "ops_observed", "ops_ingested", "provenance", "violation")
+        rows = {k: {t: {f: r.get(f) for f in decides} for t, r in v["tenants"].items()}
+                for k, v in (("fleet", fleet), ("services", svcs))}
+        causes = {k: (r.get("provenance") or {}).get("causes")
+                  for k, r in (("in_process", inproc), ("fleet", fleet), ("services", svcs))}
+        diff = sorted({f for t in rows["fleet"] for f in decides
+                       if rows["fleet"][t][f] != rows["services"].get(t, {}).get(f)})
+        row = {"phase": "router", "case": "offline_fanout", "ops": len(h20),
+               "valid": {"in_process": inproc["valid"], "fleet": fleet["valid"],
+                         "services": svcs["valid"]},
+               "causes": causes, "same_tenant_rows": rows["fleet"] == rows["services"],
+               "differing_fields": diff,
+               "tenant_valid": {t: r["valid"] for t, r in fleet["tenants"].items()},
+               "stream_valid": {s: r["valid"] for s, r in inproc["streams"].items()},
+               "wall_s": {"in_process": inproc_s, "fleet": fleet_s, "services": svcs_s},
+               "fleet_feed_s": fleet.get("feed_s"),
+               "fleet_p99_decision_latency_s": fleet.get("p99_decision_latency_s"),
+               "fleet_utilization": (fleet.get("fleet") or {}).get("utilization"),
+               "launches": counts}
+        emit(row)
+        if not (inproc["valid"] is fleet["valid"] is svcs["valid"] is True
+                and causes["fleet"] == causes["in_process"] == causes["services"]
+                and row["same_tenant_rows"]
+                and row["tenant_valid"] == {f"offline-{s}": v
+                                            for s, v in row["stream_valid"].items()}):
+            raise AssertionError(f"router offline_fanout failed: {row}")
+        out["launches"] = counts
+
+        # -- (c) ------------------------------------------------------------
+        hc = service_history(History, chunked_register_history, 0, ROUTER["cli_ops"],
+                             seed=ROUTER["cli_seed"])
+        want = wgl.check_history(model, hc, backend="device", device=dev)["valid"]
+        pf, o, e = tmp / "router.port", tmp / "router.out", tmp / "router.err"
+        cmd = [sys.executable, "-m", "jepsen_tpu_torch.service", "--router",
+               "--router-backends", str(ROUTER["backends"]), "--journal-dir", str(tmp / "cli"),
+               "--port", "0", "--port-file", str(pf), "--engine", "device",
+               "--probe-interval", "0.2", "--name", "smoke-router-cli",
+               *(["--device", dev] if dev != "cuda" else [])]
+        t = time.perf_counter()
+        with open(o, "w") as fo, open(e, "w") as fe:
+            proc = subprocess.Popen(cmd, cwd=tmp, env=env, stdout=fo, stderr=fe)
+        try:
+            url = f"http://127.0.0.1:{_wait_port(proc, pf, e, wait)}"
+            ready_s = time.perf_counter() - t
+            half = len(hc) // 2
+            rep1 = HttpServiceClient(url, "cli", timeout_s=wait).feed(list(hc)[:half])
+            t_roll = time.perf_counter()
+            roll = subprocess.run([sys.executable, "-m", "jepsen_tpu_torch.service", "--roll",
+                                   url], cwd=tmp, env=env, capture_output=True, text=True,
+                                  timeout=4 * wait)
+            roll_s = time.perf_counter() - t_roll
+            rdoc = json.loads(roll.stdout) if roll.stdout.strip().startswith("{") else {}
+            # the rolled tenant resumes from its journaled watermark
+            wm = _http(f"{url}/tenants")["tenants"]["cli"]["watermark"]
+            rest = [op for op in hc if op.index >= wm] if isinstance(wm, int) and wm >= 0 \
+                else list(hc)
+            rep2 = HttpServiceClient(url, "cli", timeout_s=wait).feed(rest)
+            t_int = time.perf_counter()
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=wait)
+            drain_s = time.perf_counter() - t_int
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+        text = o.read_text()
+        printed = json.loads(text[text.index("\n{") + 1:]) if "\n{" in text else {}
+        row = {"phase": "router", "case": "cli", "ops": len(hc), "ready_s": ready_s,
+               "roll_s": roll_s, "drain_s": drain_s, "roll_rc": roll.returncode,
+               "rolled": [{k: b.get(k) for k in ("backend", "seconds", "drained", "readopted",
+                                                 "error", "skipped")}
+                          for b in rdoc.get("backends", [])],
+               "client_errors": [rep1["error"], rep2["error"]], "rc": rc,
+               "valid": (printed.get("tenants", {}).get("cli") or {}).get("valid"),
+               "want": want, "printed_valid": printed.get("valid")}
+        emit(row)
+        if not (roll.returncode == 0 and rdoc.get("ok") is True
+                and len(row["rolled"]) == ROUTER["backends"]
+                and all(b["seconds"] is not None and not b["error"] and not b["skipped"]
+                        for b in row["rolled"])
+                and row["client_errors"] == [None, None] and rc == 0
+                and row["valid"] is want is True and row["printed_valid"] is True):
+            raise AssertionError(f"router cli failed: {row}; {e.read_text()[-3000:]}")
+    if lib_mtime is not None and _build.LIB.stat().st_mtime_ns != lib_mtime:
+        raise AssertionError("a backend process built the kernel library again")
+    return out
+
+
 def trace_kernels(path) -> dict:
     """The kernels a Chrome trace of ``torch.profiler`` holds: device ms and
     launches by kernel name (the name up to its template or argument
@@ -6597,6 +6991,9 @@ def main() -> int:
     t = time.perf_counter()
     service = service_phase(lv, wgl)
     new_walls["service"] = time.perf_counter() - t
+    t = time.perf_counter()
+    router = router_phase(lv, wgl)
+    new_walls["router"] = time.perf_counter() - t
     sweep = elle_square_sweep()
     sweep_err = max(v["max_abs_err"] for v in sweep.values())
     gathers = gather_scale()
@@ -6610,7 +7007,8 @@ def main() -> int:
              **{k: v for k, v in store_launches.items() if k != "store_explain"},
              "front_door": front_launches, "ingest_etcd_100k": ingest["launches"],
              "runner_online": runner["core_run"]["online"],
-             "runner_analyze": runner["core_run"]["analyze"], "service": service["launches"]}
+             "runner_analyze": runner["core_run"]["analyze"], "service": service["launches"],
+             "fanout": router["launches"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     summary = lambda r: {k: r[k] for k in keys}  # noqa: E731
     for kname in REPLACES:
@@ -6745,7 +7143,7 @@ def main() -> int:
                if kname == "elle_block_square" else {}),
             **({"gather_scale": gathers} if kname == "elle_gather" else {})})
     done_s = time.perf_counter() - t_start
-    new_s = {k: new_walls[k] for k in ("front_door", "ingest", "runner", "service")}
+    new_s = {k: new_walls[k] for k in ("front_door", "ingest", "runner", "service", "router")}
     emit({"phase": "done", "seconds": done_s, "new_phases_s": new_s,
           "new_phases_share": sum(new_s.values()) / done_s, "phase_walls_s": new_walls})
     print(smi, flush=True)

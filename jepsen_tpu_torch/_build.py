@@ -7,12 +7,18 @@ sum), links the objects with one ``nvcc -shared`` into
 it with ``ctypes``. The library has a plain C interface: pointers and the
 stream are ``void*``, sizes are ``int`` (``long`` for a member stride), and
 every entry point returns ``cudaGetLastError()``. A build is reused while
-its sources are unchanged (a content hash is stored beside it).
+its sources are unchanged (a content hash is stored beside it, written
+after the library). The check and the build hold an exclusive ``flock`` on
+``_build/build.lock``, so processes that reach their first device round
+together (the backends of one router) build once: the others wait, then
+find the stamp and only load the library.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -109,16 +115,34 @@ def _compile(exe: str, src: Path, obj: Path):
     return out, time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock across processes on ``_build/build.lock`` (the
+    kernel releases it if its holder dies)."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    with open(BUILD / "build.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build() -> dict:
     """Compile the sources if the library is missing or stale. Returns
     ``{"built": bool, "seconds": float, "compile_seconds": {source:
-    float}, "log": str}``."""
+    float}, "log": str}``. A process that finds another building waits
+    for it under :func:`_build_lock` and then reuses its library."""
+    with _build_lock():
+        return _build_locked()
+
+
+def _build_locked() -> dict:
     srcs = _sources()
     digest = _digest(srcs)
     stamp = BUILD / "libjepsen_kernels.sha256"
     if LIB.exists() and stamp.exists() and stamp.read_text() == digest:
         return {"built": False, "seconds": 0.0, "compile_seconds": {}, "log": ""}
-    BUILD.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     exe = nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD) as tmp:

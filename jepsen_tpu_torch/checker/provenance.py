@@ -6,8 +6,8 @@ Every site that degrades a verdict to ``unknown`` attaches
 scheduler's folds union the causes into per-segment, per-stream and
 per-run *provenance* blocks (``{"causes": {code: count}, "dominant":
 code, "total": n}``, :func:`block`). The codes and their layers are the
-reference package's (including those of its scale-out router, which this
-package does not have yet; the service's and journal's are set by
+reference package's (the service's, journal's and scale-out router's
+``backend_lost``/``migration_interrupted`` are set by
 :mod:`jepsen_tpu_torch.service`, the trace ingestion's
 ``ingest_unmapped_op`` by :mod:`jepsen_tpu_torch.ingest`), so results from
 either package fold the same way.

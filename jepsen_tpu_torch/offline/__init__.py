@@ -4,16 +4,19 @@ the reference's ``jepsen_tpu/offline``.
 The online scheduler decides a history while it streams; this package
 decides a fully *recorded* history by planning the same quiescent-cut /
 per-key / carried-state decomposition up front (:func:`plan`) and fanning
-the DAG through one multi-stream scheduler (:func:`drive`), whose rounds
-co-batch many segments into one ``check_encoded_batch`` search on the
-card.
+the resulting DAG across three axes:
+
+1. one multi-stream scheduler (:func:`drive`), whose rounds co-batch many
+   segments into one ``check_encoded_batch`` search on the card,
+2. the sharded mesh (``engine="sharded"``), and
+3. the backend fleet: the plan's streams as synthetic tenants of N
+   in-process services (:func:`fanout_services`) or of N backend service
+   processes behind the tenant router (:func:`fanout_fleet`).
 
 Entry points: :func:`plan` + :func:`drive`, :func:`check_offline`,
 ``python -m jepsen_tpu_torch.offline HISTORY.ndjson`` and
-``ops.wgl.check_history(..., parallel="segmented")``. The reference's
-fan-out over backend service processes (``backends >= 1``,
-``fanout_fleet``, ``fanout_services``) needs the checking service, which
-comes with a later slice of the port: here it raises ``ValueError``.
+``ops.wgl.check_history(..., parallel="segmented")``. Every path decides
+on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -21,26 +24,11 @@ from __future__ import annotations
 from typing import Any
 
 from .driver import ENGINES, drive
+from .fanout import fanout_fleet, fanout_services
 from .planner import NonMonotoneHistoryError, Plan, PlanItem, plan
 
 __all__ = ["plan", "drive", "check_offline", "fanout_services", "fanout_fleet",
            "Plan", "PlanItem", "ENGINES", "NonMonotoneHistoryError"]
-
-_SERVICE_SLICE = ("fanning the plan over backend service processes (backends >= 1) "
-                  "comes with a later slice of the port (the checking service); "
-                  "use backends=0")
-
-
-def fanout_fleet(*args, **kw) -> dict:
-    """The reference's fan-out over N backend processes; raises
-    ``ValueError`` (it needs the checking service)."""
-    raise ValueError(_SERVICE_SLICE)
-
-
-def fanout_services(*args, **kw) -> dict:
-    """The reference's fan-out over in-process services; raises
-    ``ValueError`` (it needs the checking service)."""
-    raise ValueError(_SERVICE_SLICE)
 
 
 def check_offline(model, history: Any, *, streams: int = 0, engine: str = "auto",
@@ -49,14 +37,22 @@ def check_offline(model, history: Any, *, streams: int = 0, engine: str = "auto"
     """Plan and decide a recorded history in one call: the
     ``check_history(parallel="segmented")`` implementation.
 
-    ``streams=0`` picks one stream per key, at most 8. Other keyword
+    ``streams=0`` picks one stream per key, at most 8. ``backends=0``
+    decides in-process through the shared scheduler; other keyword
     arguments go to :func:`drive` (``device``, ``batch_f``,
-    ``max_ready_per_stream``, ``timeout``). ``backends >= 1`` raises
-    ``ValueError``: the fan-out over service processes comes with a later
-    slice."""
-    if backends >= 1:
-        raise ValueError(_SERVICE_SLICE)
+    ``max_ready_per_stream``, ``timeout``). ``backends >= 1`` fans the
+    streams across that many backend service processes through
+    :func:`fanout_fleet`, which takes the other keyword arguments
+    (``device``, ``chunk_ops``, ``drain_timeout``, ``env``,
+    ``journal_root``)."""
     p = plan(history, streams=streams if streams >= 1 else 8)
-    out = drive(p, model, engine=engine, metrics=metrics, max_configs=max_configs, **kw)
+    if backends >= 1:
+        # Backend services speak auto/device/host; the mesh-sharded
+        # oracle is a single-process engine, so it maps to device.
+        svc_engine = "device" if engine == "sharded" else engine
+        out = fanout_fleet(p, backends=backends, model=model.name, engine=svc_engine,
+                           max_configs=max_configs, metrics=metrics, **kw)
+    else:
+        out = drive(p, model, engine=engine, metrics=metrics, max_configs=max_configs, **kw)
     out["parallel"] = "segmented"
     return out

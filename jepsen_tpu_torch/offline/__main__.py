@@ -3,14 +3,17 @@
 ::
 
     python -m jepsen_tpu_torch.offline HISTORY.ndjson --model cas-register \
-        --engine auto --streams 8 [--keyed] [--device cpu] [-o OUT.json]
+        --engine auto --streams 8 --backends 0 [--keyed] [--device cpu] \
+        [-o OUT.json]
 
 Each input line is one op map (``type``, ``process``, ``f``, ``value``,
 ``time``, ``index``). ``--keyed`` reads two-element list values as
 ``independent`` [k v] pairs (JSON cannot tell a vector value from a
 key/value pair). The device engines run on the card unless ``--device
-cpu``. ``--backends N`` (the fan-out over backend service processes)
-comes with a later slice of the port and is refused. The exit code is 0
+cpu``, in this process and in every backend process. ``--backends N``
+spawns N backend service processes behind the tenant router and fans the
+plan's streams across them; ``--backends 0`` (the default) decides
+in-process through the shared multi-stream scheduler. The exit code is 0
 for a valid history, 2 for an invalid one and 1 for unknown.
 """
 
@@ -55,7 +58,8 @@ def main(argv=None) -> int:
     ap.add_argument("--streams", type=int, default=0,
                     help="fan-out width (0 = one per key, at most 8)")
     ap.add_argument("--backends", type=int, default=0,
-                    help="backend service processes (a later slice; only 0 runs)")
+                    help="spawn N router backend processes and fan the streams "
+                         "across them (0 = in-process)")
     ap.add_argument("--keyed", action="store_true",
                     help="treat 2-element list values as [k v] pairs")
     ap.add_argument("--max-configs", type=int, default=500_000)
@@ -67,7 +71,9 @@ def main(argv=None) -> int:
 
     model = model_by_name(args.model)
     ops = _load_ndjson(args.history, args.keyed)
-    res = check_offline(model, ops, streams=args.streams, engine=args.engine,
+    streams = args.streams if args.streams >= 1 else \
+        max(args.backends, 8) if args.backends else 8
+    res = check_offline(model, ops, streams=streams, engine=args.engine,
                         backends=args.backends, metrics=Registry(),
                         max_configs=args.max_configs, device=args.device)
     doc = json.dumps(res, indent=2, sort_keys=True, default=str)

@@ -61,8 +61,8 @@ class PlanItem:
 @dataclass
 class Plan:
     """The planner's output: per-stream item chains plus the fan-out
-    bookkeeping the driver reads (and the reference's fleet fanout,
-    which comes with a later slice of the port)."""
+    bookkeeping the driver and the fleet fan-out (``offline.fanout``)
+    read."""
 
     items: list[PlanItem] = field(default_factory=list)
     # stream name -> its items in stream-local seq order.

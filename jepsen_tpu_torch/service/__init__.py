@@ -1,6 +1,5 @@
-"""The always-on multi-tenant checking service. The port of the reference's
-``jepsen_tpu/service/`` but for the scale-out router, its supervisor and
-the fleet federation (ROADMAP item A7).
+"""The always-on multi-tenant checking service and its scale-out router.
+The port of the reference's ``jepsen_tpu/service/``.
 
 A resident :class:`Service` ingests many concurrent tenant streams
 (ndjson over HTTP through :mod:`jepsen_tpu_torch.service.http`, or the
@@ -17,8 +16,15 @@ Production controls: admission (``max_tenants``, a per-tenant ops/s
 quota), bounded per-tenant ingest queues with blocking or 429-style
 backpressure, per-tenant round fairness, per-tenant abort on a
 violation, a crash-safe verdict journal per tenant, and a graceful
-``drain`` returning per-tenant partial verdicts. CLI: ``python -m
-jepsen_tpu_torch.service``.
+``drain`` returning per-tenant partial verdicts.
+
+Scale-out: :mod:`jepsen_tpu_torch.service.router` places tenants across N
+backend service processes, health-checks them, live-migrates tenants
+through their journals and, with :mod:`jepsen_tpu_torch.service.supervisor`,
+respawns a dead backend, persists its placement and fences stale routers
+by epoch; its :class:`~jepsen_tpu_torch.telemetry.fleet.FleetFederation`
+merges the backends' registries into one fleet view. CLI: ``python -m
+jepsen_tpu_torch.service`` (``--router``, ``--roll``).
 """
 
 from __future__ import annotations

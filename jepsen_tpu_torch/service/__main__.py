@@ -1,9 +1,7 @@
 """``python -m jepsen_tpu_torch.service`` — run the multi-tenant checking
-service. The port of the reference's ``jepsen_tpu/service/__main__.py``
-but for the scale-out router: ``--router`` and ``--roll`` are refused
-with exit 254 until the router's slice (ROADMAP item A7).
+service. The port of the reference's ``jepsen_tpu/service/__main__.py``.
 
-Two modes:
+Four modes:
 
 - **Daemon** (default): start the ndjson-over-HTTP ingestion server and
   run until interrupted; Ctrl-C drains gracefully and prints the
@@ -21,15 +19,30 @@ Two modes:
   follows the CLI convention: 0 all valid, 1 any invalid, 2 any
   unknown; 254 for invalid arguments and 255 when a deterministic
   device error left the service without a verdict.
+- **Router** (``--router``): the scale-out front-end. It spawns
+  ``--router-backends`` backend service processes (each with its own
+  port and ``<journal-dir>/backend-i``) or attaches to ``--backend-urls``,
+  places tenants on them, health-checks them, live-migrates tenants
+  through their verdict journals, respawns a dead child and re-adopts
+  toward it. Ctrl-C drains every backend and prints the merged results
+  (exit 0/1/2 as above). The router itself never touches the card: each
+  spawned backend gets this command's ``--device``.
+- **Rolling restart** (``--roll ROUTER_URL``): ask a running router to
+  drain, respawn and re-adopt one backend at a time, and print its
+  report: exit 0 when every backend rolled, 1 for a partial roll, 2
+  when the router is unreachable.
 
 The device engines run on the card unless ``--device cpu`` is given;
 without a card and without ``--device cpu`` the service does not start
-(exit 255).
+(exit 255), and neither does a router whose backends do not.
 
     python -m jepsen_tpu_torch.service --port 8089 --model cas-register \\
         --max-tenants 16 --quota-ops 2000 --backpressure reject
     python -m jepsen_tpu_torch.service --simulate 4 --sim-ops 2000 \\
         --abort-on-violation
+    python -m jepsen_tpu_torch.service --router --router-backends 2 \\
+        --journal-dir /var/lib/jepsen/fleet --port 8088
+    python -m jepsen_tpu_torch.service --roll http://127.0.0.1:8088
 """
 
 from __future__ import annotations
@@ -52,11 +65,6 @@ LOG = logging.getLogger("jepsen.service")
 
 EXIT_BAD_ARGS = 254
 EXIT_ERROR = 255
-
-# What --router and --roll answer until the scale-out router is ported.
-ROUTER_SLICE = ("--router and --roll need the scale-out tenant router, which "
-                "comes with a later slice of the port (ROADMAP item A7: "
-                "service/router.py, service/supervisor.py)")
 
 
 def build_service(ns: argparse.Namespace,
@@ -126,6 +134,103 @@ def simulate(service: Service, n_tenants: int, n_ops: int,
     return service.drain()
 
 
+def _run_roll(router_url: str) -> int:
+    """``--roll ROUTER_URL``: ask a running router for a rolling
+    restart and report the per-backend outcome."""
+    from urllib import error as _uerror
+    from urllib import request as _urequest
+
+    req = _urequest.Request(router_url.rstrip("/") + "/roll",
+                            data=b"", method="POST")
+    try:
+        with _urequest.urlopen(req, timeout=600) as r:
+            doc = json.loads(r.read().decode() or "{}")
+    except _uerror.HTTPError as e:
+        # A partial roll answers 409 WITH the structured per-backend
+        # report (which backend failed to drain, which rolled) — the
+        # operator needs that body, not just the status line.
+        try:
+            doc = json.loads(e.read().decode() or "{}")
+        except ValueError:
+            doc = {"ok": False, "error": f"http_{e.code}"}
+    except Exception as e:  # noqa: BLE001 - router down / refused
+        print(f"roll failed: {type(e).__name__}: {e}",
+              file=sys.stderr)
+        return 2
+    print(json.dumps(doc, indent=1, sort_keys=True, default=str))
+    return 0 if doc.get("ok") else 1
+
+
+def _run_router(ns: argparse.Namespace, metrics: Registry) -> int:
+    """``--router``: front a fleet of backend service processes."""
+    from . import router as jrouter
+
+    if ns.backend_urls:
+        backends = []
+        for i, spec in enumerate(ns.backend_urls.split(",")):
+            url, _, jdir = spec.strip().partition("=")
+            backends.append(jrouter.Backend(
+                f"backend-{i}", url, journal_dir=jdir or None,
+                metrics=metrics,
+                failure_threshold=ns.failure_threshold))
+    else:
+        if not ns.journal_dir:
+            print("--router needs --journal-dir (per-backend journal "
+                  "roots) or --backend-urls", file=sys.stderr)
+            return EXIT_BAD_ARGS
+        try:
+            backends = jrouter.spawn_backends(
+                ns.router_backends, journal_root=ns.journal_dir,
+                model=ns.model, engine=ns.engine,
+                max_configs=ns.max_configs, metrics=metrics,
+                failure_threshold=ns.failure_threshold,
+                extra_args=(("--abort-on-violation",)
+                            if ns.abort_on_violation else ()),
+                device=ns.device)
+        except (RuntimeError, TimeoutError) as e:
+            # A backend exited before it bound (no card and no
+            # --device cpu: exit 255) or never became healthy.
+            print(f"router did not start: {e}", file=sys.stderr)
+            return EXIT_ERROR
+    router = jrouter.Router(
+        backends, metrics=metrics, name=ns.name,
+        probe_interval_s=ns.probe_interval,
+        failure_threshold=ns.failure_threshold,
+        state_path=ns.state_path,
+        respawn=not ns.no_respawn,
+        alerts=ns.alerts,
+        alerts_path=ns.alerts_path,
+        alerts_sink=ns.alerts_sink)
+    web_srv = None
+    if ns.live_port is not None:
+        from .. import web
+
+        web_srv = web.server(root=ns.store_root, port=ns.live_port)
+        threading.Thread(target=web_srv.serve_forever,
+                         name="jepsen-live-web", daemon=True).start()
+        print(f"live dashboard on http://0.0.0.0:"
+              f"{web_srv.server_address[1]}/live.html")
+    try:
+        try:
+            jrouter.serve(router, port=ns.port, port_file=ns.port_file)
+            fin = router.drain()
+        except KeyboardInterrupt:
+            print("draining backends…", file=sys.stderr)
+            fin = router.drain()
+    finally:
+        router.close()
+        if web_srv is not None:
+            web_srv.shutdown()
+            web_srv.server_close()
+    print(json.dumps(fin, indent=1, sort_keys=True, default=str))
+    valid = fin.get("valid")
+    if valid is False:
+        return 1
+    if valid is not True:
+        return 2
+    return 0
+
+
 def main(argv: Optional[list] = None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m jepsen_tpu_torch.service",
@@ -136,8 +241,10 @@ def main(argv: Optional[list] = None) -> int:
                    help="ingestion port (POST /submit/<tenant>); 0 "
                         "binds an ephemeral port (see --port-file)")
     p.add_argument("--port-file", default=None,
-                   help="write the BOUND ingestion port here "
-                        "(atomically, after bind)")
+                   help="write the BOUND port here (atomically, "
+                        "after bind) — the spawned-backend readiness "
+                        "protocol the router's respawn supervisor "
+                        "reads; a router writes its own port")
     p.add_argument("--model", choices=known_models(),
                    default="cas-register")
     p.add_argument("--model-args", default=None,
@@ -177,17 +284,48 @@ def main(argv: Optional[list] = None) -> int:
                    help="also serve the results browser (incl. the "
                         "/live per-tenant dashboard) on this port")
     p.add_argument("--router", action="store_true",
-                   help="the scale-out front-end; refused (exit 254) "
-                        "until the router is ported")
+                   help="run as the scale-out FRONT-END instead of a "
+                        "backend: place tenants across N backend "
+                        "service processes, health-check them, and "
+                        "live-migrate tenants via their verdict "
+                        "journals")
+    p.add_argument("--router-backends", type=int, default=2,
+                   metavar="N",
+                   help="spawn N backend processes (each gets its own "
+                        "port and <journal-dir>/backend-i; requires "
+                        "--journal-dir)")
+    p.add_argument("--backend-urls", default=None,
+                   help="attach to EXISTING backends instead of "
+                        "spawning: comma-separated url[=journal_dir] "
+                        "pairs")
+    p.add_argument("--probe-interval", type=float, default=1.0,
+                   help="router health-probe period (seconds)")
+    p.add_argument("--failure-threshold", type=int, default=3,
+                   help="consecutive failed probes before a backend "
+                        "is declared lost and its tenants migrate")
+    p.add_argument("--state-path", default=None,
+                   help="router crash safety: append placement / "
+                        "orphan records / the placement epoch to this "
+                        "jsonl; a restarted router replays it and "
+                        "reconciles against live backend reality")
+    p.add_argument("--no-respawn", action="store_true",
+                   help="disable the respawn supervisor (equivalent "
+                        "to JEPSEN_NO_RESPAWN=1): dead spawned "
+                        "backends stay dead, the fleet runs on the "
+                        "survivors")
     p.add_argument("--roll", metavar="ROUTER_URL", default=None,
-                   help="a running router's rolling restart; refused "
-                        "(exit 254) until the router is ported")
+                   help="POST /roll to a RUNNING router (rolling "
+                        "restart: drain-migrate, respawn and re-adopt "
+                        "one backend at a time) and print the "
+                        "result; exits 0 when every backend rolled")
     p.add_argument("--alerts", action="store_true",
                    help="evaluate the built-in alert rule catalogue "
                         "on the pump's cadence and serve GET /alerts")
     p.add_argument("--alerts-path", default=None,
                    help="durable alerts.jsonl (implies --alerts); a "
-                        "restart replays it to the same firing set")
+                        "restart replays it to the same firing set. "
+                        "Routers default to an alerts.jsonl next to "
+                        "--state-path when alerting is on")
     p.add_argument("--alerts-sink", default=None,
                    help="fan alert transitions out to an http(s):// "
                         "webhook (JSON POST per transition, bounded "
@@ -209,10 +347,11 @@ def main(argv: Optional[list] = None) -> int:
         level=logging.INFO,
         format="%(asctime)s{%(threadName)s} %(levelname)s %(name)s - "
                "%(message)s")
-    if ns.router or ns.roll:
-        print(ROUTER_SLICE, file=sys.stderr)
-        return EXIT_BAD_ARGS
+    if ns.roll:
+        return _run_roll(ns.roll)
     metrics = Registry()
+    if ns.router:
+        return _run_router(ns, metrics)
     try:
         service = build_service(ns, metrics=metrics)
     except RuntimeError as e:

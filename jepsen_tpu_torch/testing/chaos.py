@@ -37,11 +37,17 @@ The port's seams:
   A raise loses durability, never a verdict (the append failure is
   counted and swallowed).
 
-``router.probe``, ``backend.process`` and ``router.crash`` are the
-reference package's seams in its scale-out router, which this package
-does not have yet. They stay registered, with their blast radius in
-:data:`EXPECTED_UNKNOWN_CAUSES`, so that the map of causes (and the
-alerting plane's ``EXPECTED_ALERTS``) is the reference's.
+- ``router.probe``: the scale-out router's health probe of a backend
+  (``service/router.py`` ``_probe``). A raise counts as a failed probe:
+  the false-positive path, where a healthy backend is declared lost and
+  its tenants migrate through a live ``/release``.
+- ``backend.process``: the router's supervision tick. A raise is the
+  kill order: the router SIGKILLs one of its live spawned backend
+  children, then recovers by journal migration, respawn and re-adoption.
+- ``router.crash``: a migration with the checkpoint in hand and the
+  adopt not yet issued. ``crash`` is the router dying there (a restarted
+  router must recover or orphan the tenant, never fork it); ``raise``
+  aborts that migration in process.
 
 Modes: ``raise`` (raise ``exc`` on the Nth crossing, ``times`` times),
 ``delay`` (sleep ``delay_s``: a slow device or disk) and ``crash``

@@ -23,10 +23,12 @@ same feed. With no live run the endpoint still answers one well-formed
 ``{"live_runs": 0}`` line. The multi-tenant service
 (:mod:`jepsen_tpu_torch.service`) registers its ``live_snapshot`` as a live
 source, with one row per tenant and, when its alerting plane is on, the
-rules firing; ``/alerts`` and ``/alerts.json`` render those. The fleet
-sources are registered by the scale-out router, which the port does not
-hold yet: until then ``/fleet`` and ``/fleet.json`` answer with their
-empty forms.
+rules firing; ``/alerts`` and ``/alerts.json`` render those. The
+scale-out router (:mod:`jepsen_tpu_torch.service.router`) registers its
+``live_snapshot`` as a live source and its ``fleet_snapshot`` as a fleet
+source: ``/fleet`` and ``/fleet.json`` render every backend's state,
+scrape freshness and utilization, the ``router_state.jsonl`` timeline and
+the SLO burn rates (their empty forms while no router runs).
 """
 
 from __future__ import annotations

@@ -320,12 +320,23 @@ def test_plan_rejects_shuffled_recordings_and_stamps_rows():
     assert offline.drive(p, CasRegister(init=0), engine="host")["valid"] is True
 
 
-def test_backends_and_unknown_engine_refused():
+def test_backends_and_unknown_engine_refused(tmp_path, monkeypatch):
+    """``check_offline(backends=2, device="cpu")`` fans the plan over two
+    backend processes and folds the reference's verdict and causes; an
+    unknown engine is refused."""
+    monkeypatch.setenv("JEPSEN_LEDGER_PATH", str(tmp_path / "ledger.jsonl"))
     h = keyed_history(19, n_ops=120, n_keys=2, n_writers=3)
-    with pytest.raises(ValueError, match="later slice"):
-        offline.check_offline(CasRegister(init=0), h, backends=2)
-    with pytest.raises(ValueError, match="later slice"):
-        offline.fanout_fleet(offline.plan(h), backends=1)
+    port = offline.check_offline(CasRegister(init=0), h, backends=2, engine="host",
+                                 device="cpu", journal_root=str(tmp_path / "port"))
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([str(ROOT), os.environ.get("PYTHONPATH", "")]))
+    ref = ref_offline.check_offline(RefCas(init=0), to_ref(h), backends=2, engine="host",
+                                    env=env, journal_root=str(tmp_path / "ref"))
+    assert port["valid"] is ref["valid"] is True
+    assert port.get("provenance") == ref.get("provenance")
+    assert sorted(port["tenants"]) == sorted(ref["tenants"])
+    with pytest.raises(ValueError, match="backends must be >= 1"):
+        offline.fanout_fleet(offline.plan(h), backends=0)
     with pytest.raises(ValueError, match="unknown offline engine"):
         offline.drive(offline.plan(h), CasRegister(init=0), engine="fleet")
 

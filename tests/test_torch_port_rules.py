@@ -252,14 +252,17 @@ SERVICE_SLICE = ("jepsen_tpu_torch.service", "jepsen_tpu_torch.service.journal",
                  "jepsen_tpu_torch.service.client", "jepsen_tpu_torch.service.__main__",
                  "jepsen_tpu_torch.checker.perf", "jepsen_tpu_torch.checker.clock",
                  "jepsen_tpu_torch.telemetry.alerts", "jepsen_tpu_torch.telemetry.fleet",
-                 "jepsen_tpu_torch.alerts", "jepsen_tpu_torch.advisor")
+                 "jepsen_tpu_torch.alerts", "jepsen_tpu_torch.advisor",
+                 "jepsen_tpu_torch.service.router", "jepsen_tpu_torch.service.supervisor",
+                 "jepsen_tpu_torch.offline.fanout")
 
 
 def test_service_slice_modules_are_scanned():
     """The service, its journal, HTTP front door, client and CLI, the
-    plots, the alerting plane, the fleet's scrape payload and the advisor
-    are among the modules the import and source scans walk, and none names
-    JAX or the reference."""
+    plots, the alerting plane, the fleet federation, the advisor, the
+    scale-out router, its supervisor and the offline fan-out are among the
+    modules the import and source scans walk, and none names JAX or the
+    reference."""
     walked = {m.name for m in pkgutil.walk_packages(jepsen_tpu_torch.__path__,
                                                      "jepsen_tpu_torch.")}
     assert set(SERVICE_SLICE) <= walked
